@@ -1,0 +1,56 @@
+"""Parameters of the JAX package, converted for the port.
+
+:func:`params_from_numpy` takes the JAX package's Llama parameter tree
+after ``jax.tree.map(np.asarray, params)`` -- nested dicts of numpy arrays
+with the same keys and layouts the port uses -- and returns the port's
+parameter dict on ``device``. Both packages then compute the same
+function. No JAX is imported here: the caller does the ``np.asarray``
+step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .llama import LlamaConfig
+
+_LAYER_KEYS = ("wqkv", "wo", "w_gateup", "w_down", "ln_attn", "ln_mlp")
+
+
+def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if not isinstance(a, np.ndarray):
+        raise NotImplementedError(
+            f"{type(a).__name__} leaf: only float weights convert (int8 "
+            f"QuantTensor weights are not ported)"
+        )
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        # numpy has no native bf16: reinterpret the 16-bit payload.
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(params_np: dict, config: LlamaConfig,
+                      device=None) -> dict:
+    """The port's parameter dict from the reference's numpy tree, cast to
+    ``config.dtype`` on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    layers = params_np["layers"]
+    missing = [k for k in _LAYER_KEYS if k not in layers]
+    if missing or set(layers) != set(_LAYER_KEYS):
+        raise NotImplementedError(
+            f"layer keys {sorted(layers)}: only the dense Llama layout "
+            f"{list(_LAYER_KEYS)} converts"
+        )
+    return {
+        "embed": _tensor(params_np["embed"], config.dtype, dev),
+        "layers": {
+            k: _tensor(layers[k], config.dtype, dev) for k in _LAYER_KEYS
+        },
+        "final_norm": _tensor(params_np["final_norm"], config.dtype, dev),
+        "lm_head": _tensor(params_np["lm_head"], config.dtype, dev),
+    }

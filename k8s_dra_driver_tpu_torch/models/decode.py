@@ -1,0 +1,348 @@
+"""Inference over the paged KV cache: prefill and autoregressive decode.
+Counterpart of ``k8s_dra_driver_tpu/models/decode.py``.
+
+Every shape in a decode step is independent of sequence length: growing
+sequences advance block-table entries and per-sequence lengths. The
+reference's ``lax.scan`` over stacked pools becomes a layer loop over
+per-layer views of the pools, which the forward pass updates in place.
+Attention reads the pool through the block tables: the single-token
+decode step goes to ``paged_decode_attention`` and multi-token windows to
+``paged_prefill_attention``, each a CUDA kernel on the card and its plain
+version on the CPU.
+
+Not ported yet (they raise ``NotImplementedError``): MoE configs, the
+int8 KV cache (``quantize_cache=True``) and int8 weights.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops.attention import (
+    paged_attention_reference,
+    paged_decode_attention,
+    paged_prefill_attention,
+)
+from ..ops.norms import rmsnorm, rmsnorm_reference
+from ..ops.rotary import rope_frequencies
+from .llama import LlamaConfig, _mlp_block, attn_out, layer_params, project_qkv
+from .paged import (
+    BlockAllocator,
+    OutOfBlocksError,
+    PagedKVCache,
+    PrefixCache,
+    flat_write_positions,
+)
+
+__all__ = [
+    "PagedKVCache",
+    "BlockAllocator",
+    "OutOfBlocksError",
+    "PrefixCache",
+    "prefill",
+    "prefill_cached",
+    "decode_step",
+    "generate",
+    "TRACE_COUNTS",
+    "TRACE_OBSERVERS",
+]
+
+#: First use of each forward variant, keyed like the reference's trace
+#: counter (``forward:<variant>:t<T>``). PyTorch runs eagerly and builds
+#: no program per shape, so a key is counted once, the first time that
+#: shape runs: a count above 1 cannot happen, and the set of keys shows
+#: which shapes an engine ran.
+TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
+
+#: Observers called with (program, variant, shape dict) where
+#: ``TRACE_COUNTS`` first counts a key. Empty by default.
+TRACE_OBSERVERS: list = []
+
+_ROPE_TABLES: dict = {}
+
+
+def _require_supported(params: dict, config=None, cache=None) -> None:
+    if config is not None and not isinstance(config, LlamaConfig):
+        raise NotImplementedError(
+            f"{type(config).__name__}: only dense Llama configs are ported "
+            f"(MoE waits for a later slice)"
+        )
+    if not isinstance(params["layers"]["wqkv"], torch.Tensor):
+        raise NotImplementedError("int8 (QuantTensor) weights are not ported")
+    if cache is not None and not isinstance(cache, PagedKVCache):
+        raise NotImplementedError("only the bf16/f32 PagedKVCache is ported")
+
+
+def variant_label(params: dict, cache) -> str:
+    """The bench variant name; the port runs float weights and a float
+    cache only, so this is always ``"bf16"`` once the inputs are
+    accepted."""
+    _require_supported(params, cache=cache)
+    return "bf16"
+
+
+def _rope_tables(config: LlamaConfig, span: int, device):
+    """cos/sin for ``span`` positions, built once per (span, device)."""
+    key = (config.head_dim, span, config.rope_theta, str(device))
+    tables = _ROPE_TABLES.get(key)
+    if tables is None:
+        tables = rope_frequencies(
+            config.head_dim, span, config.rope_theta, device=device
+        )
+        _ROPE_TABLES[key] = tables
+    return tables
+
+
+def _note_first_use(variant: str, b: int, t: int) -> None:
+    key = f"forward:{variant}:t{t}"
+    if key in TRACE_COUNTS:
+        return
+    TRACE_COUNTS[key] += 1
+    for observer in TRACE_OBSERVERS:
+        observer("forward", variant, {"batch": b, "tokens": t})
+
+
+@torch.no_grad()
+def _forward_with_cache(
+    params: dict,
+    tokens: torch.Tensor,          # [B, T] new tokens
+    cache: PagedKVCache,
+    config: LlamaConfig,
+    positions: torch.Tensor,       # [T] shared or [B, T] per-sequence
+    n_valid: torch.Tensor | None = None,   # [] or [B] real tokens per row
+    active: torch.Tensor | None = None,    # [B] bool: rows allowed to write
+    use_kernels: bool = True,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """Run the stack over new tokens, reading and writing the paged cache
+    (its pools in place). Returns (logits [B, T, V] f32, cache with new
+    lengths).
+
+    ``n_valid`` marks the first n columns of a right-padded chunk as real;
+    padded columns and rows not ``active`` write only to the scratch row
+    and do not advance lengths. ``use_kernels=False`` calls the plain
+    versions of the ops even on CUDA tensors -- the comparison the card
+    smoke test makes; on CPU tensors both settings run the plain ops."""
+    c = config
+    _require_supported(params, c)
+    b, t = tokens.shape
+    bs = cache.block_size
+    scale = c.head_dim ** -0.5
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(b, t)
+    positions = positions.long()
+    _note_first_use(variant_label(params, cache), b, t)
+
+    x = params["embed"][tokens.long()]
+    cos, sin = _rope_tables(c, cache.max_len, tokens.device)
+    # Padded columns may sit past the table; their writes go to the
+    # scratch row and their outputs are discarded, but the gather must
+    # stay in range.
+    rope_pos = positions.clamp(0, cache.max_len - 1)
+
+    valid = None
+    if n_valid is not None:
+        valid = (
+            torch.arange(t, device=tokens.device)[None, :]
+            < n_valid.reshape(-1, 1)
+        ).expand(b, t)
+    if active is not None:
+        valid = active[:, None] if valid is None else valid & active[:, None]
+    flat = flat_write_positions(
+        cache.block_tables, positions, bs, cache.scratch_row, valid=valid
+    ).reshape(-1)                                       # [B*T]
+    # At query position p the row written this step is p itself, so the
+    # decode kernel's visible prefix is p + 1.
+    vlen = (rope_pos[:, -1] + 1).to(torch.int32)
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        k_pool, v_pool = cache.k[i], cache.v[i]         # [H_kv, P+1, D]
+        xn = norm(x, layer["ln_attn"], c.norm_eps)
+        q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos)
+        hkv, d = k.shape[1], k.shape[3]
+        k_pool.index_copy_(
+            1, flat, k.transpose(0, 1).reshape(hkv, b * t, d).to(k_pool.dtype)
+        )
+        v_pool.index_copy_(
+            1, flat, v.transpose(0, 1).reshape(hkv, b * t, d).to(v_pool.dtype)
+        )
+        if not use_kernels:
+            o = paged_attention_reference(
+                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale
+            )
+        elif t == 1:
+            o = paged_decode_attention(
+                q[:, :, 0, :], k_pool, v_pool, cache.block_tables, vlen,
+                bs, scale,
+            )[:, :, None, :]
+        else:
+            o = paged_prefill_attention(
+                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale
+            )
+        x = attn_out(x, o, layer)
+        x = _mlp_block(x, layer, c, use_kernels=use_kernels)
+
+    # Committed length: last real position + 1, frozen for padded columns
+    # and inactive rows.
+    if n_valid is not None:
+        new_len = positions[:, 0] + n_valid.long()
+    else:
+        new_len = positions[:, -1] + 1
+    new_len = new_len.clamp(0, cache.max_len).to(torch.int32)
+    if active is not None:
+        new_len = torch.where(active, new_len, cache.lengths)
+    new_cache = dataclasses.replace(cache, lengths=new_len)
+
+    x = norm(x, params["final_norm"], c.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return logits, new_cache
+
+
+def _as_tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
+
+
+def _param_device(params: dict) -> torch.device:
+    return params["embed"].device
+
+
+def prefill(
+    params: dict,
+    tokens: torch.Tensor,          # [B, S] prompt
+    config: LlamaConfig,
+    max_len: int,
+    quantize_cache: bool = False,
+    block_size: int | None = None,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """Process the prompt into a fixed-reservation paged cache; returns
+    (last-position logits [B, V], cache)."""
+    if quantize_cache:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    dev = _param_device(params)
+    tokens = _as_tokens(tokens, dev)
+    b, s = tokens.shape
+    cache = PagedKVCache.init(config, b, max_len, block_size=block_size,
+                              device=dev)
+    positions = torch.arange(s, device=dev)
+    logits, cache = _forward_with_cache(params, tokens, cache, config,
+                                        positions)
+    return logits[:, -1], cache
+
+
+def prefill_cached(
+    params: dict,
+    prompt,                        # sequence of int token ids (one request)
+    config: LlamaConfig,
+    max_len: int,
+    pools: tuple,                  # shared (k, v) pools (paged._init_pools)
+    allocator: BlockAllocator,
+    block_size: int,
+    prefix_cache: "PrefixCache | None" = None,
+    quantize_cache: bool = False,
+):
+    """Single-sequence prefill over a caller-owned shared pool, reusing
+    the prefix cache; a fully cached prompt drops its trailing matched
+    block and recomputes it (copy-on-write by recompute). Returns
+    ``(last_logits [1, V], cache, blocks, hit_tokens)``; release with
+    ``allocator.free(blocks)``."""
+    if quantize_cache:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    prompt = [int(t) for t in prompt]
+    s = len(prompt)
+    if not 0 < s < max_len:
+        raise ValueError(
+            f"prompt of {s} tokens needs 0 < len < max_len={max_len}"
+        )
+    bs = block_size
+    nbps = -(-max_len // bs)
+    hit: list[int] = []
+    if prefix_cache is not None:
+        hit = prefix_cache.lookup(prompt)[:nbps]
+        if hit and len(hit) * bs >= s:
+            hit = hit[:-1]
+    hit_tokens = len(hit) * bs
+    allocator.share(hit)
+    try:
+        fresh = allocator.alloc(nbps - len(hit))
+    except OutOfBlocksError:
+        allocator.free(hit)
+        raise
+    blocks = list(hit) + fresh
+    k, v = pools
+    dev = k.device
+    cache = PagedKVCache(
+        k=k, v=v,
+        block_tables=torch.tensor([blocks], dtype=torch.int32, device=dev),
+        lengths=torch.tensor([hit_tokens], dtype=torch.int32, device=dev),
+        block_size=bs,
+    )
+    tail = torch.tensor([prompt[hit_tokens:]], dtype=torch.int32, device=dev)
+    positions = hit_tokens + torch.arange(s - hit_tokens, device=dev)
+    logits, cache = _forward_with_cache(params, tail, cache, config,
+                                        positions)
+    return logits[:, -1], cache, blocks, hit_tokens
+
+
+def decode_step(
+    params: dict,
+    token: torch.Tensor,          # [B] latest token
+    cache: PagedKVCache,
+    config: LlamaConfig,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """One autoregressive step; returns (next-token logits [B, V], cache)."""
+    positions = cache.lengths[:, None]
+    logits, cache = _forward_with_cache(params, token[:, None], cache,
+                                        config, positions)
+    return logits[:, 0], cache
+
+
+def sample(logits: torch.Tensor, temperature: float,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Greedy argmax at temperature 0, else a draw from softmax(logits/T)
+    with ``generator`` (its stream differs from JAX's by design)."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32
+    )
+
+
+def generate(
+    params: dict,
+    prompt,                        # [B, S] int tokens
+    config: LlamaConfig,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    generator: torch.Generator | None = None,
+    quantize_cache: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """Greedy (or sampled) generation; returns [B, S + N] int32 tokens on
+    ``device`` (default CUDA), where ``params`` must already live."""
+    dev = resolve_device(device)
+    if _param_device(params).type != dev.type:
+        raise ValueError(
+            f"params live on {_param_device(params)}, not on {dev}"
+        )
+    prompt = _as_tokens(prompt, _param_device(params))
+    b, s = prompt.shape
+    logits, cache = prefill(params, prompt, config, s + max_new_tokens,
+                            quantize_cache=quantize_cache)
+    out = []
+    for i in range(max_new_tokens):
+        tok = sample(logits, temperature, generator)
+        out.append(tok)
+        if i + 1 < max_new_tokens:
+            logits, cache = decode_step(params, tok, cache, config)
+    if not out:
+        return prompt
+    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)

@@ -1,0 +1,101 @@
+"""Build and load the CUDA sources under ``k8s_dra_driver_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
+a plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so
+a build takes seconds, not minutes. Libraries go to ``build/kernels/``
+at the root of the checkout, named by a hash of the source, so an edited
+source is rebuilt at its next use and an unchanged one is reused.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch (or a
+negative code for arguments it refuses); :func:`check` turns a nonzero
+return into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: ptxas resource lines (registers, shared memory, spills) per source,
+#: from the builds this process ran.
+BUILD_LOGS: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile every named source (default: all of ``csrc/``) whose
+    library is missing, one ``nvcc`` per source, all started together.
+    Raises with the compiler's output if any build fails."""
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: library_path(n) for n in names}
+    procs = {}
+    for name, target in targets.items():
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        ), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc rc {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        target = build([name])[name]
+        lib = ctypes.CDLL(str(target))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch returned error {rc}")

@@ -1,0 +1,84 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no quiet
+fall back to the CPU.
+
+The machine with the card has no JAX, so ``k8s_dra_driver_tpu_torch`` and
+``chip_smoke.py`` must import neither ``jax`` nor ``k8s_dra_driver_tpu``
+(as a module -- ``k8s_dra_driver_tpu_torch`` merely shares the prefix).
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from k8s_dra_driver_tpu_torch import resolve_device
+from k8s_dra_driver_tpu_torch.models import DecodeEngine, generate, init_params
+from k8s_dra_driver_tpu_torch.models.llama import PRESETS
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "k8s_dra_driver_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_static_scan_finds_no_jax_or_reference_import():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad, bad
+    assert not _forbidden("k8s_dra_driver_tpu_torch.models")
+    assert _forbidden("k8s_dra_driver_tpu.models")
+
+
+def test_importing_the_engine_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import k8s_dra_driver_tpu_torch.models.serving\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'k8s_dra_driver_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """``device=None`` means CUDA: on a host without one the entry points
+    raise instead of running on the CPU."""
+    cfg = PRESETS["tiny"]
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(params, [[1, 2, 3]], cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"

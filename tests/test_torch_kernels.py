@@ -1,0 +1,140 @@
+"""The port's hand-written kernels against their plain PyTorch versions,
+on the card. Imports no JAX, so it runs on the machine with the GPU:
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+Without a CUDA device every test here skips (the kernels have no CPU
+mode; the plain versions are held against the JAX package by
+``tests/test_torch_ops.py``). Tolerances, bf16: attention max abs error
+2e-2 and mean 2e-3 (bf16 output rounding and another summation order),
+RMSNorm 1e-2 relative to the largest output.
+"""
+
+import pytest
+import torch
+
+from k8s_dra_driver_tpu_torch.ops import attention as att
+from k8s_dra_driver_tpu_torch.ops import norms
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _paged(dev, b_starts, t, hq, hkv, d, bs, nbps, seed=0):
+    """Random pools (one scratch row past the blocks), scrambled tables,
+    contiguous windows at the given starts."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b = len(b_starts)
+    nb = b * nbps + 3
+    q = torch.randn(b, hq, t, d, generator=g, device=dev).bfloat16()
+    k = torch.randn(hkv, nb * bs + 1, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(hkv, nb * bs + 1, d, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(nb, generator=g, device=dev)[: b * nbps]
+    tables = tables.reshape(b, nbps).to(torch.int32).contiguous()
+    pos = (torch.tensor(b_starts, device=dev)[:, None]
+           + torch.arange(t, device=dev)[None, :])
+    return q, k, v, tables, pos
+
+
+def _close(out, ref):
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= 2e-2, err.max().item()
+    assert err.mean().item() <= 2e-3, err.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,bs,starts", [
+    (32, 8, 128, 16, (0, 31, 32, 700)),   # Llama-3-8B heads, tile edges
+    (8, 1, 128, 8, (5, 64)),              # G=8 (the decode kernel's most)
+    (4, 4, 64, 64, (0, 200)),             # MHA, head_dim 64, block 64
+])
+def test_decode_matches_plain(dev, hq, hkv, d, bs, starts):
+    nbps = -(-(max(starts) + 1) // bs)
+    q, k, v, tables, pos = _paged(dev, starts, 1, hq, hkv, d, bs, nbps)
+    vlen = (pos[:, 0] + 1).to(torch.int32)
+    before = att.paged_decode_attention.launches
+    out = att.paged_decode_attention(q[:, :, 0], k, v, tables, vlen, bs)
+    ref = att.paged_attention_reference(q, k, v, tables, pos, bs)[:, :, 0]
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert att.paged_decode_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", [
+    (128, 32, 8, 128, 16, (0, 256, 384, 572)),  # the engine's packed chunk
+    (40, 8, 2, 128, 16, (0, 9, 70)),            # a partial last q tile
+    (1, 32, 8, 128, 16, (0, 33)),               # T=1 through prefill
+    (33, 4, 4, 64, 8, (3, 17)),                 # MHA, head_dim 64, bs 8
+])
+def test_prefill_matches_plain(dev, t, hq, hkv, d, bs, starts):
+    nbps = -(-(max(starts) + t) // bs)
+    q, k, v, tables, pos = _paged(dev, starts, t, hq, hkv, d, bs, nbps)
+    out = att.paged_prefill_attention(q, k, v, tables, pos, bs)
+    ref = att.paged_attention_reference(q, k, v, tables, pos, bs)
+    torch.cuda.synchronize()
+    _close(out, ref)
+
+
+@pytest.mark.cuda
+def test_prefill_never_reads_past_the_window(dev):
+    """Poisoning every pool row after each window's last position leaves
+    the output bitwise unchanged."""
+    starts, t, bs = (5, 21), 12, 16
+    q, k, v, tables, pos = _paged(dev, starts, t, 8, 2, 128, bs, 4)
+    out = att.paged_prefill_attention(q, k, v, tables, pos, bs)
+    k2, v2 = k.clone(), v.clone()
+    for i, s0 in enumerate(starts):
+        for j in range(tables.shape[1]):
+            for r in range(bs):
+                if j * bs + r > s0 + t - 1:
+                    row = int(tables[i, j]) * bs + r
+                    k2[:, row] = 1e4
+                    v2[:, row] = -1e4
+    out2 = att.paged_prefill_attention(q, k2, v2, tables, pos, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, tables, pos = _paged(dev, (0, 3), 4, 8, 2, 128, 16, 2)
+    with pytest.raises(TypeError, match="bf16"):
+        att.paged_prefill_attention(q, k.to(torch.int8), v, tables, pos, 16)
+    with pytest.raises(TypeError, match="int32"):
+        att.paged_prefill_attention(q, k, v, tables.long(), pos, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        att.paged_prefill_attention(q.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), k, v, tables, pos, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.paged_prefill_attention(q, k.cpu(), v, tables, pos, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.paged_decode_attention(q[:, :, 0, :32].contiguous(), k, v,
+                                   tables, (pos[:, 0] + 1).int(), 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,dtype", [
+    (512, 4096, torch.bfloat16),    # the 8B prefill chunk
+    (8, 4096, torch.bfloat16),      # the 8B decode step
+    (5, 1000, torch.float32),       # a width that is not a power of two
+])
+def test_rmsnorm_matches_plain(dev, rows, width, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    x = torch.randn(rows, width, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(width, generator=g, device=dev)).to(dtype)
+    before = norms.rmsnorm.launches
+    out = norms.rmsnorm(x, w, 1e-5).float()
+    ref = norms.rmsnorm_reference(x, w, 1e-5).float()
+    torch.cuda.synchronize()
+    assert norms.rmsnorm.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-2

@@ -1,0 +1,218 @@
+"""The port's ops against the JAX package's, on the CPU.
+
+Same seeded numpy inputs through both: the JAX function (its Pallas
+kernel in interpret mode, and its plain reference) and the port's
+counterpart, which on CPU tensors runs its plain PyTorch version. The
+CUDA kernels themselves are held against the same plain versions on the
+card (``tests/test_torch_kernels.py``, and ``chip_smoke.py`` at
+Llama-3-8B shapes).
+
+Tolerances: f32 throughout; RMSNorm and RoPE at atol 1e-6 / rtol 1e-5
+(the same f32 formula), paged attention at atol 2e-5 (the softmax and the
+two contractions sum in a different order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_tpu.ops import attention as jatt
+from k8s_dra_driver_tpu.ops import norms as jnorms
+from k8s_dra_driver_tpu.ops import rotary as jrot
+from k8s_dra_driver_tpu_torch.ops import attention as tatt
+from k8s_dra_driver_tpu_torch.ops import norms as tnorms
+from k8s_dra_driver_tpu_torch.ops import rotary as trot
+
+ATT_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+class TestRmsnorm:
+    @pytest.mark.parametrize("shape", [(3, 5, 64), (7, 48)])
+    def test_matches_jax_kernel_and_reference(self, shape):
+        rng = np.random.RandomState(0)
+        x = rng.randn(*shape).astype(np.float32)
+        w = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
+        eps = 1e-5
+        ours = tnorms.rmsnorm(_t(x), _t(w), eps).numpy()
+        kernel = jnorms.rmsnorm(jnp.asarray(x), jnp.asarray(w), eps,
+                                force_pallas=True, interpret=True)
+        ref = jnorms.rmsnorm_reference(jnp.asarray(x), jnp.asarray(w), eps)
+        np.testing.assert_allclose(ours, np.asarray(kernel), atol=1e-6,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(ours, np.asarray(ref), atol=1e-6,
+                                   rtol=1e-5)
+
+    def test_cpu_path_is_not_a_launch(self):
+        before = tnorms.rmsnorm.launches
+        tnorms.rmsnorm(torch.ones(2, 8), torch.ones(8))
+        assert tnorms.rmsnorm.launches == before
+
+    def test_non_cpu_non_cuda_tensor_raises(self):
+        """Only CPU tensors take the plain version; anything else must
+        launch the kernel or raise."""
+        x = torch.empty(2, 8, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            tnorms.rmsnorm(x, torch.empty(8, device="meta"))
+
+
+class TestRope:
+    def test_frequencies_match(self):
+        cos, sin = trot.rope_frequencies(16, 40, 500000.0, device="cpu")
+        jcos, jsin = jrot.rope_frequencies(16, 40, 500000.0)
+        np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6,
+                                   rtol=1e-5)
+
+    @pytest.mark.parametrize("layout", ["none", "shared", "per_seq"])
+    def test_apply_matches(self, layout):
+        rng = np.random.RandomState(1)
+        b, h, s, d, span = 2, 3, 5, 16, 40
+        x = rng.randn(b, h, s, d).astype(np.float32)
+        positions = {
+            "none": None,
+            "shared": np.arange(7, 7 + s, dtype=np.int32),
+            "per_seq": rng.randint(0, span, size=(b, s)).astype(np.int32),
+        }[layout]
+        jcos, jsin = jrot.rope_frequencies(d, span if positions is not None
+                                           else s)
+        tcos, tsin = trot.rope_frequencies(d, span if positions is not None
+                                           else s, device="cpu")
+        want = jrot.apply_rope(
+            jnp.asarray(x), jcos, jsin,
+            None if positions is None else jnp.asarray(positions),
+        )
+        got = trot.apply_rope(
+            _t(x), tcos, tsin,
+            None if positions is None else _t(positions),
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                                   rtol=1e-5)
+
+
+def _pools(rng, hkv, nb, bs, d):
+    k = rng.randn(hkv, nb * bs, d).astype(np.float32)
+    v = rng.randn(hkv, nb * bs, d).astype(np.float32)
+    return k, v
+
+
+class TestPagedDecode:
+    """One query token per sequence, GQA G=2, ragged valid_len (one row,
+    a block boundary + 3, the whole span)."""
+
+    def _setup(self, seed=0):
+        rng = np.random.RandomState(seed)
+        b, hq, hkv, d, bs, nb, nbps = 3, 4, 2, 16, 8, 12, 4
+        q = rng.randn(b, hq, d).astype(np.float32)
+        k, v = _pools(rng, hkv, nb, bs, d)
+        tables = rng.permutation(nb)[: b * nbps].reshape(b, nbps).astype(
+            np.int32)
+        vlen = np.array([1, bs * 2 + 3, bs * nbps], np.int32)
+        return q, k, v, tables, vlen, bs
+
+    def test_matches_jax_kernel_and_reference(self):
+        q, k, v, tables, vlen, bs = self._setup()
+        ours = tatt.paged_decode_attention(
+            _t(q), _t(k), _t(v), _t(tables), _t(vlen), bs).numpy()
+        kernel = jatt.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(tables), jnp.asarray(vlen), bs,
+            force_pallas=True, interpret=True)
+        ref = jatt.paged_attention_reference(
+            jnp.asarray(q)[:, :, None], jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(tables), jnp.asarray(vlen - 1)[:, None], bs,
+        )[:, :, 0]
+        np.testing.assert_allclose(ours, np.asarray(kernel), **ATT_TOL)
+        np.testing.assert_allclose(ours, np.asarray(ref), **ATT_TOL)
+
+    def test_reference_matches_jax_reference_any_positions(self):
+        """The plain version at arbitrary (non-contiguous) positions."""
+        rng = np.random.RandomState(5)
+        q, k, v, tables, _, bs = self._setup(seed=5)
+        q4 = rng.randn(3, 4, 3, 16).astype(np.float32)
+        positions = np.array([[0, 9, 4], [31, 2, 17], [5, 5, 30]], np.int32)
+        ours = tatt.paged_attention_reference(
+            _t(q4), _t(k), _t(v), _t(tables), _t(positions), bs).numpy()
+        ref = jatt.paged_attention_reference(
+            jnp.asarray(q4), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(tables), jnp.asarray(positions), bs)
+        np.testing.assert_allclose(ours, np.asarray(ref), **ATT_TOL)
+
+
+class TestPagedPrefill:
+    """Contiguous windows: a start > 0 straddling a block boundary, T=1,
+    and a full chunk from position 0, against JAX's kernel (interpret
+    mode) and reference."""
+
+    @pytest.mark.parametrize("t,starts", [
+        (12, (0, 7, 37)),        # start 7: the window straddles bs=16
+        (1, (0, 9, 30)),         # one remaining prompt token
+        (16, (0, 0, 0)),         # a full chunk of a fresh prompt
+    ])
+    def test_matches_jax_kernel_and_reference(self, t, starts):
+        rng = np.random.RandomState(0)
+        b, hq, hkv, d, bs, nb, nbps = 3, 4, 2, 16, 16, 14, 4
+        q = rng.randn(b, hq, t, d).astype(np.float32)
+        k, v = _pools(rng, hkv, nb, bs, d)
+        tables = rng.permutation(nb)[: b * nbps].reshape(b, nbps).astype(
+            np.int32)
+        positions = (np.array(starts, np.int32)[:, None]
+                     + np.arange(t, dtype=np.int32)[None, :])
+        ours = tatt.paged_prefill_attention(
+            _t(q), _t(k), _t(v), _t(tables), _t(positions), bs).numpy()
+        args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                jnp.asarray(tables), jnp.asarray(positions), bs)
+        kernel = jatt.paged_prefill_attention(*args, force_pallas=True,
+                                              interpret=True)
+        ref = jatt.paged_attention_reference(*args)
+        np.testing.assert_allclose(ours, np.asarray(kernel), **ATT_TOL)
+        np.testing.assert_allclose(ours, np.asarray(ref), **ATT_TOL)
+
+    def test_padded_rows_stay_finite(self):
+        """A right-padded window whose tail runs past every written row
+        (sentinel table entries, zero pool rows): the padded queries'
+        outputs are discarded by the caller but must be finite, and the
+        valid rows must not change when the padded tail's kv is garbage."""
+        rng = np.random.RandomState(2)
+        b, hq, hkv, d, bs, nb, nbps, t = 2, 4, 2, 16, 8, 8, 4, 8
+        q = rng.randn(b, hq, t, d).astype(np.float32)
+        k, v = _pools(rng, hkv, nb, bs, d)
+        tables = np.zeros((b, nbps), np.int32)
+        tables[0, :2] = [3, 5]
+        tables[1, :1] = [6]
+        positions = np.array([10, 4], np.int32)[:, None] + np.arange(t)
+        n_valid = np.array([3, 4])
+        out = tatt.paged_prefill_attention(
+            _t(q), _t(k), _t(v), _t(tables), _t(positions), bs).numpy()
+        assert np.isfinite(out).all()
+        k2, v2 = k.copy(), v.copy()
+        for i in range(b):
+            last = positions[i, n_valid[i] - 1]
+            for j in range(nbps):
+                for r in range(bs):
+                    if j * bs + r > last and tables[i, j]:
+                        k2[:, tables[i, j] * bs + r] = 1e4
+                        v2[:, tables[i, j] * bs + r] = -1e4
+        out2 = tatt.paged_prefill_attention(
+            _t(q), _t(k2), _t(v2), _t(tables), _t(positions), bs).numpy()
+        for i in range(b):
+            np.testing.assert_array_equal(out2[i, :, : n_valid[i]],
+                                          out[i, :, : n_valid[i]])
+
+    def test_wrappers_refuse_non_cpu_tensors_without_a_card(self):
+        q = torch.empty(1, 4, 2, 64, device="meta")
+        pool = torch.empty(2, 16, 64, device="meta")
+        tables = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+        pos = torch.zeros(1, 2, dtype=torch.int64, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.paged_prefill_attention(q, pool, pool, tables, pos, 8)
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.paged_decode_attention(
+                q[:, :, 0], pool, pool, tables,
+                torch.ones(1, dtype=torch.int32, device="meta"), 8)
+
