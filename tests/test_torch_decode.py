@@ -148,6 +148,19 @@ class TestGenerate:
         ours = tdecode.generate(tp, prompt, TINY, 8, device="cpu")
         assert ours.tolist() == ref.tolist()
 
+    def test_sampling_follows_its_generator(self, params):
+        """temperature > 0 draws from the caller's generator: the same
+        seed gives the same stream (JAX's streams differ by design)."""
+        _, tp = params
+        outs = []
+        for _ in range(2):
+            gen = torch.Generator().manual_seed(7)
+            outs.append(tdecode.generate(tp, [[5, 6, 7]], TINY, 6,
+                                         temperature=1.0, generator=gen,
+                                         device="cpu").tolist())
+        assert outs[0] == outs[1]
+        assert all(0 <= t < TINY.vocab_size for t in outs[0][0])
+
     def test_prefill_cached_cow_hit_equals_cold(self, params):
         """A fully cached prompt maps all but its trailing block and
         recomputes it: same last logits as the cold prefill."""

@@ -109,7 +109,112 @@ class TestTokenFidelity:
             assert r.tokens == _solo(params, p)
 
 
+    def test_long_prompt_does_not_stall_running_decodes(self, params):
+        short, long_ = _prompts(1, (4, 40))
+        eng = _port(params, batch_slots=2, num_blocks=16, block_size=8,
+                    max_seq_len=64, prefill_chunk=8)
+        r_short = eng.submit(short, max_new_tokens=12)
+        while r_short.state != RUNNING:
+            eng.tick()
+        r_long = eng.submit(long_, max_new_tokens=4)
+        produced = []
+        while r_long.state != RUNNING and not r_short.done:
+            before = len(r_short.generated)
+            eng.tick()
+            produced.append(len(r_short.generated) - before)
+        assert sum(produced) >= 3, produced
+        eng.run()
+        eng.assert_no_leaks()
+        assert r_short.tokens == _solo(params, short, 12)
+        assert r_long.tokens == _solo(params, long_, 4)
+
+    def test_eos_stops_early(self, params):
+        prompt = _prompts(3, (6,))[0]
+        ref = _solo(params, prompt, 12)
+        gen = ref[len(prompt):]
+        k = next(i for i in range(2, 12) if gen[i] not in gen[:i])
+        eng = _port(params, batch_slots=1, num_blocks=8, block_size=8,
+                    max_seq_len=32, prefill_chunk=8, eos_id=gen[k])
+        r = eng.submit(prompt, max_new_tokens=12)
+        eng.run()
+        eng.assert_no_leaks()
+        assert r.generated[-1] == gen[k] and len(r.generated) == k + 1
+        assert r.tokens == ref[: len(prompt) + k + 1]
+
+
 class TestPreemption:
+    def _starved_engine(self, params):
+        return _port(params, batch_slots=3, num_blocks=6, block_size=8,
+                     max_seq_len=48, prefill_chunk=8)
+
+    def test_never_evicts_running_when_prefill_victim_exists(self, params):
+        from k8s_dra_driver_tpu_torch.models.serving import PREFILL
+
+        eng = self._starved_engine(params)
+        orig_preempt, orig_evict = eng._preempt_for, eng._evict
+        ctx = {"needy": None}
+
+        def spy_preempt(needy):
+            ctx["needy"] = needy
+            orig_preempt(needy)
+
+        def spy_evict(req, requeue):
+            if requeue and req.state == RUNNING:
+                assert not [
+                    r for r in eng._slots
+                    if r is not None and r is not req
+                    and r is not ctx["needy"] and r.state == PREFILL
+                ]
+            orig_evict(req, requeue)
+
+        eng._preempt_for, eng._evict = spy_preempt, spy_evict
+        prompts = _prompts(5, (16, 16, 16, 16))
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run()
+        eng.assert_no_leaks()
+        assert eng.stats.completed == 4
+        for r, p in zip(reqs, prompts):
+            assert r.tokens == _solo(params, p, 8)
+
+    def test_mid_tick_preemption_does_not_grow_evicted_request(self, params):
+        eng = _port(params, batch_slots=2, num_blocks=4, block_size=4,
+                    max_seq_len=16, prefill_chunk=4)
+        prompts = _prompts(30, (3, 3))
+        reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run()
+        eng.assert_no_leaks()
+        assert eng.stats.preemptions > 0
+        for r, p in zip(reqs, prompts):
+            assert r.done and r.tokens == _solo(params, p, 12)
+
+    def test_zero_block_victim_does_not_abort_preemption(self, params):
+        from k8s_dra_driver_tpu_torch.models.serving import PREFILL, WAITING
+
+        eng = _port(params, batch_slots=3, num_blocks=4, block_size=4,
+                    max_seq_len=16, prefill_chunk=4)
+        a, b, c = (eng.submit([1, 2, 3], max_new_tokens=4) for _ in range(3))
+        eng._admit()
+        eng._admit()
+        for req in (a, c):
+            blocks = eng.allocator.alloc(2)
+            req.blocks.extend(blocks)
+            for i, blk in enumerate(blocks):
+                eng._tables[req.slot, i] = blk
+            req.state = RUNNING
+        assert b.state == PREFILL and not b.blocks
+        eng._ensure_blocks(a, 9)
+        assert len(a.blocks) == 3
+        assert b.state == WAITING and c.state == WAITING
+        assert eng.stats.preemptions == 2
+
+    def test_prompt_filling_exact_block_budget_still_admits(self, params):
+        eng = _port(params, batch_slots=1, num_blocks=4, block_size=8,
+                    max_seq_len=32)
+        r = eng.submit(list(np.arange(25) % 256), max_new_tokens=7)
+        eng.run()
+        eng.assert_no_leaks()
+        assert r.done and len(r.generated) == 7
+
     def test_starved_pool_matches_jax_engine(self, params):
         """3 slots over 6 blocks of 8: decode growth must preempt; the
         same victims, the same counts, the same streams."""
@@ -155,6 +260,45 @@ class TestBatchedPrefill:
         assert tt == jt
         _counters_equal(je, te)
 
+    def test_matches_solo_generate(self, params):
+        prompts = _prompts(8, (6, 14, 9, 17))
+        eng = _port(params, batch_slots=4, num_blocks=26, block_size=8,
+                    max_seq_len=48, prefill_chunk=8, prefill_batch=4)
+        reqs = [eng.submit(p, max_new_tokens=N_NEW) for p in prompts]
+        eng.run()
+        eng.assert_no_leaks()
+        for r, p in zip(reqs, prompts):
+            assert r.tokens == _solo(params, p), r.rid
+
+    def test_prefill_batch_clamped_to_slots(self, params):
+        assert _port(params, batch_slots=2, num_blocks=12, block_size=8,
+                     max_seq_len=32, prefill_batch=16).prefill_batch == 2
+        assert _port(params, batch_slots=8, num_blocks=40, block_size=8,
+                     max_seq_len=32).prefill_batch == 4
+
+    def test_burst_ttft_improves_in_ticks(self, params):
+        prompts = _prompts(11, (24,) * 6)
+
+        def run(pb):
+            box = [0.0]
+            eng = _port(params, batch_slots=4, num_blocks=20, block_size=8,
+                        max_seq_len=48, prefill_chunk=8, prefill_batch=pb,
+                        prefix_cache=False, clock=lambda: box[0])
+            reqs = [eng.submit(p, max_new_tokens=3) for p in prompts]
+            while not eng.idle:
+                eng.tick()
+                box[0] += 1.0
+            eng.assert_no_leaks()
+            st = eng.stats
+            return ([r.tokens for r in reqs], st.pctl(st.ttft_s, 0.99),
+                    st.pctl(st.token_interval_s, 0.99))
+
+        toks_b, ttft_b, tok_b = run(4)
+        toks_s, ttft_s, tok_s = run(1)
+        assert toks_b == toks_s
+        assert ttft_s / max(ttft_b, 1e-9) >= 1.5, (ttft_b, ttft_s)
+        assert tok_b <= tok_s
+
     def test_occupancy_ledger(self, params):
         eng = _port(params, batch_slots=4, num_blocks=26, block_size=8,
                     max_seq_len=48, prefill_chunk=8, prefill_batch=4)
@@ -182,6 +326,67 @@ class TestPrefixReuse:
         assert te.stats.cow_recomputes == 1
         for toks, p in zip(tt, first + later):
             assert toks == _solo(params, p)
+
+    def test_cache_hot_matches_cold_and_saves_prefill(self, params):
+        prompt = _prompts(40, (20,))[0]
+        eng = _port(params, batch_slots=2, num_blocks=16, block_size=8,
+                    max_seq_len=64, prefill_chunk=8)
+        a = eng.submit(prompt, max_new_tokens=N_NEW)
+        eng.run()
+        chunks_cold = eng.stats.prefill_chunks
+        b = eng.submit(prompt, max_new_tokens=N_NEW)
+        eng.run()
+        eng.assert_no_leaks()
+        assert a.tokens == b.tokens == _solo(params, prompt)
+        assert b.cached_tokens > 0
+        assert eng.stats.prefix_hit_tokens == b.cached_tokens
+        assert eng.stats.prefill_chunks - chunks_cold < chunks_cold
+
+    def test_disabled_cache_is_bitwise_identical_to_enabled(self, params):
+        prompts = _prompts(43, (9, 21, 9))
+        outs = []
+        for flag in (True, False):
+            eng = _port(params, batch_slots=2, num_blocks=16, block_size=8,
+                        max_seq_len=48, prefill_chunk=8, prefix_cache=flag)
+            reqs = [eng.submit(p, max_new_tokens=N_NEW) for p in prompts]
+            eng.run()
+            eng.assert_no_leaks()
+            outs.append([r.tokens for r in reqs])
+        assert outs[0] == outs[1]
+
+    def test_preempting_shared_request_decrefs_not_frees(self, params):
+        prompt = _prompts(44, (16,))[0]
+        eng = _port(params, batch_slots=3, num_blocks=7, block_size=8,
+                    max_seq_len=56, prefill_chunk=8)
+        a = eng.submit(prompt, max_new_tokens=8)
+        eng.run()
+        b = eng.submit(prompt, max_new_tokens=8)
+        others = [eng.submit(p, max_new_tokens=10)
+                  for p in _prompts(45, (12, 14))]
+        eng.run()
+        eng.assert_no_leaks()
+        assert eng.stats.preemptions > 0
+        assert b.tokens == a.tokens == _solo(params, prompt, 8)
+        for r, p in zip(others, _prompts(45, (12, 14))):
+            assert r.tokens == _solo(params, p, 10)
+
+    def test_admission_headroom_discounts_own_revived_hit_blocks(
+        self, params
+    ):
+        big = _prompts(60, (16,))[0]
+        eng = _port(params, batch_slots=2, num_blocks=3, block_size=8,
+                    max_seq_len=24, prefill_chunk=8)
+        a = eng.submit(big, max_new_tokens=8)
+        eng.run()
+        assert eng.allocator.num_cached == 2
+        small = _prompts(61, (6,))[0]
+        b = eng.submit(small, max_new_tokens=2)
+        c = eng.submit(big, max_new_tokens=8)
+        eng.run()
+        eng.assert_no_leaks()
+        assert eng.stats.preemptions == 0
+        assert b.tokens == _solo(params, small, 2)
+        assert c.tokens == a.tokens == _solo(params, big, 8)
 
     def test_cow_leaves_the_cached_block_untouched(self, params):
         prompt = _prompts(41, (16,))[0]
@@ -278,6 +483,66 @@ class TestDrain:
         for r in rerouted:
             assert r.state == "waiting" and not r.generated
         eng.assert_no_leaks()
+
+
+    def test_drain_under_block_pressure_loses_nothing(self, params):
+        prompts = _prompts(71, (9, 13, 11))
+        eng = _port(params, batch_slots=3, num_blocks=7, block_size=8,
+                    max_seq_len=40, prefill_chunk=8)
+        reqs = [eng.submit(p, max_new_tokens=N_NEW) for p in prompts]
+        for _ in range(2):
+            eng.tick()
+        admitted = [r for r in reqs if r.admit_seq >= 0]
+        assert admitted
+        eng.drain()
+        for r in admitted:
+            assert r.done and r.tokens == _solo(params, r.prompt)
+        eng.assert_no_leaks()
+
+
+class TestStats:
+    def test_latency_and_throughput_accounting(self, params):
+        t = [0.0]
+
+        def clock():
+            t[0] += 0.01
+            return t[0]
+
+        eng = _port(params, batch_slots=2, num_blocks=8, block_size=8,
+                    max_seq_len=32, prefill_chunk=8, clock=clock)
+        reqs = [eng.submit(p, max_new_tokens=4) for p in _prompts(6, (5, 7))]
+        eng.run()
+        s = eng.stats
+        assert s.completed == 2
+        assert s.tokens_generated == sum(len(r.generated) for r in reqs)
+        assert len(s.ttft_s) == 2 and all(x > 0 for x in s.ttft_s)
+        assert len(s.request_latency_s) == 2
+        assert s.p99_token_ms() >= s.p50_token_ms() > 0
+        for r in reqs:
+            assert r.finished_at >= r.first_token_at
+
+    def test_profiler_sees_every_phase(self, params):
+        import contextlib
+
+        seen, ticks = [], []
+
+        class Profiler:
+            @contextlib.contextmanager
+            def phase(self, component, name):
+                seen.append((component, name))
+                yield
+
+            def end_tick(self, component, tick, tag=""):
+                ticks.append((component, tick, tag))
+
+        eng = _port(params, batch_slots=2, num_blocks=8, block_size=8,
+                    max_seq_len=32, prefill_chunk=8)
+        eng.set_profiler(Profiler(), tag="r0")
+        eng.submit([1, 2, 3, 4], max_new_tokens=3)
+        eng.run()
+        assert {n for _, n in seen} == {"admit", "prefill", "decode",
+                                       "harvest"}
+        assert ticks and ticks[-1] == ("engine", eng.stats.ticks, "r0")
 
 
 class TestSnapshot:
