@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its serving path
-at the full width and depth of Llama-3-8B (bf16, random weights from a
-fixed seed) and checks every hand-written kernel of that path:
+Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its two paths,
+serving at the full width and depth of Llama-3-8B and training at the
+Llama-3-8B widths cut to 8 layers (``8b-L8``), bf16 with random weights
+from a fixed seed, and checks every hand-written kernel of those paths:
 
 1. builds the CUDA sources of ``k8s_dra_driver_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and the Triton RMSNorm;
 2. holds each kernel against its plain PyTorch version on the same inputs
-   at the main path's shapes, and times kernel, plain version and (where
-   one PyTorch call computes the same function) that call;
+   at its path's shapes (paged attention and RMSNorm at the engine's,
+   flash attention forward and backward at the train step's), and times
+   kernel, plain version and (where one PyTorch call computes the same
+   function) that call;
 3. runs one 8B forward -- a prefill chunk, then decode steps -- through the
    kernels and through the plain versions, and compares the logits;
 4. serves 8 requests (prompts of 96 to 700 tokens, four sharing a
    256-token prefix, 32 new tokens each) through ``DecodeEngine`` with the
-   prefix cache and the overlapped tick on, with every kernel's launch
-   count set to 0 just before and read just after.
+   prefix cache and the overlapped tick on (the serving path);
+5. frees the 8B weights and compares one ``loss_fn`` value and gradient at
+   the 8b-L8 widths (2 layers, batch 2 x 2048) through the kernels with
+   the plain path on the same weights and tokens;
+6. trains 8b-L8 with ``make_train_step`` (batch 8 x 2048, remat "full",
+   AdamW): one warm-up step, 5 timed steps and one step under
+   ``torch.profiler`` (device time by kernel group, the device's busy
+   share) on one fixed batch (the training path).
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-the engine's metrics, and as its last line
+Every kernel's launch count is set to 0 just before each path (phases 4
+and 6) and read just after. Prints the card's name and power limit, one
+``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
+as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits nonzero without that line. It also exits nonzero, printing no
 result, where no CUDA device is present or the package is missing.
@@ -52,6 +63,9 @@ PREFILL_CHUNK = 128
 PREFILL_BATCH = 4
 NEW_TOKENS = 32
 PREFIX_LEN = 256
+TRAIN_BATCH = 8
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 5
 
 
 def log(*parts) -> None:
@@ -242,6 +256,126 @@ def check_kernels(torch, cfg, dev) -> dict:
     return results
 
 
+def flash_bounds(b, hq, hkv, s, d, causal):
+    """(forward, dK/dV, dQ) as (bytes, operations): each input read once and
+    each output written once; operations over the visible score pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    q_bytes, kv_bytes, row_bytes = b * hq * s * d * 2, b * hkv * s * d * 2, \
+        b * hq * s * 4
+    fwd = (2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * b * hq * d * pairs)
+    dkdv = (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+            8 * b * hq * d * pairs)
+    dq = (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6 * b * hq * d * pairs)
+    return fwd, dkdv, dq
+
+
+def check_flash_kernels(torch, cfg, dev) -> dict:
+    """Phase 2, training half: K4-K6 against their plain versions at the
+    train step's attention shape (q [8, 32, 2048, 128], k/v [8, 8, 2048,
+    128], bf16, causal)."""
+    from k8s_dra_driver_tpu_torch.ops import attention as att
+
+    F = torch.nn.functional
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = rand(b, hq, s, d), rand(b, hkv, s, d), rand(b, hkv, s, d), \
+        rand(b, hq, s, d)
+    shape = f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{s},{d}] causal"
+
+    def rel(name, out, ref):
+        err = (out.float() - ref.float()).abs()
+        top = ref.float().abs().max().item()
+        r = err.max().item() / top
+        m = err.mean().item() / ref.float().abs().mean().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        log(f"{name}: max_abs_err={err.max().item():.3e} rel_max={r:.3e} "
+            f"rel_mean={m:.3e} finite={finite}")
+        if not finite or r > 2e-2 or m > 1e-2:
+            raise AssertionError(
+                f"{name} disagrees with its plain version: max error "
+                f"{r} of the largest value (limit 2e-2), mean {m} of the "
+                f"mean value (limit 1e-2)")
+        return err.max().item(), r
+
+    out, lse = att.flash_fwd(q, k, v, True, scale)
+    ref_out, ref_lse = att.flash_fwd_reference(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    out_err, out_rel = rel("flash_fwd out", out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    log(f"flash_fwd lse: max_abs_err={lse_err:.3e}")
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"flash_fwd lse error {lse_err} (limit 1e-3)")
+    del out, lse
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, True, scale)
+    ref_dk, ref_dv = att.flash_bwd_dkdv_reference(q, k, v, do, ref_lse,
+                                                  delta, True, scale)
+    torch.cuda.synchronize()
+    dk_err, dk_rel = rel("flash_bwd_dkdv dk", dk, ref_dk)
+    dv_err, dv_rel = rel("flash_bwd_dkdv dv", dv, ref_dv)
+    del dk, dv, ref_dk, ref_dv
+    dq = att.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, scale)
+    ref_dq = att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, True,
+                                        scale)
+    torch.cuda.synchronize()
+    dq_err, dq_rel = rel("flash_bwd_dq dq", dq, ref_dq)
+    del dq, ref_dq
+    torch.cuda.empty_cache()
+
+    # The library's yardstick: one SDPA call forward, and its autograd
+    # backward (dq, dk and dv together) for the two backward kernels.
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa: E731
+        q_, k_, v_, is_causal=True, scale=scale, enable_gqa=True)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v), iters=10)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    lib_out = sdpa(*leaves)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), iters=10)
+    del lib_out, leaves
+
+    fb, kb, qb = flash_bounds(b, hq, hkv, s, d, True)
+    results = {}
+    for name, (nbytes, ops), kernel_fn, plain_fn, err, extra, lib in (
+        ("flash_fwd", fb,
+         lambda: att.flash_fwd(q, k, v, True, scale),
+         lambda: att.flash_fwd_reference(q, k, v, True, scale),
+         out_err, dict(rel_err=out_rel, lse_max_abs_err=lse_err), lib_fwd),
+        ("flash_bwd_dkdv", kb,
+         lambda: att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, True, scale),
+         lambda: att.flash_bwd_dkdv_reference(q, k, v, do, ref_lse, delta,
+                                              True, scale),
+         max(dk_err, dv_err), dict(dk_max_abs_err=dk_err, dk_rel_err=dk_rel,
+                                   dv_max_abs_err=dv_err, dv_rel_err=dv_rel),
+         lib_bwd),
+        ("flash_bwd_dq", qb,
+         lambda: att.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, scale),
+         lambda: att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta,
+                                            True, scale),
+         dq_err, dict(rel_err=dq_rel), lib_bwd),
+    ):
+        t_b, by = bound(nbytes, ops, BF16_FLOPS)
+        log(f"{name} bound: {nbytes / 1e9:.3f} GB, {ops:.3e} operations "
+            f"-> {t_b:.4f} ms ({by})")
+        ms = time_ms(kernel_fn, iters=10)
+        plain_ms = time_ms(plain_fn, warmup=1, iters=3)
+        torch.cuda.empty_cache()
+        results[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_b,
+            bound_by=by, library_ms=lib, shape=shape, **extra,
+        )
+        if name != "flash_fwd":
+            results[name]["library_covers"] = "sdpa backward: dq, dk, dv"
+    return results
+
+
 def compare_forward(torch, params, cfg, dev) -> dict:
     """Phase 3: one 8B forward through the kernels and through the plain
     versions, on identical caches and tokens."""
@@ -349,6 +483,165 @@ def serve(torch, params, cfg, dev) -> dict:
     return metrics
 
 
+def compare_train(torch, dev) -> dict:
+    """Phase 5: one loss value and gradient at the 8b-L8 widths (2 layers,
+    batch 2 x 2048) through the kernels (K1, K4-K6) and through the plain
+    path, on the same weights and tokens."""
+    import dataclasses
+
+    from k8s_dra_driver_tpu_torch.models import PRESETS, init_params, loss_fn
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+    from k8s_dra_driver_tpu_torch.ops import attention, norms
+
+    cfg = dataclasses.replace(PRESETS["8b-L8"], n_layers=2)
+    params = init_params(cfg, seed=SEED + 3, device=dev)
+    names = (["embed"] + [f"layers/{n}" for n in params["layers"]]
+             + ["final_norm", "lm_head"])
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    runs = {}
+    for flag in (True, False):
+        before = (norms.rmsnorm.launches, attention.flash_fwd.launches,
+                  attention.flash_bwd_dkdv.launches,
+                  attention.flash_bwd_dq.launches)
+        loss = loss_fn(params, tokens, cfg, remat=True, use_kernels=flag)
+        grads = torch.autograd.grad(loss, flat)
+        after = (norms.rmsnorm.launches, attention.flash_fwd.launches,
+                 attention.flash_bwd_dkdv.launches,
+                 attention.flash_bwd_dq.launches)
+        ran = [a - b_ for a, b_ in zip(after, before)]
+        if flag and min(ran) <= 0 or not flag and max(ran) != 0:
+            raise AssertionError(f"use_kernels={flag}: launches {ran}")
+        runs[flag] = (loss.item(), grads)
+    lk, gk = runs[True]
+    lp, gp = runs[False]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = {}
+    for name, a, b_ in zip(names, gk, gp):
+        ref = b_.float().norm().item()
+        diff = (a.float() - b_.float()).norm().item()
+        if not (math.isfinite(diff) and ref > 0 and a.float().norm() > 0):
+            raise AssertionError(f"{name}: gradient norms {a.float().norm()}"
+                                 f" (kernels) and {ref} (plain)")
+        grad_rel[name] = diff / ref
+    result = dict(loss_kernels=lk, loss_plain=lp, loss_rel_diff=loss_rel,
+                  grad_rel_diff=grad_rel)
+    log("loss/grad kernels vs plain:", json.dumps(result))
+    if not loss_rel <= 1e-2:
+        raise AssertionError(f"loss relative difference {loss_rel} "
+                             f"(limit 1e-2)")
+    bad = {n: r for n, r in grad_rel.items() if not r <= 5e-2}
+    if bad:
+        raise AssertionError(f"gradient relative differences over 5e-2: "
+                             f"{bad}")
+    return result
+
+
+def train(torch, dev) -> dict:
+    """Phase 6: the training path (main path) at 8b-L8, batch 8 x 2048."""
+    from k8s_dra_driver_tpu_torch.models import (
+        PRESETS,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = PRESETS["8b-L8"]
+    n = cfg.num_params()
+    # bf16 weights, gradients and both AdamW moments: 8 bytes a parameter,
+    # plus the activations of one recomputed layer and one CE chunk.
+    log(f"8b-L8: {n / 1e9:.3f}B parameters; weights + grads + moments "
+        f"{8 * n / 1e9:.1f} GB before activations")
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
+    state = init_train_state(cfg, opt, seed=SEED, device=dev)
+    step = make_train_step(cfg, opt, remat=True, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    losses, times = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if state.step != 1 + TRAIN_STEPS:
+        raise AssertionError(f"step counter {state.step}")
+    step_s = statistics.median(times[1:])
+    profile = profile_step(torch, step, state, tokens)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    metrics = dict(
+        preset="8b-L8", batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat="full",
+        params=n, losses=losses, warmup_step_ms=times[0] * 1e3,
+        step_ms=[t * 1e3 for t in times[1:]], step_ms_p50=step_s * 1e3,
+        tokens_per_s=tokens_per_step / step_s,
+        model_flops_per_step=cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step,
+        mfu=cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step / step_s
+        / BF16_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=profile,
+    )
+    log("train:", json.dumps(metrics))
+    return metrics
+
+
+KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("rmsnorm", ("_rmsnorm_row",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+)
+
+
+def profile_step(torch, step, state, tokens) -> dict:
+    """One more train step under ``torch.profiler``: device time by kernel
+    group, and the device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kernels.append((ms, e.count, e.key[:80]))
+        group = next((name for name, keys in KERNEL_GROUPS
+                      if any(k in e.key for k in keys)), "other")
+        groups[group] += ms
+    device_ms = sum(groups.values())
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    kernels.sort(reverse=True)
+    return dict(
+        wall_ms=wall_ms, device_ms=device_ms,
+        device_busy_share=device_ms / wall_ms, group_ms=groups,
+        top_kernels=[dict(ms=ms, count=n, name=name)
+                     for ms, n, name in kernels[:12]],
+    )
+
+
 def main() -> int:
     import torch
 
@@ -381,6 +674,7 @@ def main() -> int:
 
     cfg = PRESETS["8b"]
     kernels = check_kernels(torch, cfg, dev)
+    kernels.update(check_flash_kernels(torch, PRESETS["8b-L8"], dev))
     log("phase 2: kernels agree with their plain versions")
 
     t0 = time.perf_counter()
@@ -395,15 +689,48 @@ def main() -> int:
         "paged_decode": attention.paged_decode_attention,
         "paged_prefill": attention.paged_prefill_attention,
         "rmsnorm": norms.rmsnorm,
+        "flash_fwd": attention.flash_fwd,
+        "flash_bwd_dkdv": attention.flash_bwd_dkdv,
+        "flash_bwd_dq": attention.flash_bwd_dq,
     }
-    for fn in wrappers.values():
-        fn.launches = 0
-    engine = serve(torch, params, cfg, dev)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    missing = [name for name, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
+             "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
+                          "flash_bwd_dq")}
+    by_path = {}
+
+    def drive(path, fn, *args):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn(*args)
+        by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        missing = [name for name in paths[path] if by_path[path][name] <= 0]
+        if missing:
+            raise AssertionError(f"the {path} path never launched {missing}")
+        return out
+
+    engine = drive("serving", serve, torch, params, cfg, dev)
     log("phase 4: engine served 8 requests through every kernel")
+
+    del params
+    torch.cuda.empty_cache()
+    grads = compare_train(torch, dev)
+    log("phase 5: 8b-L8 loss and gradients through the kernels match the "
+        "plain path")
+    torch.cuda.empty_cache()
+    trained = drive("training", train, torch, dev)
+    counts = by_path["training"]
+    layers = PRESETS["8b-L8"].n_layers
+    steps = 1 + TRAIN_STEPS + 1    # warm-up, timed, profiled
+    # Remat "full" re-runs each layer's forward in the backward: K4 runs
+    # twice per layer and step, K5 and K6 once.
+    want = {"flash_fwd": 2 * layers * steps,
+            "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"training launches {counts}, expected {want}")
+    log(f"phase 6: trained 8b-L8 for {steps} steps through every kernel "
+        f"(launches {counts})")
+    launches = {name: sum(by_path[p][name] for p in by_path)
+                for name in wrappers}
 
     meta = {
         "paged_decode": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
@@ -414,25 +741,39 @@ def main() -> int:
                           "k8s_dra_driver_tpu/ops/attention.py:772"),
         "rmsnorm": ("triton", "k8s_dra_driver_tpu_torch/ops/norms.py",
                     "k8s_dra_driver_tpu/ops/norms.py:26"),
+        "flash_fwd": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                      "flash_attention.cu",
+                      "k8s_dra_driver_tpu/ops/attention.py:58"),
+        "flash_bwd_dkdv": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                           "flash_attention.cu",
+                           "k8s_dra_driver_tpu/ops/attention.py:228"),
+        "flash_bwd_dq": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                         "flash_attention.cu",
+                         "k8s_dra_driver_tpu/ops/attention.py:314"),
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
-        k = kernels[name]
+        k = dict(kernels[name])
         rows.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=k["max_abs_err"],
-            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"],
-            # kernel_ms and max_err repeat ms and max_abs_err under a
-            # second pair of names, both read by the port's records.
-            kernel_ms=k["ms"], max_err=k["max_abs_err"], shape=k["shape"],
+            launches=launches[name], max_abs_err=k.pop("max_abs_err"),
+            ms=k.pop("ms"), plain_ms=k.pop("plain_ms"),
+            bound_ms=k.pop("bound_ms"), bound_by=k.pop("bound_by"),
+            library_ms=k.pop("library_ms"),
+            launches_by_path={p: by_path[p][name] for p in by_path},
+            **k,
         ))
+        # kernel_ms and max_err repeat ms and max_abs_err under a second
+        # pair of names, both read by the port's records.
+        rows[-1].update(kernel_ms=rows[-1]["ms"],
+                        max_err=rows[-1]["max_abs_err"])
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(row[key]):
                 raise AssertionError(f"{row['name']}: {key} not finite")
     log(card)
-    log(json.dumps({"forward": forward, "engine": engine}))
+    log(json.dumps({"forward": forward, "engine": engine, "grads": grads,
+                    "train": trained}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,33 @@
-"""Llama-3 serving on the paged KV cache: configuration and parameters,
-the cached forward, and the continuous-batching engine."""
+"""Llama-3 on the card: configuration and parameters, serving on the paged
+KV cache (the cached forward and the continuous-batching engine), and
+training (forward, loss, optimizer and train step)."""
 
 from .convert import params_from_numpy
 from .decode import decode_step, generate, prefill, prefill_cached
-from .llama import PRESETS, LlamaConfig, init_params
+from .llama import (
+    PRESETS,
+    REMAT_POLICIES,
+    LlamaConfig,
+    chunked_cross_entropy,
+    forward,
+    init_params,
+    loss_fn,
+)
 from .paged import BlockAllocator, OutOfBlocksError, PagedKVCache, PrefixCache
 from .serving import (
     AdmissionClosedError,
     DecodeEngine,
     Request,
     ServingStats,
+)
+from .train import (
+    AdamW,
+    TrainState,
+    init_train_state,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    train_state_from_params,
 )
 
 __all__ = [
@@ -29,4 +47,15 @@ __all__ = [
     "DecodeEngine",
     "Request",
     "ServingStats",
+    "REMAT_POLICIES",
+    "forward",
+    "chunked_cross_entropy",
+    "loss_fn",
+    "AdamW",
+    "TrainState",
+    "make_optimizer",
+    "init_train_state",
+    "train_state_from_params",
+    "make_train_step",
+    "make_eval_step",
 ]

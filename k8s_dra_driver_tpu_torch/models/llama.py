@@ -1,7 +1,15 @@
-"""Llama-3 family causal LM: configuration, parameters and the dense layer
-pieces the serving path runs. Counterpart of
-``k8s_dra_driver_tpu/models/llama.py`` (training -- ``forward``,
-``loss_fn``, remat -- is not ported yet).
+"""Llama-3 family causal LM: configuration, parameters, the dense layers
+the serving path runs, and the training forward and loss. Counterpart of
+``k8s_dra_driver_tpu/models/llama.py``.
+
+The training forward (:func:`forward`, :func:`loss_fn`) maps the
+reference's ``lax.scan`` over layers to a loop over the layers' views,
+and its remat policy ``"full"`` to ``torch.utils.checkpoint`` around each
+layer (the flash kernel then runs twice per layer and step, as under the
+reference's full remat). The named policies save chosen residuals; their
+PyTorch counterpart, selective activation checkpointing, is not built
+yet, so they raise. Ring attention (the ``use_ring`` branch) waits for
+the multi-GPU slice.
 
 Parameters are a plain dict with the reference's structure and layouts,
 layers stacked on axis 0:
@@ -17,14 +25,17 @@ layers stacked on axis 0:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..ops.attention import _repeat_kv, attention_reference, flash_attention
 from ..ops.norms import rmsnorm, rmsnorm_reference
-from ..ops.rotary import apply_rope
+from ..ops.rotary import apply_rope, rope_frequencies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +54,12 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.n_heads
+
+    def flops_per_token(self, seq: int | None = None) -> float:
+        """Dense fwd+bwd FLOPs/token ~ 6N + the attention term (at ``seq``,
+        default max_seq_len)."""
+        attn = 12 * self.n_layers * self.hidden * (seq or self.max_seq_len)
+        return 6 * self.num_params() + attn
 
     def num_params(self) -> int:
         h, m, v, l = self.hidden, self.mlp_hidden, self.vocab_size, self.n_layers
@@ -167,3 +184,135 @@ def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
     up = gu[..., 1, :].float()
     prod = (gate * up).to(x.dtype)
     return x + (prod @ layer["w_down"]).to(x.dtype)
+
+
+def _attention_block(x, layer, config: LlamaConfig, cos, sin,
+                     use_kernels: bool = True):
+    """Norm, QKV + rope, causal attention, output projection + residual.
+    ``use_kernels=False`` runs the plain RMSNorm and attention even on
+    CUDA tensors (the kernel-versus-plain comparison)."""
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    xn = norm(x, layer["ln_attn"], config.norm_eps)
+    q, k, v = project_qkv(xn, layer, config, cos, sin)
+    if use_kernels:
+        o = flash_attention(q, k, v, causal=True)
+    else:
+        g = config.n_heads // config.n_kv_heads
+        o = attention_reference(q, _repeat_kv(k, g), _repeat_kv(v, g),
+                                causal=True)
+    return attn_out(x, o, layer)
+
+
+def _block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool):
+    x = _attention_block(x, layer, config, cos, sin, use_kernels)
+    return _mlp_block(x, layer, config, use_kernels=use_kernels)
+
+
+# Remat policies of the reference, by name. "full" recomputes each layer
+# in the backward; the others save the named residuals (flash out + lse,
+# q/k/v, the MLP product, MoE routing), which needs selective activation
+# checkpointing -- not built in the port yet.
+REMAT_POLICIES = {
+    "full": None,
+    "flash": ("flash_out", "attn_o", "moe_routing"),
+    "flash_qkv": ("flash_out", "flash_qkv", "attn_o", "moe_routing"),
+    "flash_mlp": ("flash_out", "attn_o", "mlp_prod", "moe_routing"),
+    "flash_min": ("flash_out", "moe_routing"),
+    "flash_moe": ("flash_out", "moe_routing", "moe_gu"),
+}
+
+
+def _remat_transform(remat: bool, remat_policy: str):
+    if not remat or remat_policy == "none":
+        return lambda f: f
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {remat_policy!r}; valid: "
+            f"{['none', *REMAT_POLICIES]}"
+        )
+    if REMAT_POLICIES[remat_policy] is not None:
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} saves named residuals, which "
+            f"needs selective activation checkpointing (ROADMAP A10b, not "
+            f"ported yet); use 'full' or 'none'"
+        )
+    return lambda f: functools.partial(checkpoint, f, use_reentrant=False)
+
+
+def forward(
+    params: dict,
+    tokens: torch.Tensor,               # [B, S] int
+    config: LlamaConfig,
+    remat: bool = False,
+    return_hidden: bool = False,
+    remat_policy: str = "full",
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Causal LM forward -> logits [B, S, V] (f32), or the final hidden
+    states [B, S, H] when ``return_hidden`` (the loss projects to vocab
+    chunkwise instead).
+
+    Each stacked weight is unbound once into per-layer views, so its
+    gradient is stacked once in the backward instead of being scattered
+    into a zero tensor of the whole stack per layer."""
+    c = config
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()]                  # [B, S, H]
+    cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
+                                device=tokens.device)
+    block = _remat_transform(remat, remat_policy)(_block)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(c.n_layers):
+        layer = {name: ws[i] for name, ws in layers.items()}
+        x = block(x, layer, c, cos, sin, use_kernels)
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    x = norm(x, params["final_norm"], c.norm_eps)
+    if return_hidden:
+        return x
+    return (x @ params["lm_head"]).float()
+
+
+def _ce_chunk(x, lm_head, t):
+    logits = (x @ lm_head).float()                      # [B, chunk, V]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,               # [B, S, H]
+    lm_head: torch.Tensor,              # [H, V]
+    targets: torch.Tensor,              # [B, S]
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Next-token CE (mean over tokens) without a [B, S, V] logits slab:
+    each sequence chunk's projection is checkpointed, so one
+    [B, chunk, V] slab lives in the forward and in the backward
+    (recomputed). Default chunk: ``max(128, 8192 // B)`` on the card, 256
+    on the CPU; it shrinks to the largest divisor of S not above it."""
+    b, s, _ = hidden.shape
+    if chunk is None:
+        chunk = max(128, 8192 // max(b, 1)) if hidden.is_cuda else 256
+    if s % chunk:
+        chunk = next(c for c in range(min(chunk, s), 0, -1) if s % c == 0)
+    targets = targets.long()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for x, t in zip(hidden.split(chunk, dim=1), targets.split(chunk, dim=1)):
+        total = total + checkpoint(_ce_chunk, x, lm_head, t,
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def loss_fn(
+    params: dict,
+    tokens: torch.Tensor,               # [B, S+1]: inputs + shifted targets
+    config: LlamaConfig,
+    remat: bool = True,
+    remat_policy: str = "full",
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Next-token cross-entropy (mean over tokens)."""
+    hidden = forward(params, tokens[:, :-1], config, remat=remat,
+                     return_hidden=True, remat_policy=remat_policy,
+                     use_kernels=use_kernels)
+    return chunked_cross_entropy(hidden, params["lm_head"], tokens[:, 1:])

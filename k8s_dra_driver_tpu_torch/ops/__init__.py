@@ -1,20 +1,38 @@
-"""Ops of the serving path: paged attention and RMSNorm (hand-written
-Hopper kernels with their plain PyTorch versions) and rotary embeddings."""
+"""Ops of the serving and training paths: paged and flash attention and
+RMSNorm (hand-written Hopper kernels with their plain PyTorch versions)
+and rotary embeddings."""
 
 from .attention import (
+    FlashAttentionFunction,
+    attention_reference,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_forward,
+    flash_bwd_dkdv,
+    flash_bwd_dq,
+    flash_fwd,
     paged_attention_reference,
     paged_decode_attention,
     paged_prefill_attention,
 )
-from .norms import rmsnorm, rmsnorm_reference
+from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
 from .rotary import apply_rope, rope_frequencies
 
 __all__ = [
     "paged_attention_reference",
     "paged_decode_attention",
     "paged_prefill_attention",
+    "attention_reference",
+    "flash_attention",
+    "flash_attention_forward",
+    "flash_attention_backward",
+    "flash_fwd",
+    "flash_bwd_dkdv",
+    "flash_bwd_dq",
+    "FlashAttentionFunction",
     "rmsnorm",
     "rmsnorm_reference",
+    "RMSNormFunction",
     "apply_rope",
     "rope_frequencies",
 ]

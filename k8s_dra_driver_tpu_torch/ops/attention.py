@@ -1,7 +1,8 @@
-"""Paged attention over one paged KV pool: the plain PyTorch version and
-the wrappers over the two CUDA kernels of ``csrc/paged_attention.cu``.
+"""Attention: the paged half (serving) and the flash half (training), each
+a plain PyTorch version beside wrappers over hand-written CUDA kernels.
 
-Counterpart of the paged half of ``k8s_dra_driver_tpu/ops/attention.py``:
+Counterpart of ``k8s_dra_driver_tpu/ops/attention.py``. The paged half,
+over ``csrc/paged_attention.cu``:
 
 - :func:`paged_attention_reference` is the plain version (any T, any
   ``positions`` layout): gather each sequence's window through its block
@@ -11,9 +12,24 @@ Counterpart of the paged half of ``k8s_dra_driver_tpu/ops/attention.py``:
 - :func:`paged_prefill_attention` wraps ``paged_prefill``, which replaces
   ``_paged_prefill_kernel``.
 
+The flash half, over ``csrc/flash_attention.cu``:
+
+- :func:`attention_reference` is plain attention (causal offset
+  ``skv - sq``), the numerics oracle.
+- :func:`flash_fwd` (out and natural-log lse), :func:`flash_bwd_dkdv` and
+  :func:`flash_bwd_dq` wrap the kernels that replace ``_flash_kernel``,
+  ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``; each has its
+  plain version (``*_reference``).
+- :func:`flash_attention_forward` and :func:`flash_attention_backward`
+  mirror ``_flash_attention_pallas`` (``return_lse``) and
+  ``_flash_attention_bwd_pallas``: the per-hop calls ring attention needs.
+- :class:`FlashAttentionFunction` takes the place of ``_flash_diff``, and
+  :func:`flash_attention` is what the model calls.
+
 The public layouts are the JAX package's: q ``[B, Hq, D]`` or
-``[B, Hq, T, D]``, pools ``[H_kv, P, D]``, tables ``[B, NBPS]`` int32.
-The CUDA source's header says what bounds each kernel on the H100 and
+``[B, Hq, T, D]``, pools ``[H_kv, P, D]``, tables ``[B, NBPS]`` int32;
+flash q ``[B, Hq, S, D]``, k/v ``[B, H_kv, S, D]``, lse ``[B, Hq, S]``.
+The CUDA sources' headers say what bounds each kernel on the H100 and
 how the design answers it.
 
 A wrapper takes the plain version only for CPU tensors. For CUDA tensors
@@ -227,3 +243,305 @@ def paged_prefill_attention(
 
 
 paged_prefill_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (the dense training path)
+# ---------------------------------------------------------------------------
+
+_FLASH_SOURCE = "flash_attention"
+_FLASH_FWD_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]
+_FLASH_DKDV_ARGTYPES = [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]
+_FLASH_DQ_ARGTYPES = [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]
+_FLASH_LIB = None
+
+
+def _flash_library():
+    global _FLASH_LIB
+    if _FLASH_LIB is None:
+        lib = _build.load(_FLASH_SOURCE)
+        for name, argtypes in (("flash_fwd", _FLASH_FWD_ARGTYPES),
+                               ("flash_bwd_dkdv", _FLASH_DKDV_ARGTYPES),
+                               ("flash_bwd_dq", _FLASH_DQ_ARGTYPES)):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = _INT
+        _FLASH_LIB = lib
+    return _FLASH_LIB
+
+
+def _repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
+    """kv heads repeated so query head h reads kv head h // group."""
+    return x if group == 1 else x.repeat_interleave(group, dim=1)
+
+
+def _causal_mask(sq: int, skv: int, device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    return torch.arange(skv, device=device)[None, :] <= qpos
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain attention. q, k, v: [B, H, S, D] with as many kv heads as q
+    heads (GQA repeats outside); query i of sq sees kv position j when
+    ``j <= i + skv - sq``. Returns [B, H, S, D] in q's dtype."""
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = torch.where(_causal_mask(sq, skv, q.device), s,
+                        torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v).to(q.dtype)
+
+
+def _scores(q, k, causal, scale):
+    """Scaled f32 scores [B, Hq, S, S] with masked entries at NEG_INF."""
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     _repeat_kv(k, g).float()) * scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
+                        torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_fwd_reference(q, k, v, causal: bool, scale: float):
+    """The plain version of ``flash_fwd``: (out in q's dtype, natural-log
+    lse [B, Hq, S] f32)."""
+    s = _scores(q, k, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    g = q.shape[1] // k.shape[1]
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype),
+                       _repeat_kv(v, g))
+    return out.to(q.dtype), lse
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
+    """p rebuilt from lse (masked entries exactly 0) and dS = p * (dO V^T
+    - delta), both f32 [B, Hq, S, S]."""
+    g = q.shape[1] // k.shape[1]
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None].float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                      _repeat_kv(v, g).float())
+    return p, p * (dp - delta[..., None].float())
+
+
+def _sum_group(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    b, hq, s, d = x.shape
+    return x.reshape(b, hkv, hq // hkv, s, d).sum(dim=2)
+
+
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal: bool,
+                             scale: float):
+    """The plain version of ``flash_bwd_dkdv``: (dk, dv) at kv-head count,
+    summed over each kv head's query group. p and dS are rounded to the
+    input dtype before their products, as the kernels do."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    hkv = k.shape[1]
+    return (_sum_group(dk, hkv).to(k.dtype),
+            _sum_group(dv, hkv).to(v.dtype))
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
+                           scale: float):
+    """The plain version of ``flash_bwd_dq``."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    g = q.shape[1] // k.shape[1]
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
+                      _repeat_kv(k, g).float()) * scale
+    return dq.to(q.dtype)
+
+
+def _check_flash_args(kernel, q, k, v, bf16: dict, f32: dict) -> None:
+    """What the flash kernels take: one CUDA device, contiguous 16-byte
+    aligned tensors, bf16 activations and f32 row statistics,
+    q [B, Hq, S, D] with k, v [B, H_kv, S, D], D 64 or 128."""
+    for name, x in {**bf16, **f32}.items():
+        if x.device != q.device or not x.is_cuda:
+            raise ValueError(
+                f"{kernel}: {name} on {x.device}; every input must sit on "
+                f"one CUDA device (or all on the CPU)"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
+    for name, x in bf16.items():
+        if x.dtype != torch.bfloat16:
+            raise TypeError(
+                f"{kernel}: {name} is {x.dtype}; the kernel takes bf16")
+    for name, x in f32.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} must be float32, got {x.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; expected [B, H, S, D]")
+    b, hq, s, d = q.shape
+    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d:
+        raise ValueError(f"{kernel}: k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} (same B, S and D)")
+    if d not in (64, 128):
+        raise ValueError(f"{kernel}: head_dim {d}; the kernel takes 64 or "
+                         f"128")
+    if hq % k.shape[1]:
+        raise ValueError(f"{kernel}: {hq} query heads on {k.shape[1]} kv "
+                         f"heads")
+    for name, x in f32.items():
+        if x.shape != (b, hq, s):
+            raise ValueError(f"{kernel}: {name} {tuple(x.shape)} != "
+                             f"{(b, hq, s)}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_fwd(q, k, v, causal: bool = True, scale: float | None = None):
+    """Flash attention forward: (out [B, Hq, S, D], lse [B, Hq, S] f32,
+    natural log). Replaces ``_flash_kernel``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _is_cpu(q, k, v):
+        return flash_fwd_reference(q, k, v, causal, scale)
+    _check_flash_args("flash_fwd", q, k, v, dict(q=q, k=k, v=v), {})
+    b, hq, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _flash_library().flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, hq, k.shape[1], s, d, int(causal),
+            float(scale), _stream(q),
+        )
+    _build.check(rc, "flash_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
+                   scale: float | None = None):
+    """dK and dV at kv-head count from (q, k, v, dO, lse, delta).
+    Replaces ``_flash_bwd_dkdv_kernel``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _is_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                        scale)
+    _check_flash_args("flash_bwd_dkdv", q, k, v,
+                      dict(q=q, k=k, v=v, do=do),
+                      dict(lse=lse, delta=delta))
+    if do.shape != q.shape:
+        raise ValueError(f"flash_bwd_dkdv: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    b, hq, s, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _flash_library().flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, hq, k.shape[1], s, d, int(causal), float(scale), _stream(q),
+        )
+    _build.check(rc, "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 scale: float | None = None):
+    """dQ per query head from (q, k, v, dO, lse, delta). Replaces
+    ``_flash_bwd_dq_kernel``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _is_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    _check_flash_args("flash_bwd_dq", q, k, v, dict(q=q, k=k, v=v, do=do),
+                      dict(lse=lse, delta=delta))
+    if do.shape != q.shape:
+        raise ValueError(f"flash_bwd_dq: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    b, hq, s, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _flash_library().flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq,
+            k.shape[1], s, d, int(causal), float(scale), _stream(q),
+        )
+    _build.check(rc, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_attention_forward(q, k, v, causal: bool = True,
+                            scale: float | None = None,
+                            return_lse: bool = False):
+    """Counterpart of ``_flash_attention_pallas``: out, or (out, lse) with
+    ``return_lse`` -- what each ring-attention hop needs."""
+    out, lse = flash_fwd(q, k, v, causal, scale)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q, k, v, out, lse, do, causal: bool = True,
+                             scale: float | None = None):
+    """Counterpart of ``_flash_attention_bwd_pallas``: (dq, dk, dv).
+    ``delta = rowsum(dO * O)`` is plain f32 PyTorch, outside the kernels,
+    as the reference leaves it to XLA."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Autograd through the flash kernels (the place of ``_flash_diff``):
+    the forward saves q, k, v, out and lse; the backward rebuilds the
+    score tiles from lse, so neither direction holds an [S, S] tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_attention_forward(q, k, v, causal, scale,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do.contiguous(), ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention with GQA, q [B, Hq, S, D], k/v [B, H_kv, S, D].
+
+    CPU tensors run :func:`attention_reference` with the kv heads
+    repeated, under plain autograd. CUDA tensors go through
+    :class:`FlashAttentionFunction` -- the kernels forward and backward,
+    with query head h reading kv head h // G in place -- or raise."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _is_cpu(q, k, v):
+        g = q.shape[1] // k.shape[1]
+        return attention_reference(q, _repeat_kv(k, g), _repeat_kv(v, g),
+                                   causal, scale)
+    return FlashAttentionFunction.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal, scale)

@@ -15,6 +15,11 @@ input dtype. Rows are independent, so the grid is simply ``rows``.
 On the CPU the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``triton`` is imported only when the
 kernel is first launched: hosts without it can still import the module.
+
+Gradients: on the card the kernel runs inside :class:`RMSNormFunction`,
+whose backward recomputes through :func:`rmsnorm_reference` (the
+reference's ``_rmsnorm_diff_bwd``); there is no backward kernel, as the
+JAX package has none.
 """
 
 from __future__ import annotations
@@ -62,13 +67,11 @@ def _triton_kernel():
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
-def rmsnorm(
-    x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
-) -> torch.Tensor:
-    """RMSNorm over the last dim. x: [..., D], weight: [D].
-
-    CPU tensors take :func:`rmsnorm_reference`; CUDA tensors launch the
-    Triton kernel (counted in ``rmsnorm.launches``) or raise."""
+def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """The forward without autograd: the plain version on CPU tensors, the
+    Triton kernel (counted in ``rmsnorm.launches``) on CUDA tensors, or
+    raise."""
     if x.device.type == "cpu" and weight.device.type == "cpu":
         return rmsnorm_reference(x, weight, eps)
     if not (x.is_cuda and weight.is_cuda and x.device == weight.device):
@@ -97,6 +100,41 @@ def rmsnorm(
             )
         rmsnorm.launches += 1
     return out
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The kernel's forward with the reference's gradient: the backward
+    recomputes :func:`rmsnorm_reference` under autograd and takes its
+    vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            x_ = x.detach().requires_grad_()
+            w_ = weight.detach().requires_grad_()
+            y = rmsnorm_reference(x_, w_, ctx.eps)
+            dx, dw = torch.autograd.grad(y, (x_, w_), g)
+        return dx, dw, None
+
+
+def rmsnorm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """RMSNorm over the last dim. x: [..., D], weight: [D].
+
+    CPU tensors take :func:`rmsnorm_reference` under plain autograd; CUDA
+    tensors launch the Triton kernel (counted in ``rmsnorm.launches``)
+    through :class:`RMSNormFunction`, or raise."""
+    if x.device.type == "cpu" and weight.device.type == "cpu":
+        return rmsnorm_reference(x, weight, eps)
+    return RMSNormFunction.apply(x, weight, eps)
 
 
 rmsnorm.launches = 0

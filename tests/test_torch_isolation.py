@@ -15,7 +15,15 @@ import pytest
 import torch
 
 from k8s_dra_driver_tpu_torch import resolve_device
-from k8s_dra_driver_tpu_torch.models import DecodeEngine, generate, init_params
+from k8s_dra_driver_tpu_torch.models import (
+    DecodeEngine,
+    generate,
+    init_params,
+    init_train_state,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 from k8s_dra_driver_tpu_torch.models.llama import PRESETS
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +87,13 @@ def test_entry_points_default_to_the_card():
         DecodeEngine(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         generate(params, [[1, 2, 3]], cfg, 2)
+    opt = make_optimizer(warmup_steps=1, total_steps=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

@@ -5,9 +5,11 @@ on the card. Imports no JAX, so it runs on the machine with the GPU:
 
 Without a CUDA device every test here skips (the kernels have no CPU
 mode; the plain versions are held against the JAX package by
-``tests/test_torch_ops.py``). Tolerances, bf16: attention max abs error
-2e-2 and mean 2e-3 (bf16 output rounding and another summation order),
-RMSNorm 1e-2 relative to the largest output.
+``tests/test_torch_ops.py``). Tolerances, bf16: paged attention max abs
+error 2e-2 and mean 2e-3 (bf16 output rounding and another summation
+order), RMSNorm 1e-2 relative to the largest output; flash outputs and
+gradients within 2% of the plain version's largest value and 1% of its
+mean magnitude (bf16 rounding of p, dS and the outputs), lse within 1e-3.
 """
 
 import pytest
@@ -138,3 +140,118 @@ def test_rmsnorm_matches_plain(dev, rows, width, dtype):
     assert norms.rmsnorm.launches == before + 1
     assert torch.isfinite(out).all()
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+
+
+def _flash_inputs(dev, b, hq, hkv, s, d, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    return (rand(b, hq, s, d), rand(b, hkv, s, d), rand(b, hkv, s, d),
+            rand(b, hq, s, d))
+
+
+def _rel_close(name, out, ref, rel_max=2e-2, rel_mean=1e-2):
+    """bf16 outputs against the plain version: the largest error within 2%
+    of the largest value, the mean error within 1% of the mean value."""
+    assert torch.isfinite(out.float()).all(), name
+    err = (out.float() - ref.float()).abs()
+    top, avg = ref.float().abs().max(), ref.float().abs().mean()
+    assert err.max() <= rel_max * top, (name, err.max().item(), top.item())
+    assert err.mean() <= rel_mean * avg, (name, err.mean().item(), avg.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [128, 200, 512])     # 200: a ragged last tile
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])   # G = 1 and 4
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernels_match_plain(dev, d, hq, hkv, s, causal):
+    q, k, v, do = _flash_inputs(dev, 2, hq, hkv, s, d)
+    scale = d ** -0.5
+    launches = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+                att.flash_bwd_dq.launches)
+    out, lse = att.flash_fwd(q, k, v, causal, scale)
+    ref_out, ref_lse = att.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, causal, scale)
+    dq = att.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+    ref_dk, ref_dv = att.flash_bwd_dkdv_reference(q, k, v, do, ref_lse,
+                                                  delta, causal, scale)
+    ref_dq = att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, causal,
+                                        scale)
+    torch.cuda.synchronize()
+    assert (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+            att.flash_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    assert out.dtype == dk.dtype == dq.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for name, a, b_ in (("out", out, ref_out), ("dk", dk, ref_dk),
+                        ("dv", dv, ref_dv), ("dq", dq, ref_dq)):
+        _rel_close(name, a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_plain(dev):
+    """Gradients through the autograd.Function (kernels both ways) equal
+    autograd through the plain attention with repeated kv heads."""
+    q, k, v, do = _flash_inputs(dev, 2, 8, 2, 256, 128, seed=3)
+    grads = []
+    for use_kernels in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        if use_kernels:
+            out = att.flash_attention(*leaves, causal=True)
+        else:
+            out = att.attention_reference(
+                leaves[0], att._repeat_kv(leaves[1], 4),
+                att._repeat_kv(leaves[2], 4), causal=True)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), *grads):
+        _rel_close(name, a, b_)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_grads_match_plain(dev):
+    """The kernel's output carries autograd history on the card: x and
+    weight gradients equal those through the plain version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    x = torch.randn(4, 128, 4096, generator=g, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).bfloat16()
+    dy = torch.randn(4, 128, 4096, generator=g, device=dev).bfloat16()
+    grads = []
+    for fn in (norms.rmsnorm, norms.rmsnorm_reference):
+        xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xt, wt, 1e-5)
+        assert y.requires_grad
+        grads.append(torch.autograd.grad(y, (xt, wt), dy))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dx", "dw"), *grads):
+        assert a.abs().max() > 0, name
+        _rel_close(name, a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, do = _flash_inputs(dev, 1, 4, 2, 64, 64)
+    lse = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        att.flash_fwd(q.float(), k, v)
+    with pytest.raises(TypeError, match="float32"):
+        att.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.flash_bwd_dkdv(q, k, v, do, lse.cpu(), lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        att.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        att.flash_bwd_dkdv(q, k, v, do.transpose(1, 2), lse, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                      v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="query heads"):
+        att.flash_fwd(q[:, :3].contiguous(), k, v)

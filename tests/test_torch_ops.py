@@ -8,10 +8,13 @@ card (``tests/test_torch_kernels.py``, and ``chip_smoke.py`` at
 Llama-3-8B shapes).
 
 Tolerances: f32 throughout; RMSNorm and RoPE at atol 1e-6 / rtol 1e-5
-(the same f32 formula), paged attention at atol 2e-5 (the softmax and the
-two contractions sum in a different order).
+(the same f32 formula; RMSNorm gradients 1e-5), paged and flash
+attention at atol 2e-5 (the softmax and the two contractions sum in a
+different order), flash gradients at atol/rtol 5e-4 as in the
+reference's own tests.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,3 +219,126 @@ class TestPagedPrefill:
                 q[:, :, 0], pool, pool, tables,
                 torch.ones(1, dtype=torch.int32, device="meta"), 8)
 
+
+
+def _qkv(seed, b, hq, hkv, s, d):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, hq, s, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32))
+
+
+FLASH_CASES = [  # (causal, Hq, H_kv): G = 1 and G = 2, causal and not
+    (True, 4, 2), (True, 2, 2), (False, 4, 2), (False, 2, 2),
+]
+
+
+class TestFlashAttention:
+    """The flash half's plain versions against the Pallas kernels in
+    interpret mode at S=64 with 16-row blocks (several q and kv blocks,
+    the diagonal straddle and the skipped blocks). Tolerance, f32: out and
+    lse atol 2e-5; gradients atol/rtol 5e-4, as the reference's own
+    flash-gradient tests."""
+
+    B, S, D, BLOCK = 2, 64, 16, 16
+
+    @pytest.mark.parametrize("causal,hq,hkv", FLASH_CASES)
+    def test_forward_and_lse_match_pallas(self, causal, hq, hkv):
+        q, k, v = _qkv(0, self.B, hq, hkv, self.S, self.D)
+        scale = self.D ** -0.5
+        jout, jlse = jatt._flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+            block_q=self.BLOCK, block_k=self.BLOCK, interpret=True,
+            return_lse=True)
+        out, lse = tatt.flash_attention_forward(
+            _t(q), _t(k), _t(v), causal, scale, return_lse=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **ATT_TOL)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **ATT_TOL)
+
+    @pytest.mark.parametrize("causal,hq,hkv", FLASH_CASES[:2] + FLASH_CASES[2:3])
+    def test_backward_matches_pallas(self, causal, hq, hkv):
+        q, k, v = _qkv(1, self.B, hq, hkv, self.S, self.D)
+        do = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
+        scale = self.D ** -0.5
+        args = [jnp.asarray(x) for x in (q, k, v)]
+        jout, jlse = jatt._flash_attention_pallas(
+            *args, causal, scale, block_q=self.BLOCK, block_k=self.BLOCK,
+            interpret=True, return_lse=True)
+        want = jatt._flash_attention_bwd_pallas(
+            *args, jout, jlse, jnp.asarray(do), causal, scale,
+            block_q=self.BLOCK, block_k=self.BLOCK, interpret=True)
+        got = tatt.flash_attention_backward(
+            _t(q), _t(k), _t(v), _t(np.asarray(jout)), _t(np.asarray(jlse)),
+            _t(do), causal, scale)
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=5e-4,
+                                       rtol=5e-4, err_msg=name)
+
+    def test_autograd_matches_jax_grad_through_flash_diff(self):
+        """Both the model's entry (plain autograd on the CPU) and the
+        autograd.Function the card uses, against ``jax.grad`` through
+        ``_flash_diff`` (Pallas forward and backward, interpret mode)."""
+        hq, hkv = 4, 2
+        q, k, v = _qkv(3, self.B, hq, hkv, self.S, self.D)
+        w = np.random.RandomState(4).randn(*q.shape).astype(np.float32)
+        scale = self.D ** -0.5
+
+        def jloss(q_, k_, v_):
+            out = jatt._flash_diff(q_, k_, v_, True, scale, True,
+                                   self.BLOCK, self.BLOCK)
+            return jnp.sum(out * jnp.asarray(w))
+
+        want = jax.grad(jloss, argnums=(0, 1, 2))(
+            *[jnp.asarray(x) for x in (q, k, v)])
+        for fn in (lambda *a: tatt.flash_attention(*a, causal=True),
+                   lambda *a: tatt.FlashAttentionFunction.apply(
+                       *a, True, scale)):
+            leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+            loss = (fn(*leaves) * _t(w)).sum()
+            got = torch.autograd.grad(loss, leaves)
+            for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b_),
+                                           atol=5e-4, rtol=5e-4,
+                                           err_msg=name)
+
+    def test_attention_reference_causal_offset_matches_jax(self):
+        """sq < skv: query i sees kv positions <= i + skv - sq."""
+        rng = np.random.RandomState(5)
+        q = rng.randn(1, 2, 5, 8).astype(np.float32)
+        k = rng.randn(1, 2, 9, 8).astype(np.float32)
+        v = rng.randn(1, 2, 9, 8).astype(np.float32)
+        want = jatt.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True)
+        got = tatt.attention_reference(_t(q), _t(k), _t(v), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+    def test_wrappers_refuse_non_cpu_tensors_without_a_card(self):
+        q = torch.empty(1, 4, 8, 64, device="meta", dtype=torch.bfloat16)
+        kv = torch.empty(1, 2, 8, 64, device="meta", dtype=torch.bfloat16)
+        rows = torch.empty(1, 4, 8, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.flash_fwd(q, kv, kv)
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.flash_bwd_dkdv(q, kv, kv, q, rows, rows)
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.flash_bwd_dq(q, kv, kv, q, rows, rows)
+
+
+def test_rmsnorm_function_grads_match_jax_vjp():
+    """The autograd.Function the card runs (its forward takes the plain
+    version on CPU tensors) and the CPU entry both give the reference's
+    ``jax.vjp`` of ``rmsnorm_reference``."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(3, 5, 32).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(32)).astype(np.float32)
+    g = rng.randn(3, 5, 32).astype(np.float32)
+    eps = 1e-5
+    _, vjp = jax.vjp(lambda a, b: jnorms.rmsnorm_reference(a, b, eps),
+                     jnp.asarray(x), jnp.asarray(w))
+    want = vjp(jnp.asarray(g))
+    for fn in (tnorms.rmsnorm, tnorms.RMSNormFunction.apply):
+        xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+        got = torch.autograd.grad(fn(xt, wt, eps), (xt, wt), _t(g))
+        for a, b_ in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=1e-5,
+                                       rtol=1e-5)
