@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its two paths,
-serving at the full width and depth of Llama-3-8B and training at the
-Llama-3-8B widths cut to 8 layers (``8b-L8``), bf16 with random weights
-from a fixed seed, and checks every hand-written kernel of those paths:
+Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its three paths,
+serving at the full width and depth of Llama-3-8B, training at the
+Llama-3-8B widths cut to 8 layers (``8b-L8``) and MoE serving at the
+Mixtral-8x7B widths cut to 16 layers (``8x7b`` with ``n_layers=16``: 47 GB
+of bf16 weights, where all 32 layers would not fit one 80 GB card), bf16
+with random weights from a fixed seed, and checks every hand-written
+kernel of those paths:
 
 1. builds the CUDA sources of ``k8s_dra_driver_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and the Triton RMSNorm;
@@ -26,10 +29,21 @@ from a fixed seed, and checks every hand-written kernel of those paths:
 6. trains 8b-L8 with ``make_train_step`` (batch 8 x 2048, remat "full",
    AdamW): one warm-up step, 5 timed steps and one step under
    ``torch.profiler`` (device time by kernel group, the device's busy
-   share) on one fixed batch (the training path).
+   share) on one fixed batch (the training path);
+7. frees the training state, builds 8x7b-L16, and holds the fused MoE
+   dispatch kernels (K7 ``moe_gateup``, K8 ``moe_down_combine``) against
+   their plain versions on layer 0's experts and a plan from its router,
+   at the decode step's shape (8 tokens, tile 8) and the packed prefill
+   chunk's (512 tokens, tile 128), and times both;
+8. runs one 8x7b-L16 forward -- a prefill chunk, then decode steps --
+   through the kernels and through the plain versions, and compares the
+   logits;
+9. serves phase 4's traffic through ``DecodeEngine`` on 8x7b-L16 (the
+   MoE serving path) and checks that K7 and K8 ran once per layer and
+   forward.
 
-Every kernel's launch count is set to 0 just before each path (phases 4
-and 6) and read just after. Prints the card's name and power limit, one
+Every kernel's launch count is set to 0 just before each path (phases 4,
+6 and 9) and read just after. Prints the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -39,6 +53,7 @@ result, where no CUDA device is present or the package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -66,6 +81,10 @@ PREFIX_LEN = 256
 TRAIN_BATCH = 8
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 5
+MOE_LAYERS = 16
+# Phase 8: the routing flips that kernel noise may cause (compare_forward).
+FLIP_MARGIN_LIMIT = 1e-2
+FLIP_SHARE_LIMIT = 2e-2
 
 
 def log(*parts) -> None:
@@ -117,6 +136,36 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel(name, out, ref, rel_max=2e-2, rel_mean=1e-2):
+    """Kernel output against its plain version: the largest error within
+    ``rel_max`` of the plain output's largest magnitude, the mean error
+    within ``rel_mean`` of its mean magnitude. The defaults fit a bf16
+    output (its rounding alone is 0.4%); an f32 output that the kernel
+    sums in f32 is held to tighter limits. Returns (max abs error,
+    relative)."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    r = err.max().item() / top
+    m = err.mean().item() / ref.float().abs().mean().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"{name}: max_abs_err={err.max().item():.3e} rel_max={r:.3e} "
+        f"rel_mean={m:.3e} finite={finite}")
+    if not finite or r > rel_max or m > rel_mean:
+        raise AssertionError(
+            f"{name} disagrees with its plain version: max error "
+            f"{r} of the largest value (limit {rel_max}), mean {m} of the "
+            f"mean value (limit {rel_mean})")
+    return err.max().item(), r
+
+
+# K8 writes f32 and sums in f32 from bf16 operands, so it differs from its
+# plain version only by summation order (~2e-5 relative on the H100); these
+# limits fail a bf16 accumulator or a bf16 output (~2-4e-3).
+K8_REL_MAX, K8_REL_MEAN = 1e-3, 1e-4
 
 
 def paged_inputs(torch, gen, dev, lens_needed, nbps, hkv, d):
@@ -290,21 +339,6 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
         rand(b, hq, s, d)
     shape = f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{s},{d}] causal"
 
-    def rel(name, out, ref):
-        err = (out.float() - ref.float()).abs()
-        top = ref.float().abs().max().item()
-        r = err.max().item() / top
-        m = err.mean().item() / ref.float().abs().mean().item()
-        finite = bool(torch.isfinite(out.float()).all())
-        log(f"{name}: max_abs_err={err.max().item():.3e} rel_max={r:.3e} "
-            f"rel_mean={m:.3e} finite={finite}")
-        if not finite or r > 2e-2 or m > 1e-2:
-            raise AssertionError(
-                f"{name} disagrees with its plain version: max error "
-                f"{r} of the largest value (limit 2e-2), mean {m} of the "
-                f"mean value (limit 1e-2)")
-        return err.max().item(), r
-
     out, lse = att.flash_fwd(q, k, v, True, scale)
     ref_out, ref_lse = att.flash_fwd_reference(q, k, v, True, scale)
     torch.cuda.synchronize()
@@ -377,49 +411,127 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
 
 
 def compare_forward(torch, params, cfg, dev) -> dict:
-    """Phase 3: one 8B forward through the kernels and through the plain
-    versions, on identical caches and tokens."""
+    """Phase 3 (and phase 8 on the MoE config): one forward through the
+    kernels and through the plain versions, on identical caches and
+    tokens.
+
+    On an MoE config the router's top-2 choice is discrete: the bf16 noise
+    of the attention and norm kernels flips near-tie choices, and one flip
+    changes a token's hidden state far more than any kernel's error. So
+    the plain forward runs twice there: free, on its own routing (its
+    logit difference and the number of tokens whose expert set differs
+    are reported), and with the kernel run's expert choices replayed
+    (gates recomputed from its own router probabilities), which isolates
+    the kernels' error and is what the limit holds. The replayed run also
+    counts where its own router would have chosen another expert set
+    (a flip) and, for each flip, the margin by which the choice was made:
+    the k-th largest of the plain router's probabilities less the largest
+    plain probability of an expert only the kernel run chose. A flip from
+    kernel noise sits at a near-tie, so every margin must be under
+    ``FLIP_MARGIN_LIMIT`` and the flips at most ``FLIP_SHARE_LIMIT`` of the
+    routed (token, layer) choices: a fault that moves routing fails."""
+    from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
     from k8s_dra_driver_tpu_torch.models.paged import PagedKVCache
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     b, t, steps = 2, PREFILL_CHUNK, 4
+    is_moe = isinstance(cfg, moe.MoeConfig)
+    runs = {"kernels": "record", "plain": None}
+    if is_moe:
+        runs["replayed"] = "replay"
     caches = {
-        flag: PagedKVCache.init(cfg, b, 512, block_size=BLOCK_SIZE,
+        name: PagedKVCache.init(cfg, b, 512, block_size=BLOCK_SIZE,
                                 device=dev)
-        for flag in (True, False)
+        for name in runs
     }
+    route = moe._route_topk
+    recorded, margins, routed_tokens, mode = [], [], [0], [None]
+
+    def routing(xf, wr, c):
+        gates, experts, probs, aux = route(xf, wr, c)
+        if mode[0] == "record":
+            recorded.append(experts)
+        elif mode[0] == "replay":
+            ref = recorded.pop(0)
+            flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
+            routed_tokens[0] += experts.shape[0]
+            if bool(flipped.any()):
+                p, theirs = probs[flipped], ref[flipped].long()
+                ours = torch.zeros_like(p, dtype=torch.bool).scatter_(
+                    1, experts[flipped].long(), True)
+                kth = p.topk(c.top_k, dim=1).values[:, -1]
+                only_theirs = torch.where(torch.gather(ours, 1, theirs),
+                                          torch.full_like(kth[:, None], -1),
+                                          torch.gather(p, 1, theirs))
+                margins.extend((kth - only_theirs.max(1).values).tolist())
+            chosen = torch.gather(probs, 1, ref.long())
+            gates = chosen / (chosen.sum(1, keepdim=True) + 1e-9)
+            experts = ref
+        return gates, experts, probs, aux
+
     tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
                            device=dev, dtype=torch.int32)
     positions = torch.arange(t, device=dev)
     worst, agree, total, rel = 0.0, 0, 0, 0.0
-    for step in range(steps + 1):
-        logits = {}
-        for flag in (True, False):
-            logits[flag], caches[flag] = _forward_with_cache(
-                params, tokens, caches[flag], cfg, positions,
-                use_kernels=flag)
-        a, p = logits[True][:, -1], logits[False][:, -1]
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"non-finite logits at step {step}")
-        worst = max(worst, (a - p).abs().max().item())
-        rel = max(rel, ((a - p).norm() / p.norm()).item())
-        agree += int((a.argmax(-1) == p.argmax(-1)).sum())
-        total += b
-        tokens = a.argmax(-1).to(torch.int32)[:, None]
-        positions = caches[True].lengths[:, None]
+    free_worst, free_agree, free_rel = 0.0, 0, 0.0
+    moe._route_topk = routing
+    try:
+        for step in range(steps + 1):
+            logits = {}
+            for name, how in runs.items():
+                mode[0] = how
+                logits[name], caches[name] = _forward_with_cache(
+                    params, tokens, caches[name], cfg, positions,
+                    use_kernels=name == "kernels")
+            recorded.clear()
+            a = logits["kernels"][:, -1]
+            p = logits["replayed" if is_moe else "plain"][:, -1]
+            f = logits["plain"][:, -1]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"non-finite logits at step {step}")
+            worst = max(worst, (a - p).abs().max().item())
+            rel = max(rel, ((a - p).norm() / p.norm()).item())
+            agree += int((a.argmax(-1) == p.argmax(-1)).sum())
+            free_worst = max(free_worst, (a - f).abs().max().item())
+            free_rel = max(free_rel, ((a - f).norm() / f.norm()).item())
+            free_agree += int((a.argmax(-1) == f.argmax(-1)).sum())
+            total += b
+            tokens = a.argmax(-1).to(torch.int32)[:, None]
+            positions = caches["kernels"].lengths[:, None]
+    finally:
+        moe._route_topk = route
     result = dict(max_logit_diff=worst, rel_logit_diff=rel,
                   top1_agreement=agree / total, positions_compared=total)
+    if is_moe:
+        margins.sort()
+        result.update(free_max_logit_diff=free_worst,
+                      free_rel_logit_diff=free_rel,
+                      free_top1_agreement=free_agree / total,
+                      routing_flips=len(margins),
+                      routed_token_layers=routed_tokens[0],
+                      flip_margin_max=max(margins, default=0.0),
+                      flip_margins=margins)
     log("forward kernels vs plain:", json.dumps(result))
     if rel > 5e-2:
-        raise AssertionError(f"8B forward: relative logit difference {rel} "
+        raise AssertionError(f"forward: relative logit difference {rel} "
                              f"(limit 5e-2)")
+    if is_moe:
+        share = len(margins) / routed_tokens[0]
+        if share > FLIP_SHARE_LIMIT or max(margins, default=0.0) \
+                >= FLIP_MARGIN_LIMIT:
+            raise AssertionError(
+                f"forward: {len(margins)} routing flips of "
+                f"{routed_tokens[0]} ({share}, limit {FLIP_SHARE_LIMIT}), "
+                f"largest margin {max(margins, default=0.0)} (limit "
+                f"{FLIP_MARGIN_LIMIT})")
     return result
 
 
-def serve(torch, params, cfg, dev) -> dict:
-    """Phase 4: the engine run (the main path)."""
+def serve(torch, params, cfg, dev, label="engine") -> dict:
+    """Phase 4 (and phase 9 on the MoE config): the engine run (a main
+    path)."""
     from k8s_dra_driver_tpu_torch.models import DecodeEngine
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
@@ -475,11 +587,19 @@ def serve(torch, params, cfg, dev) -> dict:
         ttft_p50_ms=st.p50_ttft_ms(), ttft_p99_ms=st.p99_ttft_ms(),
         decode_step_p50_ms=st.p50_token_ms(),
         decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
+        prefill_launches=st.prefill_lanes_launched // eng.prefill_batch,
         prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
         cow_recomputes=st.cow_recomputes, preemptions=st.preemptions,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    log("engine:", json.dumps(metrics))
+    if eng.moe_impl:
+        from k8s_dra_driver_tpu_torch.ops.moe_dispatch import (
+            dispatch_impl_label,
+        )
+
+        metrics.update(moe_impl=eng.moe_impl, dispatch=dispatch_impl_label(
+            cfg.hidden, cfg.mlp_hidden, device=dev))
+    log(f"{label}:", json.dumps(metrics))
     return metrics
 
 
@@ -487,8 +607,6 @@ def compare_train(torch, dev) -> dict:
     """Phase 5: one loss value and gradient at the 8b-L8 widths (2 layers,
     batch 2 x 2048) through the kernels (K1, K4-K6) and through the plain
     path, on the same weights and tokens."""
-    import dataclasses
-
     from k8s_dra_driver_tpu_torch.models import PRESETS, init_params, loss_fn
     from k8s_dra_driver_tpu_torch.models.train import leaves
     from k8s_dra_driver_tpu_torch.ops import attention, norms
@@ -601,6 +719,12 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("moe_gateup", ("moe_grouped_kernel<16, true", "moe_grouped_kernel<64, "
+                    "true", "moe_grouped_kernel<128, true")),
+    ("moe_down_combine", ("moe_grouped_kernel<16, false",
+                          "moe_grouped_kernel<64, false",
+                          "moe_grouped_kernel<128, false")),
+    ("paged_attention", ("paged_attention_kernel",)),
     ("rmsnorm", ("_rmsnorm_row",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
@@ -609,6 +733,13 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
 def profile_step(torch, step, state, tokens) -> dict:
     """One more train step under ``torch.profiler``: device time by kernel
     group, and the device's busy share of the step's wall time."""
+    return device_profile(torch, lambda: step(state, tokens), 1)
+
+
+def device_profile(torch, fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler``: per call, the
+    wall time, the device time by kernel group, and the device's busy
+    share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,17 +747,18 @@ def profile_step(torch, step, state, tokens) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, tokens)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        ms = e.self_device_time_total / 1e3
-        kernels.append((ms, e.count, e.key[:80]))
+        ms = e.self_device_time_total / 1e3 / calls
+        kernels.append((ms, e.count // calls, e.key[:80]))
         group = next((name for name, keys in KERNEL_GROUPS
                       if any(k in e.key for k in keys)), "other")
         groups[group] += ms
@@ -642,6 +774,161 @@ def profile_step(torch, step, state, tokens) -> dict:
     )
 
 
+def profile_decode(torch, params, cfg, dev) -> dict:
+    """One decode step at the engine's shape (8 sequences at 384 cached
+    positions, kernels on): its host-clock time over 5 steps, then 3 steps
+    under ``torch.profiler``, and the ratio of the two."""
+    from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
+    from k8s_dra_driver_tpu_torch.models.paged import PagedKVCache
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    cache = PagedKVCache.init(cfg, BATCH_SLOTS, 1024, block_size=BLOCK_SIZE,
+                              device=dev)
+    chunk = 64           # 8 x 64 = 512 tokens a chunk: dropless, as served
+    for c in range(6):
+        toks = torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, chunk),
+                             generator=gen, device=dev, dtype=torch.int32)
+        _, cache = _forward_with_cache(
+            params, toks, cache, cfg,
+            torch.arange(c * chunk, (c + 1) * chunk, device=dev))
+    state = {"cache": cache,
+             "tok": torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, 1),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)}
+
+    def step():
+        c = state["cache"]
+        logits, state["cache"] = _forward_with_cache(
+            params, state["tok"], c, cfg, c.lengths[:, None])
+        state["tok"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    result = dict(step_ms=step_ms, **device_profile(torch, step, 3))
+    # The profiled steps' device time over the unprofiled steps' host time:
+    # the busy share without the profiler's own host cost (two
+    # measurements of one run; device_busy_share is the profiled one).
+    result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
+    log("decode step profile:", json.dumps(result))
+    return result
+
+
+def moe_bounds(plan, h, m):
+    """(K7, K8) as (bytes, operations) of one call from its plan: each
+    touched expert's weights read once, each live row's input read once,
+    each output written once; operations over the live rows only."""
+    live = int((plan.row_ids < plan.n_tokens).sum())
+    touched = int((plan.sizes_aligned > 0).sum())
+    gateup = (touched * h * 2 * m * 2 + live * h * 2 + plan.r_pad * m * 2,
+              2 * live * h * 2 * m)
+    down = (touched * m * h * 2 + plan.r_pad * m * 2 + plan.n_pairs * h * 4,
+            2 * live * m * h)
+    return gateup, down, live, touched
+
+
+def check_moe_kernels(torch, params, cfg, dev) -> dict:
+    """Phase 7: K7 and K8 against their plain versions on layer 0's
+    experts, with plans from layer 0's router over normed random hidden
+    states, at the decode step's shape and the packed prefill chunk's."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
+    from k8s_dra_driver_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    layer = {k: w[0] for k, w in params["layers"].items()}
+    w_gu, w_down = layer["w_gateup"], layer["w_down"]
+    h, m, e, k = cfg.hidden, cfg.mlp_hidden, cfg.n_experts, cfg.top_k
+    shapes = {}
+    for name, t, tile in (("decode", BATCH_SLOTS, 8),
+                          ("prefill", PREFILL_BATCH * PREFILL_CHUNK, 128)):
+        x = torch.randn((t, h), generator=gen, device=dev).to(torch.bfloat16)
+        xf = norms.rmsnorm_reference(x, layer["ln_mlp"], cfg.norm_eps)
+        gates, experts, _, _ = moe._route_topk(xf, layer["wr"], cfg)
+        plan = md.build_plan(experts.reshape(-1), t, e, k)
+        if plan.tile_rows != tile:
+            raise AssertionError(f"{name}: tile {plan.tile_rows}, want {tile}")
+        gates_pad = md._take_rows(gates.reshape(-1), plan.pair_ids)
+        act = md.moe_gateup(xf, w_gu, plan)
+        ref_act = md.moe_gateup_reference(xf, w_gu, plan)
+        y = md.moe_down_combine(ref_act, w_down, gates_pad, plan)
+        ref_y = md.moe_down_combine_reference(ref_act, w_down, gates_pad,
+                                              plan)
+        torch.cuda.synchronize()
+        act_err, act_rel = rel(f"moe_gateup {name}", act, ref_act)
+        y_err, y_rel = rel(f"moe_down_combine {name}", y, ref_y,
+                           K8_REL_MAX, K8_REL_MEAN)
+        sentinel = plan.row_ids >= plan.n_tokens
+        if not bool((act[sentinel] == 0).all()):
+            raise AssertionError(f"moe_gateup {name}: a sentinel row is "
+                                 f"not exactly 0")
+        extra = {}
+        if name == "decode":
+            # The expert-parallel local view: experts 0-3 local, pairs of
+            # 4-7 foreign. Their slots, and every sentinel row, must be
+            # exactly 0.
+            flat = experts.reshape(-1)
+            local = torch.where(flat < 4, flat, torch.full_like(flat, 4))
+            lplan = md.build_plan(local, t, 4, k)
+            lgates = md._take_rows(gates.reshape(-1), lplan.pair_ids)
+            lact = md.moe_gateup(xf, w_gu[:4], lplan)
+            ly = md.moe_down_combine(lact, w_down[:4], lgates, lplan)
+            ref_ly = md.moe_down_combine_reference(
+                md.moe_gateup_reference(xf, w_gu[:4], lplan), w_down[:4],
+                lgates, lplan)
+            torch.cuda.synchronize()
+            # K7 then K8 against both plain versions: K7's bf16 act error
+            # reaches ly, so the bf16 limits hold here.
+            rel("moe_dispatch decode, experts 0-3 local", ly, ref_ly)
+            foreign = flat >= 4
+            if not (bool(foreign.any()) and bool((ly[foreign] == 0).all())
+                    and bool((lact[lplan.row_ids >= t] == 0).all())):
+                raise AssertionError("foreign pair slots or sentinel rows "
+                                     "are not exactly 0")
+            extra = dict(foreign_pairs=int(foreign.sum()))
+        (gb, gops), (db, dops), live, touched = moe_bounds(plan, h, m)
+        rows = {}
+        for kname, nbytes, ops, kernel_fn, plain_fn, err, r in (
+            ("moe_gateup", gb, gops,
+             lambda: md.moe_gateup(xf, w_gu, plan),
+             lambda: md.moe_gateup_reference(xf, w_gu, plan),
+             act_err, act_rel),
+            ("moe_down_combine", db, dops,
+             lambda: md.moe_down_combine(ref_act, w_down, gates_pad, plan),
+             lambda: md.moe_down_combine_reference(ref_act, w_down,
+                                                   gates_pad, plan),
+             y_err, y_rel),
+        ):
+            t_b, by = bound(nbytes, ops, BF16_FLOPS)
+            log(f"{kname} {name} bound: {nbytes / 1e9:.3f} GB, {ops:.3e} "
+                f"operations -> {t_b:.4f} ms ({by})")
+            rows[kname] = dict(
+                max_abs_err=err, rel_err=r,
+                ms=time_ms(kernel_fn), plain_ms=time_ms(plain_fn, warmup=1,
+                                                        iters=5),
+                bound_ms=t_b, bound_by=by, library_ms=None,
+                shape=(f"T {t}, tile {tile}, r_pad {plan.r_pad}, live rows "
+                       f"{live}, experts touched {touched}, h {h}, m {m}"),
+                **extra,
+            )
+        shapes[name] = rows
+        torch.cuda.empty_cache()
+    # The kernels line carries the decode step's numbers (the shape launched
+    # most) with the prefill chunk's beside them.
+    return {kname: dict(shapes["decode"][kname],
+                        max_abs_err=max(shapes[s][kname]["max_abs_err"]
+                                        for s in shapes),
+                        prefill=shapes["prefill"][kname])
+            for kname in ("moe_gateup", "moe_down_combine")}
+
+
 def main() -> int:
     import torch
 
@@ -649,8 +936,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from k8s_dra_driver_tpu_torch.models import PRESETS, init_params
-        from k8s_dra_driver_tpu_torch.ops import _build, attention, norms
+        from k8s_dra_driver_tpu_torch.models import (
+            MOE_PRESETS,
+            PRESETS,
+            init_params,
+            moe,
+        )
+        from k8s_dra_driver_tpu_torch.ops import (
+            _build,
+            attention,
+            moe_dispatch,
+            norms,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}",
               file=sys.stderr)
@@ -692,10 +989,14 @@ def main() -> int:
         "flash_fwd": attention.flash_fwd,
         "flash_bwd_dkdv": attention.flash_bwd_dkdv,
         "flash_bwd_dq": attention.flash_bwd_dq,
+        "moe_gateup": moe_dispatch.moe_gateup,
+        "moe_down_combine": moe_dispatch.moe_down_combine,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
-                          "flash_bwd_dq")}
+                          "flash_bwd_dq"),
+             "moe_serving": ("moe_gateup", "moe_down_combine",
+                             "paged_decode", "paged_prefill", "rmsnorm")}
     by_path = {}
 
     def drive(path, fn, *args):
@@ -729,6 +1030,50 @@ def main() -> int:
         raise AssertionError(f"training launches {counts}, expected {want}")
     log(f"phase 6: trained 8b-L8 for {steps} steps through every kernel "
         f"(launches {counts})")
+
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(MOE_PRESETS["8x7b"], n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    mparams = moe.init_params(mcfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"8x7b-L{MOE_LAYERS} params ({mcfg.num_params() / 1e9:.2f}B, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) initialised in "
+        f"{time.perf_counter() - t0:.1f}s")
+    kernels.update(check_moe_kernels(torch, mparams, mcfg, dev))
+    log("phase 7: K7 and K8 agree with their plain versions at the decode "
+        "and prefill shapes")
+    before = (moe_dispatch.moe_gateup.launches,
+              moe_dispatch.moe_down_combine.launches)
+    moe_forward = compare_forward(torch, mparams, mcfg, dev)
+    ran = (moe_dispatch.moe_gateup.launches - before[0],
+           moe_dispatch.moe_down_combine.launches - before[1])
+    # A prefill chunk and 4 decode steps through the kernels, once each
+    # per layer; the plain forwards launch nothing.
+    if ran != (5 * MOE_LAYERS, 5 * MOE_LAYERS):
+        raise AssertionError(f"phase 8 launched K7/K8 {ran} times, "
+                             f"expected {5 * MOE_LAYERS} each")
+    log(f"phase 8: 8x7b-L{MOE_LAYERS} forward through kernels matches the "
+        f"plain forward")
+    torch.cuda.reset_peak_memory_stats()
+    moe_engine = drive("moe_serving", serve, torch, mparams, mcfg, dev,
+                       "moe engine")
+    counts = by_path["moe_serving"]
+    forwards = moe_engine["decode_steps"] + moe_engine["prefill_launches"]
+    want = {"moe_gateup": MOE_LAYERS * forwards,
+            "moe_down_combine": MOE_LAYERS * forwards}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"MoE serving launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+    if moe_engine["moe_impl"] != {"decode_step": "dropless",
+                                  "prefill_chunk": "dropless"} \
+            or moe_engine["dispatch"] != "fused":
+        raise AssertionError(f"MoE impl {moe_engine['moe_impl']}, dispatch "
+                             f"{moe_engine['dispatch']}")
+    log(f"phase 9: engine served 8 requests on 8x7b-L{MOE_LAYERS} through "
+        f"every kernel (launches {counts})")
+    moe_engine["decode_profile"] = profile_decode(torch, mparams, mcfg, dev)
+    del mparams
+    torch.cuda.empty_cache()
     launches = {name: sum(by_path[p][name] for p in by_path)
                 for name in wrappers}
 
@@ -750,6 +1095,12 @@ def main() -> int:
         "flash_bwd_dq": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                          "flash_attention.cu",
                          "k8s_dra_driver_tpu/ops/attention.py:314"),
+        "moe_gateup": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                       "moe_dispatch.cu",
+                       "k8s_dra_driver_tpu/ops/moe_dispatch.py:491"),
+        "moe_down_combine": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                             "moe_dispatch.cu",
+                             "k8s_dra_driver_tpu/ops/moe_dispatch.py:537"),
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -773,7 +1124,8 @@ def main() -> int:
                 raise AssertionError(f"{row['name']}: {key} not finite")
     log(card)
     log(json.dumps({"forward": forward, "engine": engine, "grads": grads,
-                    "train": trained}))
+                    "train": trained, "moe_forward": moe_forward,
+                    "moe_engine": moe_engine}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

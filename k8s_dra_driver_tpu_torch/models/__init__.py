@@ -1,7 +1,9 @@
 """Llama-3 on the card: configuration and parameters, serving on the paged
-KV cache (the cached forward and the continuous-batching engine), and
-training (forward, loss, optimizer and train step)."""
+KV cache (the cached forward and the continuous-batching engine, for dense
+and Mixtral-style MoE configs), and dense training (forward, loss,
+optimizer and train step)."""
 
+from . import moe
 from .convert import params_from_numpy
 from .decode import decode_step, generate, prefill, prefill_cached
 from .llama import (
@@ -13,6 +15,7 @@ from .llama import (
     init_params,
     loss_fn,
 )
+from .moe import MOE_PRESETS, MoeConfig
 from .paged import BlockAllocator, OutOfBlocksError, PagedKVCache, PrefixCache
 from .serving import (
     AdmissionClosedError,
@@ -35,6 +38,9 @@ __all__ = [
     "PRESETS",
     "init_params",
     "params_from_numpy",
+    "moe",
+    "MoeConfig",
+    "MOE_PRESETS",
     "PagedKVCache",
     "BlockAllocator",
     "OutOfBlocksError",

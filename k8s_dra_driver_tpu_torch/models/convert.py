@@ -5,7 +5,9 @@ after ``jax.tree.map(np.asarray, params)`` -- nested dicts of numpy arrays
 with the same keys and layouts the port uses -- and returns the port's
 parameter dict on ``device``. Both packages then compute the same
 function. No JAX is imported here: the caller does the ``np.asarray``
-step.
+step. Dense and MoE layer layouts both convert; the MoE router ``wr``
+stays f32 whatever ``config.dtype`` is, as in the reference (rounding it
+to bf16 would change expert choices).
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ from .. import resolve_device
 from .llama import LlamaConfig
 
 _LAYER_KEYS = ("wqkv", "wo", "w_gateup", "w_down", "ln_attn", "ln_mlp")
+# MoE: the router, and w_gateup [L, E, H, 2, M] / w_down [L, E, M, H].
+_MOE_LAYER_KEYS = ("wqkv", "wo", "wr", "w_gateup", "w_down", "ln_attn",
+                   "ln_mlp")
+_F32_KEYS = ("wr",)
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -40,16 +46,19 @@ def params_from_numpy(params_np: dict, config: LlamaConfig,
     ``config.dtype`` on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     layers = params_np["layers"]
-    missing = [k for k in _LAYER_KEYS if k not in layers]
-    if missing or set(layers) != set(_LAYER_KEYS):
+    if set(layers) not in (set(_LAYER_KEYS), set(_MOE_LAYER_KEYS)):
         raise NotImplementedError(
             f"layer keys {sorted(layers)}: only the dense Llama layout "
-            f"{list(_LAYER_KEYS)} converts"
+            f"{list(_LAYER_KEYS)} and the MoE layout "
+            f"{list(_MOE_LAYER_KEYS)} convert"
         )
+    keys = _MOE_LAYER_KEYS if "wr" in layers else _LAYER_KEYS
     return {
         "embed": _tensor(params_np["embed"], config.dtype, dev),
         "layers": {
-            k: _tensor(layers[k], config.dtype, dev) for k in _LAYER_KEYS
+            k: _tensor(layers[k],
+                       torch.float32 if k in _F32_KEYS else config.dtype, dev)
+            for k in keys
         },
         "final_norm": _tensor(params_np["final_norm"], config.dtype, dev),
         "lm_head": _tensor(params_np["lm_head"], config.dtype, dev),

@@ -8,10 +8,13 @@ per-layer views of the pools, which the forward pass updates in place.
 Attention reads the pool through the block tables: the single-token
 decode step goes to ``paged_decode_attention`` and multi-token windows to
 ``paged_prefill_attention``, each a CUDA kernel on the card and its plain
-version on the CPU.
+version on the CPU. The per-layer FFN follows the config's family
+(:func:`_mlp_or_moe`): the dense SwiGLU MLP for a ``LlamaConfig``, the
+sparse MoE block (``models/moe.py``, the fused dispatch kernels K7 and K8
+on the card) for a ``MoeConfig``.
 
-Not ported yet (they raise ``NotImplementedError``): MoE configs, the
-int8 KV cache (``quantize_cache=True``) and int8 weights.
+Not ported yet (they raise ``NotImplementedError``): the int8 KV cache
+(``quantize_cache=True``) and int8 weights.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..ops.attention import (
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import rope_frequencies
 from .llama import LlamaConfig, _mlp_block, attn_out, layer_params, project_qkv
+from .moe import MoeConfig, _moe_block
 from .paged import (
     BlockAllocator,
     OutOfBlocksError,
@@ -69,8 +73,8 @@ _ROPE_TABLES: dict = {}
 def _require_supported(params: dict, config=None, cache=None) -> None:
     if config is not None and not isinstance(config, LlamaConfig):
         raise NotImplementedError(
-            f"{type(config).__name__}: only dense Llama configs are ported "
-            f"(MoE waits for a later slice)"
+            f"{type(config).__name__}: only Llama configs (dense, or MoE "
+            f"through MoeConfig) are ported"
         )
     if not isinstance(params["layers"]["wqkv"], torch.Tensor):
         raise NotImplementedError("int8 (QuantTensor) weights are not ported")
@@ -96,6 +100,18 @@ def _rope_tables(config: LlamaConfig, span: int, device):
         )
         _ROPE_TABLES[key] = tables
     return tables
+
+
+def _mlp_or_moe(x, layer, config, use_kernels: bool = True):
+    """The per-layer FFN for the config's family: sparse MoE routing for a
+    ``MoeConfig`` (aux loss dropped -- inference), dense otherwise. The
+    MoE impl follows ``resolve_moe_impl``: decode steps and prefill chunks
+    of up to 512 tokens run dropless, which on the card is the fused
+    dispatch pipeline (K7 then K8, once each per layer)."""
+    if isinstance(config, MoeConfig):
+        x, _aux = _moe_block(x, layer, config, use_kernels=use_kernels)
+        return x
+    return _mlp_block(x, layer, config, use_kernels=use_kernels)
 
 
 def _note_first_use(variant: str, b: int, t: int) -> None:
@@ -186,7 +202,7 @@ def _forward_with_cache(
                 q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale
             )
         x = attn_out(x, o, layer)
-        x = _mlp_block(x, layer, c, use_kernels=use_kernels)
+        x = _mlp_or_moe(x, layer, c, use_kernels=use_kernels)
 
     # Committed length: last real position + 1, frozen for padded columns
     # and inactive rows.

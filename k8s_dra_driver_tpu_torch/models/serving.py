@@ -41,6 +41,7 @@ import torch
 
 from .. import resolve_device
 from .decode import _forward_with_cache, _require_supported, sample
+from .moe import resolve_moe_impl
 from .paged import (
     BlockAllocator,
     OutOfBlocksError,
@@ -269,6 +270,23 @@ class DecodeEngine:
         self.temperature = temperature
         self.overlap = overlap
         self._clock = clock
+        # What the MoE MLP runs per program, as the reference surfaces it.
+        # The prefill program pins its impl at the per-lane chunk width:
+        # resolving at the packed prefill_batch * chunk token count could
+        # flip dropless to the capacity-dropping einsum on large experts,
+        # and packed lanes would then route differently than one lane at a
+        # time. Pinned, routing is a function of the chunk alone.
+        self.moe_impl = {}
+        self._prefill_config = config
+        if hasattr(config, "moe_impl"):
+            prefill_impl = resolve_moe_impl(config, prefill_chunk)
+            self._prefill_config = dataclasses.replace(
+                config, moe_impl=prefill_impl
+            )
+            self.moe_impl = {
+                "decode_step": resolve_moe_impl(config, batch_slots),
+                "prefill_chunk": prefill_impl,
+            }
         span = max_seq_len or min(config.max_seq_len,
                                   num_blocks * block_size)
         self.max_blocks_per_seq = -(-span // block_size)
@@ -343,8 +361,8 @@ class DecodeEngine:
             chunks.shape[1], device=self.device
         )
         logits, _ = _forward_with_cache(
-            self.params, chunks, self._cache(tables, starts), self.config,
-            positions, n_valid=n_valid, active=active,
+            self.params, chunks, self._cache(tables, starts),
+            self._prefill_config, positions, n_valid=n_valid, active=active,
         )
         # Each lane's last VALID column samples its first token.
         last = logits[

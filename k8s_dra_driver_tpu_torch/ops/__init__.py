@@ -1,6 +1,6 @@
-"""Ops of the serving and training paths: paged and flash attention and
-RMSNorm (hand-written Hopper kernels with their plain PyTorch versions)
-and rotary embeddings."""
+"""Ops of the serving and training paths: paged and flash attention, the
+fused MoE dispatch pipeline and RMSNorm (hand-written Hopper kernels with
+their plain PyTorch versions) and rotary embeddings."""
 
 from .attention import (
     FlashAttentionFunction,
@@ -14,6 +14,17 @@ from .attention import (
     paged_attention_reference,
     paged_decode_attention,
     paged_prefill_attention,
+)
+from . import moe_dispatch
+from .moe_dispatch import (
+    DispatchPlan,
+    build_plan,
+    fused_moe_mlp,
+    moe_down_combine,
+    moe_down_combine_reference,
+    moe_gateup,
+    moe_gateup_reference,
+    reference_moe_mlp,
 )
 from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
 from .rotary import apply_rope, rope_frequencies
@@ -30,6 +41,15 @@ __all__ = [
     "flash_bwd_dkdv",
     "flash_bwd_dq",
     "FlashAttentionFunction",
+    "moe_dispatch",
+    "DispatchPlan",
+    "build_plan",
+    "fused_moe_mlp",
+    "reference_moe_mlp",
+    "moe_gateup",
+    "moe_gateup_reference",
+    "moe_down_combine",
+    "moe_down_combine_reference",
     "rmsnorm",
     "rmsnorm_reference",
     "RMSNormFunction",

@@ -23,6 +23,7 @@ from k8s_dra_driver_tpu_torch.models import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    moe,
 )
 from k8s_dra_driver_tpu_torch.models.llama import PRESETS
 
@@ -82,6 +83,8 @@ def test_entry_points_default_to_the_card():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.init_params(moe.MOE_PRESETS["tiny-moe"], seed=0)
     params = init_params(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeEngine(params, cfg)

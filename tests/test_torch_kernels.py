@@ -8,14 +8,18 @@ mode; the plain versions are held against the JAX package by
 ``tests/test_torch_ops.py``). Tolerances, bf16: paged attention max abs
 error 2e-2 and mean 2e-3 (bf16 output rounding and another summation
 order), RMSNorm 1e-2 relative to the largest output; flash outputs and
-gradients within 2% of the plain version's largest value and 1% of its
-mean magnitude (bf16 rounding of p, dS and the outputs), lse within 1e-3.
+gradients, and K7's output, within 2% of the plain version's largest
+value and 1% of its mean magnitude (bf16 rounding of p, dS and the
+outputs; f32 sums in another order), K8's f32 output within 1e-3 and
+1e-4 of them (only the f32 summation order differs), lse within 1e-3;
+the MoE kernels' sentinel rows and slots of no live pair exactly 0.
 """
 
 import pytest
 import torch
 
 from k8s_dra_driver_tpu_torch.ops import attention as att
+from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
 from k8s_dra_driver_tpu_torch.ops import norms
 
 
@@ -255,3 +259,115 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       v[..., :32].contiguous())
     with pytest.raises(ValueError, match="query heads"):
         att.flash_fwd(q[:, :3].contiguous(), k, v)
+
+
+def _moe_problem(dev, t, h, m, e=8, k=2, tile=8, case="random", seed=0):
+    """Tokens, expert weights (normal / sqrt(fan_in), bf16), gates and the
+    plan of one routed MoE layer: "random" experts, "skew" (one expert
+    holds every pair, the others are empty) or "foreign" (half the pairs
+    routed to experts outside the plan)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    xf = torch.randn(t, h, generator=g, device=dev).bfloat16()
+    w_gu = (torch.randn(e, h, 2, m, generator=g, device=dev)
+            / h ** 0.5).bfloat16()
+    w_down = (torch.randn(e, m, h, generator=g, device=dev)
+              / m ** 0.5).bfloat16()
+    experts = torch.randint(0, e, (t * k,), generator=g, device=dev)
+    if case == "skew":
+        experts = torch.full_like(experts, e - 1)
+    elif case == "foreign":
+        foreign = torch.rand(t * k, generator=g, device=dev) < 0.5
+        experts = torch.where(foreign, torch.full_like(experts, e + 7),
+                              experts)
+    gates = torch.rand(t * k, generator=g, device=dev)
+    plan = md.build_plan(experts.int(), t, e, k, tile_rows=tile)
+    return xf, w_gu, w_down, gates, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "skew", "foreign"])
+@pytest.mark.parametrize("t,h,m,tile", [
+    (24, 64, 128, 8),          # tiny widths, the decode tile
+    (40, 64, 128, 128),        # tiny widths, the prefill tile
+    (8, 4096, 14336, 8),       # Mixtral-8x7B decode step
+    (512, 4096, 14336, 128),   # Mixtral-8x7B packed prefill chunk
+])
+def test_moe_kernels_match_plain(dev, t, h, m, tile, case):
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, t, h, m, tile=tile,
+                                                 case=case)
+    before = (md.moe_gateup.launches, md.moe_down_combine.launches)
+    act = md.moe_gateup(xf, w_gu, plan)
+    ref_act = md.moe_gateup_reference(xf, w_gu, plan)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    y = md.moe_down_combine(ref_act, w_down, gates_pad, plan)
+    ref_y = md.moe_down_combine_reference(ref_act, w_down, gates_pad, plan)
+    torch.cuda.synchronize()
+    assert (md.moe_gateup.launches, md.moe_down_combine.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert act.dtype == torch.bfloat16 and y.dtype == torch.float32
+    _rel_close("act", act, ref_act)
+    # K8's output is f32, summed in f32: only the summation order differs,
+    # so a bf16 accumulator or bf16 output (~2-4e-3) fails these limits.
+    _rel_close("y_pairs", y, ref_y, rel_max=1e-3, rel_mean=1e-4)
+    # Sentinel rows of act and slots of no live pair are exactly 0.
+    sentinel = plan.row_ids >= plan.n_tokens
+    assert sentinel.any()
+    assert (act[sentinel] == 0).all()
+    dead = plan.slot_of_pair >= plan.r_pad
+    if case == "foreign":
+        assert dead.any()
+    assert (y[dead] == 0).all()
+    assert (y[~dead].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+def test_moe_kernels_all_sentinel_plan(dev):
+    """A plan whose every pair is foreign: every tile is all sentinels,
+    so K7 writes zeros without reading weights and K8 writes nothing."""
+    xf, w_gu, w_down, gates, _ = _moe_problem(dev, 16, 64, 128)
+    plan = md.build_plan(torch.full((32,), 9, dtype=torch.int32,
+                                    device=dev), 16, 8, 2, tile_rows=8)
+    act = md.moe_gateup(xf, w_gu, plan)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    y = md.moe_down_combine(act, w_down, gates_pad, plan)
+    torch.cuda.synchronize()
+    assert (act == 0).all() and (y == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_moe_mlp_runs_the_kernels(dev):
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, 24, 64, 128, tile=8)
+    before = md.moe_gateup.launches
+    out = md.fused_moe_mlp(xf, w_gu, w_down, gates, plan)
+    plain = md.fused_moe_mlp(xf, w_gu, w_down, gates, plan,
+                             use_kernels=False)
+    torch.cuda.synchronize()
+    assert md.moe_gateup.launches == before + 1
+    assert md.dispatch_impl_label(64, 128, device=dev) == "fused"
+    _rel_close("fused", out, plain)
+
+
+@pytest.mark.cuda
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, 24, 64, 128, tile=8)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    with pytest.raises(TypeError, match="bf16"):
+        md.moe_gateup(xf, w_gu.float(), plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        md.moe_gateup(xf, w_gu.cpu(), plan)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        md.moe_gateup(xf[:, :48].contiguous(),
+                      w_gu[:, :48].contiguous(), plan)
+    with pytest.raises(TypeError, match="float32"):
+        md.moe_down_combine(md.moe_gateup(xf, w_gu, plan), w_down,
+                            gates_pad.bfloat16(), plan)
+    big = md.build_plan(torch.zeros(48, dtype=torch.int32, device=dev), 24,
+                        8, 2, tile_rows=256)
+    with pytest.raises(ValueError, match="row tile"):
+        md.moe_gateup(xf, w_gu, big)
+    with pytest.raises(NotImplementedError, match="K10"):
+        md.grouped_matmul(xf, w_down[:, :64].contiguous(),
+                          plan.sizes_aligned)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        md.fused_moe_mlp(xf.requires_grad_(), w_gu, w_down, gates, plan)

@@ -1,0 +1,171 @@
+"""The port's fused MoE dispatch (``ops/moe_dispatch.py``) against the JAX
+package's, on the CPU, from the same seeded numpy inputs.
+
+JAX's kernels run as its own tests run them (``force_pallas=True,
+interpret=True``); the port's wrappers take their plain versions on CPU
+tensors. Plans must be bitwise equal; f32 outputs agree to atol/rtol
+1e-5 (the same products summed in another order); slots of foreign pairs
+are exactly 0 on both sides.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_tpu.ops import moe_dispatch as jmd
+from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+PLAN_FIELDS = ("row_ids", "pair_ids", "slot_of_pair", "tile_expert",
+               "sizes_aligned")
+
+
+def _problem(seed=0, t=24, h=32, e=4, k=2, m=16, case="random"):
+    rng = np.random.RandomState(seed)
+    xf = rng.randn(t, h).astype(np.float32)
+    w_gu = (rng.randn(e, h, 2, m) * 0.1).astype(np.float32)
+    w_down = (rng.randn(e, m, h) * 0.1).astype(np.float32)
+    experts = rng.randint(0, e, size=(t * k,)).astype(np.int32)
+    if case == "skew":
+        experts[:] = 0                            # everything on expert 0
+    elif case == "foreign":
+        mask = rng.rand(t * k) < 0.5
+        experts = np.where(mask, e + 7, experts).astype(np.int32)
+    gates = rng.rand(t * k).astype(np.float32)
+    return xf, w_gu, w_down, experts, gates, (t, h, e, k, m)
+
+
+def _plans(experts, t, e, k, tile):
+    jp = jmd.build_plan(jnp.asarray(experts), t, e, k, tile_rows=tile)
+    tp = md.build_plan(torch.from_numpy(experts), t, e, k, tile_rows=tile)
+    return jp, tp
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("case,t,e,tile", [
+    ("random", 24, 4, 8),
+    ("skew", 24, 4, 8),          # one expert holds every pair
+    ("foreign", 24, 4, 8),       # half the pairs on foreign experts
+    ("random", 8, 8, None),      # a decode step: T=8, k=2, default tile 8
+    ("random", 24, 4, None),     # the default tile at 12 pairs per expert
+])
+def test_build_plan_bitwise_equal(case, t, e, tile):
+    *_, experts, _, _ = _problem(seed=1, t=t, e=e, case=case)
+    jp, tp = _plans(experts, t, e, 2, tile)
+    assert tp.tile_rows == jp.tile_rows and tp.r_pad == jp.r_pad
+    assert (tp.n_tokens, tp.n_pairs, tp.n_experts, tp.top_k) == (
+        jp.n_tokens, jp.n_pairs, jp.n_experts, jp.top_k)
+    for name in PLAN_FIELDS:
+        ours, ref = getattr(tp, name).numpy(), np.asarray(getattr(jp, name))
+        assert ours.dtype == ref.dtype == np.int32, name
+        np.testing.assert_array_equal(ours, ref, err_msg=name)
+
+
+def test_default_tile_rows_equal():
+    for n_pairs in (1, 2, 16, 100, 1024, 4096, 10 ** 5):
+        for n_experts in (1, 4, 8, 64):
+            assert md.default_tile_rows(n_pairs, n_experts) == \
+                jmd.default_tile_rows(n_pairs, n_experts)
+    assert md._round_up(13, 8) == jmd._round_up(13, 8) == 16
+    assert md._fit_cols(14336, 512) == jmd._fit_cols(14336, 512)
+
+
+@pytest.mark.parametrize("case", ["random", "skew", "foreign"])
+def test_fused_and_reference_match_jax(case):
+    """The port's fused pipeline against JAX's fused kernels in
+    interpret mode, and the two oracles against each other."""
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(
+        seed=4, case=case)
+    jp, tp = _plans(experts, t, e, k, 8)
+    jargs = [jnp.asarray(a) for a in (xf, w_gu, w_down, gates)]
+    targs = _t(xf, w_gu, w_down, gates)
+    jfused = np.asarray(jmd.fused_moe_mlp(*jargs, jp, force_pallas=True,
+                                          interpret=True))
+    jref = np.asarray(jmd.reference_moe_mlp(*jargs, jp))
+    tfused = md.fused_moe_mlp(*targs, tp).numpy()
+    tref = md.reference_moe_mlp(*targs, tp).numpy()
+    np.testing.assert_allclose(tfused, jfused, **TOL)
+    np.testing.assert_allclose(tref, jref, **TOL)
+    foreign = experts >= e
+    assert foreign.any() == (case == "foreign")
+    assert (tfused[foreign] == 0).all() and (jfused[foreign] == 0).all()
+
+
+def test_each_kernel_matches_its_pallas_kernel():
+    """K7 and K8 one at a time: the port's wrappers (plain versions on
+    the CPU) against ``_gateup_pallas`` and ``_down_combine_pallas`` in
+    interpret mode, sentinel rows and foreign slots exactly 0."""
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(
+        seed=7, case="foreign")
+    jp, tp = _plans(experts, t, e, k, 8)
+    jact = jmd._gateup_pallas(jnp.asarray(xf), jnp.asarray(w_gu), None, jp,
+                              True)
+    x, wg, wd, gt = _t(xf, w_gu, w_down, gates)
+    act = md.moe_gateup(x, wg, tp)
+    np.testing.assert_allclose(act.numpy(), np.asarray(jact), **TOL)
+    assert (act[tp.row_ids >= t] == 0).all()
+    jgates_pad = jnp.take(jnp.asarray(gates), jp.pair_ids, mode="fill",
+                          fill_value=0.0)[:, None]
+    jy = jmd._down_combine_pallas(jact, jnp.asarray(w_down), None,
+                                  jgates_pad, jp, True)
+    gates_pad = md._take_rows(gt, tp.pair_ids)
+    np.testing.assert_allclose(gates_pad.numpy(),
+                               np.asarray(jgates_pad)[:, 0])
+    y = md.moe_down_combine(act, wd, gates_pad, tp)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    assert (y[torch.from_numpy(experts >= e)] == 0).all()
+
+
+def test_grouped_matmul_matches_ragged_dot():
+    rng = np.random.RandomState(13)
+    lhs = rng.randn(24, 16).astype(np.float32)
+    rhs = rng.randn(3, 16, 8).astype(np.float32)
+    sizes = np.array([10, 0, 9], np.int32)       # an empty group, 5 rows past
+    ref = np.asarray(jax.lax.ragged_dot(jnp.asarray(lhs), jnp.asarray(rhs),
+                                        jnp.asarray(sizes)))
+    out = md.grouped_matmul(*_t(lhs, rhs, sizes))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert (out[19:] == 0).all()
+
+
+def test_dispatch_labels_follow_the_reference_off_tpu():
+    """On the CPU both packages run the primitive path unless "fused" is
+    forced; the port runs the kernels for CUDA tensors (the reference for
+    a TPU)."""
+    try:
+        for impl in ("auto", "fused", "primitive"):
+            jmd.set_dispatch_impl(impl)
+            md.set_dispatch_impl(impl)
+            assert md.dispatch_impl_label(device="cpu") == \
+                jmd.dispatch_impl_label(), impl
+            assert md.use_fused(device="cpu", h=64, m=128) == \
+                jmd.use_fused(h=64, m=128), impl
+        md.set_dispatch_impl("auto")
+        assert md.dispatch_impl_label(device="cuda") == "fused"
+        assert md.dispatch_impl_label(4096, 14336, device="cuda") == "fused"
+        assert md.dispatch_impl_label(48, 128, device="cuda") == "primitive"
+        with pytest.raises(ValueError):
+            md.set_dispatch_impl("megablox")
+    finally:
+        jmd.set_dispatch_impl("auto")
+        md.set_dispatch_impl("auto")
+    assert md.fused_geometry_ok(4096, 14336) and md.fused_geometry_ok(64, 128)
+    assert not md.fused_geometry_ok(32, 16)
+    assert not md.fused_geometry_ok(4096, 14336 + 32)
+
+
+def test_fused_moe_mlp_is_forward_only():
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(seed=3)
+    tp = md.build_plan(torch.from_numpy(experts), t, e, k)
+    x, wg, wd, gt = _t(xf, w_gu, w_down, gates)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        md.fused_moe_mlp(x.requires_grad_(), wg, wd, gt, tp)
+    with torch.no_grad():
+        out = md.fused_moe_mlp(x, wg, wd, gt, tp)
+    assert out.shape == (t * k, h) and torch.isfinite(out).all()
