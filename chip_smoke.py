@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its three paths,
+Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its four paths,
 serving at the full width and depth of Llama-3-8B, training at the
-Llama-3-8B widths cut to 8 layers (``8b-L8``) and MoE serving at the
+Llama-3-8B widths cut to 8 layers (``8b-L8``), MoE serving at the
 Mixtral-8x7B widths cut to 16 layers (``8x7b`` with ``n_layers=16``: 47 GB
-of bf16 weights, where all 32 layers would not fit one 80 GB card), bf16
-with random weights from a fixed seed, and checks every hand-written
-kernel of those paths:
+of bf16 weights, where all 32 layers would not fit one 80 GB card) and MoE
+training at the Mixtral-8x7B widths cut to one layer (``8x7b-L1``,
+dropless), bf16 with random weights from a fixed seed, and checks every
+hand-written kernel of those paths:
 
 1. builds the CUDA sources of ``k8s_dra_driver_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and the Triton RMSNorm;
@@ -40,10 +41,22 @@ kernel of those paths:
    logits;
 9. serves phase 4's traffic through ``DecodeEngine`` on 8x7b-L16 (the
    MoE serving path) and checks that K7 and K8 ran once per layer and
-   forward.
+   forward;
+10. frees the 8x7b-L16 weights and holds the grouped kernels (K10a
+    ``grouped_matmul``, K10b ``grouped_weight_grad``) against their plain
+    versions at the five calls of one 8x7b layer's MoE backward (T 8192,
+    a plan from the layer's router), on unaligned groups, and through the
+    gradients of ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``,
+    and times them beside ``torch._grouped_mm``;
+11. compares one 8x7b-L1 ``loss_fn`` value and every gradient leaf
+    (batch 1 x 2048, remat "full") through the kernels with the plain
+    path, the plain run replaying the kernel run's expert choices;
+12. trains 8x7b-L1 (dropless) with ``make_train_step`` at batch 4 x 2048
+    as phase 6 does (the MoE training path) and checks the launches per
+    step.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6 and 9) and read just after. Prints the card's name and power limit, one
+6, 9 and 12) and read just after. Prints the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -82,6 +95,13 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 5
 MOE_LAYERS = 16
+# Phases 10-12: the MoE training path at 8x7b-L1 (Mixtral-8x7B widths, one
+# layer), dropless; batch x TRAIN_SEQ tokens.
+MOE_TRAIN_BATCH = 4
+MOE_COMPARE_BATCH = 1
+# Phase 10's unaligned groups: an empty group, rows past the last group.
+RAGGED_ROWS = 1000
+RAGGED_SIZES = (300, 0, 157, 201, 0, 99, 50, 101)
 # Phase 8: the routing flips that kernel noise may cause (compare_forward).
 FLIP_MARGIN_LIMIT = 1e-2
 FLIP_SHARE_LIMIT = 2e-2
@@ -410,6 +430,74 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
     return results
 
 
+class RoutingReplay:
+    """Stands in for ``moe._route_topk`` inside a ``with`` block. In mode
+    "record" it keeps each call's expert choices; in mode "replay" it hands
+    them back in call order (gates recomputed from the caller's own router
+    probabilities, so they stay differentiable), counts the routed tokens,
+    and records for each token whose own choice differs (a flip) the
+    margin by which the choice was made: the k-th largest of its own
+    probabilities less the largest own probability of an expert only the
+    recorded run chose. Mode None routes as usual."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.route = moe._route_topk
+        self.mode = None
+        self.recorded, self.margins, self.routed = [], [], 0
+
+    def __enter__(self):
+        self.moe._route_topk = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route_topk = self.route
+
+    def __call__(self, xf, wr, c):
+        import torch
+
+        gates, experts, probs, aux = self.route(xf, wr, c)
+        if self.mode == "record":
+            self.recorded.append(experts)
+        elif self.mode == "replay":
+            ref = self.recorded.pop(0)
+            flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
+            self.routed += experts.shape[0]
+            if bool(flipped.any()):
+                p, theirs = probs[flipped], ref[flipped].long()
+                ours = torch.zeros_like(p, dtype=torch.bool).scatter_(
+                    1, experts[flipped].long(), True)
+                kth = p.topk(c.top_k, dim=1).values[:, -1]
+                only_theirs = torch.where(torch.gather(ours, 1, theirs),
+                                          torch.full_like(kth[:, None], -1),
+                                          torch.gather(p, 1, theirs))
+                self.margins.extend(
+                    (kth - only_theirs.max(1).values).tolist())
+            chosen = torch.gather(probs, 1, ref.long())
+            gates = chosen / (chosen.sum(1, keepdim=True) + 1e-9)
+            experts = ref
+        return gates, experts, probs, aux
+
+    def summary(self) -> dict:
+        margins = sorted(self.margins)
+        return dict(routing_flips=len(margins),
+                    routed_token_layers=self.routed,
+                    flip_margin_max=max(margins, default=0.0),
+                    flip_margins=margins)
+
+    def check(self, what: str) -> None:
+        """Raises where a flip is not a near-tie (margin >=
+        FLIP_MARGIN_LIMIT) or the flips exceed FLIP_SHARE_LIMIT of the
+        routed choices."""
+        share = len(self.margins) / max(self.routed, 1)
+        largest = max(self.margins, default=0.0)
+        if share > FLIP_SHARE_LIMIT or largest >= FLIP_MARGIN_LIMIT:
+            raise AssertionError(
+                f"{what}: {len(self.margins)} routing flips of "
+                f"{self.routed} ({share}, limit {FLIP_SHARE_LIMIT}), "
+                f"largest margin {largest} (limit {FLIP_MARGIN_LIMIT})")
+
+
 def compare_forward(torch, params, cfg, dev) -> dict:
     """Phase 3 (and phase 8 on the MoE config): one forward through the
     kernels and through the plain versions, on identical caches and
@@ -446,46 +534,20 @@ def compare_forward(torch, params, cfg, dev) -> dict:
                                 device=dev)
         for name in runs
     }
-    route = moe._route_topk
-    recorded, margins, routed_tokens, mode = [], [], [0], [None]
-
-    def routing(xf, wr, c):
-        gates, experts, probs, aux = route(xf, wr, c)
-        if mode[0] == "record":
-            recorded.append(experts)
-        elif mode[0] == "replay":
-            ref = recorded.pop(0)
-            flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
-            routed_tokens[0] += experts.shape[0]
-            if bool(flipped.any()):
-                p, theirs = probs[flipped], ref[flipped].long()
-                ours = torch.zeros_like(p, dtype=torch.bool).scatter_(
-                    1, experts[flipped].long(), True)
-                kth = p.topk(c.top_k, dim=1).values[:, -1]
-                only_theirs = torch.where(torch.gather(ours, 1, theirs),
-                                          torch.full_like(kth[:, None], -1),
-                                          torch.gather(p, 1, theirs))
-                margins.extend((kth - only_theirs.max(1).values).tolist())
-            chosen = torch.gather(probs, 1, ref.long())
-            gates = chosen / (chosen.sum(1, keepdim=True) + 1e-9)
-            experts = ref
-        return gates, experts, probs, aux
-
     tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
                            device=dev, dtype=torch.int32)
     positions = torch.arange(t, device=dev)
     worst, agree, total, rel = 0.0, 0, 0, 0.0
     free_worst, free_agree, free_rel = 0.0, 0, 0.0
-    moe._route_topk = routing
-    try:
+    with RoutingReplay(moe) as replay:
         for step in range(steps + 1):
             logits = {}
             for name, how in runs.items():
-                mode[0] = how
+                replay.mode = how
                 logits[name], caches[name] = _forward_with_cache(
                     params, tokens, caches[name], cfg, positions,
                     use_kernels=name == "kernels")
-            recorded.clear()
+            replay.recorded.clear()
             a = logits["kernels"][:, -1]
             p = logits["replayed" if is_moe else "plain"][:, -1]
             f = logits["plain"][:, -1]
@@ -500,32 +562,19 @@ def compare_forward(torch, params, cfg, dev) -> dict:
             total += b
             tokens = a.argmax(-1).to(torch.int32)[:, None]
             positions = caches["kernels"].lengths[:, None]
-    finally:
-        moe._route_topk = route
     result = dict(max_logit_diff=worst, rel_logit_diff=rel,
                   top1_agreement=agree / total, positions_compared=total)
     if is_moe:
-        margins.sort()
         result.update(free_max_logit_diff=free_worst,
                       free_rel_logit_diff=free_rel,
                       free_top1_agreement=free_agree / total,
-                      routing_flips=len(margins),
-                      routed_token_layers=routed_tokens[0],
-                      flip_margin_max=max(margins, default=0.0),
-                      flip_margins=margins)
+                      **replay.summary())
     log("forward kernels vs plain:", json.dumps(result))
     if rel > 5e-2:
         raise AssertionError(f"forward: relative logit difference {rel} "
                              f"(limit 5e-2)")
     if is_moe:
-        share = len(margins) / routed_tokens[0]
-        if share > FLIP_SHARE_LIMIT or max(margins, default=0.0) \
-                >= FLIP_MARGIN_LIMIT:
-            raise AssertionError(
-                f"forward: {len(margins)} routing flips of "
-                f"{routed_tokens[0]} ({share}, limit {FLIP_SHARE_LIMIT}), "
-                f"largest margin {max(margins, default=0.0)} (limit "
-                f"{FLIP_MARGIN_LIMIT})")
+        replay.check("forward")
     return result
 
 
@@ -603,41 +652,47 @@ def serve(torch, params, cfg, dev, label="engine") -> dict:
     return metrics
 
 
-def compare_train(torch, dev) -> dict:
-    """Phase 5: one loss value and gradient at the 8b-L8 widths (2 layers,
-    batch 2 x 2048) through the kernels (K1, K4-K6) and through the plain
-    path, on the same weights and tokens."""
-    from k8s_dra_driver_tpu_torch.models import PRESETS, init_params, loss_fn
-    from k8s_dra_driver_tpu_torch.models.train import leaves
-    from k8s_dra_driver_tpu_torch.ops import attention, norms
+def compare_train(torch, dev, cfg, batch: int, counted: dict,
+                  seed: int) -> dict:
+    """Phase 5 (and phase 11 on the MoE config): one loss value and every
+    gradient leaf through the kernels and through the plain path, on the
+    same weights (from ``seed``) and tokens, remat "full". ``counted``
+    names the wrappers that must launch with the kernels and never
+    without. On an MoE config the plain run replays the kernel run's
+    expert choices, as phase 8 does (``RoutingReplay``), and its flips
+    are held to phase 8's limits."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.train import _model_fns, leaves
 
-    cfg = dataclasses.replace(PRESETS["8b-L8"], n_layers=2)
-    params = init_params(cfg, seed=SEED + 3, device=dev)
+    init_params, loss_fn = _model_fns(cfg)
+    is_moe = isinstance(cfg, moe.MoeConfig)
+    params = init_params(cfg, seed=seed, device=dev)
     names = (["embed"] + [f"layers/{n}" for n in params["layers"]]
              + ["final_norm", "lm_head"])
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 4)
-    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ + 1),
+    gen.manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
                            generator=gen, device=dev)
     runs = {}
-    for flag in (True, False):
-        before = (norms.rmsnorm.launches, attention.flash_fwd.launches,
-                  attention.flash_bwd_dkdv.launches,
-                  attention.flash_bwd_dq.launches)
-        loss = loss_fn(params, tokens, cfg, remat=True, use_kernels=flag)
-        grads = torch.autograd.grad(loss, flat)
-        after = (norms.rmsnorm.launches, attention.flash_fwd.launches,
-                 attention.flash_bwd_dkdv.launches,
-                 attention.flash_bwd_dq.launches)
-        ran = [a - b_ for a, b_ in zip(after, before)]
-        if flag and min(ran) <= 0 or not flag and max(ran) != 0:
-            raise AssertionError(f"use_kernels={flag}: launches {ran}")
-        runs[flag] = (loss.item(), grads)
-    lk, gk = runs[True]
-    lp, gp = runs[False]
+    with RoutingReplay(moe) as replay:
+        for flag in (True, False):
+            if is_moe:
+                replay.mode = "record" if flag else "replay"
+            before = [w.launches for w in counted.values()]
+            loss = loss_fn(params, tokens, cfg, remat=True,
+                           use_kernels=flag)
+            grads = torch.autograd.grad(loss, flat)
+            ran = dict(zip(counted, (w.launches - b_ for w, b_ in
+                                     zip(counted.values(), before))))
+            if flag and min(ran.values()) <= 0 or not flag and any(
+                    ran.values()):
+                raise AssertionError(f"use_kernels={flag}: launches {ran}")
+            runs[flag] = (loss.item(), grads, ran)
+    lk, gk, ran = runs[True]
+    lp, gp, _ = runs[False]
     loss_rel = abs(lk - lp) / abs(lp)
     grad_rel = {}
     for name, a, b_ in zip(names, gk, gp):
@@ -648,7 +703,10 @@ def compare_train(torch, dev) -> dict:
                                  f" (kernels) and {ref} (plain)")
         grad_rel[name] = diff / ref
     result = dict(loss_kernels=lk, loss_plain=lp, loss_rel_diff=loss_rel,
-                  grad_rel_diff=grad_rel)
+                  grad_rel_diff=grad_rel, batch=batch, seq=TRAIN_SEQ,
+                  layers=cfg.n_layers, kernel_launches=ran)
+    if is_moe:
+        result.update(replay.summary())
     log("loss/grad kernels vs plain:", json.dumps(result))
     if not loss_rel <= 1e-2:
         raise AssertionError(f"loss relative difference {loss_rel} "
@@ -657,23 +715,27 @@ def compare_train(torch, dev) -> dict:
     if bad:
         raise AssertionError(f"gradient relative differences over 5e-2: "
                              f"{bad}")
+    if is_moe:
+        replay.check("loss/grad")
     return result
 
 
-def train(torch, dev) -> dict:
-    """Phase 6: the training path (main path) at 8b-L8, batch 8 x 2048."""
+def train(torch, dev, cfg, preset: str, batch: int) -> dict:
+    """Phase 6 (and phase 12 on the MoE config): the training path (a main
+    path) on ``cfg`` at batch ``batch`` x 2048, remat "full", AdamW (lr
+    1e-3, warm-up 1, 100 total steps) on one fixed batch: one warm-up
+    step, 5 timed steps and one profiled step."""
     from k8s_dra_driver_tpu_torch.models import (
-        PRESETS,
         init_train_state,
         make_optimizer,
         make_train_step,
+        moe,
     )
 
-    cfg = PRESETS["8b-L8"]
     n = cfg.num_params()
     # bf16 weights, gradients and both AdamW moments: 8 bytes a parameter,
     # plus the activations of one recomputed layer and one CE chunk.
-    log(f"8b-L8: {n / 1e9:.3f}B parameters; weights + grads + moments "
+    log(f"{preset}: {n / 1e9:.3f}B parameters; weights + grads + moments "
         f"{8 * n / 1e9:.1f} GB before activations")
     torch.cuda.reset_peak_memory_stats()
     opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
@@ -681,8 +743,9 @@ def train(torch, dev) -> dict:
     step = make_train_step(cfg, opt, remat=True, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
                            generator=gen, device=dev)
+    moe.MOE_TRACE_COUNTS.clear()
     losses, times = [], []
     for _ in range(1 + TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -699,9 +762,9 @@ def train(torch, dev) -> dict:
         raise AssertionError(f"step counter {state.step}")
     step_s = statistics.median(times[1:])
     profile = profile_step(torch, step, state, tokens)
-    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    tokens_per_step = batch * TRAIN_SEQ
     metrics = dict(
-        preset="8b-L8", batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat="full",
+        preset=preset, batch=batch, seq=TRAIN_SEQ, remat="full",
         params=n, losses=losses, warmup_step_ms=times[0] * 1e3,
         step_ms=[t * 1e3 for t in times[1:]], step_ms_p50=step_s * 1e3,
         tokens_per_s=tokens_per_step / step_s,
@@ -711,7 +774,17 @@ def train(torch, dev) -> dict:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         profile=profile,
     )
-    log("train:", json.dumps(metrics))
+    if isinstance(cfg, moe.MoeConfig):
+        from k8s_dra_driver_tpu_torch.ops.moe_dispatch import (
+            dispatch_impl_label,
+        )
+
+        metrics.update(moe_blocks=dict(moe.MOE_TRACE_COUNTS),
+                       dispatch=dispatch_impl_label(
+                           cfg.hidden, cfg.mlp_hidden, device=dev))
+        log("moe train:", json.dumps(metrics))
+    else:
+        log("train:", json.dumps(metrics))
     return metrics
 
 
@@ -724,6 +797,9 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     ("moe_down_combine", ("moe_grouped_kernel<16, false",
                           "moe_grouped_kernel<64, false",
                           "moe_grouped_kernel<128, false")),
+    # tgmm first: "gmm_kernel" is also a substring of "tgmm_kernel".
+    ("tgmm", ("tgmm_kernel",)),
+    ("gmm", ("gmm_kernel",)),
     ("paged_attention", ("paged_attention_kernel",)),
     ("rmsnorm", ("_rmsnorm_row",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -929,6 +1005,217 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
             for kname in ("moe_gateup", "moe_down_combine")}
 
 
+def grouped_bounds(live: int, touched: int, k: int, n: int, r_pad: int,
+                   weight_grad: bool):
+    """(bytes, operations) of one grouped call from the run's plan:
+    operations over the live rows only (K7's convention); gmm reads the
+    touched experts' [K, N] weights and the live lhs rows and writes
+    r_pad output rows in bf16; tgmm reads the live rows of both operands
+    and writes [E, K, N] f32."""
+    ops = 2 * live * k * n
+    if weight_grad:
+        return live * (k + n) * 2 + touched * k * n * 4, ops
+    return touched * k * n * 2 + live * k * 2 + r_pad * n * 2, ops
+
+
+def library_grouped_mm(torch, lhs, rhs, offs, weight_grad: bool) -> tuple:
+    """The time of one ``torch._grouped_mm`` call computing the same
+    function (bf16, cumulative int32 offsets: for gmm lhs [rows, K] by rhs
+    [E, K, N]; for tgmm the 2-D x 2-D form lhs^T [K, rows] by rhs [rows,
+    N], offsets on the contracted axis), with the operands as given or,
+    if the card's torch refuses that layout, copied contiguous outside the
+    timed call; and the refusals. A yardstick only: the port never calls
+    it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, ["torch has no _grouped_mm"]
+    a = lhs.t() if weight_grad else lhs
+    layouts = ((lambda: (a, rhs)),
+               (lambda: (a.contiguous(), rhs.contiguous())))
+    errors = []
+    for layout in layouts:
+        args = (*layout(), offs)
+        try:
+            fn(*args)
+            torch.cuda.synchronize()
+        except Exception as exc:  # the refusal is the number's record
+            errors.append(f"{type(exc).__name__}: {exc}"[:300])
+            continue
+        return time_ms(lambda: fn(*args), iters=10), errors
+    return None, errors
+
+
+def check_grouped_kernels(torch, cfg, dev) -> dict:
+    """Phase 10: K10a ``gmm`` and K10b ``tgmm`` against their plain
+    versions at the five calls of one 8x7b layer's MoE backward
+    (``FusedMoeMlpFunction.backward``): T = 8192 tokens (batch 4 x 2048)
+    routed by the layer's router over normed random hidden states (tile
+    128, r_pad 17408), a random cotangent, the backward's own operands
+    (dgu and dys from the plain products). Then an unaligned case (empty
+    groups, rows past the last group: exactly 0), and the gradients of
+    ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``, kernels against
+    plain versions on the same inputs and cotangent. Times each call
+    (L2 flushed, CUDA events) beside its bound and ``torch._grouped_mm``."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
+    from k8s_dra_driver_tpu_torch.ops import norms
+
+    params = moe.init_params(cfg, seed=SEED + 5, device=dev)
+    layer = {k: w[0] for k, w in params["layers"].items()}
+    del params
+    w_gu, w_down = layer["w_gateup"], layer["w_down"]
+    h, m, e, k = cfg.hidden, cfg.mlp_hidden, cfg.n_experts, cfg.top_k
+    t = MOE_TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    x = torch.randn((t, h), generator=gen, device=dev).to(torch.bfloat16)
+    xf = norms.rmsnorm_reference(x, layer["ln_mlp"], cfg.norm_eps)
+    gates, experts, _, _ = moe._route_topk(xf, layer["wr"], cfg)
+    gates = gates.reshape(-1)
+    plan = md.build_plan(experts.reshape(-1), t, e, k)
+    if plan.tile_rows != 128 or plan.r_pad != 17408:
+        raise AssertionError(f"plan tile {plan.tile_rows}, r_pad "
+                             f"{plan.r_pad}; want 128 and 17408")
+    sizes = plan.sizes_aligned
+    valid = (plan.pair_ids < plan.n_pairs)[:, None]
+    live = int(valid.sum())
+    touched = int((sizes > 0).sum())
+    dy = torch.randn((plan.n_pairs, h), generator=gen, device=dev)
+    dyw32 = md._take_rows(dy, plan.pair_ids)
+    dyw = dyw32.to(torch.bfloat16)
+    xs = md._take_rows(xf, plan.row_ids)
+    act = md.moe_gateup_reference(xf, w_gu, plan)
+    w2 = md._gu_2d(w_gu)
+    # The backward's other two operands, as FusedMoeMlpFunction.backward
+    # computes them (from the plain products: both sides take the same).
+    q = md.grouped_matmul_reference(dyw, w_down.transpose(1, 2),
+                                    sizes).float() * valid
+    gates_pad = md._take_rows(gates, plan.pair_ids)
+    dact = q * gates_pad[:, None]
+    del q
+    gu = md.grouped_matmul_reference(xs, w2, sizes).float() * valid
+    dgu = md.swiglu_backward(gu, dact).to(torch.bfloat16)
+    del gu, dact
+    dys = (dyw32 * gates_pad[:, None]).to(torch.bfloat16)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    r_pad = plan.r_pad
+
+    # (name, lhs, rhs, K, N, weight_grad)
+    calls = (
+        ("gmm dyw.w_down^T", dyw, w_down.transpose(1, 2), h, m, False),
+        ("gmm xs.w2", xs, w2, h, 2 * m, False),
+        ("gmm dgu.w2^T", dgu, w2.transpose(1, 2), 2 * m, h, False),
+        ("tgmm xs^T.dgu", xs, dgu, h, 2 * m, True),
+        ("tgmm act^T.dys", act, dys, m, h, True),
+    )
+    row_group = plan.tile_expert.long().repeat_interleave(plan.tile_rows)
+    rows = {"grouped_matmul": {}, "grouped_weight_grad": {}}
+    for name, lhs, rhs, kk, nn, wgrad in calls:
+        if wgrad:
+            kernel = lambda: md.grouped_weight_grad(  # noqa: E731
+                lhs, rhs, sizes, row_group, e)
+            plain = lambda: md.grouped_weight_grad_reference(  # noqa: E731
+                lhs, rhs, row_group, e)
+            limits = (K8_REL_MAX, K8_REL_MEAN)
+        else:
+            kernel = lambda: md.grouped_matmul(lhs, rhs, sizes)  # noqa: E731
+            plain = lambda: md.grouped_matmul_reference(  # noqa: E731
+                lhs, rhs, sizes)
+            limits = (2e-2, 1e-2)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, r = rel(name, out, ref, *limits)
+        if not wgrad and not bool((out[int(offs[-1]):] == 0).all()):
+            raise AssertionError(f"{name}: rows past the groups are not 0")
+        del out, ref
+        nbytes, ops = grouped_bounds(live, touched, kk, nn, r_pad, wgrad)
+        t_b, by = bound(nbytes, ops, BF16_FLOPS)
+        log(f"{name} bound: {nbytes / 1e9:.3f} GB, {ops:.3e} operations "
+            f"-> {t_b:.4f} ms ({by})")
+        lib_ms, lib_errors = library_grouped_mm(torch, lhs, rhs, offs,
+                                                wgrad)
+        rows["grouped_weight_grad" if wgrad else "grouped_matmul"][name] = dict(
+            max_abs_err=err, rel_err=r, ms=time_ms(kernel, iters=10),
+            plain_ms=time_ms(plain, warmup=1, iters=3), bound_ms=t_b,
+            bound_by=by, library_ms=lib_ms, library_errors=lib_errors,
+            shape=(f"lhs {list(lhs.shape)}, K {kk}, N {nn}, live rows "
+                   f"{live}, experts touched {touched}"))
+        torch.cuda.empty_cache()
+    del xs, dgu, dys, dyw, dyw32
+
+    # Unaligned groups: an empty group, 92 rows past the last one.
+    rsizes = torch.tensor(RAGGED_SIZES, dtype=torch.int32, device=dev)
+    total = sum(RAGGED_SIZES)
+    lhs = torch.randn((RAGGED_ROWS, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = md.grouped_matmul(lhs, w_down.transpose(1, 2), rsizes)
+    ref = md.grouped_matmul_reference(lhs, w_down.transpose(1, 2), rsizes)
+    wg = md.grouped_weight_grad(act[:RAGGED_ROWS], lhs, rsizes, None, e)
+    wg_ref = md.grouped_weight_grad_reference(
+        act[:RAGGED_ROWS], lhs, md._row_groups(rsizes, RAGGED_ROWS), e)
+    torch.cuda.synchronize()
+    rel("gmm unaligned groups", out, ref)
+    rel("tgmm unaligned groups", wg, wg_ref, K8_REL_MAX, K8_REL_MEAN)
+    empty = [i for i, n in enumerate(RAGGED_SIZES) if n == 0]
+    if not (bool((out[total:] == 0).all())
+            and all(bool((wg[i] == 0).all()) for i in empty)):
+        raise AssertionError("unaligned groups: rows past the groups or "
+                             "empty groups are not exactly 0")
+    ragged = dict(rows=RAGGED_ROWS, sizes=list(RAGGED_SIZES),
+                  rows_past_groups=RAGGED_ROWS - total, empty_groups=empty)
+    del out, ref, wg, wg_ref, lhs
+
+    # Gradients, kernels against plain versions on the same cotangent.
+    grads = {}
+    cot = torch.randn((r_pad, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    runs = []
+    for flag in (True, False):
+        leaves = [act.clone().requires_grad_(),
+                  w_down.clone().requires_grad_()]
+        out = md.GroupedMatmulFunction.apply(*leaves, sizes, flag)
+        runs.append(torch.autograd.grad(out, leaves, cot))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dlhs", "drhs"), *runs):
+        grads[f"GroupedMatmulFunction {name}"] = rel(
+            f"GroupedMatmulFunction {name}", a, b_)[1]
+    del runs, cot
+    runs = []
+    for flag in (True, False):
+        leaves = [x_.clone().requires_grad_()
+                  for x_ in (xf, w_gu, w_down, gates)]
+        out = md.fused_moe_mlp(*leaves, plan, use_kernels=flag)
+        runs.append(torch.autograd.grad(out, leaves, dy))
+        del out, leaves
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dxf", "dw_gu", "dw_down", "dgates"), *runs):
+        grads[f"FusedMoeMlpFunction {name}"] = rel(
+            f"FusedMoeMlpFunction {name}", a, b_)[1]
+    del runs
+    torch.cuda.empty_cache()
+
+    result = {}
+    for kname, by_call in rows.items():
+        # The row's numbers: the calls of one layer's backward, summed.
+        result[kname] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in by_call.values()),
+            **{key: sum(c[key] for c in by_call.values())
+               for key in ("ms", "plain_ms", "bound_ms")},
+            bound_by="operations" if all(
+                c["bound_by"] == "operations" for c in by_call.values())
+            else "bytes",
+            library_ms=(sum(c["library_ms"] for c in by_call.values())
+                        if all(c["library_ms"] is not None
+                               for c in by_call.values()) else None),
+            shape=(f"the {len(by_call)} calls of one layer's MoE backward "
+                   f"at T {t}, tile 128, r_pad {r_pad}, summed"),
+            calls=by_call, unaligned=ragged, function_grad_rel=grads,
+        )
+    log("grouped kernels:", json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -991,12 +1278,18 @@ def main() -> int:
         "flash_bwd_dq": attention.flash_bwd_dq,
         "moe_gateup": moe_dispatch.moe_gateup,
         "moe_down_combine": moe_dispatch.moe_down_combine,
+        "grouped_matmul": moe_dispatch.grouped_matmul,
+        "grouped_weight_grad": moe_dispatch.grouped_weight_grad,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
                           "flash_bwd_dq"),
              "moe_serving": ("moe_gateup", "moe_down_combine",
-                             "paged_decode", "paged_prefill", "rmsnorm")}
+                             "paged_decode", "paged_prefill", "rmsnorm"),
+             "moe_training": ("moe_gateup", "moe_down_combine",
+                              "grouped_matmul", "grouped_weight_grad",
+                              "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                              "rmsnorm")}
     by_path = {}
 
     def drive(path, fn, *args):
@@ -1014,11 +1307,14 @@ def main() -> int:
 
     del params
     torch.cuda.empty_cache()
-    grads = compare_train(torch, dev)
+    grads = compare_train(
+        torch, dev, dataclasses.replace(PRESETS["8b-L8"], n_layers=2), 2,
+        {name: wrappers[name] for name in paths["training"]}, SEED + 3)
     log("phase 5: 8b-L8 loss and gradients through the kernels match the "
         "plain path")
     torch.cuda.empty_cache()
-    trained = drive("training", train, torch, dev)
+    trained = drive("training", train, torch, dev, PRESETS["8b-L8"], "8b-L8",
+                    TRAIN_BATCH)
     counts = by_path["training"]
     layers = PRESETS["8b-L8"].n_layers
     steps = 1 + TRAIN_STEPS + 1    # warm-up, timed, profiled
@@ -1074,6 +1370,49 @@ def main() -> int:
     moe_engine["decode_profile"] = profile_decode(torch, mparams, mcfg, dev)
     del mparams
     torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(MOE_PRESETS["8x7b-L1"], moe_impl="dropless")
+    kernels.update(check_grouped_kernels(torch, tcfg, dev))
+    log("phase 10: gmm and tgmm agree with their plain versions at the MoE "
+        "backward's five calls, on unaligned groups and through both "
+        "autograd Functions")
+    torch.cuda.empty_cache()
+    moe_grads = compare_train(
+        torch, dev, tcfg, MOE_COMPARE_BATCH,
+        {name: wrappers[name] for name in ("moe_gateup", "moe_down_combine",
+                                           "grouped_matmul",
+                                           "grouped_weight_grad")},
+        SEED + 5)
+    log("phase 11: 8x7b-L1 loss and gradients through the kernels match the "
+        "plain path with routing replayed")
+    torch.cuda.empty_cache()
+    moe_trained = drive("moe_training", train, torch, dev, tcfg, "8x7b-L1",
+                        MOE_TRAIN_BATCH)
+    counts = by_path["moe_training"]
+    layers = tcfg.n_layers
+    # Remat "full": K7, K8 and K4 run twice per layer (forward and the
+    # recompute), the backward 3 gmm, 2 tgmm, K5 and K6 once; RMSNorm twice
+    # per norm of a layer plus the final norm.
+    want = {"moe_gateup": 2 * layers * steps,
+            "moe_down_combine": 2 * layers * steps,
+            "grouped_matmul": 3 * layers * steps,
+            "grouped_weight_grad": 2 * layers * steps,
+            "flash_fwd": 2 * layers * steps,
+            "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps,
+            "rmsnorm": (4 * layers + 1) * steps}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"MoE training launches {counts}, expected "
+                             f"{want}")
+    blocks = {f"dropless:fused:t{MOE_TRAIN_BATCH * TRAIN_SEQ}"}
+    if moe_trained["dispatch"] != "fused" \
+            or set(moe_trained["moe_blocks"]) != blocks:
+        raise AssertionError(f"MoE training dispatch "
+                             f"{moe_trained['dispatch']}, blocks "
+                             f"{moe_trained['moe_blocks']}; want fused "
+                             f"{blocks}")
+    log(f"phase 12: trained 8x7b-L1 (dropless) for {steps} steps through "
+        f"every kernel (launches {counts})")
+    torch.cuda.empty_cache()
     launches = {name: sum(by_path[p][name] for p in by_path)
                 for name in wrappers}
 
@@ -1101,6 +1440,12 @@ def main() -> int:
         "moe_down_combine": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                              "moe_dispatch.cu",
                              "k8s_dra_driver_tpu/ops/moe_dispatch.py:537"),
+        "grouped_matmul": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                           "grouped_matmul.cu",
+                           "k8s_dra_driver_tpu/ops/moe_dispatch.py:407"),
+        "grouped_weight_grad": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                                "grouped_matmul.cu",
+                                "k8s_dra_driver_tpu/ops/moe_dispatch.py:437"),
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -1125,7 +1470,8 @@ def main() -> int:
     log(card)
     log(json.dumps({"forward": forward, "engine": engine, "grads": grads,
                     "train": trained, "moe_forward": moe_forward,
-                    "moe_engine": moe_engine}))
+                    "moe_engine": moe_engine, "moe_grads": moe_grads,
+                    "moe_train": moe_trained}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Llama-3 on the card: configuration and parameters, serving on the paged
 KV cache (the cached forward and the continuous-batching engine, for dense
-and Mixtral-style MoE configs), and dense training (forward, loss,
+and Mixtral-style MoE configs), and training of both (forward, loss,
 optimizer and train step)."""
 
 from . import moe

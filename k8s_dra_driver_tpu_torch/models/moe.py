@@ -1,5 +1,5 @@
-"""Mixtral-style sparse Mixture-of-Experts on the Llama trunk: the serving
-half. Counterpart of ``k8s_dra_driver_tpu/models/moe.py``.
+"""Mixtral-style sparse Mixture-of-Experts on the Llama trunk: serving and
+training. Counterpart of ``k8s_dra_driver_tpu/models/moe.py``.
 
 An MoE model differs from the dense trunk only in its MLP block: a router
 (``wr``, kept in f32) picks ``top_k`` of ``n_experts`` per token, and the
@@ -10,17 +10,19 @@ Two of the reference's formulations are ported, sharing one router
 - **dropless** -- token-sort into the dispatch plan, then the fused
   dispatch kernels (``ops/moe_dispatch.py``: K7 gathers the rows inside
   the gate/up product, K8 scatters the gate-weighted down product to each
-  pair's slot), or, on the primitive path, gathers around grouped
-  matmuls. No capacity, nothing drops.
+  pair's slot; their backward runs the grouped kernels K10), or, on the
+  primitive path, gathers around grouped matmuls (K10 both ways). No
+  capacity, nothing drops.
 - **einsum** -- GShard capacity routing with one-hot dispatch/combine
   einsums (plain PyTorch, as the reference leaves them to XLA).
 
 ``auto`` resolves per call by the reference's table
-(:func:`resolve_moe_impl`). Not ported yet: the ``binned`` formulation,
-expert parallelism (meshes, the ring and psum paths), the pipelined
-forward, ``param_specs`` and ``loss_fn`` (MoE training, which also
-brings the aux-loss coefficient, the backward of the fused pipeline and
-K10); those that have a name here raise ``NotImplementedError``.
+(:func:`resolve_moe_impl`). :func:`forward` and :func:`loss_fn` (next-token
+cross-entropy plus ``aux_coef`` times the Switch load-balancing loss) are
+differentiable, with the dense trunk's remat policies. Not ported yet: the
+``binned`` formulation, expert parallelism (meshes, the ring and psum
+paths), the pipelined forward and ``param_specs``; those that have a name
+here raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,12 @@ from .. import resolve_device
 from ..ops import moe_dispatch
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import rope_frequencies
-from .llama import LlamaConfig, _attention_block
+from .llama import (
+    LlamaConfig,
+    _attention_block,
+    _remat_transform,
+    chunked_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,8 @@ class MoeConfig(LlamaConfig):
     router_group: int = 128
     # "auto" | "einsum" | "dropless" ("binned" is not ported).
     moe_impl: str = "auto"
+    # Weight of the Switch load-balancing loss in ``loss_fn``.
+    aux_coef: float = 0.01
 
     def num_params(self) -> int:
         h, m, v, l = self.hidden, self.mlp_hidden, self.vocab_size, self.n_layers
@@ -295,10 +304,10 @@ def _pairs_mlp(
     [lo, lo + e_loc): per-token contributions [T, H] f32 (pairs outside
     the range contribute exact zeros).
 
-    Two implementations over one dispatch plan: **fused** (K7 and K8;
-    ``use_kernels=False`` runs their plain versions on CUDA tensors) and
-    **primitive** (gathers around grouped matmuls; needs K10 on the card,
-    so it raises there until MoE training ports it)."""
+    Two implementations over one dispatch plan: **fused** (K7 and K8, K10
+    in their backward) and **primitive** (gathers around grouped matmuls,
+    K10 both ways); ``use_kernels=False`` runs the plain versions on CUDA
+    tensors."""
     c = config
     t, k = gates.shape
     h = xf.shape[1]
@@ -319,8 +328,8 @@ def _pairs_mlp(
             xf, w_gu, w_down, gates_flat, plan, use_kernels=use_kernels,
         )
     else:
-        y_pairs = moe_dispatch.reference_moe_mlp(xf, w_gu, w_down,
-                                                 gates_flat, plan)
+        _, y_pairs = moe_dispatch._reference_parts(
+            xf, w_gu, w_down, gates_flat, plan, use_kernels)
     return y_pairs.reshape(t, k, h).sum(dim=1)
 
 
@@ -403,27 +412,38 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     return x + out.to(x.dtype), aux
 
 
-@torch.no_grad()
+def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):
+    """One layer: attention, then the sparse MLP. Returns (x, aux)."""
+    x = _attention_block(x, layer, config, cos, sin, use_kernels)
+    return _moe_block(x, layer, config, use_kernels=use_kernels)
+
+
 def forward(
     params: dict,
     tokens: torch.Tensor,               # [B, S] int
     config: MoeConfig,
+    remat: bool = False,
     return_hidden: bool = False,
+    remat_policy: str = "full",
     use_kernels: bool = True,
 ):
-    """Causal LM forward for inference, on one device. Returns (logits
-    [B, S, V] f32 or the final hidden states, aux). Remat, gradients,
-    meshes and ring attention wait for the MoE training slice."""
+    """Causal LM forward on one device. Returns (logits [B, S, V] f32, or
+    the final hidden states with ``return_hidden``, and the aux loss
+    averaged over layers). Differentiable; ``remat`` takes the dense
+    trunk's policies ("full" checkpoints each layer, the named ones raise
+    as in ``llama.forward``). Weights are unbound per layer once, as
+    ``llama.forward`` does. Meshes and ring attention are not ported."""
     c = config
     s = tokens.shape[1]
     x = params["embed"][tokens.long()]
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
                                 device=tokens.device)
+    block = _remat_transform(remat, remat_policy)(_block)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
-        layer = {name: w[i] for name, w in params["layers"].items()}
-        x = _attention_block(x, layer, c, cos, sin, use_kernels)
-        x, aux_l = _moe_block(x, layer, c, use_kernels=use_kernels)
+        layer = {name: ws[i] for name, ws in layers.items()}
+        x, aux_l = block(x, layer, c, cos, sin, use_kernels)
         aux = aux + aux_l
     aux = aux / c.n_layers
     x = _norm(use_kernels)(x, params["final_norm"], c.norm_eps)
@@ -438,8 +458,18 @@ def forward_pipelined(*args, **kwargs):
     )
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "MoE training is not ported yet: it needs the fused pipeline's "
-        "backward and the grouped-matmul kernel K10"
-    )
+def loss_fn(
+    params: dict,
+    tokens: torch.Tensor,               # [B, S+1]: inputs + shifted targets
+    config: MoeConfig,
+    remat: bool = True,
+    remat_policy: str = "full",
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Next-token cross-entropy (mean over tokens) plus ``aux_coef`` times
+    the load-balancing aux loss."""
+    hidden, aux = forward(params, tokens[:, :-1], config, remat=remat,
+                          return_hidden=True, remat_policy=remat_policy,
+                          use_kernels=use_kernels)
+    ce = chunked_cross_entropy(hidden, params["lm_head"], tokens[:, 1:])
+    return ce + config.aux_coef * aux

@@ -15,8 +15,11 @@ outside the square root, weight decay reaches every leaf, and both
 moments keep the parameters' dtype. The clip divides by the plain global
 norm (no epsilon added, unlike ``torch.nn.utils.clip_grad_norm_``).
 
-Not ported yet: ``state_shardings`` and ``reshard_train_state`` (the
-multi-GPU slice), ring attention (``use_ring``) and MoE configs.
+Both model families train: :func:`_model_fns` picks ``moe``'s parameters
+and loss for an ``MoeConfig`` (whose router stays f32, and so do its
+moments), ``llama``'s otherwise. Not ported yet: ``state_shardings`` and
+``reshard_train_state`` (the multi-GPU slice) and ring attention
+(``use_ring``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import math
 import torch
 
 from .. import resolve_device
-from .llama import LlamaConfig, init_params, loss_fn
+from .llama import LlamaConfig
 
 __all__ = [
     "AdamW",
@@ -60,6 +63,15 @@ ADAM_EPS = 1e-8
 #: Elements per f32 slice of the optimizer update: bounds its temporaries
 #: (a few of 256 MB) whatever the size of a leaf.
 _UPDATE_SLICE = 1 << 26
+
+
+def _model_fns(config: LlamaConfig):
+    """(init_params, loss_fn) for the config's model family -- MoeConfig
+    subclasses LlamaConfig, so the sparse check comes first."""
+    from . import llama, moe
+
+    mod = moe if isinstance(config, moe.MoeConfig) else llama
+    return mod.init_params, mod.loss_fn
 
 
 def leaves(tree: dict) -> list[torch.Tensor]:
@@ -185,7 +197,7 @@ def init_train_state(config: LlamaConfig, optimizer: AdamW, seed: int = 0,
                      device=None) -> TrainState:
     """Random parameters from ``seed`` on ``device`` (default CUDA) and a
     fresh optimizer state."""
-    params = init_params(config, seed=seed, device=device)
+    params = _model_fns(config)[0](config, seed=seed, device=device)
     return train_state_from_params(params, optimizer)
 
 
@@ -210,6 +222,7 @@ def make_train_step(config: LlamaConfig, optimizer: AdamW,
     ``device`` (default CUDA). It updates ``state`` in place and returns
     it, with the loss as a 0-dim f32 tensor."""
     dev = resolve_device(device)
+    loss_fn = _model_fns(config)[1]
 
     def step(state: TrainState, tokens: torch.Tensor):
         _check_device(state.params, dev)
@@ -229,6 +242,7 @@ def make_train_step(config: LlamaConfig, optimizer: AdamW,
 def make_eval_step(config: LlamaConfig, device=None):
     """``(params, tokens [B, S+1]) -> loss`` without gradients or remat."""
     dev = resolve_device(device)
+    loss_fn = _model_fns(config)[1]
 
     @torch.no_grad()
     def step(params: dict, tokens: torch.Tensor):

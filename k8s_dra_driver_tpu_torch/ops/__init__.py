@@ -1,6 +1,7 @@
 """Ops of the serving and training paths: paged and flash attention, the
-fused MoE dispatch pipeline and RMSNorm (hand-written Hopper kernels with
-their plain PyTorch versions) and rotary embeddings."""
+fused MoE dispatch pipeline and its grouped matmuls, and RMSNorm
+(hand-written Hopper kernels with their plain PyTorch versions) and rotary
+embeddings."""
 
 from .attention import (
     FlashAttentionFunction,
@@ -18,8 +19,14 @@ from .attention import (
 from . import moe_dispatch
 from .moe_dispatch import (
     DispatchPlan,
+    FusedMoeMlpFunction,
+    GroupedMatmulFunction,
     build_plan,
     fused_moe_mlp,
+    grouped_matmul,
+    grouped_matmul_reference,
+    grouped_weight_grad,
+    grouped_weight_grad_reference,
     moe_down_combine,
     moe_down_combine_reference,
     moe_gateup,
@@ -45,6 +52,12 @@ __all__ = [
     "DispatchPlan",
     "build_plan",
     "fused_moe_mlp",
+    "FusedMoeMlpFunction",
+    "grouped_matmul",
+    "grouped_matmul_reference",
+    "grouped_weight_grad",
+    "grouped_weight_grad_reference",
+    "GroupedMatmulFunction",
     "reference_moe_mlp",
     "moe_gateup",
     "moe_gateup_reference",

@@ -1,6 +1,6 @@
-"""Fused ragged MoE dispatch: the dispatch plan, the two hand-written
-Hopper kernels of the route -> dispatch -> expert -> combine pipeline,
-and their plain PyTorch versions. Counterpart of
+"""Fused ragged MoE dispatch: the dispatch plan, the hand-written Hopper
+kernels of the route -> dispatch -> expert -> combine pipeline and of its
+backward, and their plain PyTorch versions. Counterpart of
 ``k8s_dra_driver_tpu/ops/moe_dispatch.py``.
 
 - :func:`build_plan` lays every (token, expert) pair into an
@@ -16,17 +16,21 @@ and their plain PyTorch versions. Counterpart of
   ``_down_combine_kernel`` (with ``_scatter_rows_dma``): the
   down-projection in f32, times each row's router gate, written straight
   to the row's token-major pair slot. Slots of no live pair stay 0.
-- :func:`moe_gateup_reference` and :func:`moe_down_combine_reference`
-  are their plain versions (the same arithmetic, per expert);
-  :func:`fused_moe_mlp` chains the pair (forward only: the custom VJP and
-  its grouped matmuls come with MoE training).
+- :func:`grouped_matmul` and :func:`grouped_weight_grad` wrap ``gmm`` and
+  ``tgmm`` of ``csrc/grouped_matmul.cu``, which replace megablox ``gmm``
+  and ``tgmm``: ``lax.ragged_dot`` over any group sizes, and the per-group
+  weight gradient ``lhs_e^T . rhs_e``. :class:`GroupedMatmulFunction` gives
+  ``grouped_matmul`` megablox's VJP (one more ``gmm`` and one ``tgmm``).
+- :class:`FusedMoeMlpFunction` is the fused pipeline with the reference's
+  custom VJP: K7 then K8 forward, and a backward of three grouped products
+  and two grouped weight gradients (:func:`fused_moe_mlp`).
 - :func:`reference_moe_mlp` is the reference's oracle: gathers plus
-  :func:`grouped_matmul` over the same layout. ``grouped_matmul`` exists
-  here only as its plain version (a loop over groups equal to
-  ``lax.ragged_dot``); its kernel, megablox ``gmm``, is ported with MoE
-  training, and until then a CUDA tensor makes it raise.
+  grouped products over the same layout, all plain versions
+  (:func:`_reference_parts`, which the primitive path runs with kernels).
 
-A kernel wrapper takes its plain version only for CPU tensors. For CUDA
+Each kernel has its plain version beside it (``*_reference``). A kernel
+wrapper takes it only for CPU tensors, or where the caller passes
+``use_kernels=False`` (the kernel-versus-plain comparison). For CUDA
 tensors it launches its kernel (counted in ``<wrapper>.launches``) or
 raises: bf16 inputs, row tiles that are multiples of 8 up to 128, and the
 widths :func:`fused_geometry_ok` names. The reference's
@@ -58,11 +62,19 @@ KERNEL_COLS = 64
 _DISPATCH_IMPL = "auto"
 
 _SOURCE = "moe_dispatch"
+_GROUPED_SOURCE = "grouped_matmul"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _GATEUP_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 _DOWN_ARGTYPES = [_PTR] * 6 + [_INT] * 5 + [_PTR]
+_GMM_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_PTR]
+_TGMM_ARGTYPES = [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _LIB = None
+_GROUPED_LIB = None
+#: The grouped kernels' width steps: gmm takes K in steps of 32 and N of
+#: 64, tgmm K and N in steps of 64 (``csrc/grouped_matmul.cu``).
+GMM_K_STEP = 32
+GROUPED_COLS = 64
 
 
 def set_dispatch_impl(impl: str) -> None:
@@ -229,33 +241,225 @@ def build_plan(
 
 
 # ---------------------------------------------------------------------------
-# Grouped matmul (plain version only until MoE training ports K10).
+# K10: grouped matmul (megablox gmm) and grouped weight gradient (tgmm).
 # ---------------------------------------------------------------------------
+
+
+def grouped_matmul_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                             group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``gmm`` (``lax.ragged_dot``): rows [start_g,
+    start_g + size_g) times ``rhs[g]`` as f32 products, rounded to
+    ``lhs``'s dtype; rows past the last group are 0."""
+    rows = lhs.shape[0]
+    out = torch.zeros(rows, rhs.shape[2], dtype=lhs.dtype,
+                      device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(size, 0), rows)
+        if end > start:
+            out[start:end] = (lhs[start:end].float()
+                              @ rhs[g].float()).to(lhs.dtype)
+        start += max(size, 0)
+    return out
+
+
+def _row_groups(group_sizes: torch.Tensor, rows: int) -> torch.Tensor:
+    """The group of each of ``rows`` rows under cumulative sizes; -1 past
+    the last group."""
+    bounds = torch.cumsum(group_sizes.clamp(min=0).long(), 0)
+    groups = torch.searchsorted(
+        bounds, torch.arange(rows, device=group_sizes.device), right=True)
+    return torch.where(groups < group_sizes.numel(), groups,
+                       torch.full_like(groups, -1))
+
+
+def grouped_weight_grad_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                                  row_group: torch.Tensor,
+                                  n_groups: int) -> torch.Tensor:
+    """The plain version of ``tgmm`` (the reference's fallback): dW[g] =
+    the f32 product of ``lhs``'s and ``rhs``'s rows of group g ([E, K, N]
+    f32); rows of no group (``row_group`` -1, or any group for rows whose
+    lhs is zero) add nothing."""
+    lhs32, rhs32 = lhs.float(), rhs.float()
+    out = torch.zeros(n_groups, lhs.shape[1], rhs.shape[1],
+                      dtype=torch.float32, device=lhs.device)
+    for g in range(n_groups):
+        rows = torch.nonzero(row_group == g).flatten()
+        if rows.numel():
+            out[g] = lhs32[rows].T @ rhs32[rows]
+    return out
+
+
+def _grouped_library():
+    global _GROUPED_LIB
+    if _GROUPED_LIB is None:
+        lib = _build.load(_GROUPED_SOURCE)
+        lib.grouped_matmul.argtypes = _GMM_ARGTYPES
+        lib.grouped_matmul.restype = _INT
+        lib.grouped_weight_grad.argtypes = _TGMM_ARGTYPES
+        lib.grouped_weight_grad.restype = _INT
+        _GROUPED_LIB = lib
+    return _GROUPED_LIB
+
+
+def _check_grouped(kernel: str, group_sizes: torch.Tensor,
+                   **operands) -> None:
+    """What the grouped kernels take: one CUDA device, bf16 operands,
+    int32 group sizes, 16-byte aligned."""
+    dev = next(iter(operands.values())).device
+    for name, x in {**operands, "group_sizes": group_sizes}.items():
+        if x.device != dev or not x.is_cuda:
+            raise ValueError(
+                f"{kernel}: {name} on {x.device}; every input must sit on "
+                f"one CUDA device (or all on the CPU)"
+            )
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+    for name, x in operands.items():
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel}: {name} is {x.dtype}; the kernel "
+                            f"takes bf16")
+    if group_sizes.dtype != torch.int32 or not group_sizes.is_contiguous():
+        raise TypeError(f"{kernel}: group_sizes must be contiguous int32, "
+                        f"got {group_sizes.dtype}")
+
+
+def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+         use_kernels: bool = True) -> torch.Tensor:
+    """K10a without autograd: the ``gmm`` kernel for CUDA tensors, its
+    plain version for CPU tensors or with ``use_kernels=False``."""
+    if not use_kernels or _is_cpu(lhs, rhs, group_sizes):
+        return grouped_matmul_reference(lhs, rhs, group_sizes)
+    _check_grouped("grouped_matmul", group_sizes, lhs=lhs, rhs=rhs)
+    if lhs.dim() != 2 or rhs.dim() != 3 or rhs.shape[1] != lhs.shape[1] \
+            or group_sizes.shape != (rhs.shape[0],):
+        raise ValueError(
+            f"grouped_matmul: lhs {tuple(lhs.shape)}, rhs "
+            f"{tuple(rhs.shape)}, group_sizes {tuple(group_sizes.shape)}; "
+            f"expected [rows, K], [E, K, N] and [E]")
+    rows, k = lhs.shape
+    e, _, n = rhs.shape
+    if not lhs.is_contiguous():
+        raise ValueError("grouped_matmul: lhs must be contiguous")
+    # rhs as stored [E, K, N], or the transposed view of a stored [E, N, K]
+    # (megablox's transpose_rhs): the kernel reads either, no copy.
+    if rhs.is_contiguous():
+        transposed = 0
+    elif rhs.transpose(1, 2).is_contiguous():
+        transposed = 1
+    else:
+        raise ValueError(
+            "grouped_matmul: rhs must be contiguous [E, K, N] or the "
+            "transposed view of a contiguous [E, N, K]")
+    if k % GMM_K_STEP or n % GROUPED_COLS:
+        raise ValueError(
+            f"grouped_matmul: K {k}, N {n}; the kernel takes K in multiples "
+            f"of {GMM_K_STEP} and N in multiples of {GROUPED_COLS}")
+    out = torch.empty(rows, n, dtype=lhs.dtype, device=lhs.device)
+    with torch.cuda.device(lhs.device):
+        rc = _grouped_library().grouped_matmul(
+            lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), rows, k, n, e, transposed,
+            torch.cuda.current_stream(lhs.device).cuda_stream,
+        )
+    _build.check(rc, "grouped_matmul")
+    grouped_matmul.launches += 1
+    return out
+
+
+def grouped_weight_grad(
+    lhs: torch.Tensor,               # [rows, K] forward operand
+    rhs: torch.Tensor,               # [rows, N] cotangent
+    group_sizes: torch.Tensor,       # [E] int32, cumulative layout
+    row_group: torch.Tensor | None,  # [rows] group per row (plain version)
+    n_groups: int,
+    *,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """K10b, megablox ``tgmm``: dW[e] = lhs_e^T . rhs_e over group e's
+    rows, [E, K, N] f32. CUDA tensors launch the ``tgmm`` kernel, which
+    reads the groups from ``group_sizes``; the plain version (CPU tensors,
+    or ``use_kernels=False``) masks by ``row_group`` as the reference's
+    fallback does (derived from ``group_sizes`` when None), so rows past
+    the groups must carry zero lhs there."""
+    if not use_kernels or _is_cpu(lhs, rhs, group_sizes):
+        if row_group is None:
+            row_group = _row_groups(group_sizes, lhs.shape[0])
+        return grouped_weight_grad_reference(lhs, rhs, row_group, n_groups)
+    _check_grouped("grouped_weight_grad", group_sizes, lhs=lhs, rhs=rhs)
+    rows, k = lhs.shape
+    n = rhs.shape[1]
+    if rhs.dim() != 2 or rhs.shape[0] != rows \
+            or group_sizes.shape != (n_groups,):
+        raise ValueError(
+            f"grouped_weight_grad: lhs {tuple(lhs.shape)}, rhs "
+            f"{tuple(rhs.shape)}, group_sizes {tuple(group_sizes.shape)}; "
+            f"expected [rows, K], [rows, N] and [{n_groups}]")
+    if not (lhs.is_contiguous() and rhs.is_contiguous()):
+        raise ValueError("grouped_weight_grad: lhs and rhs must be "
+                         "contiguous")
+    if k % GROUPED_COLS or n % GROUPED_COLS:
+        raise ValueError(
+            f"grouped_weight_grad: K {k}, N {n}; the kernel takes multiples "
+            f"of {GROUPED_COLS}")
+    out = torch.empty(n_groups, k, n, dtype=torch.float32,
+                      device=lhs.device)
+    with torch.cuda.device(lhs.device):
+        rc = _grouped_library().grouped_weight_grad(
+            lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), rows, k, n, n_groups,
+            torch.cuda.current_stream(lhs.device).cuda_stream,
+        )
+    _build.check(rc, "grouped_weight_grad")
+    grouped_weight_grad.launches += 1
+    return out
+
+
+grouped_weight_grad.launches = 0
+
+
+class GroupedMatmulFunction(torch.autograd.Function):
+    """Autograd through ``gmm`` with megablox's VJP: dlhs = gmm(dout,
+    rhs^T) (a transposed view, no copy) and drhs = tgmm(lhs, dout) in
+    rhs's dtype. Runs for CPU tensors too, with the plain versions."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, use_kernels: bool):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        ctx.use_kernels = use_kernels
+        return _gmm(lhs, rhs, group_sizes, use_kernels)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        dout = dout.to(lhs.dtype).contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = _gmm(dout, rhs.transpose(1, 2), group_sizes,
+                        ctx.use_kernels)
+        if ctx.needs_input_grad[1]:
+            drhs = grouped_weight_grad(
+                lhs, dout, group_sizes, None, rhs.shape[0],
+                use_kernels=ctx.use_kernels,
+            ).to(rhs.dtype)
+        return dlhs, drhs, None, None
 
 
 def grouped_matmul(
     lhs: torch.Tensor,           # [rows, K]
-    rhs: torch.Tensor,           # [E, K, N]
-    group_sizes: torch.Tensor,   # [E] int, cumulative layout
+    rhs: torch.Tensor,           # [E, K, N] (or a transposed [E, N, K])
+    group_sizes: torch.Tensor,   # [E] int32, cumulative layout
+    *,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
-    """``lax.ragged_dot``: rows [start_g, start_g + size_g) times
-    ``rhs[g]``, rows past the last group zero, in ``lhs``'s dtype.
+    """K10a, megablox ``gmm`` (``lax.ragged_dot``): rows [start_g, start_g
+    + size_g) times ``rhs[g]``, summed in f32 and rounded to ``lhs``'s
+    dtype; rows past the last group 0. Any group sizes, aligned or not.
+    Differentiable (:class:`GroupedMatmulFunction`)."""
+    return GroupedMatmulFunction.apply(lhs, rhs, group_sizes, use_kernels)
 
-    On the card this is megablox ``gmm`` (K10), ported with MoE training;
-    until then a CUDA tensor raises rather than run a stand-in."""
-    if lhs.is_cuda or rhs.is_cuda:
-        raise NotImplementedError(
-            "grouped_matmul: K10 (megablox gmm) is not ported yet -- it "
-            "comes with the MoE training slice; the fused dispatch "
-            "kernels (moe_gateup, moe_down_combine) serve on the card"
-        )
-    out = torch.zeros(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype)
-    start = 0
-    for g, size in enumerate(group_sizes.tolist()):
-        if size:
-            out[start:start + size] = lhs[start:start + size] @ rhs[g]
-        start += size
-    return out
+
+grouped_matmul.launches = 0
 
 
 def _gu_2d(w_gu: torch.Tensor) -> torch.Tensor:
@@ -274,23 +478,35 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, rows, torch.zeros_like(rows))
 
 
-def reference_moe_mlp(xf, w_gu, w_down, gates, plan: DispatchPlan):
-    """The oracle: gathers and grouped products over the plan's layout;
-    returns token-major pair contributions [n_pairs, H] f32. Equal to the
-    fused pipeline up to rounding (its gate/up product is rounded to the
-    input dtype before SwiGLU). The reference's ``_reference_parts`` also
-    returns the sorted activations, for its backward; that comes with MoE
-    training."""
+def _reference_parts(xf, w_gu, w_down, gates, plan: DispatchPlan,
+                     use_kernels: bool):
+    """(sorted activations [r_pad, M], token-major pair outputs [n_pairs,
+    H] f32) by gathers and grouped products over the plan's layout:
+    ``gmm`` on the card with ``use_kernels``, the plain versions without.
+    Differentiable (the gathers by autograd, the products by
+    :class:`GroupedMatmulFunction`). Equal to the fused pipeline up to
+    rounding: its gate/up product is rounded to the input dtype before
+    SwiGLU."""
     m = w_down.shape[1]
     xs = _take_rows(xf, plan.row_ids)
-    gu = grouped_matmul(xs, _gu_2d(w_gu), plan.sizes_aligned)
+    gu = grouped_matmul(xs, _gu_2d(w_gu), plan.sizes_aligned,
+                        use_kernels=use_kernels)
     gate = torch.nn.functional.silu(gu[:, :m].float())
     up = gu[:, m:].float()
     act = (gate * up).to(xf.dtype)
-    ys = grouped_matmul(act, w_down, plan.sizes_aligned)
+    ys = grouped_matmul(act, w_down, plan.sizes_aligned,
+                        use_kernels=use_kernels)
     gates_pad = _take_rows(gates, plan.pair_ids)
     yw = ys.float() * gates_pad[:, None]
-    return _take_rows(yw, plan.slot_of_pair)
+    return act, _take_rows(yw, plan.slot_of_pair)
+
+
+def reference_moe_mlp(xf, w_gu, w_down, gates, plan: DispatchPlan):
+    """The oracle: :func:`_reference_parts` with every product a plain
+    version (the reference passes ``use_pallas=False``); returns
+    token-major pair contributions [n_pairs, H] f32."""
+    return _reference_parts(xf, w_gu, w_down, gates, plan,
+                            use_kernels=False)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +686,100 @@ def moe_down_combine(act: torch.Tensor, w_down: torch.Tensor,
 moe_down_combine.launches = 0
 
 
+def swiglu_backward(gu: torch.Tensor, dact: torch.Tensor) -> torch.Tensor:
+    """d(silu(g) * u) / d[g | u] times ``dact``: gu [rows, 2M] f32 (gate
+    half first), dact [rows, M] f32 -> [rows, 2M] f32."""
+    m = dact.shape[1]
+    g_lin, u = gu[:, :m], gu[:, m:]
+    sg = torch.sigmoid(g_lin)
+    return torch.cat([dact * u * (sg * (1.0 + g_lin * (1.0 - sg))),
+                      dact * (g_lin * sg)], dim=1)
+
+
+_PLAN_TENSORS = ("row_ids", "pair_ids", "slot_of_pair", "tile_expert",
+                 "sizes_aligned")
+
+
+class FusedMoeMlpFunction(torch.autograd.Function):
+    """The fused dispatch pipeline with the reference's custom VJP
+    (``_fused_mlp``). Forward: K7 then K8; it saves the sorted
+    activations (the reference's ``moe_act`` residual) and the plan's
+    index tensors, so under ``torch.utils.checkpoint`` the backward reads
+    the recomputed ones. Backward, line for line ``_fused_mlp_bwd``: three
+    grouped products and two grouped weight gradients, every index motion
+    a gather through the plan's maps (no scatter-add: deterministic). The
+    ``valid`` masks stay, as the reference computes them, though the
+    port's kernels zero-fill. ``use_kernels=False`` runs the plain
+    versions in both directions."""
+
+    @staticmethod
+    def forward(ctx, xf, w_gu, w_down, gates, plan: DispatchPlan,
+                use_kernels: bool):
+        gates_pad = _take_rows(gates, plan.pair_ids).contiguous()
+        if use_kernels:
+            act = moe_gateup(xf, w_gu, plan)
+            y_pairs = moe_down_combine(act, w_down, gates_pad, plan)
+        else:
+            act = moe_gateup_reference(xf, w_gu, plan)
+            y_pairs = moe_down_combine_reference(act, w_down, gates_pad,
+                                                 plan)
+        ctx.save_for_backward(xf, w_gu, w_down, gates, act,
+                              *(getattr(plan, f) for f in _PLAN_TENSORS))
+        ctx.statics = (plan.tile_rows, plan.n_tokens, plan.n_pairs,
+                       plan.n_experts, plan.top_k)
+        ctx.use_kernels = use_kernels
+        return y_pairs
+
+    @staticmethod
+    def backward(ctx, dy):
+        xf, w_gu, w_down, gates, act, *index = ctx.saved_tensors
+        tile_rows, t, n_pairs, e, k = ctx.statics
+        plan = DispatchPlan(*index, tile_rows=tile_rows, n_tokens=t,
+                            n_pairs=n_pairs, n_experts=e, top_k=k)
+        uk = ctx.use_kernels
+        sizes = plan.sizes_aligned
+
+        dyw = _take_rows(dy.float(), plan.pair_ids)          # [r_pad, H]
+        gates_pad = _take_rows(gates, plan.pair_ids)
+        # One grouped product serves the gate and the activation grads:
+        # q = dyw . W_down^T; dgate = act . q; dact = gate * q.
+        q = _gmm(dyw.to(xf.dtype), w_down.transpose(1, 2), sizes,
+                 uk).float()                                 # [r_pad, M]
+        valid = (plan.pair_ids < plan.n_pairs)[:, None]
+        q = torch.where(valid, q, 0.0)
+        dgates_pad = (act.float() * q).sum(-1)
+        dgates = _take_rows(dgates_pad, plan.slot_of_pair)
+        dact = q * gates_pad[:, None]
+        del q, dgates_pad
+
+        # SwiGLU jacobian from a recompute of the gate/up product. The
+        # kernels take bf16 operands: dgu is rounded to the weights' dtype
+        # here, for tgmm as for gmm (the reference keeps tgmm's f32).
+        xs = _take_rows(xf, plan.row_ids)
+        w2 = _gu_2d(w_gu)
+        gu = torch.where(valid, _gmm(xs, w2, sizes, uk).float(), 0.0)
+        dgu = swiglu_backward(gu, dact).to(w_gu.dtype)       # [r_pad, 2M]
+        del gu, dact
+
+        dxs = _gmm(dgu, w2.transpose(1, 2), sizes, uk).float()
+        dxs = torch.where(valid, dxs, 0.0)
+        slots = plan.slot_of_pair.reshape(t, k)
+        dxf = sum(_take_rows(dxs, slots[:, j]) for j in range(k)).to(
+            xf.dtype)
+        del dxs
+
+        row_group = plan.tile_expert.long().repeat_interleave(tile_rows)
+        dw_gu = grouped_weight_grad(
+            xs, dgu, sizes, row_group, e, use_kernels=uk,
+        ).reshape(w_gu.shape).to(w_gu.dtype)
+        del xs, dgu
+        dys = (dyw * gates_pad[:, None]).to(w_down.dtype)
+        dw_down = grouped_weight_grad(
+            act, dys, sizes, row_group, e, use_kernels=uk,
+        ).to(w_down.dtype)
+        return dxf, dw_gu, dw_down, dgates, None, None
+
+
 def fused_moe_mlp(
     xf: torch.Tensor,            # [T, H] tokens (unsorted)
     w_gu: torch.Tensor,          # [E, H, 2, M]
@@ -483,19 +793,7 @@ def fused_moe_mlp(
     contributions [T*k, H] f32 (the caller sums the k slots per token and
     adds the residual). The caller picks this path (:func:`use_fused`);
     on CPU tensors, or with ``use_kernels=False`` (the kernel-versus-plain
-    comparison), K7's and K8's plain versions run.
-
-    Forward only: the reference's custom VJP needs the grouped matmuls of
-    MoE training, so inputs that require grad raise."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (xf, w_gu, w_down, gates)):
-        raise NotImplementedError(
-            "fused_moe_mlp is forward-only in the port; its backward (the "
-            "reference's custom VJP over K10) comes with MoE training"
-        )
-    gates_pad = _take_rows(gates.float(), plan.pair_ids).contiguous()
-    if use_kernels:
-        act = moe_gateup(xf, w_gu, plan)
-        return moe_down_combine(act, w_down, gates_pad, plan)
-    act = moe_gateup_reference(xf, w_gu, plan)
-    return moe_down_combine_reference(act, w_down, gates_pad, plan)
+    comparison), the plain versions run. Differentiable in xf, both
+    weights and the gates (:class:`FusedMoeMlpFunction`)."""
+    return FusedMoeMlpFunction.apply(xf, w_gu, w_down, gates.float(), plan,
+                                     use_kernels)

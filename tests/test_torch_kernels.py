@@ -12,7 +12,11 @@ gradients, and K7's output, within 2% of the plain version's largest
 value and 1% of its mean magnitude (bf16 rounding of p, dS and the
 outputs; f32 sums in another order), K8's f32 output within 1e-3 and
 1e-4 of them (only the f32 summation order differs), lse within 1e-3;
-the MoE kernels' sentinel rows and slots of no live pair exactly 0.
+the MoE kernels' sentinel rows and slots of no live pair exactly 0. The
+grouped matmul ``gmm`` (bf16 out) is held to the bf16 2% / 1%, ``tgmm``
+(f32 out, f32 sums) to K8's 1e-3 / 1e-4; rows past the groups exactly 0.
+Gradients through ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``
+(bf16 outputs of bf16 products) are held to 2% / 1%.
 """
 
 import pytest
@@ -366,8 +370,148 @@ def test_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
                         8, 2, tile_rows=256)
     with pytest.raises(ValueError, match="row tile"):
         md.moe_gateup(xf, w_gu, big)
-    with pytest.raises(NotImplementedError, match="K10"):
-        md.grouped_matmul(xf, w_down[:, :64].contiguous(),
-                          plan.sizes_aligned)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        md.fused_moe_mlp(xf.requires_grad_(), w_gu, w_down, gates, plan)
+    # MoE training is ported: the grouped matmul and the fused pipeline's
+    # backward run on the card (their refusals: below).
+    out = md.grouped_matmul(xf, w_down[:, :64].contiguous(),
+                            plan.sizes_aligned)
+    assert out.shape == (xf.shape[0], 64)
+    leaf = xf.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(
+        md.fused_moe_mlp(leaf, w_gu, w_down, gates, plan).sum(), leaf)
+    torch.cuda.synchronize()
+    assert dx.shape == xf.shape and torch.isfinite(dx.float()).all()
+
+
+def _grouped_problem(dev, rows, k, n, sizes, e=None, seed=0):
+    """bf16 lhs [rows, K], rhs [E, K, N] (normal / sqrt(K)) and int32
+    group sizes on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    e = len(sizes) if e is None else e
+    lhs = torch.randn(rows, k, generator=g, device=dev).bfloat16()
+    rhs = (torch.randn(e, k, n, generator=g, device=dev)
+           / k ** 0.5).bfloat16()
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+GROUPED_CASES = [
+    # rows, K, N, group sizes
+    (24, 64, 64, [10, 0, 9]),                      # ragged, empty, 5 past
+    (300, 64, 128, [100, 28, 0, 150]),             # straddles, 22 past
+    (1024, 128, 256, [128, 256, 0, 384, 256]),     # tile-aligned, none past
+    (1100, 4096, 14336, [200, 0, 311, 150, 139, 0, 100, 50]),  # Mixtral
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("rows,k,n,sizes", GROUPED_CASES)
+def test_grouped_matmul_matches_plain(dev, rows, k, n, sizes, transposed):
+    lhs, rhs, gs = _grouped_problem(dev, rows, k, n, sizes)
+    if transposed:
+        # The transposed view of a stored [E, N, K], as the backward
+        # passes W^T: the kernel reads it in place.
+        rhs = rhs.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not rhs.is_contiguous()
+    before = md.grouped_matmul.launches
+    out = md.grouped_matmul(lhs, rhs, gs)
+    ref = md.grouped_matmul_reference(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert md.grouped_matmul.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (rows, n)
+    _rel_close("gmm", out, ref)
+    total = sum(sizes)
+    assert (out[total:] == 0).all()
+    assert (out[:total].float().abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,sizes", GROUPED_CASES + [
+    (2200, 14336, 4096, [1100, 0, 1000]),           # dW_down's widths
+])
+def test_grouped_weight_grad_matches_plain(dev, rows, k, n, sizes):
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    lhs = torch.randn(rows, k, generator=g, device=dev).bfloat16()
+    rhs = torch.randn(rows, n, generator=g, device=dev).bfloat16()
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = md.grouped_weight_grad.launches
+    out = md.grouped_weight_grad(lhs, rhs, gs, None, len(sizes))
+    ref = md.grouped_weight_grad_reference(
+        lhs, rhs, md._row_groups(gs, rows), len(sizes))
+    torch.cuda.synchronize()
+    assert md.grouped_weight_grad.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (len(sizes), k, n)
+    _rel_close("tgmm", out, ref, rel_max=1e-3, rel_mean=1e-4)
+    for i, size in enumerate(sizes):
+        assert (out[i] == 0).all() == (size == 0), i
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_function_grads_match_plain(dev):
+    """megablox's VJP on the card (gmm on a transposed view, tgmm) against
+    the same Function over the plain versions."""
+    lhs, rhs, gs = _grouped_problem(dev, 700, 256, 512,
+                                    [300, 0, 250, 100], seed=2)
+    cot = torch.randn(700, 512, device=dev).bfloat16()
+    grads = []
+    for use_kernels in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (lhs, rhs)]
+        out = md.GroupedMatmulFunction.apply(*leaves, gs, use_kernels)
+        grads.append(torch.autograd.grad(out, leaves, cot))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dlhs", "drhs"), *grads):
+        assert a.dtype == torch.bfloat16, name
+        _rel_close(name, a, b)
+    assert (grads[0][0][650:] == 0).all() and (grads[0][1][1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "foreign"])
+@pytest.mark.parametrize("t,h,m", [(40, 64, 128), (1024, 4096, 14336)])
+def test_fused_moe_mlp_grads_match_plain(dev, t, h, m, case):
+    """``FusedMoeMlpFunction``'s backward through gmm/tgmm against the
+    same backward over the plain versions, on the same inputs and
+    cotangent; the launch counters show 3 gmm and 2 tgmm."""
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, t, h, m, tile=128,
+                                                 case=case)
+    cot = torch.randn(t * 2, h, device=dev)
+    grads = []
+    for use_kernels in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (xf, w_gu, w_down,
+                                                       gates)]
+        before = (md.grouped_matmul.launches,
+                  md.grouped_weight_grad.launches)
+        out = md.fused_moe_mlp(*leaves, plan, use_kernels=use_kernels)
+        grads.append(torch.autograd.grad(out, leaves, cot))
+        ran = (md.grouped_matmul.launches - before[0],
+               md.grouped_weight_grad.launches - before[1])
+        assert ran == ((3, 2) if use_kernels else (0, 0))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dxf", "dw_gu", "dw_down", "dgates"), *grads):
+        assert a.abs().max() > 0, name
+        _rel_close(name, a, b)
+
+
+@pytest.mark.cuda
+def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    lhs, rhs, gs = _grouped_problem(dev, 64, 64, 128, [32, 32])
+    with pytest.raises(TypeError, match="bf16"):
+        md.grouped_matmul(lhs.float(), rhs, gs)
+    with pytest.raises(TypeError, match="int32"):
+        md.grouped_matmul(lhs, rhs, gs.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        md.grouped_matmul(lhs, rhs.cpu(), gs)
+    with pytest.raises(ValueError, match="multiples"):
+        md.grouped_matmul(lhs[:, :48].contiguous(),
+                          rhs[:, :48].contiguous(), gs)
+    with pytest.raises(ValueError, match="multiples"):
+        md.grouped_matmul(lhs, rhs[..., :96].contiguous(), gs)
+    with pytest.raises(ValueError, match="transposed view"):
+        md.grouped_matmul(lhs, rhs[:, :, ::2], gs)
+    with pytest.raises(TypeError, match="bf16"):
+        md.grouped_weight_grad(lhs, lhs.float(), gs, None, 2)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        md.grouped_weight_grad(lhs[:, :32].contiguous(), lhs, gs, None, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        md.grouped_weight_grad(lhs, lhs, gs.cpu(), None, 2)

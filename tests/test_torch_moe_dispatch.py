@@ -5,7 +5,11 @@ JAX's kernels run as its own tests run them (``force_pallas=True,
 interpret=True``); the port's wrappers take their plain versions on CPU
 tensors. Plans must be bitwise equal; f32 outputs agree to atol/rtol
 1e-5 (the same products summed in another order); slots of foreign pairs
-are exactly 0 on both sides.
+are exactly 0 on both sides. Gradients of the fused pipeline agree with
+JAX's custom VJP to atol 2e-5 / rtol 2e-4 (the reference's own limit
+against autodiff of its oracle: the backward sums in another order than
+the forward), those of the grouped matmul with ``jax.grad`` of
+``lax.ragged_dot`` to 1e-5.
 """
 
 import jax
@@ -161,11 +165,133 @@ def test_dispatch_labels_follow_the_reference_off_tpu():
 
 
 def test_fused_moe_mlp_is_forward_only():
+    """Once forward-only, the fused pipeline now has the reference's
+    backward: without grad it runs the forward alone, and an all-foreign
+    plan (a shard that owns no pair) gives exactly 0 out and exactly 0
+    gradients, not NaN (mirrors the reference's
+    ``test_grads_finite_for_all_foreign``)."""
     xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(seed=3)
     tp = md.build_plan(torch.from_numpy(experts), t, e, k)
     x, wg, wd, gt = _t(xf, w_gu, w_down, gates)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        md.fused_moe_mlp(x.requires_grad_(), wg, wd, gt, tp)
     with torch.no_grad():
         out = md.fused_moe_mlp(x, wg, wd, gt, tp)
     assert out.shape == (t * k, h) and torch.isfinite(out).all()
+    assert not out.requires_grad
+    foreign = md.build_plan(torch.full((t * k,), e + 1, dtype=torch.int32),
+                            t, e, k, tile_rows=8)
+    leaves = [a.clone().requires_grad_() for a in (x, wg, wd, gt)]
+    out = md.fused_moe_mlp(*leaves, foreign)
+    grads = torch.autograd.grad(out.sum(), leaves)
+    assert out.sum().item() == 0.0
+    for g in grads:
+        assert (g == 0).all()
+
+
+@pytest.mark.parametrize("case", ["random", "foreign"])
+def test_fused_moe_mlp_grads_match_jax_custom_vjp(case):
+    """The port's ``FusedMoeMlpFunction`` backward (plain versions on the
+    CPU) against JAX's custom VJP with its kernels in interpret mode, for
+    every differentiable input; half the pairs foreign in one case."""
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(
+        seed=8, case=case)
+    jp, tp = _plans(experts, t, e, k, 8)
+    cot = np.random.RandomState(9).randn(t * k, h).astype(np.float32)
+    jgrads = jax.grad(
+        lambda *a: jnp.sum(jmd.fused_moe_mlp(
+            *a, jp, force_pallas=True, interpret=True) * cot),
+        argnums=(0, 1, 2, 3),
+    )(*[jnp.asarray(a) for a in (xf, w_gu, w_down, gates)])
+    leaves = [a.requires_grad_() for a in _t(xf, w_gu, w_down, gates)]
+    out = md.fused_moe_mlp(*leaves, tp)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(cot))
+    for name, a, b in zip(("dxf", "dw_gu", "dw_down", "dgates"), grads,
+                          jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5,
+                                   rtol=2e-4, err_msg=name)
+    # The port's oracle gives the same gradients by autograd.
+    leaves = [a.detach().clone().requires_grad_() for a in leaves]
+    ref = torch.autograd.grad(md.reference_moe_mlp(*leaves, tp), leaves,
+                              torch.from_numpy(cot))
+    for name, a, b in zip(("dxf", "dw_gu", "dw_down", "dgates"), grads,
+                          ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5,
+                                   rtol=2e-4, err_msg=name)
+
+
+def _ragged_problem(case, seed=13):
+    """(lhs [24, 16], rhs [3, 16, 8] as the port takes it, the same rhs
+    as JAX takes it, group sizes)."""
+    rng = np.random.RandomState(seed)
+    lhs = rng.randn(24, 16).astype(np.float32)
+    rhs = rng.randn(3, 16, 8).astype(np.float32)
+    sizes = {"ragged": [10, 0, 9],          # an empty group, 5 rows past
+             "aligned": [8, 8, 8],
+             "tail": [6, 7, 3]}[case if case != "transposed" else "ragged"]
+    port_rhs = torch.from_numpy(rhs)
+    if case == "transposed":
+        # The transposed view of a stored [E, N, K] (no copy).
+        port_rhs = torch.from_numpy(
+            np.ascontiguousarray(rhs.transpose(0, 2, 1))).transpose(1, 2)
+        assert not port_rhs.is_contiguous()
+    return lhs, rhs, port_rhs, np.array(sizes, np.int32)
+
+
+@pytest.mark.parametrize("case", ["ragged", "transposed", "aligned", "tail"])
+def test_grouped_matmul_cases_match_ragged_dot(case):
+    lhs, rhs, port_rhs, sizes = _ragged_problem(case)
+    ref = np.asarray(jax.lax.ragged_dot(jnp.asarray(lhs), jnp.asarray(rhs),
+                                        jnp.asarray(sizes)))
+    out = md.grouped_matmul(torch.from_numpy(lhs), port_rhs,
+                            torch.from_numpy(sizes))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert (out[int(sizes.sum()):] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["ragged", "transposed"])
+def test_grouped_matmul_grads_match_ragged_dot(case):
+    """``GroupedMatmulFunction``'s VJP (dlhs = gmm(dout, rhs^T), drhs =
+    tgmm(lhs, dout)) against ``jax.grad`` of ``lax.ragged_dot``."""
+    lhs, rhs, port_rhs, sizes = _ragged_problem(case, seed=14)
+    cot = np.random.RandomState(15).randn(24, 8).astype(np.float32)
+    jl, jr = jax.grad(
+        lambda a, b: jnp.sum(jax.lax.ragged_dot(a, b, jnp.asarray(sizes))
+                             * cot), argnums=(0, 1),
+    )(jnp.asarray(lhs), jnp.asarray(rhs))
+    tl = torch.from_numpy(lhs).requires_grad_()
+    tr = port_rhs.requires_grad_()
+    out = md.grouped_matmul(tl, tr, torch.from_numpy(sizes))
+    dl, dr = torch.autograd.grad(out, (tl, tr), torch.from_numpy(cot))
+    np.testing.assert_allclose(dl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(dr.numpy(), np.asarray(jr), **TOL)
+    assert (dl[int(sizes.sum()):] == 0).all()
+    assert (dr[1] == 0).all()                       # the empty group
+
+
+def test_grouped_weight_grad_matches_jax_fallback():
+    """Mirrors the reference's ``test_weight_grad_reference``, against its
+    fallback, with row groups given and derived from the sizes."""
+    rng = np.random.RandomState(15)
+    rows, kk, nn, e = 24, 8, 6, 3
+    lhs = rng.randn(rows, kk).astype(np.float32)
+    rhs = rng.randn(rows, nn).astype(np.float32)
+    sizes = np.array([8, 8, 8], np.int32)
+    row_group = np.repeat(np.arange(e), 8).astype(np.int32)
+    ref = np.asarray(jmd.grouped_weight_grad(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(sizes),
+        jnp.asarray(row_group), e, use_pallas=False))
+    tl, tr, ts = _t(lhs, rhs, sizes)
+    for rg in (torch.from_numpy(row_group), None):
+        out = md.grouped_weight_grad(tl, tr, ts, rg, e)
+        assert out.dtype == torch.float32 and out.shape == (e, kk, nn)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    for g in range(e):
+        sl = slice(8 * g, 8 * (g + 1))
+        np.testing.assert_allclose(ref[g], lhs[sl].T @ rhs[sl], **TOL)
+    # Ragged sizes with an empty group and rows past the end: those rows
+    # add nothing, the empty group is 0.
+    ragged = torch.tensor([10, 0, 9], dtype=torch.int32)
+    out = md.grouped_weight_grad(tl, tr, ragged, None, e)
+    np.testing.assert_allclose(out[0].numpy(), lhs[:10].T @ rhs[:10], **TOL)
+    assert (out[1] == 0).all()
+    np.testing.assert_allclose(out[2].numpy(), lhs[10:19].T @ rhs[10:19],
+                               **TOL)
