@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its four paths,
+Drives ``k8s_dra_driver_tpu_torch`` -- no JAX -- through its five paths,
 serving at the full width and depth of Llama-3-8B, training at the
 Llama-3-8B widths cut to 8 layers (``8b-L8``), MoE serving at the
 Mixtral-8x7B widths cut to 16 layers (``8x7b`` with ``n_layers=16``: 47 GB
-of bf16 weights, where all 32 layers would not fit one 80 GB card) and MoE
+of bf16 weights, where all 32 layers would not fit one 80 GB card), MoE
 training at the Mixtral-8x7B widths cut to one layer (``8x7b-L1``,
-dropless), bf16 with random weights from a fixed seed, and checks every
-hand-written kernel of those paths:
+dropless), all bf16, and int8 MoE serving at the full 32 layers of
+Mixtral-8x7B (int8 weights and KV cache, 47 GB), with random weights from a
+fixed seed, and checks every hand-written kernel of those paths:
 
 1. builds the CUDA sources of ``k8s_dra_driver_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and the Triton RMSNorm;
@@ -53,10 +54,24 @@ hand-written kernel of those paths:
     path, the plain run replaying the kernel run's expert choices;
 12. trains 8x7b-L1 (dropless) with ``make_train_step`` at batch 4 x 2048
     as phase 6 does (the MoE training path) and checks the launches per
-    step.
+    step;
+13. frees that state, builds all 32 layers of 8x7b in int8 (``quant.
+    quantize_params``, one layer drawn and quantized at a time), and holds
+    the int8 branches of K2 and K3 (at phase 2's shapes, pools quantized
+    from random bf16 K/V by the cache's own recipe) and of K7 and K8 (on
+    layer 0's int8 experts, at phase 7's shapes) against their plain
+    versions, and times them;
+14. runs one full-depth int8+kvq forward -- a prefill chunk, then 4 decode
+    steps -- through the kernels and through the plain versions (routing
+    replayed as in phase 8), and compares the logits;
+15. serves phase 4's traffic through ``DecodeEngine(quantize_cache=True)``
+    on the full-depth int8 model (the int8 serving path), checks the
+    launches of every int8 branch per layer and forward (and none of the
+    bf16 branches), and profiles one decode step.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9 and 12) and read just after. Prints the card's name and power limit, one
+6, 9, 12 and 15) and read just after. Each phase prints its seconds. Prints
+the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -105,6 +120,13 @@ RAGGED_SIZES = (300, 0, 157, 201, 0, 99, 50, 101)
 # Phase 8: the routing flips that kernel noise may cause (compare_forward).
 FLIP_MARGIN_LIMIT = 1e-2
 FLIP_SHARE_LIMIT = 2e-2
+# Phase 14 (32 layers, int8 KV cache): each run quantizes its own k and v,
+# so a last-bit difference at a rounding boundary moves an element by a
+# whole int8 step (1/127 of its row's largest value) and the kernels' bf16
+# noise reaches the routers amplified; flips still sit at near-ties (the
+# first full run: 120 flips of 8448 choices, median margin 1.3e-3, the
+# largest 1.29e-2), so the margin limit doubles and the share limit stays.
+FLIP_MARGIN_LIMIT_KVQ = 2e-2
 
 
 def log(*parts) -> None:
@@ -210,58 +232,87 @@ def paged_inputs(torch, gen, dev, lens_needed, nbps, hkv, d):
     return k, v, tables
 
 
-def check_kernels(torch, cfg, dev) -> dict:
-    """Phase 2: each kernel against its plain version at main-path shapes."""
+def attn_errors(torch, out, ref, name):
+    """Paged attention against its plain version: max abs error within
+    2e-2, mean within 2e-3 (bf16 output rounding, another summation
+    order)."""
+    err = (out.float() - ref.float()).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"{name}: max_abs_err={max_err:.3e} mean_abs_err="
+        f"{mean_err:.3e} finite={finite}")
+    if not finite or max_err > 2e-2 or mean_err > 2e-3:
+        raise AssertionError(
+            f"{name} disagrees with its plain version: max {max_err} "
+            f"(limit 2e-2), mean {mean_err} (limit 2e-3)")
+    return max_err
+
+
+def bound_fields(name, nbytes, ops, peak) -> dict:
+    """The row's bound (the larger of the bytes and operations times) with
+    both times beside it, logged."""
+    t_b, by = bound(nbytes, ops, peak)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    log(f"{name} bound: {nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms, "
+        f"{ops:.3e} operations -> {t_ops:.4f} ms; {by} bind")
+    return dict(bound_ms=t_b, bound_by=by, bytes_bound_ms=t_bytes,
+                ops_bound_ms=t_ops)
+
+
+def check_paged(torch, cfg, dev, quantized: bool) -> dict:
+    """K2 and K3 against their plain versions at the engine's shapes: the
+    bf16 branch (phase 2), or the int8 branch (phase 13) on pools and
+    scales quantized from the same random bf16 K/V by the cache's own
+    recipe (``decode._quantize_kv``)."""
+    from k8s_dra_driver_tpu_torch.models.decode import _quantize_kv
     from k8s_dra_driver_tpu_torch.ops import attention as att
-    from k8s_dra_driver_tpu_torch.ops import norms
 
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
+    gen.manual_seed(SEED + (50 if quantized else 0))
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nbps = cfg.max_seq_len // BLOCK_SIZE
     scale = d ** -0.5
+    suffix = "_int8" if quantized else ""
+    # Bytes of one position and kv head: K and V, plus their f32 scales.
+    kv_bytes = 2 * d + 8 if quantized else 2 * d * 2
     results = {}
 
-    def attn_errors(out, ref, name):
-        err = (out.float() - ref.float()).abs()
-        max_err, mean_err = err.max().item(), err.mean().item()
-        finite = bool(torch.isfinite(out.float()).all())
-        log(f"{name}: max_abs_err={max_err:.3e} mean_abs_err="
-            f"{mean_err:.3e} finite={finite}")
-        if not finite or max_err > 2e-2 or mean_err > 2e-3:
-            raise AssertionError(
-                f"{name} disagrees with its plain version: max {max_err} "
-                f"(limit 2e-2), mean {mean_err} (limit 2e-3)")
-        return max_err
+    def pools(lens):
+        k, v, tables = paged_inputs(torch, gen, dev, lens, nbps, hkv, d)
+        if not quantized:
+            return (k, v, tables), {}
+        (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
+        return (k8[0], v8[0], tables), dict(k_scale=ks[0], v_scale=vs[0])
 
     # K2: one decode step of the engine run (batch 8, the prompts plus
     # their generated tokens).
     vlen_list = [96 + 32, 180 + 32, 300 + 32, 700 + 32, 320 + 32, 406 + 32,
                  700 + 1, 256 + 16]
-    k, v, tables = paged_inputs(torch, gen, dev, vlen_list, nbps, hkv, d)
+    (k, v, tables), sc = pools(vlen_list)
     q = torch.randn((BATCH_SLOTS, hq, d), generator=gen, device=dev).to(
         torch.bfloat16)
     vlen = torch.tensor(vlen_list, dtype=torch.int32, device=dev)
-    out = att.paged_decode_attention(q, k, v, tables, vlen, BLOCK_SIZE, scale)
-    ref = att.paged_attention_reference(
-        q[:, :, None], k, v, tables, (vlen.long() - 1)[:, None], BLOCK_SIZE,
-        scale)[:, :, 0]
+    pos = (vlen.long() - 1)[:, None]
+    out = att.paged_decode_attention(q, k, v, tables, vlen, BLOCK_SIZE, scale,
+                                     **sc)
+    ref = att.paged_attention_reference(q[:, :, None], k, v, tables, pos,
+                                        BLOCK_SIZE, scale, **sc)[:, :, 0]
     torch.cuda.synchronize()
-    err = attn_errors(out, ref, "paged_decode")
+    name = "paged_decode" + suffix
+    err = attn_errors(torch, out, ref, name)
     s = sum(vlen_list)
-    t_b, by = bound(
-        s * hkv * d * 2 * 2 + 2 * q.numel() * 2
-        + sum(-(-n // BLOCK_SIZE) for n in vlen_list) * 4,
-        s * hq * d * 4, BF16_FLOPS)
-    results["paged_decode"] = dict(
+    results[name] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: att.paged_decode_attention(
-            q, k, v, tables, vlen, BLOCK_SIZE, scale)),
+            q, k, v, tables, vlen, BLOCK_SIZE, scale, **sc)),
         plain_ms=time_ms(lambda: att.paged_attention_reference(
-            q[:, :, None], k, v, tables, (vlen.long() - 1)[:, None],
-            BLOCK_SIZE, scale)),
-        bound_ms=t_b, bound_by=by, library_ms=None,
+            q[:, :, None], k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
+        library_ms=None,
         shape=f"q[{BATCH_SLOTS},{hq},{d}] valid_len sum {s}",
+        **bound_fields(name, s * hkv * kv_bytes + 2 * q.numel() * 2
+                       + sum(-(-n // BLOCK_SIZE) for n in vlen_list) * 4,
+                       s * hq * d * 4, BF16_FLOPS),
     )
 
     # K3: one packed prefill launch (4 lanes x 128 tokens), windows from
@@ -269,31 +320,42 @@ def check_kernels(torch, cfg, dev) -> dict:
     # straddling last chunk of a 700-token prompt.
     t = PREFILL_CHUNK
     starts_list = [0, 256, 384, 572]
-    k, v, tables = paged_inputs(torch, gen, dev,
-                                [s0 + t for s0 in starts_list], nbps, hkv, d)
+    (k, v, tables), sc = pools([s0 + t for s0 in starts_list])
     q = torch.randn((PREFILL_BATCH, hq, t, d), generator=gen,
                     device=dev).to(torch.bfloat16)
     pos = (torch.tensor(starts_list, device=dev)[:, None]
            + torch.arange(t, device=dev)[None, :])
-    out = att.paged_prefill_attention(q, k, v, tables, pos, BLOCK_SIZE, scale)
+    out = att.paged_prefill_attention(q, k, v, tables, pos, BLOCK_SIZE, scale,
+                                      **sc)
     ref = att.paged_attention_reference(q, k, v, tables, pos, BLOCK_SIZE,
-                                        scale)
+                                        scale, **sc)
     torch.cuda.synchronize()
-    err = attn_errors(out, ref, "paged_prefill")
+    name = "paged_prefill" + suffix
+    err = attn_errors(torch, out, ref, name)
     visible = sum(s0 + i + 1 for s0 in starts_list for i in range(t))
-    t_b, by = bound(
-        sum(s0 + t for s0 in starts_list) * hkv * d * 2 * 2
-        + 2 * q.numel() * 2,
-        visible * hq * d * 4, BF16_FLOPS)
-    results["paged_prefill"] = dict(
+    results[name] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: att.paged_prefill_attention(
-            q, k, v, tables, pos, BLOCK_SIZE, scale)),
+            q, k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
         plain_ms=time_ms(lambda: att.paged_attention_reference(
-            q, k, v, tables, pos, BLOCK_SIZE, scale)),
-        bound_ms=t_b, bound_by=by, library_ms=None,
+            q, k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
+        library_ms=None,
         shape=f"q[{PREFILL_BATCH},{hq},{t},{d}] starts {starts_list}",
+        **bound_fields(name, sum(s0 + t for s0 in starts_list) * hkv
+                       * kv_bytes + 2 * q.numel() * 2,
+                       visible * hq * d * 4, BF16_FLOPS),
     )
+    return results
+
+
+def check_kernels(torch, cfg, dev) -> dict:
+    """Phase 2: each kernel against its plain version at main-path shapes."""
+    from k8s_dra_driver_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 60)
+    t = PREFILL_CHUNK
+    results = check_paged(torch, cfg, dev, quantized=False)
 
     # K1: the prefill chunk's norm input [4, 128, 4096].
     x = torch.randn((PREFILL_BATCH, t, cfg.hidden), generator=gen,
@@ -485,23 +547,22 @@ class RoutingReplay:
                     flip_margin_max=max(margins, default=0.0),
                     flip_margins=margins)
 
-    def check(self, what: str) -> None:
-        """Raises where a flip is not a near-tie (margin >=
-        FLIP_MARGIN_LIMIT) or the flips exceed FLIP_SHARE_LIMIT of the
-        routed choices."""
+    def check(self, what: str, margin_limit=FLIP_MARGIN_LIMIT) -> None:
+        """Raises where a flip is not a near-tie (margin >= margin_limit)
+        or the flips exceed FLIP_SHARE_LIMIT of the routed choices."""
         share = len(self.margins) / max(self.routed, 1)
         largest = max(self.margins, default=0.0)
-        if share > FLIP_SHARE_LIMIT or largest >= FLIP_MARGIN_LIMIT:
+        if share > FLIP_SHARE_LIMIT or largest >= margin_limit:
             raise AssertionError(
                 f"{what}: {len(self.margins)} routing flips of "
                 f"{self.routed} ({share}, limit {FLIP_SHARE_LIMIT}), "
-                f"largest margin {largest} (limit {FLIP_MARGIN_LIMIT})")
+                f"largest margin {largest} (limit {margin_limit})")
 
 
-def compare_forward(torch, params, cfg, dev) -> dict:
-    """Phase 3 (and phase 8 on the MoE config): one forward through the
-    kernels and through the plain versions, on identical caches and
-    tokens.
+def compare_forward(torch, params, cfg, dev, quantize_cache=False) -> dict:
+    """Phase 3 (phase 8 on the MoE config, phase 14 on its full-depth int8
+    weights with the int8 KV cache): one forward through the kernels and
+    through the plain versions, on identical caches and tokens.
 
     On an MoE config the router's top-2 choice is discrete: the bf16 noise
     of the attention and norm kernels flips near-tie choices, and one flip
@@ -516,11 +577,15 @@ def compare_forward(torch, params, cfg, dev) -> dict:
     the k-th largest of the plain router's probabilities less the largest
     plain probability of an expert only the kernel run chose. A flip from
     kernel noise sits at a near-tie, so every margin must be under
-    ``FLIP_MARGIN_LIMIT`` and the flips at most ``FLIP_SHARE_LIMIT`` of the
-    routed (token, layer) choices: a fault that moves routing fails."""
+    ``FLIP_MARGIN_LIMIT`` (``FLIP_MARGIN_LIMIT_KVQ`` with the int8 KV
+    cache) and the flips at most ``FLIP_SHARE_LIMIT`` of the routed (token,
+    layer) choices: a fault that moves routing fails."""
     from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
-    from k8s_dra_driver_tpu_torch.models.paged import PagedKVCache
+    from k8s_dra_driver_tpu_torch.models.paged import (
+        PagedKVCache,
+        PagedQuantKVCache,
+    )
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -529,9 +594,9 @@ def compare_forward(torch, params, cfg, dev) -> dict:
     runs = {"kernels": "record", "plain": None}
     if is_moe:
         runs["replayed"] = "replay"
+    cache_cls = PagedQuantKVCache if quantize_cache else PagedKVCache
     caches = {
-        name: PagedKVCache.init(cfg, b, 512, block_size=BLOCK_SIZE,
-                                device=dev)
+        name: cache_cls.init(cfg, b, 512, block_size=BLOCK_SIZE, device=dev)
         for name in runs
     }
     tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
@@ -574,13 +639,15 @@ def compare_forward(torch, params, cfg, dev) -> dict:
         raise AssertionError(f"forward: relative logit difference {rel} "
                              f"(limit 5e-2)")
     if is_moe:
-        replay.check("forward")
+        replay.check("forward", FLIP_MARGIN_LIMIT_KVQ if quantize_cache
+                     else FLIP_MARGIN_LIMIT)
     return result
 
 
-def serve(torch, params, cfg, dev, label="engine") -> dict:
-    """Phase 4 (and phase 9 on the MoE config): the engine run (a main
-    path)."""
+def serve(torch, params, cfg, dev, label="engine",
+          quantize_cache=False) -> dict:
+    """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
+    weights with the int8 KV cache): the engine run (a main path)."""
     from k8s_dra_driver_tpu_torch.models import DecodeEngine
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
@@ -597,7 +664,7 @@ def serve(torch, params, cfg, dev, label="engine") -> dict:
         params, cfg, batch_slots=BATCH_SLOTS, num_blocks=NUM_BLOCKS,
         block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
         prefill_batch=PREFILL_BATCH, prefix_cache=True, overlap=True,
-        device=dev,
+        quantize_cache=quantize_cache, device=dev,
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -789,6 +856,18 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
+    # The int8 branches first: the bf16 groups' substrings match them too.
+    ("paged_attention_int8", ("paged_attention_kernel<64, 8, true, true>",
+                              "paged_attention_kernel<128, 8, true, true>",
+                              "paged_attention_kernel<64, 64, false, true>",
+                              "paged_attention_kernel<128, 64, false, "
+                              "true>")),
+    ("moe_gateup_int8", ("moe_grouped_kernel<16, true, true>",
+                         "moe_grouped_kernel<64, true, true>",
+                         "moe_grouped_kernel<128, true, true>")),
+    ("moe_down_combine_int8", ("moe_grouped_kernel<16, false, true>",
+                               "moe_grouped_kernel<64, false, true>",
+                               "moe_grouped_kernel<128, false, true>")),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -850,17 +929,21 @@ def device_profile(torch, fn, calls: int) -> dict:
     )
 
 
-def profile_decode(torch, params, cfg, dev) -> dict:
+def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     """One decode step at the engine's shape (8 sequences at 384 cached
     positions, kernels on): its host-clock time over 5 steps, then 3 steps
     under ``torch.profiler``, and the ratio of the two."""
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
-    from k8s_dra_driver_tpu_torch.models.paged import PagedKVCache
+    from k8s_dra_driver_tpu_torch.models.paged import (
+        PagedKVCache,
+        PagedQuantKVCache,
+    )
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 30)
-    cache = PagedKVCache.init(cfg, BATCH_SLOTS, 1024, block_size=BLOCK_SIZE,
-                              device=dev)
+    cache_cls = PagedQuantKVCache if quantize_cache else PagedKVCache
+    cache = cache_cls.init(cfg, BATCH_SLOTS, 1024, block_size=BLOCK_SIZE,
+                           device=dev)
     chunk = 64           # 8 x 64 = 512 tokens a chunk: dropless, as served
     for c in range(6):
         toks = torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, chunk),
@@ -896,21 +979,26 @@ def profile_decode(torch, params, cfg, dev) -> dict:
     return result
 
 
-def moe_bounds(plan, h, m):
+def moe_bounds(plan, h, m, wbytes=2):
     """(K7, K8) as (bytes, operations) of one call from its plan: each
-    touched expert's weights read once, each live row's input read once,
+    touched expert's weights read once (``wbytes`` a weight; int8 experts
+    add their f32 per-column scales), each live row's input read once,
     each output written once; operations over the live rows only."""
     live = int((plan.row_ids < plan.n_tokens).sum())
     touched = int((plan.sizes_aligned > 0).sum())
-    gateup = (touched * h * 2 * m * 2 + live * h * 2 + plan.r_pad * m * 2,
+    scales = 4 if wbytes == 1 else 0
+    gateup = (touched * 2 * m * (h * wbytes + scales) + live * h * 2
+              + plan.r_pad * m * 2,
               2 * live * h * 2 * m)
-    down = (touched * m * h * 2 + plan.r_pad * m * 2 + plan.n_pairs * h * 4,
+    down = (touched * h * (m * wbytes + scales) + plan.r_pad * m * 2
+            + plan.n_pairs * h * 4,
             2 * live * m * h)
     return gateup, down, live, touched
 
 
 def check_moe_kernels(torch, params, cfg, dev) -> dict:
-    """Phase 7: K7 and K8 against their plain versions on layer 0's
+    """Phase 7 (bf16 experts) and phase 13 (int8 experts, the kernels'
+    int8 branches): K7 and K8 against their plain versions on layer 0's
     experts, with plans from layer 0's router over normed random hidden
     states, at the decode step's shape and the packed prefill chunk's."""
     from k8s_dra_driver_tpu_torch.models import moe
@@ -920,8 +1008,23 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 20)
     layer = {k: w[0] for k, w in params["layers"].items()}
-    w_gu, w_down = layer["w_gateup"], layer["w_down"]
+    (q_gu, s_gu), (q_dn, s_dn) = (md._quant_parts(layer["w_gateup"]),
+                                  md._quant_parts(layer["w_down"]))
+    int8 = s_gu is not None
+    suffix = "_int8" if int8 else ""
     h, m, e, k = cfg.hidden, cfg.mlp_hidden, cfg.n_experts, cfg.top_k
+
+    def gateup(xf, plan, use_kernels=True, n_exp=e):
+        sc = None if s_gu is None else s_gu[:n_exp]
+        fn = md.moe_gateup if use_kernels else md.moe_gateup_reference
+        return fn(xf, q_gu[:n_exp], plan, sc)
+
+    def down(act, gates_pad, plan, use_kernels=True, n_exp=e):
+        sc = None if s_dn is None else s_dn[:n_exp]
+        fn = md.moe_down_combine if use_kernels \
+            else md.moe_down_combine_reference
+        return fn(act, q_dn[:n_exp], gates_pad, plan, sc)
+
     shapes = {}
     for name, t, tile in (("decode", BATCH_SLOTS, 8),
                           ("prefill", PREFILL_BATCH * PREFILL_CHUNK, 128)):
@@ -932,19 +1035,18 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
         if plan.tile_rows != tile:
             raise AssertionError(f"{name}: tile {plan.tile_rows}, want {tile}")
         gates_pad = md._take_rows(gates.reshape(-1), plan.pair_ids)
-        act = md.moe_gateup(xf, w_gu, plan)
-        ref_act = md.moe_gateup_reference(xf, w_gu, plan)
-        y = md.moe_down_combine(ref_act, w_down, gates_pad, plan)
-        ref_y = md.moe_down_combine_reference(ref_act, w_down, gates_pad,
-                                              plan)
+        act = gateup(xf, plan)
+        ref_act = gateup(xf, plan, use_kernels=False)
+        y = down(ref_act, gates_pad, plan)
+        ref_y = down(ref_act, gates_pad, plan, use_kernels=False)
         torch.cuda.synchronize()
-        act_err, act_rel = rel(f"moe_gateup {name}", act, ref_act)
-        y_err, y_rel = rel(f"moe_down_combine {name}", y, ref_y,
+        act_err, act_rel = rel(f"moe_gateup{suffix} {name}", act, ref_act)
+        y_err, y_rel = rel(f"moe_down_combine{suffix} {name}", y, ref_y,
                            K8_REL_MAX, K8_REL_MEAN)
         sentinel = plan.row_ids >= plan.n_tokens
         if not bool((act[sentinel] == 0).all()):
-            raise AssertionError(f"moe_gateup {name}: a sentinel row is "
-                                 f"not exactly 0")
+            raise AssertionError(f"moe_gateup{suffix} {name}: a sentinel "
+                                 f"row is not exactly 0")
         extra = {}
         if name == "decode":
             # The expert-parallel local view: experts 0-3 local, pairs of
@@ -954,44 +1056,43 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
             local = torch.where(flat < 4, flat, torch.full_like(flat, 4))
             lplan = md.build_plan(local, t, 4, k)
             lgates = md._take_rows(gates.reshape(-1), lplan.pair_ids)
-            lact = md.moe_gateup(xf, w_gu[:4], lplan)
-            ly = md.moe_down_combine(lact, w_down[:4], lgates, lplan)
-            ref_ly = md.moe_down_combine_reference(
-                md.moe_gateup_reference(xf, w_gu[:4], lplan), w_down[:4],
-                lgates, lplan)
+            lact = gateup(xf, lplan, n_exp=4)
+            ly = down(lact, lgates, lplan, n_exp=4)
+            ref_ly = down(gateup(xf, lplan, use_kernels=False, n_exp=4),
+                          lgates, lplan, use_kernels=False, n_exp=4)
             torch.cuda.synchronize()
             # K7 then K8 against both plain versions: K7's bf16 act error
             # reaches ly, so the bf16 limits hold here.
-            rel("moe_dispatch decode, experts 0-3 local", ly, ref_ly)
+            rel(f"moe_dispatch{suffix} decode, experts 0-3 local", ly,
+                ref_ly)
             foreign = flat >= 4
             if not (bool(foreign.any()) and bool((ly[foreign] == 0).all())
                     and bool((lact[lplan.row_ids >= t] == 0).all())):
                 raise AssertionError("foreign pair slots or sentinel rows "
                                      "are not exactly 0")
             extra = dict(foreign_pairs=int(foreign.sum()))
-        (gb, gops), (db, dops), live, touched = moe_bounds(plan, h, m)
+        (gb, gops), (db, dops), live, touched = moe_bounds(
+            plan, h, m, wbytes=1 if int8 else 2)
         rows = {}
         for kname, nbytes, ops, kernel_fn, plain_fn, err, r in (
-            ("moe_gateup", gb, gops,
-             lambda: md.moe_gateup(xf, w_gu, plan),
-             lambda: md.moe_gateup_reference(xf, w_gu, plan),
+            ("moe_gateup" + suffix, gb, gops,
+             lambda: gateup(xf, plan),
+             lambda: gateup(xf, plan, use_kernels=False),
              act_err, act_rel),
-            ("moe_down_combine", db, dops,
-             lambda: md.moe_down_combine(ref_act, w_down, gates_pad, plan),
-             lambda: md.moe_down_combine_reference(ref_act, w_down,
-                                                   gates_pad, plan),
+            ("moe_down_combine" + suffix, db, dops,
+             lambda: down(ref_act, gates_pad, plan),
+             lambda: down(ref_act, gates_pad, plan, use_kernels=False),
              y_err, y_rel),
         ):
-            t_b, by = bound(nbytes, ops, BF16_FLOPS)
-            log(f"{kname} {name} bound: {nbytes / 1e9:.3f} GB, {ops:.3e} "
-                f"operations -> {t_b:.4f} ms ({by})")
             rows[kname] = dict(
                 max_abs_err=err, rel_err=r,
                 ms=time_ms(kernel_fn), plain_ms=time_ms(plain_fn, warmup=1,
                                                         iters=5),
-                bound_ms=t_b, bound_by=by, library_ms=None,
+                library_ms=None,
                 shape=(f"T {t}, tile {tile}, r_pad {plan.r_pad}, live rows "
-                       f"{live}, experts touched {touched}, h {h}, m {m}"),
+                       f"{live}, experts touched {touched}, h {h}, m {m}"
+                       + (", int8 experts" if int8 else "")),
+                **bound_fields(f"{kname} {name}", nbytes, ops, BF16_FLOPS),
                 **extra,
             )
         shapes[name] = rows
@@ -1002,7 +1103,7 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
                         max_abs_err=max(shapes[s][kname]["max_abs_err"]
                                         for s in shapes),
                         prefill=shapes["prefill"][kname])
-            for kname in ("moe_gateup", "moe_down_combine")}
+            for kname in ("moe_gateup" + suffix, "moe_down_combine" + suffix)}
 
 
 def grouped_bounds(live: int, touched: int, k: int, n: int, r_pad: int,
@@ -1216,6 +1317,55 @@ def check_grouped_kernels(torch, cfg, dev) -> dict:
     return result
 
 
+def int8_moe_params(torch, cfg, dev) -> dict:
+    """Phase 14's weights: ``cfg`` at full depth, int8 from
+    ``quantize_params``, built without the bf16 tree (93 GB at 8x7b): layer
+    i is drawn alone (``moe.init_params`` of the one-layer config, seed
+    SEED + i), quantized and copied into preallocated stacks. The
+    embedding, LM head and final norm are layer 0's draw."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.quant import (
+        QuantTensor,
+        quantize_params,
+    )
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    n = cfg.n_layers
+
+    def stack(w):
+        if isinstance(w, QuantTensor):
+            return QuantTensor(q=stack(w.q), scale=stack(w.scale))
+        return torch.empty((n,) + tuple(w.shape[1:]), dtype=w.dtype,
+                           device=dev)
+
+    out = None
+    for i in range(n):
+        part = quantize_params(moe.init_params(one, seed=SEED + i,
+                                               device=dev))
+        if out is None:
+            out = dict(part, layers={name: stack(w) for name, w in
+                                     part["layers"].items()})
+        for name, w in part["layers"].items():
+            dst = out["layers"][name]
+            if isinstance(w, QuantTensor):
+                dst.q[i].copy_(w.q[0])
+                dst.scale[i].copy_(w.scale[0])
+            else:
+                dst[i].copy_(w[0])
+        del part
+    return out
+
+
+def nbytes(tree) -> int:
+    """Bytes of every tensor in a parameter dict (QuantTensors: q and
+    scale)."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if hasattr(tree, "q"):
+        return nbytes(tree.q) + nbytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
 def main() -> int:
     import torch
 
@@ -1247,10 +1397,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    clock = [time.perf_counter()]
+
+    def phase_done(msg: str) -> None:
+        """Logs a phase's line with its seconds (since the last one)."""
+        now = time.perf_counter()
+        log(f"{msg} ({now - clock[0]:.1f}s)")
+        clock[0] = now
+
     _build.build()
-    log(f"phase 1: built {_build.sources()} in "
-        f"{time.perf_counter() - t0:.1f}s")
+    phase_done(f"phase 1: built {_build.sources()}")
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1259,7 +1415,7 @@ def main() -> int:
     cfg = PRESETS["8b"]
     kernels = check_kernels(torch, cfg, dev)
     kernels.update(check_flash_kernels(torch, PRESETS["8b-L8"], dev))
-    log("phase 2: kernels agree with their plain versions")
+    phase_done("phase 2: kernels agree with their plain versions")
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=dev)
@@ -1267,7 +1423,8 @@ def main() -> int:
     log(f"8b params ({cfg.num_params() / 1e9:.2f}B) initialised in "
         f"{time.perf_counter() - t0:.1f}s")
     forward = compare_forward(torch, params, cfg, dev)
-    log("phase 3: 8B forward through kernels matches the plain forward")
+    phase_done("phase 3: 8B forward through kernels matches the plain "
+               "forward")
 
     wrappers = {
         "paged_decode": attention.paged_decode_attention,
@@ -1280,6 +1437,10 @@ def main() -> int:
         "moe_down_combine": moe_dispatch.moe_down_combine,
         "grouped_matmul": moe_dispatch.grouped_matmul,
         "grouped_weight_grad": moe_dispatch.grouped_weight_grad,
+        "paged_decode_int8": attention.paged_decode_int8,
+        "paged_prefill_int8": attention.paged_prefill_int8,
+        "moe_gateup_int8": moe_dispatch.moe_gateup_int8,
+        "moe_down_combine_int8": moe_dispatch.moe_down_combine_int8,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
@@ -1289,7 +1450,10 @@ def main() -> int:
              "moe_training": ("moe_gateup", "moe_down_combine",
                               "grouped_matmul", "grouped_weight_grad",
                               "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                              "rmsnorm")}
+                              "rmsnorm"),
+             "moe_serving_int8": ("moe_gateup_int8", "moe_down_combine_int8",
+                                  "paged_decode_int8", "paged_prefill_int8",
+                                  "rmsnorm")}
     by_path = {}
 
     def drive(path, fn, *args):
@@ -1303,15 +1467,15 @@ def main() -> int:
         return out
 
     engine = drive("serving", serve, torch, params, cfg, dev)
-    log("phase 4: engine served 8 requests through every kernel")
+    phase_done("phase 4: engine served 8 requests through every kernel")
 
     del params
     torch.cuda.empty_cache()
     grads = compare_train(
         torch, dev, dataclasses.replace(PRESETS["8b-L8"], n_layers=2), 2,
         {name: wrappers[name] for name in paths["training"]}, SEED + 3)
-    log("phase 5: 8b-L8 loss and gradients through the kernels match the "
-        "plain path")
+    phase_done("phase 5: 8b-L8 loss and gradients through the kernels match "
+               "the plain path")
     torch.cuda.empty_cache()
     trained = drive("training", train, torch, dev, PRESETS["8b-L8"], "8b-L8",
                     TRAIN_BATCH)
@@ -1324,8 +1488,8 @@ def main() -> int:
             "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps}
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"training launches {counts}, expected {want}")
-    log(f"phase 6: trained 8b-L8 for {steps} steps through every kernel "
-        f"(launches {counts})")
+    phase_done(f"phase 6: trained 8b-L8 for {steps} steps through every "
+               f"kernel (launches {counts})")
 
     torch.cuda.empty_cache()
     mcfg = dataclasses.replace(MOE_PRESETS["8x7b"], n_layers=MOE_LAYERS)
@@ -1336,8 +1500,8 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) initialised in "
         f"{time.perf_counter() - t0:.1f}s")
     kernels.update(check_moe_kernels(torch, mparams, mcfg, dev))
-    log("phase 7: K7 and K8 agree with their plain versions at the decode "
-        "and prefill shapes")
+    phase_done("phase 7: K7 and K8 agree with their plain versions at the "
+               "decode and prefill shapes")
     before = (moe_dispatch.moe_gateup.launches,
               moe_dispatch.moe_down_combine.launches)
     moe_forward = compare_forward(torch, mparams, mcfg, dev)
@@ -1348,8 +1512,8 @@ def main() -> int:
     if ran != (5 * MOE_LAYERS, 5 * MOE_LAYERS):
         raise AssertionError(f"phase 8 launched K7/K8 {ran} times, "
                              f"expected {5 * MOE_LAYERS} each")
-    log(f"phase 8: 8x7b-L{MOE_LAYERS} forward through kernels matches the "
-        f"plain forward")
+    phase_done(f"phase 8: 8x7b-L{MOE_LAYERS} forward through kernels matches "
+               f"the plain forward")
     torch.cuda.reset_peak_memory_stats()
     moe_engine = drive("moe_serving", serve, torch, mparams, mcfg, dev,
                        "moe engine")
@@ -1365,17 +1529,17 @@ def main() -> int:
             or moe_engine["dispatch"] != "fused":
         raise AssertionError(f"MoE impl {moe_engine['moe_impl']}, dispatch "
                              f"{moe_engine['dispatch']}")
-    log(f"phase 9: engine served 8 requests on 8x7b-L{MOE_LAYERS} through "
-        f"every kernel (launches {counts})")
+    phase_done(f"phase 9: engine served 8 requests on 8x7b-L{MOE_LAYERS} "
+               f"through every kernel (launches {counts})")
     moe_engine["decode_profile"] = profile_decode(torch, mparams, mcfg, dev)
     del mparams
     torch.cuda.empty_cache()
 
     tcfg = dataclasses.replace(MOE_PRESETS["8x7b-L1"], moe_impl="dropless")
     kernels.update(check_grouped_kernels(torch, tcfg, dev))
-    log("phase 10: gmm and tgmm agree with their plain versions at the MoE "
-        "backward's five calls, on unaligned groups and through both "
-        "autograd Functions")
+    phase_done("phase 10: gmm and tgmm agree with their plain versions at the "
+               "MoE backward's five calls, on unaligned groups and through "
+               "both autograd Functions")
     torch.cuda.empty_cache()
     moe_grads = compare_train(
         torch, dev, tcfg, MOE_COMPARE_BATCH,
@@ -1383,8 +1547,8 @@ def main() -> int:
                                            "grouped_matmul",
                                            "grouped_weight_grad")},
         SEED + 5)
-    log("phase 11: 8x7b-L1 loss and gradients through the kernels match the "
-        "plain path with routing replayed")
+    phase_done("phase 11: 8x7b-L1 loss and gradients through the kernels "
+               "match the plain path with routing replayed")
     torch.cuda.empty_cache()
     moe_trained = drive("moe_training", train, torch, dev, tcfg, "8x7b-L1",
                         MOE_TRAIN_BATCH)
@@ -1410,8 +1574,70 @@ def main() -> int:
                              f"{moe_trained['dispatch']}, blocks "
                              f"{moe_trained['moe_blocks']}; want fused "
                              f"{blocks}")
-    log(f"phase 12: trained 8x7b-L1 (dropless) for {steps} steps through "
-        f"every kernel (launches {counts})")
+    phase_done(f"phase 12: trained 8x7b-L1 (dropless) for {steps} steps "
+               f"through every kernel (launches {counts})")
+    torch.cuda.empty_cache()
+
+    # Phases 13-15: Mixtral-8x7B at its full 32 layers, int8 weights
+    # (quantize_params) and the int8 KV cache.
+    qcfg = MOE_PRESETS["8x7b"]
+    t0 = time.perf_counter()
+    qparams = int8_moe_params(torch, qcfg, dev)
+    torch.cuda.synchronize()
+    pool_rows = NUM_BLOCKS * BLOCK_SIZE + 1
+    pool_bytes = (qcfg.n_layers * qcfg.n_kv_heads * pool_rows
+                  * (2 * qcfg.head_dim + 8))
+    int8_sizes = dict(weights_gb=nbytes(qparams) / 1e9,
+                      engine_pool_gb=pool_bytes / 1e9,
+                      layers=qcfg.n_layers)
+    log(f"8x7b int8 params ({qcfg.num_params() / 1e9:.2f}B parameters, "
+        f"{int8_sizes['weights_gb']:.2f} GB of int8 weights and scales; the "
+        f"engine's int8 KV pool {int8_sizes['engine_pool_gb']:.3f} GB) built "
+        f"in {time.perf_counter() - t0:.1f}s")
+    kernels.update(check_paged(torch, qcfg, dev, quantized=True))
+    kernels.update(check_moe_kernels(torch, qparams, qcfg, dev))
+    phase_done("phase 13: the int8 branches of K2, K3, K7 and K8 agree with "
+               "their plain versions")
+    counted = ("moe_gateup", "moe_down_combine", "moe_gateup_int8",
+               "moe_down_combine_int8")
+    before = [wrappers[n].launches for n in counted]
+    int8_forward = compare_forward(torch, qparams, qcfg, dev,
+                                   quantize_cache=True)
+    ran = [wrappers[n].launches - b_ for n, b_ in zip(counted, before)]
+    # A prefill chunk and 4 decode steps, once each per layer, through the
+    # int8 branches only; the plain forwards launch nothing.
+    want = [0, 0, 5 * qcfg.n_layers, 5 * qcfg.n_layers]
+    if ran != want:
+        raise AssertionError(f"phase 14 launched {dict(zip(counted, ran))}, "
+                             f"expected {dict(zip(counted, want))}")
+    int8_forward.update(int8_sizes)
+    phase_done("phase 14: full-depth 8x7b int8+kvq forward through kernels "
+               "matches the plain forward")
+    torch.cuda.reset_peak_memory_stats()
+    int8_engine = drive("moe_serving_int8", serve, torch, qparams, qcfg, dev,
+                        "int8 moe engine", True)
+    counts = by_path["moe_serving_int8"]
+    forwards = int8_engine["decode_steps"] + int8_engine["prefill_launches"]
+    layers = qcfg.n_layers
+    want = {"moe_gateup_int8": layers * forwards,
+            "moe_down_combine_int8": layers * forwards,
+            "paged_decode_int8": layers * int8_engine["decode_steps"],
+            "paged_prefill_int8": layers * int8_engine["prefill_launches"],
+            "moe_gateup": 0, "moe_down_combine": 0, "paged_decode": 0,
+            "paged_prefill": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"int8 MoE serving launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+    if int8_engine["moe_impl"] != {"decode_step": "dropless",
+                                   "prefill_chunk": "dropless"} \
+            or int8_engine["dispatch"] != "fused":
+        raise AssertionError(f"int8 MoE impl {int8_engine['moe_impl']}, "
+                             f"dispatch {int8_engine['dispatch']}")
+    int8_engine["decode_profile"] = profile_decode(torch, qparams, qcfg, dev,
+                                                   quantize_cache=True)
+    phase_done(f"phase 15: engine served 8 requests on full-depth 8x7b "
+               f"int8+kvq through the int8 kernels (launches {counts})")
+    del qparams
     torch.cuda.empty_cache()
     launches = {name: sum(by_path[p][name] for p in by_path)
                 for name in wrappers}
@@ -1446,6 +1672,22 @@ def main() -> int:
         "grouped_weight_grad": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                                 "grouped_matmul.cu",
                                 "k8s_dra_driver_tpu/ops/moe_dispatch.py:437"),
+        "paged_decode_int8": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                              "paged_attention.cu",
+                              "k8s_dra_driver_tpu/ops/attention.py:618 "
+                              "(int8 branch)"),
+        "paged_prefill_int8": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                               "paged_attention.cu",
+                               "k8s_dra_driver_tpu/ops/attention.py:772 "
+                               "(int8 branch)"),
+        "moe_gateup_int8": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                            "moe_dispatch.cu",
+                            "k8s_dra_driver_tpu/ops/moe_dispatch.py:491 "
+                            "(int8 branch)"),
+        "moe_down_combine_int8": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                                  "moe_dispatch.cu",
+                                  "k8s_dra_driver_tpu/ops/moe_dispatch.py:537 "
+                                  "(int8 branch)"),
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -1471,7 +1713,8 @@ def main() -> int:
     log(json.dumps({"forward": forward, "engine": engine, "grads": grads,
                     "train": trained, "moe_forward": moe_forward,
                     "moe_engine": moe_engine, "moe_grads": moe_grads,
-                    "moe_train": moe_trained}))
+                    "moe_train": moe_trained, "int8_forward": int8_forward,
+                    "int8_engine": int8_engine}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

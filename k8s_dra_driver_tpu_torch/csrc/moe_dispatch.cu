@@ -2,11 +2,13 @@
 // kernel and the down-projection + gated combine kernel of the dropless
 // MoE MLP.
 //
-// Replaces (bf16 branch):
+// Replaces:
 //   moe_gateup       <- k8s_dra_driver_tpu/ops/moe_dispatch.py::_gateup_kernel
 //                       (with _gather_rows_dma)
 //   moe_down_combine <- k8s_dra_driver_tpu/ops/moe_dispatch.py::_down_combine_kernel
 //                       (with _scatter_rows_dma)
+//   moe_gateup_int8, moe_down_combine_int8 <- the `quantized` branches of
+//                       the same two kernels (int8 experts, f32 scales)
 //
 // Layouts are the JAX package's; the dispatch plan (ops/moe_dispatch.py
 // build_plan) puts every (token, expert) pair in an expert-major buffer of
@@ -48,10 +50,25 @@
 // moe_down_combine multiplies by the row's gate and writes each row to its
 // pair slot. A tile whose rows are all sentinels reads no weights:
 // moe_gateup writes its zeros and moe_down_combine returns at once.
+//
+// The int8 branches (INT8) take the expert stacks as int8 with per-column
+// f32 scales (w_gu [E, H, 2, M] with scale [E, 1, 2, M]; w_down [E, M, H]
+// with scale [E, 1, H]). At decode they are bound by the same weight bytes
+// at one byte a weight: half the bf16 bound. The ring stages the weight
+// tile as int8 (16 weights per 16-byte cp.async, half the bf16 stage);
+// after each stage lands, the block converts it exactly to bf16 into one
+// shared image in the B layout above, and a barrier later the same
+// ldmatrix.trans and bf16 mma.sync read it. The scales are constant over
+// the contracted axis, so they multiply the f32 sums in the epilogue:
+// moe_gateup scales g and u by the tile expert's gate- and up-half scale
+// of each column before SwiGLU, moe_down_combine scales each column before
+// the row's gate. All-sentinel tiles read neither weights nor scales.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -107,7 +124,7 @@ __device__ __forceinline__ void load_b_trans(uint32_t& b0, uint32_t& b1,
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
 // source is then not read).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
@@ -124,9 +141,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Exact int8 -> bf16 of the two bytes of w at bit sh and sh + 8, packed
+// as one bf16 pair (the lower address in the low half).
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(int32_t w, int sh) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(
+      static_cast<float>(static_cast<int8_t>(w >> sh)),
+      static_cast<float>(static_cast<int8_t>(w >> (sh + 8))));
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The weights of a branch: bf16, or int8.
+template <bool INT8>
+using Weight = std::conditional_t<INT8, int8_t, bf16>;
+
 // BM: rows of the block (>= the plan's tile); GATEUP: moe_gateup, else
-// moe_down_combine.
-template <int BM, bool GATEUP>
+// moe_down_combine; INT8: int8 weights (staged as int8, converted into one
+// bf16 image per stage).
+template <int BM, bool GATEUP, bool INT8>
 struct Cfg {
   static constexpr int NB = GATEUP ? 2 * kCols : kCols;  // staged columns
   static constexpr int WM = BM / 16;                      // warps on rows
@@ -137,15 +168,23 @@ struct Cfg {
   static constexpr int STAGES = BM <= 16 ? 6 : 3;
   static constexpr int LDA = kBK + kPad;
   static constexpr int LDB = NB + kPad;
-  static constexpr int STAGE = BM * LDA + kBK * LDB;  // bf16 per stage
-  static constexpr int SMEM = STAGES * STAGE * 2 + 2 * BM * 4;
+  // A stage in bf16 elements: the row tile, then the weight tile, bf16
+  // [kBK][LDB] or int8 [kBK][NB] (half as many elements). Addresses stay
+  // in bf16 elements: byte-based stage arithmetic made the bf16 K8 at
+  // decode 15% slower on the H100.
+  static constexpr int B_STAGE = INT8 ? kBK * NB / 2 : kBK * LDB;
+  static constexpr int STAGE = BM * LDA + B_STAGE;
+  static constexpr int IMAGE = INT8 ? kBK * LDB : 0;  // the int8 tile as bf16
+  static constexpr int SMEM = (STAGES * STAGE + IMAGE) * 2 + 2 * BM * 4;
   static_assert(WM * WN == kWarps && NT >= 1, "warp layout");
+  static_assert(BM * LDA % 8 == 0 && B_STAGE % 8 == 0, "16-byte stages");
 };
 
-template <int BM, bool GATEUP>
+template <int BM, bool GATEUP, bool INT8>
 __global__ void __launch_bounds__(kThreads)
 moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
-                   const bf16* __restrict__ w,       // w_gu, or w_down
+                   const Weight<INT8>* __restrict__ w,  // w_gu, or w_down
+                   const float* __restrict__ wscale, // INT8 scales
                    const int32_t* __restrict__ ids,  // row_ids, or pair_ids
                    const int32_t* __restrict__ tile_expert,
                    const float* __restrict__ gates,  // moe_down_combine
@@ -153,10 +192,12 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
                    int kdim,    // contracted: H, or M
                    int ndim,    // output width: M, or H
                    int tile, int limit) {
-  using C = Cfg<BM, GATEUP>;
+  using C = Cfg<BM, GATEUP, INT8>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);
-  int* a_row = reinterpret_cast<int*>(smem + C::STAGES * C::STAGE * 2);
+  bf16* image = stages + C::STAGES * C::STAGE;
+  int* a_row =
+      reinterpret_cast<int*>(smem + (C::STAGES * C::STAGE + C::IMAGE) * 2);
   int* dst_row = a_row + BM;
 
   const int r0 = blockIdx.x * tile;   // the tile's first slot
@@ -200,7 +241,18 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
   }
 
   const int e = tile_expert[blockIdx.x];
-  const bf16* wexp = w + (size_t)e * kdim * (GATEUP ? 2 * ndim : ndim);
+  const Weight<INT8>* wexp =
+      w + (size_t)e * kdim * (GATEUP ? 2 * ndim : ndim);
+
+  // Weight (contracted row k, staged column c) of the tile's expert; staged
+  // row k of moe_gateup is [gate c0..c0+63 | up c0..c0+63] of row k.
+  auto w_at = [&](int k, int c) -> const Weight<INT8>* {
+    if (GATEUP) {
+      const int half = c >= kCols;
+      return wexp + ((size_t)k * 2 + half) * ndim + c0 + c - half * kCols;
+    }
+    return wexp + (size_t)k * ndim + c0 + c;
+  };
 
   auto load_stage = [&](int stage, int k0) {
     bf16* as = stages + stage * C::STAGE;
@@ -212,18 +264,37 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
                  a_src + (size_t)(src < 0 ? 0 : src) * kdim + k0 + c,
                  src >= 0);
     }
-    for (int i = threadIdx.x; i < kBK * (C::NB / 8); i += kThreads) {
-      const int kr = i / (C::NB / 8), c = (i % (C::NB / 8)) * 8;
-      const bf16* p;
-      if (GATEUP) {
-        // Staged row: [gate c0..c0+63 | up c0..c0+63] of contracted row k.
-        const int half = c >= kCols;
-        p = wexp + ((size_t)(k0 + kr) * 2 + half) * ndim + c0 + c -
-            half * kCols;
-      } else {
-        p = wexp + (size_t)(k0 + kr) * ndim + c0 + c;
+    if constexpr (INT8) {
+      int8_t* b8 = reinterpret_cast<int8_t*>(bs);
+      for (int i = threadIdx.x; i < kBK * (C::NB / 16); i += kThreads) {
+        const int kr = i / (C::NB / 16), c = (i % (C::NB / 16)) * 16;
+        cp_async16(b8 + kr * C::NB + c, w_at(k0 + kr, c), true);
       }
-      cp_async16(bs + kr * C::LDB + c, p, true);
+    } else {
+      for (int i = threadIdx.x; i < kBK * (C::NB / 8); i += kThreads) {
+        const int kr = i / (C::NB / 8), c = (i % (C::NB / 8)) * 8;
+        cp_async16(bs + kr * C::LDB + c, w_at(k0 + kr, c), true);
+      }
+    }
+  };
+
+  // INT8: the landed int8 weight tile of a stage -> the bf16 image, 16
+  // weights a thread.
+  auto convert_stage = [&](int stage) {
+    const int8_t* b8 = reinterpret_cast<const int8_t*>(
+        stages + stage * C::STAGE + BM * C::LDA);
+    for (int i = threadIdx.x; i < kBK * (C::NB / 16); i += kThreads) {
+      const int kr = i / (C::NB / 16), c = (i % (C::NB / 16)) * 16;
+      const int4 raw = *reinterpret_cast<const int4*>(b8 + kr * C::NB + c);
+      uint4* dst = reinterpret_cast<uint4*>(image + kr * C::LDB + c);
+      dst[0] = make_uint4(int8x2_to_bf16x2(raw.x, 0),
+                          int8x2_to_bf16x2(raw.x, 16),
+                          int8x2_to_bf16x2(raw.y, 0),
+                          int8x2_to_bf16x2(raw.y, 16));
+      dst[1] = make_uint4(int8x2_to_bf16x2(raw.z, 0),
+                          int8x2_to_bf16x2(raw.z, 16),
+                          int8x2_to_bf16x2(raw.w, 0),
+                          int8x2_to_bf16x2(raw.w, 16));
     }
   };
 
@@ -249,6 +320,12 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
     }
     const bf16* as = stages + (kt % C::STAGES) * C::STAGE;
     const bf16* bs = as + BM * C::LDA;
+    if constexpr (INT8) {
+      // The image's previous readers passed the barrier above.
+      convert_stage(kt % C::STAGES);
+      __syncthreads();
+      bs = image;
+    }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t a[4];
@@ -269,16 +346,36 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
 #pragma unroll
   for (int j = 0; j < C::NT; ++j) {
     const int col = c0 + wn * C::WCOLS + 8 * j + 2 * t;
+    // INT8: the columns' scales, [E, 1, 2, M] (gate half, then up half)
+    // for moe_gateup, [E, 1, H] for moe_down_combine.
+    float sg0 = 1.f, sg1 = 1.f, su0 = 1.f, su1 = 1.f;
+    if constexpr (INT8) {
+      const float* sc = wscale + (size_t)e * (GATEUP ? 2 * ndim : ndim);
+      sg0 = sc[col];
+      sg1 = sc[col + 1];
+      if (GATEUP) {
+        su0 = sc[ndim + col];
+        su1 = sc[ndim + col + 1];
+      }
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = wm * 16 + g + 8 * hh;
       const int dst = dst_row[r];
       if (dst < 0) continue;
-      const float v0 = acc[j][2 * hh], v1 = acc[j][2 * hh + 1];
+      float v0 = acc[j][2 * hh], v1 = acc[j][2 * hh + 1];
+      if constexpr (INT8) {
+        v0 *= sg0;
+        v1 *= sg1;
+      }
       if (GATEUP) {
         // acc[j + NT] holds the up half of the same elements.
-        const float u0 = acc[j + (GATEUP ? C::NT : 0)][2 * hh];
-        const float u1 = acc[j + (GATEUP ? C::NT : 0)][2 * hh + 1];
+        float u0 = acc[j + (GATEUP ? C::NT : 0)][2 * hh];
+        float u1 = acc[j + (GATEUP ? C::NT : 0)][2 * hh + 1];
+        if constexpr (INT8) {
+          u0 *= su0;
+          u1 *= su1;
+        }
         const float s0 = v0 / (1.f + expf(-v0)) * u0;
         const float s1 = v1 / (1.f + expf(-v1)) * u1;
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
@@ -294,42 +391,48 @@ moe_grouped_kernel(const bf16* __restrict__ a_src,   // xf, or act
   }
 }
 
-template <int BM, bool GATEUP>
-int launch(const void* a_src, const void* w, const void* ids,
-           const void* tile_expert, const void* gates, void* out, int kdim,
-           int ndim, int r_pad, int tile, int limit, cudaStream_t st) {
-  using C = Cfg<BM, GATEUP>;
-  auto kernel = moe_grouped_kernel<BM, GATEUP>;
+template <int BM, bool GATEUP, bool INT8>
+int launch(const void* a_src, const void* w, const void* wscale,
+           const void* ids, const void* tile_expert, const void* gates,
+           void* out, int kdim, int ndim, int r_pad, int tile, int limit,
+           cudaStream_t st) {
+  using C = Cfg<BM, GATEUP, INT8>;
+  auto kernel = moe_grouped_kernel<BM, GATEUP, INT8>;
   // The ring can pass the 48 KB static limit: raise the kernel's limit.
   if (int rc = static_cast<int>(cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)))
     return rc;
   const dim3 grid(r_pad / tile, ndim / kCols);
   kernel<<<grid, kThreads, C::SMEM, st>>>(
-      static_cast<const bf16*>(a_src), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(a_src),
+      static_cast<const Weight<INT8>*>(w),
+      static_cast<const float*>(wscale),
       static_cast<const int32_t*>(ids),
       static_cast<const int32_t*>(tile_expert),
       static_cast<const float*>(gates), out, kdim, ndim, tile, limit);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool GATEUP>
-int dispatch(const void* a_src, const void* w, const void* ids,
-             const void* tile_expert, const void* gates, void* out, int kdim,
-             int ndim, int r_pad, int tile, int limit, void* stream) {
+template <bool GATEUP, bool INT8>
+int dispatch(const void* a_src, const void* w, const void* wscale,
+             const void* ids, const void* tile_expert, const void* gates,
+             void* out, int kdim, int ndim, int r_pad, int tile, int limit,
+             void* stream) {
   if (tile <= 0 || tile % 8 || tile > 128 || r_pad <= 0 || r_pad % tile ||
       kdim <= 0 || kdim % kBK || ndim <= 0 || ndim % kCols || limit < 0 ||
       ndim / kCols > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile <= 16)
-    return launch<16, GATEUP>(a_src, w, ids, tile_expert, gates, out, kdim,
-                              ndim, r_pad, tile, limit, st);
+    return launch<16, GATEUP, INT8>(a_src, w, wscale, ids, tile_expert,
+                                    gates, out, kdim, ndim, r_pad, tile,
+                                    limit, st);
   if (tile <= 64)
-    return launch<64, GATEUP>(a_src, w, ids, tile_expert, gates, out, kdim,
-                              ndim, r_pad, tile, limit, st);
-  return launch<128, GATEUP>(a_src, w, ids, tile_expert, gates, out, kdim,
-                             ndim, r_pad, tile, limit, st);
+    return launch<64, GATEUP, INT8>(a_src, w, wscale, ids, tile_expert,
+                                    gates, out, kdim, ndim, r_pad, tile,
+                                    limit, st);
+  return launch<128, GATEUP, INT8>(a_src, w, wscale, ids, tile_expert, gates,
+                                   out, kdim, ndim, r_pad, tile, limit, st);
 }
 
 }  // namespace
@@ -338,8 +441,9 @@ extern "C" int moe_gateup(const void* xf, const void* w_gu,
                           const void* row_ids, const void* tile_expert,
                           void* act, int n_tokens, int h, int m, int r_pad,
                           int tile, void* stream) {
-  return dispatch<true>(xf, w_gu, row_ids, tile_expert, nullptr, act, h, m,
-                        r_pad, tile, n_tokens, stream);
+  return dispatch<true, false>(xf, w_gu, nullptr, row_ids, tile_expert,
+                               nullptr, act, h, m, r_pad, tile, n_tokens,
+                               stream);
 }
 
 extern "C" int moe_down_combine(const void* act, const void* w_down,
@@ -347,6 +451,27 @@ extern "C" int moe_down_combine(const void* act, const void* w_down,
                                 const void* tile_expert, void* out,
                                 int n_pairs, int m, int h, int r_pad,
                                 int tile, void* stream) {
-  return dispatch<false>(act, w_down, pair_ids, tile_expert, gates, out, m, h,
-                         r_pad, tile, n_pairs, stream);
+  return dispatch<false, false>(act, w_down, nullptr, pair_ids, tile_expert,
+                                gates, out, m, h, r_pad, tile, n_pairs,
+                                stream);
+}
+
+extern "C" int moe_gateup_int8(const void* xf, const void* w_gu,
+                               const void* scale, const void* row_ids,
+                               const void* tile_expert, void* act,
+                               int n_tokens, int h, int m, int r_pad,
+                               int tile, void* stream) {
+  return dispatch<true, true>(xf, w_gu, scale, row_ids, tile_expert, nullptr,
+                              act, h, m, r_pad, tile, n_tokens, stream);
+}
+
+extern "C" int moe_down_combine_int8(const void* act, const void* w_down,
+                                     const void* scale, const void* gates,
+                                     const void* pair_ids,
+                                     const void* tile_expert, void* out,
+                                     int n_pairs, int m, int h, int r_pad,
+                                     int tile, void* stream) {
+  return dispatch<false, true>(act, w_down, scale, pair_ids, tile_expert,
+                               gates, out, m, h, r_pad, tile, n_pairs,
+                               stream);
 }

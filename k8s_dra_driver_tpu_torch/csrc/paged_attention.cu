@@ -1,14 +1,17 @@
 // Paged attention for Hopper (sm_90a): the single-token decode kernel and
 // the multi-token prefill kernel over one paged KV pool.
 //
-// Replaces (bf16 branch):
+// Replaces:
 //   paged_decode  <- k8s_dra_driver_tpu/ops/attention.py::_paged_decode_kernel
 //   paged_prefill <- k8s_dra_driver_tpu/ops/attention.py::_paged_prefill_kernel
+//   paged_decode_int8, paged_prefill_int8 <- the `quantized` branches of the
+//                    same two kernels (int8 pools with per-position scales)
 //
 // Layouts are the JAX package's:
 //   q        [B, Hq, T, D] bf16 (decode: T = 1, the same memory as [B, Hq, D])
 //   k/v pool [H_kv, P, D] bf16, flat token rows; pool block n owns rows
-//            [n*bs, (n+1)*bs)
+//            [n*bs, (n+1)*bs); the int8 branch: int8 pools with f32 scales
+//            k_scale/v_scale [H_kv, P], one per position and kv head
 //   tables   [B, NBPS] int32 pool-block ids; entries past a sequence's
 //            valid prefix are sentinel 0 and are never read here
 //   decode:  valid_len [B] int32, kv positions < valid_len are visible
@@ -39,6 +42,16 @@
 // position are never visited; the causal mask is applied only on tiles
 // that straddle the first query's position. Query rows of padded tokens
 // compute finite values like any other row (the caller discards them).
+//
+// The int8 branch (QUANT) is the same body. It reads each int8 K/V row
+// (128 B at head_dim 128: half the bf16 branch's bytes) four values per
+// thread and converts them exactly to bf16 in the same shared tiles, and
+// stages the tile's k and v scales (8 B per position and head, read by 32
+// threads on consecutive rows of each pool block). k's scale is constant
+// over D, so it multiplies the finished score (as the TPU kernel does,
+// after the softmax scale); v's scale varies over the PV contraction, so
+// it multiplies each probability after the row sum l, and the
+// probabilities stay f32 into PV in both branches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,11 +63,13 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kKvTile = 32;
 
-template <int HEAD_DIM, int ROWS, bool DECODE>
+template <int HEAD_DIM, int ROWS, bool DECODE, bool QUANT>
 __global__ void __launch_bounds__(HEAD_DIM)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k_pool,
-                       const __nv_bfloat16* __restrict__ v_pool,
+                       const void* __restrict__ k_pool,
+                       const void* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,  // QUANT only
+                       const float* __restrict__ v_scale,
                        const int32_t* __restrict__ tables,
                        const int32_t* __restrict__ pos,
                        __nv_bfloat16* __restrict__ out, int hq, int hkv,
@@ -71,6 +86,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 v_s[kKvTile][HEAD_DIM];
   __shared__ float s_s[ROWS][kKvTile + 1];
   __shared__ float m_s[ROWS], l_s[ROWS], c_s[ROWS];
+  __shared__ float ks_s[kKvTile], vs_s[kKvTile];  // the int8 branch's
 
   const int b = blockIdx.x, h = blockIdx.y, tile = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -109,19 +125,62 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < kv_end; kt += kKvTile) {
     // Stage K and V for positions [kt, kt + KT); rows past kv_end are
     // zero-filled (their scores are masked, and 0 * garbage could be NaN).
-    for (int w = tid; w < kKvTile * HALF; w += HEAD_DIM) {
-      const int r = w / HALF, c2 = w % HALF;
-      const int kp = kt + r;
-      __nv_bfloat162 kv = __floats2bfloat162_rn(0.f, 0.f), vv = kv;
-      if (kp < kv_end) {
-        const size_t row =
-            (size_t)table[kp / block_size] * block_size + kp % block_size;
-        const size_t off = ((size_t)h * pool_rows + row) * HEAD_DIM + 2 * c2;
-        kv = *reinterpret_cast<const __nv_bfloat162*>(k_pool + off);
-        vv = *reinterpret_cast<const __nv_bfloat162*>(v_pool + off);
+    if constexpr (QUANT) {
+      constexpr int QUART = HEAD_DIM / 4;  // four int8 values a thread
+      const int8_t* k8 = static_cast<const int8_t*>(k_pool);
+      const int8_t* v8 = static_cast<const int8_t*>(v_pool);
+      for (int w = tid; w < kKvTile * QUART; w += HEAD_DIM) {
+        const int r = w / QUART, c4 = w % QUART;
+        const int kp = kt + r;
+        char4 kc = make_char4(0, 0, 0, 0), vc = kc;
+        if (kp < kv_end) {
+          const size_t row =
+              (size_t)table[kp / block_size] * block_size + kp % block_size;
+          const size_t off =
+              ((size_t)h * pool_rows + row) * HEAD_DIM + 4 * c4;
+          kc = *reinterpret_cast<const char4*>(k8 + off);
+          vc = *reinterpret_cast<const char4*>(v8 + off);
+        }
+        // int8 -> bf16 is exact.
+        __nv_bfloat162* kd =
+            reinterpret_cast<__nv_bfloat162*>(&k_s[r][4 * c4]);
+        __nv_bfloat162* vd =
+            reinterpret_cast<__nv_bfloat162*>(&v_s[r][4 * c4]);
+        kd[0] = __floats2bfloat162_rn(kc.x, kc.y);
+        kd[1] = __floats2bfloat162_rn(kc.z, kc.w);
+        vd[0] = __floats2bfloat162_rn(vc.x, vc.y);
+        vd[1] = __floats2bfloat162_rn(vc.z, vc.w);
       }
-      *reinterpret_cast<__nv_bfloat162*>(&k_s[r][2 * c2]) = kv;
-      *reinterpret_cast<__nv_bfloat162*>(&v_s[r][2 * c2]) = vv;
+      if (tid < kKvTile) {
+        const int kp = kt + tid;
+        float ks = 0.f, vs = 0.f;
+        if (kp < kv_end) {
+          const size_t row =
+              (size_t)table[kp / block_size] * block_size + kp % block_size;
+          ks = k_scale[(size_t)h * pool_rows + row];
+          vs = v_scale[(size_t)h * pool_rows + row];
+        }
+        ks_s[tid] = ks;
+        vs_s[tid] = vs;
+      }
+    } else {
+      const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k_pool);
+      const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v_pool);
+      for (int w = tid; w < kKvTile * HALF; w += HEAD_DIM) {
+        const int r = w / HALF, c2 = w % HALF;
+        const int kp = kt + r;
+        __nv_bfloat162 kv = __floats2bfloat162_rn(0.f, 0.f), vv = kv;
+        if (kp < kv_end) {
+          const size_t row =
+              (size_t)table[kp / block_size] * block_size + kp % block_size;
+          const size_t off =
+              ((size_t)h * pool_rows + row) * HEAD_DIM + 2 * c2;
+          kv = *reinterpret_cast<const __nv_bfloat162*>(kb + off);
+          vv = *reinterpret_cast<const __nv_bfloat162*>(vb + off);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(&k_s[r][2 * c2]) = kv;
+        *reinterpret_cast<__nv_bfloat162*>(&v_s[r][2 * c2]) = vv;
+      }
     }
     __syncthreads();
 
@@ -146,6 +205,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + NWARPS * i;
       float s = sc[i] * scale_log2;
+      if (QUANT) s *= ks_s[lane];  // k's per-position scale, exact
       if (straddle) {
         const int kp = kt + lane;
         const int qpos = first_q + r / g;
@@ -164,7 +224,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float sum = 0.f;
       for (int c = 0; c < kKvTile; ++c) {
         const float p = exp2f(s_s[tid][c] - mx);
-        s_s[tid][c] = p;
+        // l sums the softmax's own p; v's scale folds into PV's weights.
+        s_s[tid][c] = QUANT ? p * vs_s[c] : p;
         sum += p;
       }
       l_s[tid] = l_s[tid] * corr + sum;
@@ -196,18 +257,19 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HEAD_DIM, int ROWS, bool DECODE>
+template <int HEAD_DIM, int ROWS, bool DECODE, bool QUANT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* pos, void* out, int b, int hq,
-           int hkv, int t_len, int pool_rows, int nbps, int block_size,
-           float scale, void* stream) {
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* pos, void* out, int b, int hq, int hkv, int t_len,
+           int pool_rows, int nbps, int block_size, float scale,
+           void* stream) {
   const int tq = ROWS / (hq / hkv);
   const dim3 grid(b, hkv, (t_len + tq - 1) / tq);
-  paged_attention_kernel<HEAD_DIM, ROWS, DECODE>
+  paged_attention_kernel<HEAD_DIM, ROWS, DECODE, QUANT>
       <<<grid, HEAD_DIM, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k_pool),
-          static_cast<const __nv_bfloat16*>(v_pool),
+          static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+          static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale),
           static_cast<const int32_t*>(tables),
           static_cast<const int32_t*>(pos),
           static_cast<__nv_bfloat16*>(out), hq, hkv, t_len, pool_rows, nbps,
@@ -224,6 +286,29 @@ bool shapes_ok(int b, int hq, int hkv, int t_len, int pool_rows, int nbps,
          t_len > 0 && pool_rows > 0 && nbps > 0 && block_size > 0;
 }
 
+template <bool DECODE, bool QUANT>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* tables,
+             const void* pos, void* out, int b, int hq, int hkv, int t_len,
+             int head_dim, int pool_rows, int nbps, int block_size,
+             float scale, void* stream) {
+  constexpr int ROWS = DECODE ? kDecodeRows : kPrefillRows;
+  if (!shapes_ok(b, hq, hkv, t_len, pool_rows, nbps, block_size, ROWS))
+    return -1;
+  switch (head_dim) {
+    case 64:
+      return launch<64, ROWS, DECODE, QUANT>(
+          q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, b, hq, hkv,
+          t_len, pool_rows, nbps, block_size, scale, stream);
+    case 128:
+      return launch<128, ROWS, DECODE, QUANT>(
+          q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, b, hq, hkv,
+          t_len, pool_rows, nbps, block_size, scale, stream);
+    default:
+      return -2;
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_decode(const void* q, const void* k_pool,
@@ -231,22 +316,9 @@ extern "C" int paged_decode(const void* q, const void* k_pool,
                             const void* valid_len, void* out, int b, int hq,
                             int hkv, int head_dim, int pool_rows, int nbps,
                             int block_size, float scale, void* stream) {
-  if (!shapes_ok(b, hq, hkv, 1, pool_rows, nbps, block_size, kDecodeRows))
-    return -1;
-  switch (head_dim) {
-    case 64:
-      return launch<64, kDecodeRows, true>(q, k_pool, v_pool, tables,
-                                           valid_len, out, b, hq, hkv, 1,
-                                           pool_rows, nbps, block_size, scale,
-                                           stream);
-    case 128:
-      return launch<128, kDecodeRows, true>(q, k_pool, v_pool, tables,
-                                            valid_len, out, b, hq, hkv, 1,
-                                            pool_rows, nbps, block_size, scale,
-                                            stream);
-    default:
-      return -2;
-  }
+  return dispatch<true, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                               valid_len, out, b, hq, hkv, 1, head_dim,
+                               pool_rows, nbps, block_size, scale, stream);
 }
 
 extern "C" int paged_prefill(const void* q, const void* k_pool,
@@ -255,21 +327,31 @@ extern "C" int paged_prefill(const void* q, const void* k_pool,
                              int hkv, int t_len, int head_dim, int pool_rows,
                              int nbps, int block_size, float scale,
                              void* stream) {
-  if (!shapes_ok(b, hq, hkv, t_len, pool_rows, nbps, block_size,
-                 kPrefillRows))
-    return -1;
-  switch (head_dim) {
-    case 64:
-      return launch<64, kPrefillRows, false>(q, k_pool, v_pool, tables, start,
-                                             out, b, hq, hkv, t_len,
-                                             pool_rows, nbps, block_size,
-                                             scale, stream);
-    case 128:
-      return launch<128, kPrefillRows, false>(q, k_pool, v_pool, tables,
-                                              start, out, b, hq, hkv, t_len,
-                                              pool_rows, nbps, block_size,
-                                              scale, stream);
-    default:
-      return -2;
-  }
+  return dispatch<false, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                                start, out, b, hq, hkv, t_len, head_dim,
+                                pool_rows, nbps, block_size, scale, stream);
+}
+
+extern "C" int paged_decode_int8(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* k_scale,
+                                 const void* v_scale, const void* tables,
+                                 const void* valid_len, void* out, int b,
+                                 int hq, int hkv, int head_dim, int pool_rows,
+                                 int nbps, int block_size, float scale,
+                                 void* stream) {
+  return dispatch<true, true>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                              valid_len, out, b, hq, hkv, 1, head_dim,
+                              pool_rows, nbps, block_size, scale, stream);
+}
+
+extern "C" int paged_prefill_int8(const void* q, const void* k_pool,
+                                  const void* v_pool, const void* k_scale,
+                                  const void* v_scale, const void* tables,
+                                  const void* start, void* out, int b,
+                                  int hq, int hkv, int t_len, int head_dim,
+                                  int pool_rows, int nbps, int block_size,
+                                  float scale, void* stream) {
+  return dispatch<false, true>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                               start, out, b, hq, hkv, t_len, head_dim,
+                               pool_rows, nbps, block_size, scale, stream);
 }

@@ -1,7 +1,8 @@
 """Llama-3 on the card: configuration and parameters, serving on the paged
 KV cache (the cached forward and the continuous-batching engine, for dense
-and Mixtral-style MoE configs), and training of both (forward, loss,
-optimizer and train step)."""
+and Mixtral-style MoE configs, with int8 weights and an int8 KV cache as
+options), and training of both (forward, loss, optimizer and train
+step)."""
 
 from . import moe
 from .convert import params_from_numpy
@@ -16,7 +17,14 @@ from .llama import (
     loss_fn,
 )
 from .moe import MOE_PRESETS, MoeConfig
-from .paged import BlockAllocator, OutOfBlocksError, PagedKVCache, PrefixCache
+from .paged import (
+    BlockAllocator,
+    OutOfBlocksError,
+    PagedKVCache,
+    PagedQuantKVCache,
+    PrefixCache,
+)
+from .quant import QuantTensor, quantize_params
 from .serving import (
     AdmissionClosedError,
     DecodeEngine,
@@ -42,6 +50,9 @@ __all__ = [
     "MoeConfig",
     "MOE_PRESETS",
     "PagedKVCache",
+    "PagedQuantKVCache",
+    "QuantTensor",
+    "quantize_params",
     "BlockAllocator",
     "OutOfBlocksError",
     "PrefixCache",

@@ -7,7 +7,10 @@ parameter dict on ``device``. Both packages then compute the same
 function. No JAX is imported here: the caller does the ``np.asarray``
 step. Dense and MoE layer layouts both convert; the MoE router ``wr``
 stays f32 whatever ``config.dtype`` is, as in the reference (rounding it
-to bf16 would change expert choices).
+to bf16 would change expert choices). The reference's int8 tree (from its
+``quantize_params``) converts too: a leaf with ``.q`` and ``.scale``
+becomes the port's ``QuantTensor`` with int8 ``q`` and f32 ``scale``,
+never cast to ``config.dtype``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from .llama import LlamaConfig
+from .quant import QuantTensor
 
 _LAYER_KEYS = ("wqkv", "wo", "w_gateup", "w_down", "ln_attn", "ln_mlp")
 # MoE: the router, and w_gateup [L, E, H, 2, M] / w_down [L, E, M, H].
@@ -25,11 +29,16 @@ _MOE_LAYER_KEYS = ("wqkv", "wo", "wr", "w_gateup", "w_down", "ln_attn",
 _F32_KEYS = ("wr",)
 
 
-def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _tensor(a, dtype: torch.dtype, device: torch.device):
+    if hasattr(a, "q") and hasattr(a, "scale"):
+        # The reference's QuantTensor, duck typed (the port imports
+        # nothing of the JAX package).
+        return QuantTensor(q=_tensor(a.q, torch.int8, device),
+                           scale=_tensor(a.scale, torch.float32, device))
     if not isinstance(a, np.ndarray):
         raise NotImplementedError(
-            f"{type(a).__name__} leaf: only float weights convert (int8 "
-            f"QuantTensor weights are not ported)"
+            f"{type(a).__name__} leaf: only numpy arrays and int8 "
+            f"QuantTensor leaves convert"
         )
     a = np.array(a)                     # a writable, contiguous copy
     if a.dtype.name == "bfloat16":

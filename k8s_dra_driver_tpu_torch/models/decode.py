@@ -13,8 +13,13 @@ version on the CPU. The per-layer FFN follows the config's family
 sparse MoE block (``models/moe.py``, the fused dispatch kernels K7 and K8
 on the card) for a ``MoeConfig``.
 
-Not ported yet (they raise ``NotImplementedError``): the int8 KV cache
-(``quantize_cache=True``) and int8 weights.
+The int8 variants follow the reference's (``variant_label``): int8
+weights from ``quant.quantize_params`` run through the seams of
+``models/quant.py`` and the int8 branches of K7 and K8, and the int8 KV
+cache (``quantize_cache=True``, :class:`PagedQuantKVCache`) stores each
+new k and v row as int8 with an f32 scale per position and head
+(:func:`_quantize_kv`) and is read by the int8 branches of the paged
+kernels.
 """
 
 from __future__ import annotations
@@ -39,12 +44,15 @@ from .paged import (
     BlockAllocator,
     OutOfBlocksError,
     PagedKVCache,
+    PagedQuantKVCache,
     PrefixCache,
     flat_write_positions,
 )
+from .quant import QuantTensor, q_lookup, q_matmul, quantize_tensor
 
 __all__ = [
     "PagedKVCache",
+    "PagedQuantKVCache",
     "BlockAllocator",
     "OutOfBlocksError",
     "PrefixCache",
@@ -70,24 +78,21 @@ TRACE_OBSERVERS: list = []
 _ROPE_TABLES: dict = {}
 
 
-def _require_supported(params: dict, config=None, cache=None) -> None:
-    if config is not None and not isinstance(config, LlamaConfig):
+def _require_supported(config) -> None:
+    if not isinstance(config, LlamaConfig):
         raise NotImplementedError(
             f"{type(config).__name__}: only Llama configs (dense, or MoE "
             f"through MoeConfig) are ported"
         )
-    if not isinstance(params["layers"]["wqkv"], torch.Tensor):
-        raise NotImplementedError("int8 (QuantTensor) weights are not ported")
-    if cache is not None and not isinstance(cache, PagedKVCache):
-        raise NotImplementedError("only the bf16/f32 PagedKVCache is ported")
 
 
 def variant_label(params: dict, cache) -> str:
-    """The bench variant name; the port runs float weights and a float
-    cache only, so this is always ``"bf16"`` once the inputs are
-    accepted."""
-    _require_supported(params, cache=cache)
-    return "bf16"
+    """``"bf16"`` | ``"int8"`` | ``"kvq"`` | ``"int8+kvq"``: the bench
+    variant names (int8 weights, the int8 KV cache)."""
+    wq = isinstance(params["layers"]["wqkv"], QuantTensor)
+    cq = isinstance(cache, PagedQuantKVCache)
+    return "+".join(n for n, on in (("int8", wq), ("kvq", cq)) if on) \
+        or "bf16"
 
 
 def _rope_tables(config: LlamaConfig, span: int, device):
@@ -114,6 +119,13 @@ def _mlp_or_moe(x, layer, config, use_kernels: bool = True):
     return _mlp_block(x, layer, config, use_kernels=use_kernels)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """[B, H, T, D] -> (int8 values, f32 scales [B, H, T]): symmetric
+    per-vector quantization over D, the recipe of ``quantize_tensor``."""
+    qt = quantize_tensor(x, axis=-1)
+    return qt.q, qt.scale.squeeze(-1)
+
+
 def _note_first_use(variant: str, b: int, t: int) -> None:
     key = f"forward:{variant}:t{t}"
     if key in TRACE_COUNTS:
@@ -127,16 +139,16 @@ def _note_first_use(variant: str, b: int, t: int) -> None:
 def _forward_with_cache(
     params: dict,
     tokens: torch.Tensor,          # [B, T] new tokens
-    cache: PagedKVCache,
+    cache: "PagedKVCache | PagedQuantKVCache",
     config: LlamaConfig,
     positions: torch.Tensor,       # [T] shared or [B, T] per-sequence
     n_valid: torch.Tensor | None = None,   # [] or [B] real tokens per row
     active: torch.Tensor | None = None,    # [B] bool: rows allowed to write
     use_kernels: bool = True,
-) -> tuple[torch.Tensor, PagedKVCache]:
+) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
     """Run the stack over new tokens, reading and writing the paged cache
-    (its pools in place). Returns (logits [B, T, V] f32, cache with new
-    lengths).
+    (its pools in place; an int8 cache gets int8 rows and their scales).
+    Returns (logits [B, T, V] f32, cache with new lengths).
 
     ``n_valid`` marks the first n columns of a right-padded chunk as real;
     padded columns and rows not ``active`` write only to the scratch row
@@ -144,16 +156,17 @@ def _forward_with_cache(
     versions of the ops even on CUDA tensors -- the comparison the card
     smoke test makes; on CPU tensors both settings run the plain ops."""
     c = config
-    _require_supported(params, c)
+    _require_supported(c)
     b, t = tokens.shape
     bs = cache.block_size
     scale = c.head_dim ** -0.5
+    quantized = isinstance(cache, PagedQuantKVCache)
     if positions.dim() == 1:
         positions = positions[None, :].expand(b, t)
     positions = positions.long()
     _note_first_use(variant_label(params, cache), b, t)
 
-    x = params["embed"][tokens.long()]
+    x = q_lookup(params["embed"], tokens, c.dtype)
     cos, sin = _rope_tables(c, cache.max_len, tokens.device)
     # Padded columns may sit past the table; their writes go to the
     # scratch row and their outputs are discarded, but the gather must
@@ -179,9 +192,17 @@ def _forward_with_cache(
     for i in range(c.n_layers):
         layer = layer_params(params, i)
         k_pool, v_pool = cache.k[i], cache.v[i]         # [H_kv, P+1, D]
+        scales = {}
         xn = norm(x, layer["ln_attn"], c.norm_eps)
         q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos)
         hkv, d = k.shape[1], k.shape[3]
+        if quantized:
+            scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
+            (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+            scales["k_scale"].index_copy_(
+                1, flat, ks.transpose(0, 1).reshape(hkv, b * t))
+            scales["v_scale"].index_copy_(
+                1, flat, vs.transpose(0, 1).reshape(hkv, b * t))
         k_pool.index_copy_(
             1, flat, k.transpose(0, 1).reshape(hkv, b * t, d).to(k_pool.dtype)
         )
@@ -190,16 +211,18 @@ def _forward_with_cache(
         )
         if not use_kernels:
             o = paged_attention_reference(
-                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale
+                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale,
+                **scales,
             )
         elif t == 1:
             o = paged_decode_attention(
                 q[:, :, 0, :], k_pool, v_pool, cache.block_tables, vlen,
-                bs, scale,
+                bs, scale, **scales,
             )[:, :, None, :]
         else:
             o = paged_prefill_attention(
-                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale
+                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale,
+                **scales,
             )
         x = attn_out(x, o, layer)
         x = _mlp_or_moe(x, layer, c, use_kernels=use_kernels)
@@ -216,7 +239,7 @@ def _forward_with_cache(
     new_cache = dataclasses.replace(cache, lengths=new_len)
 
     x = norm(x, params["final_norm"], c.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = q_matmul(x, params["lm_head"]).float()
     return logits, new_cache
 
 
@@ -237,16 +260,16 @@ def prefill(
     max_len: int,
     quantize_cache: bool = False,
     block_size: int | None = None,
-) -> tuple[torch.Tensor, PagedKVCache]:
-    """Process the prompt into a fixed-reservation paged cache; returns
-    (last-position logits [B, V], cache)."""
-    if quantize_cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
+    """Process the prompt into a fixed-reservation paged cache (int8 with
+    per-position scales when ``quantize_cache``); returns (last-position
+    logits [B, V], cache)."""
     dev = _param_device(params)
     tokens = _as_tokens(tokens, dev)
     b, s = tokens.shape
-    cache = PagedKVCache.init(config, b, max_len, block_size=block_size,
-                              device=dev)
+    cache_cls = PagedQuantKVCache if quantize_cache else PagedKVCache
+    cache = cache_cls.init(config, b, max_len, block_size=block_size,
+                           device=dev)
     positions = torch.arange(s, device=dev)
     logits, cache = _forward_with_cache(params, tokens, cache, config,
                                         positions)
@@ -258,7 +281,8 @@ def prefill_cached(
     prompt,                        # sequence of int token ids (one request)
     config: LlamaConfig,
     max_len: int,
-    pools: tuple,                  # shared (k, v) pools (paged._init_pools)
+    pools: tuple,                  # shared (k, v) or (k, v, k_scale,
+                                   # v_scale) pools (paged._init_pools)
     allocator: BlockAllocator,
     block_size: int,
     prefix_cache: "PrefixCache | None" = None,
@@ -269,8 +293,6 @@ def prefill_cached(
     block and recomputes it (copy-on-write by recompute). Returns
     ``(last_logits [1, V], cache, blocks, hit_tokens)``; release with
     ``allocator.free(blocks)``."""
-    if quantize_cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     prompt = [int(t) for t in prompt]
     s = len(prompt)
     if not 0 < s < max_len:
@@ -292,14 +314,18 @@ def prefill_cached(
         allocator.free(hit)
         raise
     blocks = list(hit) + fresh
-    k, v = pools
-    dev = k.device
-    cache = PagedKVCache(
-        k=k, v=v,
-        block_tables=torch.tensor([blocks], dtype=torch.int32, device=dev),
-        lengths=torch.tensor([hit_tokens], dtype=torch.int32, device=dev),
-        block_size=bs,
-    )
+    dev = pools[0].device
+    tables = torch.tensor([blocks], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([hit_tokens], dtype=torch.int32, device=dev)
+    if quantize_cache:
+        k, v, ks, vs = pools
+        cache = PagedQuantKVCache(k=k, k_scale=ks, v=v, v_scale=vs,
+                                  block_tables=tables, lengths=lengths,
+                                  block_size=bs)
+    else:
+        k, v = pools
+        cache = PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths,
+                             block_size=bs)
     tail = torch.tensor([prompt[hit_tokens:]], dtype=torch.int32, device=dev)
     positions = hit_tokens + torch.arange(s - hit_tokens, device=dev)
     logits, cache = _forward_with_cache(params, tail, cache, config,
@@ -310,9 +336,9 @@ def prefill_cached(
 def decode_step(
     params: dict,
     token: torch.Tensor,          # [B] latest token
-    cache: PagedKVCache,
+    cache: "PagedKVCache | PagedQuantKVCache",
     config: LlamaConfig,
-) -> tuple[torch.Tensor, PagedKVCache]:
+) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
     """One autoregressive step; returns (next-token logits [B, V], cache)."""
     positions = cache.lengths[:, None]
     logits, cache = _forward_with_cache(params, token[:, None], cache,

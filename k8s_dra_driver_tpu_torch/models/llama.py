@@ -36,6 +36,7 @@ from .. import resolve_device
 from ..ops.attention import _repeat_kv, attention_reference, flash_attention
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import apply_rope, rope_frequencies
+from .quant import q_einsum, q_lookup, q_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,10 +155,11 @@ def project_qkv(
     """QKV projection + head split + rope. Returns q [B,Hq,T,D],
     k,v [B,Hkv,T,D]."""
     c = config
-    b, t, h = xn.shape
+    b, t, _ = xn.shape
     g = c.n_heads // c.n_kv_heads
-    w = layer["wqkv"]                                   # [H, KV, G+2, D]
-    qkv = (xn @ w.reshape(h, -1)).reshape(b, t, *w.shape[1:])
+    # [B, T, H] @ [H, KV, G+2, D]: one matmul; q_einsum is the int8 seam
+    # (models/quant.py), the same product for float weights.
+    qkv = q_einsum("bth,hkgd->btkgd", xn, layer["wqkv"])
     q = qkv[..., :g, :].reshape(b, t, c.n_heads, c.head_dim)
     k = qkv[..., g, :]                                  # [B, T, KV, D]
     v = qkv[..., g + 1, :]
@@ -170,7 +172,7 @@ def attn_out(x: torch.Tensor, o: torch.Tensor, layer: dict) -> torch.Tensor:
     """Output projection + residual. o: [B, H, T, D] attention result."""
     b, _, t, _ = o.shape
     flat = o.transpose(1, 2).reshape(b, t, -1)
-    return x + (flat.to(x.dtype) @ layer["wo"]).to(x.dtype)
+    return x + q_matmul(flat.to(x.dtype), layer["wo"]).to(x.dtype)
 
 
 def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
@@ -178,12 +180,11 @@ def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
     even on CUDA tensors (the kernel-versus-plain comparison)."""
     norm = rmsnorm if use_kernels else rmsnorm_reference
     xn = norm(x, layer["ln_mlp"], config.norm_eps)
-    w = layer["w_gateup"]                               # [H, 2, M]
-    gu = (xn @ w.reshape(w.shape[0], -1)).reshape(*xn.shape[:-1], 2, -1)
+    gu = q_einsum("bth,hcm->btcm", xn, layer["w_gateup"])   # [B, T, 2, M]
     gate = F.silu(gu[..., 0, :].float())
     up = gu[..., 1, :].float()
     prod = (gate * up).to(x.dtype)
-    return x + (prod @ layer["w_down"]).to(x.dtype)
+    return x + q_matmul(prod, layer["w_down"]).to(x.dtype)
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin,
@@ -257,7 +258,7 @@ def forward(
     into a zero tensor of the whole stack per layer."""
     c = config
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()]                  # [B, S, H]
+    x = q_lookup(params["embed"], tokens, c.dtype)      # [B, S, H]
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
                                 device=tokens.device)
     block = _remat_transform(remat, remat_policy)(_block)
@@ -269,7 +270,7 @@ def forward(
     x = norm(x, params["final_norm"], c.norm_eps)
     if return_hidden:
         return x
-    return (x @ params["lm_head"]).float()
+    return q_matmul(x, params["lm_head"]).float()
 
 
 def _ce_chunk(x, lm_head, t):

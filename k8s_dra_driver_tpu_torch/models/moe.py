@@ -44,6 +44,7 @@ from .llama import (
     _remat_transform,
     chunked_cross_entropy,
 )
+from .quant import q_dequant, q_lookup, q_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,8 +293,8 @@ def _pairs_mlp(
     xf: torch.Tensor,            # [T, H] tokens (unsorted)
     gates: torch.Tensor,         # [T, k] f32
     experts: torch.Tensor,       # [T, k] int32
-    w_gu: torch.Tensor,          # [E_loc, H, 2, M]
-    w_down: torch.Tensor,        # [E_loc, M, H]
+    w_gu,                        # [E_loc, H, 2, M] tensor or QuantTensor
+    w_down,                      # [E_loc, M, H] tensor or QuantTensor
     config: MoeConfig,
     *,
     lo: int = 0,
@@ -307,7 +308,8 @@ def _pairs_mlp(
     Two implementations over one dispatch plan: **fused** (K7 and K8, K10
     in their backward) and **primitive** (gathers around grouped matmuls,
     K10 both ways); ``use_kernels=False`` runs the plain versions on CUDA
-    tensors."""
+    tensors. int8 ``QuantTensor`` stacks run forward only, through the
+    kernels' int8 branches (fused) or the plain int8 grouped product."""
     c = config
     t, k = gates.shape
     h = xf.shape[1]
@@ -402,11 +404,14 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _route(probs, c, cap)
     xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
-    gu = torch.einsum("ebch,ehum->ebcum", xe, layer["w_gateup"])
+    # q_dequant is the int8 seam (models/quant.py): identity for float
+    # weights, a dequantized copy of an int8 expert stack.
+    gu = torch.einsum("ebch,ehum->ebcum", xe,
+                      q_dequant(layer["w_gateup"], xe.dtype))
     gate = F.silu(gu[..., 0, :].float())
     up = gu[..., 1, :].float()
     ye = torch.einsum("ebcm,emh->ebch", (gate * up).to(x.dtype),
-                      layer["w_down"])
+                      q_dequant(layer["w_down"], x.dtype))
     out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
     out = out.reshape(b, s, h)
     return x + out.to(x.dtype), aux
@@ -435,7 +440,7 @@ def forward(
     ``llama.forward`` does. Meshes and ring attention are not ported."""
     c = config
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = q_lookup(params["embed"], tokens, c.dtype)
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
                                 device=tokens.device)
     block = _remat_transform(remat, remat_policy)(_block)
@@ -449,7 +454,7 @@ def forward(
     x = _norm(use_kernels)(x, params["final_norm"], c.norm_eps)
     if return_hidden:
         return x, aux
-    return (x @ params["lm_head"]).float(), aux
+    return q_matmul(x, params["lm_head"]).float(), aux
 
 
 def forward_pipelined(*args, **kwargs):

@@ -8,7 +8,9 @@ must equal the reference's bit for bit under the same op sequence.
 
 Pools are torch tensors ``[L, H_kv, P + 1, D]`` with ``P = num_blocks *
 block_size`` flat token rows (block ``n`` owns rows ``[n*bs, (n+1)*bs)``)
-and ONE trailing scratch row ``P`` that no block table addresses. torch
+and ONE trailing scratch row ``P`` that no block table addresses; the
+int8 cache (:class:`PagedQuantKVCache`) adds f32 scale pools ``[L, H_kv,
+P + 1]`` with the same scratch row. torch
 has no dropping scatter (the reference writes with ``mode="drop"``), and
 masking writes with a boolean index would force a host sync; instead
 every invalid write position is routed to the scratch row. Pools are
@@ -36,6 +38,7 @@ __all__ = [
     "BlockAllocator",
     "OutOfBlocksError",
     "PagedKVCache",
+    "PagedQuantKVCache",
     "PrefixCache",
     "flat_write_positions",
     "gather_indices",
@@ -424,6 +427,54 @@ class PagedKVCache:
         return self.scratch_row // self.block_size
 
 
+@dataclasses.dataclass
+class PagedQuantKVCache:
+    """int8 paged cache with per-(position, head) scales.
+
+    k, v:               int8 [L, H_kv, P + 1, D]; row P is the scratch row
+    k_scale, v_scale:   f32  [L, H_kv, P + 1]
+    The table and length bookkeeping of :class:`PagedKVCache`; half its
+    bytes at bf16.
+    """
+
+    k: torch.Tensor
+    k_scale: torch.Tensor
+    v: torch.Tensor
+    v_scale: torch.Tensor
+    block_tables: torch.Tensor
+    lengths: torch.Tensor
+    block_size: int
+
+    @classmethod
+    def init(
+        cls,
+        config,
+        batch: int,
+        max_len: int,
+        block_size: int | None = None,
+        num_blocks: int | None = None,
+        device=None,
+    ) -> "PagedQuantKVCache":
+        dev = resolve_device(device)
+        bs = block_size or _fit_block_size(max_len)
+        nbps = -(-max_len // bs)
+        nb = num_blocks if num_blocks is not None else batch * nbps
+        k, v, ks, vs = _init_pools(config, nb, bs, quantized=True,
+                                   device=dev)
+        tables = torch.arange(
+            batch * nbps, dtype=torch.int32, device=dev
+        ).reshape(batch, nbps)
+        return cls(
+            k=k, k_scale=ks, v=v, v_scale=vs, block_tables=tables,
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            block_size=bs,
+        )
+
+    max_len = PagedKVCache.max_len
+    scratch_row = PagedKVCache.scratch_row
+    num_blocks = PagedKVCache.num_blocks
+
+
 def _fit_block_size(max_len: int) -> int:
     bs = DEFAULT_BLOCK_SIZE
     while bs > max_len and bs > 8:
@@ -431,12 +482,20 @@ def _fit_block_size(max_len: int) -> int:
     return bs
 
 
-def _init_pools(config, num_blocks: int, block_size: int, device=None):
+def _init_pools(config, num_blocks: int, block_size: int,
+                quantized: bool = False, device=None):
     """Zeroed k and v pools ``[L, H_kv, num_blocks * block_size + 1, D]``
-    (the last row is the write scratch row)."""
+    (the last row is the write scratch row): in ``config.dtype``, or int8
+    with f32 scale pools ``[L, H_kv, P + 1]`` as ``(k, v, k_scale,
+    v_scale)`` when ``quantized``."""
     dev = resolve_device(device)
     p = num_blocks * block_size
     shape = (config.n_layers, config.n_kv_heads, p + 1, config.head_dim)
+    if quantized:
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
     return (torch.zeros(shape, dtype=config.dtype, device=dev),
             torch.zeros(shape, dtype=config.dtype, device=dev))
 

@@ -46,6 +46,7 @@ from .paged import (
     BlockAllocator,
     OutOfBlocksError,
     PagedKVCache,
+    PagedQuantKVCache,
     PrefixCache,
     _init_pools,
 )
@@ -224,7 +225,10 @@ class DecodeEngine:
     ``prefix_cache=False`` disables cross-request KV reuse;
     ``overlap=False`` consumes every decode step's tokens synchronously;
     ``prefill_batch`` caps the requests one packed prefill launch advances
-    (default ``min(4, batch_slots)``). ``device`` defaults to CUDA and the
+    (default ``min(4, batch_slots)``); ``quantize_cache=True`` keeps the
+    pool in int8 with per-position scales (``PagedQuantKVCache``), read by
+    the int8 branches of the paged kernels; ``params`` may carry int8
+    weights from ``quant.quantize_params``. ``device`` defaults to CUDA and the
     engine raises when no CUDA device is present; ``params`` must live on
     that device.
     """
@@ -249,9 +253,7 @@ class DecodeEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if quantize_cache:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
-        _require_supported(params, config)
+        _require_supported(config)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs "
@@ -298,6 +300,7 @@ class DecodeEngine:
             else None
         )
         self._pools = _init_pools(config, num_blocks, block_size,
+                                  quantized=quantize_cache,
                                   device=self.device)
         b = batch_slots
         self._tables = np.zeros((b, self.max_blocks_per_seq), np.int32)
@@ -332,7 +335,12 @@ class DecodeEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _cache(self, tables, lengths) -> PagedKVCache:
+    def _cache(self, tables, lengths) -> "PagedKVCache | PagedQuantKVCache":
+        if self.quantize_cache:
+            k, v, ks, vs = self._pools
+            return PagedQuantKVCache(k=k, k_scale=ks, v=v, v_scale=vs,
+                                     block_tables=tables, lengths=lengths,
+                                     block_size=self.block_size)
         k, v = self._pools
         return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths,
                             block_size=self.block_size)

@@ -14,7 +14,9 @@ from .attention import (
     flash_fwd,
     paged_attention_reference,
     paged_decode_attention,
+    paged_decode_int8,
     paged_prefill_attention,
+    paged_prefill_int8,
 )
 from . import moe_dispatch
 from .moe_dispatch import (
@@ -28,8 +30,10 @@ from .moe_dispatch import (
     grouped_weight_grad,
     grouped_weight_grad_reference,
     moe_down_combine,
+    moe_down_combine_int8,
     moe_down_combine_reference,
     moe_gateup,
+    moe_gateup_int8,
     moe_gateup_reference,
     reference_moe_mlp,
 )
@@ -40,6 +44,8 @@ __all__ = [
     "paged_attention_reference",
     "paged_decode_attention",
     "paged_prefill_attention",
+    "paged_decode_int8",
+    "paged_prefill_int8",
     "attention_reference",
     "flash_attention",
     "flash_attention_forward",
@@ -62,6 +68,8 @@ __all__ = [
     "moe_gateup",
     "moe_gateup_reference",
     "moe_down_combine",
+    "moe_down_combine_int8",
+    "moe_gateup_int8",
     "moe_down_combine_reference",
     "rmsnorm",
     "rmsnorm_reference",

@@ -11,6 +11,13 @@ over ``csrc/paged_attention.cu``:
   ``_paged_decode_kernel``.
 - :func:`paged_prefill_attention` wraps ``paged_prefill``, which replaces
   ``_paged_prefill_kernel``.
+- int8 pools (the ``quantized`` branch of both TPU kernels) come with f32
+  per-position scales ``k_scale``/``v_scale`` ``[H_kv, P]``: k's scale
+  multiplies the scores, v's the probabilities, which stay f32 into the
+  PV product. Both wrappers hand them to :func:`paged_decode_int8` and
+  :func:`paged_prefill_int8`, the wrappers of the kernels' int8 branches
+  (``paged_decode_int8``/``paged_prefill_int8`` of the same source),
+  counted apart from the bf16 launches.
 
 The flash half, over ``csrc/flash_attention.cu``:
 
@@ -33,8 +40,8 @@ The CUDA sources' headers say what bounds each kernel on the H100 and
 how the design answers it.
 
 A wrapper takes the plain version only for CPU tensors. For CUDA tensors
-it launches its kernel (counted in ``<wrapper>.launches``) or raises: on
-bf16 inputs only, no int8 pools, head_dim 64 or 128.
+it launches its kernel (counted in ``<wrapper>.launches``) or raises: bf16
+queries, bf16 pools or int8 pools with their scales, head_dim 64 or 128.
 """
 
 from __future__ import annotations
@@ -52,7 +59,11 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DECODE_ARGTYPES = [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float, _PTR]
 _PREFILL_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [ctypes.c_float, _PTR]
-_MAX_G = {"paged_decode": 8, "paged_prefill": 64}
+# The int8 entry points take k_scale and v_scale after the pools.
+_DECODE_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 7 + [ctypes.c_float, _PTR]
+_PREFILL_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [ctypes.c_float, _PTR]
+_MAX_G = {"paged_decode": 8, "paged_prefill": 64, "paged_decode_int8": 8,
+          "paged_prefill_int8": 64}
 
 
 def gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -74,9 +85,13 @@ def paged_attention_reference(
     positions: torch.Tensor,     # [B, T] absolute query positions
     block_size: int,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,   # [H_kv, P] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version: kv row s is visible to query t when
-    ``s <= positions[b, t]``."""
+    ``s <= positions[b, t]``. With int8 pools, k's per-position scale
+    multiplies the scores and v's the probabilities, which stay f32 into
+    the PV product (the bf16 branch rounds them to the pool dtype)."""
     b, hq, t, d = q.shape
     hkv = k_pool.shape[0]
     g = hq // hkv
@@ -89,11 +104,18 @@ def paged_attention_reference(
     s = torch.einsum(
         "bhgtd,bhsd->bhgts", qg.float(), k.to(q.dtype).float()
     ) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, idx].transpose(0, 1)[:, :, None, None, :]
     kpos = torch.arange(span, device=q.device)
     mask = kpos[None, None, :] <= positions.long()[:, :, None]   # [B, T, S]
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgts,bhsd->bhgtd", p.to(q.dtype), v.to(q.dtype))
+    if v_scale is not None:
+        p = p * v_scale[:, idx].transpose(0, 1)[:, :, None, None, :]
+        out = torch.einsum("bhgts,bhsd->bhgtd", p, v.float()).to(q.dtype)
+    else:
+        out = torch.einsum("bhgts,bhsd->bhgtd", p.to(q.dtype),
+                           v.to(q.dtype))
     return out.reshape(b, hq, t, d)
 
 
@@ -109,6 +131,10 @@ def _library():
         lib.paged_decode.restype = _INT
         lib.paged_prefill.argtypes = _PREFILL_ARGTYPES
         lib.paged_prefill.restype = _INT
+        lib.paged_decode_int8.argtypes = _DECODE_INT8_ARGTYPES
+        lib.paged_decode_int8.restype = _INT
+        lib.paged_prefill_int8.argtypes = _PREFILL_INT8_ARGTYPES
+        lib.paged_prefill_int8.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -117,10 +143,14 @@ def _is_cpu(*tensors) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
 
 
-def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths):
+def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,
+                     k_scale=None, v_scale=None):
     dev = q.device
+    scales = () if k_scale is None else (("k_scale", k_scale),
+                                         ("v_scale", v_scale))
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
+                    ("block_tables", block_tables), ("lengths", lengths),
+                    *scales):
         if x.device != dev or not x.is_cuda:
             raise ValueError(
                 f"{kernel}: {name} on {x.device}; every input must sit on "
@@ -128,11 +158,20 @@ def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths):
             )
         if not x.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+    pool_dtype = torch.int8 if scales else torch.bfloat16
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if x.dtype != torch.bfloat16:
+        want = torch.bfloat16 if name == "q" else pool_dtype
+        if x.dtype != want:
             raise TypeError(
                 f"{kernel}: {name} is {x.dtype}; the kernel takes bf16 "
-                f"(int8 pools are not ported yet)"
+                f"queries and bf16 pools, or int8 pools with k_scale and "
+                f"v_scale"
+            )
+    for name, x in scales:
+        if x.dtype != torch.float32 or x.shape != k_pool.shape[:2]:
+            raise TypeError(
+                f"{kernel}: {name} {tuple(x.shape)} {x.dtype}; expected "
+                f"float32 {tuple(k_pool.shape[:2])}"
             )
     for name, x in (("block_tables", block_tables), ("lengths", lengths)):
         if x.dtype != torch.int32:
@@ -157,6 +196,31 @@ def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"{kernel}: lengths {tuple(lengths.shape)} != ({b},)")
 
 
+def _launch(kernel, q, k_pool, v_pool, k_scale, v_scale, block_tables,
+            lengths, block_size, scale) -> tuple[torch.Tensor, bool]:
+    """Check the arguments and run one paged kernel of
+    ``csrc/paged_attention.cu`` (``lengths``: valid_len for decode, the
+    window starts for prefill). Returns (out, launched)."""
+    _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,
+                     k_scale, v_scale)
+    b, hq = q.shape[:2]
+    pools = (k_pool, v_pool) + (() if k_scale is None else (k_scale, v_scale))
+    t = () if kernel.startswith("paged_decode") else (q.shape[2],)
+    out = torch.empty_like(q)
+    if not b:
+        return out, False
+    with torch.cuda.device(q.device):
+        rc = getattr(_library(), kernel)(
+            q.data_ptr(), *(x.data_ptr() for x in pools),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, hq, k_pool.shape[0], *t, q.shape[-1], k_pool.shape[1],
+            block_tables.shape[1], block_size, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(rc, kernel)
+    return out, True
+
+
 def paged_decode_attention(
     q: torch.Tensor,              # [B, Hq, D], one query token per sequence
     k_pool: torch.Tensor,         # [H_kv, P, D]
@@ -165,8 +229,14 @@ def paged_decode_attention(
     valid_len: torch.Tensor,      # [B] int32, kv entries visible
     block_size: int,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,   # [H_kv, P] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Single-token paged attention, masked at ``valid_len`` per sequence."""
+    """Single-token paged attention, masked at ``valid_len`` per sequence.
+    int8 pools with their scales go to :func:`paged_decode_int8`."""
+    if k_scale is not None or v_scale is not None:
+        return paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                 block_tables, valid_len, block_size, scale)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     if _is_cpu(q, k_pool, v_pool, block_tables, valid_len):
@@ -177,25 +247,50 @@ def paged_decode_attention(
         return out[:, :, 0, :]
     if q.dim() != 3:
         raise ValueError(f"paged_decode: q must be [B, Hq, D], got {q.shape}")
-    _check_cuda_args("paged_decode", q, k_pool, v_pool, block_tables,
-                     valid_len)
-    b, hq, _ = q.shape
-    out = torch.empty_like(q)
-    if b:
-        with torch.cuda.device(q.device):
-            rc = _library().paged_decode(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-                b, hq, k_pool.shape[0], d, k_pool.shape[1],
-                block_tables.shape[1], block_size, float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _build.check(rc, "paged_decode")
-        paged_decode_attention.launches += 1
+    out, launched = _launch("paged_decode", q, k_pool, v_pool, None, None,
+                            block_tables, valid_len, block_size, scale)
+    paged_decode_attention.launches += launched
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                      valid_len, block_size: int,
+                      scale: float | None = None) -> torch.Tensor:
+    """The int8 branch of the decode kernel: pools int8 ``[H_kv, P, D]``,
+    ``k_scale``/``v_scale`` f32 ``[H_kv, P]``; otherwise
+    :func:`paged_decode_attention`."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    if _is_cpu(q, k_pool, v_pool, block_tables, valid_len):
+        out = paged_attention_reference(
+            q[:, :, None, :], k_pool, v_pool, block_tables,
+            (valid_len.long() - 1)[:, None], block_size, scale,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+        return out[:, :, 0, :]
+    if q.dim() != 3 or k_scale is None or v_scale is None:
+        raise ValueError(f"paged_decode_int8: q must be [B, Hq, D] (got "
+                         f"{tuple(q.shape)}) and both scales given")
+    out, launched = _launch("paged_decode_int8", q, k_pool, v_pool, k_scale,
+                            v_scale, block_tables, valid_len, block_size,
+                            scale)
+    paged_decode_int8.launches += launched
+    return out
+
+
+paged_decode_int8.launches = 0
+
+
+def _window_starts(kernel, q, positions) -> torch.Tensor:
+    if q.dim() != 4 or positions.shape != q.shape[:1] + q.shape[2:3]:
+        raise ValueError(
+            f"{kernel}: q {tuple(q.shape)} / positions "
+            f"{tuple(positions.shape)}; expected [B, Hq, T, D] and [B, T]"
+        )
+    return positions[:, 0].to(torch.int32).contiguous()
 
 
 def paged_prefill_attention(
@@ -206,43 +301,57 @@ def paged_prefill_attention(
     positions: torch.Tensor,      # [B, T] absolute query positions
     block_size: int,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,   # [H_kv, P] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-token paged attention over contiguous windows.
 
     The kernel reads only ``positions[:, 0]``: each row of ``positions``
     must be the window ``start + arange(T)``, as every T>1 caller's is
     (chunked prefill, the copy-on-write recompute). Right-padded query
-    rows get finite values that the caller discards."""
+    rows get finite values that the caller discards. int8 pools with their
+    scales go to :func:`paged_prefill_int8`."""
+    if k_scale is not None or v_scale is not None:
+        return paged_prefill_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                  block_tables, positions, block_size, scale)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     if _is_cpu(q, k_pool, v_pool, block_tables, positions):
         return paged_attention_reference(
             q, k_pool, v_pool, block_tables, positions, block_size, scale,
         )
-    if q.dim() != 4 or positions.shape != q.shape[:1] + q.shape[2:3]:
-        raise ValueError(
-            f"paged_prefill: q {tuple(q.shape)} / positions "
-            f"{tuple(positions.shape)}; expected [B, Hq, T, D] and [B, T]"
-        )
-    start = positions[:, 0].to(torch.int32).contiguous()
-    _check_cuda_args("paged_prefill", q, k_pool, v_pool, block_tables, start)
-    b, hq, t, _ = q.shape
-    out = torch.empty_like(q)
-    if b:
-        with torch.cuda.device(q.device):
-            rc = _library().paged_prefill(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-                b, hq, k_pool.shape[0], t, d, k_pool.shape[1],
-                block_tables.shape[1], block_size, float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _build.check(rc, "paged_prefill")
-        paged_prefill_attention.launches += 1
+    start = _window_starts("paged_prefill", q, positions)
+    out, launched = _launch("paged_prefill", q, k_pool, v_pool, None, None,
+                            block_tables, start, block_size, scale)
+    paged_prefill_attention.launches += launched
     return out
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_prefill_int8(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                       positions, block_size: int,
+                       scale: float | None = None) -> torch.Tensor:
+    """The int8 branch of the prefill kernel: pools int8, scales f32
+    ``[H_kv, P]``; otherwise :func:`paged_prefill_attention`."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    if _is_cpu(q, k_pool, v_pool, block_tables, positions):
+        return paged_attention_reference(
+            q, k_pool, v_pool, block_tables, positions, block_size, scale,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    if k_scale is None or v_scale is None:
+        raise ValueError("paged_prefill_int8: both scales must be given")
+    start = _window_starts("paged_prefill_int8", q, positions)
+    out, launched = _launch("paged_prefill_int8", q, k_pool, v_pool, k_scale,
+                            v_scale, block_tables, start, block_size, scale)
+    paged_prefill_int8.launches += launched
+    return out
+
+
+paged_prefill_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -27,13 +27,23 @@ backward, and their plain PyTorch versions. Counterpart of
 - :func:`reference_moe_mlp` is the reference's oracle: gathers plus
   grouped products over the same layout, all plain versions
   (:func:`_reference_parts`, which the primitive path runs with kernels).
+- int8 experts (``models/quant.py`` ``QuantTensor`` stacks, matched by
+  duck typing: ops import nothing of models) run forward only. The fused
+  pipeline hands them to :func:`moe_gateup_int8` and
+  :func:`moe_down_combine_int8`, the wrappers of the kernels' int8
+  branches (int8 weights into the products, per-column scales in the
+  epilogues), counted apart from the bf16 launches. ``grouped_matmul``
+  with an int8 rhs has its plain version only (the reference's
+  ``ragged_dot`` int8 branch) and raises on CUDA tensors: no card path
+  reaches it.
 
 Each kernel has its plain version beside it (``*_reference``). A kernel
 wrapper takes it only for CPU tensors, or where the caller passes
 ``use_kernels=False`` (the kernel-versus-plain comparison). For CUDA
 tensors it launches its kernel (counted in ``<wrapper>.launches``) or
-raises: bf16 inputs, row tiles that are multiples of 8 up to 128, and the
-widths :func:`fused_geometry_ok` names. The reference's
+raises: bf16 inputs, bf16 weights or int8 weights with f32 scales, row
+tiles that are multiples of 8 up to 128, and the widths
+:func:`fused_geometry_ok` names. The reference's
 ``TPU_DRA_MOE_*`` environment knobs are module constants here
 (:data:`TILE_ROWS`, :data:`TILE_COLS`) and :func:`set_dispatch_impl`.
 """
@@ -67,6 +77,9 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _GATEUP_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 _DOWN_ARGTYPES = [_PTR] * 6 + [_INT] * 5 + [_PTR]
+# The int8 entry points take the weights' scale after the weights.
+_GATEUP_INT8_ARGTYPES = [_PTR] * 6 + [_INT] * 5 + [_PTR]
+_DOWN_INT8_ARGTYPES = [_PTR] * 7 + [_INT] * 5 + [_PTR]
 _GMM_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_PTR]
 _TGMM_ARGTYPES = [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _LIB = None
@@ -238,6 +251,32 @@ def build_plan(
         sizes_aligned=aligned.to(i32), tile_rows=tile, n_tokens=n_tokens,
         n_pairs=r, n_experts=e, top_k=top_k,
     )
+
+
+# ---------------------------------------------------------------------------
+# int8 weights.
+# ---------------------------------------------------------------------------
+
+
+def _quant_parts(w):
+    """(q, scale) of an int8 ``QuantTensor`` (duck typed), else (w,
+    None)."""
+    if hasattr(w, "q") and hasattr(w, "scale"):
+        return w.q, w.scale
+    return w, None
+
+
+def _row_scale(scale: torch.Tensor, group_sizes: torch.Tensor,
+               rows: int) -> torch.Tensor:
+    """Per-row dequant scale [rows, N] of a grouped product: each row takes
+    the scale of the group its position falls in; rows past the last
+    group take the last group's (their products are zero)."""
+    e = group_sizes.shape[0]
+    bounds = torch.cumsum(group_sizes.long(), 0)
+    row_group = torch.searchsorted(
+        bounds, torch.arange(rows, device=group_sizes.device), right=True,
+    ).clamp(0, e - 1)
+    return scale.reshape(e, -1)[row_group]
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +486,8 @@ class GroupedMatmulFunction(torch.autograd.Function):
 
 def grouped_matmul(
     lhs: torch.Tensor,           # [rows, K]
-    rhs: torch.Tensor,           # [E, K, N] (or a transposed [E, N, K])
+    rhs,                         # [E, K, N] (or a transposed [E, N, K]),
+                                 # or an int8 QuantTensor
     group_sizes: torch.Tensor,   # [E] int32, cumulative layout
     *,
     use_kernels: bool = True,
@@ -455,17 +495,36 @@ def grouped_matmul(
     """K10a, megablox ``gmm`` (``lax.ragged_dot``): rows [start_g, start_g
     + size_g) times ``rhs[g]``, summed in f32 and rounded to ``lhs``'s
     dtype; rows past the last group 0. Any group sizes, aligned or not.
-    Differentiable (:class:`GroupedMatmulFunction`)."""
-    return GroupedMatmulFunction.apply(lhs, rhs, group_sizes, use_kernels)
+    Differentiable (:class:`GroupedMatmulFunction`).
+
+    An int8 ``QuantTensor`` rhs (scale [E, 1, N]) takes the reference's
+    ``ragged_dot`` int8 branch: the f32 product with ``q``, times each
+    row's group scale, rounded to ``lhs``'s dtype; forward only. It has
+    no kernel yet, so CUDA tensors raise."""
+    q, scale = _quant_parts(rhs)
+    if scale is None:
+        return GroupedMatmulFunction.apply(lhs, rhs, group_sizes,
+                                           use_kernels)
+    if use_kernels and not _is_cpu(lhs, q, group_sizes):
+        raise NotImplementedError(
+            "grouped_matmul: an int8 rhs has no kernel on the card yet (the "
+            "fused dispatch kernels take int8 experts)")
+    y = grouped_matmul_reference(lhs.float(), q.float(), group_sizes)
+    return (y * _row_scale(scale, group_sizes, lhs.shape[0])).to(lhs.dtype)
 
 
 grouped_matmul.launches = 0
 
 
-def _gu_2d(w_gu: torch.Tensor) -> torch.Tensor:
-    """[E, H, 2, M] -> [E, H, 2M]: [:, :, :M] is the gate half."""
+def _gu_2d(w_gu):
+    """[E, H, 2, M] -> [E, H, 2M]: [:, :, :M] is the gate half. An int8
+    QuantTensor reshapes both leaves (scale to [E, 1, 2M])."""
     e, h, _, m = w_gu.shape
-    return w_gu.reshape(e, h, 2 * m)
+    q, scale = _quant_parts(w_gu)
+    if scale is None:
+        return w_gu.reshape(e, h, 2 * m)
+    return dataclasses.replace(w_gu, q=q.reshape(e, h, 2 * m),
+                               scale=scale.reshape(e, 1, 2 * m))
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -519,10 +578,12 @@ def _row_expert(plan: DispatchPlan) -> torch.Tensor:
 
 
 def moe_gateup_reference(xf: torch.Tensor, w_gu: torch.Tensor,
-                         plan: DispatchPlan) -> torch.Tensor:
+                         plan: DispatchPlan,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of ``moe_gateup``: act [r_pad, M] in xf's dtype,
     ``silu(g) * u`` with g and u the f32 products of each live row with
-    its tile's expert, sentinel rows exactly 0."""
+    its tile's expert, sentinel rows exactly 0. With int8 ``w_gu``,
+    ``scale`` [E, 1, 2, M] multiplies g and u before SwiGLU."""
     _, h, _, m = w_gu.shape
     act = torch.zeros(plan.r_pad, m, dtype=xf.dtype, device=xf.device)
     live = plan.row_ids < plan.n_tokens
@@ -533,17 +594,21 @@ def moe_gateup_reference(xf: torch.Tensor, w_gu: torch.Tensor,
             continue
         x = xf[plan.row_ids[rows].long()].float()
         gu = x @ w_gu[ex].reshape(h, 2 * m).float()
+        if scale is not None:
+            gu = gu * scale[ex].reshape(2 * m)
         g, u = gu[:, :m], gu[:, m:]
         act[rows] = (g * torch.sigmoid(g) * u).to(xf.dtype)
     return act
 
 
 def moe_down_combine_reference(act: torch.Tensor, w_down: torch.Tensor,
-                               gates_pad: torch.Tensor,
-                               plan: DispatchPlan) -> torch.Tensor:
+                               gates_pad: torch.Tensor, plan: DispatchPlan,
+                               scale: torch.Tensor | None = None
+                               ) -> torch.Tensor:
     """The plain version of ``moe_down_combine``: y_pairs [n_pairs, H]
     f32, each live row's f32 down product times its gate in its pair's
-    slot, every other slot exactly 0."""
+    slot, every other slot exactly 0. With int8 ``w_down``, ``scale`` [E,
+    1, H] multiplies the product before the gate."""
     h = w_down.shape[2]
     out = torch.zeros(plan.n_pairs, h, dtype=torch.float32,
                       device=act.device)
@@ -555,6 +620,8 @@ def moe_down_combine_reference(act: torch.Tensor, w_down: torch.Tensor,
         if rows.numel() == 0:
             continue
         y = act[rows].float() @ w_down[ex].float()
+        if scale is not None:
+            y = y * scale[ex].reshape(h)
         out[plan.pair_ids[rows].long()] = y * gates_pad[rows, None].float()
     return out
 
@@ -568,6 +635,10 @@ def _library():
         lib.moe_gateup.restype = _INT
         lib.moe_down_combine.argtypes = _DOWN_ARGTYPES
         lib.moe_down_combine.restype = _INT
+        lib.moe_gateup_int8.argtypes = _GATEUP_INT8_ARGTYPES
+        lib.moe_gateup_int8.restype = _INT
+        lib.moe_down_combine_int8.argtypes = _DOWN_INT8_ARGTYPES
+        lib.moe_down_combine_int8.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -605,10 +676,19 @@ def _check_cuda(kernel: str, plan: DispatchPlan, **tensors) -> None:
                          f"{plan.r_pad // tile} tiles")
 
 
-def _check_weights(kernel: str, w: torch.Tensor, h: int, m: int) -> None:
-    if w.dtype != torch.bfloat16:
+def _check_weights(kernel: str, w: torch.Tensor, h: int, m: int,
+                   scale: torch.Tensor | None = None,
+                   scale_shape: tuple | None = None) -> None:
+    """bf16 weights, or (``scale`` given) int8 weights with an f32 scale of
+    ``scale_shape``; widths that :func:`fused_geometry_ok` takes."""
+    want = torch.bfloat16 if scale is None else torch.int8
+    if w.dtype != want:
         raise TypeError(f"{kernel}: weights are {w.dtype}; the kernel takes "
-                        f"bf16 (int8 experts are not ported yet)")
+                        f"bf16, or int8 with an f32 scale")
+    if scale is not None and (scale.dtype != torch.float32
+                              or tuple(scale.shape) != scale_shape):
+        raise TypeError(f"{kernel}: scale {tuple(scale.shape)} "
+                        f"{scale.dtype}; expected float32 {scale_shape}")
     if not fused_geometry_ok(h, m):
         raise ValueError(
             f"{kernel}: hidden {h}, expert width {m}; the kernel takes "
@@ -616,32 +696,17 @@ def _check_weights(kernel: str, w: torch.Tensor, h: int, m: int) -> None:
         )
 
 
-def moe_gateup(xf: torch.Tensor, w_gu: torch.Tensor,
-               plan: DispatchPlan) -> torch.Tensor:
+def moe_gateup(xf: torch.Tensor, w_gu: torch.Tensor, plan: DispatchPlan,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
     """K7: fused row gather + gate/up projection + SwiGLU. xf [T, H];
     w_gu [E, H, 2, M]. Returns the sorted activations [r_pad, M] in xf's
-    dtype (sentinel rows exactly 0)."""
+    dtype (sentinel rows exactly 0). int8 ``w_gu`` with its ``scale`` [E,
+    1, 2, M] goes to :func:`moe_gateup_int8`."""
+    if scale is not None:
+        return moe_gateup_int8(xf, w_gu, scale, plan)
     if _is_cpu(xf, w_gu, plan.row_ids, plan.tile_expert):
         return moe_gateup_reference(xf, w_gu, plan)
-    e, h, two, m = w_gu.shape
-    _check_cuda("moe_gateup", plan, xf=xf, w_gu=w_gu)
-    _check_weights("moe_gateup", w_gu, h, m)
-    if xf.dtype != torch.bfloat16 or xf.dim() != 2 or xf.shape[1] != h \
-            or two != 2 or xf.shape[0] != plan.n_tokens:
-        raise ValueError(
-            f"moe_gateup: xf {tuple(xf.shape)} {xf.dtype}, w_gu "
-            f"{tuple(w_gu.shape)}; expected bf16 [{plan.n_tokens}, H] and "
-            f"[E, H, 2, M]"
-        )
-    act = torch.empty(plan.r_pad, m, dtype=xf.dtype, device=xf.device)
-    with torch.cuda.device(xf.device):
-        rc = _library().moe_gateup(
-            xf.data_ptr(), w_gu.data_ptr(), plan.row_ids.data_ptr(),
-            plan.tile_expert.data_ptr(), act.data_ptr(),
-            plan.n_tokens, h, m, plan.r_pad, plan.tile_rows,
-            torch.cuda.current_stream(xf.device).cuda_stream,
-        )
-    _build.check(rc, "moe_gateup")
+    act = _gateup_launch("moe_gateup", xf, w_gu, None, plan)
     moe_gateup.launches += 1
     return act
 
@@ -649,41 +714,109 @@ def moe_gateup(xf: torch.Tensor, w_gu: torch.Tensor,
 moe_gateup.launches = 0
 
 
+def moe_gateup_int8(xf: torch.Tensor, w_gu: torch.Tensor,
+                    scale: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
+    """The int8 branch of K7: w_gu int8 [E, H, 2, M], scale f32 [E, 1, 2,
+    M] on g and u before SwiGLU; otherwise :func:`moe_gateup`."""
+    if _is_cpu(xf, w_gu, scale, plan.row_ids, plan.tile_expert):
+        return moe_gateup_reference(xf, w_gu, plan, scale)
+    act = _gateup_launch("moe_gateup_int8", xf, w_gu, scale, plan)
+    moe_gateup_int8.launches += 1
+    return act
+
+
+moe_gateup_int8.launches = 0
+
+
+def _gateup_launch(kernel, xf, w_gu, scale, plan) -> torch.Tensor:
+    e, h, two, m = w_gu.shape
+    extra = {} if scale is None else {"scale": scale}
+    _check_cuda(kernel, plan, xf=xf, w_gu=w_gu, **extra)
+    _check_weights(kernel, w_gu, h, m, scale, (e, 1, 2, m))
+    if xf.dtype != torch.bfloat16 or xf.dim() != 2 or xf.shape[1] != h \
+            or two != 2 or xf.shape[0] != plan.n_tokens:
+        raise ValueError(
+            f"{kernel}: xf {tuple(xf.shape)} {xf.dtype}, w_gu "
+            f"{tuple(w_gu.shape)}; expected bf16 [{plan.n_tokens}, H] and "
+            f"[E, H, 2, M]"
+        )
+    act = torch.empty(plan.r_pad, m, dtype=xf.dtype, device=xf.device)
+    weights = (w_gu,) if scale is None else (w_gu, scale)
+    with torch.cuda.device(xf.device):
+        rc = getattr(_library(), kernel)(
+            xf.data_ptr(), *(x.data_ptr() for x in weights),
+            plan.row_ids.data_ptr(), plan.tile_expert.data_ptr(),
+            act.data_ptr(), plan.n_tokens, h, m, plan.r_pad, plan.tile_rows,
+            torch.cuda.current_stream(xf.device).cuda_stream,
+        )
+    _build.check(rc, kernel)
+    return act
+
+
 def moe_down_combine(act: torch.Tensor, w_down: torch.Tensor,
-                     gates_pad: torch.Tensor,
-                     plan: DispatchPlan) -> torch.Tensor:
+                     gates_pad: torch.Tensor, plan: DispatchPlan,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
     """K8: fused down-projection + gate weighting + combine scatter.
     act [r_pad, M]; w_down [E, M, H]; gates_pad [r_pad] or [r_pad, 1]
     f32. Returns token-major pair contributions [n_pairs, H] f32, zero
-    where no live pair writes."""
+    where no live pair writes. int8 ``w_down`` with its ``scale`` [E, 1,
+    H] goes to :func:`moe_down_combine_int8`."""
+    if scale is not None:
+        return moe_down_combine_int8(act, w_down, scale, gates_pad, plan)
     if _is_cpu(act, w_down, gates_pad, plan.pair_ids, plan.tile_expert):
         return moe_down_combine_reference(act, w_down, gates_pad, plan)
-    e, m, h = w_down.shape
-    _check_cuda("moe_down_combine", plan, act=act, w_down=w_down,
-                gates_pad=gates_pad)
-    _check_weights("moe_down_combine", w_down, h, m)
-    if act.dtype != torch.bfloat16 or act.shape != (plan.r_pad, m):
-        raise ValueError(f"moe_down_combine: act {tuple(act.shape)} "
-                         f"{act.dtype}; expected bf16 [{plan.r_pad}, {m}]")
-    if gates_pad.dtype != torch.float32 or gates_pad.numel() != plan.r_pad:
-        raise TypeError(f"moe_down_combine: gates_pad "
-                        f"{tuple(gates_pad.shape)} {gates_pad.dtype}; "
-                        f"expected float32 [{plan.r_pad}]")
-    out = torch.zeros(plan.n_pairs, h, dtype=torch.float32,
-                      device=act.device)
-    with torch.cuda.device(act.device):
-        rc = _library().moe_down_combine(
-            act.data_ptr(), w_down.data_ptr(), gates_pad.data_ptr(),
-            plan.pair_ids.data_ptr(), plan.tile_expert.data_ptr(),
-            out.data_ptr(), plan.n_pairs, m, h, plan.r_pad, plan.tile_rows,
-            torch.cuda.current_stream(act.device).cuda_stream,
-        )
-    _build.check(rc, "moe_down_combine")
+    out = _down_launch("moe_down_combine", act, w_down, None, gates_pad,
+                       plan)
     moe_down_combine.launches += 1
     return out
 
 
 moe_down_combine.launches = 0
+
+
+def moe_down_combine_int8(act: torch.Tensor, w_down: torch.Tensor,
+                          scale: torch.Tensor, gates_pad: torch.Tensor,
+                          plan: DispatchPlan) -> torch.Tensor:
+    """The int8 branch of K8: w_down int8 [E, M, H], scale f32 [E, 1, H]
+    on the product before the gate; otherwise :func:`moe_down_combine`."""
+    if _is_cpu(act, w_down, scale, gates_pad, plan.pair_ids,
+               plan.tile_expert):
+        return moe_down_combine_reference(act, w_down, gates_pad, plan,
+                                          scale)
+    out = _down_launch("moe_down_combine_int8", act, w_down, scale,
+                       gates_pad, plan)
+    moe_down_combine_int8.launches += 1
+    return out
+
+
+moe_down_combine_int8.launches = 0
+
+
+def _down_launch(kernel, act, w_down, scale, gates_pad, plan) -> torch.Tensor:
+    e, m, h = w_down.shape
+    extra = {} if scale is None else {"scale": scale}
+    _check_cuda(kernel, plan, act=act, w_down=w_down, gates_pad=gates_pad,
+                **extra)
+    _check_weights(kernel, w_down, h, m, scale, (e, 1, h))
+    if act.dtype != torch.bfloat16 or act.shape != (plan.r_pad, m):
+        raise ValueError(f"{kernel}: act {tuple(act.shape)} {act.dtype}; "
+                         f"expected bf16 [{plan.r_pad}, {m}]")
+    if gates_pad.dtype != torch.float32 or gates_pad.numel() != plan.r_pad:
+        raise TypeError(f"{kernel}: gates_pad {tuple(gates_pad.shape)} "
+                        f"{gates_pad.dtype}; expected float32 [{plan.r_pad}]")
+    out = torch.zeros(plan.n_pairs, h, dtype=torch.float32,
+                      device=act.device)
+    weights = (w_down,) if scale is None else (w_down, scale)
+    with torch.cuda.device(act.device):
+        rc = getattr(_library(), kernel)(
+            act.data_ptr(), *(x.data_ptr() for x in weights),
+            gates_pad.data_ptr(), plan.pair_ids.data_ptr(),
+            plan.tile_expert.data_ptr(), out.data_ptr(), plan.n_pairs, m, h,
+            plan.r_pad, plan.tile_rows,
+            torch.cuda.current_stream(act.device).cuda_stream,
+        )
+    _build.check(rc, kernel)
+    return out
 
 
 def swiglu_backward(gu: torch.Tensor, dact: torch.Tensor) -> torch.Tensor:
@@ -794,6 +927,18 @@ def fused_moe_mlp(
     adds the residual). The caller picks this path (:func:`use_fused`);
     on CPU tensors, or with ``use_kernels=False`` (the kernel-versus-plain
     comparison), the plain versions run. Differentiable in xf, both
-    weights and the gates (:class:`FusedMoeMlpFunction`)."""
-    return FusedMoeMlpFunction.apply(xf, w_gu, w_down, gates.float(), plan,
-                                     use_kernels)
+    weights and the gates (:class:`FusedMoeMlpFunction`).
+
+    int8 ``QuantTensor`` weights run the forward-only serving path: the
+    int8 branches of K7 and K8, scales in their epilogues."""
+    q_gu, s_gu = _quant_parts(w_gu)
+    q_dn, s_dn = _quant_parts(w_down)
+    if s_gu is None and s_dn is None:
+        return FusedMoeMlpFunction.apply(xf, w_gu, w_down, gates.float(),
+                                         plan, use_kernels)
+    gates_pad = _take_rows(gates.float(), plan.pair_ids).contiguous()
+    if use_kernels:
+        act = moe_gateup(xf, q_gu, plan, s_gu)
+        return moe_down_combine(act, q_dn, gates_pad, plan, s_dn)
+    act = moe_gateup_reference(xf, q_gu, plan, s_gu)
+    return moe_down_combine_reference(act, q_dn, gates_pad, plan, s_dn)

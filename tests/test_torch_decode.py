@@ -182,11 +182,14 @@ class TestGenerate:
         alloc.free(blocks2)
 
     def test_unported_variants_raise(self, params):
+        """What the port still refuses: a config of no ported family, and
+        a parameter leaf that is neither an array nor a QuantTensor. (The
+        int8 variants are ported: tests/test_torch_quant.py.)"""
         jp, tp = params
+        _, cache = tdecode.prefill(tp, [[1, 2]], TINY, 8, quantize_cache=True)
+        assert isinstance(cache, tpaged.PagedQuantKVCache)
         with pytest.raises(NotImplementedError):
-            tdecode.prefill(tp, [[1, 2]], TINY, 8, quantize_cache=True)
-        with pytest.raises(NotImplementedError):
-            tdecode._require_supported(tp, dataclasses.make_dataclass(
+            tdecode._require_supported(dataclasses.make_dataclass(
                 "MoeConfig", [])())
         bad = dict(jax.tree.map(np.asarray, jp))
         bad["layers"] = dict(bad["layers"], wqkv=object())

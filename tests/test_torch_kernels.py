@@ -16,7 +16,10 @@ the MoE kernels' sentinel rows and slots of no live pair exactly 0. The
 grouped matmul ``gmm`` (bf16 out) is held to the bf16 2% / 1%, ``tgmm``
 (f32 out, f32 sums) to K8's 1e-3 / 1e-4; rows past the groups exactly 0.
 Gradients through ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``
-(bf16 outputs of bf16 products) are held to 2% / 1%.
+(bf16 outputs of bf16 products) are held to 2% / 1%. The int8 branches
+(K2/K3 on int8 pools with per-position scales, K7/K8 on int8 experts with
+per-column scales) are held to their bf16 branches' limits: the kernel and
+its plain version read the same int8 data.
 """
 
 import pytest
@@ -515,3 +518,181 @@ def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(dev):
         md.grouped_weight_grad(lhs[:, :32].contiguous(), lhs, gs, None, 2)
     with pytest.raises(ValueError, match="CUDA"):
         md.grouped_weight_grad(lhs, lhs, gs.cpu(), None, 2)
+
+
+# ---------------------------------------------------------------------------
+# The int8 branches: K2/K3 over int8 pools, K7/K8 over int8 experts.
+# ---------------------------------------------------------------------------
+
+
+def _int8_paged(dev, starts, t, hq, hkv, d, bs, nbps, sentinel, seed=0):
+    """``_paged``'s inputs with the pools quantized per position (the
+    cache's own recipe) and, with ``sentinel``, every table entry past a
+    window's last block set to 0."""
+    from k8s_dra_driver_tpu_torch.models.decode import _quantize_kv
+
+    q, k, v, tables, pos = _paged(dev, starts, t, hq, hkv, d, bs, nbps, seed)
+    (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
+    if sentinel:
+        for i, s0 in enumerate(starts):
+            tables[i, -(-(s0 + t) // bs):] = 0
+    return q, k8[0], v8[0], ks[0], vs[0], tables, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sentinel", [False, True])
+@pytest.mark.parametrize("hq,hkv,d,bs,starts", [
+    (32, 8, 128, 16, (0, 31, 32, 700)),   # Mixtral-8x7B heads, tile edges
+    (8, 1, 128, 8, (5, 64)),              # G=8
+    (4, 4, 64, 64, (0, 200)),             # MHA, head_dim 64, block 64
+])
+def test_int8_decode_matches_plain(dev, hq, hkv, d, bs, starts, sentinel):
+    nbps = -(-(max(starts) + 1) // bs) + 1
+    q, k, v, ks, vs, tables, pos = _int8_paged(dev, starts, 1, hq, hkv, d,
+                                               bs, nbps, sentinel)
+    vlen = (pos[:, 0] + 1).to(torch.int32)
+    before = (att.paged_decode_attention.launches,
+              att.paged_decode_int8.launches)
+    out = att.paged_decode_attention(q[:, :, 0], k, v, tables, vlen, bs,
+                                     k_scale=ks, v_scale=vs)
+    ref = att.paged_attention_reference(q, k, v, tables, pos, bs,
+                                        k_scale=ks, v_scale=vs)[:, :, 0]
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert (att.paged_decode_attention.launches,
+            att.paged_decode_int8.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sentinel", [False, True])
+@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", [
+    (128, 32, 8, 128, 16, (0, 256, 384, 572)),  # the engine's packed chunk
+    (40, 8, 2, 128, 16, (0, 9, 70)),            # a partial last q tile
+    (1, 32, 8, 128, 16, (0, 33)),               # T=1 through prefill
+    (33, 4, 4, 64, 8, (3, 17)),                 # MHA, head_dim 64, bs 8
+])
+def test_int8_prefill_matches_plain(dev, t, hq, hkv, d, bs, starts,
+                                    sentinel):
+    nbps = -(-(max(starts) + t) // bs) + 1
+    q, k, v, ks, vs, tables, pos = _int8_paged(dev, starts, t, hq, hkv, d,
+                                               bs, nbps, sentinel)
+    before = (att.paged_prefill_attention.launches,
+              att.paged_prefill_int8.launches)
+    out = att.paged_prefill_attention(q, k, v, tables, pos, bs, k_scale=ks,
+                                      v_scale=vs)
+    ref = att.paged_attention_reference(q, k, v, tables, pos, bs,
+                                        k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert (att.paged_prefill_attention.launches,
+            att.paged_prefill_int8.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_int8_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, ks, vs, tables, pos = _int8_paged(dev, (0, 3), 4, 8, 2, 128,
+                                               16, 2, False)
+    with pytest.raises(TypeError, match="bf16"):        # int8, no scales
+        att.paged_prefill_attention(q, k, v, tables, pos, 16)
+    with pytest.raises(TypeError, match="float32"):
+        att.paged_prefill_attention(q, k, v, tables, pos, 16,
+                                    k_scale=ks.half(), v_scale=vs)
+    with pytest.raises(TypeError, match="float32"):
+        att.paged_prefill_attention(q, k, v, tables, pos, 16,
+                                    k_scale=ks[:, :-1].contiguous(),
+                                    v_scale=vs)
+    with pytest.raises(TypeError, match="int8"):        # bf16 pools, scales
+        att.paged_prefill_attention(q, k.bfloat16(), v.bfloat16(), tables,
+                                    pos, 16, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.paged_prefill_attention(q, k, v, tables, pos, 16,
+                                    k_scale=ks.cpu(), v_scale=vs)
+
+
+def _int8_moe_problem(dev, t, h, m, tile=8, case="random"):
+    """``_moe_problem`` with the experts quantized per output column (the
+    port's ``quantize_tensor``, contraction axes H and M)."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_tensor
+
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, t, h, m, tile=tile,
+                                                 case=case)
+    return xf, quantize_tensor(w_gu, 1), quantize_tensor(w_down, 1), gates, \
+        plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "skew", "foreign"])
+@pytest.mark.parametrize("t,h,m,tile", [
+    (24, 64, 128, 8),          # tiny widths, the decode tile
+    (40, 64, 128, 128),        # tiny widths, the prefill tile
+    (8, 4096, 14336, 8),       # Mixtral-8x7B decode step
+    (512, 4096, 14336, 128),   # Mixtral-8x7B packed prefill chunk
+])
+def test_int8_moe_kernels_match_plain(dev, t, h, m, tile, case):
+    xf, w_gu, w_down, gates, plan = _int8_moe_problem(dev, t, h, m, tile,
+                                                      case)
+    counters = (md.moe_gateup, md.moe_down_combine, md.moe_gateup_int8,
+                md.moe_down_combine_int8)
+    before = [c.launches for c in counters]
+    act = md.moe_gateup(xf, w_gu.q, plan, w_gu.scale)
+    ref_act = md.moe_gateup_reference(xf, w_gu.q, plan, w_gu.scale)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    y = md.moe_down_combine(ref_act, w_down.q, gates_pad, plan, w_down.scale)
+    ref_y = md.moe_down_combine_reference(ref_act, w_down.q, gates_pad, plan,
+                                          w_down.scale)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 1, 1]
+    assert act.dtype == torch.bfloat16 and y.dtype == torch.float32
+    _rel_close("act", act, ref_act)
+    _rel_close("y_pairs", y, ref_y, rel_max=1e-3, rel_mean=1e-4)
+    sentinel = plan.row_ids >= plan.n_tokens
+    assert sentinel.any() and (act[sentinel] == 0).all()
+    dead = plan.slot_of_pair >= plan.r_pad
+    if case == "foreign":
+        assert dead.any()
+    assert (y[dead] == 0).all()
+    assert (y[~dead].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+def test_int8_moe_kernels_all_sentinel_plan(dev):
+    xf, w_gu, w_down, gates, _ = _int8_moe_problem(dev, 16, 64, 128)
+    plan = md.build_plan(torch.full((32,), 9, dtype=torch.int32,
+                                    device=dev), 16, 8, 2, tile_rows=8)
+    act = md.moe_gateup_int8(xf, w_gu.q, w_gu.scale, plan)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    y = md.moe_down_combine_int8(act, w_down.q, w_down.scale, gates_pad,
+                                 plan)
+    torch.cuda.synchronize()
+    assert (act == 0).all() and (y == 0).all()
+
+
+@pytest.mark.cuda
+def test_quantized_fused_moe_mlp_runs_the_int8_kernels(dev):
+    xf, w_gu, w_down, gates, plan = _int8_moe_problem(dev, 24, 64, 128)
+    before = (md.moe_gateup.launches, md.moe_gateup_int8.launches)
+    out = md.fused_moe_mlp(xf, w_gu, w_down, gates, plan)
+    plain = md.fused_moe_mlp(xf, w_gu, w_down, gates, plan,
+                             use_kernels=False)
+    torch.cuda.synchronize()
+    assert (md.moe_gateup.launches, md.moe_gateup_int8.launches) == (
+        before[0], before[1] + 1)
+    _rel_close("fused int8", out, plain)
+
+
+@pytest.mark.cuda
+def test_int8_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    xf, w_gu, w_down, gates, plan = _int8_moe_problem(dev, 24, 64, 128)
+    with pytest.raises(TypeError, match="bf16"):        # int8, no scale
+        md.moe_gateup(xf, w_gu.q, plan)
+    with pytest.raises(TypeError, match="float32"):
+        md.moe_gateup(xf, w_gu.q, plan, w_gu.scale.half())
+    with pytest.raises(TypeError, match="float32"):
+        md.moe_gateup(xf, w_gu.q, plan, w_gu.scale[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        md.moe_down_combine(md.moe_gateup(xf, w_gu.q, plan, w_gu.scale),
+                            w_down.q, md._take_rows(gates, plan.pair_ids),
+                            plan, w_down.scale.cpu())
+    # The int8 grouped product (the primitive path's) has no kernel yet.
+    with pytest.raises(NotImplementedError, match="int8"):
+        md.grouped_matmul(xf, md._gu_2d(w_gu), plan.sizes_aligned)

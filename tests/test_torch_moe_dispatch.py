@@ -295,3 +295,98 @@ def test_grouped_weight_grad_matches_jax_fallback():
     assert (out[1] == 0).all()
     np.testing.assert_allclose(out[2].numpy(), lhs[10:19].T @ rhs[10:19],
                                **TOL)
+
+
+def _quantized(w_gu, w_down):
+    """The reference's int8 expert stacks of ``_problem``'s weights
+    (contraction axes H and M) as numpy (q, scale) pairs."""
+    from k8s_dra_driver_tpu.models.quant import quantize_tensor
+
+    return [tuple(np.array(a) for a in (qt.q, qt.scale))
+            for qt in (quantize_tensor(jnp.asarray(w_gu), 1),
+                       quantize_tensor(jnp.asarray(w_down), 1))]
+
+
+@pytest.mark.parametrize("case", ["random", "skew", "foreign"])
+def test_each_int8_kernel_matches_its_pallas_kernel(case):
+    """The int8 branches of K7 and K8: the port's wrappers (plain versions
+    on the CPU) against ``_gateup_pallas``/``_down_combine_pallas`` with
+    int8 weights and their scales, in interpret mode, on the same plan;
+    sentinel rows and foreign slots exactly 0."""
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(
+        seed=11, case=case)
+    (q_gu, s_gu), (q_dn, s_dn) = _quantized(w_gu, w_down)
+    assert s_gu.shape == (e, 1, 2, m) and s_dn.shape == (e, 1, h)
+    jp, tp = _plans(experts, t, e, k, 8)
+    jact = jmd._gateup_pallas(jnp.asarray(xf), jnp.asarray(q_gu),
+                              jnp.asarray(s_gu), jp, True)
+    x, qg, sg, qd, sd, gt = _t(xf, q_gu, s_gu, q_dn, s_dn, gates)
+    before = (md.moe_gateup.launches, md.moe_gateup_int8.launches)
+    act = md.moe_gateup(x, qg, tp, sg)
+    assert (md.moe_gateup.launches, md.moe_gateup_int8.launches) == before
+    np.testing.assert_allclose(act.numpy(), np.asarray(jact), **TOL)
+    assert (act[tp.row_ids >= t] == 0).all()
+    jgates_pad = jnp.take(jnp.asarray(gates), jp.pair_ids, mode="fill",
+                          fill_value=0.0)[:, None]
+    jy = jmd._down_combine_pallas(jact, jnp.asarray(q_dn), jnp.asarray(s_dn),
+                                  jgates_pad, jp, True)
+    gates_pad = md._take_rows(gt, tp.pair_ids)
+    y = md.moe_down_combine(act, qd, gates_pad, tp, sd)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    assert (y[torch.from_numpy(experts >= e)] == 0).all()
+    np.testing.assert_array_equal(
+        md.moe_down_combine_int8(act, qd, sd, gates_pad, tp).numpy(),
+        y.numpy())
+
+
+@pytest.mark.parametrize("case", ["random", "foreign"])
+def test_quantized_fused_moe_mlp_matches_jax(case):
+    """``fused_moe_mlp`` on int8 ``QuantTensor`` experts (forward only)
+    against the reference's quantized ``fused_moe_mlp`` (kernels in
+    interpret mode) and its quantized oracle; the port's oracle (the
+    primitive path's int8 grouped product) against the reference's."""
+    from k8s_dra_driver_tpu.models.quant import QuantTensor as JQuant
+    from k8s_dra_driver_tpu_torch.models.quant import QuantTensor
+
+    xf, w_gu, w_down, experts, gates, (t, h, e, k, m) = _problem(
+        seed=12, case=case)
+    (q_gu, s_gu), (q_dn, s_dn) = _quantized(w_gu, w_down)
+    jp, tp = _plans(experts, t, e, k, 8)
+    jw = [JQuant(q=jnp.asarray(q), scale=jnp.asarray(s))
+          for q, s in ((q_gu, s_gu), (q_dn, s_dn))]
+    tw = [QuantTensor(*_t(q, s)) for q, s in ((q_gu, s_gu), (q_dn, s_dn))]
+    jx, jg = jnp.asarray(xf), jnp.asarray(gates)
+    x, gt = _t(xf, gates)
+    jfused = np.asarray(jmd.fused_moe_mlp(jx, *jw, jg, jp, force_pallas=True,
+                                          interpret=True))
+    jref = np.asarray(jmd.reference_moe_mlp(jx, *jw, jg, jp))
+    tfused = md.fused_moe_mlp(x, *tw, gt, tp)
+    assert not tfused.requires_grad
+    tref = md.reference_moe_mlp(x, *tw, gt, tp).numpy()
+    np.testing.assert_allclose(tfused.numpy(), jfused, **TOL)
+    np.testing.assert_allclose(tref, jref, **TOL)
+    np.testing.assert_allclose(
+        md.fused_moe_mlp(x, *tw, gt, tp, use_kernels=False).numpy(), jfused,
+        **TOL)
+    foreign = experts >= e
+    assert (tfused.numpy()[foreign] == 0).all()
+
+
+def test_grouped_matmul_int8_matches_ragged_dot_int8():
+    """An int8 ``QuantTensor`` rhs: the reference's ``ragged_dot`` int8
+    branch (f32 product, per-row group scale), rows past the groups 0."""
+    from k8s_dra_driver_tpu.models.quant import quantize_tensor as jquant
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_tensor
+
+    rng = np.random.RandomState(14)
+    lhs = rng.randn(24, 16).astype(np.float32)
+    rhs = rng.randn(3, 16, 8).astype(np.float32)
+    sizes = np.array([10, 0, 9], np.int32)
+    ref = np.asarray(jmd.grouped_matmul(jnp.asarray(lhs),
+                                        jquant(jnp.asarray(rhs), 1),
+                                        jnp.asarray(sizes)))
+    lhs_t, rhs_t, sizes_t = _t(lhs, rhs, sizes)
+    out = md.grouped_matmul(lhs_t, quantize_tensor(rhs_t, 1), sizes_t)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert (out[19:] == 0).all()

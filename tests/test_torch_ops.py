@@ -220,6 +220,109 @@ class TestPagedPrefill:
                 torch.ones(1, dtype=torch.int32, device="meta"), 8)
 
 
+def _int8_pools(rng, hkv, nb, bs, d):
+    """int8 pools and their per-position f32 scales [H_kv, P], quantized
+    by the reference's recipe (one scale per row over D)."""
+    from k8s_dra_driver_tpu.models.quant import quantize_tensor
+
+    out = []
+    for pool in _pools(rng, hkv, nb, bs, d):
+        qt = quantize_tensor(jnp.asarray(pool), axis=-1)
+        out += [np.array(qt.q), np.array(qt.scale)[..., 0]]
+    return out                                    # k, k_scale, v, v_scale
+
+
+class TestPagedInt8:
+    """The int8 branch (int8 pools, k scale on the scores, v scale on the
+    f32 probabilities): the plain version against JAX's kernels in
+    interpret mode and its reference, decode and prefill, GQA, a window
+    straddling a block boundary, sentinel (0) table entries past each
+    sequence's blocks."""
+
+    def _tables(self, rng, b, nbps, nb, used):
+        tables = np.zeros((b, nbps), np.int32)
+        ids = rng.permutation(np.arange(1, nb))
+        for i, n in enumerate(used):
+            tables[i, :n] = ids[i * nbps: i * nbps + n]
+        return tables
+
+    @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)])
+    def test_decode_matches_jax_kernel_and_reference(self, hq, hkv):
+        rng = np.random.RandomState(6)
+        b, d, bs, nb, nbps = 3, 16, 8, 14, 4
+        q = rng.randn(b, hq, d).astype(np.float32)
+        k, ks, v, vs = _int8_pools(rng, hkv, nb, bs, d)
+        vlen = np.array([1, bs * 2 + 3, bs * nbps], np.int32)
+        tables = self._tables(rng, b, nbps, nb, [1, 3, 4])
+        ours = tatt.paged_decode_attention(
+            *_t_all(q, k, v, tables, vlen), bs,
+            k_scale=_t(ks), v_scale=_t(vs)).numpy()
+        jargs = [jnp.asarray(a) for a in (q, k, v, tables, vlen)]
+        kernel = jatt.paged_decode_attention(
+            *jargs, bs, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+            force_pallas=True, interpret=True)
+        ref = jatt.paged_attention_reference(
+            jargs[0][:, :, None], *jargs[1:4], jnp.asarray(vlen - 1)[:, None],
+            bs, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))[:, :, 0]
+        np.testing.assert_allclose(ours, np.asarray(kernel), **ATT_TOL)
+        np.testing.assert_allclose(ours, np.asarray(ref), **ATT_TOL)
+
+    @pytest.mark.parametrize("t,starts", [
+        (12, (0, 7, 37)),        # start 7: the window straddles bs=16
+        (1, (0, 9, 30)),
+        (16, (0, 0, 0)),
+    ])
+    def test_prefill_matches_jax_kernel_and_reference(self, t, starts):
+        rng = np.random.RandomState(7)
+        b, hq, hkv, d, bs, nb, nbps = 3, 4, 2, 16, 16, 14, 4
+        q = rng.randn(b, hq, t, d).astype(np.float32)
+        k, ks, v, vs = _int8_pools(rng, hkv, nb, bs, d)
+        positions = (np.array(starts, np.int32)[:, None]
+                     + np.arange(t, dtype=np.int32)[None, :])
+        used = [-(-(s0 + t) // bs) for s0 in starts]
+        tables = self._tables(rng, b, nbps, nb, used)
+        ours = tatt.paged_prefill_attention(
+            *_t_all(q, k, v, tables, positions), bs,
+            k_scale=_t(ks), v_scale=_t(vs)).numpy()
+        args = [jnp.asarray(a) for a in (q, k, v, tables, positions)]
+        scales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        kernel = jatt.paged_prefill_attention(*args, bs, **scales,
+                                              force_pallas=True,
+                                              interpret=True)
+        ref = jatt.paged_attention_reference(*args, bs, **scales)
+        np.testing.assert_allclose(ours, np.asarray(kernel), **ATT_TOL)
+        np.testing.assert_allclose(ours, np.asarray(ref), **ATT_TOL)
+        np.testing.assert_array_equal(
+            tatt.paged_prefill_int8(*_t_all(q, k, v), _t(ks), _t(vs),
+                                    *_t_all(tables, positions), bs).numpy(),
+            ours)
+
+    def test_int8_wrappers_count_apart_and_refuse_without_a_card(self):
+        before = (tatt.paged_decode_attention.launches,
+                  tatt.paged_decode_int8.launches)
+        rng = np.random.RandomState(8)
+        k, ks, v, vs = _int8_pools(rng, 2, 4, 8, 16)
+        q = torch.from_numpy(rng.randn(1, 4, 16).astype(np.float32))
+        tables = torch.tensor([[1, 2]], dtype=torch.int32)
+        vlen = torch.tensor([9], dtype=torch.int32)
+        tatt.paged_decode_attention(q, _t(k), _t(v), tables, vlen, 8,
+                                    k_scale=_t(ks), v_scale=_t(vs))
+        assert (tatt.paged_decode_attention.launches,
+                tatt.paged_decode_int8.launches) == before
+        meta = dict(device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt.paged_decode_int8(
+                torch.empty(1, 4, 64, **meta),
+                torch.empty(2, 16, 64, dtype=torch.int8, **meta),
+                torch.empty(2, 16, 64, dtype=torch.int8, **meta),
+                torch.empty(2, 16, **meta), torch.empty(2, 16, **meta),
+                torch.zeros(1, 2, dtype=torch.int32, **meta),
+                torch.ones(1, dtype=torch.int32, **meta), 8)
+
+
+def _t_all(*arrays):
+    return [_t(a) for a in arrays]
+
 
 def _qkv(seed, b, hq, hkv, s, d):
     rng = np.random.RandomState(seed)
