@@ -67,7 +67,19 @@ fixed seed, and checks every hand-written kernel of those paths:
 15. serves phase 4's traffic through ``DecodeEngine(quantize_cache=True)``
     on the full-depth int8 model (the int8 serving path), checks the
     launches of every int8 branch per layer and forward (and none of the
-    bf16 branches), and profiles one decode step.
+    bf16 branches; the int8 seams' ``int8_matmul`` 2L+1 times a forward),
+    and profiles one decode step, in which the only int8 -> float copy
+    must be the embedding's gathered rows;
+16. holds ``int8_matmul`` (``csrc/quant_matmul.cu``) in both modes against
+    its plain version at the seams' shapes (M 8 and 512, K 4096 to N 6144,
+    4096, 32000) and at the einsum MoE body's expert product ([8, 512,
+    4096] against [8, 4096, 28672]), and times it beside a bf16
+    ``torch.matmul`` on a converted weight;
+17. runs one ``prefill`` of a 1024-token prompt on the full-depth int8 model
+    (``auto`` takes the einsum MoE body, its expert products through
+    ``int8_matmul``'s prologue mode), holds it against the plain forward
+    with routing replayed, and checks that the peak memory above the
+    weights stays below one layer's ``w_gateup`` in bf16.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12 and 15) and read just after. Each phase prints its seconds. Prints
@@ -493,52 +505,62 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
 
 
 class RoutingReplay:
-    """Stands in for ``moe._route_topk`` inside a ``with`` block. In mode
-    "record" it keeps each call's expert choices; in mode "replay" it hands
-    them back in call order (gates recomputed from the caller's own router
-    probabilities, so they stay differentiable), counts the routed tokens,
-    and records for each token whose own choice differs (a flip) the
-    margin by which the choice was made: the k-th largest of its own
-    probabilities less the largest own probability of an expert only the
-    recorded run chose. Mode None routes as usual."""
+    """Stands in for ``moe._topk_masks`` inside a ``with`` block, so it
+    sees the routing of every MoE formulation (the sorted paths' top-k and
+    the einsum body's). In mode "record" it keeps each call's expert
+    choices; in mode "replay" it hands them back in call order (as one-hot
+    masks, gates taken from the caller's own router probabilities, so they
+    stay differentiable), counts the routed tokens, and records for each
+    token whose own choice differs (a flip) the margin by which the choice
+    was made: the k-th largest of its own probabilities less the largest
+    own probability of an expert only the recorded run chose. Mode None
+    routes as usual."""
 
     def __init__(self, moe):
         self.moe = moe
-        self.route = moe._route_topk
+        self.topk = moe._topk_masks
         self.mode = None
         self.recorded, self.margins, self.routed = [], [], 0
 
     def __enter__(self):
-        self.moe._route_topk = self
+        self.moe._topk_masks = self
         return self
 
     def __exit__(self, *exc):
-        self.moe._route_topk = self.route
+        self.moe._topk_masks = self.topk
 
-    def __call__(self, xf, wr, c):
+    def __call__(self, probs, c):
         import torch
 
-        gates, experts, probs, aux = self.route(xf, wr, c)
+        masks, gates, aux = self.topk(probs, c)
+        if self.mode is None:
+            return masks, gates, aux
+        e = probs.shape[-1]
+        experts = torch.stack([m.reshape(-1, e).argmax(-1) for m in masks],
+                              dim=1)
         if self.mode == "record":
             self.recorded.append(experts)
-        elif self.mode == "replay":
-            ref = self.recorded.pop(0)
-            flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
-            self.routed += experts.shape[0]
-            if bool(flipped.any()):
-                p, theirs = probs[flipped], ref[flipped].long()
-                ours = torch.zeros_like(p, dtype=torch.bool).scatter_(
-                    1, experts[flipped].long(), True)
-                kth = p.topk(c.top_k, dim=1).values[:, -1]
-                only_theirs = torch.where(torch.gather(ours, 1, theirs),
-                                          torch.full_like(kth[:, None], -1),
-                                          torch.gather(p, 1, theirs))
-                self.margins.extend(
-                    (kth - only_theirs.max(1).values).tolist())
-            chosen = torch.gather(probs, 1, ref.long())
-            gates = chosen / (chosen.sum(1, keepdim=True) + 1e-9)
-            experts = ref
-        return gates, experts, probs, aux
+            return masks, gates, aux
+        ref = self.recorded.pop(0)
+        p = probs.reshape(-1, e)
+        flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
+        self.routed += experts.shape[0]
+        if bool(flipped.any()):
+            pf, theirs = p[flipped], ref[flipped]
+            ours = torch.zeros_like(pf, dtype=torch.bool).scatter_(
+                1, experts[flipped], True)
+            kth = pf.topk(c.top_k, dim=1).values[:, -1]
+            only_theirs = torch.where(torch.gather(ours, 1, theirs),
+                                      torch.full_like(kth[:, None], -1),
+                                      torch.gather(pf, 1, theirs))
+            self.margins.extend((kth - only_theirs.max(1).values).tolist())
+        masks = [self.moe._one_hot(ref[:, i], e, probs.dtype).reshape(
+            probs.shape) for i in range(ref.shape[1])]
+        gates = [torch.sum(probs * m, dim=-1) for m in masks]
+        token_axes = tuple(range(probs.dim() - 1))
+        aux = e * torch.sum(masks[0].mean(dim=token_axes)
+                            * probs.mean(dim=token_axes))
+        return masks, gates, aux
 
     def summary(self) -> dict:
         margins = sorted(self.margins)
@@ -856,6 +878,7 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
+    ("int8_matmul", ("int8_matmul_kernel", "int8_matmul_reduce")),
     # The int8 branches first: the bf16 groups' substrings match them too.
     ("paged_attention_int8", ("paged_attention_kernel<64, 8, true, true>",
                               "paged_attention_kernel<128, 8, true, true>",
@@ -975,8 +998,35 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     # the busy share without the profiler's own host cost (two
     # measurements of one run; device_busy_share is the profiled one).
     result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
+    result["int8_to_float_copies"] = int8_casts(torch, step)
     log("decode step profile:", json.dumps(result))
     return result
+
+
+def int8_casts(torch, fn) -> list:
+    """The element count of every copy from an int8 tensor to a floating
+    one that ``fn()`` makes (``aten._to_copy`` and ``aten.copy_``, seen
+    through a dispatch mode): a seam that converts its weight shows here
+    at the weight's size."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    seen = []
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (aten._to_copy.default, aten.copy_.default):
+                src = args[1] if func is aten.copy_.default else args[0]
+                if (src.dtype == torch.int8 and isinstance(out, torch.Tensor)
+                        and out.dtype.is_floating_point):
+                    seen.append(src.numel())
+            return out
+
+    with Casts():
+        fn()
+    torch.cuda.synchronize()
+    return seen
 
 
 def moe_bounds(plan, h, m, wbytes=2):
@@ -1356,6 +1406,194 @@ def int8_moe_params(torch, cfg, dev) -> dict:
     return out
 
 
+# Phase 16: the int8 seams of Mixtral-8x7B (K -> N) and its einsum MoE
+# body's expert product (E, capacity rows, K -> N).
+INT8_SEAMS = (("wqkv", 4096, 6144), ("wo", 4096, 4096),
+              ("lm_head", 4096, 32000))
+INT8_EXPERTS = (8, 512, 4096, 28672)
+
+
+def int8pack_ms(torch, x, q, scale):
+    """The time of ``torch._weight_int8pack_mm`` on the same weight (stored
+    [N, K], copied so outside the timed call), or None and its refusal:
+    a yardstick the port never calls."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch has no _weight_int8pack_mm"
+    try:
+        qt = q.t().contiguous()
+        sc = scale.reshape(-1).to(x.dtype)
+        fn(x, qt, sc)
+        torch.cuda.synchronize()
+    except Exception as exc:  # the refusal is the number's record
+        return None, f"{type(exc).__name__}: {exc}"[:300]
+    return time_ms(lambda: fn(x, qt, sc)), None
+
+
+def check_int8_matmul(torch, dev) -> dict:
+    """Phase 16: ``int8_matmul`` in both modes against its plain version at
+    the seams' shapes (decode M 8 and a packed prefill's M 512, K 4096 to
+    N 6144, 4096 and 32000) and in the prologue mode at the einsum MoE
+    body's expert shape ([8, 512, 4096] against [8, 4096, 28672]). Random
+    int8 weights and per-column scales, random bf16 activations. Times each
+    call beside its bound, its plain version and the library's yardsticks
+    (a bf16 ``torch.matmul`` on a weight converted beforehand, and
+    ``torch._weight_int8pack_mm`` where it runs)."""
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 70)
+
+    def weight(*shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        k = shape[-2]
+        scale = (0.5 + torch.rand(shape[:-2] + (1, shape[-1]), generator=gen,
+                                  device=dev)) / (127 * k ** 0.5)
+        return q, scale
+
+    cases = []
+    for name, k, n in INT8_SEAMS:
+        q, scale = weight(k, n)
+        for m in (BATCH_SLOTS, PREFILL_BATCH * PREFILL_CHUNK):
+            for prologue in (False, True):
+                cases.append((f"{name} M {m}" + (" prologue" if prologue
+                                                 else ""),
+                              m, None, q, scale, prologue))
+    e, m_e, k_e, n_e = INT8_EXPERTS
+    q, scale = weight(e, k_e, n_e)
+    cases.append((f"experts [{e},{m_e},{k_e}]x[{e},{k_e},{n_e}] prologue",
+                  m_e, e, q, scale, True))
+    calls = {}
+    for name, m, e_, q, scale, prologue in cases:
+        k, n = q.shape[-2:]
+        shape = (m, k) if e_ is None else (e_, m, k)
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        out = qm.int8_matmul(x, q, scale, prologue)
+        ref = qm.int8_matmul_reference(x, q, scale, prologue)
+        torch.cuda.synchronize()
+        err, r = rel(f"int8_matmul {name}", out, ref)
+        del out, ref
+        ne = e_ or 1
+        nbytes = ne * (k * n + 4 * n + 2 * m * k + 2 * m * n)
+        ops = 2 * ne * m * k * n
+        wb = (q.float() * scale).to(torch.bfloat16)
+        lib_ms = time_ms(lambda: torch.matmul(x, wb))
+        del wb
+        pack_ms, pack_error = (int8pack_ms(torch, x, q, scale)
+                               if e_ is None else (None, "batched"))
+        calls[name] = dict(
+            max_abs_err=err, rel_err=r,
+            ms=time_ms(lambda: qm.int8_matmul(x, q, scale, prologue)),
+            plain_ms=time_ms(lambda: qm.int8_matmul_reference(
+                x, q, scale, prologue), warmup=1, iters=5),
+            library_ms=lib_ms, int8pack_ms=pack_ms,
+            int8pack_error=pack_error,
+            split=qm.split_k(ne, m, n, k),
+            **bound_fields(f"int8_matmul {name}", nbytes, ops, BF16_FLOPS))
+        torch.cuda.empty_cache()
+    # The kernels line carries one decode step's three seam calls (M 8,
+    # the epilogue mode the seams run), summed, with every call beside.
+    step = [calls[f"{name} M {BATCH_SLOTS}"] for name, _, _ in INT8_SEAMS]
+    row = dict(
+        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
+        **{key: sum(c[key] for c in step)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step)
+        else "operations",
+        shape=(f"wqkv + wo + lm_head at M {BATCH_SLOTS} (K 4096 -> N 6144, "
+               f"4096, 32000), epilogue mode, summed; library: bf16 "
+               f"torch.matmul on weights converted beforehand"),
+        calls=calls)
+    log("int8_matmul:", json.dumps(row))
+    return {"int8_matmul": row}
+
+
+# Phase 17: a prompt long enough that ``auto`` runs the einsum MoE body.
+EINSUM_PROMPT = 1024
+
+
+def einsum_prefill(torch, params, cfg, dev) -> dict:
+    """Phase 17: one ``prefill`` of an EINSUM_PROMPT-token prompt on the
+    full-depth int8 model (``auto`` sends it to the einsum MoE body, whose
+    expert products run ``int8_matmul``'s prologue mode), held against the
+    plain forward on the same tokens with the kernel run's expert choices
+    replayed (phase 14's limits). The peak device memory above the weights
+    must stay below one layer's ``w_gateup`` in bf16: a whole-stack
+    dequantized copy would pass it."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.decode import (
+        _forward_with_cache,
+        prefill,
+    )
+    from k8s_dra_driver_tpu_torch.models.paged import PagedQuantKVCache
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    t = EINSUM_PROMPT
+    impl = moe.resolve_moe_impl(cfg, t)
+    if impl != "einsum":
+        raise AssertionError(f"a {t}-token prefill resolves to {impl}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 80)
+    tokens = torch.randint(0, cfg.vocab_size, (1, t), generator=gen,
+                           device=dev, dtype=torch.int32)
+    max_len = t + BLOCK_SIZE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    moe.MOE_TRACE_COUNTS.clear()
+    before = qm.int8_matmul.launches
+    with RoutingReplay(moe) as replay:
+        replay.mode = "record"
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, tokens, cfg, max_len, quantize_cache=True,
+                            block_size=BLOCK_SIZE)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launched = qm.int8_matmul.launches - before
+        blocks = dict(moe.MOE_TRACE_COUNTS)
+        replay.mode = "replay"
+        cache = PagedQuantKVCache.init(cfg, 1, max_len,
+                                       block_size=BLOCK_SIZE, device=dev)
+        plain, _ = _forward_with_cache(params, tokens, cache, cfg,
+                                       torch.arange(t, device=dev),
+                                       use_kernels=False)
+        plain = plain[:, -1]
+    if qm.int8_matmul.launches - before != launched:
+        raise AssertionError("the plain forward launched int8_matmul")
+    layers = cfg.n_layers
+    # Per layer wqkv and wo (epilogue), w_gateup and w_down (prologue); the
+    # LM head once.
+    if launched != 4 * layers + 1:
+        raise AssertionError(f"int8_matmul launched {launched} times, "
+                             f"expected {4 * layers + 1}")
+    if not any(key.startswith("einsum:") for key in blocks):
+        raise AssertionError(f"MoE blocks {blocks}: no einsum body ran")
+    gateup_bf16 = cfg.n_experts * cfg.hidden * 2 * cfg.mlp_hidden * 2
+    result = dict(
+        prompt=t, impl=impl, moe_blocks=blocks, int8_matmul_launches=launched,
+        prefill_s=prefill_s, peak_mem_gb=peak / 1e9,
+        transient_gb=(peak - base) / 1e9,
+        layer_gateup_bf16_gb=gateup_bf16 / 1e9,
+        max_logit_diff=(logits - plain).abs().max().item(),
+        rel_logit_diff=((logits - plain).norm() / plain.norm()).item(),
+        top1_agreement=float((logits.argmax(-1) == plain.argmax(-1)).all()),
+        **replay.summary())
+    log("einsum prefill kernels vs plain:", json.dumps(result))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("einsum prefill: non-finite logits")
+    if not result["rel_logit_diff"] <= 5e-2:
+        raise AssertionError(f"einsum prefill: relative logit difference "
+                             f"{result['rel_logit_diff']} (limit 5e-2)")
+    replay.check("einsum prefill", FLIP_MARGIN_LIMIT_KVQ)
+    if not peak - base < gateup_bf16:
+        raise AssertionError(f"einsum prefill: {result['transient_gb']} GB "
+                             f"above the weights, at least one layer's "
+                             f"w_gateup in bf16 ({gateup_bf16 / 1e9} GB)")
+    return result
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -1384,6 +1622,7 @@ def main() -> int:
             attention,
             moe_dispatch,
             norms,
+            quant_matmul,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}",
@@ -1409,7 +1648,8 @@ def main() -> int:
     phase_done(f"phase 1: built {_build.sources()}")
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning")):
                 log(f"  {name}: {line.strip()}")
 
     cfg = PRESETS["8b"]
@@ -1441,6 +1681,7 @@ def main() -> int:
         "paged_prefill_int8": attention.paged_prefill_int8,
         "moe_gateup_int8": moe_dispatch.moe_gateup_int8,
         "moe_down_combine_int8": moe_dispatch.moe_down_combine_int8,
+        "int8_matmul": quant_matmul.int8_matmul,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
@@ -1453,7 +1694,7 @@ def main() -> int:
                               "rmsnorm"),
              "moe_serving_int8": ("moe_gateup_int8", "moe_down_combine_int8",
                                   "paged_decode_int8", "paged_prefill_int8",
-                                  "rmsnorm")}
+                                  "rmsnorm", "int8_matmul")}
     by_path = {}
 
     def drive(path, fn, *args):
@@ -1599,14 +1840,16 @@ def main() -> int:
     phase_done("phase 13: the int8 branches of K2, K3, K7 and K8 agree with "
                "their plain versions")
     counted = ("moe_gateup", "moe_down_combine", "moe_gateup_int8",
-               "moe_down_combine_int8")
+               "moe_down_combine_int8", "int8_matmul")
     before = [wrappers[n].launches for n in counted]
     int8_forward = compare_forward(torch, qparams, qcfg, dev,
                                    quantize_cache=True)
     ran = [wrappers[n].launches - b_ for n, b_ in zip(counted, before)]
     # A prefill chunk and 4 decode steps, once each per layer, through the
-    # int8 branches only; the plain forwards launch nothing.
-    want = [0, 0, 5 * qcfg.n_layers, 5 * qcfg.n_layers]
+    # int8 branches only (the seams: wqkv and wo per layer, the LM head);
+    # the plain forwards launch nothing.
+    want = [0, 0, 5 * qcfg.n_layers, 5 * qcfg.n_layers,
+            5 * (2 * qcfg.n_layers + 1)]
     if ran != want:
         raise AssertionError(f"phase 14 launched {dict(zip(counted, ran))}, "
                              f"expected {dict(zip(counted, want))}")
@@ -1623,6 +1866,8 @@ def main() -> int:
             "moe_down_combine_int8": layers * forwards,
             "paged_decode_int8": layers * int8_engine["decode_steps"],
             "paged_prefill_int8": layers * int8_engine["prefill_launches"],
+            # The seams: wqkv and wo per layer, the LM head once.
+            "int8_matmul": (2 * layers + 1) * forwards,
             "moe_gateup": 0, "moe_down_combine": 0, "paged_decode": 0,
             "paged_prefill": 0}
     if any(counts[k] != n for k, n in want.items()):
@@ -1633,10 +1878,28 @@ def main() -> int:
             or int8_engine["dispatch"] != "fused":
         raise AssertionError(f"int8 MoE impl {int8_engine['moe_impl']}, "
                              f"dispatch {int8_engine['dispatch']}")
-    int8_engine["decode_profile"] = profile_decode(torch, qparams, qcfg, dev,
-                                                   quantize_cache=True)
+    profile = profile_decode(torch, qparams, qcfg, dev, quantize_cache=True)
+    int8_engine["decode_profile"] = profile
+    # The seams stream their weights as int8: the only int8 -> float copy a
+    # decode step may make is the embedding's gathered rows.
+    copies = profile["int8_to_float_copies"]
+    if len(copies) != 1 or max(copies) > BATCH_SLOTS * qcfg.hidden:
+        raise AssertionError(f"decode step int8 -> float copies {copies}; "
+                             f"expected only the embedding rows "
+                             f"({BATCH_SLOTS * qcfg.hidden})")
+    log(f"int8 decode step: {profile['device_ms']:.2f} ms of device time "
+        f"(41.87 ms before the int8 seams' kernel: NVIDIA H100 80GB HBM3, "
+        f"700.00 W), int8_matmul "
+        f"{profile['group_ms']['int8_matmul']:.2f} ms, int8 -> float "
+        f"copies {copies}")
     phase_done(f"phase 15: engine served 8 requests on full-depth 8x7b "
                f"int8+kvq through the int8 kernels (launches {counts})")
+    kernels.update(check_int8_matmul(torch, dev))
+    phase_done("phase 16: int8_matmul agrees with its plain version at the "
+               "seams' and the expert product's shapes")
+    int8_prefill = einsum_prefill(torch, qparams, qcfg, dev)
+    phase_done(f"phase 17: a {EINSUM_PROMPT}-token int8 prefill through the "
+               f"einsum MoE body matches the plain forward")
     del qparams
     torch.cuda.empty_cache()
     launches = {name: sum(by_path[p][name] for p in by_path)
@@ -1688,6 +1951,10 @@ def main() -> int:
                                   "moe_dispatch.cu",
                                   "k8s_dra_driver_tpu/ops/moe_dispatch.py:537 "
                                   "(int8 branch)"),
+        "int8_matmul": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                        "quant_matmul.cu",
+                        "k8s_dra_driver_tpu/models/quant.py:92 (_mixed_dot, "
+                        "XLA; no Pallas kernel)"),
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -1714,7 +1981,8 @@ def main() -> int:
                     "train": trained, "moe_forward": moe_forward,
                     "moe_engine": moe_engine, "moe_grads": moe_grads,
                     "moe_train": moe_trained, "int8_forward": int8_forward,
-                    "int8_engine": int8_engine}))
+                    "int8_engine": int8_engine,
+                    "int8_einsum_prefill": int8_prefill}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,41 +20,57 @@
 // operations on 0.34 GB of inputs and outputs, ~800 operations per byte:
 // bound by operations (0.28 ms at 989 TFLOP/s). dK/dV does twice the
 // forward's operations and dQ 1.5 times, on a little more bytes. So the
-// products must run on the tensor cores: every one of them here is a
-// warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate). wgmma, TMA and
-// warp specialisation, which the card needs for its full rate, are later
-// steps; so is overlapping the next tile's loads with this tile's products.
+// products must run on the tensor cores at the rate only wgmma reaches.
 //
-// Design. A block of 4 warps owns one 64-row tile and loops over the tiles of
-// the other axis itself: that loop takes the place of the Pallas grid's
-// sequential innermost axis, and the accumulators it carries stay in f32
-// registers. Each warp owns 16 rows of the block's tile. Score tiles never
-// leave registers: the accumulator layout of S (or S^T) for two neighbouring
-// 8-column n-tiles is the A-operand layout of the next product's 16-deep
-// k-step, so p and dS are packed to bf16 in place (FlashAttention-2's
-// register reuse) -- the bf16 rounding the Pallas kernels apply to p and dS
-// before their products. B operands are read from shared memory as 32-bit
-// pairs, so each operand is staged with its contracted axis contiguous: K,
-// V, Q and dO as stored, and V (forward), K (dQ), Q and dO (dK/dV) also
-// transposed while staging. Rows are padded by 8 bf16, so the 8 rows x 4
-// pairs of one fragment load fall in 32 different banks.
-//   flash_fwd:      one block per (q tile of 64, q head, batch); kv tiles of
-//                   64 up to the diagonal, online softmax in base 2 (LOG2E
-//                   folded into the scale); out = acc / l,
+// flash_fwd and flash_bwd_dkdv: wgmma, TMA and warp specialisation (the
+// shape of FlashAttention-3, without its intra-warpgroup pipelining):
+//   - A block has 3 warpgroups. Warpgroup 0 is the producer: one thread
+//     issues every TMA load (in dK/dV its warp's lanes also load the lse
+//     and delta rows), the rest idle; setmaxnreg gives it 40 registers a
+//     thread. Warpgroups 1 and 2 are consumers of 64 rows each (232).
+//   - Tiles come in by TMA through rank-3 tensor maps over [B*H, S, D]
+//     (the ragged S tail of each head is zero-filled, never the next
+//     head's rows), in 128-byte swizzled boxes of 64 columns: a D-128 row
+//     is two boxes. The wgmma descriptors name the same 128-byte swizzle.
+//   - Loads overlap products through a 2-stage ring guarded by full and
+//     empty mbarriers (TMA completes `full`; the 8 consumer warps arrive
+//     on `empty` once their products have read the stage).
+//   - Score tiles never leave registers: the f32 accumulator of S (or
+//     S^T) for two neighbouring 8-column blocks is the register A operand
+//     of the next wgmma's 16-deep k-step, so p and dS are packed to bf16
+//     in place -- the bf16 rounding the Pallas kernels apply.
+//   - No operand is transposed while staged. Products whose B operand
+//     would need a transpose (V in O += P V, dO in dV += P^T dO, Q in
+//     dK += dS^T Q) read it as stored through the descriptor's transpose
+//     (MN-major) mode.
+//   flash_fwd:      one block per (q tile of 128, q head, batch); Q loaded
+//                   once, K and V tiles of 128 through the ring up to the
+//                   diagonal; S = Q K^T by wgmma m64n128k16 (A and B from
+//                   shared memory), online softmax in base 2 (LOG2E folded
+//                   into the scale), O += P V by wgmma m64n64k16 per
+//                   64-column half of D with P from registers; out = O / l,
 //                   lse = (m + log2 l) / LOG2E.
-//   flash_bwd_dkdv: one block per (kv tile of 64, kv head, batch); it computes
-//                   S^T = K Q^T and dP^T = V dO^T, and loops over the G query
-//                   heads of its group and the q tiles of 32 from the diagonal
-//                   on, so dK and dV sum over the group inside the block (no
-//                   atomics, no sum over heads afterwards).
-//   flash_bwd_dq:   one block per (q tile of 64, q head, batch); kv tiles of 64
-//                   up to the diagonal.
+//   flash_bwd_dkdv: one block per (kv tile of 128, kv head, batch); K and V
+//                   stay in shared memory; the loop over the G query heads
+//                   of the group and the q tiles of 64 from the diagonal on
+//                   brings Q, dO (TMA) and lse, delta (the producer warp's
+//                   loads) through the ring; S^T = K Q^T and dP^T = V dO^T
+//                   by wgmma m64n64k16, then dV += P^T dO and dK += dS^T Q
+//                   with P^T and dS^T from registers. dK and dV sum over the
+//                   whole query group in f32 registers (no atomics).
+// flash_bwd_dq keeps the earlier design, a block of 4 warps that owns one
+// 64-row tile, every product a warp-level mma.sync.m16n8k16, operands
+// staged by the block's threads (K also transposed), rows padded by 8
+// bf16 so a fragment load falls in 32 banks; one block per (q tile of 64,
+// q head, batch), kv tiles of 64 up to the diagonal.
 // The backward rebuilds p = exp2(s * scale * LOG2E - lse * LOG2E) and masks
 // BEFORE the exp2: a masked score can exceed lse, and its exp2 would be inf.
 // Tiles wholly below the diagonal run unmasked; only the tiles on the
 // diagonal and the ragged last tile pay for the mask. Causal grids start with
 // the tiles that have the most work.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from
+                   // cudaGetDriverEntryPoint, so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,17 +81,696 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Hopper pieces: mbarriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kTile = 128;       // rows of a K/V (and a forward Q) tile
+constexpr int kRowBytes = 128;   // one swizzled box row: 64 bf16
+// At least half the SM's shared memory, so one block runs on an SM: the
+// consumers' setmaxnreg.inc then always finds the producer's registers.
+constexpr int kMinSmem = 116 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+// One arrival that also announces `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a rank-3 tensor map (coordinates innermost first) into shared
+// memory, completing `bar`'s transactions.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the registers' accesses on this side of the asynchronous wgmma (the
+// compiler must not move ordinary reads or writes of them across it).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptors of 128-byte swizzled tiles (rows of 128
+// bytes, 8-row atoms of 1024 bytes, as TMA writes them with
+// CU_TENSOR_MAP_SWIZZLE_128B): start address, leading and stride byte
+// offsets in 16-byte units, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(sbo & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (the contracted axis contiguous): the k-step's 32-byte
+// column offset is added to `addr`; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return make_desc(addr, 1, 1024 >> 4);
+}
+
+// MN-major B operand (the output axis contiguous, read transposed): the
+// k-step's 16 rows are 2048 bytes on; 8-row groups along K 1024 bytes
+// apart; `lbo` bytes between 64-column blocks (unused at n64).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
+                                                 uint32_t lbo) {
+  return make_desc(addr, lbo >> 4, 1024 >> 4);
+}
+
+// d[0..64) (+)= A * B, m64n128k16, A and B K-major in shared memory
+// (descriptors); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0..32) (+)= A * B, m64n64k16, A and B K-major in shared memory
+// (descriptors); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0..32) += A * B, m64n64k16, A from registers (the mma.sync A
+// fragment layout per warp), B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory of flash_fwd (byte offsets from a 1024-aligned base): Q,
+// then two stages of K and V, then the barriers. A tile of R rows is
+// stored as D / 64 column blocks of R swizzled 128-byte rows.
+template <int D>
+struct FwdSmem {
+  static constexpr int TILE = kTile * D * 2;  // a 128-row tile
+  static constexpr int Q = 0;
+  static constexpr int K0 = TILE;             // stage s: K at K0 + 2 s TILE
+  static constexpr int BARS = 5 * TILE;       // q_full, full[2], empty[2]
+  static constexpr int USED = BARS + 5 * 8;
+  static constexpr int BYTES = USED + 1024 > kMinSmem ? USED + 1024
+                                                      : kMinSmem;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 bf16* __restrict__ out, float* __restrict__ lse, int hq,
+                 int hkv, int s_len, float scale_log2) {
+  using L = FwdSmem<D>;
+  constexpr int HALVES = D / 64, KSTEPS = D / 16;
+  constexpr int HALF = kTile * kRowBytes;  // one 64-column block of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 3;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int q0 = qt * kTile;
+  const int kv_end = CAUSAL ? min(s_len, q0 + kTile) : s_len;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: Q once, then K and V tile by tile through the ring.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::TILE);
+      for (int hh = 0; hh < HALVES; ++hh)
+        tma_load(smem + L::Q + hh * HALF, &q_map, q_full, hh * 64, q0,
+                 b * hq + h);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j & 1;
+        mbar_wait(&empty[st], ((j >> 1) & 1) ^ 1);
+        unsigned char* kt = smem + L::K0 + st * 2 * L::TILE;
+        unsigned char* vt = kt + L::TILE;
+        mbar_expect_tx(&full[st], 2 * L::TILE);
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load(kt + hh * HALF, &k_map, &full[st], hh * 64, j * kTile,
+                   b * hkv + hk);
+          tma_load(vt + hh * HALF, &v_map, &full[st], hh * 64, j * kTile,
+                   b * hkv + hk);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup c owns q rows q0 + 64 c .. + 63.
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int tw = threadIdx.x % 128;
+    const int warp = tw >> 5, lane = tw & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qc = q0 + 64 * c;
+    const int row_lo = qc + warp * 16 + g, row_hi = row_lo + 8;
+    const uint32_t q_addr = smem_u32(smem + L::Q) + c * 64 * kRowBytes;
+
+    float o[HALVES][32];
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
+    float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1;
+      mbar_wait(&full[st], (j >> 1) & 1);
+      const uint32_t k_addr = smem_u32(smem + L::K0 + st * 2 * L::TILE);
+      const uint32_t v_addr = k_addr + L::TILE;
+
+      // S = Q K^T: 64 q rows x 128 kv columns, f32.
+      float s[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * HALF + (kk % 4) * 32;
+        wgmma_ss_n128(s, kmajor_desc(q_addr + off),
+                      kmajor_desc(k_addr + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      const int k0 = j * kTile;
+      const bool masked =
+          (CAUSAL && k0 + kTile - 1 > qc) || k0 + kTile > s_len;
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + nt * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_lo : row_hi;
+          float x = s[nt * 4 + e] * scale_log2;
+          if (masked && (col >= s_len || (CAUSAL && col > row))) x = kNegInf;
+          s[nt * 4 + e] = x;
+          if (e < 2)
+            mx_lo = fmaxf(mx_lo, x);
+          else
+            mx_hi = fmaxf(mx_hi, x);
+        }
+      mx_lo = quad_max(mx_lo);
+      mx_hi = quad_max(mx_hi);
+      const float c_lo = exp2f(m_lo - mx_lo), c_hi = exp2f(m_hi - mx_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+
+      // p in place as the register A operand of O += P V (k = kv position).
+      uint32_t pa[8][4];
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const float p0 = exp2f(s[nt * 4] - mx_lo);
+        const float p1 = exp2f(s[nt * 4 + 1] - mx_lo);
+        const float p2 = exp2f(s[nt * 4 + 2] - mx_hi);
+        const float p3 = exp2f(s[nt * 4 + 3] - mx_hi);
+        sum_lo += p0 + p1;
+        sum_hi += p2 + p3;
+        pa[nt / 2][(nt % 2) * 2] = pack(p0, p1);
+        pa[nt / 2][(nt % 2) * 2 + 1] = pack(p2, p3);
+      }
+      l_lo = l_lo * c_lo + sum_lo;  // this thread's columns; summed at the end
+      l_hi = l_hi * c_hi + sum_hi;
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh) {
+#pragma unroll
+        for (int dn = 0; dn < 8; ++dn) {
+          o[hh][dn * 4] *= c_lo;
+          o[hh][dn * 4 + 1] *= c_lo;
+          o[hh][dn * 4 + 2] *= c_hi;
+          o[hh][dn * 4 + 3] *= c_hi;
+        }
+        fence_regs(o[hh]);
+      }
+      fence_regs(pa);
+      wgmma_fence();
+      // O[:, half] += P V[:, half]; V read as stored ([kv][D], transposed
+      // by the descriptor).
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_rs_n64_tb(o[hh], pa[kk],
+                          mnmajor_desc(v_addr + hh * HALF + kk * 16 *
+                                                              kRowBytes,
+                                       HALF));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh) fence_regs(o[hh]);
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+    }
+
+    const float li_lo = fmaxf(quad_sum(l_lo), 1e-30f);
+    const float li_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+    const float inv_lo = 1.f / li_lo, inv_hi = 1.f / li_hi;
+    const size_t qbase = ((size_t)b * hq + h) * s_len;
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        const int col = hh * 64 + dn * 8 + 2 * t;
+        if (row_lo < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(out + (qbase + row_lo) * D +
+                                             col) =
+              __floats2bfloat162_rn(o[hh][dn * 4] * inv_lo,
+                                    o[hh][dn * 4 + 1] * inv_lo);
+        if (row_hi < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(out + (qbase + row_hi) * D +
+                                             col) =
+              __floats2bfloat162_rn(o[hh][dn * 4 + 2] * inv_hi,
+                                    o[hh][dn * 4 + 3] * inv_hi);
+      }
+    if (t == 0) {
+      if (row_lo < s_len)
+        lse[qbase + row_lo] = (m_lo + log2f(li_lo)) * (1.f / kLog2e);
+      if (row_hi < s_len)
+        lse[qbase + row_hi] = (m_hi + log2f(li_hi)) * (1.f / kLog2e);
+    }
+  }
+}
+
+// Shared memory of flash_bwd_dkdv (byte offsets from a 1024-aligned base):
+// K and V (resident), two stages of Q and dO tiles of 64 rows, the two
+// stages' lse and delta rows, then the barriers.
+template <int D>
+struct DkdvSmem {
+  static constexpr int QT = 64;                 // q rows per step
+  static constexpr int KV = kTile * D * 2;      // a 128-row K or V tile
+  static constexpr int QTILE = QT * D * 2;      // a 64-row Q or dO tile
+  static constexpr int K = 0, V = KV;
+  static constexpr int STAGE0 = 2 * KV;         // stage s: Q, then dO
+  static constexpr int ROWS = STAGE0 + 4 * QTILE;  // stage s: lse, delta
+  static constexpr int BARS = ROWS + 2 * 2 * QT * 4;  // kv_full, full, empty
+  static constexpr int USED = BARS + 5 * 8;
+  static constexpr int BYTES = USED + 1024 > kMinSmem ? USED + 1024
+                                                      : kMinSmem;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int hq, int hkv, int s_len,
+                      float scale_log2, float scale) {
+  using L = DkdvSmem<D>;
+  constexpr int HALVES = D / 64, KSTEPS = D / 16, QT = L::QT;
+  constexpr int KV_HALF = kTile * kRowBytes;  // 64 columns of a K/V tile
+  constexpr int Q_HALF = QT * kRowBytes;      // 64 columns of a Q/dO tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 3;
+
+  const int kt = blockIdx.x;  // causal: low kv tiles see the most q tiles
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int grp = hq / hkv;
+  const int k0 = kt * kTile;
+  const int nq = (s_len + QT - 1) / QT;
+  const int qi0 = CAUSAL ? k0 / QT : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA thread, then the 32 row loads
+      mbar_init(&empty[s], 8);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer warp: K and V once; then per (query head, q tile) Q and dO
+    // by TMA and the tile's lse (times LOG2E) and delta rows by its lanes.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::KV);
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load(smem + L::K + hh * KV_HALF, &k_map, kv_full, hh * 64, k0,
+                   b * hkv + hk);
+          tma_load(smem + L::V + hh * KV_HALF, &v_map, kv_full, hh * 64, k0,
+                   b * hkv + hk);
+        }
+      }
+      int it = 0;
+      for (int hi = 0; hi < grp; ++hi) {
+        const int head = b * hq + hk * grp + hi;
+        for (int qi = qi0; qi < nq; ++qi, ++it) {
+          const int st = it & 1;
+          mbar_wait(&empty[st], ((it >> 1) & 1) ^ 1);
+          unsigned char* qs = smem + L::STAGE0 + st * 2 * L::QTILE;
+          if (lane == 0) {
+            mbar_expect_tx(&full[st], 2 * L::QTILE);
+            for (int hh = 0; hh < HALVES; ++hh) {
+              tma_load(qs + hh * Q_HALF, &q_map, &full[st], hh * 64,
+                       qi * QT, head);
+              tma_load(qs + L::QTILE + hh * Q_HALF, &do_map, &full[st],
+                       hh * 64, qi * QT, head);
+            }
+          }
+          float* rows = reinterpret_cast<float*>(smem + L::ROWS) +
+                        st * 2 * QT;
+          for (int r = lane; r < QT; r += 32) {
+            const int row = qi * QT + r;
+            const size_t at = (size_t)head * s_len + row;
+            rows[r] = row < s_len ? lse[at] * kLog2e : 0.f;
+            rows[QT + r] = row < s_len ? delta[at] : 0.f;
+          }
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup c owns kv rows k0 + 64 c .. + 63.
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int tw = threadIdx.x % 128;
+    const int warp = tw >> 5, lane = tw & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kc = k0 + 64 * c;
+    const int row_lo = kc + warp * 16 + g, row_hi = row_lo + 8;  // kv rows
+    const uint32_t k_addr = smem_u32(smem + L::K) + c * 64 * kRowBytes;
+    const uint32_t v_addr = smem_u32(smem + L::V) + c * 64 * kRowBytes;
+
+    float dka[HALVES][32], dva[HALVES][32];
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dka[hh][i] = 0.f;
+        dva[hh][i] = 0.f;
+      }
+
+    mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int hi = 0; hi < grp; ++hi) {
+      for (int qi = qi0; qi < nq; ++qi, ++it) {
+        const int st = it & 1;
+        const int q0 = qi * QT;
+        mbar_wait(&full[st], (it >> 1) & 1);
+        const uint32_t q_addr =
+            smem_u32(smem + L::STAGE0 + st * 2 * L::QTILE);
+        const uint32_t do_addr = q_addr + L::QTILE;
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem + L::ROWS) + st * 2 * QT;
+        const float* dl_s = lse_s + QT;
+
+        // S^T = K Q^T and dP^T = V dO^T: rows kv, columns q.
+        float st_[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          st_[i] = 0.f;
+          dpt[i] = 0.f;
+        }
+        fence_regs(st_);
+        fence_regs(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const uint32_t kv_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
+          const uint32_t q_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
+          wgmma_ss_n64(st_, kmajor_desc(k_addr + kv_off),
+                       kmajor_desc(q_addr + q_off), kk > 0);
+          wgmma_ss_n64(dpt, kmajor_desc(v_addr + kv_off),
+                       kmajor_desc(do_addr + q_off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st_);
+        fence_regs(dpt);
+
+        const bool masked = (CAUSAL && q0 < kc + 63) || q0 + QT > s_len ||
+                            kc + 64 > s_len;
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = nt * 8 + 2 * t + (e & 1);
+            const int col = q0 + ci;
+            const int row = e < 2 ? row_lo : row_hi;
+            float x = st_[nt * 4 + e] * scale_log2;
+            if (masked &&
+                (col >= s_len || row >= s_len || (CAUSAL && row > col)))
+              x = kNegInf;
+            p[e] = exp2f(x - lse_s[ci]);
+            ds[e] = p[e] * (dpt[nt * 4 + e] - dl_s[ci]);
+          }
+          pa[nt / 2][(nt % 2) * 2] = pack(p[0], p[1]);
+          pa[nt / 2][(nt % 2) * 2 + 1] = pack(p[2], p[3]);
+          dsa[nt / 2][(nt % 2) * 2] = pack(ds[0], ds[1]);
+          dsa[nt / 2][(nt % 2) * 2 + 1] = pack(ds[2], ds[3]);
+        }
+
+        // dV += P^T dO and dK += dS^T Q (k = q position), dO and Q read as
+        // stored ([q][D], transposed by the descriptor).
+        fence_regs(pa);
+        fence_regs(dsa);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh) {
+          fence_regs(dka[hh]);
+          fence_regs(dva[hh]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = hh * Q_HALF + kk * 16 * kRowBytes;
+            wgmma_rs_n64_tb(dva[hh], pa[kk], mnmajor_desc(do_addr + off,
+                                                          Q_HALF));
+            wgmma_rs_n64_tb(dka[hh], dsa[kk], mnmajor_desc(q_addr + off,
+                                                           Q_HALF));
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh) {
+          fence_regs(dka[hh]);
+          fence_regs(dva[hh]);
+        }
+        if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+      }
+    }
+
+    const size_t kbase = ((size_t)b * hkv + hk) * s_len;
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        const int col = hh * 64 + dn * 8 + 2 * t;
+        if (row_lo < s_len) {
+          const size_t at = (kbase + row_lo) * D + col;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+              dka[hh][dn * 4] * scale, dka[hh][dn * 4 + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dva[hh][dn * 4], dva[hh][dn * 4 + 1]);
+        }
+        if (row_hi < s_len) {
+          const size_t at = (kbase + row_hi) * D + col;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+              dka[hh][dn * 4 + 2] * scale, dka[hh][dn * 4 + 3] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dva[hh][dn * 4 + 2], dva[hh][dn * 4 + 3]);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq: warp-level mma.sync on staged tiles.
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 128;  // 4 warps, 16 rows of the block's tile each
 constexpr int kRows = 64;      // rows of the block's own tile
 constexpr int kPad = 8;        // bf16 of padding per shared-memory row
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c += a * b for one m16n8k16 tile: bf16 operands, f32 accumulators.
@@ -147,293 +842,12 @@ __device__ __forceinline__ void stage_t(bf16* __restrict__ dst,
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int D>
 struct Smem {
   static constexpr int ROW = D + kPad;                  // [rows][D + 8]
   static constexpr int T64 = kRows + kPad;              // [D][64 + 8]
-  static constexpr int T32 = 32 + kPad;                 // [D][32 + 8]
-  static constexpr int fwd = (2 * kRows * ROW + D * T64) * 2;
   static constexpr int dq = (4 * kRows * ROW + D * T64) * 2;
-  static constexpr int dkdv =
-      (2 * kRows * ROW + 2 * 32 * ROW + 2 * D * T32) * 2 + 2 * 32 * 4;
 };
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int hq, int hkv, int s_len,
-                 float scale_log2) {
-  constexpr int ROW = Smem<D>::ROW, T64 = Smem<D>::T64, KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kRows * ROW;
-  bf16* vt_s = k_s + kRows * ROW;  // V^T [D][64 + 8]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kRows;
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const size_t qbase = ((size_t)b * hq + h) * s_len;
-  const size_t kbase = ((size_t)b * hkv + hk) * s_len;
-
-  stage<D, kRows>(q_s, q + qbase * D, q0, s_len);
-  __syncthreads();
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    load_a(qa[kk], q_s, ROW, warp * 16, kk * 16, g, t);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
-
-  const int kv_end = CAUSAL ? min(s_len, q0 + kRows) : s_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<D, kRows>(k_s, k + kbase * D, k0, s_len);
-    stage_t<D, kRows>(vt_s, v + kbase * D, k0, s_len);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, ROW, nt * 8, kk * 16, g, t);
-        mma(s[nt], qa[kk], b0, b1);
-      }
-    }
-    const bool masked =
-        (CAUSAL && k0 + kRows - 1 > q0) || k0 + kRows > s_len;
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_lo : row_hi;
-        float x = s[nt][e] * scale_log2;
-        if (masked && (col >= s_len || (CAUSAL && col > row))) x = kNegInf;
-        s[nt][e] = x;
-        if (e < 2)
-          mx_lo = fmaxf(mx_lo, x);
-        else
-          mx_hi = fmaxf(mx_hi, x);
-      }
-    mx_lo = quad_max(mx_lo);
-    mx_hi = quad_max(mx_hi);
-    const float c_lo = exp2f(m_lo - mx_lo), c_hi = exp2f(m_hi - mx_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-
-    // p in place as the A operand of P @ V (k = kv position).
-    uint32_t pa[4][4];
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - mx_lo), p1 = exp2f(s[nt][1] - mx_lo);
-      const float p2 = exp2f(s[nt][2] - mx_hi), p3 = exp2f(s[nt][3] - mx_hi);
-      sum_lo += p0 + p1;
-      sum_hi += p2 + p3;
-      pa[nt / 2][(nt % 2) * 2] = pack(p0, p1);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack(p2, p3);
-    }
-    l_lo = l_lo * c_lo + sum_lo;  // this thread's columns; summed at the end
-    l_hi = l_hi * c_hi + sum_hi;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= c_lo;
-      o[dn][1] *= c_lo;
-      o[dn][2] *= c_hi;
-      o[dn][3] *= c_hi;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, vt_s, T64, dn * 8, kk * 16, g, t);
-        mma(o[dn], pa[kk], b0, b1);
-      }
-    }
-  }
-
-  const float li_lo = fmaxf(quad_sum(l_lo), 1e-30f);
-  const float li_hi = fmaxf(quad_sum(l_hi), 1e-30f);
-  const float inv_lo = 1.f / li_lo, inv_hi = 1.f / li_hi;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (row_lo < s_len)
-      *reinterpret_cast<__nv_bfloat162*>(out + (qbase + row_lo) * D + col) =
-          __floats2bfloat162_rn(o[dn][0] * inv_lo, o[dn][1] * inv_lo);
-    if (row_hi < s_len)
-      *reinterpret_cast<__nv_bfloat162*>(out + (qbase + row_hi) * D + col) =
-          __floats2bfloat162_rn(o[dn][2] * inv_hi, o[dn][3] * inv_hi);
-  }
-  if (t == 0) {
-    if (row_lo < s_len)
-      lse[qbase + row_lo] = (m_lo + log2f(li_lo)) * (1.f / kLog2e);
-    if (row_hi < s_len)
-      lse[qbase + row_hi] = (m_hi + log2f(li_hi)) * (1.f / kLog2e);
-  }
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int hq, int hkv, int s_len,
-                      float scale_log2, float scale) {
-  constexpr int ROW = Smem<D>::ROW, T32 = Smem<D>::T32, KD = D / 16;
-  constexpr int QT = 32;  // q rows per step
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kRows * ROW;
-  bf16* q_s = v_s + kRows * ROW;  // [32][D + 8]
-  bf16* do_s = q_s + QT * ROW;
-  bf16* qt_s = do_s + QT * ROW;   // Q^T [D][32 + 8]
-  bf16* dot_s = qt_s + D * T32;   // dO^T
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * T32);
-  float* dl_s = lse_s + QT;
-
-  const int kt = blockIdx.x;  // causal: low kv tiles see the most q tiles
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int grp = hq / hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kRows;
-  const int row_lo = k0 + warp * 16 + g, row_hi = row_lo + 8;  // kv rows
-  const int nq = (s_len + QT - 1) / QT;
-  const size_t kbase = ((size_t)b * hkv + hk) * s_len;
-
-  stage<D, kRows>(k_s, k + kbase * D, k0, s_len);
-  stage<D, kRows>(v_s, v + kbase * D, k0, s_len);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dka[dn][e] = 0.f;
-      dva[dn][e] = 0.f;
-    }
-
-  for (int hi = 0; hi < grp; ++hi) {
-    const size_t qbase = ((size_t)b * hq + hk * grp + hi) * s_len;
-    for (int qi = CAUSAL ? k0 / QT : 0; qi < nq; ++qi) {
-      const int q0 = qi * QT;
-      __syncthreads();  // the previous q tile's readers are done
-      stage<D, QT>(q_s, q + qbase * D, q0, s_len);
-      stage<D, QT>(do_s, dout + qbase * D, q0, s_len);
-      stage_t<D, QT>(qt_s, q + qbase * D, q0, s_len);
-      stage_t<D, QT>(dot_s, dout + qbase * D, q0, s_len);
-      if (threadIdx.x < QT) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < s_len ? lse[qbase + row] * kLog2e : 0.f;
-        dl_s[threadIdx.x] = row < s_len ? delta[qbase + row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: rows kv, columns q.
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[nt][e] = 0.f;
-          dpt[nt][e] = 0.f;
-        }
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, k_s, ROW, warp * 16, kk * 16, g, t);
-        load_a(va, v_s, ROW, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          uint32_t b0, b1;
-          load_b(b0, b1, q_s, ROW, nt * 8, kk * 16, g, t);
-          mma(st[nt], ka, b0, b1);
-          load_b(b0, b1, do_s, ROW, nt * 8, kk * 16, g, t);
-          mma(dpt[nt], va, b0, b1);
-        }
-      }
-      const bool masked = (CAUSAL && q0 < k0 + kRows - 1) ||
-                          q0 + QT > s_len || k0 + kRows > s_len;
-      uint32_t pa[2][4], dsa[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + 2 * t + (e & 1);
-          const int col = q0 + c;
-          const int row = e < 2 ? row_lo : row_hi;
-          float x = st[nt][e] * scale_log2;
-          if (masked &&
-              (col >= s_len || row >= s_len || (CAUSAL && row > col)))
-            x = kNegInf;
-          p[e] = exp2f(x - lse_s[c]);
-          ds[e] = p[e] * (dpt[nt][e] - dl_s[c]);
-        }
-        pa[nt / 2][(nt % 2) * 2] = pack(p[0], p[1]);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack(p[2], p[3]);
-        dsa[nt / 2][(nt % 2) * 2] = pack(ds[0], ds[1]);
-        dsa[nt / 2][(nt % 2) * 2 + 1] = pack(ds[2], ds[3]);
-      }
-
-      // dV += P^T dO and dK += dS^T Q (k = q position).
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t b0, b1;
-          load_b(b0, b1, dot_s, T32, dn * 8, kk * 16, g, t);
-          mma(dva[dn], pa[kk], b0, b1);
-          load_b(b0, b1, qt_s, T32, dn * 8, kk * 16, g, t);
-          mma(dka[dn], dsa[kk], b0, b1);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (row_lo < s_len) {
-      const size_t at = (kbase + row_lo) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[dn][0] * scale, dka[dn][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[dn][0], dva[dn][1]);
-    }
-    if (row_hi < s_len) {
-      const size_t at = (kbase + row_hi) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[dn][2] * scale, dka[dn][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dva[dn][2], dva[dn][3]);
-    }
-  }
-}
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
@@ -559,17 +973,62 @@ int launch_prepare(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A rank-3 map over [heads, S, D] bf16 (D contiguous) in boxes of `rows` x
+// 64 columns with the 128-byte swizzle; rows past S read as zeros.
+int tensor_map(CUtensorMap* map, const void* base, int heads, int s_len,
+               int d, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return -3;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s_len),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s_len) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult rc =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : -4;
+}
+
 template <int D, bool CAUSAL>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int b, int hq, int hkv, int s_len, float scale, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int rc = tensor_map(&qm, q, b * hq, s_len, D, kTile)) return rc;
+  if (int rc = tensor_map(&km, k, b * hkv, s_len, D, kTile)) return rc;
+  if (int rc = tensor_map(&vm, v, b * hkv, s_len, D, kTile)) return rc;
   auto kernel = flash_fwd_kernel<D, CAUSAL>;
-  constexpr int smem = Smem<D>::fwd;
+  constexpr int smem = FwdSmem<D>::BYTES;
   if (int rc = launch_prepare(kernel, smem)) return rc;
-  const dim3 grid((s_len + kRows - 1) / kRows, hq, b);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), hq, hkv, s_len, scale * kLog2e);
+  const dim3 grid((s_len + kTile - 1) / kTile, hq, b);
+  kernel<<<grid, kWgThreads, smem, st>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), hq, hkv,
+      s_len, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -577,16 +1036,20 @@ template <int D, bool CAUSAL>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int b,
          int hq, int hkv, int s_len, float scale, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dom;
+  constexpr int QT = DkdvSmem<D>::QT;
+  if (int rc = tensor_map(&qm, q, b * hq, s_len, D, QT)) return rc;
+  if (int rc = tensor_map(&km, k, b * hkv, s_len, D, kTile)) return rc;
+  if (int rc = tensor_map(&vm, v, b * hkv, s_len, D, kTile)) return rc;
+  if (int rc = tensor_map(&dom, dout, b * hq, s_len, D, QT)) return rc;
   auto kernel = flash_bwd_dkdv_kernel<D, CAUSAL>;
-  constexpr int smem = Smem<D>::dkdv;
+  constexpr int smem = DkdvSmem<D>::BYTES;
   if (int rc = launch_prepare(kernel, smem)) return rc;
-  const dim3 grid((s_len + kRows - 1) / kRows, hkv, b);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, s_len,
-      scale * kLog2e, scale);
+  const dim3 grid((s_len + kTile - 1) / kTile, hkv, b);
+  kernel<<<grid, kWgThreads, smem, st>>>(
+      qm, km, vm, dom, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), hq, hkv, s_len, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

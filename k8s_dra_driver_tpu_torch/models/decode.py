@@ -194,7 +194,8 @@ def _forward_with_cache(
         k_pool, v_pool = cache.k[i], cache.v[i]         # [H_kv, P+1, D]
         scales = {}
         xn = norm(x, layer["ln_attn"], c.norm_eps)
-        q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos)
+        q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos,
+                              use_kernels=use_kernels)
         hkv, d = k.shape[1], k.shape[3]
         if quantized:
             scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
@@ -224,7 +225,7 @@ def _forward_with_cache(
                 q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale,
                 **scales,
             )
-        x = attn_out(x, o, layer)
+        x = attn_out(x, o, layer, use_kernels)
         x = _mlp_or_moe(x, layer, c, use_kernels=use_kernels)
 
     # Committed length: last real position + 1, frozen for padded columns
@@ -239,7 +240,7 @@ def _forward_with_cache(
     new_cache = dataclasses.replace(cache, lengths=new_len)
 
     x = norm(x, params["final_norm"], c.norm_eps)
-    logits = q_matmul(x, params["lm_head"]).float()
+    logits = q_matmul(x, params["lm_head"], use_kernels).float()
     return logits, new_cache
 
 

@@ -151,15 +151,17 @@ def project_qkv(
     config: LlamaConfig,
     cos, sin,
     positions=None,
+    use_kernels: bool = True,
 ):
     """QKV projection + head split + rope. Returns q [B,Hq,T,D],
-    k,v [B,Hkv,T,D]."""
+    k,v [B,Hkv,T,D]. ``use_kernels=False`` runs an int8 weight's plain
+    product (models/quant.py)."""
     c = config
     b, t, _ = xn.shape
     g = c.n_heads // c.n_kv_heads
     # [B, T, H] @ [H, KV, G+2, D]: one matmul; q_einsum is the int8 seam
     # (models/quant.py), the same product for float weights.
-    qkv = q_einsum("bth,hkgd->btkgd", xn, layer["wqkv"])
+    qkv = q_einsum("bth,hkgd->btkgd", xn, layer["wqkv"], use_kernels)
     q = qkv[..., :g, :].reshape(b, t, c.n_heads, c.head_dim)
     k = qkv[..., g, :]                                  # [B, T, KV, D]
     v = qkv[..., g + 1, :]
@@ -168,11 +170,13 @@ def project_qkv(
     return q, k, v.transpose(1, 2)
 
 
-def attn_out(x: torch.Tensor, o: torch.Tensor, layer: dict) -> torch.Tensor:
+def attn_out(x: torch.Tensor, o: torch.Tensor, layer: dict,
+             use_kernels: bool = True) -> torch.Tensor:
     """Output projection + residual. o: [B, H, T, D] attention result."""
     b, _, t, _ = o.shape
     flat = o.transpose(1, 2).reshape(b, t, -1)
-    return x + q_matmul(flat.to(x.dtype), layer["wo"]).to(x.dtype)
+    return x + q_matmul(flat.to(x.dtype), layer["wo"],
+                        use_kernels).to(x.dtype)
 
 
 def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
@@ -180,11 +184,12 @@ def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
     even on CUDA tensors (the kernel-versus-plain comparison)."""
     norm = rmsnorm if use_kernels else rmsnorm_reference
     xn = norm(x, layer["ln_mlp"], config.norm_eps)
-    gu = q_einsum("bth,hcm->btcm", xn, layer["w_gateup"])   # [B, T, 2, M]
+    gu = q_einsum("bth,hcm->btcm", xn, layer["w_gateup"],   # [B, T, 2, M]
+                  use_kernels)
     gate = F.silu(gu[..., 0, :].float())
     up = gu[..., 1, :].float()
     prod = (gate * up).to(x.dtype)
-    return x + q_matmul(prod, layer["w_down"]).to(x.dtype)
+    return x + q_matmul(prod, layer["w_down"], use_kernels).to(x.dtype)
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin,
@@ -194,14 +199,15 @@ def _attention_block(x, layer, config: LlamaConfig, cos, sin,
     CUDA tensors (the kernel-versus-plain comparison)."""
     norm = rmsnorm if use_kernels else rmsnorm_reference
     xn = norm(x, layer["ln_attn"], config.norm_eps)
-    q, k, v = project_qkv(xn, layer, config, cos, sin)
+    q, k, v = project_qkv(xn, layer, config, cos, sin,
+                          use_kernels=use_kernels)
     if use_kernels:
         o = flash_attention(q, k, v, causal=True)
     else:
         g = config.n_heads // config.n_kv_heads
         o = attention_reference(q, _repeat_kv(k, g), _repeat_kv(v, g),
                                 causal=True)
-    return attn_out(x, o, layer)
+    return attn_out(x, o, layer, use_kernels)
 
 
 def _block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool):
@@ -270,7 +276,7 @@ def forward(
     x = norm(x, params["final_norm"], c.norm_eps)
     if return_hidden:
         return x
-    return q_matmul(x, params["lm_head"]).float()
+    return q_matmul(x, params["lm_head"], use_kernels).float()
 
 
 def _ce_chunk(x, lm_head, t):

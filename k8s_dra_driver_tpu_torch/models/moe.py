@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..ops import moe_dispatch
 from ..ops.norms import rmsnorm, rmsnorm_reference
+from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
 from ..ops.rotary import rope_frequencies
 from .llama import (
     LlamaConfig,
@@ -44,7 +45,7 @@ from .llama import (
     _remat_transform,
     chunked_cross_entropy,
 )
-from .quant import q_dequant, q_lookup, q_matmul
+from .quant import QuantTensor, q_lookup, q_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,8 +370,8 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     Returns (x, aux). ``config.moe_impl`` picks the formulation ("auto"
     resolved by :func:`resolve_moe_impl`); this body is the einsum one.
     ``use_kernels=False`` runs the plain versions of RMSNorm, K7 and K8
-    even on CUDA tensors. Single device only: expert parallelism is not
-    ported."""
+    (and of ``int8_matmul`` for int8 experts) even on CUDA tensors.
+    Single device only: expert parallelism is not ported."""
     c = config
     tokens = x.shape[0] * x.shape[1]
     impl = resolve_moe_impl(c, tokens)
@@ -404,17 +405,32 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _route(probs, c, cap)
     xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
-    # q_dequant is the int8 seam (models/quant.py): identity for float
-    # weights, a dequantized copy of an int8 expert stack.
-    gu = torch.einsum("ebch,ehum->ebcum", xe,
-                      q_dequant(layer["w_gateup"], xe.dtype))
+    gu = _expert_product("ebch,ehum->ebcum", xe, layer["w_gateup"],
+                         use_kernels)
     gate = F.silu(gu[..., 0, :].float())
     up = gu[..., 1, :].float()
-    ye = torch.einsum("ebcm,emh->ebch", (gate * up).to(x.dtype),
-                      q_dequant(layer["w_down"], x.dtype))
+    ye = _expert_product("ebcm,emh->ebch", (gate * up).to(x.dtype),
+                         layer["w_down"], use_kernels)
     out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
     out = out.reshape(b, s, h)
     return x + out.to(x.dtype), aux
+
+
+def _expert_product(pattern: str, xe: torch.Tensor, w,
+                    use_kernels: bool) -> torch.Tensor:
+    """The einsum body's per-expert product ``einsum(pattern, xe, w)``: xe
+    [E, B, C, K] against w [E, K, ...] -> [E, B, C, ...]. An int8 stack
+    (models/quant.py) goes through ``int8_matmul``'s prologue mode, all
+    experts in one launch: the reference's ``bf16(q * scale)`` rounding
+    made tile by tile, never a dequantized copy of the stack (its plain
+    version, with ``use_kernels=False`` or on the CPU, makes that copy)."""
+    if not isinstance(w, QuantTensor):
+        return torch.einsum(pattern, xe, w)
+    e, b, cap, k = xe.shape
+    fn = int8_matmul if use_kernels else int8_matmul_reference
+    y = fn(xe.reshape(e, b * cap, k).contiguous(), w.q.reshape(e, k, -1),
+           w.scale.reshape(e, -1), prologue=True)
+    return y.reshape(e, b, cap, *w.q.shape[2:])
 
 
 def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):
@@ -454,7 +470,7 @@ def forward(
     x = _norm(use_kernels)(x, params["final_norm"], c.norm_eps)
     if return_hidden:
         return x, aux
-    return q_matmul(x, params["lm_head"]).float(), aux
+    return q_matmul(x, params["lm_head"], use_kernels).float(), aux
 
 
 def forward_pipelined(*args, **kwargs):

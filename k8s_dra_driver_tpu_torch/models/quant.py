@@ -6,16 +6,22 @@
   stacked leaf slices ``q`` and ``scale`` together. :func:`quantize_tensor`
   gives the reference's int8 values and scales bit for bit (f32 amax,
   the same clamp and divide, round half to even).
-- **The dense seams** (:func:`q_einsum`, :func:`q_matmul`): the product
-  runs on ``q`` converted to the activation dtype (int8 to bf16 is
-  exact), so the weight stays stored as int8; the per-channel scale,
-  constant over the contraction, multiplies the product in f32 before the
-  cast. On bf16 activations ``torch.matmul`` rounds the product to bf16
-  once before the scale, where the reference's mixed-dtype dot keeps it
-  f32: one more rounding of at most 2^-9 relative, accepted (the card's
-  forward is held to 5e-2 relative logits). These are plain matrix
-  products outside any kernel. The MoE expert stacks do not come here:
-  the fused dispatch kernels read them as int8 (``ops/moe_dispatch.py``).
+- **The dense seams** (:func:`q_einsum`, :func:`q_matmul`): the weight
+  stays int8 all the way into the product, as the reference's
+  ``_mixed_dot`` keeps it: ``ops.int8_matmul`` (``csrc/quant_matmul.cu``)
+  streams q as int8, sums in f32, multiplies the f32 sum by the
+  per-column scale (constant over the contraction) and casts once. No
+  bf16 copy of a weight is made. The kernel runs on CUDA tensors; its
+  plain version (``(x.float() @ q.float()) * scale``) on the CPU or with
+  ``use_kernels=False`` (the kernel-versus-plain comparison). An einsum
+  pattern that is not "x's last axis against w's first" keeps a plain f32
+  einsum, as the reference's ``preferred_element_type=f32`` does; no model
+  pattern reaches it.
+- **The einsum MoE body** (``models/moe.py``) runs its expert products
+  through the same kernel's prologue mode (bf16(q * scale) staged tile by
+  tile, the reference's :func:`q_dequant` rounding); :func:`q_dequant`
+  stays as the reference's materialized form. The fused dispatch kernels
+  read the expert stacks as int8 themselves (``ops/moe_dispatch.py``).
 - :class:`QuantTensor` is a plain dataclass. It slices by its leading
   axis (``w[i]``, ``w.unbind(0)``), so the layer loops index quantized
   and float stacks alike.
@@ -29,6 +35,8 @@ import dataclasses
 import itertools
 
 import torch
+
+from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
 
 
 @dataclasses.dataclass
@@ -123,32 +131,48 @@ def _contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], *w.shape[1:])
 
 
-def q_einsum(pattern: str, x: torch.Tensor, w) -> torch.Tensor:
+def _contract_int8(x: torch.Tensor, w: QuantTensor,
+                   use_kernels: bool) -> torch.Tensor:
+    """x's last axis against the int8 weight's first, the f32 sum scaled
+    per output column and cast to x's dtype once: ``int8_matmul``, or its
+    plain version with ``use_kernels=False``."""
+    fn = int8_matmul if use_kernels else int8_matmul_reference
+    k = w.q.shape[0]
+    y = fn(x.reshape(-1, k).contiguous(), w.q.reshape(k, -1),
+           w.scale.reshape(-1))
+    return y.reshape(*x.shape[:-1], *w.q.shape[1:])
+
+
+def q_einsum(pattern: str, x: torch.Tensor, w,
+             use_kernels: bool = True) -> torch.Tensor:
     """``einsum(pattern, x, w)`` where w may be a QuantTensor. Every
     pattern the model uses contracts x's last axis with w's first; that
-    runs as one matrix product, anything else as ``torch.einsum``. The
-    scale, constant over the contraction, multiplies the product."""
+    runs as one matrix product (an int8 weight through ``int8_matmul``),
+    anything else as ``torch.einsum`` (f32 for an int8 weight). The scale,
+    constant over the contraction, multiplies the f32 product."""
     ins, out = pattern.split("->")
     xs, ws = ins.split(",")
     simple = xs[-1] == ws[0] and out == xs[:-1] + ws[1:]
     if not isinstance(w, QuantTensor):
         return _contract(x, w) if simple else torch.einsum(pattern, x, w)
-    wq = w.q.to(x.dtype)
-    y = _contract(x, wq) if simple else torch.einsum(pattern, x, wq)
-    return (y.float() * w.scale.squeeze(0)).to(x.dtype)
+    if simple:
+        return _contract_int8(x, w, use_kernels)
+    y = torch.einsum(pattern, x.float(), w.q.float())
+    return (y * w.scale.squeeze(0)).to(x.dtype)
 
 
-def q_matmul(x: torch.Tensor, w) -> torch.Tensor:
+def q_matmul(x: torch.Tensor, w, use_kernels: bool = True) -> torch.Tensor:
     """``x @ w`` where w may be a QuantTensor ([K, N], scale [1, N])."""
     if isinstance(w, QuantTensor):
-        y = x @ w.q.to(x.dtype)
-        return (y.float() * w.scale[0]).to(x.dtype)
+        return _contract_int8(x, w, use_kernels)
     return x @ w
 
 
 def q_dequant(w, dtype: torch.dtype):
-    """Materialized dequant for the einsum MoE body (its expert axis leads
-    the output, outside the factored seams)."""
+    """Materialized dequant, ``bf16(q * scale)`` for a bf16 ``dtype``: the
+    reference's form for products outside the factored seams. The einsum
+    MoE body computes the same rounding tile by tile instead
+    (``int8_matmul(..., prologue=True)``)."""
     if isinstance(w, QuantTensor):
         return (w.q.float() * w.scale).to(dtype)
     return w

@@ -1,7 +1,7 @@
 """Ops of the serving and training paths: paged and flash attention, the
-fused MoE dispatch pipeline and its grouped matmuls, and RMSNorm
-(hand-written Hopper kernels with their plain PyTorch versions) and rotary
-embeddings."""
+fused MoE dispatch pipeline and its grouped matmuls, the int8-weight
+matmul, and RMSNorm (hand-written Hopper kernels with their plain PyTorch
+versions) and rotary embeddings."""
 
 from .attention import (
     FlashAttentionFunction,
@@ -38,6 +38,7 @@ from .moe_dispatch import (
     reference_moe_mlp,
 )
 from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
+from .quant_matmul import int8_matmul, int8_matmul_reference
 from .rotary import apply_rope, rope_frequencies
 
 __all__ = [
@@ -71,6 +72,8 @@ __all__ = [
     "moe_down_combine_int8",
     "moe_gateup_int8",
     "moe_down_combine_reference",
+    "int8_matmul",
+    "int8_matmul_reference",
     "rmsnorm",
     "rmsnorm_reference",
     "RMSNormFunction",

@@ -1,0 +1,151 @@
+"""int8-weight matrix product: the wrapper over ``csrc/quant_matmul.cu``
+and its plain PyTorch version.
+
+``y = cast((x . q) * scale)`` with x bf16 ``[M, K]`` (or ``[E, M, K]``),
+q int8 ``[K, N]`` (or ``[E, K, N]``) and a per-column f32 scale, in one of
+two modes:
+
+- ``prologue=False`` (the dense seams, ``models/quant.py``): the f32 sum
+  of x against q as stored, times the scale, one cast -- the reference's
+  ``_mixed_dot`` followed by ``* scale``;
+- ``prologue=True`` (the einsum MoE body, ``models/moe.py``): x against
+  ``bf16(q * scale)`` with an f32 sum -- the reference's ``q_dequant``
+  followed by a bf16 dot, with the dequantized weight made tile by tile
+  in shared memory only.
+
+:func:`int8_matmul` takes its plain version,
+:func:`int8_matmul_reference`, for CPU tensors; for CUDA tensors it
+launches the kernel (counted in ``int8_matmul.launches``) or raises: bf16
+x, int8 q, f32 scales, K a multiple of 64 and N of 16, contiguous 16-byte
+aligned operands on one device. At small M it splits K two or four ways
+(f32 partial sums in a scratch buffer it allocates, summed by the source's
+second pass) so that enough blocks fill the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SOURCE = "quant_matmul"
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
+_LIB = None
+
+#: The kernel's column block and K step (``csrc/quant_matmul.cu``).
+KERNEL_COLS = 64
+KERNEL_K_STEP = 64
+#: Blocks the card should see before K is split (two per SM of the H100).
+_FILL_BLOCKS = 264
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(_SOURCE)
+        lib.int8_matmul.argtypes = _ARGTYPES
+        lib.int8_matmul.restype = _INT
+        _LIB = lib
+    return _LIB
+
+
+def _batched(x, q, scale):
+    """(x [E, M, K], q [E, K, N], scale [E, N], batched?) from either the
+    2-D or the 3-D form; the scale may carry the collapsed contraction
+    axis (``[1, N]``, ``[E, 1, N]``)."""
+    if x.dim() != q.dim() or x.dim() not in (2, 3):
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} and q "
+                         f"{tuple(q.shape)}; expected [M, K] and [K, N], or "
+                         f"[E, M, K] and [E, K, N]")
+    batched = x.dim() == 3
+    if not batched:
+        x, q = x[None], q[None]
+    e, _, k = x.shape
+    if q.shape[0] != e or q.shape[1] != k:
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    n = q.shape[2]
+    if scale.numel() != e * n:
+        raise ValueError(f"int8_matmul: scale {tuple(scale.shape)} for "
+                         f"{e} x {n} columns")
+    return x, q, scale.reshape(e, n), batched
+
+
+def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
+                          scale: torch.Tensor,
+                          prologue: bool = False) -> torch.Tensor:
+    """The plain version: ``(x.float() @ q.float()) * scale`` cast to x's
+    dtype, or with ``prologue`` ``x @ (q.float() * scale).to(x.dtype)``."""
+    xb, qb, sb, batched = _batched(x, q, scale)
+    sb = sb[:, None, :].float()
+    if prologue:
+        y = torch.matmul(xb, (qb.float() * sb).to(x.dtype))
+    else:
+        y = (torch.matmul(xb.float(), qb.float()) * sb).to(x.dtype)
+    return y if batched else y[0]
+
+
+def split_k(e: int, m: int, n: int, k: int) -> int:
+    """How many ways the kernel splits K: 4 or 2 where the output blocks
+    alone would leave the card idle (and K divides), else 1."""
+    bm = 16 if m <= 16 else 64 if m <= 64 else 128
+    blocks = e * -(-m // bm) * -(-n // KERNEL_COLS)
+    steps = k // KERNEL_K_STEP
+    if 2 * blocks < _FILL_BLOCKS and steps % 4 == 0:
+        return 4
+    if blocks < _FILL_BLOCKS and steps % 2 == 0:
+        return 2
+    return 1
+
+
+def _check_args(x, q, scale) -> None:
+    for name, t in (("x", x), ("q", q), ("scale", scale)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"int8_matmul: {name} on {t.device}; every input "
+                             f"must sit on one CUDA device (or all on the "
+                             f"CPU)")
+        if not t.is_contiguous():
+            raise ValueError(f"int8_matmul: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul: {name} is not 16-byte aligned")
+    for name, t, dtype in (("x", x, torch.bfloat16), ("q", q, torch.int8),
+                           ("scale", scale, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"int8_matmul: {name} is {t.dtype}; the kernel "
+                            f"takes {dtype}")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                prologue: bool = False) -> torch.Tensor:
+    """``cast((x . q) * scale)`` through the int8-weight kernel; see the
+    module docstring for the two modes and what the kernel takes."""
+    if not (x.is_cuda or q.is_cuda or scale.is_cuda):
+        return int8_matmul_reference(x, q, scale, prologue)
+    _check_args(x, q, scale)
+    xb, qb, sb, batched = _batched(x, q, scale)
+    e, m, k = xb.shape
+    n = qb.shape[2]
+    if m == 0 or k % KERNEL_K_STEP or n % 16:
+        raise ValueError(f"int8_matmul: M {m}, K {k}, N {n}; the kernel "
+                         f"takes M > 0, K a multiple of {KERNEL_K_STEP} and "
+                         f"N a multiple of 16")
+    split = split_k(e, m, n, k)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    part = (torch.empty((split, e, m, n), dtype=torch.float32,
+                        device=x.device) if split > 1 else None)
+    with torch.cuda.device(x.device):
+        rc = _library().int8_matmul(
+            xb.data_ptr(), qb.data_ptr(), sb.data_ptr(), y.data_ptr(),
+            part.data_ptr() if part is not None else None, e, m, n, k, split,
+            int(prologue), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(rc, "int8_matmul")
+    int8_matmul.launches += 1
+    return y if batched else y[0]
+
+
+int8_matmul.launches = 0

@@ -19,7 +19,9 @@ Gradients through ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``
 (bf16 outputs of bf16 products) are held to 2% / 1%. The int8 branches
 (K2/K3 on int8 pools with per-position scales, K7/K8 on int8 experts with
 per-column scales) are held to their bf16 branches' limits: the kernel and
-its plain version read the same int8 data.
+its plain version read the same int8 data. ``int8_matmul`` (bf16 out, f32
+sums in another order, split K summed in another order again) is held to
+the bf16 2% / 1%.
 """
 
 import pytest
@@ -176,7 +178,8 @@ def _rel_close(name, out, ref, rel_max=2e-2, rel_mean=1e-2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [128, 200, 512])     # 200: a ragged last tile
+# 40: shorter than one tile; 130, 200, 1000: a ragged last tile.
+@pytest.mark.parametrize("s", [40, 128, 130, 200, 512, 1000])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])   # G = 1 and 4
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_kernels_match_plain(dev, d, hq, hkv, s, causal):
@@ -696,3 +699,88 @@ def test_int8_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     # The int8 grouped product (the primitive path's) has no kernel yet.
     with pytest.raises(NotImplementedError, match="int8"):
         md.grouped_matmul(xf, md._gu_2d(w_gu), plan.sizes_aligned)
+
+
+def _int8_weight(dev, e, k, n, seed):
+    """Per-column int8 weights (``quantize_tensor`` over K) of a random
+    float weight, [K, N] or [E, K, N], with their f32 scales."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_tensor
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (k, n) if e is None else (e, k, n)
+    w = torch.randn(*shape, generator=g, device=dev) / k ** 0.5
+    return quantize_tensor(w, -2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("e", [None, 3])            # 3: the MoE body's batch
+@pytest.mark.parametrize("k,n", [(256, 192), (512, 208), (1024, 4096)])
+@pytest.mark.parametrize("m", [1, 8, 13, 512])
+def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
+    """Both modes against the plain version. N 208 leaves a ragged last
+    block of 64 columns; the shapes reach K split 4, 2 and 1 ways."""
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    w = _int8_weight(dev, e, k, n, seed=m + k)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    x = torch.randn(*((m, k) if e is None else (e, m, k)), generator=g,
+                    device=dev).bfloat16()
+    before = qm.int8_matmul.launches
+    out = qm.int8_matmul(x, w.q, w.scale, prologue)
+    ref = qm.int8_matmul_reference(x, w.q, w.scale, prologue)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    _rel_close(f"int8_matmul split {qm.split_k(e or 1, m, n, k)}", out, ref)
+
+
+@pytest.mark.cuda
+def test_int8_seams_run_the_kernel(dev):
+    """On CUDA tensors the seams launch ``int8_matmul`` once each and
+    agree with their plain versions (``use_kernels=False``)."""
+    from k8s_dra_driver_tpu_torch.models import quant
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    wqkv = _int8_weight(dev, None, 256, 2 * 6 * 64, seed=1)
+    wqkv = quant.QuantTensor(q=wqkv.q.reshape(256, 2, 6, 64),
+                             scale=wqkv.scale.reshape(1, 2, 6, 64))
+    wo = _int8_weight(dev, None, 256, 128, seed=2)
+    x = torch.randn(2, 3, 256, device=dev).bfloat16()
+    before = qm.int8_matmul.launches
+    a = quant.q_einsum("bth,hkgd->btkgd", x, wqkv)
+    b = quant.q_matmul(x, wo)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 2
+    _rel_close("q_einsum", a, quant.q_einsum("bth,hkgd->btkgd", x, wqkv,
+                                             use_kernels=False))
+    _rel_close("q_matmul", b, quant.q_matmul(x, wo, use_kernels=False))
+    assert qm.int8_matmul.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    w = _int8_weight(dev, None, 256, 192, seed=3)
+    x = torch.randn(8, 256, device=dev).bfloat16()
+    with pytest.raises(TypeError, match="bf16|bfloat16"):
+        qm.int8_matmul(x.float(), w.q, w.scale)
+    with pytest.raises(TypeError, match="int8"):
+        qm.int8_matmul(x, w.q.float(), w.scale)
+    with pytest.raises(TypeError, match="float32"):
+        qm.int8_matmul(x, w.q, w.scale.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        qm.int8_matmul(x, w.q, w.scale.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul(x.t().contiguous().t(), w.q, w.scale)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        qm.int8_matmul(x[:, :96].contiguous(), w.q[:96].contiguous(),
+                       w.scale)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.int8_matmul(x, w.q[:, :40].contiguous(),
+                       w.scale[:, :40].contiguous())
+    with pytest.raises(ValueError, match="does not match"):
+        qm.int8_matmul(x[:, :128].contiguous(), w.q, w.scale)

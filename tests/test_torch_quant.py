@@ -6,7 +6,13 @@
   reference's quantized tree equals the port's ``quantize_params`` of the
   converted float tree bit for bit.
 - The seams (``q_einsum``, ``q_matmul``, ``q_lookup``, ``q_dequant``)
-  match to 1e-6 (f32; another summation order).
+  match to 1e-6 (f32; another summation order). With bf16 activations
+  ``q_einsum``/``q_matmul`` and both modes of ``int8_matmul``'s plain
+  version match the reference's ``_mixed_dot`` and ``q_dequant`` forms
+  within 1 bf16 ulp, bitwise but for at most 1% of the elements (ties of
+  the f32 summation order); every model pattern is the simple
+  contraction; ``tiny-moe`` with ``moe_impl="einsum"`` on int8 weights
+  matches the reference's forward to 1e-4.
 - ``forward`` and ``_forward_with_cache`` in each of ``int8``, ``kvq`` and
   ``int8+kvq``: logits within 1e-4 relative to the largest logit; the
   int8 pools equal but for at most a few values one step apart (a k or v
@@ -30,6 +36,7 @@ from k8s_dra_driver_tpu.models import moe as jmoe
 from k8s_dra_driver_tpu.models import paged as jpaged
 from k8s_dra_driver_tpu.models import quant as jquant
 from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
+from k8s_dra_driver_tpu_torch import ops as tops
 from k8s_dra_driver_tpu_torch.models import decode as tdecode
 from k8s_dra_driver_tpu_torch.models import llama as tllama
 from k8s_dra_driver_tpu_torch.models import moe as tmoe
@@ -150,6 +157,136 @@ def test_seams_match(seam):
         assert tquant.q_dequant(tx, torch.float32) is tx
     assert ours.dtype == torch.float32
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **SEAM_TOL)
+
+
+def _bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in the order of their values, so that the
+    difference of two is their distance in bf16 ulps."""
+    bits = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _ulps(ours: torch.Tensor, ref) -> torch.Tensor:
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).bfloat16()
+    assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    return (_bf16_order(ours) - _bf16_order(ref)).abs()
+
+
+@pytest.mark.parametrize("seam", ["einsum_qkv", "einsum_mlp", "matmul"])
+def test_bf16_seams_keep_the_product_f32(seam):
+    """bf16 activations, as the card serves: the seams against the
+    reference's ``_mixed_dot`` path (f32 sum of x and int8 q, f32 scale,
+    one cast) within 1 bf16 ulp everywhere and bitwise equal but for
+    summation-order ties. A seam that rounds the product to bf16 before
+    the scale differs by an ulp in a large share of the elements."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(3, 5, 128).astype(np.float32)
+    if seam == "einsum_qkv":
+        w, args = rng.randn(128, 2, 4, 16), ("bth,hkgd->btkgd",)
+    elif seam == "einsum_mlp":
+        w, args = rng.randn(128, 2, 96), ("bth,hcm->btcm",)
+    else:
+        w, args = rng.randn(128, 160), ()
+    w = (w * np.exp(rng.randn(*w.shape))).astype(np.float32)
+    jw = jquant.quantize_tensor(jnp.asarray(w), 0)
+    tw = tquant.quantize_tensor(torch.from_numpy(w), 0)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    tx = torch.from_numpy(x).bfloat16()
+    if seam == "matmul":
+        jx, tx = jx.reshape(15, 128), tx.reshape(15, 128)
+        ours, ref = tquant.q_matmul(tx, tw), jquant.q_matmul(jx, jw)
+    else:
+        ours = tquant.q_einsum(*args, tx, tw)
+        ref = jquant.q_einsum(*args, jx, jw)
+    ulps = _ulps(ours, ref)
+    assert ulps.max().item() <= 1, ulps.max().item()
+    assert (ulps > 0).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_int8_matmul_reference_matches_the_reference_forms(prologue):
+    """The kernel's plain version in both modes against the reference's
+    own forms: ``_mixed_dot(x, q) * scale`` (epilogue) and
+    ``einsum(x, q_dequant(w, bf16))`` (prologue), bf16 activations,
+    batched over an expert axis as the MoE body calls it."""
+    rng = np.random.RandomState(12 + prologue)
+    x = rng.randn(4, 24, 128).astype(np.float32)
+    w = (rng.randn(4, 128, 80) * np.exp(rng.randn(4, 128, 80))).astype(
+        np.float32)
+    jw = jquant.quantize_tensor(jnp.asarray(w), 1)        # scale [E, 1, N]
+    tw = tquant.quantize_tensor(torch.from_numpy(w), 1)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    tx = torch.from_numpy(x).bfloat16()
+    ours = tops.int8_matmul_reference(tx, tw.q, tw.scale, prologue=prologue)
+    if prologue:
+        ref = jnp.einsum("emk,ekn->emn", jx, jquant.q_dequant(jw,
+                                                            jnp.bfloat16))
+    else:
+        ref = jnp.stack([
+            (jquant._mixed_dot(jx[i], jw.q[i]) * jw.scale[i]).astype(
+                jnp.bfloat16) for i in range(4)])
+    ulps = _ulps(ours, ref)
+    assert ulps.max().item() <= 1, ulps.max().item()
+    assert (ulps > 0).float().mean().item() <= 0.01
+    # The 2-D form is the batched form's slice.
+    assert torch.equal(
+        tops.int8_matmul_reference(tx[1], tw.q[1], tw.scale[1],
+                                   prologue=prologue), ours[1])
+    # On CPU tensors the wrapper is its plain version, counted nowhere.
+    before = tops.int8_matmul.launches
+    assert torch.equal(tops.int8_matmul(tx, tw.q, tw.scale, prologue), ours)
+    assert tops.int8_matmul.launches == before
+
+
+def test_model_einsum_patterns_are_the_simple_contraction(model,
+                                                          monkeypatch):
+    """Every ``q_einsum`` pattern the models use (forward and the cached
+    forward, dense and MoE) contracts x's last axis with w's first: the
+    int8 kernel's form. The generic f32 einsum is reached by none."""
+    name, _, tcfg, _, _, tq = model
+    _, _, _, _, tfwd = PRESETS[name]
+    seen = []
+    real = tquant.q_einsum
+
+    def record(pattern, x, w, use_kernels=True):
+        seen.append((pattern, isinstance(w, tquant.QuantTensor)))
+        return real(pattern, x, w, use_kernels)
+
+    monkeypatch.setattr(tllama, "q_einsum", record)
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(
+        0, tcfg.vocab_size, size=(2, 8)).astype(np.int32))
+    tfwd(tq, tokens, tcfg)
+    cache = tpaged.PagedKVCache.init(tcfg, 2, 16, block_size=8,
+                                     device="cpu")
+    tdecode._forward_with_cache(tq, tokens, cache, tcfg, torch.arange(8))
+    assert seen and all(quant for _, quant in seen)
+    for pattern, _ in seen:
+        ins, out = pattern.split("->")
+        xs, ws = ins.split(",")
+        assert xs[-1] == ws[0] and out == xs[:-1] + ws[1:], pattern
+
+
+def test_int8_einsum_moe_matches_jax():
+    """``tiny-moe`` with ``moe_impl="einsum"`` on int8 weights: the
+    expert products run ``int8_matmul``'s prologue mode (its plain
+    version on the CPU) and match the reference's ``q_dequant`` einsums;
+    no dequantized copy of a stack is made on the card."""
+    jcfg = dataclasses.replace(jmoe.MOE_PRESETS["tiny-moe"],
+                               moe_impl="einsum")
+    tcfg = dataclasses.replace(tmoe.MOE_PRESETS["tiny-moe"],
+                               moe_impl="einsum")
+    jq = jquant.quantize_params(jmoe.init_params(jcfg, jax.random.PRNGKey(1)))
+    tq = params_from_numpy(jax.tree.map(np.asarray, jq), tcfg, device="cpu")
+    tokens = np.random.RandomState(6).randint(0, tcfg.vocab_size,
+                                              size=(2, 16)).astype(np.int32)
+    assert tmoe.resolve_moe_impl(tcfg, tokens.size) == "einsum"
+    ref, ref_aux = jmoe.forward(jq, jnp.asarray(tokens), jcfg)
+    ours, aux = tmoe.forward(tq, torch.from_numpy(tokens), tcfg)
+    _rel_close(ours.numpy(), ref)
+    np.testing.assert_allclose(aux.item(), float(ref_aux), rtol=1e-5)
+    plain, _ = tmoe.forward(tq, torch.from_numpy(tokens), tcfg,
+                            use_kernels=False)
+    assert torch.equal(plain, ours)
 
 
 def test_forward_matches_jax(model):
