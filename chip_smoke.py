@@ -899,9 +899,10 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     ("moe_down_combine", ("moe_grouped_kernel<16, false",
                           "moe_grouped_kernel<64, false",
                           "moe_grouped_kernel<128, false")),
-    # tgmm first: "gmm_kernel" is also a substring of "tgmm_kernel".
-    ("tgmm", ("tgmm_kernel",)),
-    ("gmm", ("gmm_kernel",)),
+    # K10a and K10b are one template, grouped_kernel<KIND, ...>: KIND 0 is
+    # gmm, 1 is tgmm.
+    ("tgmm", ("grouped_kernel<1,",)),
+    ("gmm", ("grouped_kernel<0,",)),
     ("paged_attention", ("paged_attention_kernel",)),
     ("rmsnorm", ("_rmsnorm_row",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),

@@ -26,108 +26,93 @@
 // each call does 2 * 16384 * 4096 * 14336 = 1.9e12 operations (the w_down
 // products) or twice that (the gate/up products) on 0.94 or 1.88 GB of expert
 // weights: 2-4 ms at 989 TFLOP/s against 0.3-0.6 ms for the bytes at 3.35
-// TB/s. Bound by operations, so every product runs on the tensor cores.
+// TB/s (tgmm's f32 output, 1.9-3.8 GB, is 0.6-1.1 ms of writes). Bound by
+// operations, so every product is a wgmma: only wgmma reaches the tensor
+// cores' full rate.
 //
-// Design. Both kernels are one tiled GEMM body: a block of 8 warps owns a 128 x
-// 128 (or 64-wide) output tile and walks the contracted axis in stages of 32,
-// fed by a 4-deep cp.async ring; each warp multiplies with mma.sync.m16n8k16
-// (bf16 in, f32 accumulate) from fragments that ldmatrix reads out of shared
-// memory (.trans where the operand's contracted axis is not contiguous:
-// megablox's transposed operands cost no copy). wgmma and TMA are later steps.
-// Shared-memory rows are padded by 8 bf16, so the 8 rows of every ldmatrix
-// phase fall in distinct banks.
-//   gmm: one block per (row tile of 128, group) intersection and column tile.
-//     Megablox walks group metadata built on the host; here each block reads
-//     the prefix sums of group_sizes itself (no host sync), so any sizes work,
-//     aligned or not. A tile that straddles two groups is visited once per
-//     group, each visit loading and storing only its group's rows, so no row
-//     is written twice. The items past the intersections are the row tiles
-//     from the one holding the first row past the last group on, and write
-//     those rows' zeros. Intersections and tail tiles together never exceed
-//     n_row_tiles + E, the grid's item count; items past them return at once.
-//     The dispatch plan's groups are tile-aligned, so there each row tile
-//     belongs to exactly one group.
-//   tgmm: one block per (K tile, N tile, group); it loops over its group's
-//     rows as the contracted axis, so nothing is carried between blocks and
-//     no atomics are needed. Both operands have rows as the contracted axis:
-//     lhs^T is read with ldmatrix.trans.
+// Design: one warp-specialised GEMM body for both kernels, the shape of K4
+// and K5 (the Hopper pieces come from hopper.cuh).
+//   - A block of 3 warpgroups owns a 128 x BN output tile (BN 256, 128 or 64,
+//     the widest that divides N). Warpgroup 0 is the producer: one thread
+//     starts every TMA load, setmaxnreg leaves it 40 registers. Warpgroups 1
+//     and 2 are consumers of 64 output rows each (232 registers; BN / 2 f32
+//     accumulators a thread).
+//   - The contracted axis goes through a ring of 4-8 stages of (A, B) tiles,
+//     64 deep, in 128-byte swizzled boxes of 64 columns, guarded by full and
+//     empty mbarriers: TMA completes `full`; each consumer warp arrives on
+//     `empty` once wgmma.wait_group shows its products have read the stage.
+//     A consumer keeps one stage's products in flight while it waits for
+//     the next stage.
+//   - Every product is wgmma m64n{BN}k16 with both operands in shared memory
+//     as stored, no staged transpose: gmm's A (lhs) is K-major; its B is
+//     MN-major as stored [E, K, N] (the descriptor's transpose bit) or K-major
+//     as the transposed view of [E, N, K]. tgmm contracts over rows, so both
+//     A (lhs^T: K contiguous) and B (rhs: N contiguous) are MN-major.
+//   - Expert weights come through rank-3 tensor maps over [E, K, N] (or
+//     [E, N, K]), so a box never reaches into the next expert; row operands
+//     through rank-2 maps over [rows, K] / [rows, N]. TMA's zero fill past
+//     the tensor's edge covers rows past `rows` and a 32-column tail of K
+//     (gmm takes K in steps of 32).
+//   gmm: one block per (row tile of 128, group) intersection and column
+//     tile. Each block reads the prefix sums of group_sizes itself (no host
+//     sync), so any sizes work, aligned or not. A tile that straddles two
+//     groups is loaded whole once per group, each visit multiplying by its
+//     group's weights and storing only its group's rows (masked register
+//     stores), so no row is written twice. The items past the intersections
+//     are the row tiles from the one holding the first row past the last
+//     group on, and write those rows' zeros. Intersections and tail tiles
+//     together never exceed n_row_tiles + E, the grid's item count; items
+//     past them return at once. The dispatch plan's groups are tile-aligned,
+//     so there each row tile belongs to exactly one group.
+//   tgmm: one block per (K tile of 128, N tile, group); it loops over its
+//     group's rows as the contracted axis, 64 rows a stage from the group's
+//     first row (any row), so nothing is carried between blocks and no
+//     atomics are needed. The last stage of a group can hold rows of the
+//     next group or past the last one, which TMA cannot clip (it clips only
+//     at the tensor's edge): the consumers zero those whole 128-byte rows of
+//     every box of the stage (the swizzle permutes 16-byte chunks within a
+//     row only), fence the writes into the async proxy and meet at a named
+//     barrier before the stage's products. An empty group writes zeros.
 // Blocks walk the output tiles in groups of 8 row tiles (gmm) or 8 K tiles
 // (tgmm) per column sweep, so the operands the blocks in flight share stay in
 // the 50 MB L2 instead of being re-read from device memory.
+//
+// Left out: a persistent grid (one block an SM walking the tiles, the ring
+// running on from tile to tile so the next tile loads while this one is
+// stored) measured no faster on the H100 at the MoE backward's shapes; a
+// TMA-store epilogue; clusters whose blocks share an operand tile by TMA
+// multicast (each stage reads 48 KB from L2 for 4.2 MFLOP of products).
 //
 // Rounding. The operands are bf16. In the MoE backward the SwiGLU gradient and
 // the gated down-projection cotangent (f32 there) are rounded to bf16 before
 // tgmm takes them, where the JAX package's off-TPU fallback keeps them f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kStages = 4;     // depth of the cp.async ring
-constexpr int kDepth = 32;     // contracted-axis depth of one stage
-constexpr int kPad = 8;        // bf16 of padding per shared-memory row
-constexpr int kRowTile = 128;  // gmm's rows per block
-constexpr int kSwizzle = 8;    // row (K) tiles per column sweep
+constexpr int kRowTile = 128;              // output rows of a block
+constexpr int kDepth = 64;                 // contracted depth of a stage
+constexpr int kBox = kDepth * kRowBytes;   // a 64-row box of 64 columns
+constexpr int kSwizzle = 8;                // row (K) tiles per column sweep
+constexpr int kGmm = 0, kTgmm = 1;
 
-// c += a * b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-// a: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..), (row g+8,
-// k 2t+8..); b: (k 2t..2t+1, n g), (k 2t+8.., n g); c: (row g, n 2t, 2t+1),
-// (row g+8, n 2t, 2t+1); g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 blocks; lanes 8i..8i+7 give the row addresses of block i, and
-// register i receives block i: (row lane/4, elements 2(lane%4), +1), or with
-// .trans the transposed pair (rows 2(lane%4), +1 of element lane/4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
-// source is then not read).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// Shared memory (byte offsets from a 1024-aligned base): STAGES stages of A
+// (128 x 64: two 8 KB boxes) then B (BN x 64: BN / 64 boxes, or one box of
+// BN rows), then the full and empty barriers.
+template <int BN>
+struct Ring {
+  static constexpr int A = kRowTile * kRowBytes;
+  static constexpr int STAGE = A + BN * kRowBytes;
+  static constexpr int STAGES =
+      192 * 1024 / STAGE < 8 ? 192 * 1024 / STAGE : 8;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int USED = BARS + 2 * STAGES * 8;
+  static constexpr int BYTES = USED + 1024 > kMinSmem ? USED + 1024
+                                                      : kMinSmem;
+};
 
 // Block index -> (row item, column tile): kSwizzle row items per sweep of
 // the columns.
@@ -140,319 +125,295 @@ __device__ __forceinline__ void swizzle(int pid, int n_rows, int n_cols,
   col = (pid % span) / size;
 }
 
-// Warp layout of a BM x BN output tile: WM x WN warps, each owning TM x TN
-// (MT m16 tiles by NT n8 tiles; NT even, B fragments come in pairs).
-template <int BM, int BN>
-struct Warps {
-  static constexpr int WM = (BM == 128 && BN == 64) ? 4 : 2;
-  static constexpr int WN = 8 / WM;
-  static constexpr int TM = BM / WM;
-  static constexpr int TN = BN / WN;
-  static constexpr int MT = TM / 16;
-  static constexpr int NT = TN / 8;
-  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp layout");
-};
-
-// The product of one staged 32-deep slice into the warp's accumulators.
-// A is [BM][LDA] with the contracted axis contiguous (A_TRANS false) or
-// [kDepth][LDA] with the output rows contiguous (A_TRANS); B is [kDepth][LDB]
-// with the output columns contiguous (B_NK false) or [BN][LDB] with the
-// contracted axis contiguous (B_NK).
-template <int BM, int BN, bool A_TRANS, bool B_NK, int LDA, int LDB>
-__device__ __forceinline__ void stage_product(
-    float (&acc)[Warps<BM, BN>::MT][Warps<BM, BN>::NT][4], const bf16* as,
-    const bf16* bs, int wm, int wn, int lane) {
-  using W = Warps<BM, BN>;
-  const int mat = lane >> 3, r8 = lane & 7;
+// The 4 k16 products of one stage into a consumer's 64 x BN accumulators.
+// TA / TB: A / B MN-major (transpose bit), else K-major.
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void stage_products(float (&acc)[BN / 2],
+                                               uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kDepth; kk += 16) {
-    uint32_t a[W::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < W::MT; ++mt) {
-      const int m0 = wm * W::TM + mt * 16;
-      if (A_TRANS) {
-        // Block i: contracted rows kk + 8 (i >= 2), output rows m0 + 8 (i odd).
-        ldsm_x4_trans(a[mt], as + (kk + r8 + ((mat >> 1) << 3)) * LDA + m0 +
-                                 ((mat & 1) << 3));
-      } else {
-        // Block i: output rows m0 + 8 (i odd), contracted kk + 8 (i >= 2).
-        ldsm_x4(a[mt],
-                as + (m0 + r8 + ((mat & 1) << 3)) * LDA + kk + ((mat >> 1) << 3));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < W::NT; j += 2) {
-      const int n0 = wn * W::TN + j * 8;
-      uint32_t b[4];  // b0, b1 of n-tile j, then of n-tile j + 1
-      if (B_NK) {
-        ldsm_x4(b, bs + (n0 + r8 + ((mat >> 1) << 3)) * LDB + kk +
-                       ((mat & 1) << 3));
-      } else {
-        ldsm_x4_trans(b, bs + (kk + r8 + ((mat & 1) << 3)) * LDB + n0 +
-                             ((mat >> 1) << 3));
-      }
-#pragma unroll
-      for (int mt = 0; mt < W::MT; ++mt) {
-        mma(acc[mt][j], a[mt], b[0], b[1]);
-        mma(acc[mt][j + 1], a[mt], b[2], b[3]);
-      }
-    }
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
+    const uint64_t da = TA ? mnmajor_desc(a + kk * 16 * kRowBytes, kBox)
+                           : kmajor_desc(a + kk * 32);
+    const uint64_t db = TB ? mnmajor_desc(b + kk * 16 * kRowBytes, kBox)
+                           : kmajor_desc(b + kk * 32);
+    if constexpr (BN == 256)
+      wgmma_ss_n256<TA, TB>(acc, da, db, 1);
+    else if constexpr (BN == 128)
+      wgmma_ss_n128<TA, TB>(acc, da, db, 1);
+    else
+      wgmma_ss_n64<TA, TB>(acc, da, db, 1);
   }
 }
 
-// The cp.async ring over n_steps stages: load(stage, step) fills a stage,
-// the product consumes it.
-template <int BM, int BN, bool A_TRANS, bool B_NK, int LDA, int LDB,
-          int STAGE, int A_ELEMS, typename Load>
-__device__ __forceinline__ void pipeline(
-    float (&acc)[Warps<BM, BN>::MT][Warps<BM, BN>::NT][4], bf16* smem,
-    int n_steps, Load load) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % Warps<BM, BN>::WM, wn = warp / Warps<BM, BN>::WM;
+// gmm (KIND kGmm): a_map over lhs [rows, K] in 64 x 128-row boxes; b_map
+// over rhs [E, K, N] in 64 x 64 x 1 boxes, or (B_KMAJOR) over [E, N, K] in
+// 64 x BN x 1 boxes; out bf16 [rows, N].
+// tgmm (KIND kTgmm): a_map over lhs [rows, K], b_map over rhs [rows, N],
+// both in 64 x 64-row boxes; out f32 [E, K, N].
+template <int KIND, int BN, bool B_KMAJOR>
+__global__ void __launch_bounds__(kWgThreads, 1)
+grouped_kernel(const __grid_constant__ CUtensorMap a_map,
+               const __grid_constant__ CUtensorMap b_map,
+               const int32_t* __restrict__ sizes, void* __restrict__ out,
+               int rows, int kdim, int ndim, int n_groups, int n_items) {
+  using R = Ring<BN>;
+  constexpr int TA = KIND == kTgmm ? 1 : 0;
+  constexpr int TB = B_KMAJOR ? 0 : 1;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::BARS);
+  uint64_t* empty = full + R::STAGES;
+
+  // The block's work: output rows [m0, m0 + 128) x columns [c0, c0 + BN);
+  // gmm stores rows [lo, hi) of group `group`; tgmm contracts over rows
+  // [lo, hi) of group `group`. Every thread walks the same prefix sums.
+  int m0, c0, group = -1, lo = 0, hi = 0, n_steps;
+  if constexpr (KIND == kGmm) {
+    int item, col;
+    swizzle(blockIdx.x, n_items, ndim / BN, item, col);
+    c0 = col * BN;
+    int tile = 0, start = 0;
+    for (int g = 0; g < n_groups; ++g) {
+      const int size = max(sizes[g], 0);
+      const int s = min(start, rows), e = min(start + size, rows);
+      const int n = e > s ? (e - 1) / kRowTile - s / kRowTile + 1 : 0;
+      if (item < n) {
+        group = g;
+        tile = s / kRowTile + item;
+        lo = max(s, tile * kRowTile);
+        hi = min(e, tile * kRowTile + kRowTile);
+        break;
+      }
+      item -= n;
+      start += size;
+    }
+    if (group < 0) {
+      // Past the intersections: item-th tile from the one holding the first
+      // row past the last group; its rows past the groups are zeros.
+      const int total = min(start, rows);
+      tile = total / kRowTile + item;
+      lo = max(total, tile * kRowTile);
+      hi = min(rows, tile * kRowTile + kRowTile);
+      bf16* o = static_cast<bf16*>(out);
+      for (int i = threadIdx.x; i < (hi - lo) * (BN / 8); i += kWgThreads) {
+        const int r = lo + i / (BN / 8), c = c0 + (i % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(o + (size_t)r * ndim + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+    m0 = tile * kRowTile;
+    n_steps = (kdim + kDepth - 1) / kDepth;
+  } else {
+    int kt, nt;
+    swizzle(blockIdx.x, (kdim + kRowTile - 1) / kRowTile, ndim / BN, kt, nt);
+    m0 = kt * kRowTile;
+    c0 = nt * BN;
+    group = blockIdx.y;
+    int start = 0;
+    for (int g = 0; g < group; ++g) start += max(sizes[g], 0);
+    lo = min(start, rows);
+    hi = min(start + max(sizes[group], 0), rows);
+    n_steps = hi > lo ? (hi - lo + kDepth - 1) / kDepth : 0;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % R::STAGES;
+        mbar_wait(&empty[st], ((step / R::STAGES) & 1) ^ 1);
+        unsigned char* a = smem + st * R::STAGE;
+        unsigned char* b = a + R::A;
+        if constexpr (KIND == kGmm) {
+          const int k0 = step * kDepth;
+          mbar_expect_tx(&full[st], R::STAGE);
+          tma_load(a, &a_map, &full[st], k0, m0);
+          if constexpr (B_KMAJOR) {
+            tma_load(b, &b_map, &full[st], k0, c0, group);
+          } else {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_steps) load(s, s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage `step` landed; stage step-1's readers are done
-    {
-      const int next = step + kStages - 1;
-      if (next < n_steps) load(next % kStages, next);
-      cp_async_commit();
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(b + j * kBox, &b_map, &full[st], c0 + 64 * j, k0,
+                       group);
+          }
+        } else {
+          // The second A box lies wholly past K when K % 128 == 64: not
+          // loaded (its consumer's rows are not stored).
+          const int r0 = lo + step * kDepth;
+          const int a_boxes = m0 + 64 < kdim ? 2 : 1;
+          mbar_expect_tx(&full[st], a_boxes * kBox + BN * kRowBytes);
+          for (int h = 0; h < a_boxes; ++h)
+            tma_load(a + h * kBox, &a_map, &full[st], m0 + 64 * h, r0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(b + j * kBox, &b_map, &full[st], c0 + 64 * j, r0);
+        }
+      }
     }
-    const bf16* as = smem + (step % kStages) * STAGE;
-    stage_product<BM, BN, A_TRANS, B_NK, LDA, LDB>(acc, as, as + A_ELEMS, wm,
-                                                   wn, lane);
-  }
-  cp_async_wait<0>();
-}
+  } else {
+    // Consumer warpgroup c owns output rows m0 + 64 c .. + 63.
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128;  // 0..255 over both consumers
+    const int warp = (threadIdx.x % 128) >> 5, lane = threadIdx.x & 31;
 
-template <int BN, bool B_NK>
-struct GmmCfg {
-  static constexpr int BM = kRowTile;
-  static constexpr int LDA = kDepth + kPad;
-  static constexpr int LDB = B_NK ? kDepth + kPad : BN + kPad;
-  static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int STAGE = A_ELEMS + (B_NK ? BN : kDepth) * LDB;
-  static constexpr int SMEM = kStages * STAGE * 2;
-};
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-template <int BN, bool B_NK>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-           const int32_t* __restrict__ sizes, bf16* __restrict__ out,
-           int rows, int kdim, int ndim, int n_groups, int n_items) {
-  using C = GmmCfg<BN, B_NK>;
-  using W = Warps<C::BM, BN>;
-  constexpr int BM = C::BM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  int item, col;
-  swizzle(blockIdx.x, n_items, ndim / BN, item, col);
-  const int c0 = col * BN;
-
-  // The block's (row tile, group) intersection: rows [lo, hi) of tile
-  // `tile`, all in `group`. Every thread walks the same prefix sums.
-  int group = -1, tile = 0, lo = 0, hi = 0, start = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    const int size = max(sizes[g], 0);
-    const int s = min(start, rows), e = min(start + size, rows);
-    const int n = e > s ? (e - 1) / BM - s / BM + 1 : 0;
-    if (item < n) {
-      group = g;
-      tile = s / BM + item;
-      lo = max(s, tile * BM);
-      hi = min(e, tile * BM + BM);
-      break;
+    for (int step = 0; step < n_steps; ++step) {
+      const int st = step % R::STAGES;
+      mbar_wait(&full[st], (step / R::STAGES) & 1);
+      unsigned char* a = smem + st * R::STAGE;
+      if constexpr (KIND == kTgmm) {
+        // Rows of the stage past the group contribute nothing: zero them
+        // in every box (2 of A, BN / 64 of B, contiguous).
+        const int valid = hi - (lo + step * kDepth);
+        if (valid < kDepth) {
+          constexpr int BOXES = 2 + BN / 64;
+          const int chunks = (kDepth - valid) * (kRowBytes / 16);
+          for (int i = tid; i < BOXES * chunks; i += 256) {
+            const int bx = i / chunks, rem = i % chunks;
+            *reinterpret_cast<uint4*>(a + bx * kBox +
+                                      (valid + rem / 8) * kRowBytes +
+                                      (rem % 8) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();
+          named_sync(1, 256);
+        }
+      }
+      // Consumer c's A: rows 64 c.. of gmm's 128-row box, or tgmm's box c
+      // (its 64 output rows of K): 8 KB on either way.
+      const uint32_t a_addr = smem_u32(a) + c * kBox;
+      const uint32_t b_addr = smem_u32(a + R::A);
+      fence_regs(acc);
+      wgmma_fence();
+      stage_products<BN, TA, TB>(acc, a_addr, b_addr);
+      wgmma_commit();
+      // The previous stage's products are done: release it.
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (step > 0 && lane == 0)
+        mbar_arrive(&empty[(step - 1) % R::STAGES]);
     }
-    item -= n;
-    start += size;
-  }
-  if (group < 0) {
-    // Past the intersections: item-th tile from the one holding the first
-    // row past the last group; its rows past the groups are zeros.
-    const int total = min(start, rows);
-    tile = total / BM + item;
-    lo = max(total, tile * BM);
-    hi = min(rows, tile * BM + BM);
-    for (int i = threadIdx.x; i < (hi - lo) * (BN / 8); i += kThreads) {
-      const int r = lo + i / (BN / 8), c = c0 + (i % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(out + (size_t)r * ndim + c) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-    return;
-  }
+    wgmma_wait<0>();
+    fence_regs(acc);
 
-  const int row0 = tile * BM;
-  const bf16* w = rhs + (size_t)group * kdim * ndim;
-  auto load = [&](int stage, int step) {
-    const int k0 = step * kDepth;
-    bf16* as = smem + stage * C::STAGE;
-    bf16* bs = as + C::A_ELEMS;
-    for (int i = threadIdx.x; i < BM * (kDepth / 8); i += kThreads) {
-      const int r = i / (kDepth / 8), c = (i % (kDepth / 8)) * 8;
-      const int gr = row0 + r;
-      const bool ok = gr >= lo && gr < hi;
-      cp_async16(as + r * C::LDA + c,
-                 lhs + (size_t)(ok ? gr : lo) * kdim + k0 + c, ok);
-    }
-    if (B_NK) {
-      // Stored [E, N, K]: column n of this group is a contiguous K row.
-      for (int i = threadIdx.x; i < BN * (kDepth / 8); i += kThreads) {
-        const int n = i / (kDepth / 8), c = (i % (kDepth / 8)) * 8;
-        cp_async16(bs + n * C::LDB + c, w + (size_t)(c0 + n) * kdim + k0 + c,
-                   true);
+    const int g8 = lane >> 2, t = lane & 3;
+    const int r_lo = m0 + 64 * c + warp * 16 + g8, r_hi = r_lo + 8;
+    if constexpr (KIND == kGmm) {
+      bf16* o = static_cast<bf16*>(out);
+      const bool st_lo = r_lo >= lo && r_lo < hi;
+      const bool st_hi = r_hi >= lo && r_hi < hi;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c0 + j * 8 + 2 * t;
+        if (st_lo)
+          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r_lo * ndim + col) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        if (st_hi)
+          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r_hi * ndim + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
       }
     } else {
-      for (int i = threadIdx.x; i < kDepth * (BN / 8); i += kThreads) {
-        const int kr = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        cp_async16(bs + kr * C::LDB + c, w + (size_t)(k0 + kr) * ndim + c0 + c,
-                   true);
-      }
-    }
-  };
-
-  float acc[W::MT][W::NT][4];
+      float* o = static_cast<float*>(out) + (size_t)group * kdim * ndim;
 #pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  pipeline<BM, BN, false, B_NK, C::LDA, C::LDB, C::STAGE, C::A_ELEMS>(
-      acc, smem, kdim / kDepth, load);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % W::WM, wn = warp / W::WM;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < W::MT; ++mt) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = row0 + wm * W::TM + mt * 16 + g + 8 * hh;
-      if (r < lo || r >= hi) continue;
-#pragma unroll
-      for (int j = 0; j < W::NT; ++j) {
-        const int c = c0 + wn * W::TN + j * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ndim + c) =
-            __floats2bfloat162_rn(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c0 + j * 8 + 2 * t;
+        if (r_lo < kdim)
+          *reinterpret_cast<float2*>(o + (size_t)r_lo * ndim + col) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (r_hi < kdim)
+          *reinterpret_cast<float2*>(o + (size_t)r_hi * ndim + col) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
 }
 
-template <int BM, int BN>
-struct TgmmCfg {
-  static constexpr int LDA = BM + kPad;
-  static constexpr int LDB = BN + kPad;
-  static constexpr int A_ELEMS = kDepth * LDA;
-  static constexpr int STAGE = A_ELEMS + kDepth * LDB;
-  static constexpr int SMEM = kStages * STAGE * 2;
-};
-
-template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
-tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-            const int32_t* __restrict__ sizes, float* __restrict__ out,
-            int rows, int kdim, int ndim) {
-  using C = TgmmCfg<BM, BN>;
-  using W = Warps<BM, BN>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int e = blockIdx.y;
-  int kt, nt;
-  swizzle(blockIdx.x, kdim / BM, ndim / BN, kt, nt);
-  const int k0 = kt * BM, n0 = nt * BN;
-  int start = 0;
-  for (int g = 0; g < e; ++g) start += max(sizes[g], 0);
-  const int lo = min(start, rows), hi = min(start + max(sizes[e], 0), rows);
-  const int n_steps = hi > lo ? (hi - lo + kDepth - 1) / kDepth : 0;
-
-  auto load = [&](int stage, int step) {
-    const int r0 = lo + step * kDepth;
-    bf16* as = smem + stage * C::STAGE;
-    bf16* bs = as + C::A_ELEMS;
-    for (int i = threadIdx.x; i < kDepth * (BM / 8); i += kThreads) {
-      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-      const bool ok = r0 + r < hi;
-      cp_async16(as + r * C::LDA + c,
-                 lhs + (size_t)(ok ? r0 + r : lo) * kdim + k0 + c, ok);
-    }
-    for (int i = threadIdx.x; i < kDepth * (BN / 8); i += kThreads) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = r0 + r < hi;
-      cp_async16(bs + r * C::LDB + c,
-                 rhs + (size_t)(ok ? r0 + r : lo) * ndim + n0 + c, ok);
-    }
-  };
-
-  float acc[W::MT][W::NT][4];
-#pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  pipeline<BM, BN, true, false, C::LDA, C::LDB, C::STAGE, C::A_ELEMS>(
-      acc, smem, n_steps, load);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % W::WM, wn = warp / W::WM;
-  const int g = lane >> 2, t = lane & 3;
-  float* o = out + (size_t)e * kdim * ndim;
-#pragma unroll
-  for (int mt = 0; mt < W::MT; ++mt) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = k0 + wm * W::TM + mt * 16 + g + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < W::NT; ++j) {
-        const int c = n0 + wn * W::TN + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(o + (size_t)r * ndim + c) =
-            make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
-      }
-    }
-  }
+// A rank-2 map over a row-major [outer, inner] bf16 matrix in boxes of 64
+// columns x `box_rows` rows.
+int matrix_map(CUtensorMap* map, const void* base, int outer, int inner,
+               int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return bf16_tensor_map(map, base, 2, dims, strides, box);
 }
 
-template <int BN, bool B_NK>
+// A rank-3 map over [E, outer, inner] bf16 in boxes of 64 x `box_rows` x 1.
+int experts_map(CUtensorMap* map, const void* base, int e, int outer,
+                int inner, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(e)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(inner) * 2,
+      static_cast<cuuint64_t>(outer) * inner * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return bf16_tensor_map(map, base, 3, dims, strides, box);
+}
+
+// Raises the kernel's shared-memory limit. Called before the tensor maps
+// are encoded: this runtime call binds the device's context to the calling
+// thread, which the driver's encoder needs (autograd runs a backward on a
+// thread of its own, where no CUDA call may have run yet).
+template <int KIND, int BN, bool B_KMAJOR>
+int prepare() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      grouped_kernel<KIND, BN, B_KMAJOR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::BYTES));
+}
+
+template <int BN, bool B_KMAJOR>
 int launch_gmm(const void* lhs, const void* rhs, const void* sizes, void* out,
                int rows, int kdim, int ndim, int n_groups, cudaStream_t st) {
-  using C = GmmCfg<BN, B_NK>;
-  auto kernel = gmm_kernel<BN, B_NK>;
-  if (int rc = static_cast<int>(cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)))
-    return rc;
   const long long n_items = (rows + kRowTile - 1) / kRowTile + n_groups;
   const long long blocks = n_items * (ndim / BN);
   if (blocks > 0x7fffffffLL) return -1;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, C::SMEM, st>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
-      static_cast<const int32_t*>(sizes), static_cast<bf16*>(out), rows, kdim,
-      ndim, n_groups, static_cast<int>(n_items));
+  if (int rc = prepare<kGmm, BN, B_KMAJOR>()) return rc;
+  CUtensorMap am, bm;
+  if (int rc = matrix_map(&am, lhs, rows, kdim, kRowTile)) return rc;
+  if (int rc = B_KMAJOR ? experts_map(&bm, rhs, n_groups, ndim, kdim, BN)
+                        : experts_map(&bm, rhs, n_groups, kdim, ndim, 64))
+    return rc;
+  grouped_kernel<kGmm, BN, B_KMAJOR>
+      <<<static_cast<unsigned>(blocks), kWgThreads, Ring<BN>::BYTES, st>>>(
+          am, bm, static_cast<const int32_t*>(sizes), out, rows, kdim, ndim,
+          n_groups, static_cast<int>(n_items));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN>
+template <int BN>
 int launch_tgmm(const void* lhs, const void* rhs, const void* sizes,
                 void* out, int rows, int kdim, int ndim, int n_groups,
                 cudaStream_t st) {
-  using C = TgmmCfg<BM, BN>;
-  auto kernel = tgmm_kernel<BM, BN>;
-  if (int rc = static_cast<int>(cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)))
-    return rc;
-  const long long tiles = (long long)(kdim / BM) * (ndim / BN);
+  const long long tiles =
+      (long long)((kdim + kRowTile - 1) / kRowTile) * (ndim / BN);
   if (tiles > 0x7fffffffLL) return -1;
+  if (int rc = prepare<kTgmm, BN, false>()) return rc;
+  CUtensorMap am, bm;
+  if (int rc = matrix_map(&am, lhs, rows, kdim, kDepth)) return rc;
+  if (int rc = matrix_map(&bm, rhs, rows, ndim, kDepth)) return rc;
   const dim3 grid(static_cast<unsigned>(tiles), n_groups);
-  kernel<<<grid, kThreads, C::SMEM, st>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
-      static_cast<const int32_t*>(sizes), static_cast<float*>(out), rows, kdim,
-      ndim);
+  grouped_kernel<kTgmm, BN, false><<<grid, kWgThreads, Ring<BN>::BYTES, st>>>(
+      am, bm, static_cast<const int32_t*>(sizes), out, rows, kdim, ndim,
+      n_groups, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -464,20 +425,28 @@ extern "C" int grouped_matmul(const void* lhs, const void* rhs,
                               const void* group_sizes, void* out, int rows,
                               int k, int n, int n_groups, int rhs_transposed,
                               void* stream) {
-  if (rows < 0 || k <= 0 || k % kDepth || n <= 0 || n % 64 || n_groups <= 0)
+  if (rows < 0 || k <= 0 || k % 32 || n <= 0 || n % 64 || n_groups <= 0)
     return -1;
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = n % 128 == 0;
-  if (rhs_transposed)
-    return wide ? launch_gmm<128, true>(lhs, rhs, group_sizes, out, rows, k,
-                                        n, n_groups, st)
-                : launch_gmm<64, true>(lhs, rhs, group_sizes, out, rows, k, n,
-                                       n_groups, st);
-  return wide ? launch_gmm<128, false>(lhs, rhs, group_sizes, out, rows, k, n,
-                                       n_groups, st)
-              : launch_gmm<64, false>(lhs, rhs, group_sizes, out, rows, k, n,
-                                      n_groups, st);
+  if (rhs_transposed) {
+    if (n % 256 == 0)
+      return launch_gmm<256, true>(lhs, rhs, group_sizes, out, rows, k, n,
+                                   n_groups, st);
+    if (n % 128 == 0)
+      return launch_gmm<128, true>(lhs, rhs, group_sizes, out, rows, k, n,
+                                   n_groups, st);
+    return launch_gmm<64, true>(lhs, rhs, group_sizes, out, rows, k, n,
+                                n_groups, st);
+  }
+  if (n % 256 == 0)
+    return launch_gmm<256, false>(lhs, rhs, group_sizes, out, rows, k, n,
+                                  n_groups, st);
+  if (n % 128 == 0)
+    return launch_gmm<128, false>(lhs, rhs, group_sizes, out, rows, k, n,
+                                  n_groups, st);
+  return launch_gmm<64, false>(lhs, rhs, group_sizes, out, rows, k, n,
+                               n_groups, st);
 }
 
 // out [E, k, n] f32 = lhs_e^T [k, rows_e] times rhs_e [rows_e, n] per group.
@@ -490,13 +459,15 @@ extern "C" int grouped_weight_grad(const void* lhs, const void* rhs,
       n_groups > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k % 128 == 0)
-    return n % 128 == 0 ? launch_tgmm<128, 128>(lhs, rhs, group_sizes, out,
-                                                rows, k, n, n_groups, st)
-                        : launch_tgmm<128, 64>(lhs, rhs, group_sizes, out,
-                                               rows, k, n, n_groups, st);
-  return n % 128 == 0 ? launch_tgmm<64, 128>(lhs, rhs, group_sizes, out, rows,
-                                             k, n, n_groups, st)
-                      : launch_tgmm<64, 64>(lhs, rhs, group_sizes, out, rows,
-                                            k, n, n_groups, st);
+  if (rows == 0)  // every group empty; no tensor map over 0 rows
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, (size_t)n_groups * k * n * sizeof(float), st));
+  if (n % 256 == 0)
+    return launch_tgmm<256>(lhs, rhs, group_sizes, out, rows, k, n, n_groups,
+                            st);
+  if (n % 128 == 0)
+    return launch_tgmm<128>(lhs, rhs, group_sizes, out, rows, k, n, n_groups,
+                            st);
+  return launch_tgmm<64>(lhs, rhs, group_sizes, out, rows, k, n, n_groups,
+                         st);
 }

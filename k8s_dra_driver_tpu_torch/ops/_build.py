@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so
 a build takes seconds, not minutes. Libraries go to ``build/kernels/``
-at the root of the checkout, named by a hash of the source, so an edited
-source is rebuilt at its next use and an unchanged one is reused.
+at the root of the checkout, named by a hash of the source and of every
+header of ``csrc/`` it includes (``#include "..."``, followed through
+headers), so an edited source or shared header (``hopper.cuh``) is
+rebuilt at its next use and an unchanged one is reused.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch (or a
 negative code for arguments it refuses); :func:`check` turns a nonzero
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,10 +47,26 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file it includes by a quoted
+    ``#include``, followed through the included files, each once."""
+    files = [CSRC / f"{name}.cu"]
+    for path in files:
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep not in files:
+                files.append(dep)
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def sources() -> list[str]:

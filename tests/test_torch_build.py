@@ -1,0 +1,64 @@
+"""The port's kernel build (``ops/_build.py``) on the CPU, no ``nvcc``: a
+library's path hashes its source and every header the source includes, so
+an edited shared header rebuilds each library that includes it, and only
+those."""
+
+import shutil
+
+import pytest
+
+from k8s_dra_driver_tpu_torch.ops import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A scratch ``csrc/``: a.cu includes h.cuh, which includes g.cuh;
+    b.cu includes nothing of it."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "h.cuh"\nint a() { return h(); }\n')
+    (src / "b.cu").write_text("#include <stdint.h>\nint b() { return 1; }\n")
+    (src / "h.cuh").write_text('#pragma once\n  #  include "g.cuh"\n'
+                               "inline int h() { return g(); }\n")
+    (src / "g.cuh").write_text("#pragma once\ninline int g() { return 2; }\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return src
+
+
+def test_source_files_follow_quoted_includes(csrc):
+    assert [p.name for p in _build.source_files("a")] == [
+        "a.cu", "h.cuh", "g.cuh"]
+    assert [p.name for p in _build.source_files("b")] == ["b.cu"]
+
+
+def test_library_path_is_stable_when_nothing_changes(csrc):
+    first = {n: _build.library_path(n) for n in ("a", "b")}
+    assert {n: _build.library_path(n) for n in ("a", "b")} == first
+    assert first["a"].parent == csrc.parent / "build"
+    assert first["a"].name.startswith("a-") and first["a"].suffix == ".so"
+
+
+@pytest.mark.parametrize("header", ["h.cuh", "g.cuh"])
+def test_editing_a_header_changes_only_its_includers(csrc, header):
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    path = csrc / header
+    path.write_text(path.read_text() + "// edited\n")
+    after = {n: _build.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"]
+    assert after["b"] == before["b"]
+
+
+def test_editing_hopper_header_changes_both_dependent_libraries(
+        tmp_path, monkeypatch):
+    """On a copy of the real ``csrc/``: ``hopper.cuh`` feeds the flash
+    attention and grouped matmul libraries, and no other."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    monkeypatch.setattr(_build, "CSRC", src)
+    names = _build.sources()
+    before = {n: _build.library_path(n) for n in names}
+    (src / "hopper.cuh").write_text(
+        (src / "hopper.cuh").read_text() + "// edited\n")
+    changed = {n for n in names if _build.library_path(n) != before[n]}
+    assert changed == {"flash_attention", "grouped_matmul"}

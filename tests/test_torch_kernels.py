@@ -408,10 +408,26 @@ GROUPED_CASES = [
     (1100, 4096, 14336, [200, 0, 311, 150, 139, 0, 100, 50]),  # Mixtral
 ]
 
+# Where groups meet the kernels' 64-deep stages (tgmm contracts over rows
+# in stages of 64 from each group's first row) and TMA's boxes.
+GROUPED_EDGE_CASES = [
+    (256, 128, 128, [37, 91, 0, 64]),   # a boundary inside one stage
+    (100, 64, 64, [1, 50, 30]),         # one-row group, odd start, 19 past
+                                        # the last group in its last stage
+    (200, 192, 192, [7, 120, 50]),      # N 192 (64-wide tiles); K 192
+                                        # (tgmm's last K tile half past K)
+]
+# gmm takes K in steps of 32: a stage half filled by TMA's zero fill.
+GMM_K_TAIL_CASES = [
+    (64, 32, 64, [20, 0, 30]),          # K 32
+    (150, 96, 128, [75, 1, 60]),        # K 96
+]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("transposed", [False, True])
-@pytest.mark.parametrize("rows,k,n,sizes", GROUPED_CASES)
+@pytest.mark.parametrize(
+    "rows,k,n,sizes", GROUPED_CASES + GROUPED_EDGE_CASES + GMM_K_TAIL_CASES)
 def test_grouped_matmul_matches_plain(dev, rows, k, n, sizes, transposed):
     lhs, rhs, gs = _grouped_problem(dev, rows, k, n, sizes)
     if transposed:
@@ -434,7 +450,7 @@ def test_grouped_matmul_matches_plain(dev, rows, k, n, sizes, transposed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,k,n,sizes", GROUPED_CASES + [
     (2200, 14336, 4096, [1100, 0, 1000]),           # dW_down's widths
-])
+] + GROUPED_EDGE_CASES)
 def test_grouped_weight_grad_matches_plain(dev, rows, k, n, sizes):
     g = torch.Generator(device=dev)
     g.manual_seed(1)

@@ -218,10 +218,30 @@ def test_fused_moe_mlp_grads_match_jax_custom_vjp(case):
                                    rtol=2e-4, err_msg=name)
 
 
+# The card tests' cases where groups meet the kernels' 64-deep stages and
+# TMA's boxes (``tests/test_torch_kernels.py``): rows, K, N, group sizes.
+GROUPED_EDGE_CASES = {
+    "boundary_in_stage": (256, 128, 128, [37, 91, 0, 64]),
+    "one_row_odd_start": (100, 64, 64, [1, 50, 30]),
+    "n192_k192": (200, 192, 192, [7, 120, 50]),
+}
+GMM_K_TAIL_CASES = {
+    "k32": (64, 32, 64, [20, 0, 30]),
+    "k96": (150, 96, 128, [75, 1, 60]),
+}
+
+
 def _ragged_problem(case, seed=13):
-    """(lhs [24, 16], rhs [3, 16, 8] as the port takes it, the same rhs
-    as JAX takes it, group sizes)."""
+    """(lhs [rows, K], rhs [E, K, N] as the port takes it, the same rhs
+    as JAX takes it, group sizes): [24, 16] x [3, 16, 8] for the named
+    small cases, the card's shapes for the edge cases."""
     rng = np.random.RandomState(seed)
+    edge = {**GROUPED_EDGE_CASES, **GMM_K_TAIL_CASES}.get(case)
+    if edge is not None:
+        rows, k, n, sizes = edge
+        lhs = rng.randn(rows, k).astype(np.float32)
+        rhs = rng.randn(len(sizes), k, n).astype(np.float32)
+        return lhs, rhs, torch.from_numpy(rhs), np.array(sizes, np.int32)
     lhs = rng.randn(24, 16).astype(np.float32)
     rhs = rng.randn(3, 16, 8).astype(np.float32)
     sizes = {"ragged": [10, 0, 9],          # an empty group, 5 rows past
@@ -236,7 +256,8 @@ def _ragged_problem(case, seed=13):
     return lhs, rhs, port_rhs, np.array(sizes, np.int32)
 
 
-@pytest.mark.parametrize("case", ["ragged", "transposed", "aligned", "tail"])
+@pytest.mark.parametrize("case", ["ragged", "transposed", "aligned", "tail",
+                                  *GROUPED_EDGE_CASES, *GMM_K_TAIL_CASES])
 def test_grouped_matmul_cases_match_ragged_dot(case):
     lhs, rhs, port_rhs, sizes = _ragged_problem(case)
     ref = np.asarray(jax.lax.ragged_dot(jnp.asarray(lhs), jnp.asarray(rhs),
@@ -295,6 +316,31 @@ def test_grouped_weight_grad_matches_jax_fallback():
     assert (out[1] == 0).all()
     np.testing.assert_allclose(out[2].numpy(), lhs[10:19].T @ rhs[10:19],
                                **TOL)
+
+
+@pytest.mark.parametrize("case", list(GROUPED_EDGE_CASES))
+def test_grouped_weight_grad_edge_cases_match_jax_fallback(case):
+    """The card's tgmm edge cases against the reference's fallback: rows
+    past the last group (row group -1 there) add nothing, an empty group
+    is 0."""
+    rows, kk, nn, sizes = GROUPED_EDGE_CASES[case]
+    rng = np.random.RandomState(16)
+    lhs = rng.randn(rows, kk).astype(np.float32)
+    rhs = rng.randn(rows, nn).astype(np.float32)
+    sizes = np.array(sizes, np.int32)
+    bounds = np.cumsum(sizes)
+    row_group = np.searchsorted(bounds, np.arange(rows), side="right")
+    row_group = np.where(row_group < len(sizes), row_group, -1)
+    ref = np.asarray(jmd.grouped_weight_grad(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(sizes),
+        jnp.asarray(row_group.astype(np.int32)), len(sizes),
+        use_pallas=False))
+    tl, tr, ts = _t(lhs, rhs, sizes)
+    out = md.grouped_weight_grad(tl, tr, ts, None, len(sizes))
+    assert out.dtype == torch.float32 and out.shape == (len(sizes), kk, nn)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    for g, size in enumerate(sizes):
+        assert bool((out[g] == 0).all()) == (size == 0), g
 
 
 def _quantized(w_gu, w_down):
