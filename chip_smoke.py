@@ -19,12 +19,18 @@ fixed seed, and checks every hand-written kernel of those paths:
    at its path's shapes (paged attention and RMSNorm at the engine's,
    flash attention forward and backward at the train step's), and times
    kernel, plain version and (where one PyTorch call computes the same
-   function) that call;
+   function) that call; the split-KV decode kernel K2 also at one sequence
+   of the model's longest window (valid_len 8191, its most splits), a row
+   of its own (``paged_decode_long``) in the kernels line;
 3. runs one 8B forward -- a prefill chunk, then decode steps -- through the
    kernels and through the plain versions, and compares the logits;
 4. serves 8 requests (prompts of 96 to 700 tokens, four sharing a
    256-token prefix, 32 new tokens each) through ``DecodeEngine`` with the
-   prefix cache and the overlapped tick on (the serving path);
+   prefix cache and the overlapped tick on (the serving path), then
+   profiles one decode step of the 8B model (8 sequences at 384 cached
+   positions: device time by kernel group, K2's share, device over host
+   time) and one packed 4 x 128 prefill launch (device time, K3's share),
+   both outside the counted run;
 5. frees the 8B weights and compares one ``loss_fn`` value and gradient at
    the 8b-L8 widths (2 layers, batch 2 x 2048) through the kernels with
    the plain path on the same weights and tokens;
@@ -57,10 +63,10 @@ fixed seed, and checks every hand-written kernel of those paths:
     step;
 13. frees that state, builds all 32 layers of 8x7b in int8 (``quant.
     quantize_params``, one layer drawn and quantized at a time), and holds
-    the int8 branches of K2 and K3 (at phase 2's shapes, pools quantized
-    from random bf16 K/V by the cache's own recipe) and of K7 and K8 (on
-    layer 0's int8 experts, at phase 7's shapes) against their plain
-    versions, and times them;
+    the int8 branches of K2 and K3 (at phase 2's shapes, the long decode
+    shape included, pools quantized from random bf16 K/V by the cache's
+    own recipe) and of K7 and K8 (on layer 0's int8 experts, at phase 7's
+    shapes) against their plain versions, and times them;
 14. runs one full-depth int8+kvq forward -- a prefill chunk, then 4 decode
     steps -- through the kernels and through the plain versions (routing
     replayed as in phase 8), and compares the logits;
@@ -159,13 +165,19 @@ def card_line() -> str:
 _FLUSH = []
 
 
+# Device cycles (~1 ms) the card spins before each timed call.
+HOLD_CYCLES = 2_000_000
+
+
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     """Median device milliseconds of one ``fn()`` call (CUDA events).
 
     Before each call a 256 MB write evicts the 50 MB L2, as the engine's
     layer loop does (each layer reads other weights and other pools), and
-    keeps the card busy while the host enqueues the timed launch, so the
-    host's launch latency stays outside the timed span."""
+    the card then spins for HOLD_CYCLES while the host enqueues the timed
+    launch, so the host's launch latency stays outside the timed span
+    even when a busy host takes longer than the write to enqueue a
+    kernel of a few microseconds."""
     import torch
 
     if not _FLUSH:
@@ -178,6 +190,7 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         _FLUSH[0].zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -297,35 +310,39 @@ def check_paged(torch, cfg, dev, quantized: bool) -> dict:
         (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
         return (k8[0], v8[0], tables), dict(k_scale=ks[0], v_scale=vs[0])
 
+    def decode_case(name, vlen_list):
+        (k, v, tables), sc = pools(vlen_list)
+        q = torch.randn((len(vlen_list), hq, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        vlen = torch.tensor(vlen_list, dtype=torch.int32, device=dev)
+        pos = (vlen.long() - 1)[:, None]
+        out = att.paged_decode_attention(q, k, v, tables, vlen, BLOCK_SIZE,
+                                         scale, **sc)
+        ref = att.paged_attention_reference(q[:, :, None], k, v, tables, pos,
+                                            BLOCK_SIZE, scale, **sc)[:, :, 0]
+        torch.cuda.synchronize()
+        err = attn_errors(torch, out, ref, name)
+        s = sum(vlen_list)
+        results[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: att.paged_decode_attention(
+                q, k, v, tables, vlen, BLOCK_SIZE, scale, **sc)),
+            plain_ms=time_ms(lambda: att.paged_attention_reference(
+                q[:, :, None], k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
+            library_ms=None,
+            shape=f"q[{len(vlen_list)},{hq},{d}] valid_len sum {s}",
+            **bound_fields(name, s * hkv * kv_bytes + 2 * q.numel() * 2
+                           + sum(-(-n // BLOCK_SIZE) for n in vlen_list) * 4,
+                           s * hq * d * 4, BF16_FLOPS),
+        )
+
     # K2: one decode step of the engine run (batch 8, the prompts plus
-    # their generated tokens).
-    vlen_list = [96 + 32, 180 + 32, 300 + 32, 700 + 32, 320 + 32, 406 + 32,
-                 700 + 1, 256 + 16]
-    (k, v, tables), sc = pools(vlen_list)
-    q = torch.randn((BATCH_SLOTS, hq, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    vlen = torch.tensor(vlen_list, dtype=torch.int32, device=dev)
-    pos = (vlen.long() - 1)[:, None]
-    out = att.paged_decode_attention(q, k, v, tables, vlen, BLOCK_SIZE, scale,
-                                     **sc)
-    ref = att.paged_attention_reference(q[:, :, None], k, v, tables, pos,
-                                        BLOCK_SIZE, scale, **sc)[:, :, 0]
-    torch.cuda.synchronize()
-    name = "paged_decode" + suffix
-    err = attn_errors(torch, out, ref, name)
-    s = sum(vlen_list)
-    results[name] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: att.paged_decode_attention(
-            q, k, v, tables, vlen, BLOCK_SIZE, scale, **sc)),
-        plain_ms=time_ms(lambda: att.paged_attention_reference(
-            q[:, :, None], k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
-        library_ms=None,
-        shape=f"q[{BATCH_SLOTS},{hq},{d}] valid_len sum {s}",
-        **bound_fields(name, s * hkv * kv_bytes + 2 * q.numel() * 2
-                       + sum(-(-n // BLOCK_SIZE) for n in vlen_list) * 4,
-                       s * hq * d * 4, BF16_FLOPS),
-    )
+    # their generated tokens), then one sequence at the model's longest
+    # window (max_seq_len - 1 cached positions: the most kv splits).
+    decode_case("paged_decode" + suffix,
+                [96 + 32, 180 + 32, 300 + 32, 700 + 32, 320 + 32, 406 + 32,
+                 700 + 1, 256 + 16])
+    decode_case("paged_decode" + suffix + "_long", [cfg.max_seq_len - 1])
 
     # K3: one packed prefill launch (4 lanes x 128 tokens), windows from
     # position 0, after a 256-token prefix hit, mid-prompt, and the
@@ -880,11 +897,22 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     ("int8_matmul", ("int8_matmul_kernel", "int8_matmul_reduce")),
     # The int8 branches first: the bf16 groups' substrings match them too.
-    ("paged_attention_int8", ("paged_attention_kernel<64, 8, true, true>",
-                              "paged_attention_kernel<128, 8, true, true>",
-                              "paged_attention_kernel<64, 64, false, true>",
-                              "paged_attention_kernel<128, 64, false, "
-                              "true>")),
+    # K2 and K3 by kernel; each group also takes the names of the earlier
+    # single-body design (paged_attention_kernel<D, ROWS, DECODE, QUANT>),
+    # so a tree from before the redesign is profiled the same way.
+    ("paged_decode_int8", tuple(f"paged_decode_kernel<{d}, {g}, true>"
+                                for d in (64, 128) for g in (1, 2, 4, 8))
+     + ("paged_attention_kernel<64, 8, true, true>",
+        "paged_attention_kernel<128, 8, true, true>")),
+    ("paged_prefill_int8", ("paged_prefill_kernel<64, true>",
+                            "paged_prefill_kernel<128, true>",
+                            "paged_attention_kernel<64, 64, false, true>",
+                            "paged_attention_kernel<128, 64, false, true>")),
+    ("paged_decode_merge", ("paged_decode_merge_kernel",)),
+    ("paged_decode", ("paged_decode_kernel",
+                      "paged_attention_kernel<64, 8, true",
+                      "paged_attention_kernel<128, 8, true")),
+    ("paged_prefill", ("paged_prefill_kernel", "paged_attention_kernel")),
     ("moe_gateup_int8", ("moe_grouped_kernel<16, true, true>",
                          "moe_grouped_kernel<64, true, true>",
                          "moe_grouped_kernel<128, true, true>")),
@@ -903,7 +931,6 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     # gmm, 1 is tgmm.
     ("tgmm", ("grouped_kernel<1,",)),
     ("gmm", ("grouped_kernel<0,",)),
-    ("paged_attention", ("paged_attention_kernel",)),
     ("rmsnorm", ("_rmsnorm_row",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
@@ -1001,6 +1028,36 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
     result["int8_to_float_copies"] = int8_casts(torch, step)
     log("decode step profile:", json.dumps(result))
+    return result
+
+
+def profile_prefill(torch, params, cfg, dev, quantize_cache=False) -> dict:
+    """One packed prefill launch at the engine's shape (4 lanes x 128
+    tokens, windows from phase 2's K3 starts 0/256/384/572), kernels on:
+    per launch, the device time by kernel group over 3 launches under
+    ``torch.profiler``."""
+    from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
+    from k8s_dra_driver_tpu_torch.models.paged import (
+        PagedKVCache,
+        PagedQuantKVCache,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    cache_cls = PagedQuantKVCache if quantize_cache else PagedKVCache
+    cache = cache_cls.init(cfg, PREFILL_BATCH, 1024, block_size=BLOCK_SIZE,
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_CHUNK),
+                         generator=gen, device=dev, dtype=torch.int32)
+    pos = (torch.tensor([0, 256, 384, 572], device=dev)[:, None]
+           + torch.arange(PREFILL_CHUNK, device=dev)[None, :])
+
+    def launch():
+        _forward_with_cache(params, toks, cache, cfg, pos)
+
+    launch()
+    result = device_profile(torch, launch, 3)
+    log("prefill launch profile:", json.dumps(result))
     return result
 
 
@@ -1709,7 +1766,20 @@ def main() -> int:
         return out
 
     engine = drive("serving", serve, torch, params, cfg, dev)
-    phase_done("phase 4: engine served 8 requests through every kernel")
+    # The dense decode step's profile (K2's share: its split kernel and the
+    # merge) and one packed prefill launch's, outside the counted run.
+    profile = profile_decode(torch, params, cfg, dev)
+    engine["decode_profile"] = profile
+    engine["prefill_profile"] = profile_prefill(torch, params, cfg, dev)
+    k2_ms = (profile["group_ms"]["paged_decode"]
+             + profile["group_ms"]["paged_decode_merge"])
+    log(f"dense decode step: {profile['device_ms']:.3f} ms of device time, "
+        f"{profile['step_ms']:.3f} ms on the host clock; K2 {k2_ms:.3f} ms "
+        f"({k2_ms / profile['device_ms']:.1%}); a 4 x 128 prefill launch "
+        f"{engine['prefill_profile']['device_ms']:.3f} ms of device time, "
+        f"K3 {engine['prefill_profile']['group_ms']['paged_prefill']:.3f} ms")
+    phase_done("phase 4: engine served 8 requests through every kernel; "
+               "decode step and prefill launch profiled")
 
     del params
     torch.cuda.empty_cache()
@@ -1957,6 +2027,13 @@ def main() -> int:
                         "k8s_dra_driver_tpu/models/quant.py:92 (_mixed_dot, "
                         "XLA; no Pallas kernel)"),
     }
+    # K2 at the longest window: the same kernels and launch counts as its
+    # row at the engine's shape.
+    for name in ("paged_decode", "paged_decode_int8"):
+        meta[name + "_long"] = meta[name]
+        launches[name + "_long"] = launches[name]
+        by_path = {p: {**c, name + "_long": c[name]}
+                   for p, c in by_path.items()}
     rows = []
     for name, (route, source, replaces) in meta.items():
         k = dict(kernels[name])

@@ -49,7 +49,8 @@
 //                   shared memory), online softmax in base 2 (LOG2E folded
 //                   into the scale), O += P V by wgmma m64n64k16 per
 //                   64-column half of D with P from registers; out = O / l,
-//                   lse = (m + log2 l) / LOG2E.
+//                   lse = (m + log2 l) / LOG2E. That tile step is
+//                   attention_tile.cuh's, shared with paged_prefill.
 //   flash_bwd_dkdv: one block per (kv tile of 128, kv head, batch); K and V
 //                   stay in shared memory; the loop over the G query heads
 //                   of the group and the q tiles of 64 from the diagonal on
@@ -69,29 +70,13 @@
 // diagonal and the ragged last tile pay for the mask. Causal grids start with
 // the tiles that have the most work.
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
+#include "attention_tile.cuh"  // qk_tile, softmax_tile, pv_tile; through
+                               // hopper.cuh mbarriers, TMA, wgmma,
+                               // setmaxnreg, tensor maps
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // ---------------------------------------------------------------------------
 // flash_fwd and flash_bwd_dkdv: wgmma and TMA (pieces from hopper.cuh).
@@ -121,7 +106,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  bf16* __restrict__ out, float* __restrict__ lse, int hq,
                  int hkv, int s_len, float scale_log2) {
   using L = FwdSmem<D>;
-  constexpr int HALVES = D / 64, KSTEPS = D / 16;
+  constexpr int HALVES = D / 64;
   constexpr int HALF = kTile * kRowBytes;  // one 64-column block of a tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -198,24 +183,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
       // S = Q K^T: 64 q rows x 128 kv columns, f32.
       float s[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t off = (kk / 4) * HALF + (kk % 4) * 32;
-        wgmma_ss_n128(s, kmajor_desc(q_addr + off),
-                      kmajor_desc(k_addr + off), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
+      qk_tile<kTile, D>(s, q_addr, HALF, k_addr, HALF);
 
       const int k0 = j * kTile;
       const bool masked =
           (CAUSAL && k0 + kTile - 1 > qc) || k0 + kTile > s_len;
-      float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
@@ -225,60 +197,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
           float x = s[nt * 4 + e] * scale_log2;
           if (masked && (col >= s_len || (CAUSAL && col > row))) x = kNegInf;
           s[nt * 4 + e] = x;
-          if (e < 2)
-            mx_lo = fmaxf(mx_lo, x);
-          else
-            mx_hi = fmaxf(mx_hi, x);
         }
-      mx_lo = quad_max(mx_lo);
-      mx_hi = quad_max(mx_hi);
-      const float c_lo = exp2f(m_lo - mx_lo), c_hi = exp2f(m_hi - mx_hi);
-      m_lo = mx_lo;
-      m_hi = mx_hi;
 
       // p in place as the register A operand of O += P V (k = kv position).
       uint32_t pa[8][4];
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const float p0 = exp2f(s[nt * 4] - mx_lo);
-        const float p1 = exp2f(s[nt * 4 + 1] - mx_lo);
-        const float p2 = exp2f(s[nt * 4 + 2] - mx_hi);
-        const float p3 = exp2f(s[nt * 4 + 3] - mx_hi);
-        sum_lo += p0 + p1;
-        sum_hi += p2 + p3;
-        pa[nt / 2][(nt % 2) * 2] = pack(p0, p1);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack(p2, p3);
-      }
-      l_lo = l_lo * c_lo + sum_lo;  // this thread's columns; summed at the end
-      l_hi = l_hi * c_hi + sum_hi;
-#pragma unroll
-      for (int hh = 0; hh < HALVES; ++hh) {
-#pragma unroll
-        for (int dn = 0; dn < 8; ++dn) {
-          o[hh][dn * 4] *= c_lo;
-          o[hh][dn * 4 + 1] *= c_lo;
-          o[hh][dn * 4 + 2] *= c_hi;
-          o[hh][dn * 4 + 3] *= c_hi;
-        }
-        fence_regs(o[hh]);
-      }
-      fence_regs(pa);
-      wgmma_fence();
-      // O[:, half] += P V[:, half]; V read as stored ([kv][D], transposed
-      // by the descriptor).
-#pragma unroll
-      for (int hh = 0; hh < HALVES; ++hh)
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_rs_n64_tb(o[hh], pa[kk],
-                          mnmajor_desc(v_addr + hh * HALF + kk * 16 *
-                                                              kRowBytes,
-                                       HALF));
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int hh = 0; hh < HALVES; ++hh) fence_regs(o[hh]);
+      softmax_tile<kTile, HALVES>(s, m_lo, m_hi, l_lo, l_hi, o, pa,
+                                  PackBf16());
+      pv_tile<kTile, HALVES, false>(o, pa, v_addr, HALF);
       if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
     }
 

@@ -1,17 +1,22 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and
-// wgmma: mbarriers, TMA loads through tensor maps, setmaxnreg, wgmma
-// shared-memory descriptors of 128-byte swizzled tiles and the wgmma
-// instructions themselves, and the host-side tensor-map encoder.
+// wgmma: mbarriers, TMA loads through tensor maps and bulk copies,
+// setmaxnreg, wgmma shared-memory descriptors of 128-byte swizzled tiles
+// and the wgmma instructions themselves, the quad reductions and 16-bit
+// packing of an online softmax over wgmma accumulators, and the host-side
+// tensor-map encoder.
 //
-// Included by flash_attention.cu (K4, K5) and grouped_matmul.cu (K10a,
-// K10b). ops/_build.py hashes a source together with every header it
-// includes, so an edit here rebuilds every library that includes it.
+// Included by flash_attention.cu (K4, K5), grouped_matmul.cu (K10a, K10b)
+// and paged_attention.cu (K2, K3), the attention ones through
+// attention_tile.cuh. ops/_build.py hashes a source together with
+// every header it includes, so an edit here rebuilds every library that
+// includes it.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from
                    // cudaGetDriverEntryPoint, so nothing links libcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +30,29 @@ constexpr int kMinSmem = 116 * 1024;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two floats rounded to one register of bf16 (or f16) pairs, lo first: the
+// register A operand of a wgmma.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Max and sum over the 4 lanes (a quad) that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -85,6 +113,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One bulk copy (no tensor map) of `bytes` contiguous bytes, a multiple of
+// 16 from and to 16-byte aligned addresses, completing `bar`'s
+// transactions.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -311,6 +351,31 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same with f16 operands (A from registers, B MN-major in shared
+// memory): 11 significant bits where bf16 keeps 8.
+__device__ __forceinline__ void wgmma_rs_n64_tb_f16(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // Host side: tensor maps.
 // ---------------------------------------------------------------------------
@@ -336,23 +401,42 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A rank-`rank` map over a bf16 tensor (dims and boxes innermost first,
-// the innermost contiguous; `strides` the rank - 1 outer strides in
-// bytes) in 128-byte swizzled boxes; elements past the tensor's edge read
-// as zeros. Returns 0, or -3 (no encoder) / -4 (refused).
-int bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
-                    const cuuint64_t* dims, const cuuint64_t* strides,
-                    const cuuint32_t* box) {
+// A rank-`rank` map over a tensor of `type` (dims and boxes innermost
+// first, the innermost contiguous; `strides` the rank - 1 outer strides in
+// bytes); elements past the tensor's edge read as zeros. Returns 0, or -3
+// (no encoder) / -4 (refused).
+int tensor_map_of(CUtensorMap* map, CUtensorMapDataType type,
+                  CUtensorMapSwizzle swizzle, const void* base, int rank,
+                  const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return -3;
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult rc =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-         const_cast<void*>(base), dims, strides, box, elem,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : -4;
+}
+
+// bf16 in 128-byte swizzled boxes (64 columns), as wgmma reads them.
+int bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
+  return tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                       box);
+}
+
+// int8 (as bytes) in plain row-major boxes, converted by threads after
+// they land.
+int int8_tensor_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
+  return tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                       CU_TENSOR_MAP_SWIZZLE_NONE, base, rank, dims, strides,
+                       box);
 }
 
 }  // namespace

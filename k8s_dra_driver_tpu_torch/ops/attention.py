@@ -8,7 +8,11 @@ over ``csrc/paged_attention.cu``:
   ``positions`` layout): gather each sequence's window through its block
   table, then grouped-GQA masked attention.
 - :func:`paged_decode_attention` wraps ``paged_decode``, which replaces
-  ``_paged_decode_kernel``.
+  ``_paged_decode_kernel``. It splits the kv axis: :func:`decode_splits`
+  picks the split count S on the host from host-known integers only, and
+  :func:`paged_decode_split_reference` is the plain version of the
+  split-and-merge (:func:`paged_decode_partials`, then
+  :func:`merge_partials` in the kernel's order).
 - :func:`paged_prefill_attention` wraps ``paged_prefill``, which replaces
   ``_paged_prefill_kernel``.
 - int8 pools (the ``quantized`` branch of both TPU kernels) come with f32
@@ -57,13 +61,47 @@ NEG_INF = -1e30
 _SOURCE = "paged_attention"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_DECODE_ARGTYPES = [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float, _PTR]
+# Decode takes the split partials' scratch after out, and the split count
+# after block_size.
+_DECODE_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [ctypes.c_float, _PTR]
 _PREFILL_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [ctypes.c_float, _PTR]
 # The int8 entry points take k_scale and v_scale after the pools.
-_DECODE_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 7 + [ctypes.c_float, _PTR]
+_DECODE_INT8_ARGTYPES = [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float, _PTR]
 _PREFILL_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [ctypes.c_float, _PTR]
 _MAX_G = {"paged_decode": 8, "paged_prefill": 64, "paged_decode_int8": 8,
           "paged_prefill_int8": 64}
+LOG2E = 1.4426950408889634
+
+# The decode split plan (``csrc/paged_attention.cu``'s K2). A split covers
+# at least DECODE_SPLIT_MIN positions of the addressable span (one kv tile);
+# the host aims at DECODE_BLOCKS_PER_SM blocks an SM. On the device each
+# split of sequence b covers ceil(valid_len[b] / S) positions rounded up to
+# DECODE_SPLIT_ALIGN (the kernel's kSplitAlign); at most DECODE_MAX_SPLITS
+# (kMaxSplits) splits, the merge kernel's shared arrays.
+DECODE_SPLIT_MIN = 64
+DECODE_BLOCKS_PER_SM = 2
+DECODE_SPLIT_ALIGN = 32
+DECODE_MAX_SPLITS = 512
+
+
+def decode_splits(b: int, hkv: int, nbps: int, block_size: int,
+                  sm_count: int) -> int:
+    """The number of kv splits S of one decode launch: enough (sequence,
+    kv head, split) blocks for DECODE_BLOCKS_PER_SM on each SM, no more
+    splits than the span holds DECODE_SPLIT_MIN positions. Host integers
+    only -- never ``valid_len``, which lives on the device: a plan read from
+    it would wait for the device on every decode step."""
+    most = max(1, min(DECODE_MAX_SPLITS,
+                      -(-nbps * block_size // DECODE_SPLIT_MIN)))
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // max(1, b * hkv))
+    return max(1, min(want, most))
+
+
+def decode_split_len(valid_len: torch.Tensor, splits: int) -> torch.Tensor:
+    """Positions each split of each sequence covers (the kernel's formula):
+    ceil(valid_len / S) rounded up to DECODE_SPLIT_ALIGN."""
+    per = -(-valid_len.long().clamp(min=0) // splits)
+    return -(-per // DECODE_SPLIT_ALIGN) * DECODE_SPLIT_ALIGN
 
 
 def gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -119,6 +157,90 @@ def paged_attention_reference(
     return out.reshape(b, hq, t, d)
 
 
+def paged_decode_partials(
+    q: torch.Tensor,             # [B, Hq, D]
+    k_pool: torch.Tensor,        # [H_kv, P, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NBPS] int
+    valid_len: torch.Tensor,     # [B] int
+    block_size: int,
+    splits: int,
+    scale: float | None = None,
+    k_scale: torch.Tensor | None = None,   # [H_kv, P] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
+):
+    """The kernel's split partials, f32: for each (sequence, query head,
+    split) the largest score m (base 2, ``-inf`` for an empty split), the
+    sum l of ``2^(s - m)`` and ``acc = sum 2^(s - m) v`` (times v's scale
+    with int8 pools), over the positions of the split that lie below
+    ``valid_len``. Shapes [B, Hq, S], [B, Hq, S], [B, Hq, S, D]."""
+    b, hq, d = q.shape
+    hkv = k_pool.shape[0]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    idx = gather_indices(block_tables, block_size)
+    span = idx.shape[1]
+    k = k_pool[:, idx, :].transpose(0, 1).float()    # [B, H_kv, S, D]
+    v = v_pool[:, idx, :].transpose(0, 1).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", q.reshape(b, hkv, g, d).float(),
+                     k) * (scale * LOG2E)
+    if k_scale is not None:
+        s = s * k_scale[:, idx].transpose(0, 1)[:, :, None, :]
+    vl = valid_len.long().clamp(0, span)
+    length = decode_split_len(vl, splits).clamp(min=1)
+    kpos = torch.arange(span, device=q.device)
+    split_of = kpos[None, :] // length[:, None]                  # [B, span]
+    visible = kpos[None, :] < vl[:, None]
+    vs = (v_scale[:, idx].transpose(0, 1)[:, :, None, :]
+          if v_scale is not None else None)
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        mask = (visible & (split_of == i))[:, None, None, :]     # [B,1,1,span]
+        si = torch.where(mask, s, torch.full_like(s, -torch.inf))
+        m = si.amax(dim=-1)                                     # [B,H_kv,G]
+        p = torch.where(mask, torch.exp2(si - m.clamp(min=NEG_INF)[..., None]),
+                        torch.zeros_like(s))
+        ls.append(p.sum(dim=-1))
+        if vs is not None:
+            p = p * vs
+        accs.append(torch.einsum("bhgs,bhsd->bhgd", p, v))
+        ms.append(m)
+    return (torch.stack(ms, -1).reshape(b, hq, splits),
+            torch.stack(ls, -1).reshape(b, hq, splits),
+            torch.stack(accs, -2).reshape(b, hq, splits, d))
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The merge kernel's arithmetic: ``sum_i acc_i 2^(m_i - M) / sum_i l_i
+    2^(m_i - M)``, M the largest m, summed in split order; 0 where every
+    split is empty. [B, Hq, S] x2, [B, Hq, S, D] -> [B, Hq, D] f32."""
+    top = m.amax(dim=-1, keepdim=True)
+    weight = torch.where(top > -torch.inf, torch.exp2(m - top.clamp(
+        min=NEG_INF)), torch.zeros_like(m))
+    lsum = torch.zeros_like(m[..., 0])
+    asum = torch.zeros_like(acc[..., 0, :])
+    for i in range(m.shape[-1]):
+        lsum = lsum + l[..., i] * weight[..., i]
+        asum = asum + acc[..., i, :] * weight[..., i, None]
+    return torch.where(lsum[..., None] > 0,
+                       asum / lsum.clamp(min=1e-30)[..., None],
+                       torch.zeros_like(asum))
+
+
+def paged_decode_split_reference(q, k_pool, v_pool, block_tables, valid_len,
+                                 block_size: int, splits: int,
+                                 scale: float | None = None, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
+    """The plain version of the split decode kernel and its merge: the
+    partials of every split merged in split order, in q's dtype
+    [B, Hq, D]."""
+    m, l, acc = paged_decode_partials(q, k_pool, v_pool, block_tables,
+                                      valid_len, block_size, splits, scale,
+                                      k_scale, v_scale)
+    return merge_partials(m, l, acc).to(q.dtype)
+
+
 _LIB = None
 
 
@@ -141,6 +263,19 @@ def _library():
 
 def _is_cpu(*tensors) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's SM count, read once per device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
 
 
 def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,
@@ -204,17 +339,31 @@ def _launch(kernel, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,
                      k_scale, v_scale)
     b, hq = q.shape[:2]
+    hkv, d = k_pool.shape[0], q.shape[-1]
+    nbps = block_tables.shape[1]
     pools = (k_pool, v_pool) + (() if k_scale is None else (k_scale, v_scale))
-    t = () if kernel.startswith("paged_decode") else (q.shape[2],)
     out = torch.empty_like(q)
     if not b:
         return out, False
+    if kernel.startswith("paged_decode"):
+        # Split partials, f32 scratch written and merged by the kernels:
+        # acc [B, Hq, S, D], then (m, l) [B, Hq, S, 2], in one allocation.
+        splits = decode_splits(b, hkv, nbps, block_size, sm_count(q.device))
+        extra = (None, None)
+        if splits > 1:
+            scratch = torch.empty(b * hq * splits * (d + 2),
+                                  dtype=torch.float32, device=q.device)
+            extra = (scratch.data_ptr(),
+                     scratch.data_ptr() + b * hq * splits * d * 4)
+        t, tail = (), (splits,)
+    else:
+        extra, t, tail = (), (q.shape[2],), ()
     with torch.cuda.device(q.device):
         rc = getattr(_library(), kernel)(
             q.data_ptr(), *(x.data_ptr() for x in pools),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, k_pool.shape[0], *t, q.shape[-1], k_pool.shape[1],
-            block_tables.shape[1], block_size, float(scale),
+            *extra, b, hq, hkv, *t, d, k_pool.shape[1], nbps, block_size,
+            *tail, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(rc, kernel)

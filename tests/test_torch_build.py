@@ -49,16 +49,30 @@ def test_editing_a_header_changes_only_its_includers(csrc, header):
     assert after["b"] == before["b"]
 
 
-def test_editing_hopper_header_changes_both_dependent_libraries(
-        tmp_path, monkeypatch):
-    """On a copy of the real ``csrc/``: ``hopper.cuh`` feeds the flash
-    attention and grouped matmul libraries, and no other."""
+def _edited(tmp_path, monkeypatch, header):
+    """On a copy of the real ``csrc/``: the libraries whose path changes
+    when ``header`` is edited."""
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
     monkeypatch.setattr(_build, "CSRC", src)
     names = _build.sources()
     before = {n: _build.library_path(n) for n in names}
-    (src / "hopper.cuh").write_text(
-        (src / "hopper.cuh").read_text() + "// edited\n")
-    changed = {n for n in names if _build.library_path(n) != before[n]}
-    assert changed == {"flash_attention", "grouped_matmul"}
+    (src / header).write_text((src / header).read_text() + "// edited\n")
+    return {n for n in names if _build.library_path(n) != before[n]}
+
+
+def test_editing_hopper_header_changes_both_dependent_libraries(
+        tmp_path, monkeypatch):
+    """``hopper.cuh`` feeds the flash attention and grouped matmul
+    libraries, and the paged attention library through
+    ``attention_tile.cuh``; no other."""
+    assert _edited(tmp_path, monkeypatch, "hopper.cuh") == {
+        "flash_attention", "grouped_matmul", "paged_attention"}
+
+
+def test_editing_attention_tile_header_changes_the_attention_libraries(
+        tmp_path, monkeypatch):
+    """``attention_tile.cuh`` (K4's tile step, shared with K3) feeds the
+    flash and paged attention libraries, and no other."""
+    assert _edited(tmp_path, monkeypatch, "attention_tile.cuh") == {
+        "flash_attention", "paged_attention"}

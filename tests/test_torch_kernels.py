@@ -21,7 +21,12 @@ Gradients through ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``
 per-column scales) are held to their bf16 branches' limits: the kernel and
 its plain version read the same int8 data. ``int8_matmul`` (bf16 out, f32
 sums in another order, split K summed in another order again) is held to
-the bf16 2% / 1%.
+the bf16 2% / 1%. The split decode kernel and its merge are also held to
+the plain split-and-merge (``paged_decode_split_reference``) at the
+wrapper's own split count; poisoned pool rows past the window (and, with
+int8, their scales) must leave every paged kernel's output bitwise
+unchanged, two calls on the same inputs must agree bitwise, and no
+wrapper may synchronise with the host.
 """
 
 import pytest
@@ -64,12 +69,24 @@ def _close(out, ref):
     assert err.mean().item() <= 2e-3, err.mean().item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,d,bs,starts", [
+# The decode cases below: G 1, 2, 4, 8; head_dim 64 and 128; block_size 8,
+# 16 and 64; lengths 1, on 32-position split-alignment and 64-position
+# edges and one past them; one sequence at 8B's longest window (8191: 33
+# splits on 132 SMs) and one a position past a split edge (257, 5 splits).
+_DECODE_CASES = [
     (32, 8, 128, 16, (0, 31, 32, 700)),   # Llama-3-8B heads, tile edges
     (8, 1, 128, 8, (5, 64)),              # G=8 (the decode kernel's most)
     (4, 4, 64, 64, (0, 200)),             # MHA, head_dim 64, block 64
-])
+    (32, 8, 128, 16, (8190,)),            # one long sequence: the split path
+    (32, 8, 128, 16, (256,)),             # valid_len 257: past a split edge
+    (16, 2, 128, 16, (0,)),               # valid_len 1 alone, G=8
+    (16, 8, 64, 8, (63, 64, 127, 31)),    # G=2, head_dim 64, edges
+    (12, 4, 128, 64, (95, 96, 4000)),     # G=3, block 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,bs,starts", _DECODE_CASES)
 def test_decode_matches_plain(dev, hq, hkv, d, bs, starts):
     nbps = -(-(max(starts) + 1) // bs)
     q, k, v, tables, pos = _paged(dev, starts, 1, hq, hkv, d, bs, nbps)
@@ -77,18 +94,35 @@ def test_decode_matches_plain(dev, hq, hkv, d, bs, starts):
     before = att.paged_decode_attention.launches
     out = att.paged_decode_attention(q[:, :, 0], k, v, tables, vlen, bs)
     ref = att.paged_attention_reference(q, k, v, tables, pos, bs)[:, :, 0]
+    splits = att.decode_splits(len(starts), hkv, nbps, bs, att.sm_count(dev))
+    split_ref = att.paged_decode_split_reference(q[:, :, 0], k, v, tables,
+                                                 vlen, bs, splits)
     torch.cuda.synchronize()
     _close(out, ref)
+    _close(out, split_ref)
     assert att.paged_decode_attention.launches == before + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", [
+# The prefill cases below: G 1, 2, 3, 4, 8; head_dim 64 and 128; block_size
+# 4, 5, 8, 12, 16 and 64 (TMA boxes of 4, 1, 8, 4, 16 and 64 rows); T from 1;
+# windows from 0, on and past 128-position tile edges, and one ending at
+# position 8190 (8B's longest).
+_PREFILL_CASES = [
     (128, 32, 8, 128, 16, (0, 256, 384, 572)),  # the engine's packed chunk
     (40, 8, 2, 128, 16, (0, 9, 70)),            # a partial last q tile
     (1, 32, 8, 128, 16, (0, 33)),               # T=1 through prefill
     (33, 4, 4, 64, 8, (3, 17)),                 # MHA, head_dim 64, bs 8
-])
+    (128, 32, 8, 128, 16, (8063,)),             # a window ending at 8190
+    (100, 8, 1, 128, 64, (0, 127, 128)),        # G=8, block 64, tile edges
+    (70, 8, 4, 64, 16, (1, 200)),               # G=2, head_dim 64
+    (40, 6, 2, 64, 4, (3, 50)),                 # G=3, block 4
+    (17, 4, 1, 128, 5, (0, 11)),                # G=4, block 5: 1-row boxes
+    (64, 8, 2, 128, 12, (5, 130)),              # block 12: 4-row boxes
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", _PREFILL_CASES)
 def test_prefill_matches_plain(dev, t, hq, hkv, d, bs, starts):
     nbps = -(-(max(starts) + t) // bs)
     q, k, v, tables, pos = _paged(dev, starts, t, hq, hkv, d, bs, nbps)
@@ -560,11 +594,7 @@ def _int8_paged(dev, starts, t, hq, hkv, d, bs, nbps, sentinel, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sentinel", [False, True])
-@pytest.mark.parametrize("hq,hkv,d,bs,starts", [
-    (32, 8, 128, 16, (0, 31, 32, 700)),   # Mixtral-8x7B heads, tile edges
-    (8, 1, 128, 8, (5, 64)),              # G=8
-    (4, 4, 64, 64, (0, 200)),             # MHA, head_dim 64, block 64
-])
+@pytest.mark.parametrize("hq,hkv,d,bs,starts", _DECODE_CASES)
 def test_int8_decode_matches_plain(dev, hq, hkv, d, bs, starts, sentinel):
     nbps = -(-(max(starts) + 1) // bs) + 1
     q, k, v, ks, vs, tables, pos = _int8_paged(dev, starts, 1, hq, hkv, d,
@@ -576,20 +606,19 @@ def test_int8_decode_matches_plain(dev, hq, hkv, d, bs, starts, sentinel):
                                      k_scale=ks, v_scale=vs)
     ref = att.paged_attention_reference(q, k, v, tables, pos, bs,
                                         k_scale=ks, v_scale=vs)[:, :, 0]
+    splits = att.decode_splits(len(starts), hkv, nbps, bs, att.sm_count(dev))
+    split_ref = att.paged_decode_split_reference(
+        q[:, :, 0], k, v, tables, vlen, bs, splits, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     _close(out, ref)
+    _close(out, split_ref)
     assert (att.paged_decode_attention.launches,
             att.paged_decode_int8.launches) == (before[0], before[1] + 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sentinel", [False, True])
-@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", [
-    (128, 32, 8, 128, 16, (0, 256, 384, 572)),  # the engine's packed chunk
-    (40, 8, 2, 128, 16, (0, 9, 70)),            # a partial last q tile
-    (1, 32, 8, 128, 16, (0, 33)),               # T=1 through prefill
-    (33, 4, 4, 64, 8, (3, 17)),                 # MHA, head_dim 64, bs 8
-])
+@pytest.mark.parametrize("t,hq,hkv,d,bs,starts", _PREFILL_CASES)
 def test_int8_prefill_matches_plain(dev, t, hq, hkv, d, bs, starts,
                                     sentinel):
     nbps = -(-(max(starts) + t) // bs) + 1
@@ -626,6 +655,110 @@ def test_int8_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="CUDA"):
         att.paged_prefill_attention(q, k, v, tables, pos, 16,
                                     k_scale=ks.cpu(), v_scale=vs)
+
+
+def _run_paged(kernel, q, k, v, tables, pos, bs, scales):
+    """One wrapper call: ``kernel`` "decode" or "prefill", ``scales`` the
+    int8 pools' (k_scale, v_scale) or None."""
+    sc = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    if kernel == "decode":
+        vlen = (pos[:, 0] + 1).to(torch.int32)
+        return att.paged_decode_attention(q[:, :, 0].contiguous(), k, v,
+                                          tables, vlen, bs, **sc)
+    return att.paged_prefill_attention(q, k, v, tables, pos, bs, **sc)
+
+
+def _paged_problem(dev, kernel, quantized, starts, t, hq=8, hkv=2, d=128,
+                   bs=16, spare_sentinel=False):
+    """Inputs of one decode (T = 1) or prefill call, bf16 or int8 pools.
+    With ``spare_sentinel`` every table entry past a window's last block
+    names a block no window reads (the pool has 3 spare blocks)."""
+    t = 1 if kernel == "decode" else t
+    nbps = -(-(max(starts) + t) // bs) + 1
+    q, k, v, tables, pos = _paged(dev, starts, t, hq, hkv, d, bs, nbps)
+    if spare_sentinel:
+        spare = sorted(set(range(tables.numel() + 3))
+                       - set(tables.flatten().tolist()))[0]
+        for i, s0 in enumerate(starts):
+            tables[i, -(-(s0 + t) // bs):] = spare
+    if not quantized:
+        return q, k, v, tables, pos, None
+    from k8s_dra_driver_tpu_torch.models.decode import _quantize_kv
+
+    (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
+    return q, k8[0], v8[0], tables, pos, (ks[0], vs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [1e4, float("nan")])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_paged_kernels_never_read_past_the_window(dev, kernel, quantized,
+                                                  poison):
+    """Poisoning every pool row after each window's last position (values
+    and, with int8 pools, scales; NaN or +-1e4), the sentinel entries' block
+    included, leaves the output bitwise unchanged: masked columns weigh exactly
+    0 and no row past the window enters P V."""
+    starts, t, bs = (5, 21, 300), 12, 16
+    q, k, v, tables, pos, scales = _paged_problem(dev, kernel, quantized,
+                                                  starts, t, bs=bs,
+                                                  spare_sentinel=True)
+    t = q.shape[2]
+    out = _run_paged(kernel, q, k, v, tables, pos, bs, scales)
+    k2, v2 = k.clone(), v.clone()
+    sc2 = None if scales is None else (scales[0].clone(), scales[1].clone())
+    big = 127 if quantized else poison
+    for i, s0 in enumerate(starts):
+        for j in range(tables.shape[1]):
+            for r in range(bs):
+                if j * bs + r > s0 + t - 1:
+                    row = int(tables[i, j]) * bs + r
+                    k2[:, row] = big
+                    v2[:, row] = -big
+                    if sc2 is not None:
+                        sc2[0][:, row] = poison
+                        sc2[1][:, row] = poison
+    out2 = _run_paged(kernel, q, k2, v2, tables, pos, bs, sc2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_paged_kernels_are_deterministic(dev, kernel, quantized):
+    """Two calls on the same inputs agree bitwise: the decode splits merge
+    in a fixed order, with no float atomics (one long sequence and three
+    short ones, so both the 33-split and the 5-split plans run)."""
+    for starts in ((8190,), (0, 400, 1000)):
+        q, k, v, tables, pos, scales = _paged_problem(
+            dev, kernel, quantized, starts, 64, hq=32, hkv=8)
+        first = _run_paged(kernel, q, k, v, tables, pos, 16, scales)
+        second = _run_paged(kernel, q, k, v, tables, pos, 16, scales)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_paged_wrappers_never_sync(dev, kernel, quantized):
+    """Under ``set_sync_debug_mode("error")`` any PyTorch operation that
+    waits for the device raises: the split plan and the scratch it
+    allocates come from host integers only."""
+    q, k, v, tables, pos, scales = _paged_problem(dev, kernel, quantized,
+                                                  (0, 700, 3000), 40,
+                                                  hq=32, hkv=8)
+    _run_paged(kernel, q, k, v, tables, pos, 16, scales)  # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _run_paged(kernel, q, k, v, tables, pos, 16, scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
 
 
 def _int8_moe_problem(dev, t, h, m, tile=8, case="random"):
