@@ -80,15 +80,18 @@ fixed seed, and checks every hand-written kernel of those paths:
     its plain version at the seams' shapes (M 8 and 512, K 4096 to N 6144,
     4096, 32000) and at the einsum MoE body's expert product ([8, 512,
     4096] against [8, 4096, 28672]), and times it beside a bf16
-    ``torch.matmul`` on a converted weight;
+    ``torch.matmul`` on a converted weight: M 8 runs its M <= 64 body, M
+    512 and the experts its wgmma body;
 17. runs one ``prefill`` of a 1024-token prompt on the full-depth int8 model
     (``auto`` takes the einsum MoE body, its expert products through
     ``int8_matmul``'s prologue mode), holds it against the plain forward
-    with routing replayed, and checks that the peak memory above the
-    weights stays below one layer's ``w_gateup`` in bf16.
+    with routing replayed, checks that the peak memory above the weights
+    stays below one layer's ``w_gateup`` in bf16 and that every
+    ``int8_matmul`` launch took the wgmma body, then profiles the same
+    prefill by kernel group.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12 and 15) and read just after. Each phase prints its seconds. Prints
+6, 9, 12, 15 and 17) and read just after. Each phase prints its seconds. Prints
 the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
@@ -895,6 +898,9 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
+    # int8_matmul's wgmma body (M > 64), then its M <= 64 body and the
+    # split-K pass both bodies share.
+    ("int8_matmul_wide", ("int8_matmul_wide_kernel",)),
     ("int8_matmul", ("int8_matmul_kernel", "int8_matmul_reduce")),
     # The int8 branches first: the bf16 groups' substrings match them too.
     # K2 and K3 by kernel; each group also takes the names of the earlier
@@ -1498,6 +1504,7 @@ def check_int8_matmul(torch, dev) -> dict:
     (a bf16 ``torch.matmul`` on a weight converted beforehand, and
     ``torch._weight_int8pack_mm`` where it runs)."""
     from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+    from k8s_dra_driver_tpu_torch.ops.attention import sm_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 70)
@@ -1547,24 +1554,44 @@ def check_int8_matmul(torch, dev) -> dict:
                 x, q, scale, prologue), warmup=1, iters=5),
             library_ms=lib_ms, int8pack_ms=pack_ms,
             int8pack_error=pack_error,
-            split=qm.split_k(ne, m, n, k),
+            plan=qm.plan(ne, m, n, k, sm_count(dev))._asdict(),
             **bound_fields(f"int8_matmul {name}", nbytes, ops, BF16_FLOPS))
         torch.cuda.empty_cache()
     # The kernels line carries one decode step's three seam calls (M 8,
-    # the epilogue mode the seams run), summed, with every call beside.
-    step = [calls[f"{name} M {BATCH_SLOTS}"] for name, _, _ in INT8_SEAMS]
-    row = dict(
-        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
-        **{key: sum(c[key] for c in step)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step)
-        else "operations",
-        shape=(f"wqkv + wo + lm_head at M {BATCH_SLOTS} (K 4096 -> N 6144, "
-               f"4096, 32000), epilogue mode, summed; library: bf16 "
-               f"torch.matmul on weights converted beforehand"),
-        calls=calls)
-    log("int8_matmul:", json.dumps(row))
-    return {"int8_matmul": row}
+    # the epilogue mode the seams run, the mma.sync body), summed, with
+    # every call beside; a packed prefill's three (M 512, the wgmma body),
+    # summed; and the einsum MoE body's expert product (the wgmma body,
+    # prologue mode).
+    def summed(m, body):
+        step = [calls[f"{name} M {m}"] for name, _, _ in INT8_SEAMS]
+        return dict(
+            max_abs_err=max(c["max_abs_err"] for c in step),
+            **{key: sum(c[key] for c in step)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step)
+            else "operations",
+            shape=(" + ".join(name for name, _, _ in INT8_SEAMS)
+                   + f" at M {m} ("
+                   + ", ".join(f"K {k} -> N {n}" for _, k, n in INT8_SEAMS)
+                   + f"), epilogue mode, {body}, summed; library: bf16 "
+                   f"torch.matmul on weights converted beforehand"))
+
+    rows = {"int8_matmul": dict(summed(BATCH_SLOTS, "the M <= 64 body"),
+                                calls=calls),
+            "int8_matmul_prefill": summed(PREFILL_BATCH * PREFILL_CHUNK,
+                                          "the wgmma body")}
+    experts = calls[f"experts [{e},{m_e},{k_e}]x[{e},{k_e},{n_e}] prologue"]
+    rows["int8_matmul_experts"] = dict(
+        {key: experts[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "plan")},
+        shape=(f"experts [{e},{m_e},{k_e}] x [{e},{k_e},{n_e}], prologue "
+               f"mode, the wgmma body; library: batched bf16 torch.matmul "
+               f"on weights converted beforehand"))
+    for name in ("int8_matmul_prefill", "int8_matmul_experts"):
+        log(f"{name}:", json.dumps(rows[name]))
+    log("int8_matmul:", json.dumps(rows["int8_matmul"]))
+    return rows
 
 
 # Phase 17: a prompt long enough that ``auto`` runs the einsum MoE body.
@@ -1600,7 +1627,8 @@ def einsum_prefill(torch, params, cfg, dev) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     moe.MOE_TRACE_COUNTS.clear()
-    before = qm.int8_matmul.launches
+    counters = ("launches", "wide_launches", "wide_prologue_launches")
+    before = [getattr(qm.int8_matmul, c) for c in counters]
     with RoutingReplay(moe) as replay:
         replay.mode = "record"
         t0 = time.perf_counter()
@@ -1609,7 +1637,8 @@ def einsum_prefill(torch, params, cfg, dev) -> dict:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launched = qm.int8_matmul.launches - before
+        launched, wide, wide_prologue = (
+            getattr(qm.int8_matmul, c) - b for c, b in zip(counters, before))
         blocks = dict(moe.MOE_TRACE_COUNTS)
         replay.mode = "replay"
         cache = PagedQuantKVCache.init(cfg, 1, max_len,
@@ -1618,7 +1647,7 @@ def einsum_prefill(torch, params, cfg, dev) -> dict:
                                        torch.arange(t, device=dev),
                                        use_kernels=False)
         plain = plain[:, -1]
-    if qm.int8_matmul.launches - before != launched:
+    if qm.int8_matmul.launches - before[0] != launched:
         raise AssertionError("the plain forward launched int8_matmul")
     layers = cfg.n_layers
     # Per layer wqkv and wo (epilogue), w_gateup and w_down (prologue); the
@@ -1626,11 +1655,20 @@ def einsum_prefill(torch, params, cfg, dev) -> dict:
     if launched != 4 * layers + 1:
         raise AssertionError(f"int8_matmul launched {launched} times, "
                              f"expected {4 * layers + 1}")
+    # Every call here has M > 64 (the prompt's 1024 rows, the experts'
+    # capacity): all of them run the wgmma body, the expert products in the
+    # prologue mode.
+    if (wide, wide_prologue) != (launched, 2 * layers):
+        raise AssertionError(f"int8_matmul's wgmma body launched {wide} of "
+                             f"{launched} times, {wide_prologue} in the "
+                             f"prologue mode; expected all, {2 * layers}")
     if not any(key.startswith("einsum:") for key in blocks):
         raise AssertionError(f"MoE blocks {blocks}: no einsum body ran")
     gateup_bf16 = cfg.n_experts * cfg.hidden * 2 * cfg.mlp_hidden * 2
     result = dict(
         prompt=t, impl=impl, moe_blocks=blocks, int8_matmul_launches=launched,
+        int8_matmul_wide_launches=wide,
+        int8_matmul_wide_prologue_launches=wide_prologue,
         prefill_s=prefill_s, peak_mem_gb=peak / 1e9,
         transient_gb=(peak - base) / 1e9,
         layer_gateup_bf16_gb=gateup_bf16 / 1e9,
@@ -1650,6 +1688,28 @@ def einsum_prefill(torch, params, cfg, dev) -> dict:
                              f"above the weights, at least one layer's "
                              f"w_gateup in bf16 ({gateup_bf16 / 1e9} GB)")
     return result
+
+
+def profile_einsum_prefill(torch, params, cfg, dev) -> dict:
+    """Phase 17's prefill once more under ``torch.profiler``, outside the
+    counted run: its device time by kernel group, so ``int8_matmul``'s
+    share of a long int8 prompt's time to first token is measured."""
+    from k8s_dra_driver_tpu_torch.models.decode import prefill
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 80)
+    tokens = torch.randint(0, cfg.vocab_size, (1, EINSUM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    profile = device_profile(torch, lambda: prefill(
+        params, tokens, cfg, EINSUM_PROMPT + BLOCK_SIZE, quantize_cache=True,
+        block_size=BLOCK_SIZE), 1)
+    int8_ms = profile["group_ms"]["int8_matmul_wide"] \
+        + profile["group_ms"]["int8_matmul"]
+    log(f"einsum prefill profile: {profile['device_ms']:.3f} ms of device "
+        f"time, {profile['wall_ms']:.3f} ms on the host clock; int8_matmul "
+        f"{int8_ms:.3f} ms ({int8_ms / profile['device_ms']:.1%}); groups "
+        f"{json.dumps(profile['group_ms'])}")
+    return profile
 
 
 def nbytes(tree) -> int:
@@ -1752,14 +1812,22 @@ def main() -> int:
                               "rmsnorm"),
              "moe_serving_int8": ("moe_gateup_int8", "moe_down_combine_int8",
                                   "paged_decode_int8", "paged_prefill_int8",
-                                  "rmsnorm", "int8_matmul")}
+                                  "rmsnorm", "int8_matmul",
+                                  "int8_matmul_wide"),
+             "int8_prefill": ("int8_matmul_wide", "int8_matmul_wide_prologue")}
     by_path = {}
 
     def drive(path, fn, *args):
         for w in wrappers.values():
             w.launches = 0
+        quant_matmul.int8_matmul.wide_launches = 0
+        quant_matmul.int8_matmul.wide_prologue_launches = 0
         out = fn(*args)
         by_path[path] = {name: w.launches for name, w in wrappers.items()}
+        by_path[path]["int8_matmul_wide"] = \
+            quant_matmul.int8_matmul.wide_launches
+        by_path[path]["int8_matmul_wide_prologue"] = \
+            quant_matmul.int8_matmul.wide_prologue_launches
         missing = [name for name in paths[path] if by_path[path][name] <= 0]
         if missing:
             raise AssertionError(f"the {path} path never launched {missing}")
@@ -1968,13 +2036,26 @@ def main() -> int:
     kernels.update(check_int8_matmul(torch, dev))
     phase_done("phase 16: int8_matmul agrees with its plain version at the "
                "seams' and the expert product's shapes")
-    int8_prefill = einsum_prefill(torch, qparams, qcfg, dev)
+    int8_prefill = drive("int8_prefill", einsum_prefill, torch, qparams,
+                         qcfg, dev)
+    int8_prefill["prefill_profile"] = profile_einsum_prefill(
+        torch, qparams, qcfg, dev)
     phase_done(f"phase 17: a {EINSUM_PROMPT}-token int8 prefill through the "
-               f"einsum MoE body matches the plain forward")
+               f"einsum MoE body matches the plain forward; profiled")
     del qparams
     torch.cuda.empty_cache()
+    # int8_matmul's launches, each in one row: the M <= 64 body's
+    # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
+    # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
+    # products: int8_matmul_experts).
+    by_path = {p: {**c, "int8_matmul": c["int8_matmul"]
+                   - c["int8_matmul_wide"],
+                   "int8_matmul_prefill": c["int8_matmul_wide"]
+                   - c["int8_matmul_wide_prologue"],
+                   "int8_matmul_experts": c["int8_matmul_wide_prologue"]}
+               for p, c in by_path.items()}
     launches = {name: sum(by_path[p][name] for p in by_path)
-                for name in wrappers}
+                for name in by_path["serving"]}
 
     meta = {
         "paged_decode": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
@@ -2026,6 +2107,15 @@ def main() -> int:
                         "quant_matmul.cu",
                         "k8s_dra_driver_tpu/models/quant.py:92 (_mixed_dot, "
                         "XLA; no Pallas kernel)"),
+        "int8_matmul_prefill": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                                "quant_matmul.cu",
+                                "k8s_dra_driver_tpu/models/quant.py:92 "
+                                "(_mixed_dot, XLA; no Pallas kernel)"),
+        "int8_matmul_experts": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                                "quant_matmul.cu",
+                                "k8s_dra_driver_tpu/models/quant.py:169 "
+                                "(q_dequant, then XLA's einsum; no Pallas "
+                                "kernel)"),
     }
     # K2 at the longest window: the same kernels and launch counts as its
     # row at the engine's shape.

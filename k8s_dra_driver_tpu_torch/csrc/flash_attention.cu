@@ -22,27 +22,27 @@
 // forward's operations and dQ 1.5 times, on a little more bytes. So the
 // products must run on the tensor cores at the rate only wgmma reaches.
 //
-// flash_fwd and flash_bwd_dkdv: wgmma, TMA and warp specialisation (the
-// shape of FlashAttention-3, without its intra-warpgroup pipelining):
+// All three kernels: wgmma, TMA and warp specialisation (the shape of
+// FlashAttention-3, without its intra-warpgroup pipelining):
 //   - A block has 3 warpgroups. Warpgroup 0 is the producer: one thread
-//     issues every TMA load (in dK/dV its warp's lanes also load the lse
-//     and delta rows), the rest idle; setmaxnreg gives it 40 registers a
-//     thread. Warpgroups 1 and 2 are consumers of 64 rows each (232).
+//     issues every TMA load (in the backward its warp's lanes also load the
+//     lse and delta rows), the rest idle; setmaxnreg gives it 40 registers
+//     a thread. Warpgroups 1 and 2 are consumers of 64 rows each (232).
 //   - Tiles come in by TMA through rank-3 tensor maps over [B*H, S, D]
 //     (the ragged S tail of each head is zero-filled, never the next
 //     head's rows), in 128-byte swizzled boxes of 64 columns: a D-128 row
 //     is two boxes. The wgmma descriptors name the same 128-byte swizzle.
-//   - Loads overlap products through a 2-stage ring guarded by full and
-//     empty mbarriers (TMA completes `full`; the 8 consumer warps arrive
-//     on `empty` once their products have read the stage).
+//   - Loads overlap products through a ring (2 stages, 4 in dQ) guarded by
+//     full and empty mbarriers (TMA completes `full`; the 8 consumer warps
+//     arrive on `empty` once their products have read the stage).
 //   - Score tiles never leave registers: the f32 accumulator of S (or
 //     S^T) for two neighbouring 8-column blocks is the register A operand
 //     of the next wgmma's 16-deep k-step, so p and dS are packed to bf16
 //     in place -- the bf16 rounding the Pallas kernels apply.
 //   - No operand is transposed while staged. Products whose B operand
 //     would need a transpose (V in O += P V, dO in dV += P^T dO, Q in
-//     dK += dS^T Q) read it as stored through the descriptor's transpose
-//     (MN-major) mode.
+//     dK += dS^T Q, K in dQ += dS K) read it as stored through the
+//     descriptor's transpose (MN-major) mode.
 //   flash_fwd:      one block per (q tile of 128, q head, batch); Q loaded
 //                   once, K and V tiles of 128 through the ring up to the
 //                   diagonal; S = Q K^T by wgmma m64n128k16 (A and B from
@@ -59,11 +59,18 @@
 //                   by wgmma m64n64k16, then dV += P^T dO and dK += dS^T Q
 //                   with P^T and dS^T from registers. dK and dV sum over the
 //                   whole query group in f32 registers (no atomics).
-// flash_bwd_dq keeps the earlier design, a block of 4 warps that owns one
-// 64-row tile, every product a warp-level mma.sync.m16n8k16, operands
-// staged by the block's threads (K also transposed), rows padded by 8
-// bf16 so a fragment load falls in 32 banks; one block per (q tile of 64,
-// q head, batch), kv tiles of 64 up to the diagonal.
+//   flash_bwd_dq:   one block per (q tile of 128, q head, batch); Q, dO and
+//                   the tile's lse and delta rows loaded once, K and V tiles
+//                   of 64 through a 4-stage ring up to the diagonal (a
+//                   consumer skips the tiles wholly above its own 64 rows);
+//                   S = Q K^T and dP = dO V^T by wgmma m64n64k16, dS = P (dP
+//                   - delta) packed in registers, dQ += dS K by wgmma
+//                   m64n64k16 per 64-column half of D (attention_tile.cuh's
+//                   pv_tile with K in V's place). dQ stays in f32 registers
+//                   and is scaled and stored once. Not fused into dK/dV (as
+//                   FlashAttention-2/3 do with f32 atomic adds on dQ): the
+//                   three-kernel split of the reference keeps every output
+//                   bitwise equal from call to call.
 // The backward rebuilds p = exp2(s * scale * LOG2E - lse * LOG2E) and masks
 // BEFORE the exp2: a masked score can exceed lse, and its exp2 would be inf.
 // Tiles wholly below the diagonal run unmasked; only the tiles on the
@@ -79,10 +86,10 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// flash_fwd and flash_bwd_dkdv: wgmma and TMA (pieces from hopper.cuh).
+// The three kernels: wgmma and TMA (pieces from hopper.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 128;  // rows of a K/V (and a forward Q) tile
+constexpr int kTile = 128;  // rows of a K/V tile (K4, K5), a Q tile (K4, K6)
 
 // Shared memory of flash_fwd (byte offsets from a 1024-aligned base): Q,
 // then two stages of K and V, then the barriers. A tile of R rows is
@@ -474,202 +481,205 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---------------------------------------------------------------------------
-// flash_bwd_dq: warp-level mma.sync on staged tiles.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;  // 4 warps, 16 rows of the block's tile each
-constexpr int kRows = 64;      // rows of the block's own tile
-constexpr int kPad = 8;        // bf16 of padding per shared-memory row
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a * b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-// a: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..), (row g+8,
-// k 2t+8..); b: (k 2t..2t+1, n g), (k 2t+8.., n g); c: (row g, n 2t, 2t+1),
-// (row g+8, n 2t, 2t+1); g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment: rows [r0, r0 + 16) x k [k0, k0 + 16) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int r0, int k0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment: n [n0, n0 + 8) x k [k0, k0 + 16) of a tile stored [n][k].
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* s, int ld, int n0, int k0,
-                                       int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// Rows [row0, row0 + ROWS) of a row-major [S, D] matrix into a [ROWS][D + 8]
-// tile; rows at or past `limit` become zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage(bf16* __restrict__ dst,
-                                      const bf16* __restrict__ src, int row0,
-                                      int limit) {
-  constexpr int VEC = D / 8;
-  for (int w = threadIdx.x; w < ROWS * VEC; w += kThreads) {
-    const int r = w / VEC, c = (w % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// The same rows transposed into a [D][ROWS + 8] tile.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_t(bf16* __restrict__ dst,
-                                        const bf16* __restrict__ src,
-                                        int row0, int limit) {
-  constexpr int VEC = D / 8;
-  for (int w = threadIdx.x; w < ROWS * VEC; w += kThreads) {
-    const int r = w / VEC, c = (w % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    const uint32_t words[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 two = *reinterpret_cast<const __nv_bfloat162*>(&words[i]);
-      dst[(c + 2 * i) * (ROWS + kPad) + r] = two.x;
-      dst[(c + 2 * i + 1) * (ROWS + kPad) + r] = two.y;
-    }
-  }
-}
-
+// Shared memory of flash_bwd_dq (byte offsets from a 1024-aligned base): Q
+// and dO (resident, 128 rows each), DqSmem::STAGES stages of K and V tiles
+// of 64 rows, the block's lse and delta rows, then the barriers.
 template <int D>
-struct Smem {
-  static constexpr int ROW = D + kPad;                  // [rows][D + 8]
-  static constexpr int T64 = kRows + kPad;              // [D][64 + 8]
-  static constexpr int dq = (4 * kRows * ROW + D * T64) * 2;
+struct DqSmem {
+  static constexpr int KT = 64;                  // kv rows per step
+  static constexpr int STAGES = 4;
+  static constexpr int QTILE = kTile * D * 2;    // a 128-row Q or dO tile
+  static constexpr int KVTILE = KT * D * 2;      // a 64-row K or V tile
+  static constexpr int Q = 0, DO = QTILE;
+  static constexpr int STAGE0 = 2 * QTILE;       // stage s: K, then V
+  static constexpr int ROWS = STAGE0 + STAGES * 2 * KVTILE;  // lse, delta
+  static constexpr int BARS = ROWS + 2 * kTile * 4;  // q_full, full, empty
+  static constexpr int USED = BARS + (1 + 2 * STAGES) * 8;
+  static constexpr int BYTES = USED + 1024 > kMinSmem ? USED + 1024
+                                                      : kMinSmem;
 };
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int hq, int hkv, int s_len, float scale_log2,
                     float scale) {
-  constexpr int ROW = Smem<D>::ROW, T64 = Smem<D>::T64, KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kRows * ROW;
-  bf16* k_s = do_s + kRows * ROW;
-  bf16* v_s = k_s + kRows * ROW;
-  bf16* kt_s = v_s + kRows * ROW;  // K^T [D][64 + 8]
+  using L = DqSmem<D>;
+  constexpr int HALVES = D / 64, KT = L::KT, STAGES = L::STAGES;
+  constexpr int Q_HALF = kTile * kRowBytes;  // 64 columns of a Q/dO tile
+  constexpr int KV_HALF = KT * kRowBytes;    // 64 columns of a K/V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  float* rows = reinterpret_cast<float*>(smem + L::ROWS);  // lse, delta
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kRows;
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const size_t qbase = ((size_t)b * hq + h) * s_len;
-  const size_t kbase = ((size_t)b * hkv + hk) * s_len;
+  const int q0 = qt * kTile;
+  const int kv_end = CAUSAL ? min(s_len, q0 + kTile) : s_len;
+  const int n_tiles = (kv_end + KT - 1) / KT;
+  const int wg = threadIdx.x / 128;
 
-  stage<D, kRows>(q_s, q + qbase * D, q0, s_len);
-  stage<D, kRows>(do_s, dout + qbase * D, q0, s_len);
-  const float lse_lo = row_lo < s_len ? lse[qbase + row_lo] * kLog2e : 0.f;
-  const float lse_hi = row_hi < s_len ? lse[qbase + row_hi] * kLog2e : 0.f;
-  const float dl_lo = row_lo < s_len ? delta[qbase + row_lo] : 0.f;
-  const float dl_hi = row_hi < s_len ? delta[qbase + row_hi] : 0.f;
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[dn][e] = 0.f;
-
-  const int kv_end = CAUSAL ? min(s_len, q0 + kRows) : s_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
-    __syncthreads();
-    stage<D, kRows>(k_s, k + kbase * D, k0, s_len);
-    stage<D, kRows>(v_s, v + kbase * D, k0, s_len);
-    stage_t<D, kRows>(kt_s, k + kbase * D, k0, s_len);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: rows q, columns kv.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = 0.f;
-        dp[nt][e] = 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, q_s, ROW, warp * 16, kk * 16, g, t);
-      load_a(da, do_s, ROW, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, ROW, nt * 8, kk * 16, g, t);
-        mma(s[nt], qa, b0, b1);
-        load_b(b0, b1, v_s, ROW, nt * 8, kk * 16, g, t);
-        mma(dp[nt], da, b0, b1);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1 + 32);  // the TMA thread, then the 32 row loads
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    const bool masked =
-        (CAUSAL && k0 + kRows - 1 > q0) || k0 + kRows > s_len;
-    uint32_t dsa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_lo : row_hi;
-        float x = s[nt][e] * scale_log2;
-        if (masked && (col >= s_len || (CAUSAL && col > row))) x = kNegInf;
-        const float p = exp2f(x - (e < 2 ? lse_lo : lse_hi));
-        ds[e] = p * (dp[nt][e] - (e < 2 ? dl_lo : dl_hi));
-      }
-      dsa[nt / 2][(nt % 2) * 2] = pack(ds[0], ds[1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack(ds[2], ds[3]);
-    }
-
-    // dQ += dS K (k = kv position).
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, T64, dn * 8, kk * 16, g, t);
-        mma(dqa[dn], dsa[kk], b0, b1);
-      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
+  if (wg == 0) {
+    // Producer warp: Q and dO once by TMA and the tile's lse (times LOG2E)
+    // and delta rows by its lanes; then K and V tile by tile through the
+    // ring.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(q_full, 2 * L::QTILE);
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load(smem + L::Q + hh * Q_HALF, &q_map, q_full, hh * 64, q0,
+                   b * hq + h);
+          tma_load(smem + L::DO + hh * Q_HALF, &do_map, q_full, hh * 64, q0,
+                   b * hq + h);
+        }
+      }
+      const size_t qbase = ((size_t)b * hq + h) * s_len;
+      for (int r = lane; r < kTile; r += 32) {
+        const int row = q0 + r;
+        rows[r] = row < s_len ? lse[qbase + row] * kLog2e : 0.f;
+        rows[kTile + r] = row < s_len ? delta[qbase + row] : 0.f;
+      }
+      mbar_arrive(q_full);
+      if (lane == 0) {
+        for (int j = 0; j < n_tiles; ++j) {
+          const int st = j % STAGES;
+          mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+          unsigned char* kt = smem + L::STAGE0 + st * 2 * L::KVTILE;
+          unsigned char* vt = kt + L::KVTILE;
+          mbar_expect_tx(&full[st], 2 * L::KVTILE);
+          for (int hh = 0; hh < HALVES; ++hh) {
+            tma_load(kt + hh * KV_HALF, &k_map, &full[st], hh * 64, j * KT,
+                     b * hkv + hk);
+            tma_load(vt + hh * KV_HALF, &v_map, &full[st], hh * 64, j * KT,
+                     b * hkv + hk);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup c owns q rows q0 + 64 c .. + 63.
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int tw = threadIdx.x % 128;
+    const int warp = tw >> 5, lane = tw & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qc = q0 + 64 * c;
+    const int row_lo = qc + warp * 16 + g, row_hi = row_lo + 8;
+    const uint32_t q_addr = smem_u32(smem + L::Q) + c * 64 * kRowBytes;
+    const uint32_t do_addr = smem_u32(smem + L::DO) + c * 64 * kRowBytes;
+
+    float dqa[HALVES][32];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (row_lo < s_len)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (qbase + row_lo) * D + col) =
-          __floats2bfloat162_rn(dqa[dn][0] * scale, dqa[dn][1] * scale);
-    if (row_hi < s_len)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (qbase + row_hi) * D + col) =
-          __floats2bfloat162_rn(dqa[dn][2] * scale, dqa[dn][3] * scale);
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[hh][i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    const float lse_lo = rows[row_lo - q0], lse_hi = rows[row_hi - q0];
+    const float dl_lo = rows[kTile + row_lo - q0];
+    const float dl_hi = rows[kTile + row_hi - q0];
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % STAGES;
+      const int k0 = j * KT;
+      mbar_wait(&full[st], (j / STAGES) & 1);
+      // A tile wholly above this warpgroup's diagonal, or rows wholly past
+      // S, add nothing.
+      if (qc < s_len && !(CAUSAL && k0 > qc + 63)) {
+        const uint32_t k_addr =
+            smem_u32(smem + L::STAGE0 + st * 2 * L::KVTILE);
+        const uint32_t v_addr = k_addr + L::KVTILE;
+
+        // S = Q K^T and dP = dO V^T: rows q, columns kv.
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = 0.f;
+          dp[i] = 0.f;
+        }
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t q_off = (kk / 4) * Q_HALF + (kk % 4) * 32;
+          const uint32_t kv_off = (kk / 4) * KV_HALF + (kk % 4) * 32;
+          wgmma_ss_n64(s, kmajor_desc(q_addr + q_off),
+                       kmajor_desc(k_addr + kv_off), kk > 0);
+          wgmma_ss_n64(dp, kmajor_desc(do_addr + q_off),
+                       kmajor_desc(v_addr + kv_off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // dS = P (dP - delta), packed in place as the register A operand
+        // of dQ += dS K (k = kv position).
+        const bool masked =
+            (CAUSAL && k0 + KT - 1 > qc) || k0 + KT > s_len;
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + nt * 8 + 2 * t + (e & 1);
+            const int row = e < 2 ? row_lo : row_hi;
+            float x = s[nt * 4 + e] * scale_log2;
+            if (masked && (col >= s_len || (CAUSAL && col > row)))
+              x = kNegInf;
+            const float p = exp2f(x - (e < 2 ? lse_lo : lse_hi));
+            ds[e] = p * (dp[nt * 4 + e] - (e < 2 ? dl_lo : dl_hi));
+          }
+          dsa[nt / 2][(nt % 2) * 2] = pack(ds[0], ds[1]);
+          dsa[nt / 2][(nt % 2) * 2 + 1] = pack(ds[2], ds[3]);
+        }
+        // K read as stored ([kv][D], MN-major through the descriptor).
+        pv_tile<KT, HALVES, false>(dqa, dsa, k_addr, KV_HALF);
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+    }
+
+    const size_t qbase = ((size_t)b * hq + h) * s_len;
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        const int col = hh * 64 + dn * 8 + 2 * t;
+        if (row_lo < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(dq + (qbase + row_lo) * D +
+                                             col) =
+              __floats2bfloat162_rn(dqa[hh][dn * 4] * scale,
+                                    dqa[hh][dn * 4 + 1] * scale);
+        if (row_hi < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(dq + (qbase + row_hi) * D +
+                                             col) =
+              __floats2bfloat162_rn(dqa[hh][dn * 4 + 2] * scale,
+                                    dqa[hh][dn * 4 + 3] * scale);
+      }
   }
 }
 
@@ -745,14 +755,19 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int b, int hq,
        int hkv, int s_len, float scale, cudaStream_t st) {
   auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
-  constexpr int smem = Smem<D>::dq;
+  constexpr int smem = DqSmem<D>::BYTES;
   if (int rc = launch_prepare(kernel, smem)) return rc;
-  const dim3 grid((s_len + kRows - 1) / kRows, hq, b);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq_out), hq, hkv, s_len, scale * kLog2e, scale);
+  CUtensorMap qm, km, vm, dom;
+  constexpr int KT = DqSmem<D>::KT;
+  if (int rc = tensor_map(&qm, q, b * hq, s_len, D, kTile)) return rc;
+  if (int rc = tensor_map(&km, k, b * hkv, s_len, D, KT)) return rc;
+  if (int rc = tensor_map(&vm, v, b * hkv, s_len, D, KT)) return rc;
+  if (int rc = tensor_map(&dom, dout, b * hq, s_len, D, kTile)) return rc;
+  const dim3 grid((s_len + kTile - 1) / kTile, hq, b);
+  kernel<<<grid, kWgThreads, smem, st>>>(
+      qm, km, vm, dom, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq_out), hq, hkv,
+      s_len, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

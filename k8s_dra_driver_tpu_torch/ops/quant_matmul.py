@@ -15,20 +15,26 @@ two modes:
 
 :func:`int8_matmul` takes its plain version,
 :func:`int8_matmul_reference`, for CPU tensors; for CUDA tensors it
-launches the kernel (counted in ``int8_matmul.launches``) or raises: bf16
-x, int8 q, f32 scales, K a multiple of 64 and N of 16, contiguous 16-byte
-aligned operands on one device. At small M it splits K two or four ways
-(f32 partial sums in a scratch buffer it allocates, summed by the source's
-second pass) so that enough blocks fill the card.
+launches the kernel (counted in ``int8_matmul.launches``; the launches of
+the wgmma body, M > 64, also in ``int8_matmul.wide_launches``, and those
+of them in the prologue mode in ``int8_matmul.wide_prologue_launches``)
+or raises: bf16 x, int8 q, f32 scales, K a multiple of 64 and N of 16,
+contiguous 16-byte aligned operands on one device. :func:`plan` picks the
+body and a K split from the shape and the card's SM count alone (host
+integers, no sync); where the output tiles alone would leave SMs idle it
+splits K two or four ways (f32 partial sums in a scratch buffer the
+wrapper allocates, summed by the source's second pass).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from .attention import sm_count
 
 _SOURCE = "quant_matmul"
 _PTR = ctypes.c_void_p
@@ -36,11 +42,20 @@ _INT = ctypes.c_int
 _ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 _LIB = None
 
-#: The kernel's column block and K step (``csrc/quant_matmul.cu``).
+#: The M <= 64 body's column block and both bodies' K step
+#: (``csrc/quant_matmul.cu``).
 KERNEL_COLS = 64
 KERNEL_K_STEP = 64
-#: Blocks the card should see before K is split (two per SM of the H100).
+#: Blocks the M <= 64 body should see before K is split (two per SM of the
+#: H100).
 _FILL_BLOCKS = 264
+#: The wgmma body (M > 64): its output tile.
+WIDE_MIN_M = 65
+WIDE_ROWS = 128
+WIDE_COLS = 256
+#: The CUDA grid's limit on entries times splits (along y, or z in the
+#: M <= 64 body); the source refuses a grid past it.
+GRID_Y_MAX = 65535
 
 
 def _library():
@@ -90,9 +105,9 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
 
 
 def split_k(e: int, m: int, n: int, k: int) -> int:
-    """How many ways the kernel splits K: 4 or 2 where the output blocks
-    alone would leave the card idle (and K divides), else 1."""
-    bm = 16 if m <= 16 else 64 if m <= 64 else 128
+    """How many ways the M <= 64 body splits K: 4 or 2 where the output
+    blocks alone would leave the card idle (and K divides), else 1."""
+    bm = 16 if m <= 16 else 64
     blocks = e * -(-m // bm) * -(-n // KERNEL_COLS)
     steps = k // KERNEL_K_STEP
     if 2 * blocks < _FILL_BLOCKS and steps % 4 == 0:
@@ -100,6 +115,34 @@ def split_k(e: int, m: int, n: int, k: int) -> int:
     if blocks < _FILL_BLOCKS and steps % 2 == 0:
         return 2
     return 1
+
+
+class Plan(NamedTuple):
+    """One launch: the body (``wide``: the wgmma body, M > 64) and the K
+    split."""
+    wide: bool
+    split: int
+
+
+def plan(e: int, m: int, n: int, k: int, sms: int) -> Plan:
+    """The launch for x [e, m, k] times q [e, k, n] on a card of ``sms``
+    SMs, from host integers only. M <= 64 keeps the mma.sync body and
+    :func:`split_k`. Above, the wgmma body splits K (2 or 4 ways, where K
+    divides) only where that cuts the waves of 128 x 256 blocks a unit of
+    work takes by a quarter or more: a wave that a split would not fill is
+    no gain, and the split's partial sums cost a second pass."""
+    if m < WIDE_MIN_M:
+        return Plan(False, split_k(e, m, n, k))
+    tiles = e * -(-m // WIDE_ROWS) * -(-n // WIDE_COLS)
+    split = 1
+    for s in (2, 4):
+        if (k // KERNEL_K_STEP) % s or e * s > GRID_Y_MAX:
+            break
+        # Waves per unit of work: ceil(tiles s / sms) / s.
+        if 4 * -(-tiles * s // sms) * split > 3 * s * -(-tiles * split // sms):
+            break
+        split = s
+    return Plan(True, split)
 
 
 def _check_args(x, q, scale) -> None:
@@ -133,19 +176,24 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul: M {m}, K {k}, N {n}; the kernel "
                          f"takes M > 0, K a multiple of {KERNEL_K_STEP} and "
                          f"N a multiple of 16")
-    split = split_k(e, m, n, k)
+    p = plan(e, m, n, k, sm_count(x.device))
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
-    part = (torch.empty((split, e, m, n), dtype=torch.float32,
-                        device=x.device) if split > 1 else None)
+    part = (torch.empty((p.split, e, m, n), dtype=torch.float32,
+                        device=x.device) if p.split > 1 else None)
     with torch.cuda.device(x.device):
         rc = _library().int8_matmul(
             xb.data_ptr(), qb.data_ptr(), sb.data_ptr(), y.data_ptr(),
-            part.data_ptr() if part is not None else None, e, m, n, k, split,
-            int(prologue), torch.cuda.current_stream(x.device).cuda_stream,
+            part.data_ptr() if part is not None else None, e, m, n, k,
+            p.split, int(prologue),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.wide_launches += p.wide
+    int8_matmul.wide_prologue_launches += p.wide and prologue
     return y if batched else y[0]
 
 
 int8_matmul.launches = 0
+int8_matmul.wide_launches = 0
+int8_matmul.wide_prologue_launches = 0

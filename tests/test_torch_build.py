@@ -63,11 +63,12 @@ def _edited(tmp_path, monkeypatch, header):
 
 def test_editing_hopper_header_changes_both_dependent_libraries(
         tmp_path, monkeypatch):
-    """``hopper.cuh`` feeds the flash attention and grouped matmul
-    libraries, and the paged attention library through
+    """``hopper.cuh`` feeds the flash attention, grouped matmul and int8
+    matmul libraries, and the paged attention library through
     ``attention_tile.cuh``; no other."""
     assert _edited(tmp_path, monkeypatch, "hopper.cuh") == {
-        "flash_attention", "grouped_matmul", "paged_attention"}
+        "flash_attention", "grouped_matmul", "paged_attention",
+        "quant_matmul"}
 
 
 def test_editing_attention_tile_header_changes_the_attention_libraries(

@@ -262,6 +262,36 @@ def test_flash_attention_autograd_matches_plain(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_matches_plain_at_the_training_length(dev, causal):
+    """K6 alone at S 2048, G 4 (the 8b-L8 step's sequence and grouping)
+    against ``flash_bwd_dq_reference``."""
+    q, k, v, do = _flash_inputs(dev, 1, 8, 2, 2048, 128, seed=5)
+    scale = 128 ** -0.5
+    out, lse = att.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    before = att.flash_bwd_dq.launches
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    ref = att.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert att.flash_bwd_dq.launches == before + 1
+    _rel_close("dq", dq, ref)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_repeats_bitwise(dev):
+    """Two K6 calls on the same inputs give the same bits (dQ is summed in
+    registers, no atomics), at a ragged S with G 4."""
+    q, k, v, do = _flash_inputs(dev, 2, 8, 2, 1000, 128, seed=6)
+    out, lse = att.flash_fwd_reference(q, k, v, True, 128 ** -0.5)
+    delta = (do.float() * out.float()).sum(-1)
+    first = att.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    second = att.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
 def test_rmsnorm_grads_match_plain(dev):
     """The kernel's output carries autograd history on the card: x and
     weight gradients equal those through the plain version."""
@@ -864,12 +894,18 @@ def _int8_weight(dev, e, k, n, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("e", [None, 3])            # 3: the MoE body's batch
-@pytest.mark.parametrize("k,n", [(256, 192), (512, 208), (1024, 4096)])
-@pytest.mark.parametrize("m", [1, 8, 13, 512])
+@pytest.mark.parametrize("e", [None, 3, 8])     # 3, 8: the MoE body's batch
+@pytest.mark.parametrize("k,n", [(256, 192), (512, 208), (512, 112),
+                                 (1024, 4096), (14336, 4096 + 16)])
+@pytest.mark.parametrize("m", [1, 8, 13, 65, 128, 129, 320, 512, 1000])
 def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
-    """Both modes against the plain version. N 208 leaves a ragged last
-    block of 64 columns; the shapes reach K split 4, 2 and 1 ways."""
+    """Both modes against the plain version. M <= 64 runs the mma.sync
+    body (K split 4, 2 and 1 ways), M > 64 the wgmma body (column tiles
+    of 256; K split where the tiles leave SMs idle); M 65, 129 and 1000
+    leave a ragged row tile, 320 one of 64 rows (the upper m64 half
+    idle); N 112, 192, 208 and 4112 a ragged last column tile (at 112 and
+    4112 the second consumer has no columns); K 14336 is the expert
+    down-projection's depth."""
     from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
 
     w = _int8_weight(dev, e, k, n, seed=m + k)
@@ -877,13 +913,34 @@ def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
     g.manual_seed(m)
     x = torch.randn(*((m, k) if e is None else (e, m, k)), generator=g,
                     device=dev).bfloat16()
-    before = qm.int8_matmul.launches
+    counts = ("launches", "wide_launches", "wide_prologue_launches")
+    before = [getattr(qm.int8_matmul, c) for c in counts]
     out = qm.int8_matmul(x, w.q, w.scale, prologue)
     ref = qm.int8_matmul_reference(x, w.q, w.scale, prologue)
     torch.cuda.synchronize()
-    assert qm.int8_matmul.launches == before + 1
+    assert [getattr(qm.int8_matmul, c) - b for c, b in zip(counts, before)
+            ] == [1, m > 64, m > 64 and prologue]
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    _rel_close(f"int8_matmul split {qm.split_k(e or 1, m, n, k)}", out, ref)
+    _rel_close(f"int8_matmul {qm.plan(e or 1, m, n, k, att.sm_count(dev))}",
+               out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+def test_int8_matmul_repeats_bitwise(dev, prologue):
+    """Two calls on the same inputs give the same bits (no atomics; split
+    K summed in a fixed order): the expert shape at capacity 320, and a
+    seam at M 512 whose plan splits K."""
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    for e, m, k, n in ((8, 320, 1024, 4096), (None, 512, 4096, 4096)):
+        w = _int8_weight(dev, e, k, n, seed=7)
+        x = torch.randn(*((m, k) if e is None else (e, m, k)),
+                        device=dev).bfloat16()
+        first = qm.int8_matmul(x, w.q, w.scale, prologue)
+        second = qm.int8_matmul(x, w.q, w.scale, prologue)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), (e, m, k, n)
 
 
 @pytest.mark.cuda
