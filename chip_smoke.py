@@ -54,7 +54,9 @@ fixed seed, and checks every hand-written kernel of those paths:
     versions at the five calls of one 8x7b layer's MoE backward (T 8192,
     a plan from the layer's router), on unaligned groups, and through the
     gradients of ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``,
-    and times them beside ``torch._grouped_mm``;
+    and times them beside ``torch._grouped_mm``; then holds K7 and K8 at
+    that training shape against their plain versions and times them
+    beside ``gmm`` on the same product;
 11. compares one 8x7b-L1 ``loss_fn`` value and every gradient leaf
     (batch 1 x 2048, remat "full") through the kernels with the plain
     path, the plain run replaying the kernel run's expert choices;
@@ -66,7 +68,8 @@ fixed seed, and checks every hand-written kernel of those paths:
     the int8 branches of K2 and K3 (at phase 2's shapes, the long decode
     shape included, pools quantized from random bf16 K/V by the cache's
     own recipe) and of K7 and K8 (on layer 0's int8 experts, at phase 7's
-    shapes) against their plain versions, and times them;
+    shapes, and again at one int8 layer of 8x160m, where K8 splits its
+    contracted axis) against their plain versions, and times them;
 14. runs one full-depth int8+kvq forward -- a prefill chunk, then 4 decode
     steps -- through the kernels and through the plain versions (routing
     replayed as in phase 8), and compares the logits;
@@ -919,18 +922,28 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
                       "paged_attention_kernel<64, 8, true",
                       "paged_attention_kernel<128, 8, true")),
     ("paged_prefill", ("paged_prefill_kernel", "paged_attention_kernel")),
-    ("moe_gateup_int8", ("moe_grouped_kernel<16, true, true>",
+    # K7 and K8 by branch: the body (moe_dispatch_kernel<GATEUP, INT8, SB,
+    # FORM>) and the int8 K8's split pass (moe_split_reduce); each group also
+    # takes the names of the mma.sync design before it (moe_grouped_kernel<
+    # BM, GATEUP, INT8>), so a tree from before the redesign is profiled
+    # the same way.
+    ("moe_gateup_int8", ("moe_dispatch_kernel<true, true",
+                         "moe_grouped_kernel<16, true, true>",
                          "moe_grouped_kernel<64, true, true>",
                          "moe_grouped_kernel<128, true, true>")),
-    ("moe_down_combine_int8", ("moe_grouped_kernel<16, false, true>",
+    ("moe_down_combine_int8", ("moe_dispatch_kernel<false, true",
+                               "moe_split_reduce",
+                               "moe_grouped_kernel<16, false, true>",
                                "moe_grouped_kernel<64, false, true>",
                                "moe_grouped_kernel<128, false, true>")),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("moe_gateup", ("moe_grouped_kernel<16, true", "moe_grouped_kernel<64, "
+    ("moe_gateup", ("moe_dispatch_kernel<true, false",
+                    "moe_grouped_kernel<16, true", "moe_grouped_kernel<64, "
                     "true", "moe_grouped_kernel<128, true")),
-    ("moe_down_combine", ("moe_grouped_kernel<16, false",
+    ("moe_down_combine", ("moe_dispatch_kernel<false, false",
+                          "moe_grouped_kernel<16, false",
                           "moe_grouped_kernel<64, false",
                           "moe_grouped_kernel<128, false")),
     # K10a and K10b are one template, grouped_kernel<KIND, ...>: KIND 0 is
@@ -1110,14 +1123,17 @@ def moe_bounds(plan, h, m, wbytes=2):
     return gateup, down, live, touched
 
 
-def check_moe_kernels(torch, params, cfg, dev) -> dict:
+def check_moe_kernels(torch, params, cfg, dev, tag="") -> dict:
     """Phase 7 (bf16 experts) and phase 13 (int8 experts, the kernels'
     int8 branches): K7 and K8 against their plain versions on layer 0's
     experts, with plans from layer 0's router over normed random hidden
-    states, at the decode step's shape and the packed prefill chunk's."""
+    states, at the decode step's shape and the packed prefill chunk's.
+    Each row carries the launch ``dispatch_plan`` picked; ``tag`` names
+    the widths in the log."""
     from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
     from k8s_dra_driver_tpu_torch.ops import norms
+    from k8s_dra_driver_tpu_torch.ops._device import sm_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 20)
@@ -1154,9 +1170,12 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
         y = down(ref_act, gates_pad, plan)
         ref_y = down(ref_act, gates_pad, plan, use_kernels=False)
         torch.cuda.synchronize()
-        act_err, act_rel = rel(f"moe_gateup{suffix} {name}", act, ref_act)
-        y_err, y_rel = rel(f"moe_down_combine{suffix} {name}", y, ref_y,
+        act_err, act_rel = rel(f"moe_gateup{suffix} {name}{tag}", act,
+                               ref_act)
+        y_err, y_rel = rel(f"moe_down_combine{suffix} {name}{tag}", y, ref_y,
                            K8_REL_MAX, K8_REL_MEAN)
+        launch = md.dispatch_plan(tile, plan.r_pad, h, m, int8,
+                                  sm_count(dev))._asdict()
         sentinel = plan.row_ids >= plan.n_tokens
         if not bool((act[sentinel] == 0).all()):
             raise AssertionError(f"moe_gateup{suffix} {name}: a sentinel "
@@ -1177,8 +1196,8 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
             torch.cuda.synchronize()
             # K7 then K8 against both plain versions: K7's bf16 act error
             # reaches ly, so the bf16 limits hold here.
-            rel(f"moe_dispatch{suffix} decode, experts 0-3 local", ly,
-                ref_ly)
+            rel(f"moe_dispatch{suffix} decode{tag}, experts 0-3 local",
+                ly, ref_ly)
             foreign = flat >= 4
             if not (bool(foreign.any()) and bool((ly[foreign] == 0).all())
                     and bool((lact[lplan.row_ids >= t] == 0).all())):
@@ -1206,8 +1225,9 @@ def check_moe_kernels(torch, params, cfg, dev) -> dict:
                 shape=(f"T {t}, tile {tile}, r_pad {plan.r_pad}, live rows "
                        f"{live}, experts touched {touched}, h {h}, m {m}"
                        + (", int8 experts" if int8 else "")),
-                **bound_fields(f"{kname} {name}", nbytes, ops, BF16_FLOPS),
-                **extra,
+                **bound_fields(f"{kname} {name}{tag}", nbytes, ops,
+                               BF16_FLOPS),
+                plan=launch, **extra,
             )
         shapes[name] = rows
         torch.cuda.empty_cache()
@@ -1270,7 +1290,10 @@ def check_grouped_kernels(torch, cfg, dev) -> dict:
     groups, rows past the last group: exactly 0), and the gradients of
     ``GroupedMatmulFunction`` and ``FusedMoeMlpFunction``, kernels against
     plain versions on the same inputs and cotangent. Times each call
-    (L2 flushed, CUDA events) beside its bound and ``torch._grouped_mm``."""
+    (L2 flushed, CUDA events) beside its bound and ``torch._grouped_mm``.
+    Also holds K7 and K8 (bf16) against their plain versions on the same
+    plan and times them (rows ``moe_gateup_train`` and
+    ``moe_down_combine_train``), beside ``gmm`` on the same product."""
     from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
     from k8s_dra_driver_tpu_torch.ops import norms
@@ -1358,6 +1381,40 @@ def check_grouped_kernels(torch, cfg, dev) -> dict:
         torch.cuda.empty_cache()
     del xs, dgu, dys, dyw, dyw32
 
+    # K7 and K8 (bf16) at the training shape, on the same plan: their rows
+    # moe_gateup_train and moe_down_combine_train, beside gmm on the same
+    # product (xs . w2, and act . w_down) as a yardstick.
+    (gb, gops), (db, dops), _, _ = moe_bounds(plan, h, m)
+    gates_pad = gates_pad.contiguous()
+    train_rows = {}
+    for kname, nbytes, ops, kernel, plain, limits, gmm_ms in (
+        ("moe_gateup_train", gb, gops,
+         lambda: md.moe_gateup(xf, w_gu, plan),
+         lambda: md.moe_gateup_reference(xf, w_gu, plan), (2e-2, 1e-2),
+         rows["grouped_matmul"]["gmm xs.w2"]["ms"]),
+        ("moe_down_combine_train", db, dops,
+         lambda: md.moe_down_combine(act, w_down, gates_pad, plan),
+         lambda: md.moe_down_combine_reference(act, w_down, gates_pad, plan),
+         (K8_REL_MAX, K8_REL_MEAN),
+         time_ms(lambda: md.grouped_matmul(act, w_down, sizes), iters=10)),
+    ):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, r = rel(f"{kname} T {t}", out, ref, *limits)
+        if kname == "moe_gateup_train" and not bool(
+                (out[plan.row_ids >= plan.n_tokens] == 0).all()):
+            raise AssertionError("moe_gateup_train: a sentinel row is not 0")
+        del out, ref
+        train_rows[kname] = dict(
+            max_abs_err=err, rel_err=r, ms=time_ms(kernel, iters=10),
+            plain_ms=time_ms(plain, warmup=1, iters=3), library_ms=None,
+            gmm_ms=gmm_ms,
+            shape=(f"T {t}, tile {plan.tile_rows}, r_pad {r_pad}, live rows "
+                   f"{live}, experts touched {touched}, h {h}, m {m}"),
+            **bound_fields(f"{kname} T {t}", nbytes, ops, BF16_FLOPS))
+        torch.cuda.empty_cache()
+    log("K7/K8 at the training shape:", json.dumps(train_rows))
+
     # Unaligned groups: an empty group, 92 rows past the last one.
     rsizes = torch.tensor(RAGGED_SIZES, dtype=torch.int32, device=dev)
     total = sum(RAGGED_SIZES)
@@ -1428,7 +1485,7 @@ def check_grouped_kernels(torch, cfg, dev) -> dict:
             calls=by_call, unaligned=ragged, function_grad_rel=grads,
         )
     log("grouped kernels:", json.dumps(result))
-    return result
+    return {**result, **train_rows}
 
 
 def int8_moe_params(torch, cfg, dev) -> dict:
@@ -1504,7 +1561,7 @@ def check_int8_matmul(torch, dev) -> dict:
     (a bf16 ``torch.matmul`` on a weight converted beforehand, and
     ``torch._weight_int8pack_mm`` where it runs)."""
     from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
-    from k8s_dra_driver_tpu_torch.ops.attention import sm_count
+    from k8s_dra_driver_tpu_torch.ops._device import sm_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 70)
@@ -1919,7 +1976,7 @@ def main() -> int:
     kernels.update(check_grouped_kernels(torch, tcfg, dev))
     phase_done("phase 10: gmm and tgmm agree with their plain versions at the "
                "MoE backward's five calls, on unaligned groups and through "
-               "both autograd Functions")
+               "both autograd Functions; K7 and K8 at the training shape")
     torch.cuda.empty_cache()
     moe_grads = compare_train(
         torch, dev, tcfg, MOE_COMPARE_BATCH,
@@ -1976,8 +2033,20 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f}s")
     kernels.update(check_paged(torch, qcfg, dev, quantized=True))
     kernels.update(check_moe_kernels(torch, qparams, qcfg, dev))
+    # The int8 K8 splits its contracted axis only where its blocks leave
+    # SMs idle: 8x160m's narrow widths (H 768), not 8x7b's.
+    scfg = dataclasses.replace(MOE_PRESETS["8x160m"], n_layers=1)
+    narrow = check_moe_kernels(torch, int8_moe_params(torch, scfg, dev),
+                               scfg, dev, tag=" (8x160m)")
+    splits = [narrow["moe_down_combine_int8"]["plan"]["split"],
+              narrow["moe_down_combine_int8"]["prefill"]["plan"]["split"]]
+    if min(splits) < 2:
+        raise AssertionError(f"the int8 K8 at 8x160m's decode and prefill "
+                             f"shapes split {splits} ways; want >= 2")
+    for kname, row in narrow.items():
+        kernels[kname]["8x160m"] = row
     phase_done("phase 13: the int8 branches of K2, K3, K7 and K8 agree with "
-               "their plain versions")
+               "their plain versions (K8 split at 8x160m's widths)")
     counted = ("moe_gateup", "moe_down_combine", "moe_gateup_int8",
                "moe_down_combine_int8", "int8_matmul")
     before = [wrappers[n].launches for n in counted]
@@ -2048,11 +2117,18 @@ def main() -> int:
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
     # products: int8_matmul_experts).
+    # K7's and K8's launches in the MoE training path go to their training
+    # rows (moe_gateup_train, moe_down_combine_train), the serving paths'
+    # to their decode/prefill rows.
     by_path = {p: {**c, "int8_matmul": c["int8_matmul"]
                    - c["int8_matmul_wide"],
                    "int8_matmul_prefill": c["int8_matmul_wide"]
                    - c["int8_matmul_wide_prologue"],
-                   "int8_matmul_experts": c["int8_matmul_wide_prologue"]}
+                   "int8_matmul_experts": c["int8_matmul_wide_prologue"],
+                   **{k + suffix: (c[k] if (p == "moe_training")
+                                   == (suffix == "_train") else 0)
+                      for k in ("moe_gateup", "moe_down_combine")
+                      for suffix in ("", "_train")}}
                for p, c in by_path.items()}
     launches = {name: sum(by_path[p][name] for p in by_path)
                 for name in by_path["serving"]}
@@ -2117,6 +2193,8 @@ def main() -> int:
                                 "(q_dequant, then XLA's einsum; no Pallas "
                                 "kernel)"),
     }
+    for name in ("moe_gateup", "moe_down_combine"):
+        meta[name + "_train"] = meta[name]
     # K2 at the longest window: the same kernels and launch counts as its
     # row at the engine's shape.
     for name in ("paged_decode", "paged_decode_int8"):

@@ -31,7 +31,9 @@
 // cores' full rate.
 //
 // Design: one warp-specialised GEMM body for both kernels, the shape of K4
-// and K5 (the Hopper pieces come from hopper.cuh).
+// and K5 (the Hopper pieces come from hopper.cuh; the ring, the raster, one
+// stage's products and the tensor maps from grouped_gemm.cuh, which the
+// fused MoE dispatch kernels K7 and K8 share).
 //   - A block of 3 warpgroups owns a 128 x BN output tile (BN 256, 128 or 64,
 //     the widest that divides N). Warpgroup 0 is the producer: one thread
 //     starts every TMA load, setmaxnreg leaves it 40 registers. Warpgroups 1
@@ -87,63 +89,13 @@
 // the gated down-projection cotangent (f32 there) are rounded to bf16 before
 // tgmm takes them, where the JAX package's off-TPU fallback keeps them f32.
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
+#include "grouped_gemm.cuh"  // ring, raster, stage products, tensor maps
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kRowTile = 128;              // output rows of a block
-constexpr int kDepth = 64;                 // contracted depth of a stage
-constexpr int kBox = kDepth * kRowBytes;   // a 64-row box of 64 columns
-constexpr int kSwizzle = 8;                // row (K) tiles per column sweep
 constexpr int kGmm = 0, kTgmm = 1;
-
-// Shared memory (byte offsets from a 1024-aligned base): STAGES stages of A
-// (128 x 64: two 8 KB boxes) then B (BN x 64: BN / 64 boxes, or one box of
-// BN rows), then the full and empty barriers.
-template <int BN>
-struct Ring {
-  static constexpr int A = kRowTile * kRowBytes;
-  static constexpr int STAGE = A + BN * kRowBytes;
-  static constexpr int STAGES =
-      192 * 1024 / STAGE < 8 ? 192 * 1024 / STAGE : 8;
-  static constexpr int BARS = STAGES * STAGE;
-  static constexpr int USED = BARS + 2 * STAGES * 8;
-  static constexpr int BYTES = USED + 1024 > kMinSmem ? USED + 1024
-                                                      : kMinSmem;
-};
-
-// Block index -> (row item, column tile): kSwizzle row items per sweep of
-// the columns.
-__device__ __forceinline__ void swizzle(int pid, int n_rows, int n_cols,
-                                        int& row, int& col) {
-  const int span = kSwizzle * n_cols;
-  const int first = (pid / span) * kSwizzle;
-  const int size = min(n_rows - first, kSwizzle);
-  row = first + (pid % span) % size;
-  col = (pid % span) / size;
-}
-
-// The 4 k16 products of one stage into a consumer's 64 x BN accumulators.
-// TA / TB: A / B MN-major (transpose bit), else K-major.
-template <int BN, int TA, int TB>
-__device__ __forceinline__ void stage_products(float (&acc)[BN / 2],
-                                               uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < kDepth / 16; ++kk) {
-    const uint64_t da = TA ? mnmajor_desc(a + kk * 16 * kRowBytes, kBox)
-                           : kmajor_desc(a + kk * 32);
-    const uint64_t db = TB ? mnmajor_desc(b + kk * 16 * kRowBytes, kBox)
-                           : kmajor_desc(b + kk * 32);
-    if constexpr (BN == 256)
-      wgmma_ss_n256<TA, TB>(acc, da, db, 1);
-    else if constexpr (BN == 128)
-      wgmma_ss_n128<TA, TB>(acc, da, db, 1);
-    else
-      wgmma_ss_n64<TA, TB>(acc, da, db, 1);
-  }
-}
 
 // gmm (KIND kGmm): a_map over lhs [rows, K] in 64 x 128-row boxes; b_map
 // over rhs [E, K, N] in 64 x 64 x 1 boxes, or (B_KMAJOR) over [E, N, K] in
@@ -343,30 +295,6 @@ grouped_kernel(const __grid_constant__ CUtensorMap a_map,
       }
     }
   }
-}
-
-// A rank-2 map over a row-major [outer, inner] bf16 matrix in boxes of 64
-// columns x `box_rows` rows.
-int matrix_map(CUtensorMap* map, const void* base, int outer, int inner,
-               int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  return bf16_tensor_map(map, base, 2, dims, strides, box);
-}
-
-// A rank-3 map over [E, outer, inner] bf16 in boxes of 64 x `box_rows` x 1.
-int experts_map(CUtensorMap* map, const void* base, int e, int outer,
-                int inner, int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer),
-                              static_cast<cuuint64_t>(e)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(inner) * 2,
-      static_cast<cuuint64_t>(outer) * inner * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  return bf16_tensor_map(map, base, 3, dims, strides, box);
 }
 
 // Raises the kernel's shared-memory limit. Called before the tensor maps

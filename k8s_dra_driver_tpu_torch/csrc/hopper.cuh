@@ -5,8 +5,9 @@
 // packing of an online softmax over wgmma accumulators, and the host-side
 // tensor-map encoder.
 //
-// Included by flash_attention.cu (K4, K5), grouped_matmul.cu (K10a, K10b)
-// and paged_attention.cu (K2, K3), the attention ones through
+// Included by flash_attention.cu (K4, K5), grouped_matmul.cu (K10a, K10b),
+// moe_dispatch.cu (K7, K8), quant_matmul.cu (int8_matmul) and
+// paged_attention.cu (K2, K3), the attention ones through
 // attention_tile.cuh. ops/_build.py hashes a source together with
 // every header it includes, so an edit here rebuilds every library that
 // includes it.
@@ -348,6 +349,22 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..8) += A * B, m64n16k16, A from registers (the mma.sync A fragment
+// layout per warp), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -84,7 +84,8 @@
 // scratch buffer [split, E, M, N], and a second small pass sums them in a
 // fixed order, applies the epilogue scale and casts.
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
+#include "hopper.cuh"      // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
+#include "int8_image.cuh"  // cvt8, convert_rows: int8 tiles into bf16 images
 
 namespace {
 
@@ -416,40 +417,6 @@ constexpr int kBars = kImg0 + 2 * kImages * kImg;
 constexpr int kWideSmem = kBars + 2 * kStages * 8 + 1024;
 static_assert(kMinSmem <= kWideSmem && kWideSmem <= 232448, "shared memory");
 
-// Eight int8 weights (byte i of lo, then of hi: columns 0-7) as four bf16
-// pairs, low column in the low half. With u = b + 128 as an unsigned byte,
-// masking it into the mantissa of 2^23 gives the f32 2^23 + u (bytes 0 and
-// 2) or 2^23 + 256 u (bytes 1 and 3), and one subtraction (or one fma by
-// 2^-8) gives b exactly: logic ops and f32 arithmetic, no byte permutes.
-// Exact (!PROLOGUE): the f32's high half is bf16(b); PROLOGUE: times the
-// column's f32 scale s[i], rounded to bf16 -- q_dequant's rounding.
-template <bool PROLOGUE>
-__device__ __forceinline__ uint4 cvt8(uint32_t lo, uint32_t hi,
-                                      const float* s) {
-  uint32_t r[4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t u = (h ? hi : lo) ^ 0x80808080u, v = u >> 16;
-    float f[4];
-    f[0] = __uint_as_float((u & 0xFFu) | 0x4B000000u) - 8388736.f;
-    f[1] = fmaf(__uint_as_float((u & 0xFF00u) | 0x4B000000u), 0.00390625f,
-                -32896.f);
-    f[2] = __uint_as_float((v & 0xFFu) | 0x4B000000u) - 8388736.f;
-    f[3] = fmaf(__uint_as_float((v & 0xFF00u) | 0x4B000000u), 0.00390625f,
-                -32896.f);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (PROLOGUE)
-        r[2 * h + i] = pack(f[2 * i] * s[4 * h + 2 * i],
-                            f[2 * i + 1] * s[4 * h + 2 * i + 1]);
-      else
-        r[2 * h + i] = __byte_perm(__float_as_uint(f[2 * i]),
-                                   __float_as_uint(f[2 * i + 1]), 0x7632);
-    }
-  }
-  return make_uint4(r[0], r[1], r[2], r[3]);
-}
-
 // One stage's products of a consumer: its 128 rows (two m64 halves) by its
 // 128 columns, k16 by k16; A (x) K-major, B (the image) MN-major through
 // the transpose bit.
@@ -554,14 +521,7 @@ int8_matmul_wide_kernel(const __grid_constant__ CUtensorMap x_map,
         smem + (step % kStages) * kStage + kXBox + kWN * c + grp * 8;
     unsigned char* img = images + (step % kImages) * kImg + img_col;
 #ifndef INT8_WIDE_NO_CONVERT
-#pragma unroll
-    for (int i = 0; i < kBK / RP; ++i) {
-      const int kr = rp + i * RP;
-      const uint2 w = *reinterpret_cast<const uint2*>(q8 + kr * kWideCols);
-      *reinterpret_cast<uint4*>(img + kr * kRowBytes +
-                                ((chunk ^ (kr & 7)) << 4)) =
-          cvt8<PROLOGUE>(w.x, w.y, cs);
-    }
+    convert_rows<PROLOGUE, RP>(q8, kWideCols, img, chunk, rp, cs);
 #endif
     fence_proxy_async();
     named_sync(1 + c, 128);

@@ -55,6 +55,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._device import sm_count
 
 NEG_INF = -1e30
 
@@ -263,19 +264,6 @@ def _library():
 
 def _is_cpu(*tensors) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
-
-
-_SM_COUNT: dict[int, int] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The device's SM count, read once per device."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SM_COUNT[index]
 
 
 def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,

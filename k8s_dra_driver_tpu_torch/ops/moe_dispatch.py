@@ -16,6 +16,11 @@ backward, and their plain PyTorch versions. Counterpart of
   ``_down_combine_kernel`` (with ``_scatter_rows_dma``): the
   down-projection in f32, times each row's router gate, written straight
   to the row's token-major pair slot. Slots of no live pair stay 0.
+- :func:`dispatch_plan` picks the launch of both from host integers
+  alone (the row tile, ``r_pad``, the widths, int8 or not, the card's SM
+  count; never the routing, never a device sync): each kernel's form of
+  the one wgmma body (the swapped form for int8 experts at decode), its
+  column block, and the int8 K8's split of its contracted axis.
 - :func:`grouped_matmul` and :func:`grouped_weight_grad` wrap ``gmm`` and
   ``tgmm`` of ``csrc/grouped_matmul.cu``, which replace megablox ``gmm``
   and ``tgmm``: ``lax.ragged_dot`` over any group sizes, and the per-group
@@ -53,10 +58,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from ._device import sm_count
 
 #: Largest row tile of the default plan (the reference's
 #: ``TPU_DRA_MOE_TILE_ROWS`` default).
@@ -64,10 +71,15 @@ TILE_ROWS = 128
 #: Column tile of the reference's kernels (``TPU_DRA_MOE_TILE_COLS``);
 #: kept for :func:`_fit_cols`. The CUDA kernels fix their own widths.
 TILE_COLS = 512
-#: The CUDA kernels take H and M in whole blocks of 64 (output columns
-#: in blocks of 64, the contracted axis in steps of 32; see
+#: The CUDA kernels take H and M in whole blocks of 64 (output columns in
+#: blocks of 64, 128 or 256, the contracted axis in 64-deep stages; see
 #: ``csrc/moe_dispatch.cu``).
 KERNEL_COLS = 64
+K_STEP = 64
+#: int8 experts take the swapped form at row tiles up to this size.
+SWAP_MAX_TILE = 16
+#: The int8 K8's largest split of its contracted axis.
+MAX_SPLIT = 4
 
 _DISPATCH_IMPL = "auto"
 
@@ -75,11 +87,13 @@ _SOURCE = "moe_dispatch"
 _GROUPED_SOURCE = "grouped_matmul"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_GATEUP_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
-_DOWN_ARGTYPES = [_PTR] * 6 + [_INT] * 5 + [_PTR]
-# The int8 entry points take the weights' scale after the weights.
-_GATEUP_INT8_ARGTYPES = [_PTR] * 6 + [_INT] * 5 + [_PTR]
-_DOWN_INT8_ARGTYPES = [_PTR] * 7 + [_INT] * 5 + [_PTR]
+# Shapes, then the plan: (n, widths, r_pad, tile, n_experts, body, cols).
+_GATEUP_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
+_DOWN_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [_PTR]
+# The int8 entry points take the weights' scale after the weights, and
+# the int8 K8 its split scratch after the output and its split last.
+_GATEUP_INT8_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [_PTR]
+_DOWN_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 9 + [_PTR]
 _GMM_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_PTR]
 _TGMM_ARGTYPES = [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _LIB = None
@@ -626,6 +640,57 @@ def moe_down_combine_reference(act: torch.Tensor, w_down: torch.Tensor,
     return out
 
 
+#: The forms of the kernels' body (``csrc/moe_dispatch.cu``) by the C
+#: entry points' ``body`` argument.
+BODIES = {"wgmma": 0, "swapped": 1}
+
+
+class MoePlan(NamedTuple):
+    """One launch of K7 and K8 over a dispatch plan."""
+    gateup_body: str  # K7's form, a key of BODIES
+    gateup_cols: int  # K7's output (act) columns a block
+    down_body: str    # K8's form
+    down_cols: int    # K8's output columns a block
+    split: int        # the int8 K8's split of its contracted axis M
+    chunk: int        # M // split: the contracted rows of one split
+
+
+def dispatch_plan(tile: int, r_pad: int, h: int, m: int, int8: bool,
+                  sms: int) -> MoePlan:
+    """The launch of K7 and K8 for a dispatch plan of row tile ``tile``
+    and ``r_pad`` rows at widths H ``h`` and M ``m``, on a card of ``sms``
+    SMs, from host integers alone: never the routing, never a sync.
+
+    K7 stages 128 gate and 128 up columns a block (64 + 64 where M is not
+    a multiple of 128), K8 the widest of 256, 128 or 64 columns that
+    divides H. int8 experts at a tile of at most :data:`SWAP_MAX_TILE`
+    rows (decode) take the swapped form where the block stages 256 columns
+    and the contracted axis (of a split) is an even number of stages.
+    The int8 K8 splits M 2 or 4 ways while its blocks (every tile's, live
+    or not: the host cannot see the routing), so split, still fit one wave
+    (the body runs one block an SM), keeping whole stages a split. bf16 K8
+    never splits: on the H100 no split of it was faster (PERF.md)."""
+    if not all(type(v) is int for v in (tile, r_pad, h, m, sms)):
+        raise TypeError("dispatch_plan takes host integers, not tensors")
+    if h % KERNEL_COLS or m % KERNEL_COLS or tile <= 0 or r_pad % tile:
+        raise ValueError(f"dispatch_plan: tile {tile}, r_pad {r_pad}, H {h}, "
+                         f"M {m}; widths must be multiples of {KERNEL_COLS}")
+    gateup_cols = 128 if m % 128 == 0 else 64
+    down_cols = next(c for c in (256, 128, 64) if h % c == 0)
+    swap = int8 and tile <= SWAP_MAX_TILE
+    blocks = (r_pad // tile) * (h // down_cols)
+    split = 1
+    while (int8 and split < MAX_SPLIT and 2 * split * blocks <= sms
+           and (m // K_STEP) % (2 * split) == 0):
+        split *= 2
+    chunk = m // split
+    return MoePlan(
+        "swapped" if swap and gateup_cols == 128 and h % (2 * K_STEP) == 0
+        else "wgmma", gateup_cols,
+        "swapped" if swap and down_cols == 256 and chunk % (2 * K_STEP) == 0
+        else "wgmma", down_cols, split, chunk)
+
+
 def _library():
     """The built kernel library with its C signatures declared."""
     global _LIB
@@ -728,7 +793,10 @@ def moe_gateup_int8(xf: torch.Tensor, w_gu: torch.Tensor,
 moe_gateup_int8.launches = 0
 
 
-def _gateup_launch(kernel, xf, w_gu, scale, plan) -> torch.Tensor:
+def _gateup_launch(kernel, xf, w_gu, scale, plan,
+                   launch: MoePlan | None = None) -> torch.Tensor:
+    """Checks and launches K7 (``kernel``: either branch's C entry) with
+    the launch ``dispatch_plan`` picks, or ``launch``."""
     e, h, two, m = w_gu.shape
     extra = {} if scale is None else {"scale": scale}
     _check_cuda(kernel, plan, xf=xf, w_gu=w_gu, **extra)
@@ -740,6 +808,9 @@ def _gateup_launch(kernel, xf, w_gu, scale, plan) -> torch.Tensor:
             f"{tuple(w_gu.shape)}; expected bf16 [{plan.n_tokens}, H] and "
             f"[E, H, 2, M]"
         )
+    if launch is None:
+        launch = dispatch_plan(plan.tile_rows, plan.r_pad, h, m,
+                               scale is not None, sm_count(xf.device))
     act = torch.empty(plan.r_pad, m, dtype=xf.dtype, device=xf.device)
     weights = (w_gu,) if scale is None else (w_gu, scale)
     with torch.cuda.device(xf.device):
@@ -747,6 +818,7 @@ def _gateup_launch(kernel, xf, w_gu, scale, plan) -> torch.Tensor:
             xf.data_ptr(), *(x.data_ptr() for x in weights),
             plan.row_ids.data_ptr(), plan.tile_expert.data_ptr(),
             act.data_ptr(), plan.n_tokens, h, m, plan.r_pad, plan.tile_rows,
+            e, BODIES[launch.gateup_body], launch.gateup_cols,
             torch.cuda.current_stream(xf.device).cuda_stream,
         )
     _build.check(rc, kernel)
@@ -792,7 +864,13 @@ def moe_down_combine_int8(act: torch.Tensor, w_down: torch.Tensor,
 moe_down_combine_int8.launches = 0
 
 
-def _down_launch(kernel, act, w_down, scale, gates_pad, plan) -> torch.Tensor:
+def _down_launch(kernel, act, w_down, scale, gates_pad, plan,
+                 launch: MoePlan | None = None) -> torch.Tensor:
+    """Checks and launches K8 (``kernel``: either branch's C entry) with
+    the launch ``dispatch_plan`` picks, or ``launch``. A split launch (int8
+    only) writes gated partial sums to a zero-filled f32 scratch [split,
+    n_pairs, H] that the source's second pass sums, in order, into the
+    output."""
     e, m, h = w_down.shape
     extra = {} if scale is None else {"scale": scale}
     _check_cuda(kernel, plan, act=act, w_down=w_down, gates_pad=gates_pad,
@@ -804,15 +882,28 @@ def _down_launch(kernel, act, w_down, scale, gates_pad, plan) -> torch.Tensor:
     if gates_pad.dtype != torch.float32 or gates_pad.numel() != plan.r_pad:
         raise TypeError(f"{kernel}: gates_pad {tuple(gates_pad.shape)} "
                         f"{gates_pad.dtype}; expected float32 [{plan.r_pad}]")
+    if launch is None:
+        launch = dispatch_plan(plan.tile_rows, plan.r_pad, h, m,
+                               scale is not None, sm_count(act.device))
+    if scale is None and launch.split != 1:
+        raise ValueError(f"{kernel}: split {launch.split}; bf16 K8 is never "
+                         f"split")
     out = torch.zeros(plan.n_pairs, h, dtype=torch.float32,
                       device=act.device)
-    weights = (w_down,) if scale is None else (w_down, scale)
+    part = (torch.zeros(launch.split, plan.n_pairs, h, dtype=torch.float32,
+                        device=act.device) if launch.split > 1 else None)
+    if scale is None:  # the bf16 entry takes no scale, scratch or split
+        weights, scratch, split = (w_down,), (), ()
+    else:
+        weights, split = (w_down, scale), (launch.split,)
+        scratch = (None if part is None else part.data_ptr(),)
     with torch.cuda.device(act.device):
         rc = getattr(_library(), kernel)(
             act.data_ptr(), *(x.data_ptr() for x in weights),
             gates_pad.data_ptr(), plan.pair_ids.data_ptr(),
-            plan.tile_expert.data_ptr(), out.data_ptr(), plan.n_pairs, m, h,
-            plan.r_pad, plan.tile_rows,
+            plan.tile_expert.data_ptr(), out.data_ptr(), *scratch,
+            plan.n_pairs, m, h, plan.r_pad, plan.tile_rows, e,
+            BODIES[launch.down_body], launch.down_cols, *split,
             torch.cuda.current_stream(act.device).cuda_stream,
         )
     _build.check(rc, kernel)

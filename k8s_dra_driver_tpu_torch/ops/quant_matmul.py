@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .attention import sm_count
+from ._device import sm_count
 
 _SOURCE = "quant_matmul"
 _PTR = ctypes.c_void_p

@@ -35,6 +35,7 @@ import torch
 from k8s_dra_driver_tpu_torch.ops import attention as att
 from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
 from k8s_dra_driver_tpu_torch.ops import norms
+from k8s_dra_driver_tpu_torch.ops._device import sm_count
 
 
 @pytest.fixture
@@ -94,7 +95,7 @@ def test_decode_matches_plain(dev, hq, hkv, d, bs, starts):
     before = att.paged_decode_attention.launches
     out = att.paged_decode_attention(q[:, :, 0], k, v, tables, vlen, bs)
     ref = att.paged_attention_reference(q, k, v, tables, pos, bs)[:, :, 0]
-    splits = att.decode_splits(len(starts), hkv, nbps, bs, att.sm_count(dev))
+    splits = att.decode_splits(len(starts), hkv, nbps, bs, sm_count(dev))
     split_ref = att.paged_decode_split_reference(q[:, :, 0], k, v, tables,
                                                  vlen, bs, splits)
     torch.cuda.synchronize()
@@ -636,7 +637,7 @@ def test_int8_decode_matches_plain(dev, hq, hkv, d, bs, starts, sentinel):
                                      k_scale=ks, v_scale=vs)
     ref = att.paged_attention_reference(q, k, v, tables, pos, bs,
                                         k_scale=ks, v_scale=vs)[:, :, 0]
-    splits = att.decode_splits(len(starts), hkv, nbps, bs, att.sm_count(dev))
+    splits = att.decode_splits(len(starts), hkv, nbps, bs, sm_count(dev))
     split_ref = att.paged_decode_split_reference(
         q[:, :, 0], k, v, tables, vlen, bs, splits, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
@@ -921,7 +922,7 @@ def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
     assert [getattr(qm.int8_matmul, c) - b for c, b in zip(counts, before)
             ] == [1, m > 64, m > 64 and prologue]
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    _rel_close(f"int8_matmul {qm.plan(e or 1, m, n, k, att.sm_count(dev))}",
+    _rel_close(f"int8_matmul {qm.plan(e or 1, m, n, k, sm_count(dev))}",
                out, ref)
 
 
@@ -990,3 +991,173 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
                        w.scale[:, :40].contiguous())
     with pytest.raises(ValueError, match="does not match"):
         qm.int8_matmul(x[:, :128].contiguous(), w.q, w.scale)
+
+
+# K7/K8's launches (``md.dispatch_plan``): the wgmma body at every row
+# tile, its swapped form for int8 experts at tiles of at most 16 rows, and
+# the int8 K8's split of its contracted axis where its blocks leave SMs
+# idle; both branches of each.
+
+
+def _moe_branch(dev, t, h, m, tile, case, quantized):
+    """(xf, (w_gu, its scale), (w_down, its scale), gates, plan); the
+    scales are None for bf16 experts."""
+    if quantized:
+        xf, w_gu, w_down, gates, plan = _int8_moe_problem(dev, t, h, m, tile,
+                                                          case)
+        return (xf, (w_gu.q, w_gu.scale), (w_down.q, w_down.scale), gates,
+                plan)
+    xf, w_gu, w_down, gates, plan = _moe_problem(dev, t, h, m, tile=tile,
+                                                 case=case)
+    return xf, (w_gu, None), (w_down, None), gates, plan
+
+
+def _moe_launch(xf, gu, dn, gates_pad, plan, act_in, launch=None):
+    """K7 on xf and K8 on ``act_in`` through the wrappers, or with the
+    given launch (``md.MoePlan``) through their launch helpers."""
+    (wg, sg), (wd, sd) = gu, dn
+    if launch is None:
+        return (md.moe_gateup(xf, wg, plan, sg),
+                md.moe_down_combine(act_in, wd, gates_pad, plan, sd))
+    q = "" if sg is None else "_int8"
+    return (md._gateup_launch("moe_gateup" + q, xf, wg, sg, plan, launch),
+            md._down_launch("moe_down_combine" + q, act_in, wd, sd,
+                            gates_pad, plan, launch))
+
+
+def _moe_check(xf, gu, dn, gates, plan, launch=None):
+    """K7 and K8 against their plain versions (K7 2% / 1%, K8 1e-3 /
+    1e-4), sentinel rows and slots of no live pair exactly 0, and both
+    bitwise equal on a second call."""
+    (wg, sg), (wd, sd) = gu, dn
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    ref_act = md.moe_gateup_reference(xf, wg, plan, sg)
+    act, y = _moe_launch(xf, gu, dn, gates_pad, plan, ref_act, launch)
+    act2, y2 = _moe_launch(xf, gu, dn, gates_pad, plan, ref_act, launch)
+    ref_y = md.moe_down_combine_reference(ref_act, wd, gates_pad, plan, sd)
+    torch.cuda.synchronize()
+    assert act.dtype == torch.bfloat16 and y.dtype == torch.float32
+    _rel_close("act", act, ref_act)
+    _rel_close("y_pairs", y, ref_y, rel_max=1e-3, rel_mean=1e-4)
+    assert torch.equal(act, act2) and torch.equal(y, y2)
+    sentinel = plan.row_ids >= plan.n_tokens
+    assert (act[sentinel] == 0).all()
+    dead = plan.slot_of_pair >= plan.r_pad
+    assert (y[dead] == 0).all()
+    assert (y[~dead].abs().sum(-1) > 0).all()
+    return dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case", ["random", "skew", "foreign"])
+@pytest.mark.parametrize("t,h,m,tile", [
+    (8192, 4096, 14336, 128),  # Mixtral-8x7B training (8x7b-L1, 4 x 2048)
+    (200, 512, 512, 24),       # K7 128 + 128 columns, K8 256
+    (200, 384, 384, 40),       # K7 128 + 128, K8 128
+    (200, 320, 320, 72),       # K7 64 + 64, K8 64
+    (300, 512, 320, 120),      # K7 64 + 64, K8 256
+])
+def test_moe_kernels_match_plain_at_every_column_block(dev, t, h, m, tile, case, quantized):
+    """The wgmma body at row tiles under 128 (the box reads the next tile's
+    rows, never stored), every column block K7 and K8 take (the narrow
+    widths' few blocks split the int8 K8), skewed and half-foreign
+    routing, at the training shape too."""
+    xf, gu, dn, gates, plan = _moe_branch(dev, t, h, m, tile, case,
+                                          quantized)
+    launch = md.dispatch_plan(tile, plan.r_pad, h, m, quantized,
+                              sm_count(dev))
+    assert launch.gateup_body == launch.down_body == "wgmma"
+    assert launch.split * launch.chunk == m
+    counters = (md.moe_gateup_int8, md.moe_down_combine_int8) if quantized \
+        else (md.moe_gateup, md.moe_down_combine)
+    before = [c.launches for c in counters]
+    dead = _moe_check(xf, gu, dn, gates, plan)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2]
+    assert case != "foreign" or dead.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("tile", [8, 128])
+def test_moe_kernels_all_sentinel_plan_at_both_tiles(dev, tile, quantized):
+    """Every pair foreign: K7 writes zeros, K8 nothing, at a tile of 8
+    and one of 128."""
+    xf, gu, dn, gates, _ = _moe_branch(dev, 40, 128, 128, 8, "random",
+                                       quantized)
+    plan = md.build_plan(torch.full((80,), 9, dtype=torch.int32,
+                                    device=dev), 40, 8, 2, tile_rows=tile)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    act, y = _moe_launch(xf, gu, dn, gates_pad, plan,
+                         torch.ones(plan.r_pad, 128, dtype=torch.bfloat16,
+                                    device=dev))
+    torch.cuda.synchronize()
+    assert (act == 0).all() and (y == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,split", [(False, 1), (True, 1),
+                                             (True, 2), (True, 4)])
+@pytest.mark.parametrize("case", ["random", "foreign"])
+def test_moe_decode_step_forms_and_splits_match_plain(dev, case, split,
+                                                      quantized):
+    """The Mixtral-8x7B decode step (T 8, tile 8: 64-row boxes) in the
+    wgmma body and, on int8 experts, its swapped form (the plan's choice
+    there), the int8 K8's contracted axis whole and split 2 and 4 ways,
+    partials summed in order (bitwise on repeat)."""
+    xf, gu, dn, gates, plan = _moe_branch(dev, 8, 4096, 14336, 8, case,
+                                          quantized)
+    forms = ("wgmma", "swapped") if quantized else ("wgmma",)
+    assert md.dispatch_plan(8, plan.r_pad, 4096, 14336, quantized,
+                            sm_count(dev)).down_body == forms[-1]
+    for form in forms:
+        _moe_check(xf, gu, dn, gates, plan,
+                   md.MoePlan(form, 128, form, 256, split, 14336 // split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,split", [(True, 1), (True, 2),
+                                             (True, 4), (False, 1)])
+@pytest.mark.parametrize("t,tile", [(8, 8), (512, 128)])
+def test_moe_kernels_match_plain_at_8x160m_widths(dev, t, tile, split,
+                                                  quantized):
+    """8x160m's widths (H 768, M 2048), where the plan splits the int8
+    K8 (4 ways at the decode step, 2 at the prefill chunk), in the plan's
+    form with K8 whole and split 2 and 4 ways; bf16 unsplit."""
+    xf, gu, dn, gates, plan = _moe_branch(dev, t, 768, 2048, tile, "random",
+                                          quantized)
+    chosen = md.dispatch_plan(tile, plan.r_pad, 768, 2048, quantized,
+                              sm_count(dev))
+    assert chosen.split == ((4 if tile == 8 else 2) if quantized else 1)
+    _moe_check(xf, gu, dn, gates, plan,
+               chosen._replace(split=split, chunk=2048 // split))
+
+
+@pytest.mark.cuda
+def test_moe_wrappers_refuse_a_bad_launch(dev):
+    """The C entry points refuse a launch outside their plan's grammar, and
+    the wrapper a split of bf16 K8, whose entry point takes none."""
+    xf, gu, dn, gates, plan = _moe_branch(dev, 24, 64, 128, 8, "random",
+                                          False)
+    gates_pad = md._take_rows(gates, plan.pair_ids).contiguous()
+    act = md.moe_gateup(xf, gu[0], plan)
+    for bad in (md.MoePlan("wgmma", 128, "wgmma", 128, 1, 128),  # H 64
+                md.MoePlan("wgmma", 128, "swapped", 64, 1, 128)):  # bf16
+        with pytest.raises(RuntimeError, match="error -1"):
+            md._down_launch("moe_down_combine", act, dn[0], None, gates_pad,
+                            plan, bad)
+    with pytest.raises(ValueError, match="never split"):
+        md._down_launch("moe_down_combine", act, dn[0], None, gates_pad,
+                        plan, md.MoePlan("wgmma", 128, "wgmma", 64, 2, 64))
+    xq, guq, dnq, gates_q, plan_q = _moe_branch(dev, 24, 64, 128, 8,
+                                                "random", True)
+    act_q = md.moe_gateup(xq, guq[0], plan_q, guq[1])
+    for bad in (md.MoePlan("wgmma", 128, "wgmma", 64, 4, 32),  # 4 x 64 > M
+                md.MoePlan("wgmma", 128, "wgmma", 64, 3, 42)):  # split 3
+        with pytest.raises(RuntimeError, match="error -1"):
+            md._down_launch("moe_down_combine_int8", act_q, dnq[0], dnq[1],
+                            md._take_rows(gates_q, plan_q.pair_ids)
+                            .contiguous(), plan_q, bad)
+    with pytest.raises(RuntimeError, match="error -1"):  # 256 columns
+        md._gateup_launch("moe_gateup", xf, gu[0], None, plan,
+                          md.MoePlan("wgmma", 256, "wgmma", 64, 1, 128))

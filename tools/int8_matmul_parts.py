@@ -34,7 +34,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from k8s_dra_driver_tpu_torch.ops import _build  # noqa: E402
 from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm  # noqa: E402
-from k8s_dra_driver_tpu_torch.ops.attention import sm_count  # noqa: E402
+from k8s_dra_driver_tpu_torch.ops._device import sm_count  # noqa: E402
 
 SHAPES = [(f"{name} M 512", 1, 512, k, n, False)
           for name, k, n in cs.INT8_SEAMS]
