@@ -26,11 +26,17 @@ fixed seed, and checks every hand-written kernel of those paths:
    kernels and through the plain versions, and compares the logits;
 4. serves 8 requests (prompts of 96 to 700 tokens, four sharing a
    256-token prefix, 32 new tokens each) through ``DecodeEngine`` with the
-   prefix cache and the overlapped tick on (the serving path), then
-   profiles one decode step of the 8B model (8 sequences at 384 cached
-   positions: device time by kernel group, K2's share, device over host
-   time) and one packed 4 x 128 prefill launch (device time, K3's share),
-   both outside the counted run;
+   prefix cache and the overlapped tick on (the serving path), its decode
+   and prefill steps captured as CUDA graphs and replayed; then serves the
+   same traffic through a ``capture=False`` engine, outside the counted
+   run, and holds the two equal (greedy streams but for near-ties, stats
+   counters, allocator state, every launch count; ``compile_counts`` 1
+   per step); then profiles one decode step of the 8B model (8 sequences
+   at 384 cached positions: device time by kernel group, K2's share,
+   device over host time; then the same step captured by ``StepGraph``:
+   host time over 5 replays, device time by CUDA events) and one packed 4
+   x 128 prefill launch (device time, K3's share), both outside the
+   counted run;
 5. frees the 8B weights and compares one ``loss_fn`` value and gradient at
    the 8b-L8 widths (2 layers, batch 2 x 2048) through the kernels with
    the plain path on the same weights and tokens;
@@ -47,8 +53,9 @@ fixed seed, and checks every hand-written kernel of those paths:
    through the kernels and through the plain versions, and compares the
    logits;
 9. serves phase 4's traffic through ``DecodeEngine`` on 8x7b-L16 (the
-   MoE serving path) and checks that K7 and K8 ran once per layer and
-   forward;
+   MoE serving path), captured and then eager as phase 4 does, checks
+   that K7 and K8 ran once per layer and forward, and profiles a decode
+   step as phase 4 does;
 10. frees the 8x7b-L16 weights and holds the grouped kernels (K10a
     ``grouped_matmul``, K10b ``grouped_weight_grad``) against their plain
     versions at the five calls of one 8x7b layer's MoE backward (T 8192,
@@ -74,11 +81,12 @@ fixed seed, and checks every hand-written kernel of those paths:
     steps -- through the kernels and through the plain versions (routing
     replayed as in phase 8), and compares the logits;
 15. serves phase 4's traffic through ``DecodeEngine(quantize_cache=True)``
-    on the full-depth int8 model (the int8 serving path), checks the
-    launches of every int8 branch per layer and forward (and none of the
-    bf16 branches; the int8 seams' ``int8_matmul`` 2L+1 times a forward),
-    and profiles one decode step, in which the only int8 -> float copy
-    must be the embedding's gathered rows;
+    on the full-depth int8 model (the int8 serving path), captured and
+    then eager as phase 4 does, checks the launches of every int8 branch
+    per layer and forward (and none of the bf16 branches; the int8 seams'
+    ``int8_matmul`` 2L+1 times a forward), and profiles one decode step,
+    in which the only int8 -> float copy must be the embedding's gathered
+    rows;
 16. holds ``int8_matmul`` (``csrc/quant_matmul.cu``) in both modes against
     its plain version at the seams' shapes (M 8 and 512, K 4096 to N 6144,
     4096, 32000) and at the einsum MoE body's expert product ([8, 512,
@@ -106,6 +114,7 @@ result, where no CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -151,6 +160,10 @@ FLIP_SHARE_LIMIT = 2e-2
 # first full run: 120 flips of 8448 choices, median margin 1.3e-3, the
 # largest 1.29e-2), so the margin limit doubles and the share limit stays.
 FLIP_MARGIN_LIMIT_KVQ = 2e-2
+# The engine's stats that are host-clock times: the rest must agree between
+# the captured engine and the eager one.
+TIMING_KEYS = ("ttftP50Ms", "ttftP99Ms", "tokenIntervalP50Ms",
+               "tokenIntervalP99Ms")
 
 
 def log(*parts) -> None:
@@ -689,10 +702,13 @@ def compare_forward(torch, params, cfg, dev, quantize_cache=False) -> dict:
     return result
 
 
-def serve(torch, params, cfg, dev, label="engine",
-          quantize_cache=False) -> dict:
+def serve(torch, params, cfg, dev, quantize_cache=False,
+          capture=True) -> dict:
     """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
-    weights with the int8 KV cache): the engine run (a main path)."""
+    weights with the int8 KV cache): the engine run (a main path), its
+    steps captured as CUDA graphs, or eager with ``capture=False``.
+    Returns its metrics; the keys that start with "_" hold what
+    ``same_engines`` compares (streams, counters, allocator state)."""
     from k8s_dra_driver_tpu_torch.models import DecodeEngine
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
@@ -709,9 +725,11 @@ def serve(torch, params, cfg, dev, label="engine",
         params, cfg, batch_slots=BATCH_SLOTS, num_blocks=NUM_BLOCKS,
         block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
         prefill_batch=PREFILL_BATCH, prefix_cache=True, overlap=True,
-        quantize_cache=quantize_cache, device=dev,
+        quantize_cache=quantize_cache, device=dev, capture=capture,
     )
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in first]
     # The shared-prefix family arrives once the first holder of the
@@ -752,6 +770,20 @@ def serve(torch, params, cfg, dev, label="engine",
         prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
         cow_recomputes=st.cow_recomputes, preemptions=st.preemptions,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        # The graphs' private pools show here: memory they hold is
+        # reserved, not allocated, between replays.
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        compile_counts=dict(eng.compile_counts),
+        graphs=eng._decode.graphs + eng._prefill.graphs,
+        # Host seconds of the steps' warm-ups and captures, once per
+        # engine, inside the run (and so in the first requests' TTFT).
+        capture_s=eng._decode.build_s + eng._prefill.build_s,
+        _streams=[r.tokens for r in reqs],
+        _prompt_lens=[len(r.prompt) for r in reqs],
+        _stats={k: v for k, v in st.snapshot().items()
+                if k not in TIMING_KEYS},
+        _allocator=eng.allocator.occupancy(),
+        _residency=eng.kv_residency(),
     )
     if eng.moe_impl:
         from k8s_dra_driver_tpu_torch.ops.moe_dispatch import (
@@ -760,8 +792,67 @@ def serve(torch, params, cfg, dev, label="engine",
 
         metrics.update(moe_impl=eng.moe_impl, dispatch=dispatch_impl_label(
             cfg.hidden, cfg.mlp_hidden, device=dev))
-    log(f"{label}:", json.dumps(metrics))
     return metrics
+
+
+def next_logits(torch, params, cfg, dev, tokens, quantize_cache):
+    """The last position's logits [V] of one sequence, a prefill through
+    the kernels on a fresh cache."""
+    from k8s_dra_driver_tpu_torch.models.decode import prefill
+
+    logits, _ = prefill(params, torch.tensor([tokens], device=dev), cfg,
+                        len(tokens) + 1, quantize_cache=quantize_cache,
+                        block_size=BLOCK_SIZE)
+    return logits[0].float()
+
+
+def same_engines(torch, what, captured, eager, counts, eager_counts, params,
+                 cfg, dev, quantize_cache=False) -> list:
+    """The captured engine's run against the eager one's on the same
+    traffic: ``compile_counts`` 1 per step (the eager engine's counts
+    first uses), the stats counters, allocator state and every launch
+    count equal, and the greedy streams equal except where a stream takes
+    another token at a near-tie: at its first differing token, the two
+    tokens' logits (a prefill of the common prefix through the kernels)
+    must lie within FLIP_MARGIN_LIMIT (FLIP_MARGIN_LIMIT_KVQ with the int8
+    KV cache). Returns the flips."""
+    ones = {"decode_step": 1, "prefill_chunk": 1}
+    if captured["compile_counts"] != ones \
+            or eager["compile_counts"] != ones:
+        raise AssertionError(f"{what}: compile counts "
+                             f"{captured['compile_counts']} (captured), "
+                             f"{eager['compile_counts']} (eager); want "
+                             f"{ones}")
+    if captured["graphs"] != 2 or eager["graphs"] != 0:
+        raise AssertionError(f"{what}: {captured['graphs']} graphs "
+                             f"captured, {eager['graphs']} eager; want 2, 0")
+    if counts != eager_counts:
+        raise AssertionError(f"{what}: launches {counts} (captured), "
+                             f"{eager_counts} (eager)")
+    limit = FLIP_MARGIN_LIMIT_KVQ if quantize_cache else FLIP_MARGIN_LIMIT
+    flips = []
+    for rid, (a, b) in enumerate(zip(captured["_streams"],
+                                     eager["_streams"])):
+        if a == b:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = next_logits(torch, params, cfg, dev, a[:i], quantize_cache)
+        margin = abs(float(logits[a[i]] - logits[b[i]]))
+        flips.append(dict(request=rid,
+                          generated_index=i - captured["_prompt_lens"][rid],
+                          captured=a[i], eager=b[i], logit_margin=margin))
+    log(f"{what}: captured vs eager stream flips {json.dumps(flips)}")
+    bad = [f for f in flips if f["logit_margin"] >= limit]
+    if bad:
+        raise AssertionError(f"{what}: streams differ beyond a near-tie "
+                             f"(logit margin limit {limit}): {bad}")
+    # The residency digest hashes the tokens of the indexed blocks, so a
+    # flipped stream changes it.
+    for key in ("_stats", "_allocator") + (() if flips else ("_residency",)):
+        if captured[key] != eager[key]:
+            raise AssertionError(f"{what}: {key[1:]} {captured[key]} "
+                                 f"(captured), {eager[key]} (eager)")
+    return flips
 
 
 def compare_train(torch, dev, cfg, batch: int, counted: dict,
@@ -961,10 +1052,11 @@ def profile_step(torch, step, state, tokens) -> dict:
     return device_profile(torch, lambda: step(state, tokens), 1)
 
 
-def device_profile(torch, fn, calls: int) -> dict:
+def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler``: per call, the
     wall time, the device time by kernel group, and the device's busy
-    share of the wall time."""
+    share of the wall time. Raises where the profiler saw no device time,
+    unless ``allow_empty``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -988,7 +1080,7 @@ def device_profile(torch, fn, calls: int) -> dict:
                       if any(k in e.key for k in keys)), "other")
         groups[group] += ms
     device_ms = sum(groups.values())
-    if device_ms <= 0:
+    if device_ms <= 0 and not allow_empty:
         raise AssertionError("the profiler saw no device time")
     kernels.sort(reverse=True)
     return dict(
@@ -1002,7 +1094,8 @@ def device_profile(torch, fn, calls: int) -> dict:
 def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     """One decode step at the engine's shape (8 sequences at 384 cached
     positions, kernels on): its host-clock time over 5 steps, then 3 steps
-    under ``torch.profiler``, and the ratio of the two."""
+    under ``torch.profiler``, and the ratio of the two; then the same step
+    captured by ``StepGraph``, as the engine runs it (``captured_*``)."""
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
     from k8s_dra_driver_tpu_torch.models.paged import (
         PagedKVCache,
@@ -1046,8 +1139,76 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     # measurements of one run; device_busy_share is the profiled one).
     result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
     result["int8_to_float_copies"] = int8_casts(torch, step)
+    result.update(captured_decode(torch, params, cfg, state))
     log("decode step profile:", json.dumps(result))
     return result
+
+
+def captured_decode(torch, params, cfg, state) -> dict:
+    """``profile_decode``'s step captured by ``StepGraph`` and replayed as
+    the engine replays its decode step (host ints staged, the previous
+    tokens copied in, lengths advanced on the host): the host-clock time
+    a step over 5 replays, the device time of one replay by CUDA events
+    (median of 5, the card held busy first so the host's enqueue stays
+    outside), and 3 replays under ``torch.profiler``, which may not see
+    the kernels inside a graph; where it sees none, the line says so and
+    the group split is the eager step's."""
+    from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
+    from k8s_dra_driver_tpu_torch.models.step_graph import StepGraph
+
+    cache = state["cache"]
+    tables = cache.block_tables.cpu().numpy()
+    lengths = cache.lengths.cpu().numpy().copy()
+
+    def fn(tables, lengths, tok):
+        # Zeroed lengths (the warm-up's inputs) write no pool row.
+        c = dataclasses.replace(cache, block_tables=tables, lengths=lengths)
+        logits, _ = _forward_with_cache(params, tok, c, cfg,
+                                        lengths[:, None], active=lengths > 0)
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    counts = {"decode_step": 0}
+    graph = StepGraph(fn, cache.lengths.device, counts=counts,
+                      name="decode_step")
+    tok = [state["tok"]]
+
+    def step():
+        tok[0] = graph((tables, lengths), tok[0])
+        lengths[:] += 1
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    pairs = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        step()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    device_ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
+    prof = device_profile(torch, step, 3, allow_empty=True)
+    if counts != {"decode_step": 1} or graph.graphs != 1:
+        raise AssertionError(f"captured decode step: {counts}, "
+                             f"{graph.graphs} graphs")
+    seen = prof["device_ms"] > 0
+    return dict(
+        captured_step_ms=step_ms, captured_device_ms=device_ms,
+        captured_device_over_step=device_ms / step_ms,
+        captured_profiler_sees_kernels=seen,
+        captured_profile=(
+            {k: prof[k] for k in ("wall_ms", "device_ms", "group_ms")}
+            if seen else "the profiler saw no kernel inside the replays: "
+            "device time from CUDA events, the group split the eager "
+            "step's"))
 
 
 def profile_prefill(torch, params, cfg, dev, quantize_cache=False) -> dict:
@@ -1792,7 +1953,11 @@ def main() -> int:
             init_params,
             moe,
         )
+        from k8s_dra_driver_tpu_torch.models.step_graph import (
+            write_launches,
+        )
         from k8s_dra_driver_tpu_torch.ops import (
+            LAUNCH_COUNTERS,
             _build,
             attention,
             moe_dispatch,
@@ -1874,23 +2039,53 @@ def main() -> int:
              "int8_prefill": ("int8_matmul_wide", "int8_matmul_wide_prologue")}
     by_path = {}
 
-    def drive(path, fn, *args):
-        for w in wrappers.values():
-            w.launches = 0
-        quant_matmul.int8_matmul.wide_launches = 0
-        quant_matmul.int8_matmul.wide_prologue_launches = 0
-        out = fn(*args)
-        by_path[path] = {name: w.launches for name, w in wrappers.items()}
-        by_path[path]["int8_matmul_wide"] = \
-            quant_matmul.int8_matmul.wide_launches
-        by_path[path]["int8_matmul_wide_prologue"] = \
+    def reset_counts():
+        write_launches([0] * len(LAUNCH_COUNTERS))
+
+    def read_counts() -> dict:
+        counts = {name: w.launches for name, w in wrappers.items()}
+        counts["int8_matmul_wide"] = quant_matmul.int8_matmul.wide_launches
+        counts["int8_matmul_wide_prologue"] = \
             quant_matmul.int8_matmul.wide_prologue_launches
+        return counts
+
+    def drive(path, fn, *args):
+        reset_counts()
+        out = fn(*args)
+        by_path[path] = read_counts()
         missing = [name for name in paths[path] if by_path[path][name] <= 0]
         if missing:
             raise AssertionError(f"the {path} path never launched {missing}")
         return out
 
-    engine = drive("serving", serve, torch, params, cfg, dev)
+    def serve_twice(path, label, params, cfg, quantize_cache=False):
+        """The engine's run (the main path, steps captured), then the same
+        traffic through a ``capture=False`` engine, outside the counted
+        run, held equal to it (``same_engines``). Logs both engines'
+        metrics on one line."""
+        captured = drive(path, serve, torch, params, cfg, dev,
+                         quantize_cache)
+        gc.collect()                  # the captured engine's graphs
+        torch.cuda.empty_cache()
+        reset_counts()
+        eager = serve(torch, params, cfg, dev, quantize_cache,
+                      capture=False)
+        flips = same_engines(torch, label, captured, eager, by_path[path],
+                             read_counts(), params, cfg, dev, quantize_cache)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for m in (captured, eager):
+            for key in [k for k in m if k.startswith("_")]:
+                del m[key]
+        captured["stream_flips"] = flips
+        captured["eager"] = {k: eager[k] for k in (
+            "wall_s", "tokens_per_s", "decode_step_p50_ms", "ttft_p50_ms",
+            "ttft_p99_ms", "peak_mem_gb", "peak_reserved_gb",
+            "compile_counts", "capture_s")}
+        log(f"{label}:", json.dumps(captured))
+        return captured
+
+    engine = serve_twice("serving", "engine", params, cfg)
     # The dense decode step's profile (K2's share: its split kernel and the
     # merge) and one packed prefill launch's, outside the counted run.
     profile = profile_decode(torch, params, cfg, dev)
@@ -1900,11 +2095,16 @@ def main() -> int:
              + profile["group_ms"]["paged_decode_merge"])
     log(f"dense decode step: {profile['device_ms']:.3f} ms of device time, "
         f"{profile['step_ms']:.3f} ms on the host clock; K2 {k2_ms:.3f} ms "
-        f"({k2_ms / profile['device_ms']:.1%}); a 4 x 128 prefill launch "
-        f"{engine['prefill_profile']['device_ms']:.3f} ms of device time, "
-        f"K3 {engine['prefill_profile']['group_ms']['paged_prefill']:.3f} ms")
-    phase_done("phase 4: engine served 8 requests through every kernel; "
-               "decode step and prefill launch profiled")
+        f"({k2_ms / profile['device_ms']:.1%}); captured: "
+        f"{profile['captured_step_ms']:.3f} ms on the host clock, "
+        f"{profile['captured_device_ms']:.3f} ms of device time (ratio "
+        f"{profile['captured_device_over_step']:.3f}); a 4 x 128 prefill "
+        f"launch {engine['prefill_profile']['device_ms']:.3f} ms of device "
+        f"time, K3 "
+        f"{engine['prefill_profile']['group_ms']['paged_prefill']:.3f} ms")
+    phase_done("phase 4: engine served 8 requests through every kernel, "
+               "steps captured, and as many again eagerly with equal "
+               "results; decode step and prefill launch profiled")
 
     del params
     torch.cuda.empty_cache()
@@ -1951,9 +2151,7 @@ def main() -> int:
                              f"expected {5 * MOE_LAYERS} each")
     phase_done(f"phase 8: 8x7b-L{MOE_LAYERS} forward through kernels matches "
                f"the plain forward")
-    torch.cuda.reset_peak_memory_stats()
-    moe_engine = drive("moe_serving", serve, torch, mparams, mcfg, dev,
-                       "moe engine")
+    moe_engine = serve_twice("moe_serving", "moe engine", mparams, mcfg)
     counts = by_path["moe_serving"]
     forwards = moe_engine["decode_steps"] + moe_engine["prefill_launches"]
     want = {"moe_gateup": MOE_LAYERS * forwards,
@@ -1967,7 +2165,8 @@ def main() -> int:
         raise AssertionError(f"MoE impl {moe_engine['moe_impl']}, dispatch "
                              f"{moe_engine['dispatch']}")
     phase_done(f"phase 9: engine served 8 requests on 8x7b-L{MOE_LAYERS} "
-               f"through every kernel (launches {counts})")
+               f"through every kernel, steps captured, and eagerly with "
+               f"equal results (launches {counts})")
     moe_engine["decode_profile"] = profile_decode(torch, mparams, mcfg, dev)
     del mparams
     torch.cuda.empty_cache()
@@ -2064,9 +2263,8 @@ def main() -> int:
     int8_forward.update(int8_sizes)
     phase_done("phase 14: full-depth 8x7b int8+kvq forward through kernels "
                "matches the plain forward")
-    torch.cuda.reset_peak_memory_stats()
-    int8_engine = drive("moe_serving_int8", serve, torch, qparams, qcfg, dev,
-                        "int8 moe engine", True)
+    int8_engine = serve_twice("moe_serving_int8", "int8 moe engine",
+                              qparams, qcfg, True)
     counts = by_path["moe_serving_int8"]
     forwards = int8_engine["decode_steps"] + int8_engine["prefill_launches"]
     layers = qcfg.n_layers
@@ -2101,7 +2299,8 @@ def main() -> int:
         f"{profile['group_ms']['int8_matmul']:.2f} ms, int8 -> float "
         f"copies {copies}")
     phase_done(f"phase 15: engine served 8 requests on full-depth 8x7b "
-               f"int8+kvq through the int8 kernels (launches {counts})")
+               f"int8+kvq through the int8 kernels, steps captured, and "
+               f"eagerly with equal results (launches {counts})")
     kernels.update(check_int8_matmul(torch, dev))
     phase_done("phase 16: int8_matmul agrees with its plain version at the "
                "seams' and the expert product's shapes")

@@ -38,6 +38,7 @@ from ..ops.attention import (
 )
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import rope_frequencies
+from . import step_graph
 from .llama import LlamaConfig, _mlp_block, attn_out, layer_params, project_qkv
 from .moe import MoeConfig, _moe_block
 from .paged import (
@@ -64,15 +65,17 @@ __all__ = [
     "TRACE_OBSERVERS",
 ]
 
-#: First use of each forward variant, keyed like the reference's trace
-#: counter (``forward:<variant>:t<T>``). PyTorch runs eagerly and builds
-#: no program per shape, so a key is counted once, the first time that
-#: shape runs: a count above 1 cannot happen, and the set of keys shows
-#: which shapes an engine ran.
+#: The forward's programs per variant, keyed like the reference's trace
+#: counter (``forward:<variant>:t<T>``). Under the engine on the card a
+#: count is a capture (``models/step_graph.py``): each capture of a step
+#: counts 1, as each trace does in the reference, and its warm-up runs
+#: count nothing. An eager forward builds no program per shape, so it
+#: counts a key once, the first time that shape runs; the set of keys
+#: shows which shapes ran.
 TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
 
-#: Observers called with (program, variant, shape dict) where
-#: ``TRACE_COUNTS`` first counts a key. Empty by default.
+#: Observers called with (program, variant, shape dict) wherever
+#: ``TRACE_COUNTS`` counts. Empty by default.
 TRACE_OBSERVERS: list = []
 
 _ROPE_TABLES: dict = {}
@@ -128,7 +131,8 @@ def _quantize_kv(x: torch.Tensor):
 
 def _note_first_use(variant: str, b: int, t: int) -> None:
     key = f"forward:{variant}:t{t}"
-    if key in TRACE_COUNTS:
+    stage = step_graph.phase()
+    if stage == "warmup" or (stage is None and key in TRACE_COUNTS):
         return
     TRACE_COUNTS[key] += 1
     for observer in TRACE_OBSERVERS:
@@ -350,13 +354,17 @@ def decode_step(
 def sample(logits: torch.Tensor, temperature: float,
            generator: torch.Generator | None = None) -> torch.Tensor:
     """Greedy argmax at temperature 0, else a draw from softmax(logits/T)
-    with ``generator`` (its stream differs from JAX's by design)."""
+    with ``generator`` (its stream differs from JAX's by design).
+
+    The draw is ``torch.multinomial``'s own for one sample, the argmax of
+    probs over exponential noise (the same numbers from the same
+    generator), written out because ``multinomial`` first checks its
+    input on the host, which a captured step cannot do."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
     probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32
-    )
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / noise).argmax(dim=-1).to(torch.int32)
 
 
 def generate(

@@ -19,13 +19,22 @@ scheduling contract, which this port keeps unchanged):
   length-bounded finishes are predicted on the host and never dispatch a
   wasted step, so greedy streams are identical with overlap on or off.
 
-In PyTorch the two step functions run eagerly: nothing is traced, so
-``compile_counts`` counts the first use of each step function (1 each
-for the engine's lifetime once it has run). Pools are updated in place.
-On a CUDA device the host's int arrays reach the card through fresh
-pinned copies sent without blocking, and a decode step's tokens come
-back through a pinned buffer and an event recorded right after the step,
-so fetching step N does not wait for step N+1.
+On a CUDA device each of the two step functions runs as a CUDA graph,
+the twin of the reference's ``jax.jit`` of ``_decode_fn`` and
+``_prefill_fn`` (``models/step_graph.py``): captured once per static
+shape -- (variant, ``batch_slots``, block-table width) for decode,
+(``prefill_batch``, ``prefill_chunk``) for prefill, both at the full
+``max_blocks_per_seq`` table, so an engine captures each step once -- and
+replayed every tick, each graph in a memory pool of its own.
+``compile_counts`` counts the captures, as the reference counts traces
+(1 each for the engine's lifetime once it has run). On the CPU, or with
+``capture=False`` (the twin of ``jax.disable_jit``), the steps run
+eagerly and ``compile_counts`` counts each step's first use. Pools are
+updated in place. The host's int arrays reach the device packed into one
+pinned staging buffer per step (two, used in turn) and one copy sent
+without blocking; a decode step's tokens come back through a pinned
+buffer and an event recorded right after the step, so fetching step N
+does not wait for step N+1.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from .paged import (
     PrefixCache,
     _init_pools,
 )
+from .step_graph import StepGraph
 
 WAITING = "waiting"
 PREFILL = "prefill"
@@ -230,7 +240,11 @@ class DecodeEngine:
     the int8 branches of the paged kernels; ``params`` may carry int8
     weights from ``quant.quantize_params``. ``device`` defaults to CUDA and the
     engine raises when no CUDA device is present; ``params`` must live on
-    that device.
+    that device. On a CUDA device the decode and prefill steps are
+    captured as CUDA graphs and replayed (see the module docstring);
+    ``capture=False`` runs them eagerly there too, to compare the two:
+    the same kernels on the same inputs, so the same streams, counters
+    and launch counts.
     """
 
     def __init__(
@@ -251,6 +265,7 @@ class DecodeEngine:
         overlap: bool = True,
         clock=time.monotonic,
         device=None,
+        capture: bool = True,
     ):
         self.device = resolve_device(device)
         _require_supported(config)
@@ -309,8 +324,8 @@ class DecodeEngine:
         self._slot_last_token_t: list[float] = [0.0] * b
         self.waiting: deque[Request] = deque()
         self.stats = ServingStats()
-        # First use of each step function (nothing is traced in eager
-        # PyTorch); the reference counts traces under the same keys.
+        # Captures of each step (first uses, eager); the reference counts
+        # traces under the same keys.
         self.compile_counts = {"decode_step": 0, "prefill_chunk": 0}
         self._rid = 0
         self._admit_seq = 0
@@ -319,6 +334,13 @@ class DecodeEngine:
         self._profile_tag = ""
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
+        drawn = self._generator if temperature > 0.0 else None
+        self._decode = StepGraph(
+            self._decode_fn, self.device, counts=self.compile_counts,
+            name="decode_step", capture=capture, generator=drawn)
+        self._prefill = StepGraph(
+            self._prefill_fn, self.device, counts=self.compile_counts,
+            name="prefill_chunk", capture=capture, generator=drawn)
         # Double-buffer state: (on-device [B] next tokens, host fetch
         # handle, [(req, slot), ...] it was dispatched for). At most one
         # step in flight.
@@ -326,14 +348,6 @@ class DecodeEngine:
         self._zero_tokens = None
 
     # -- device steps -----------------------------------------------------
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A fresh device copy of a host array: the host may mutate ``a``
-        while the step that reads the copy is still in flight."""
-        t = torch.from_numpy(np.array(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
     def _cache(self, tables, lengths) -> "PagedKVCache | PagedQuantKVCache":
         if self.quantize_cache:
@@ -345,24 +359,23 @@ class DecodeEngine:
         return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths,
                             block_size=self.block_size)
 
-    def _decode_fn(self, tables, lengths, prev_tokens, override,
-                   use_override, active) -> torch.Tensor:
-        if not self.compile_counts["decode_step"]:
-            self.compile_counts["decode_step"] = 1
+    # The step functions take int32 device views (flags as 0/1) from
+    # their StepGraph's staging; nothing in them waits for the device.
+
+    def _decode_fn(self, tables, lengths, override, use_override, active,
+                   prev_tokens) -> torch.Tensor:
         # Slots carried from the previous step read their pending token
         # straight from that step's on-device output; everyone else is
         # overridden from host state. The merge stays on the device.
-        tokens = torch.where(use_override, override, prev_tokens)
+        tokens = torch.where(use_override != 0, override, prev_tokens)
         logits, _ = _forward_with_cache(
             self.params, tokens[:, None], self._cache(tables, lengths),
-            self.config, positions=lengths[:, None], active=active,
+            self.config, positions=lengths[:, None], active=active != 0,
         )
         return sample(logits[:, 0], self.temperature, self._generator)
 
     def _prefill_fn(self, tables, starts, n_valid, active,
                     chunks) -> torch.Tensor:
-        if not self.compile_counts["prefill_chunk"]:
-            self.compile_counts["prefill_chunk"] = 1
         # The packed prefill launch: padded columns and idle lanes write
         # only the scratch row and never enter a valid query's attention.
         positions = starts[:, None] + torch.arange(
@@ -370,7 +383,8 @@ class DecodeEngine:
         )
         logits, _ = _forward_with_cache(
             self.params, chunks, self._cache(tables, starts),
-            self._prefill_config, positions, n_valid=n_valid, active=active,
+            self._prefill_config, positions, n_valid=n_valid,
+            active=active != 0,
         )
         # Each lane's last VALID column samples its first token.
         last = logits[
@@ -744,11 +758,7 @@ class DecodeEngine:
             active[lane] = True
             # Idle lanes keep all-zero rows + active=False.
             tables[lane] = self._tables[req.slot]
-        toks_dev = self._prefill_fn(
-            self._to_device(tables), self._to_device(starts),
-            self._to_device(n_valid), self._to_device(active),
-            self._to_device(chunks),
-        )
+        toks_dev = self._prefill((tables, starts, n_valid, active, chunks))
         # Fetch tokens only when some lane finishes its prompt this launch.
         toks = (
             _finish_fetch(_start_fetch(toks_dev))
@@ -800,6 +810,8 @@ class DecodeEngine:
         )
 
     def _prev_tokens_input(self) -> torch.Tensor:
+        # Under a graph this is the decode graph's own static output; its
+        # replay copies it into the static input on the stream first.
         if self._inflight is not None:
             return self._inflight[0]
         if self._zero_tokens is None:
@@ -857,16 +869,17 @@ class DecodeEngine:
             if not carried(r):
                 use_override[r.slot] = True
                 override[r.slot] = r.pending
-        prev_tokens = self._prev_tokens_input()
-        nxt = self._decode_fn(
-            self._to_device(self._tables), self._to_device(self._lengths),
-            prev_tokens, self._to_device(override),
-            self._to_device(use_override), self._to_device(active),
+        # The call stages the host arrays, so they may change right after.
+        nxt = self._decode(
+            (self._tables, self._lengths, override, use_override, active),
+            self._prev_tokens_input(),
         )
         # The write at position lengths[b] is in flight from here on.
         for r in dispatch:
             self._lengths[r.slot] += 1
         self.stats.decode_steps += 1
+        # Under a graph ``nxt`` is the graph's static output: its fetch is
+        # enqueued here, before the next replay overwrites it.
         prev, self._inflight = (
             self._inflight,
             (nxt, _start_fetch(nxt), [(r, r.slot) for r in dispatch]),

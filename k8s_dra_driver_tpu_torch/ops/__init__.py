@@ -41,7 +41,32 @@ from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
 from .quant_matmul import int8_matmul, int8_matmul_reference
 from .rotary import apply_rope, rope_frequencies
 
+#: Every launch counter of the kernels' wrappers, as (wrapper, attribute).
+#: A wrapper adds to its counter in Python where it launches, so under a
+#: CUDA graph it counts the capture only; ``models/step_graph.py`` reads
+#: these to add a captured step's launches on each replay.
+LAUNCH_COUNTERS = (
+    (paged_decode_attention, "launches"),
+    (paged_decode_int8, "launches"),
+    (paged_prefill_attention, "launches"),
+    (paged_prefill_int8, "launches"),
+    (flash_fwd, "launches"),
+    (flash_bwd_dkdv, "launches"),
+    (flash_bwd_dq, "launches"),
+    (moe_gateup, "launches"),
+    (moe_gateup_int8, "launches"),
+    (moe_down_combine, "launches"),
+    (moe_down_combine_int8, "launches"),
+    (grouped_matmul, "launches"),
+    (grouped_weight_grad, "launches"),
+    (rmsnorm, "launches"),
+    (int8_matmul, "launches"),
+    (int8_matmul, "wide_launches"),
+    (int8_matmul, "wide_prologue_launches"),
+)
+
 __all__ = [
+    "LAUNCH_COUNTERS",
     "paged_attention_reference",
     "paged_decode_attention",
     "paged_prefill_attention",
