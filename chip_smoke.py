@@ -101,8 +101,25 @@ fixed seed, and checks every hand-written kernel of those paths:
     ``int8_matmul`` launch took the wgmma body, then profiles the same
     prefill by kernel group.
 
+18. frees that model and serves 24 requests through ``ServingGateway`` (the
+    system's serving entry point) over two 8B replicas ``r0`` and ``r1``,
+    each with its own weights from the seed and phase 4's engine settings,
+    warmed (its steps captured) by one direct request, with affinity
+    routing, ``KVTelemetry`` and a ``ServingTelemetry`` on one registry:
+    4 systems of 256 tokens shared by 6 requests each, user tails of 32 to
+    448 tokens, 16 ``interactive`` and 8 ``batch``, in two waves of 12 (the
+    second once the first has prefilled); after 4 gateway ticks of the
+    second wave ``r1`` drains and then resumes. It holds zero loss across
+    the drain, one replica per system before it, the residency index's
+    hits equal to the engines' counters with no counter drift, the
+    ``tpu_dra_gw_*``, ``tpu_dra_residency_*``, ``tpu_dra_srv_*`` and
+    ``tpu_dra_kv_*`` families rendered, K1-K3 launched as the two
+    replicas' forwards count, and every stream equal to a solo engine's
+    on the same prompts but for near-ties (listed), and prints a
+    ``gateway:`` line.
+
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15 and 17) and read just after. Each phase prints its seconds. Prints
+6, 9, 12, 15, 17 and 18) and read just after. Each phase prints its seconds. Prints
 the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
@@ -702,6 +719,19 @@ def compare_forward(torch, params, cfg, dev, quantize_cache=False) -> dict:
     return result
 
 
+def smoke_engine(params, cfg, dev, quantize_cache=False, capture=True):
+    """The engine every serving phase runs: 8 slots, a 1024-block pool
+    of 16-token blocks, 4 x 128 packed prefill, prefix cache and
+    overlapped tick on."""
+    from k8s_dra_driver_tpu_torch.models import DecodeEngine
+
+    return DecodeEngine(
+        params, cfg, batch_slots=BATCH_SLOTS, num_blocks=NUM_BLOCKS,
+        block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
+        prefill_batch=PREFILL_BATCH, prefix_cache=True, overlap=True,
+        quantize_cache=quantize_cache, device=dev, capture=capture)
+
+
 def serve(torch, params, cfg, dev, quantize_cache=False,
           capture=True) -> dict:
     """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
@@ -709,7 +739,6 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     steps captured as CUDA graphs, or eager with ``capture=False``.
     Returns its metrics; the keys that start with "_" hold what
     ``same_engines`` compares (streams, counters, allocator state)."""
-    from k8s_dra_driver_tpu_torch.models import DecodeEngine
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
     rng = torch.Generator()
@@ -721,12 +750,7 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     prefix = toks(PREFIX_LEN)
     first = [toks(96), toks(180), toks(300), toks(700), prefix + toks(64)]
     later = [prefix + toks(150), prefix + toks(444), list(prefix)]
-    eng = DecodeEngine(
-        params, cfg, batch_slots=BATCH_SLOTS, num_blocks=NUM_BLOCKS,
-        block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
-        prefill_batch=PREFILL_BATCH, prefix_cache=True, overlap=True,
-        quantize_cache=quantize_cache, device=dev, capture=capture,
-    )
+    eng = smoke_engine(params, cfg, dev, quantize_cache, capture)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -830,17 +854,9 @@ def same_engines(torch, what, captured, eager, counts, eager_counts, params,
         raise AssertionError(f"{what}: launches {counts} (captured), "
                              f"{eager_counts} (eager)")
     limit = FLIP_MARGIN_LIMIT_KVQ if quantize_cache else FLIP_MARGIN_LIMIT
-    flips = []
-    for rid, (a, b) in enumerate(zip(captured["_streams"],
-                                     eager["_streams"])):
-        if a == b:
-            continue
-        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        logits = next_logits(torch, params, cfg, dev, a[:i], quantize_cache)
-        margin = abs(float(logits[a[i]] - logits[b[i]]))
-        flips.append(dict(request=rid,
-                          generated_index=i - captured["_prompt_lens"][rid],
-                          captured=a[i], eager=b[i], logit_margin=margin))
+    flips = stream_flips(torch, captured["_streams"], eager["_streams"],
+                         captured["_prompt_lens"], ("captured", "eager"),
+                         params, cfg, dev, quantize_cache)
     log(f"{what}: captured vs eager stream flips {json.dumps(flips)}")
     bad = [f for f in flips if f["logit_margin"] >= limit]
     if bad:
@@ -1930,6 +1946,265 @@ def profile_einsum_prefill(torch, params, cfg, dev) -> dict:
     return profile
 
 
+# Phase 18: the serving gateway over two 8B replicas.
+GW_REQUESTS = 24
+GW_SYSTEMS = 4
+GW_TAIL = (32, 448)
+GW_DRAIN_AFTER = 4          # gateway ticks into wave 2
+GW_WARMUP_PROMPT = 200
+GW_WARMUP_NEW = 4
+
+
+def gateway_traffic(torch, cfg) -> list:
+    """Phase 18's requests, (prompt, latency class): 4 seeded 256-token
+    system prompts, each shared by 6 requests, with seeded user tails of
+    32-448 tokens; every third request is ``batch``, the rest
+    ``interactive``. Requests 0-11 are wave 1 (3 per system), 12-23
+    wave 2."""
+    rng = torch.Generator()
+    rng.manual_seed(SEED + 90)
+
+    def toks(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    systems = [toks(PREFIX_LEN) for _ in range(GW_SYSTEMS)]
+    out = []
+    for i in range(GW_REQUESTS):
+        n = int(torch.randint(GW_TAIL[0], GW_TAIL[1] + 1, (1,),
+                              generator=rng))
+        out.append((systems[i % GW_SYSTEMS] + toks(n),
+                    "batch" if i % 3 == 2 else "interactive"))
+    return out
+
+
+def build_fleet(torch, cfg, dev) -> dict:
+    """Phase 18's fleet: two replicas ``r0`` and ``r1``, each its own
+    weights from the same seed, each warmed by one direct request (its
+    steps captured there, outside the gateway's traffic), behind one
+    ``ServingGateway`` with affinity routing, ``KVTelemetry`` on both
+    engines and a ``ServingTelemetry`` (with its ``TickProfiler``), all
+    on one registry. Each warm-up must write only its own request's
+    rows (and the scratch row) of its own pool: r0's pools are held
+    bitwise across r1's build and capture."""
+    from k8s_dra_driver_tpu_torch.models import init_params
+    from k8s_dra_driver_tpu_torch.models.serving import KVTelemetry
+    from k8s_dra_driver_tpu_torch.serving_gateway import (
+        Router,
+        ServingGateway,
+        ServingTelemetry,
+    )
+    from k8s_dra_driver_tpu_torch.utils.metrics import Registry
+
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 91)
+    engines, params, held = {}, {}, None
+    t0 = time.perf_counter()
+    for rid in ("r0", "r1"):
+        params[rid] = init_params(cfg, seed=SEED, device=dev)
+        eng = smoke_engine(params[rid], cfg, dev)
+        warm = torch.randint(0, cfg.vocab_size, (GW_WARMUP_PROMPT,),
+                             generator=gen).tolist()
+        eng.submit(warm, max_new_tokens=GW_WARMUP_NEW)
+        eng.run()
+        torch.cuda.synchronize()
+        rows = -(-(GW_WARMUP_PROMPT + GW_WARMUP_NEW) // BLOCK_SIZE) \
+            * BLOCK_SIZE
+        for pool in eng._pools:
+            # Rows past the warm-up's blocks, up to the scratch row.
+            stray = pool[:, :, rows:-1].abs().amax().item()
+            if stray != 0:
+                raise AssertionError(f"{rid}: the warm-up wrote outside its "
+                                     f"request's rows (max {stray})")
+        if held is not None:
+            if not all(torch.equal(a, b)
+                       for a, b in zip(engines["r0"]._pools, held)):
+                raise AssertionError("r1's build and capture changed r0's "
+                                     "pools")
+        else:
+            held = [pool.clone() for pool in eng._pools]
+        engines[rid] = eng
+    del held
+    torch.cuda.empty_cache()
+    registry = Registry()
+    telemetry = ServingTelemetry(registry)
+    gw = ServingGateway(registry, router=Router(policy="affinity",
+                                                block_size=BLOCK_SIZE),
+                        node_name="chip-smoke", telemetry=telemetry)
+    kv = KVTelemetry(registry)
+    for rid, eng in engines.items():
+        gw.add_replica(eng, rid)
+        kv.attach(eng, replica=rid)
+    return dict(gw=gw, registry=registry, telemetry=telemetry,
+                engines=engines, params=params,
+                build_s=time.perf_counter() - t0,
+                capture_s={rid: e._decode.build_s + e._prefill.build_s
+                           for rid, e in engines.items()})
+
+
+def serve_fleet(torch, cfg, fleet: dict) -> dict:
+    """Phase 18's traffic through the gateway (a main path): wave 1, then
+    wave 2 once every wave-1 request has prefilled (its prompt's blocks
+    are published, so wave 2's lookups can hit); ``drain_replica("r1")``
+    after GW_DRAIN_AFTER gateway ticks of wave 2 and ``resume_replica``
+    once it is idle; then run to the end. Returns the handles, what each
+    system's requests were routed to before the drain, and the run's
+    host time."""
+    from k8s_dra_driver_tpu_torch.models.serving import PREFILL, WAITING
+
+    gw, engines = fleet["gw"], fleet["engines"]
+    traffic = gateway_traffic(torch, cfg)
+    half = GW_REQUESTS // 2
+    base = {rid: (e.stats.decode_steps,
+                  e.stats.prefill_lanes_launched // e.prefill_batch,
+                  len(e.stats.token_interval_s), e.stats.ticks)
+            for rid, e in engines.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = [gw.submit(p, NEW_TOKENS, latency_class=lc)
+            for p, lc in traffic[:half]]
+    for _ in range(10000):
+        if all(r.done or (r.engine_req is not None and r.engine_req.state
+                          not in (WAITING, PREFILL))
+               for r in reqs):
+            break
+        gw.tick()
+    else:
+        raise AssertionError("wave 1 never finished its prefills")
+    reqs += [gw.submit(p, NEW_TOKENS, latency_class=lc)
+             for p, lc in traffic[half:]]
+    for _ in range(GW_DRAIN_AFTER):
+        gw.tick()
+    placed = [r.replica_id for r in reqs]
+    rerouted = gw.drain_replica("r1", reason="chip smoke drain")
+    if not engines["r1"].idle:
+        raise AssertionError("r1 not idle after its drain")
+    gw.resume_replica("r1")
+    gw.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(reqs=reqs, traffic=traffic, placed=placed,
+                rerouted=rerouted, wall_s=wall, base=base,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+
+def fleet_metrics(torch, cfg, fleet: dict, run: dict, counts: dict) -> dict:
+    """Phase 18's holds and figures: zero loss across the drain, one
+    replica per system before it, residency hits equal to the engines'
+    counters with no counter drift, the four metric families rendered,
+    and K1/K2/K3 launched exactly as the two replicas' forwards count."""
+    gw, engines, reqs = fleet["gw"], fleet["engines"], run["reqs"]
+    bad = [(r.gid, r.state, len(r.tokens) - len(r.prompt)) for r in reqs
+           if r.state != "finished"
+           or len(r.tokens) - len(r.prompt) != NEW_TOKENS]
+    if bad or gw.counters["failed"] or len(reqs) != GW_REQUESTS:
+        raise AssertionError(f"gateway lost requests: {bad}, counters "
+                             f"{dict(gw.counters)}")
+    for r in reqs:
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.gid}: token out of range")
+    by_system = {}
+    for i, rid in enumerate(run["placed"]):
+        by_system.setdefault(i % GW_SYSTEMS, set()).add(rid)
+    if any(len(v) != 1 for v in by_system.values()):
+        raise AssertionError(f"a system's requests landed on several "
+                             f"replicas before the drain: {by_system}")
+    doc = gw.residency.snapshot()
+    hits = sum(e.snapshot()["prefixHits"] for e in engines.values())
+    drift = [rid for rid, rep in doc["replicas"].items()
+             if rep["counterDrift"]]
+    if doc["fleet"]["hits"] != hits or drift or hits <= 0:
+        raise AssertionError(f"residency hits {doc['fleet']['hits']}, "
+                             f"engines' prefixHits {hits}, drift {drift}")
+    text = fleet["registry"].render()
+    for family in ("tpu_dra_gw_", "tpu_dra_residency_", "tpu_dra_srv_",
+                   "tpu_dra_kv_"):
+        if f"\n{family}" not in text:
+            raise AssertionError(f"the registry renders no {family}* "
+                                 f"family")
+    steps = {rid: (e.stats.decode_steps - run["base"][rid][0],
+                   e.stats.prefill_lanes_launched // e.prefill_batch
+                   - run["base"][rid][1])
+             for rid, e in engines.items()}
+    decode = sum(d for d, _ in steps.values())
+    prefill = sum(p for _, p in steps.values())
+    layers = cfg.n_layers
+    want = {"paged_decode": layers * decode,
+            "paged_prefill": layers * prefill,
+            "rmsnorm": (2 * layers + 1) * (decode + prefill)}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"gateway launches {counts}, expected {want} "
+                             f"(steps {steps})")
+    intervals = sorted(
+        x for rid, e in engines.items()
+        for x in e.stats.token_interval_s[run["base"][rid][2]:])
+    slo = gw.fleet_slo_summary()
+    summary = fleet["telemetry"].profiler.summary()
+    # The profiler sees every tick since the replicas joined the gateway
+    # (their warm-ups ran before).
+    ticks = {"gateway": gw.ticks,
+             "engine": sum(e.stats.ticks - run["base"][rid][3]
+                           for rid, e in engines.items())}
+    host_ms = {}
+    for key, seconds in summary["phaseSeconds"].items():
+        comp = key.split("/")[0]
+        host_ms[key] = seconds * 1e3 / max(ticks[comp], 1)
+    tokens = sum(len(r.tokens) - len(r.prompt) for r in reqs)
+    return dict(
+        requests=len(reqs), tokens_generated=tokens,
+        wall_s=run["wall_s"], tokens_per_s=tokens / run["wall_s"],
+        decode_p50_ms=statistics.median(intervals) * 1e3,
+        ttft_ms={lc: {"p50": c["ttftP50S"] * 1e3, "p99": c["ttftP99S"] * 1e3,
+                      "requests": c["requests"]}
+                 for lc, c in slo["classes"].items() if c["requests"]},
+        routed=gw.counters["routed"], rerouted=run["rerouted"],
+        shed=gw.counters["shed"], failed=gw.counters["failed"],
+        affinity_hit_rate=gw.affinity_hit_rate(),
+        affinity_lookups=gw.counters["affinity_lookups"],
+        prefix_hits=hits, residency_fleet=doc["fleet"],
+        placed=run["placed"], steps=steps, gateway_ticks=gw.ticks,
+        engine_ticks={rid: e.stats.ticks - run["base"][rid][3]
+                      for rid, e in engines.items()},
+        gateway_host_ms_per_tick=sum(
+            v for k, v in host_ms.items() if k.startswith("gateway/")),
+        engine_host_ms_per_tick=sum(
+            v for k, v in host_ms.items() if k.startswith("engine/")),
+        phase_ms_per_tick=host_ms,
+        peak_mem_gb=run["peak_mem_gb"],
+        peak_reserved_gb=run["peak_reserved_gb"],
+        build_s=fleet["build_s"], capture_s=fleet["capture_s"])
+
+
+def stream_flips(torch, streams, other, prompt_lens, names, params, cfg,
+                 dev, quantize_cache=False) -> list:
+    """The requests whose greedy streams differ between two runs: at the
+    first differing token, the two tokens' logit margin (a prefill of
+    the common prefix through the kernels)."""
+    flips = []
+    for rid, (a, b) in enumerate(zip(streams, other)):
+        if a == b:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = next_logits(torch, params, cfg, dev, a[:i], quantize_cache)
+        margin = abs(float(logits[a[i]] - logits[b[i]]))
+        flips.append({"request": rid,
+                      "generated_index": i - prompt_lens[rid],
+                      names[0]: a[i], names[1]: b[i],
+                      "logit_margin": margin})
+    return flips
+
+
+def solo_streams(torch, params, cfg, dev, traffic) -> list:
+    """The same prompts served directly by one engine with the same
+    settings, no gateway: the streams phase 18 is held to."""
+    eng = smoke_engine(params, cfg, dev)
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p, _ in traffic]
+    eng.run()
+    eng.assert_no_leaks()
+    return [r.tokens for r in reqs]
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -2036,7 +2311,8 @@ def main() -> int:
                                   "paged_decode_int8", "paged_prefill_int8",
                                   "rmsnorm", "int8_matmul",
                                   "int8_matmul_wide"),
-             "int8_prefill": ("int8_matmul_wide", "int8_matmul_wide_prologue")}
+             "int8_prefill": ("int8_matmul_wide", "int8_matmul_wide_prologue"),
+             "gateway": ("paged_decode", "paged_prefill", "rmsnorm")}
     by_path = {}
 
     def reset_counts():
@@ -2312,6 +2588,49 @@ def main() -> int:
                f"einsum MoE body matches the plain forward; profiled")
     del qparams
     torch.cuda.empty_cache()
+
+    fleet = build_fleet(torch, cfg, dev)
+    log(f"gateway fleet: two {cfg.n_layers}-layer 8B replicas built and "
+        f"warmed in {fleet['build_s']:.1f}s (captures "
+        f"{json.dumps(fleet['capture_s'])} s)")
+    run = drive("gateway", serve_fleet, torch, cfg, fleet)
+    gateway = fleet_metrics(torch, cfg, fleet, run, by_path["gateway"])
+    streams = [r.tokens for r in run["reqs"]]
+    params = fleet["params"]["r0"]
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    solo = solo_streams(torch, params, cfg, dev, run["traffic"])
+    flips = stream_flips(torch, streams, solo,
+                         [len(p) for p, _ in run["traffic"]],
+                         ("gateway", "solo"), params, cfg, dev)
+    log(f"gateway vs solo engine stream flips {json.dumps(flips)}")
+    bad = [f for f in flips if f["logit_margin"] >= FLIP_MARGIN_LIMIT]
+    if bad:
+        raise AssertionError(f"gateway streams differ from the solo "
+                             f"engine's beyond a near-tie (logit margin "
+                             f"limit {FLIP_MARGIN_LIMIT}): {bad}")
+    gateway["stream_flips"] = flips
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttft = " ".join(f"{lc} {v['p50']:.1f}/{v['p99']:.1f}"
+                    for lc, v in gateway["ttft_ms"].items())
+    log(f"gateway: {gateway['tokens_per_s']:.1f} tokens/s over "
+        f"{gateway['requests']} requests ({gateway['wall_s']:.3f} s), decode "
+        f"p50 {gateway['decode_p50_ms']:.3f} ms, TTFT p50/p99 ms {ttft}; "
+        f"routed {gateway['routed']}, rerouted {gateway['rerouted']}, shed "
+        f"{gateway['shed']}, affinity hit rate "
+        f"{gateway['affinity_hit_rate']:.4f}; host ms a tick: gateway "
+        f"{gateway['gateway_host_ms_per_tick']:.3f} (of {gateway['gateway_ticks']} "
+        f"ticks), engines {gateway['engine_host_ms_per_tick']:.3f}; peak "
+        f"memory {gateway['peak_mem_gb']:.2f} GB allocated, "
+        f"{gateway['peak_reserved_gb']:.2f} GB reserved")
+    log(f"gateway: {json.dumps(gateway)}")
+    phase_done(f"phase 18: the gateway served {gateway['requests']} requests "
+               f"over two 8B replicas with a drain and no loss; streams equal "
+               f"a solo engine's but {len(flips)} near-tie(s) (launches "
+               f"{by_path['gateway']})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -2427,7 +2746,8 @@ def main() -> int:
                     "moe_engine": moe_engine, "moe_grads": moe_grads,
                     "moe_train": moe_trained, "int8_forward": int8_forward,
                     "int8_engine": int8_engine,
-                    "int8_einsum_prefill": int8_prefill}))
+                    "int8_einsum_prefill": int8_prefill,
+                    "gateway": gateway}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

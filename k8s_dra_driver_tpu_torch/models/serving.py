@@ -35,6 +35,11 @@ pinned staging buffer per step (two, used in turn) and one copy sent
 without blocking; a decode step's tokens come back through a pinned
 buffer and an event recorded right after the step, so fetching step N
 does not wait for step N+1.
+
+The engine keeps its KV lifecycle ledger as plain counters and bounded
+rings (the allocator's, ``models/paged.py``); ``kv_debug`` renders it as
+the ``/debug/kv`` document and :class:`KVTelemetry` syncs it into the
+``tpu_dra_kv_*`` families at scrape time only.
 """
 
 from __future__ import annotations
@@ -490,6 +495,42 @@ class DecodeEngine:
             }
         return self.prefix_cache.residency_digest()
 
+    def kv_debug(self) -> dict:
+        """The ``/debug/kv`` document: pool occupancy, the eviction/
+        reclaim ledger, LRU-age and footprint sample summaries, and the
+        full residency digest. Computed on demand only -- wire it up via
+        ``MetricsServer.set_kv_provider(engine.kv_debug)``."""
+        a = self.allocator
+        ages = sorted(a.eviction_ages)
+        feet = sorted(self.stats.kv_footprint_blocks)
+
+        def _pct(xs, q):
+            return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0
+
+        return {
+            "schema": "tpu-dra-kv-debug-v1",
+            "blockSize": self.block_size,
+            "blocksTotal": a.num_blocks,
+            "occupancy": a.occupancy(),
+            "evictions": a.evictions,
+            "allocMisses": a.alloc_misses,
+            "revivals": a.revivals,
+            "cowRecomputes": self.stats.cow_recomputes,
+            "prefixLookups": self.stats.prefix_lookups,
+            "prefixHits": self.stats.prefix_hits,
+            "prefixHitTokens": self.stats.prefix_hit_tokens,
+            "evictionAgeOps": {
+                "samples": len(ages), "p50": _pct(ages, 0.50),
+                "p99": _pct(ages, 0.99),
+                "max": ages[-1] if ages else 0,
+            },
+            "footprintBlocks": {
+                "samples": len(feet), "p50": _pct(feet, 0.50),
+                "max": feet[-1] if feet else 0,
+            },
+            "residency": self.kv_residency(),
+        }
+
     def drain(self, max_ticks: int = 100000) -> list[Request]:
         """Graceful stop: close admission, hand back never-admitted
         requests, run every admitted request to completion."""
@@ -923,3 +964,156 @@ class DecodeEngine:
             self._slot_last_token_t[slot] = now
             if self._is_final(r, tok):
                 self._complete(r, slot)
+
+
+class KVTelemetry:
+    """Pull-model exporter for the ``tpu_dra_kv_*`` family.
+
+    The serving path never touches a metric object: engines keep plain
+    int counters and bounded sample rings (``models/paged.py``'s
+    lifecycle ledger), and this class syncs them into the registry from
+    a render hook -- i.e. at scrape time only. That is the whole
+    zero-cost contract: telemetry ON vs OFF leaves tokens, tick counts,
+    and compile counts identical, because ON only adds a reader.
+
+    Usage::
+
+        telemetry = KVTelemetry(registry)
+        telemetry.attach(engine, replica="r0")
+
+    Counters are published as deltas against the engines' cumulative
+    ledger values; histograms drain exactly the samples that arrived
+    since the previous scrape (the rings are bounded, so a long
+    scrape gap keeps at most the newest ring's worth)."""
+
+    def __init__(self, registry):
+        from ..utils.metrics import Counter, Gauge, Histogram
+
+        self._engines: dict[str, DecodeEngine] = {}
+        self._published: dict[tuple, int] = {}
+        self._g_pool = Gauge(
+            "tpu_dra_kv_pool_blocks",
+            "KV pool occupancy by block state (free/private/indexed/"
+            "shared/cached); states are mutually exclusive and sum to "
+            "the pool size.",
+            registry,
+        )
+        self._g_indexed = Gauge(
+            "tpu_dra_kv_indexed_blocks",
+            "Blocks currently indexed by the prefix-cache radix tree "
+            "(insertedBlocks - evictedBlocks on a healthy cache).",
+            registry,
+        )
+        self._g_runs = Gauge(
+            "tpu_dra_kv_prefix_runs",
+            "Cached prefix runs (root-to-leaf radix paths) in the "
+            "replica's residency digest.",
+            registry,
+        )
+        self._c_evicted_blocks = Counter(
+            "tpu_dra_kv_evicted_blocks_total",
+            "Prefix-cached KV blocks dropped under allocation pressure "
+            "(LRU-leaf-first reclaim).",
+            registry,
+        )
+        self._c_evicted_tokens = Counter(
+            "tpu_dra_kv_evicted_tokens_total",
+            "Prompt tokens whose cached KV was dropped with evicted "
+            "blocks (evicted blocks x block size).",
+            registry,
+        )
+        self._c_misses = Counter(
+            "tpu_dra_kv_alloc_misses_total",
+            "Block allocations the pool could not cover even after "
+            "reclaiming cached blocks (OutOfBlocksError raises).",
+            registry,
+        )
+        self._c_revivals = Counter(
+            "tpu_dra_kv_revivals_total",
+            "Cache hits that revived a zero-ref block out of the "
+            "reclaimable LRU back into the held state.",
+            registry,
+        )
+        self._c_cow = Counter(
+            "tpu_dra_kv_cow_recomputes_total",
+            "Full-prompt cache hits whose trailing block was recomputed "
+            "into a private copy (copy-on-write by recompute).",
+            registry,
+        )
+        self._h_age = Histogram(
+            "tpu_dra_kv_eviction_lru_age_ops",
+            "LRU residence, in allocator ops, of each cached block at "
+            "the moment it was reclaimed — low ages mean the cache is "
+            "churning faster than it is reused.",
+            registry,
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+        )
+        self._h_foot = Histogram(
+            "tpu_dra_kv_request_footprint_blocks",
+            "KV blocks a request held at retire (its pool footprint).",
+            registry,
+            buckets=(1, 2, 4, 8, 16, 32, 64),
+        )
+        registry.add_render_hook(self._sync)
+
+    def attach(self, engine: "DecodeEngine", replica: str = "r0") -> None:
+        """Register ``engine``'s ledger under the ``replica`` label and
+        materialize its series (the explicit-zeros convention: an
+        unchurned replica must read 0, not be absent)."""
+        self._engines[replica] = engine
+        for c in (self._c_evicted_blocks, self._c_evicted_tokens,
+                  self._c_misses, self._c_revivals, self._c_cow):
+            c.inc(0.0, replica=replica)
+        self._h_age.zero(replica=replica)
+        self._h_foot.zero(replica=replica)
+        self._sync()
+
+    def detach(self, replica: str) -> None:
+        """Stop syncing a departed replica. Its counter/histogram series
+        keep their final values (monotone history); the per-replica
+        gauges are removed so a gone replica does not scrape as a live
+        zero forever."""
+        self._engines.pop(replica, None)
+        for state in ("free", "private", "indexed", "shared", "cached"):
+            self._g_pool.remove(replica=replica, state=state)
+        self._g_indexed.remove(replica=replica)
+        self._g_runs.remove(replica=replica)
+
+    def _bump(self, counter, replica: str, current: int) -> None:
+        key = (counter.name, replica)
+        delta = current - self._published.get(key, 0)
+        if delta > 0:
+            counter.inc(delta, replica=replica)
+        self._published[key] = current
+
+    def _sync(self) -> None:
+        for rid, eng in self._engines.items():
+            a = eng.allocator
+            for state, n in a.occupancy().items():
+                self._g_pool.set(n, replica=rid, state=state)
+            digest = eng.kv_residency()
+            self._g_indexed.set(digest["indexedBlocks"], replica=rid)
+            self._g_runs.set(
+                len(digest["runs"]) + digest["truncatedRuns"],
+                replica=rid,
+            )
+            self._bump(self._c_evicted_blocks, rid,
+                       digest["evictedBlocks"])
+            self._bump(self._c_evicted_tokens, rid,
+                       digest["evictedBlocks"] * eng.block_size)
+            self._bump(self._c_misses, rid, a.alloc_misses)
+            self._bump(self._c_revivals, rid, a.revivals)
+            self._bump(self._c_cow, rid, eng.stats.cow_recomputes)
+            new = a.evictions - self._published.get(("ages", rid), 0)
+            if new > 0:
+                ring = list(a.eviction_ages)
+                for v in ring[-min(new, len(ring)):]:
+                    self._h_age.observe(v, replica=rid)
+            self._published[("ages", rid)] = a.evictions
+            total = eng.stats.kv_footprint_total
+            new = total - self._published.get(("feet", rid), 0)
+            if new > 0:
+                ring = list(eng.stats.kv_footprint_blocks)
+                for v in ring[-min(new, len(ring)):]:
+                    self._h_foot.observe(v, replica=rid)
+            self._published[("feet", rid)] = total

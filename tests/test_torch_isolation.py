@@ -61,11 +61,16 @@ def test_static_scan_finds_no_jax_or_reference_import():
     assert _forbidden("k8s_dra_driver_tpu.models")
 
 
-def test_importing_the_engine_loads_no_jax():
+@pytest.mark.parametrize("modules", [
+    ("k8s_dra_driver_tpu_torch.models.serving",),
+    ("k8s_dra_driver_tpu_torch.serving_gateway",
+     "k8s_dra_driver_tpu_torch.utils.metrics"),
+], ids=["engine", "gateway"])
+def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
-        "import k8s_dra_driver_tpu_torch.models.serving\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        + "".join(f"import {m}\n" for m in modules)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'k8s_dra_driver_tpu'))\n"
         "assert not bad, bad\n"
     )
