@@ -116,10 +116,40 @@ fixed seed, and checks every hand-written kernel of those paths:
     ``tpu_dra_kv_*`` families rendered, K1-K3 launched as the two
     replicas' forwards count, and every stream equal to a solo engine's
     on the same prompts but for near-ties (listed), and prints a
-    ``gateway:`` line.
+    ``gateway:`` line;
+19. keeps ``r0``'s weights as the target of greedy speculative decoding
+    (``speculative_generate``, k 4) with a ``1b`` draft from the seed, on
+    two prompts of about 512 tokens, 64 new tokens each: the draft's T=1
+    step (K1, K2 at B 1) and the target's T=5 verify window (K1, K3)
+    captured as CUDA graphs on each call's caches. It holds K2 at B 1 and
+    K3 at T 5 against their plain versions first, then the launches as
+    counted; the draft's streams equal the target as its own draft's (the
+    perfect draft: with no flip, every proposal accepted), and both equal
+    the target alone's (its T=1 steps from the same prefill) but for
+    near-ties (within 1e-2 or one bf16 step of the logits, or, on an MoE
+    target, explained by near-tie routing flips with the routing
+    replayed); 8 tokens of the first prompt captured and eager, equal in
+    tokens, stats, launches and every pool row but the scratch row; one
+    host sync a round; and prints a ``speculative:`` line a run (rounds,
+    acceptance, tokens a round, tokens/s against the eager ``generate``
+    and a captured ``DecodeEngine(batch_slots=1)``, the draft step's and
+    the verify window's device ms, captures, peak memory);
+20. attaches ``ComputeTelemetry`` (the card's peak row) to a
+    phase-4-shaped engine on the same weights behind a ``MetricsServer``,
+    serves phase 4's traffic (streams held to phase 4's) and then, after
+    ``mark_warm``, a decode-heavy second wave scraped every tick, and
+    holds the ledger's builds equal to ``compile_counts``, no recompile
+    after warm-up, the HBM ledger equal to the tensors' bytes and
+    ``/debug/compute`` answering 200; prints a ``compute:`` line (the
+    roofline gauges per program);
+21. rebuilds the int8 8x7b of phases 13-17 and runs phase 19's speculation
+    on it with a ``160m`` draft, both on the int8 KV cache (K2-int8 at B 1
+    and head_dim 64, K3-int8 at T 5, K7/K8-int8 and ``int8_matmul`` in the
+    verify window), with phase 19's holds, and no int8 -> float copy in
+    the eager call but the embedding's rows.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17 and 18) and read just after. Each phase prints its seconds. Prints
+6, 9, 12, 15, 17, 18, 19, 20 and 21) and read just after. Each phase prints its seconds. Prints
 the card's name and power limit, one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
@@ -130,6 +160,7 @@ result, where no CUDA device is present or the package is missing.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -594,7 +625,7 @@ class RoutingReplay:
         if self.mode == "record":
             self.recorded.append(experts)
             return masks, gates, aux
-        ref = self.recorded.pop(0)
+        ref = self._next(experts)
         p = probs.reshape(-1, e)
         flipped = (ref.sort(1).values != experts.sort(1).values).any(1)
         self.routed += experts.shape[0]
@@ -614,6 +645,10 @@ class RoutingReplay:
         aux = e * torch.sum(masks[0].mean(dim=token_axes)
                             * probs.mean(dim=token_axes))
         return masks, gates, aux
+
+    def _next(self, experts):
+        """The recorded choices the call now routing ``experts`` takes."""
+        return self.recorded.pop(0)
 
     def summary(self) -> dict:
         margins = sorted(self.margins)
@@ -732,13 +767,23 @@ def smoke_engine(params, cfg, dev, quantize_cache=False, capture=True):
         quantize_cache=quantize_cache, device=dev, capture=capture)
 
 
+def step_objects(eng) -> tuple:
+    """The engine's two ``StepGraph``s, also while ``ComputeTelemetry``
+    wraps them (``__wrapped__``)."""
+    return tuple(getattr(x, "__wrapped__", x)
+                 for x in (eng._decode, eng._prefill))
+
+
 def serve(torch, params, cfg, dev, quantize_cache=False,
-          capture=True) -> dict:
+          capture=True, attach=None) -> dict:
     """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
     weights with the int8 KV cache): the engine run (a main path), its
     steps captured as CUDA graphs, or eager with ``capture=False``.
     Returns its metrics; the keys that start with "_" hold what
-    ``same_engines`` compares (streams, counters, allocator state)."""
+    ``same_engines`` compares (streams, counters, allocator state).
+    ``attach(engine)``, where given, runs before the engine's first tick
+    (phase 20's telemetry), and the metrics then hold the engine under
+    "_engine"."""
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
     rng = torch.Generator()
@@ -751,6 +796,8 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     first = [toks(96), toks(180), toks(300), toks(700), prefix + toks(64)]
     later = [prefix + toks(150), prefix + toks(444), list(prefix)]
     eng = smoke_engine(params, cfg, dev, quantize_cache, capture)
+    if attach is not None:
+        attach(eng)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -798,10 +845,10 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
         # reserved, not allocated, between replays.
         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
         compile_counts=dict(eng.compile_counts),
-        graphs=eng._decode.graphs + eng._prefill.graphs,
+        graphs=sum(x.graphs for x in step_objects(eng)),
         # Host seconds of the steps' warm-ups and captures, once per
         # engine, inside the run (and so in the first requests' TTFT).
-        capture_s=eng._decode.build_s + eng._prefill.build_s,
+        capture_s=sum(x.build_s for x in step_objects(eng)),
         _streams=[r.tokens for r in reqs],
         _prompt_lens=[len(r.prompt) for r in reqs],
         _stats={k: v for k, v in st.snapshot().items()
@@ -816,6 +863,8 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
 
         metrics.update(moe_impl=eng.moe_impl, dispatch=dispatch_impl_label(
             cfg.hidden, cfg.mlp_hidden, device=dev))
+    if attach is not None:
+        metrics["_engine"] = eng
     return metrics
 
 
@@ -2191,7 +2240,8 @@ def stream_flips(torch, streams, other, prompt_lens, names, params, cfg,
         flips.append({"request": rid,
                       "generated_index": i - prompt_lens[rid],
                       names[0]: a[i], names[1]: b[i],
-                      "logit_margin": margin})
+                      "logit_margin": margin,
+                      "logits": [float(logits[a[i]]), float(logits[b[i]])]})
     return flips
 
 
@@ -2203,6 +2253,640 @@ def solo_streams(torch, params, cfg, dev, traffic) -> list:
     eng.run()
     eng.assert_no_leaks()
     return [r.tokens for r in reqs]
+
+
+# Phases 19 and 21: speculative decoding. Two seeded prompts of about 512
+# tokens (at most 512, so an MoE target's prefill runs dropless, as its
+# verify window does), SPEC_NEW new tokens each, SPEC_K drafts a round; the
+# eager comparison and the eager `generate` baseline take SPEC_EAGER_NEW
+# tokens of the first prompt (an eager round of the int8 target takes
+# ~0.2 s).
+SPEC_PROMPT_LENS = (496, 512)
+SPEC_NEW = 64
+SPEC_K = 4
+SPEC_EAGER_NEW = 8
+
+
+def bf16_spacing(x: float) -> float:
+    """The distance from |x| to the next bf16 value (8 significant bits):
+    the logits' resolution, since the LM head's product is rounded to
+    bf16."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def near_tie(flip: dict, limit: float) -> bool:
+    """A flip whose two logits lie within ``limit`` or within one bf16 step
+    of each other: at logits of 4 to 8 one step is 0.03125, above
+    PERF.md's 1e-2, so two adjacent bf16 values are a tie there."""
+    step = bf16_spacing(max(abs(v) for v in flip["logits"]))
+    return flip["logit_margin"] < limit or flip["logit_margin"] <= step
+
+
+def spec_prompts(torch, cfg) -> list:
+    rng = torch.Generator()
+    rng.manual_seed(SEED + 100)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in SPEC_PROMPT_LENS]
+
+
+def check_spec_kernels(torch, tcfg, dcfg, dev, quantized: bool) -> dict:
+    """The paged kernels at the speculative loop's shapes against their
+    plain versions, timed with their bounds: K2 at the draft's step (one
+    sequence, B 1, at the first prompt's length plus half the new tokens)
+    and K3 at the target's verify window (T = SPEC_K + 1, B 1, from that
+    position); the int8 branches with ``quantized`` (pools quantized by
+    the cache's own recipe, as ``check_paged`` does)."""
+    from k8s_dra_driver_tpu_torch.models.decode import _quantize_kv
+    from k8s_dra_driver_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + (102 if quantized else 101))
+    start = SPEC_PROMPT_LENS[0] + SPEC_NEW // 2
+    suffix = "_int8" if quantized else ""
+    results = {}
+    for name, cfg, t in (("paged_decode" + suffix + "_b1", dcfg, 1),
+                         ("paged_prefill" + suffix + "_verify", tcfg,
+                          SPEC_K + 1)):
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        nbps = cfg.max_seq_len // BLOCK_SIZE
+        scale = d ** -0.5
+        kv_bytes = 2 * d + 8 if quantized else 2 * d * 2
+        k, v, tables = paged_inputs(torch, gen, dev, [start + t], nbps,
+                                    hkv, d)
+        sc = {}
+        if quantized:
+            (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
+            k, v, sc = k8[0], v8[0], dict(k_scale=ks[0], v_scale=vs[0])
+        q = torch.randn((1, hq, t, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pos = start + torch.arange(t, device=dev)[None, :]
+        if t == 1:
+            vlen = (pos[:, 0] + 1).to(torch.int32)
+            q1 = q[:, :, 0].contiguous()
+
+            def kernel():
+                return att.paged_decode_attention(q1, k, v, tables, vlen,
+                                                  BLOCK_SIZE, scale, **sc)
+            shape = f"q[1,{hq},{d}] valid_len {start + 1}"
+        else:
+            def kernel():
+                return att.paged_prefill_attention(q, k, v, tables, pos,
+                                                   BLOCK_SIZE, scale, **sc)
+            shape = f"q[1,{hq},{t},{d}] start {start}"
+
+        def plain():
+            return att.paged_attention_reference(q, k, v, tables, pos,
+                                                 BLOCK_SIZE, scale, **sc)
+        out = kernel()
+        ref = plain()
+        if t == 1:
+            ref = ref[:, :, 0]
+        torch.cuda.synchronize()
+        err = attn_errors(torch, out, ref, name)
+        visible = sum(start + i + 1 for i in range(t))
+        results[name] = dict(
+            max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+            library_ms=None, shape=shape,
+            **bound_fields(name, (start + t) * hkv * kv_bytes
+                           + 2 * q.numel() * 2
+                           + -(-(start + t) // BLOCK_SIZE) * 4,
+                           visible * hq * d * 4, BF16_FLOPS))
+    return results
+
+
+def spec_alone(torch, params, cfg, dev, quantize_cache, prompts) -> list:
+    """The target alone, from the state a speculative call starts in:
+    ``prefill`` of each prompt as ``speculative_generate`` calls it (the
+    same first token and prompt cache), then SPEC_NEW - 1 greedy T=1 steps
+    captured as the draft's step is (``StepGraph``, B 1). The streams
+    speculation is held to: the T=1 steps and the T=k+1 verify window
+    are the only difference."""
+    from k8s_dra_driver_tpu_torch.models.decode import (
+        _forward_with_cache,
+        prefill,
+    )
+    from k8s_dra_driver_tpu_torch.models.step_graph import StepGraph
+
+    streams = []
+    for prompt in prompts:
+        s = len(prompt)
+        logits, cache = prefill(params, torch.tensor([prompt], device=dev),
+                                cfg, s + SPEC_NEW + SPEC_K + 1,
+                                quantize_cache=quantize_cache)
+
+        def step(tok, pos, on, cache=cache):
+            out, _ = _forward_with_cache(params, tok[:, None], cache, cfg,
+                                         pos, active=on != 0)
+            return out[:, 0].argmax(dim=-1).to(torch.int32)
+
+        graph = StepGraph(step, dev, counts={"step": 0}, name="step")
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        live = torch.ones((1,), dtype=torch.int32, device=dev)
+        pos = torch.tensor([s], device=dev)
+        out = [tok]
+        for _ in range(SPEC_NEW - 1):
+            tok = graph((), tok, pos, live)
+            out.append(tok.clone())
+            pos = pos + 1
+        streams.append(prompt + torch.cat(out).tolist())
+    return streams
+
+
+class WindowReplay(RoutingReplay):
+    """``RoutingReplay`` from T=1 steps into T=k+1 windows: a recorded call
+    that routed fewer tokens than the call replaying it stands for its
+    first rows; the other rows keep their own choice and are not
+    counted."""
+
+    def _next(self, experts):
+        import torch
+
+        ref = self.recorded.pop(0)
+        self._extra = experts.shape[0] - ref.shape[0]
+        return torch.cat([ref, experts[ref.shape[0]:]])
+
+    def __call__(self, probs, c):
+        self._extra = 0
+        out = super().__call__(probs, c)
+        self.routed -= self._extra
+        return out
+
+
+def explain_moe_flip(torch, params, cfg, dev, quantize_cache, prompt,
+                     stream, other, i) -> dict:
+    """An MoE target's speculative stream and the target alone's first
+    differ at generated token i beyond a logit near-tie. A router's top-2
+    choice is discrete, so the bf16 noise between the T=1 step and the
+    T=k+1 window flips near-tie choices, and one flipped expert moves a
+    token's logits far more than that noise. So both ways are rerun
+    eagerly over the common prefix, from the same ``prefill``: the target
+    alone's (T=1 steps, routing recorded) and the verify window's (each
+    token fed as the first row of a T=k+1 window whose other rows are
+    filler, as in a round that accepts nothing; a row does not depend on
+    the rows after it), first routing freely, which must give both
+    streams' tokens at i, then with the T=1 routing replayed into the
+    windows' first rows. Held as phase 14 holds a forward: every routing
+    flip a near-tie (``FLIP_MARGIN_LIMIT``, ``FLIP_MARGIN_LIMIT_KVQ`` with
+    the int8 KV cache), at most FLIP_SHARE_LIMIT of the routed choices,
+    and, routing replayed, the window choosing the target alone's token or
+    the two tokens' logits within a near-tie (``near_tie``)."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.decode import (
+        _forward_with_cache,
+        prefill,
+    )
+
+    s = len(prompt)
+    limit = FLIP_MARGIN_LIMIT_KVQ if quantize_cache else FLIP_MARGIN_LIMIT
+    fed = stream[s:s + i]
+    t = SPEC_K + 1
+
+    def run(window: bool) -> torch.Tensor:
+        logits, cache = prefill(params, torch.tensor([prompt], device=dev),
+                                cfg, s + SPEC_NEW + SPEC_K + 1,
+                                quantize_cache=quantize_cache)
+        last = logits[0]
+        for j, tok in enumerate(fed):
+            row = [tok] + [0] * (t - 1 if window else 0)
+            out, cache = _forward_with_cache(
+                params, torch.tensor([row], device=dev), cache, cfg,
+                s + j + torch.arange(len(row), device=dev))
+            last = out[0, 0]
+        return last.float()
+
+    with WindowReplay(moe) as replay:
+        replay.mode = "record"
+        alone = run(False)
+        replay.mode = None
+        free = run(True)
+        replay.mode = "replay"
+        replayed = run(True)
+        if replay.recorded:
+            raise AssertionError("the windows replayed fewer routings than "
+                                 "the steps recorded")
+    a, b = stream[s + i], other[s + i]
+    if int(free.argmax()) != a or int(alone.argmax()) != b:
+        raise AssertionError(
+            f"the eager rerun does not reproduce the flip at {i}: window "
+            f"{int(free.argmax())} (speculative {a}), step "
+            f"{int(alone.argmax())} (alone {b})")
+    replay.check(f"the routing flips behind the flip at {i}", limit)
+    flip = {"logit_margin": abs(float(replayed[a] - replayed[b])),
+            "logits": [float(replayed[a]), float(replayed[b])]}
+    chosen = int(replayed.argmax())
+    if chosen != b and not near_tie(flip, limit):
+        raise AssertionError(f"with the T=1 routing replayed the window "
+                             f"chooses {chosen} at {i}, not the target "
+                             f"alone's {b}: {flip}")
+    return dict(replay.summary(), replayed_choice=chosen,
+                replayed_logit_margin=flip["logit_margin"],
+                replayed_logits=flip["logits"])
+
+
+def spec_engine(torch, params, cfg, dev, quantize_cache, prompts) -> dict:
+    """The fair baseline: the target alone in a captured
+    ``DecodeEngine(batch_slots=1)``, warmed by one request (its steps
+    captured there), then serving the prompts one after another."""
+    from k8s_dra_driver_tpu_torch.models import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, batch_slots=1, num_blocks=64,
+                       block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
+                       prefill_batch=1, prefix_cache=False,
+                       quantize_cache=quantize_cache, device=dev)
+    eng.submit(prompts[0][:PREFILL_CHUNK], max_new_tokens=4)
+    eng.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.assert_no_leaks()
+    return dict(streams=[r.tokens for r in reqs], wall_s=wall,
+                tokens_per_s=len(prompts) * SPEC_NEW / wall,
+                decode_p50_ms=eng.stats.p50_token_ms())
+
+
+def spec_generate_eager(torch, params, cfg, dev, quantize_cache,
+                        prompt) -> dict:
+    """The port's eager ``generate`` on the first prompt, SPEC_EAGER_NEW
+    new tokens."""
+    from k8s_dra_driver_tpu_torch.models import generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, [prompt], cfg, SPEC_EAGER_NEW,
+                   quantize_cache=quantize_cache, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=out[0].tolist(), wall_s=wall,
+                tokens_per_s=SPEC_EAGER_NEW / wall)
+
+
+def cache_rows(cache) -> list:
+    """A cache's pools without their scratch row: what a call may write."""
+    pools = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale]
+                                  if hasattr(cache, "k_scale") else [])
+    return [pool[:, :, :-1] for pool in pools]
+
+
+def speculate(torch, target, draft, tcfg, dcfg, dev, quantize_cache,
+              prompts, new=SPEC_NEW, capture=True, timed=False) -> dict:
+    """``speculative_generate`` on each prompt in turn (a solo call each,
+    its steps captured on its own caches unless ``capture=False``), with
+    the host syncs it makes counted (``set_sync_debug_mode("warn")``).
+    Returns the streams, each call's stats and syncs, the totals, and
+    the last call's final caches' rows (``cache_rows``)."""
+    import warnings
+
+    from k8s_dra_driver_tpu_torch.models import speculative_generate
+
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for prompt in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out, stats, caches = speculative_generate(
+                    target, draft, [prompt], tcfg, dcfg, new, k=SPEC_K,
+                    quantize_cache=quantize_cache, return_stats=True,
+                    return_caches=True, capture=capture, device=dev,
+                    timed=timed)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sites = collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message))
+        calls.append(dict(stats, tokens=out[0].tolist(), wall_s=wall,
+                          syncs=sum(sites.values()), sync_sites=sites))
+    rounds = sum(c["rounds"] for c in calls)
+    accepted = sum(c["accepted"] for c in calls)
+    capture_s = sum(c["capture_s"] for c in calls)
+    wall = sum(c["wall_s"] for c in calls)
+    result = dict(
+        streams=[c["tokens"] for c in calls], calls=calls, rounds=rounds,
+        accepted=accepted, acceptance_rate=accepted / (rounds * SPEC_K),
+        tokens_per_round=len(prompts) * (new - 1) / rounds,
+        wall_s=wall, capture_s=capture_s,
+        # Prefills included, the solo calls' captures excluded.
+        tokens_per_s=len(prompts) * new / (wall - capture_s),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        rows=[r for cache in caches for r in cache_rows(cache)])
+    if timed:
+        for key in ("draft_step_ms", "verify_window_ms"):
+            result[key] = statistics.median(c[key] for c in calls)
+    return result
+
+
+def spec_launches(tcfg, dcfg, calls: int, rounds: int, int8: bool) -> dict:
+    """The launches ``calls`` speculative calls of ``rounds`` rounds in all
+    make: each call prefills both models (K3 once a layer, K1 2L+1
+    times), each round feeds the draft SPEC_K + 1 times (K2) and verifies
+    once (K3); with int8 target weights, K7/K8-int8 once a layer and
+    ``int8_matmul`` 2L+1 times a target forward."""
+    lt, ld = tcfg.n_layers, dcfg.n_layers
+    feeds = (SPEC_K + 1) * rounds
+    suffix = "_int8" if int8 else ""
+    want = {"paged_decode" + suffix: ld * feeds,
+            "paged_prefill" + suffix: calls * (lt + ld) + lt * rounds,
+            "rmsnorm": (2 * lt + 1) * (calls + rounds)
+            + (2 * ld + 1) * (calls + feeds)}
+    if int8:
+        target = calls + rounds
+        want.update({"paged_decode": 0, "paged_prefill": 0,
+                     "moe_gateup": 0, "moe_down_combine": 0,
+                     "moe_gateup_int8": lt * target,
+                     "moe_down_combine_int8": lt * target,
+                     "int8_matmul": (2 * lt + 1) * target})
+    return want
+
+
+def speculative_phase(torch, label, target, draft, tcfg, dcfg, dev,
+                      quantize_cache, drive, counted, path) -> dict:
+    """Phases 19 and 21. The counted run (``drive(path, ...)``, its
+    launches ``counted(path)``): the draft's speculation on both prompts,
+    steps captured and timed. Then, outside it: the target as its own
+    draft (the perfect draft), whose streams the draft's must equal; the
+    target alone (``spec_alone``), whose streams both runs are held to
+    but for near-ties (``near_tie``; on an MoE target, or
+    ``explain_moe_flip``); the baselines (``spec_engine``, the eager
+    ``generate``); the first prompt at SPEC_EAGER_NEW tokens captured and
+    eager, held equal (tokens, stats, launches, pool rows), the eager
+    run's int8 -> float copies counted, and the captured run's host syncs
+    against the counted run's (one more a round). Returns the two runs'
+    metrics."""
+    from k8s_dra_driver_tpu_torch.models.moe import MoeConfig
+    from k8s_dra_driver_tpu_torch.models.step_graph import (
+        launch_delta,
+        read_launches,
+    )
+
+    prompts = spec_prompts(torch, tcfg)
+    limit = FLIP_MARGIN_LIMIT_KVQ if quantize_cache else FLIP_MARGIN_LIMIT
+    main_run = drive(path, speculate, torch, target, draft, tcfg, dcfg, dev,
+                     quantize_cache, prompts, SPEC_NEW, True, True)
+    counts = counted(path)
+    want = spec_launches(tcfg, dcfg, len(prompts), main_run["rounds"],
+                         quantize_cache)
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    perfect = speculate(torch, target, target, tcfg, tcfg, dev,
+                        quantize_cache, prompts)
+    alone = spec_engine(torch, target, tcfg, dev, quantize_cache, prompts)
+    alone_streams = spec_alone(torch, target, tcfg, dev, quantize_cache,
+                               prompts)
+    eager_gen = spec_generate_eager(torch, target, tcfg, dev,
+                                    quantize_cache, prompts[0])
+    lens = [len(p) for p in prompts]
+    for run, name in ((main_run, "draft"), (perfect, "perfect")):
+        for c in run["calls"]:
+            if c["compile_counts"] != {"draft_step": 1,
+                                       "verify_window": 1} \
+                    or c["graphs"] != 2:
+                raise AssertionError(f"{label} ({name}): captures "
+                                     f"{c['compile_counts']}, "
+                                     f"{c['graphs']} graphs")
+        flips = stream_flips(torch, run["streams"], alone_streams, lens,
+                             ("speculative", "alone"), target, tcfg, dev,
+                             quantize_cache)
+        log(f"{label} ({name}) vs the target alone: stream flips "
+            f"{json.dumps(flips)}")
+        for f in flips:
+            if near_tie(f, limit):
+                continue
+            if not isinstance(tcfg, MoeConfig):
+                raise AssertionError(f"{label} ({name}): streams differ from "
+                                     f"the target alone beyond a near-tie "
+                                     f"(limit {limit} or one bf16 step): {f}")
+            rid = f["request"]
+            f["routing"] = explain_moe_flip(
+                torch, target, tcfg, dev, quantize_cache, prompts[rid],
+                run["streams"][rid], alone_streams[rid],
+                f["generated_index"])
+            log(f"{label} ({name}): flip {rid}/{f['generated_index']} "
+                f"explained by routing near-ties {json.dumps(f['routing'])}")
+        run["stream_flips"] = flips
+    # The draft changes how many rounds run, never the output: a row of
+    # the verify window does not depend on the rows after it.
+    if main_run["streams"] != perfect["streams"]:
+        raise AssertionError(f"{label}: the draft's streams differ from the "
+                             f"perfect draft's")
+    # The perfect draft's T=1 steps are the target alone's, so each
+    # rejection makes its stream flip: no flip, every proposal accepted.
+    if not perfect["stream_flips"] and perfect["acceptance_rate"] != 1.0:
+        raise AssertionError(f"{label}: the perfect draft accepted "
+                             f"{perfect['acceptance_rate']} with no flip")
+    first = prompts[:1]
+    before = read_launches()
+    # Timed as the counted run is, whose closing read of the events syncs.
+    short = speculate(torch, target, draft, tcfg, dcfg, dev, quantize_cache,
+                      first, SPEC_EAGER_NEW, timed=True)
+    short_launches = launch_delta(before, read_launches())
+    before = read_launches()
+    runs = []
+
+    def eager_call():
+        runs.append(speculate(torch, target, draft, tcfg, dcfg, dev,
+                              quantize_cache, first, SPEC_EAGER_NEW,
+                              capture=False))
+
+    # With int8 weights, every int8 -> float copy the eager call makes is
+    # seen (a dispatch mode, which slows the call down).
+    eager = int8_casts(torch, eager_call) if quantize_cache else eager_call()
+    eager_launches = launch_delta(before, read_launches())
+    eager_run = runs[0]
+    keys = ("rounds", "accepted", "acceptance_rate", "compile_counts")
+    got = [{k: c[k] for k in keys} for c in short["calls"]]
+    # Every pool row but the scratch row bitwise equal: the captures'
+    # warm-ups wrote only the scratch row.
+    same_rows = all(torch.equal(a, b)
+                    for a, b in zip(short["rows"], eager_run["rows"]))
+    if short["streams"] != eager_run["streams"] or not same_rows \
+            or got != [{k: c[k] for k in keys} for c in eager_run["calls"]] \
+            or short_launches != eager_launches:
+        raise AssertionError(f"{label}: captured {got} "
+                             f"{short['streams']}, pool rows equal "
+                             f"{same_rows}; eager "
+                             f"{eager_run['calls']} "
+                             f"{eager_run['streams']}")
+    # One host sync a round: the longer call syncs once more a round.
+    extra = main_run["calls"][0]["syncs"] - short["calls"][0]["syncs"]
+    more = main_run["calls"][0]["rounds"] - short["calls"][0]["rounds"]
+    if extra != more:
+        raise AssertionError(
+            f"{label}: {extra} more host syncs for {more} more rounds: "
+            f"{dict(main_run['calls'][0]['sync_sites'])} against "
+            f"{dict(short['calls'][0]['sync_sites'])}")
+    # int8 -> float copies in the eager call: the embedding's rows only,
+    # the prompt's once and each verify window's.
+    h = tcfg.hidden
+    rounds = eager_run["rounds"]
+    allowed = sorted([lens[0] * h] + [(SPEC_K + 1) * h] * rounds)
+    if quantize_cache and sorted(eager) != allowed:
+        raise AssertionError(f"{label}: int8 -> float copies {eager}; "
+                             f"expected the embedding's rows {allowed}")
+    baselines = dict(
+        engine_b1_tokens_per_s=alone["tokens_per_s"],
+        engine_b1_decode_p50_ms=alone["decode_p50_ms"],
+        eager_generate_tokens_per_s=eager_gen["tokens_per_s"],
+        eager_generate_new_tokens=SPEC_EAGER_NEW)
+    checks = dict(
+        captured_vs_eager_equal=True, eager_new_tokens=SPEC_EAGER_NEW,
+        syncs_per_round=extra / more,
+        int8_to_float_copies=len(eager) if quantize_cache else None,
+        eager_wall_s=eager_run["wall_s"])
+    out = {}
+    for run, name in ((main_run, "draft"), (perfect, "perfect")):
+        m = {k: v for k, v in run.items()
+             if k not in ("streams", "calls", "rows")}
+        m.update(baselines, checks=checks, prompt_lens=lens,
+                 new_tokens=SPEC_NEW, k=SPEC_K,
+                 captures=[c["compile_counts"] for c in run["calls"]],
+                 capture_s_each=[c["capture_s"] for c in run["calls"]],
+                 syncs=[c["syncs"] for c in run["calls"]],
+                 speedup_vs_engine_b1=run["tokens_per_s"]
+                 / alone["tokens_per_s"],
+                 speedup_vs_eager_generate=run["tokens_per_s"]
+                 / eager_gen["tokens_per_s"])
+        log(f"speculative: {label} ({name}) {json.dumps(m)}")
+        out[name] = m
+    return out
+
+
+# Phase 20: after phase 4's traffic (the builds), a second wave of
+# TEL_REQUESTS requests of TEL_PROMPT tokens and TEL_NEW new tokens each
+# (one prefill launch a lane, then decode at 8 slots), scraped every tick.
+TEL_REQUESTS = 8
+TEL_PROMPT = 64
+TEL_NEW = 64
+
+
+def compute_telemetry(torch, params, cfg, dev, phase4) -> dict:
+    """Phase 20: ``ComputeTelemetry`` (the card's peak row) attached to a
+    phase-4-shaped engine before its first tick, behind the port's
+    ``MetricsServer``. Phase 4's traffic first (both programs built; the
+    streams held to phase 4's, which ran the same traffic on the same
+    weights without telemetry, but for near-ties), then ``mark_warm`` and
+    a decode-heavy second wave scraped every tick, so the roofline window
+    (the last 32 scrapes) covers steady decode at 8 slots. Holds: the
+    ledger's engine builds equal ``compile_counts`` (1 each), no recompile
+    after ``mark_warm``, the HBM ledger's weights equal the parameters'
+    tensor bytes and its pool bytes the pools', and ``/debug/compute``
+    answers 200 with the document. Returns the roofline gauges."""
+    import urllib.request
+
+    from k8s_dra_driver_tpu_torch.models.compute_telemetry import (
+        ComputeTelemetry,
+    )
+    from k8s_dra_driver_tpu_torch.utils.metrics import (
+        MetricsServer,
+        Registry,
+    )
+
+    registry = Registry()
+    tel = ComputeTelemetry(registry)
+    server = MetricsServer(registry, host="127.0.0.1", port=0)
+    server.set_compute_provider(tel.compute_debug)
+    server.start()
+    # No proxy: the request goes to this process's own server.
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        peaks = tel.compute_debug()["device"]
+        if peaks["matched"] != "h100 80gb hbm3":
+            raise AssertionError(f"device peaks {peaks}: not the H100 row")
+        first = serve(torch, params, cfg, dev, attach=lambda e: tel.attach(
+            e, replica="r0", claim_uid="chip-smoke"))
+        eng = first.pop("_engine")
+        ones = {"decode_step": 1, "prefill_chunk": 1}
+        snap = tel.ledger.snapshot()
+        builds = {p: snap["builds"].get(p, 0) for p in ones}
+        if dict(eng.compile_counts) != ones or builds != ones:
+            raise AssertionError(f"ledger builds {builds}, compile_counts "
+                                 f"{eng.compile_counts}; want {ones}")
+        flips = stream_flips(torch, first["_streams"], phase4["streams"],
+                             phase4["prompt_lens"], ("telemetry", "phase 4"),
+                             params, cfg, dev)
+        bad = [f for f in flips if f["logit_margin"] >= FLIP_MARGIN_LIMIT]
+        if bad:
+            raise AssertionError(f"streams with telemetry differ from phase "
+                                 f"4's beyond a near-tie: {bad}")
+        tel.mark_warm()
+        rng = torch.Generator()
+        rng.manual_seed(SEED + 110)
+        reqs = [eng.submit(torch.randint(0, cfg.vocab_size, (TEL_PROMPT,),
+                                         generator=rng).tolist(),
+                           max_new_tokens=TEL_NEW)
+                for _ in range(TEL_REQUESTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scrapes = 0
+        while not eng.idle:
+            eng.tick()
+            registry.render()
+            scrapes += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.assert_no_leaks()
+        if not all(r.done and len(r.generated) == TEL_NEW for r in reqs):
+            raise AssertionError("the second wave did not finish")
+        base = f"http://127.0.0.1:{server.port}/debug/compute"
+        with opener.open(base, timeout=60) as resp:
+            status = resp.status
+            doc = json.loads(resp.read().decode())
+        if status != 200 or doc["schema"] != "tpu-dra-compute-debug-v1":
+            raise AssertionError(f"/debug/compute answered {status}")
+        if doc["recompilesSinceWarm"] or dict(eng.compile_counts) != ones:
+            raise AssertionError(f"recompiles after warm-up: "
+                                 f"{doc['recompilesSinceWarm']}, "
+                                 f"{eng.compile_counts}")
+        hbm = doc["hbm"]["r0"]
+        pools = sum(p.numel() * p.element_size() for p in eng._pools)
+        if hbm["weightsBytes"] != nbytes(params) \
+                or hbm["kvPoolBytes"] != pools:
+            raise AssertionError(f"HBM ledger {hbm}; tensor bytes "
+                                 f"{nbytes(params)} weights, {pools} pools")
+        gauges = {}
+        for program, reps in doc["programs"].items():
+            for replica, r in reps.items():
+                gauges[f"{replica}/{program}"] = dict(
+                    boundBy=r["boundBy"], mfu=r["mfu"],
+                    membwFraction=r["bytesPerS"] / peaks["peakBytesPerS"],
+                    bytesPerS=r["bytesPerS"], flopsPerS=r["flopsPerS"],
+                    intensity=r["intensity"], ridge=r["ridge"],
+                    windowS=r["windowS"], steps=r["steps"])
+        decode = gauges["r0/decode_step"]
+        if decode["boundBy"] != "memory" or decode["steps"] <= 0:
+            raise AssertionError(f"decode gauges {decode}")
+        text = registry.render()
+        for family in ("tpu_dra_compute_compiles_total",
+                       "tpu_dra_compute_hbm_bytes",
+                       "tpu_dra_compute_mfu_ratio"):
+            if family not in text:
+                raise AssertionError(f"the registry renders no {family}")
+        return dict(
+            device=peaks, builds=snap["builds"],
+            compile_s={r["program"]: r["compileS"] for r in snap["records"]
+                       if r["program"] in ones},
+            recompiles_since_warm=doc["recompilesSinceWarm"],
+            hbm=hbm, weights_gb=hbm["weightsBytes"] / 1e9,
+            kv_pool_gb=hbm["kvPoolBytes"] / 1e9, gauges=gauges,
+            stream_flips=flips, second_wave_wall_s=wall,
+            second_wave_tokens_per_s=TEL_REQUESTS * TEL_NEW / wall,
+            decode_p50_ms=eng.stats.p50_token_ms(), scrapes=scrapes,
+            debug_compute_status=status,
+            first_wave_tokens_per_s=first["tokens_per_s"],
+            decode_steps=eng.stats.decode_steps,
+            prefill_launches=eng.stats.prefill_lanes_launched
+            // eng.prefill_batch)
+    finally:
+        tel.close()
+        server.stop()
 
 
 def nbytes(tree) -> int:
@@ -2312,7 +2996,12 @@ def main() -> int:
                                   "rmsnorm", "int8_matmul",
                                   "int8_matmul_wide"),
              "int8_prefill": ("int8_matmul_wide", "int8_matmul_wide_prologue"),
-             "gateway": ("paged_decode", "paged_prefill", "rmsnorm")}
+             "gateway": ("paged_decode", "paged_prefill", "rmsnorm"),
+             "speculative": ("paged_decode", "paged_prefill", "rmsnorm"),
+             "telemetry": ("paged_decode", "paged_prefill", "rmsnorm"),
+             "speculative_int8": ("paged_decode_int8", "paged_prefill_int8",
+                                  "moe_gateup_int8", "moe_down_combine_int8",
+                                  "int8_matmul", "rmsnorm")}
     by_path = {}
 
     def reset_counts():
@@ -2334,6 +3023,8 @@ def main() -> int:
             raise AssertionError(f"the {path} path never launched {missing}")
         return out
 
+    kept = {}      # each engine path's captured streams (phase 20 reads)
+
     def serve_twice(path, label, params, cfg, quantize_cache=False):
         """The engine's run (the main path, steps captured), then the same
         traffic through a ``capture=False`` engine, outside the counted
@@ -2350,6 +3041,8 @@ def main() -> int:
                              read_counts(), params, cfg, dev, quantize_cache)
         gc.collect()
         torch.cuda.empty_cache()
+        kept[path] = dict(streams=captured["_streams"],
+                          prompt_lens=captured["_prompt_lens"])
         for m in (captured, eager):
             for key in [k for k in m if k.startswith("_")]:
                 del m[key]
@@ -2611,7 +3304,7 @@ def main() -> int:
                              f"engine's beyond a near-tie (logit margin "
                              f"limit {FLIP_MARGIN_LIMIT}): {bad}")
     gateway["stream_flips"] = flips
-    del params, run
+    del run        # r0's weights stay: phases 19 and 20 serve them
     gc.collect()
     torch.cuda.empty_cache()
     ttft = " ".join(f"{lc} {v['p50']:.1f}/{v['p99']:.1f}"
@@ -2631,6 +3324,65 @@ def main() -> int:
                f"over two 8B replicas with a drain and no loss; streams equal "
                f"a solo engine's but {len(flips)} near-tie(s) (launches "
                f"{by_path['gateway']})")
+
+    # Phase 19: speculative decoding, phase 18's r0 weights as the 8B
+    # target and a 1b draft from the seed.
+    dcfg = PRESETS["1b"]
+    dparams = init_params(dcfg, seed=SEED + 103, device=dev)
+    kernels.update(check_spec_kernels(torch, cfg, dcfg, dev, False))
+    spec = speculative_phase(torch, "8b/1b", params, dparams, cfg, dcfg, dev,
+                             False, drive, by_path.get, "speculative")
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(f"phase 19: speculative decoding on the 8B target with a 1b "
+               f"draft and with itself, streams equal the target alone's "
+               f"but near-ties, captured equal to eager (launches "
+               f"{by_path['speculative']})")
+
+    # Phase 20: compute telemetry on a phase-4-shaped engine (the same
+    # weights as phase 4's).
+    telemetry = drive("telemetry", compute_telemetry, torch, params, cfg,
+                      dev, kept["serving"])
+    counts = by_path["telemetry"]
+    forwards = telemetry["decode_steps"] + telemetry["prefill_launches"]
+    want = {"paged_decode": cfg.n_layers * telemetry["decode_steps"],
+            "paged_prefill": cfg.n_layers * telemetry["prefill_launches"],
+            "rmsnorm": (2 * cfg.n_layers + 1) * forwards}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"telemetry launches {counts}, expected {want}")
+    gauges = " ".join(
+        f"{key} {g['boundBy']} membw {g['membwFraction']:.4f} mfu "
+        f"{g['mfu']:.5f}" for key, g in telemetry["gauges"].items())
+    log(f"compute: {gauges}; {json.dumps(telemetry)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(f"phase 20: compute telemetry on an 8B engine: builds equal "
+               f"compile_counts, no recompile after warm-up, HBM ledger "
+               f"equal to the tensors' bytes (launches {counts})")
+
+    # Phase 21: speculative decoding on the int8 8x7b target (rebuilt) with
+    # a 160m draft, both on the int8 KV cache.
+    t0 = time.perf_counter()
+    qparams = int8_moe_params(torch, qcfg, dev)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    log(f"8x7b int8 params rebuilt in {rebuild_s:.1f}s")
+    d8cfg = PRESETS["160m"]
+    d8params = init_params(d8cfg, seed=SEED + 104, device=dev)
+    kernels.update(check_spec_kernels(torch, qcfg, d8cfg, dev, True))
+    spec_int8 = speculative_phase(torch, "8x7b-int8/160m", qparams, d8params,
+                                  qcfg, d8cfg, dev, True, drive, by_path.get,
+                                  "speculative_int8")
+    spec_int8["rebuild_s"] = rebuild_s
+    del qparams, d8params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(f"phase 21: speculative decoding on the int8 8x7b target with "
+               f"a 160m draft and with itself, streams equal the target "
+               f"alone's but near-ties, captured equal to eager, no int8 -> "
+               f"float weight copy (launches {by_path['speculative_int8']})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -2648,6 +3400,18 @@ def main() -> int:
                       for k in ("moe_gateup", "moe_down_combine")
                       for suffix in ("", "_train")}}
                for p, c in by_path.items()}
+    # The speculative loop's shapes, each in a row of its own: K2 at B 1
+    # (every draft feed) and K3 at T = k+1 (every verify window).
+    verify = {"speculative": (spec["draft"]["rounds"], cfg.n_layers, ""),
+              "speculative_int8": (spec_int8["draft"]["rounds"],
+                                   qcfg.n_layers, "_int8")}
+    for p, c in by_path.items():
+        for suffix in ("", "_int8"):
+            rounds, layers, mine = verify.get(p, (0, 0, None))
+            on = mine == suffix
+            c[f"paged_decode{suffix}_b1"] = (
+                c[f"paged_decode{suffix}"] if on else 0)
+            c[f"paged_prefill{suffix}_verify"] = layers * rounds if on else 0
     launches = {name: sum(by_path[p][name] for p in by_path)
                 for name in by_path["serving"]}
 
@@ -2713,6 +3477,9 @@ def main() -> int:
     }
     for name in ("moe_gateup", "moe_down_combine"):
         meta[name + "_train"] = meta[name]
+    for suffix in ("", "_int8"):
+        meta[f"paged_decode{suffix}_b1"] = meta[f"paged_decode{suffix}"]
+        meta[f"paged_prefill{suffix}_verify"] = meta[f"paged_prefill{suffix}"]
     # K2 at the longest window: the same kernels and launch counts as its
     # row at the engine's shape.
     for name in ("paged_decode", "paged_decode_int8"):
@@ -2747,7 +3514,8 @@ def main() -> int:
                     "moe_train": moe_trained, "int8_forward": int8_forward,
                     "int8_engine": int8_engine,
                     "int8_einsum_prefill": int8_prefill,
-                    "gateway": gateway}))
+                    "gateway": gateway, "speculative": spec,
+                    "compute": telemetry, "speculative_int8": spec_int8}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Llama-3 on the card: configuration and parameters, serving on the paged
-KV cache (the cached forward and the continuous-batching engine, for dense
-and Mixtral-style MoE configs, with int8 weights and an int8 KV cache as
-options), and training of both (forward, loss, optimizer and train
-step)."""
+KV cache (the cached forward, greedy speculative decoding and the
+continuous-batching engine, for dense and Mixtral-style MoE configs, with
+int8 weights and an int8 KV cache as options), and training of both
+(forward, loss, optimizer and train step). ``compute_telemetry`` observes
+the engine's builds, roofline and HBM footprint."""
 
 from . import moe
 from .convert import params_from_numpy
@@ -25,6 +26,7 @@ from .paged import (
     PrefixCache,
 )
 from .quant import QuantTensor, quantize_params
+from .speculative import speculative_generate
 from .serving import (
     AdmissionClosedError,
     DecodeEngine,
@@ -60,6 +62,7 @@ __all__ = [
     "prefill_cached",
     "decode_step",
     "generate",
+    "speculative_generate",
     "AdmissionClosedError",
     "DecodeEngine",
     "Request",

@@ -137,6 +137,8 @@ class _Staging:
             self._turn = 0
 
     def stage(self, arrays: Sequence[np.ndarray]) -> None:
+        if not self.views:
+            return
         if not self._cuda:
             _pack(arrays, self.device_buf.numpy())
             return

@@ -5,6 +5,7 @@ versions) and rotary embeddings."""
 
 from .attention import (
     FlashAttentionFunction,
+    attention_impl_label,
     attention_reference,
     flash_attention,
     flash_attention_backward,
@@ -16,7 +17,9 @@ from .attention import (
     paged_decode_attention,
     paged_decode_int8,
     paged_prefill_attention,
+    paged_prefill_impl_label,
     paged_prefill_int8,
+    set_attention_impl,
 )
 from . import moe_dispatch
 from .moe_dispatch import (
@@ -26,6 +29,7 @@ from .moe_dispatch import (
     build_plan,
     fused_moe_mlp,
     grouped_matmul,
+    grouped_matmul_label,
     grouped_matmul_reference,
     grouped_weight_grad,
     grouped_weight_grad_reference,
@@ -72,6 +76,9 @@ __all__ = [
     "paged_prefill_attention",
     "paged_decode_int8",
     "paged_prefill_int8",
+    "set_attention_impl",
+    "attention_impl_label",
+    "paged_prefill_impl_label",
     "attention_reference",
     "flash_attention",
     "flash_attention_forward",
@@ -86,6 +93,7 @@ __all__ = [
     "fused_moe_mlp",
     "FusedMoeMlpFunction",
     "grouped_matmul",
+    "grouped_matmul_label",
     "grouped_matmul_reference",
     "grouped_weight_grad",
     "grouped_weight_grad_reference",

@@ -266,6 +266,41 @@ def _is_cpu(*tensors) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
 
 
+def set_attention_impl(impl: str) -> None:
+    """The reference's backend override. The port has one rule instead --
+    the kernels for CUDA tensors, the plain versions for CPU tensors --
+    so only ``"auto"`` is taken: an override that sent a CUDA tensor to
+    the plain version would be a fallback, and the plain versions already
+    run wherever the tensors lie on the CPU."""
+    if impl != "auto":
+        raise ValueError(
+            f"attention impl {impl!r}: the port runs the kernels for CUDA "
+            f"tensors and the plain versions for CPU tensors; only 'auto' "
+            f"is taken"
+        )
+
+
+def _impl_label(device=None) -> str:
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+def attention_impl_label(device=None) -> str:
+    """What ``flash_attention`` runs for tensors on ``device`` (default:
+    the CUDA device where there is one, else the CPU): ``"cuda"`` (the
+    kernels of ``csrc/flash_attention.cu``) or ``"plain"``."""
+    return _impl_label(device)
+
+
+def paged_prefill_impl_label(device=None) -> str:
+    """What ``paged_prefill_attention`` runs for tensors on ``device``
+    (default as :func:`attention_impl_label`): ``"cuda"`` (K3 of
+    ``csrc/paged_attention.cu``) or ``"plain"``
+    (:func:`paged_attention_reference`)."""
+    return _impl_label(device)
+
+
 def _check_cuda_args(kernel, q, k_pool, v_pool, block_tables, lengths,
                      k_scale=None, v_scale=None):
     dev = q.device

@@ -377,6 +377,27 @@ def _check_grouped(kernel: str, group_sizes: torch.Tensor,
                         f"got {group_sizes.dtype}")
 
 
+def _check_gmm_widths(k: int, n: int) -> None:
+    if k % GMM_K_STEP or n % GROUPED_COLS:
+        raise ValueError(
+            f"grouped_matmul: K {k}, N {n}; the kernel takes K in multiples "
+            f"of {GMM_K_STEP} and N in multiples of {GROUPED_COLS}")
+
+
+def grouped_matmul_label(m: int, kk: int, nn: int, device=None) -> str:
+    """Which body ``grouped_matmul`` runs for a bf16 [m, kk] x [E, kk, nn]
+    problem on ``device`` (default: the CUDA device where there is one,
+    else the CPU): ``"cuda"`` (K10a, ``csrc/grouped_matmul.cu``) or
+    ``"plain"`` (:func:`grouped_matmul_reference`). Widths the kernel does
+    not take raise here as they do in the wrapper: there is no fallback."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(device).type != "cuda":
+        return "plain"
+    _check_gmm_widths(kk, nn)
+    return "cuda"
+
+
 def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
          use_kernels: bool = True) -> torch.Tensor:
     """K10a without autograd: the ``gmm`` kernel for CUDA tensors, its
@@ -404,10 +425,7 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
         raise ValueError(
             "grouped_matmul: rhs must be contiguous [E, K, N] or the "
             "transposed view of a contiguous [E, N, K]")
-    if k % GMM_K_STEP or n % GROUPED_COLS:
-        raise ValueError(
-            f"grouped_matmul: K {k}, N {n}; the kernel takes K in multiples "
-            f"of {GMM_K_STEP} and N in multiples of {GROUPED_COLS}")
+    _check_gmm_widths(k, n)
     out = torch.empty(rows, n, dtype=lhs.dtype, device=lhs.device)
     with torch.cuda.device(lhs.device):
         rc = _grouped_library().grouped_matmul(

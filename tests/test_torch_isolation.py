@@ -26,6 +26,7 @@ from k8s_dra_driver_tpu_torch.models import (
     moe,
 )
 from k8s_dra_driver_tpu_torch.models.llama import PRESETS
+from k8s_dra_driver_tpu_torch.models.speculative import speculative_generate
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu")
@@ -65,7 +66,11 @@ def test_static_scan_finds_no_jax_or_reference_import():
     ("k8s_dra_driver_tpu_torch.models.serving",),
     ("k8s_dra_driver_tpu_torch.serving_gateway",
      "k8s_dra_driver_tpu_torch.utils.metrics"),
-], ids=["engine", "gateway"])
+    ("k8s_dra_driver_tpu_torch.models.speculative",),
+    ("k8s_dra_driver_tpu_torch.models.compute_telemetry",),
+    ("k8s_dra_driver_tpu_torch.parallel.collectives",),
+], ids=["engine", "gateway", "speculative", "compute-telemetry",
+        "collectives"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
@@ -95,6 +100,8 @@ def test_entry_points_default_to_the_card():
         DecodeEngine(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         generate(params, [[1, 2, 3]], cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speculative_generate(params, params, [[1, 2, 3]], cfg, cfg, 2)
     opt = make_optimizer(warmup_steps=1, total_steps=10)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_train_state(cfg, opt)

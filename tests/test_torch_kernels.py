@@ -119,6 +119,7 @@ _PREFILL_CASES = [
     (40, 6, 2, 64, 4, (3, 50)),                 # G=3, block 4
     (17, 4, 1, 128, 5, (0, 11)),                # G=4, block 5: 1-row boxes
     (64, 8, 2, 128, 12, (5, 130)),              # block 12: 4-row boxes
+    (5, 32, 8, 128, 16, (515,)),                # a verify window (k 4), B 1
 ]
 
 

@@ -17,7 +17,10 @@ decode steps interleave, with preemption, prefix hits and a
 copy-on-write recompute: greedy streams, stats counters, allocator state
 and every launch count EQUAL (the kernels are bitwise equal on repeat, and
 a replay runs the captured launches on the same inputs), and
-``compile_counts`` 1 per step. Also: no host sync in a replayed tick, a
+``compile_counts`` 1 per step. A captured speculative call against an
+eager one (160m-gqa, and 8x160m int8 with the int8 KV cache, each with a
+160m draft): equal tokens, stats and launches, one host sync a round.
+Also: no host sync in a replayed tick, a
 capture that syncs raises (in a child process: a failed capture leaves
 its stream's state behind), and a temperature > 0 step draws new numbers
 on every replay.
@@ -112,6 +115,18 @@ def test_cpu_step_stages_ints_and_counts_each_shape():
     step((np.zeros((3, 3), np.int32), np.zeros(3, bool)),
          torch.zeros(3, dtype=torch.int32))
     assert counts == {"step": 2} and step.graphs == 0
+
+
+def test_cpu_step_takes_device_tensors_alone():
+    """A step with no host arrays (the speculative loop's draft step and
+    verify window) stages nothing and still counts its shape once."""
+    counts = {"step": 0}
+    step = sg.StepGraph(lambda x, y: x * 2 + y, "cpu", counts=counts,
+                        name="step")
+    x = torch.tensor([1, 2], dtype=torch.int32)
+    assert step((), x, x).tolist() == [3, 6]
+    assert step((), x + 1, x).tolist() == [5, 8]
+    assert counts == {"step": 1} and step.graphs == 0
 
 
 def test_trace_counts_count_captures_not_warmups():
@@ -300,6 +315,73 @@ def test_replayed_ticks_never_sync(dev, name):
     eng, streams, _ = _run(name, dev, capture=True, sync_check=True)
     assert eng._decode.graphs == 1 and eng._prefill.graphs == 1
     assert all(len(s) > 0 for s in streams)
+
+
+def _speculate(target, dev, capture, n_new, draft_seed=1):
+    """A speculative call on the card: a 160m-gqa target (or 8x160m int8
+    weights with the int8 KV cache) and a 160m draft from a seed, k 4, a
+    100-token prompt. Returns (tokens, stats, launches, host syncs, pool
+    rows)."""
+    import warnings
+
+    from k8s_dra_driver_tpu_torch.models import speculative_generate
+
+    cfg, params, kvq = _model(target, dev)
+    dcfg = PRESETS["160m"]
+    if ("draft", draft_seed) not in _MODELS:
+        _MODELS["draft", draft_seed] = init_params(dcfg, seed=draft_seed,
+                                                   device=dev)
+    draft = _MODELS["draft", draft_seed]
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size,
+                                              size=(1, 100))
+    before = sg.read_launches()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, stats, caches = speculative_generate(
+                params, draft, prompt, cfg, dcfg, n_new, k=4,
+                quantize_cache=kvq, return_stats=True, return_caches=True,
+                capture=capture, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    # Both caches' pools but their scratch row, and their lengths.
+    rows = [pool[:, :, :-1] for cache in caches
+            for pool in (cache.k, cache.v)]
+    rows += [cache.lengths for cache in caches]
+    return (out.cpu().tolist(), stats,
+            sg.launch_delta(before, sg.read_launches()), syncs, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["160m-gqa", "8x160m-int8+kvq"])
+def test_captured_speculation_equals_eager(dev, target):
+    """The draft's T=1 step and the target's T=k+1 window captured on the
+    call's caches, against the same call run eagerly: equal tokens,
+    stats, launches and rewound lengths; two graphs captured, none
+    eagerly; every pool row but the scratch row
+    bitwise equal (the warm-ups write only that row); and the rounds' one
+    host sync each: a call 16 tokens longer syncs exactly once more a
+    round."""
+    cap, cap_stats, cap_launches, syncs, cap_rows = _speculate(
+        target, dev, True, 48)
+    eag, eag_stats, eag_launches, _, eag_rows = _speculate(
+        target, dev, False, 48)
+    assert cap == eag
+    # The warm-ups (zeroed inputs, every row inactive) wrote only the
+    # scratch row: every other pool row bitwise equal.
+    assert all(torch.equal(a, b) for a, b in zip(cap_rows, eag_rows))
+    keys = ("rounds", "accepted", "acceptance_rate", "compile_counts")
+    assert {k: cap_stats[k] for k in keys} == {k: eag_stats[k] for k in keys}
+    assert cap_stats["compile_counts"] == {"draft_step": 1,
+                                           "verify_window": 1}
+    assert cap_stats["graphs"] == 2 and eag_stats["graphs"] == 0
+    assert cap_launches == eag_launches
+    _, longer, _, more_syncs, _ = _speculate(target, dev, True, 64)
+    assert more_syncs - syncs == longer["rounds"] - cap_stats["rounds"] > 0
 
 
 @pytest.mark.cuda
