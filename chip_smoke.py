@@ -146,11 +146,33 @@ fixed seed, and checks every hand-written kernel of those paths:
     on it with a ``160m`` draft, both on the int8 KV cache (K2-int8 at B 1
     and head_dim 64, K3-int8 at T 5, K7/K8-int8 and ``int8_matmul`` in the
     verify window), with phase 19's holds, and no int8 -> float copy in
-    the eager call but the embedding's rows.
+    the eager call but the embedding's rows;
+22. trains 8b-L8 at batch 8 x 2048 under each of the named remat policies
+    "full", "flash", "flash_qkv", "flash_mlp" and "flash_min" (selective
+    activation checkpointing, ``models/remat.py``), each from the same
+    seeded state through ``loss_fn(..., remat=True, remat_policy=p)`` and
+    AdamW's ``update_`` (as ``bench.py`` drives its step): one warm-up
+    step, whose loss and gradients are held to "full"'s, 3 timed steps and
+    one profiled step; holds K4, K5, K6 and K1 to the launches each policy
+    implies (K4 once per layer and step where ``flash_out`` is saved) and
+    prints a ``remat:`` line per policy (step p50, tokens/s, peak memory,
+    device ms by kernel group);
+23. does the same on 8x7b-L1 at batch 4 x 2048: dropless (the fused
+    pipeline) under "flash" and "flash_moe", and ``moe_impl="binned"``
+    under "full" and "flash_moe", binned's first step held to the einsum
+    formulation's on the same weights and tokens (routing equal), and
+    prints a ``moe remat:`` line per run;
+24. trains 8b-L8 cut to 2 layers (full width) for 2 AdamW steps through
+    ``make_train_step``, saves a checkpoint (``save_checkpoint``), trains
+    2 more steps, restores the checkpoint into a fresh state's template
+    (``restore_template``, ``restore_checkpoint``) and trains the same 2
+    steps: losses, parameters and both moments bitwise equal; prints the
+    save and restore seconds and GB/s (``checkpoint:`` line).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20 and 21) and read just after. Each phase prints its seconds. Prints
-the card's name and power limit, one
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23 and 24) and read just after.
+Each phase prints its seconds. Prints the card's name and power limit,
+one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -166,6 +188,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -190,6 +213,15 @@ PREFIX_LEN = 256
 TRAIN_BATCH = 8
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 5
+# Phases 22-23: each remat policy's run is one warm-up step, these timed
+# steps and one profiled step.
+POLICY_STEPS = 3
+DENSE_POLICIES = ("full", "flash", "flash_qkv", "flash_mlp", "flash_min")
+MOE_POLICY_RUNS = (("dropless", "flash"), ("dropless", "flash_moe"),
+                   ("binned", "full"), ("binned", "flash_moe"))
+# Phase 24: 8b-L8 cut to this depth; steps before and after the save.
+CKPT_LAYERS = 2
+CKPT_STEPS = 2
 MOE_LAYERS = 16
 # Phases 10-12: the MoE training path at 8x7b-L1 (Mixtral-8x7B widths, one
 # layer), dropless; batch x TRAIN_SEQ tokens.
@@ -935,8 +967,7 @@ def compare_train(torch, dev, cfg, batch: int, counted: dict,
     init_params, loss_fn = _model_fns(cfg)
     is_moe = isinstance(cfg, moe.MoeConfig)
     params = init_params(cfg, seed=seed, device=dev)
-    names = (["embed"] + [f"layers/{n}" for n in params["layers"]]
-             + ["final_norm", "lm_head"])
+    names = param_names(params)
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
@@ -961,31 +992,53 @@ def compare_train(torch, dev, cfg, batch: int, counted: dict,
             runs[flag] = (loss.item(), grads, ran)
     lk, gk, ran = runs[True]
     lp, gp, _ = runs[False]
-    loss_rel = abs(lk - lp) / abs(lp)
-    grad_rel = {}
-    for name, a, b_ in zip(names, gk, gp):
-        ref = b_.float().norm().item()
-        diff = (a.float() - b_.float()).norm().item()
-        if not (math.isfinite(diff) and ref > 0 and a.float().norm() > 0):
-            raise AssertionError(f"{name}: gradient norms {a.float().norm()}"
-                                 f" (kernels) and {ref} (plain)")
-        grad_rel[name] = diff / ref
+    loss_rel, grad_rel = loss_grad_rel(names, (lk, gk), (lp, gp))
     result = dict(loss_kernels=lk, loss_plain=lp, loss_rel_diff=loss_rel,
                   grad_rel_diff=grad_rel, batch=batch, seq=TRAIN_SEQ,
                   layers=cfg.n_layers, kernel_launches=ran)
     if is_moe:
         result.update(replay.summary())
     log("loss/grad kernels vs plain:", json.dumps(result))
-    if not loss_rel <= 1e-2:
-        raise AssertionError(f"loss relative difference {loss_rel} "
-                             f"(limit 1e-2)")
-    bad = {n: r for n, r in grad_rel.items() if not r <= 5e-2}
-    if bad:
-        raise AssertionError(f"gradient relative differences over 5e-2: "
-                             f"{bad}")
+    hold_loss_grads("kernels vs plain", loss_rel, grad_rel)
     if is_moe:
         replay.check("loss/grad")
     return result
+
+
+def param_names(params: dict) -> list:
+    """The leaf names of a parameter dict, in ``train.leaves`` order."""
+    return (["embed"] + [f"layers/{n}" for n in params["layers"]]
+            + ["final_norm", "lm_head"])
+
+
+def loss_grad_rel(names, got, want) -> tuple:
+    """(loss relative difference, {leaf: |got - want| / |want|}) of two
+    (loss, gradient leaves) pairs; the leaves of ``want`` may lie on the
+    host. Raises where a norm is zero or not finite."""
+    loss_g, grads_g = got
+    loss_w, grads_w = want
+    rel_diff = {}
+    for name, a, b_ in zip(names, grads_g, grads_w):
+        b_ = b_.to(a.device).float()
+        ref = b_.norm().item()
+        diff = (a.float() - b_).norm().item()
+        if not (math.isfinite(diff) and ref > 0 and a.float().norm() > 0):
+            raise AssertionError(f"{name}: gradient norms {a.float().norm()}"
+                                 f" and {ref} (the run held to)")
+        rel_diff[name] = diff / ref
+    return abs(loss_g - loss_w) / abs(loss_w), rel_diff
+
+
+def hold_loss_grads(what: str, loss_rel: float, grad_rel: dict) -> None:
+    """§2's limits: the loss within 1e-2, each gradient leaf within
+    5e-2 (relative)."""
+    if not loss_rel <= 1e-2:
+        raise AssertionError(f"{what}: loss relative difference {loss_rel} "
+                             f"(limit 1e-2)")
+    bad = {n: r for n, r in grad_rel.items() if not r <= 5e-2}
+    if bad:
+        raise AssertionError(f"{what}: gradient relative differences over "
+                             f"5e-2: {bad}")
 
 
 def train(torch, dev, cfg, preset: str, batch: int) -> dict:
@@ -1054,6 +1107,273 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
     else:
         log("train:", json.dumps(metrics))
     return metrics
+
+
+def remat_run(torch, dev, cfg, preset: str, batch: int, policy: str,
+              wrappers: dict, hold=None) -> dict:
+    """One run of phases 22-23: ``cfg`` from the seeded state at batch
+    ``batch`` x 2048 under ``policy``, AdamW (lr 1e-3, warm-up 1, 100
+    total steps) on one fixed batch, stepped as ``bench.py`` steps:
+    ``loss_fn(..., remat=True, remat_policy=policy)``, the gradients and
+    the optimizer's ``update_``. One warm-up step, whose loss and
+    gradients are held to ``hold`` (names, (loss, host gradients)) where
+    given and returned (``first``, the gradients on the host), then
+    POLICY_STEPS timed steps and one profiled step (``peak_mem_gb``: their
+    peak). On an MoE config the warm-up's routing is recorded
+    (``routing``: the forward's expert choices per layer). ``launches``
+    is each wrapper's launches a step."""
+    from k8s_dra_driver_tpu_torch.models import (
+        init_train_state,
+        make_optimizer,
+        moe,
+    )
+    from k8s_dra_driver_tpu_torch.models.train import _model_fns, leaves
+
+    loss_fn = _model_fns(cfg)[1]
+    opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, opt, seed=SEED, device=dev)
+    flat = leaves(state.params)
+    names = param_names(state.params)
+    before = {name: w.launches for name, w in wrappers.items()}
+
+    def step():
+        loss = loss_fn(state.params, tokens, cfg, remat=True,
+                       remat_policy=policy)
+        grads = torch.autograd.grad(loss, flat)
+        opt.update_(flat, grads, state.opt_state)
+        state.step += 1
+        return loss.detach(), grads
+
+    is_moe = isinstance(cfg, moe.MoeConfig)
+    with RoutingReplay(moe) as replay:
+        replay.mode = "record" if is_moe else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        losses = [loss.item()]
+        warmup_s = time.perf_counter() - t0
+    result = dict(preset=preset, policy=policy, batch=batch, seq=TRAIN_SEQ,
+                  layers=cfg.n_layers, warmup_step_ms=warmup_s * 1e3)
+    if hold is not None:
+        loss_rel, grad_rel = loss_grad_rel(names, (losses[0], grads),
+                                           hold[1])
+        result.update(loss_rel_diff=loss_rel, grad_rel_diff=grad_rel)
+        hold_loss_grads(f"{preset} {policy}", loss_rel, grad_rel)
+    first = (names, (losses[0], [g.cpu() for g in grads]))
+    del loss, grads
+    # The peak of the steady steps: the hold's f32 copies stay out of it.
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(POLICY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step()[0].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    profile = device_profile(torch, step, 1)
+    steps = 1 + POLICY_STEPS + 1
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{preset} {policy}: losses {losses}")
+    step_s = statistics.median(times)
+    tokens_per_step = batch * TRAIN_SEQ
+    flops = cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step
+    result.update(
+        losses=losses, step_ms=[t * 1e3 for t in times],
+        step_ms_p50=step_s * 1e3, tokens_per_s=tokens_per_step / step_s,
+        mfu=flops / step_s / BF16_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches={name: (w.launches - before[name]) / steps
+                  for name, w in wrappers.items()},
+        profile=profile, first=first,
+        routing=[e.cpu() for e in replay.recorded[:cfg.n_layers]])
+    del state, flat
+    return result
+
+
+def remat_launches(cfg, impl: str, policy: str) -> dict:
+    """The launches a train step implies under ``policy``: K4 once a
+    layer where ``flash_out`` is saved (twice under "full": the
+    recompute), K5 and K6 once, K1 at both norms of a layer in the
+    forward and the recompute plus the final norm; the fused dropless
+    pipeline K7 and K8 twice (``moe_act`` is in no policy), 3 gmm and 2
+    tgmm in its backward."""
+    from k8s_dra_driver_tpu_torch.models.llama import REMAT_POLICIES
+
+    layers = cfg.n_layers
+    saved = REMAT_POLICIES[policy] or ()
+    fused = impl == "dropless"
+    return {"flash_fwd": layers * (1 if "flash_out" in saved else 2),
+            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers,
+            "rmsnorm": 4 * layers + 1,
+            "moe_gateup": 2 * layers * fused,
+            "moe_down_combine": 2 * layers * fused,
+            "grouped_matmul": 3 * layers * fused,
+            "grouped_weight_grad": 2 * layers * fused}
+
+
+def hold_launches(what: str, run: dict, want: dict) -> None:
+    got = {name: run["launches"].get(name) for name in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches a step {got}, expected "
+                             f"{want}")
+
+
+def log_remat(label: str, run: dict) -> None:
+    groups = {k: round(v, 3) for k, v in run["profile"]["group_ms"].items()
+              if v}
+    log(f"{label}: {run['preset']} {run['policy']}: step p50 "
+        f"{run['step_ms_p50']:.1f} ms, {run['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {run['mfu']:.4f}, peak {run['peak_mem_gb']:.2f} GB, device "
+        f"{run['profile']['device_ms']:.1f} ms by group {json.dumps(groups)}"
+        f"; loss vs held {run.get('loss_rel_diff')}, largest gradient "
+        f"difference {max(run.get('grad_rel_diff', {0: None}).values())}")
+
+
+def remat_dense(torch, dev, cfg, preset: str, batch: int,
+                wrappers: dict) -> dict:
+    """Phase 22: each of DENSE_POLICIES on ``cfg`` (``remat_run``), every
+    later policy's first step held to "full"'s, the launches held to
+    ``remat_launches``."""
+    runs, ref = {}, None
+    for policy in DENSE_POLICIES:
+        run = remat_run(torch, dev, cfg, preset, batch, policy, wrappers,
+                        hold=ref)
+        first = run.pop("first")
+        run.pop("routing")
+        if ref is None:
+            ref = first
+        hold_launches(f"{preset} {policy}", run,
+                      remat_launches(cfg, "dense", policy))
+        log_remat("remat", run)
+        runs[policy] = run
+    del ref
+    return runs
+
+
+def remat_moe(torch, dev, cfg, batch: int, wrappers: dict) -> dict:
+    """Phase 23: the einsum formulation under "full" (the hold of binned:
+    routing equal, loss and gradients within §2's limits), then each of
+    MOE_POLICY_RUNS; the second dropless run is held to the first, and
+    every run's launches to ``remat_launches``."""
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    moe.MOE_TRACE_COUNTS.clear()
+    runs, held = {}, {}
+    for impl, policy in (("einsum", "full"),) + MOE_POLICY_RUNS:
+        label = f"8x7b-L1 {impl}"
+        run = remat_run(torch, dev, dataclasses.replace(cfg, moe_impl=impl),
+                        label, batch, policy, wrappers,
+                        hold=held.get("einsum" if impl == "binned"
+                                      else impl))
+        first, routing = run.pop("first"), run.pop("routing")
+        held.setdefault(impl, first)
+        if impl == "einsum":
+            held["routing"] = routing
+        elif impl == "binned":
+            same = [torch.equal(a, b) for a, b in zip(routing,
+                                                      held["routing"])]
+            run["routing_equal_layers"] = sum(same)
+            if not all(same) or len(same) != cfg.n_layers:
+                raise AssertionError(f"{label} {policy}: routing differs "
+                                     f"from einsum's ({same})")
+        hold_launches(f"{label} {policy}", run,
+                      remat_launches(cfg, impl, policy))
+        log_remat("moe remat", run)
+        runs[f"{impl}/{policy}"] = run
+    held.clear()
+    want = {f"{impl}:fused:t{batch * TRAIN_SEQ}"
+            for impl in ("einsum", "dropless", "binned")}
+    if set(moe.MOE_TRACE_COUNTS) != want:
+        raise AssertionError(f"MoE blocks {dict(moe.MOE_TRACE_COUNTS)}, "
+                             f"expected {want}")
+    return runs
+
+
+def checkpoint_resume(torch, dev, cfg, batch: int) -> dict:
+    """Phase 24: ``make_train_step`` (remat "full") on ``cfg`` at batch
+    ``batch`` x 2048: CKPT_STEPS AdamW steps, ``save_checkpoint``,
+    CKPT_STEPS more steps; then ``restore_checkpoint`` into a fresh
+    state's template (``restore_template``) and the same CKPT_STEPS
+    steps. Losses, parameters and both moments must be bitwise equal. The
+    checkpoint goes to ``build/checkpoints`` (removed after), whose disk
+    must hold it twice."""
+    from k8s_dra_driver_tpu_torch.models import (
+        init_train_state,
+        latest_step,
+        make_optimizer,
+        make_train_step,
+        restore_checkpoint,
+        restore_template,
+        save_checkpoint,
+    )
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    directory = ROOT / "build" / "checkpoints"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
+    state = init_train_state(cfg, opt, seed=SEED, device=dev)
+
+    def tensors(st):
+        return (leaves(st.params) + leaves(st.opt_state.mu)
+                + leaves(st.opt_state.nu))
+
+    state_bytes = sum(t.numel() * t.element_size() for t in tensors(state))
+    free = shutil.disk_usage(directory).free
+    if free < 2 * state_bytes:
+        raise AssertionError(f"checkpoint: {free / 1e9:.2f} GB free under "
+                             f"{directory}, the phase needs "
+                             f"{2 * state_bytes / 1e9:.2f} GB")
+    step = make_train_step(cfg, opt, remat=True, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 24)
+    batches = [torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
+                             generator=gen, device=dev)
+               for _ in range(2 * CKPT_STEPS)]
+    losses = [step(state, b)[1].item() for b in batches[:CKPT_STEPS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(directory), state, state.step)
+    save_s = time.perf_counter() - t0
+    saved_step = latest_step(str(directory))
+    file_bytes = (directory / str(saved_step) / "state.pt").stat().st_size
+    straight = [step(state, b)[1].item() for b in batches[CKPT_STEPS:]]
+
+    template = restore_template(
+        init_train_state(cfg, opt, seed=SEED + 1, device=dev), None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = restore_checkpoint(str(directory), template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if resumed.step != saved_step or resumed.opt_state.count != saved_step:
+        raise AssertionError(f"restored step {resumed.step}, count "
+                             f"{resumed.opt_state.count}; saved {saved_step}")
+    again = [step(resumed, b)[1].item() for b in batches[CKPT_STEPS:]]
+    unequal = sum(not torch.equal(a, b)
+                  for a, b in zip(tensors(state), tensors(resumed)))
+    shutil.rmtree(directory)
+    result = dict(layers=cfg.n_layers, batch=batch, seq=TRAIN_SEQ,
+                  params=cfg.num_params(), state_gb=state_bytes / 1e9,
+                  file_gb=file_bytes / 1e9, save_s=save_s,
+                  restore_s=restore_s,
+                  save_gb_per_s=file_bytes / 1e9 / save_s,
+                  restore_gb_per_s=file_bytes / 1e9 / restore_s,
+                  losses=losses + straight, resumed_losses=again,
+                  unequal_tensors=unequal, step=state.step)
+    log(f"checkpoint: {json.dumps(result)}")
+    if again != straight or unequal:
+        raise AssertionError(f"checkpoint: the resumed run differs: losses "
+                             f"{again} vs {straight}, {unequal} tensors "
+                             f"unequal")
+    return result
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
@@ -3001,7 +3321,15 @@ def main() -> int:
              "telemetry": ("paged_decode", "paged_prefill", "rmsnorm"),
              "speculative_int8": ("paged_decode_int8", "paged_prefill_int8",
                                   "moe_gateup_int8", "moe_down_combine_int8",
-                                  "int8_matmul", "rmsnorm")}
+                                  "int8_matmul", "rmsnorm"),
+             "remat_dense": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
+                             "flash_bwd_dq"),
+             "remat_moe": ("moe_gateup", "moe_down_combine",
+                           "grouped_matmul", "grouped_weight_grad",
+                           "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                           "rmsnorm"),
+             "checkpoint": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
+                            "flash_bwd_dq")}
     by_path = {}
 
     def reset_counts():
@@ -3383,6 +3711,34 @@ def main() -> int:
                f"a 160m draft and with itself, streams equal the target "
                f"alone's but near-ties, captured equal to eager, no int8 -> "
                f"float weight copy (launches {by_path['speculative_int8']})")
+
+    # Phases 22-24: the rest of training. The named remat policies on the
+    # dense and the MoE trainer (binned among the MoE formulations), then
+    # a checkpoint and resume.
+    remat = drive("remat_dense", remat_dense, torch, dev, PRESETS["8b-L8"],
+                  "8b-L8", TRAIN_BATCH, wrappers)
+    phase_done(f"phase 22: trained 8b-L8 under the remat policies "
+               f"{list(remat)}, each policy's first step held to full's "
+               f"(launches {by_path['remat_dense']})")
+    moe_remat = drive("remat_moe", remat_moe, torch, dev, tcfg,
+                      MOE_TRAIN_BATCH, wrappers)
+    phase_done(f"phase 23: trained 8x7b-L1 as {list(moe_remat)}, binned "
+               f"held to einsum with equal routing (launches "
+               f"{by_path['remat_moe']})")
+    ckpt_cfg = dataclasses.replace(PRESETS["8b-L8"], n_layers=CKPT_LAYERS)
+    ckpt = drive("checkpoint", checkpoint_resume, torch, dev, ckpt_cfg,
+                 TRAIN_BATCH)
+    counts = by_path["checkpoint"]
+    # Steps before the save, after it, and after the restore.
+    want = {name: n * 3 * CKPT_STEPS for name, n in
+            remat_launches(ckpt_cfg, "dense", "full").items()}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"checkpoint launches {counts}, expected "
+                             f"{want}")
+    phase_done(f"phase 24: saved and restored a {ckpt['file_gb']:.2f} GB "
+               f"train state (save {ckpt['save_s']:.2f} s, restore "
+               f"{ckpt['restore_s']:.2f} s); the resumed run is bitwise "
+               f"equal (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -3395,7 +3751,8 @@ def main() -> int:
                    "int8_matmul_prefill": c["int8_matmul_wide"]
                    - c["int8_matmul_wide_prologue"],
                    "int8_matmul_experts": c["int8_matmul_wide_prologue"],
-                   **{k + suffix: (c[k] if (p == "moe_training")
+                   **{k + suffix: (c[k] if (p in ("moe_training",
+                                                  "remat_moe"))
                                    == (suffix == "_train") else 0)
                       for k in ("moe_gateup", "moe_down_combine")
                       for suffix in ("", "_train")}}
@@ -3515,7 +3872,9 @@ def main() -> int:
                     "int8_engine": int8_engine,
                     "int8_einsum_prefill": int8_prefill,
                     "gateway": gateway, "speculative": spec,
-                    "compute": telemetry, "speculative_int8": spec_int8}))
+                    "compute": telemetry, "speculative_int8": spec_int8,
+                    "remat": remat, "moe_remat": moe_remat,
+                    "checkpoint": ckpt}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,18 @@
 KV cache (the cached forward, greedy speculative decoding and the
 continuous-batching engine, for dense and Mixtral-style MoE configs, with
 int8 weights and an int8 KV cache as options), and training of both
-(forward, loss, optimizer and train step). ``compute_telemetry`` observes
-the engine's builds, roofline and HBM footprint."""
+(forward, loss, optimizer and train step, the named remat policies) with
+train-state checkpoints. ``compute_telemetry`` observes the engine's
+builds, roofline and HBM footprint."""
 
 from . import moe
+from .checkpoint import (
+    MeshShapeMismatchError,
+    latest_step,
+    restore_checkpoint,
+    restore_template,
+    save_checkpoint,
+)
 from .convert import params_from_numpy
 from .decode import decode_step, generate, prefill, prefill_cached
 from .llama import (
@@ -78,4 +86,9 @@ __all__ = [
     "train_state_from_params",
     "make_train_step",
     "make_eval_step",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "restore_template",
+    "latest_step",
+    "MeshShapeMismatchError",
 ]

@@ -4,11 +4,40 @@ the serving path runs, and the training forward and loss. Counterpart of
 
 The training forward (:func:`forward`, :func:`loss_fn`) maps the
 reference's ``lax.scan`` over layers to a loop over the layers' views,
-and its remat policy ``"full"`` to ``torch.utils.checkpoint`` around each
-layer (the flash kernel then runs twice per layer and step, as under the
-reference's full remat). The named policies save chosen residuals; their
-PyTorch counterpart, selective activation checkpointing, is not built
-yet, so they raise. Ring attention (the ``use_ring`` branch) waits for
+and its remat policies to ``torch.utils.checkpoint`` around each layer:
+``"full"`` recomputes the whole layer (the flash kernel then runs twice
+per layer and step, as under the reference's full remat); a named policy
+(:data:`REMAT_POLICIES`) saves the named residuals through selective
+activation checkpointing (``models/remat.py``). Each named residual is
+the output of one op (the QKV product with rope, the flash kernels, the
+output projection, the SwiGLU product), so a saved one is not recomputed.
+
+Where eager PyTorch recomputes what XLA's dead-code elimination skips:
+eager PyTorch replays the layer's forward up to the last tensor the
+backward reads (``torch.utils.checkpoint``'s early stop ends the replay
+there, so the down projection and the last residual add do not run
+again, as XLA drops them), and a saved residual skips only the ops
+inside its site op: anything upstream of it outside the op runs again.
+The sites are drawn around the work for that reason (``flash_qkv`` spans
+the QKV product and rope). Per policy, what the recompute of one layer
+still runs (counted in ``tests/test_torch_train.py``), K1 at both norms
+in each:
+
+- ``flash``: the QKV product and rope (the flash backward needs q, k, v),
+  the MLP's gate/up product and SwiGLU. Not K4, not the ``wo`` product.
+- ``flash_qkv``: the MLP's gate/up product and SwiGLU. Not K4, not the
+  QKV product and rope, not the ``wo`` product.
+- ``flash_mlp``: the QKV product and rope, the MLP's gate/up product.
+- ``flash_min`` and ``flash_moe`` (the latter's MoE names do not occur in
+  the dense trunk): the QKV product and rope, the ``wo`` product, the
+  MLP's gate/up product and SwiGLU.
+
+XLA recomputes the same products under each policy but one: the port's
+``attn_o`` is the output projection's result, where the reference's
+names the attention output (which ``flash_out`` already keeps), so
+"flash", "flash_qkv" and "flash_mlp" also skip the ``wo`` product that
+XLA recomputes to rebuild the residual. The MoE block's recompute is in
+``models/moe.py``. Ring attention (the ``use_ring`` branch) waits for
 the multi-GPU slice.
 
 Parameters are a plain dict with the reference's structure and layouts,
@@ -29,14 +58,19 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops.attention import _repeat_kv, attention_reference, flash_attention
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import apply_rope, rope_frequencies
-from .quant import q_einsum, q_lookup, q_matmul
+from .quant import QuantTensor, q_einsum, q_lookup, q_matmul
+from .remat import (
+    attn_proj_site,
+    qkv_site,
+    save_only_these_names,
+    swiglu_site,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,28 +220,35 @@ def _mlp_block(x, layer, config: LlamaConfig, use_kernels: bool = True):
     xn = norm(x, layer["ln_mlp"], config.norm_eps)
     gu = q_einsum("bth,hcm->btcm", xn, layer["w_gateup"],   # [B, T, 2, M]
                   use_kernels)
-    gate = F.silu(gu[..., 0, :].float())
-    up = gu[..., 1, :].float()
-    prod = (gate * up).to(x.dtype)
+    prod = swiglu_site(gu)          # the mlp_prod site, in x's dtype
     return x + q_matmul(prod, layer["w_down"], use_kernels).to(x.dtype)
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin,
                      use_kernels: bool = True):
     """Norm, QKV + rope, causal attention, output projection + residual.
-    ``use_kernels=False`` runs the plain RMSNorm and attention even on
-    CUDA tensors (the kernel-versus-plain comparison)."""
+    Float weights go through the remat sites (the ``flash_qkv``,
+    ``flash_out`` and ``attn_o`` ops); int8 weights (``quantize_params``)
+    through the int8 seams. ``use_kernels=False`` runs the plain RMSNorm
+    and attention even on CUDA tensors (the kernel-versus-plain
+    comparison)."""
     norm = rmsnorm if use_kernels else rmsnorm_reference
     xn = norm(x, layer["ln_attn"], config.norm_eps)
-    q, k, v = project_qkv(xn, layer, config, cos, sin,
-                          use_kernels=use_kernels)
+    int8 = isinstance(layer["wqkv"], QuantTensor)
+    if int8:
+        q, k, v = project_qkv(xn, layer, config, cos, sin,
+                              use_kernels=use_kernels)
+    else:
+        q, k, v = qkv_site(xn, layer["wqkv"], cos, sin)
     if use_kernels:
         o = flash_attention(q, k, v, causal=True)
     else:
         g = config.n_heads // config.n_kv_heads
         o = attention_reference(q, _repeat_kv(k, g), _repeat_kv(v, g),
                                 causal=True)
-    return attn_out(x, o, layer, use_kernels)
+    if int8:
+        return attn_out(x, o, layer, use_kernels)
+    return x + attn_proj_site(o.to(x.dtype), layer["wo"]).to(x.dtype)
 
 
 def _block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool):
@@ -217,8 +258,8 @@ def _block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool):
 
 # Remat policies of the reference, by name. "full" recomputes each layer
 # in the backward; the others save the named residuals (flash out + lse,
-# q/k/v, the MLP product, MoE routing), which needs selective activation
-# checkpointing -- not built in the port yet.
+# q/k/v, the attention output projection, the MLP product, MoE routing
+# and the MoE gate/up product) and recompute the rest (models/remat.py).
 REMAT_POLICIES = {
     "full": None,
     "flash": ("flash_out", "attn_o", "moe_routing"),
@@ -237,13 +278,13 @@ def _remat_transform(remat: bool, remat_policy: str):
             f"unknown remat_policy {remat_policy!r}; valid: "
             f"{['none', *REMAT_POLICIES]}"
         )
-    if REMAT_POLICIES[remat_policy] is not None:
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} saves named residuals, which "
-            f"needs selective activation checkpointing (ROADMAP A10b, not "
-            f"ported yet); use 'full' or 'none'"
-        )
-    return lambda f: functools.partial(checkpoint, f, use_reentrant=False)
+    names = REMAT_POLICIES[remat_policy]
+    if names is None:
+        return lambda f: functools.partial(checkpoint, f,
+                                           use_reentrant=False)
+    return lambda f: functools.partial(
+        checkpoint, f, use_reentrant=False,
+        context_fn=save_only_these_names(*names))
 
 
 def forward(

@@ -4,7 +4,7 @@ training. Counterpart of ``k8s_dra_driver_tpu/models/moe.py``.
 An MoE model differs from the dense trunk only in its MLP block: a router
 (``wr``, kept in f32) picks ``top_k`` of ``n_experts`` per token, and the
 chosen experts' SwiGLU MLPs are summed with the renormalised router gates.
-Two of the reference's formulations are ported, sharing one router
+The reference's three formulations are ported, sharing one router
 (:func:`_topk_masks`):
 
 - **dropless** -- token-sort into the dispatch plan, then the fused
@@ -15,14 +15,23 @@ Two of the reference's formulations are ported, sharing one router
   capacity, nothing drops.
 - **einsum** -- GShard capacity routing with one-hot dispatch/combine
   einsums (plain PyTorch, as the reference leaves them to XLA).
+- **binned** -- the einsum path's routing and drops, addressed by the
+  capacity cumsum: one int scatter builds the slot -> pair map, row
+  gathers (:class:`_GatherRows`, whose backward is gathers too) move the
+  tokens into ``[E, rows, H]`` and back, and the experts run as batched
+  products.
 
 ``auto`` resolves per call by the reference's table
-(:func:`resolve_moe_impl`). :func:`forward` and :func:`loss_fn` (next-token
-cross-entropy plus ``aux_coef`` times the Switch load-balancing loss) are
-differentiable, with the dense trunk's remat policies. Not ported yet: the
-``binned`` formulation, expert parallelism (meshes, the ring and psum
-paths), the pipelined forward and ``param_specs``; those that have a name
-here raise ``NotImplementedError``.
+(:func:`resolve_moe_impl`; it never picks binned). :func:`forward` and
+:func:`loss_fn` (next-token cross-entropy plus ``aux_coef`` times the
+Switch load-balancing loss) are differentiable, with the dense trunk's
+remat policies. Under a named policy the MoE block's sites are the
+dispatch plan and binned's slot map (``moe_routing``) and the einsum and
+binned gate/up product (``moe_gu``); the recompute still runs the
+router, and in the fused dropless pipeline K7 and K8 (``moe_act`` is in
+no policy), as the reference's does. Not ported yet: expert parallelism
+(meshes, the ring and psum paths), the pipelined forward and
+``param_specs``; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from .llama import (
     chunked_cross_entropy,
 )
 from .quant import QuantTensor, q_lookup, q_matmul
+from .remat import expert_gateup_site, slots_site
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +68,7 @@ class MoeConfig(LlamaConfig):
     capacity_factor: float = 1.25
     # Tokens per routing group of the einsum path (0 = whole sequence).
     router_group: int = 128
-    # "auto" | "einsum" | "dropless" ("binned" is not ported).
+    # "auto" | "einsum" | "binned" | "dropless".
     moe_impl: str = "auto"
     # Weight of the Switch load-balancing loss in ``loss_fn``.
     aux_coef: float = 0.01
@@ -381,11 +391,8 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
                                          device=x.device),
         tokens,
     )
-    if impl in ("binned", "grouped"):
-        raise NotImplementedError(
-            "moe_impl='binned' is not ported yet; 'einsum' has the same "
-            "routing and drop semantics"
-        )
+    if impl in ("binned", "grouped"):   # "grouped": the megablocks term
+        return _moe_block_binned(x, layer, c, use_kernels=use_kernels)
     if impl == "dropless":
         return _moe_block_dropless(x, layer, c, use_kernels=use_kernels)
     if impl != "einsum":
@@ -405,32 +412,126 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _route(probs, c, cap)
     xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
-    gu = _expert_product("ebch,ehum->ebcum", xe, layer["w_gateup"],
-                         use_kernels)
-    gate = F.silu(gu[..., 0, :].float())
-    up = gu[..., 1, :].float()
-    ye = _expert_product("ebcm,emh->ebch", (gate * up).to(x.dtype),
-                         layer["w_down"], use_kernels)
+    ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
+                  use_kernels)
     out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
     out = out.reshape(b, s, h)
     return x + out.to(x.dtype), aux
 
 
-def _expert_product(pattern: str, xe: torch.Tensor, w,
-                    use_kernels: bool) -> torch.Tensor:
-    """The einsum body's per-expert product ``einsum(pattern, xe, w)``: xe
-    [E, B, C, K] against w [E, K, ...] -> [E, B, C, ...]. An int8 stack
-    (models/quant.py) goes through ``int8_matmul``'s prologue mode, all
-    experts in one launch: the reference's ``bf16(q * scale)`` rounding
-    made tile by tile, never a dequantized copy of the stack (its plain
-    version, with ``use_kernels=False`` or on the CPU, makes that copy)."""
-    if not isinstance(w, QuantTensor):
-        return torch.einsum(pattern, xe, w)
-    e, b, cap, k = xe.shape
+def _experts(xe: torch.Tensor, w_gu, w_down, dtype: torch.dtype,
+             use_kernels: bool) -> torch.Tensor:
+    """The einsum and binned bodies' expert MLPs: xe [E, ..., H] -> ye
+    [E, ..., H] in ``dtype``, each expert's SwiGLU MLP on its rows. Float
+    stacks run as batched products, the gate/up one the ``moe_gu`` site.
+    An int8 stack (models/quant.py) goes through ``int8_matmul``'s
+    prologue mode, all experts in one launch per product: the reference's
+    ``bf16(q * scale)`` rounding made tile by tile, never a dequantized
+    copy of the stack (its plain version, with ``use_kernels=False`` or on
+    the CPU, makes that copy)."""
+    e, h = xe.shape[0], xe.shape[-1]
+    rows = xe.reshape(e, -1, h)
+    if isinstance(w_gu, QuantTensor):
+        gu = _int8_experts(rows, w_gu, use_kernels)
+    else:
+        gu = expert_gateup_site(rows, w_gu)                # [E, R, 2, M]
+    gate = F.silu(gu[..., 0, :].float())
+    act = (gate * gu[..., 1, :].float()).to(dtype)
+    if isinstance(w_down, QuantTensor):
+        ye = _int8_experts(act, w_down, use_kernels)
+    else:
+        ye = torch.bmm(act, w_down)
+    return ye.reshape(xe.shape)
+
+
+def _int8_experts(rows: torch.Tensor, w: QuantTensor,
+                  use_kernels: bool) -> torch.Tensor:
+    """rows [E, R, K] against the int8 stack w [E, K, ...] -> [E, R, ...]
+    in rows' dtype, through ``int8_matmul``'s prologue mode."""
+    e, r, k = rows.shape
     fn = int8_matmul if use_kernels else int8_matmul_reference
-    y = fn(xe.reshape(e, b * cap, k).contiguous(), w.q.reshape(e, k, -1),
-           w.scale.reshape(e, -1), prologue=True)
-    return y.reshape(e, b, cap, *w.q.shape[2:])
+    y = fn(rows.contiguous(), w.q.reshape(e, k, -1), w.scale.reshape(e, -1),
+           prologue=True)
+    return y.reshape(e, r, *w.q.shape[2:])
+
+
+class _GatherRows(torch.autograd.Function):
+    """Row gather ``y[i] = x[idx[i]]`` (out-of-range ids give zero rows)
+    whose backward is gathers too, through the inverse map ``bwd_idx``
+    [J, len(x)]: ``dx = sum_j dy[bwd_idx[j]]`` (out of range -> 0). The
+    reference's ``_gather_rows``: in binned's dispatch and combine every
+    inverse map is known (a token fills at most top_k slots, a slot holds
+    at most one pair), so neither direction needs a scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, idx, bwd_idx):
+        ctx.save_for_backward(bwd_idx)
+        return moe_dispatch._take_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (bwd_idx,) = ctx.saved_tensors
+        dx = sum(moe_dispatch._take_rows(dy, bwd_idx[j])
+                 for j in range(bwd_idx.shape[0]))
+        return dx, None, None
+
+
+def _moe_block_binned(x, layer, config: MoeConfig,
+                      use_kernels: bool = True):
+    """Sorted capacity-binned sparse MLP (the reference's
+    ``_moe_block_binned``): the einsum path's routing, drops, gates and
+    tie-breaking, without its [.., E, C] one-hot products. The capacity
+    cumsum gives each kept pair its (expert, group, position) slot; one
+    int scatter (the ``moe_routing`` site) inverts it; a row gather fills
+    the expert-major bins [E, Bg * C, H]; the experts run as batched
+    products (the gate/up one the ``moe_gu`` site); a second gather,
+    weighted by the gates, combines. Returns (x + out, aux)."""
+    c = config
+    b, s, h = x.shape
+    e, k = c.n_experts, c.top_k
+    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps)
+    g = effective_router_group(c, s)
+    cap = _capacity(c, g)
+    bg = b * (s // g)
+    xn = xn.reshape(bg, g, h)
+    logits = torch.einsum("bsh,he->bse", xn.float(), layer["wr"].float())
+    probs = torch.softmax(logits, dim=-1)
+    masks, gates, aux = _topk_masks(probs, c)               # [Bg, G, E]
+    denom = sum(gates) + 1e-9
+
+    # Slot addressing: choice k queues behind choices < k (the _route
+    # priority), its position from the same cumsum.
+    count = torch.zeros((bg, 1, e), dtype=probs.dtype, device=x.device)
+    e_l, pos_l, gatew_l = [], [], []
+    for mk, gk in zip(masks, gates):
+        pos = torch.cumsum(mk, dim=1) - mk + count
+        count = count + mk.sum(dim=1, keepdim=True)
+        pos_l.append((pos * mk).sum(dim=-1).long())         # [Bg, G]
+        e_l.append(torch.argmax(mk, dim=-1))
+        gatew_l.append(gk / denom)
+    e_tok, pos_tok = torch.stack(e_l), torch.stack(pos_l)   # [k, Bg, G]
+    gates_w = torch.stack(gatew_l)
+
+    # Expert-major slots; dropped pairs get the sentinel nslots.
+    t = bg * g
+    nslots = e * bg * cap
+    group_ids = torch.arange(bg, device=x.device)[None, :, None]
+    slot_global = (e_tok * bg + group_ids) * cap + pos_tok
+    pair_slot = torch.where(pos_tok < cap, slot_global,
+                            torch.full_like(slot_global, nslots))
+    pair_slot = pair_slot.reshape(k, t)
+    scatter_to = pair_slot.reshape(k * t)
+    slot_pair = slots_site(scatter_to, nslots)
+    slot_token = torch.where(slot_pair < k * t, slot_pair % t,
+                             torch.full_like(slot_pair, t))
+    xe = _GatherRows.apply(xn.reshape(t, h), slot_token, pair_slot)
+    ye = _experts(xe.reshape(e, bg * cap, h), layer["w_gateup"],
+                  layer["w_down"], x.dtype, use_kernels)
+    y_pair = _GatherRows.apply(ye.reshape(nslots, h), scatter_to,
+                               slot_pair[None])
+    y_pair = y_pair.float() * gates_w.reshape(k * t)[:, None]
+    out = y_pair.reshape(k, t, h).sum(dim=0)
+    return x + out.reshape(b, s, h).to(x.dtype), aux
 
 
 def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):

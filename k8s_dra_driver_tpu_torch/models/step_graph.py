@@ -55,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import gc
 import time
 from typing import Optional, Sequence
 
@@ -238,9 +239,25 @@ class StepGraph:
                     self.fn(*args)
             stream.wait_stream(side)
             start = read_launches()
-            with torch.cuda.graph(graph, stream=side), _in_phase("capture"):
+            with _no_collection(), torch.cuda.graph(graph, stream=side), \
+                    _in_phase("capture"):
                 out = self.fn(*args)
             launches = launch_delta(start, read_launches())
         finally:
             write_launches(before)
         return _Step(staging, graph, inputs, out, launches)
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic garbage collector off: a dead reference cycle that holds
+    a graph (an engine no longer used), collected mid-capture, would
+    destroy that graph there, a CUDA call a capture forbids, and the
+    capture would fail. The cycle is collected after the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -4,7 +4,7 @@ matmul, and RMSNorm (hand-written Hopper kernels with their plain PyTorch
 versions) and rotary embeddings."""
 
 from .attention import (
-    FlashAttentionFunction,
+    flash_site,
     attention_impl_label,
     attention_reference,
     flash_attention,
@@ -86,7 +86,7 @@ __all__ = [
     "flash_fwd",
     "flash_bwd_dkdv",
     "flash_bwd_dq",
-    "FlashAttentionFunction",
+    "flash_site",
     "moe_dispatch",
     "DispatchPlan",
     "build_plan",

@@ -34,8 +34,10 @@ The flash half, over ``csrc/flash_attention.cu``:
 - :func:`flash_attention_forward` and :func:`flash_attention_backward`
   mirror ``_flash_attention_pallas`` (``return_lse``) and
   ``_flash_attention_bwd_pallas``: the per-hop calls ring attention needs.
-- :class:`FlashAttentionFunction` takes the place of ``_flash_diff``, and
-  :func:`flash_attention` is what the model calls.
+- :func:`flash_site` takes the place of ``_flash_diff``: one
+  ``torch.library`` op with a registered backward, the ``flash_out``
+  site of the named remat policies. :func:`flash_attention` is what the
+  model calls.
 
 The public layouts are the JAX package's: q ``[B, Hq, D]`` or
 ``[B, Hq, T, D]``, pools ``[H_kv, P, D]``, tables ``[B, NBPS]`` int32;
@@ -594,14 +596,14 @@ def _scores(q, k, causal, scale):
 
 def flash_fwd_reference(q, k, v, causal: bool, scale: float):
     """The plain version of ``flash_fwd``: (out in q's dtype, natural-log
-    lse [B, Hq, S] f32)."""
+    lse [B, Hq, S] f32). out is :func:`attention_reference`'s, bit for
+    bit."""
     s = _scores(q, k, causal, scale)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
     g = q.shape[1] // k.shape[1]
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype),
+    out = torch.einsum("bhqk,bhkd->bhqd",
+                       torch.softmax(s, dim=-1).to(v.dtype),
                        _repeat_kv(v, g))
-    return out.to(q.dtype), lse
+    return out.to(q.dtype), torch.logsumexp(s, dim=-1)
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
@@ -790,39 +792,63 @@ def flash_attention_backward(q, k, v, out, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Autograd through the flash kernels (the place of ``_flash_diff``):
-    the forward saves q, k, v, out and lse; the backward rebuilds the
-    score tiles from lse, so neither direction holds an [S, S] tensor."""
+@torch.library.custom_op("tpu_dra::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_site(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Autograd through the flash kernels (the place of ``_flash_diff``),
+    as one op the dispatcher sees: (out, lse) from :func:`flash_fwd`. Its
+    registered backward rebuilds the score tiles from lse (K5, K6), so
+    neither direction holds an [S, S] tensor. lse is a residual: it
+    carries no gradient.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_attention_forward(q, k, v, causal, scale,
-                                           return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
+    Being one op, it is the ``flash_out`` site of the named remat
+    policies (``models/remat.py``): a policy that saves it keeps out and
+    lse, and the recompute of the block skips K4. Its inputs are q, k, v
+    as the kernel reads them (contiguous). On CPU tensors it runs the
+    plain versions: ``flash_fwd_reference`` forward, and autograd through
+    :func:`attention_reference` backward (the model's plain path, which
+    the plain versions of K5 and K6 match to rounding)."""
+    return flash_fwd(q, k, v, causal, scale)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, do.contiguous(), ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+
+def _flash_site_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_site_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if _is_cpu(q, k, v):
+        # The plain path: autograd through plain attention, recomputed
+        # from q, k, v (the scores, as K5 and K6 rebuild them).
+        g = q.shape[1] // k.shape[1]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref = attention_reference(leaves[0], _repeat_kv(leaves[1], g),
+                                      _repeat_kv(leaves[2], g), ctx.causal,
+                                      ctx.scale)
+        return (*torch.autograd.grad(ref, leaves, do), None, None)
+    dq, dk, dv = flash_attention_backward(
+        q, k, v, out, lse, do.contiguous(), ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_site.register_autograd(_flash_site_backward,
+                             setup_context=_flash_site_setup)
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
-    """Multi-head attention with GQA, q [B, Hq, S, D], k/v [B, H_kv, S, D].
-
-    CPU tensors run :func:`attention_reference` with the kv heads
-    repeated, under plain autograd. CUDA tensors go through
-    :class:`FlashAttentionFunction` -- the kernels forward and backward,
-    with query head h reading kv head h // G in place -- or raise."""
+    """Multi-head attention with GQA, q [B, Hq, S, D], k/v [B, H_kv, S, D],
+    through :func:`flash_site`: on CUDA tensors the kernels forward and
+    backward, query head h reading kv head h // G in place (or a raise);
+    on CPU tensors their plain versions."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if _is_cpu(q, k, v):
-        g = q.shape[1] // k.shape[1]
-        return attention_reference(q, _repeat_kv(k, g), _repeat_kv(v, g),
-                                   causal, scale)
-    return FlashAttentionFunction.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal, scale)
+    out, _ = flash_site(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal, scale)
+    return out

@@ -6,7 +6,9 @@ backward, and their plain PyTorch versions. Counterpart of
 - :func:`build_plan` lays every (token, expert) pair into an
   expert-major buffer of ``r_pad`` rows whose per-expert regions start at
   tile boundaries, so each row tile belongs to exactly one expert. It is
-  integer PyTorch and gives the reference's plan bit for bit.
+  integer PyTorch and gives the reference's plan bit for bit; its index
+  tensors come from one op (:func:`plan_site`), the ``moe_routing`` site
+  of the named remat policies.
 - :func:`moe_gateup` wraps ``moe_gateup`` of ``csrc/moe_dispatch.cu``,
   which replaces ``_gateup_kernel`` (with ``_gather_rows_dma``): it
   gathers each tile's token rows itself, computes both halves of the
@@ -209,12 +211,31 @@ def build_plan(
     tile_rows: int | None = None,
 ) -> DispatchPlan:
     """The dispatch layout from per-pair expert assignments: one stable
-    argsort and a few scatters, every shape fixed by (n_pairs, n_experts,
-    tile). Foreign pairs (expert id >= ``n_experts``) get no slot."""
+    argsort and a few scatters (:func:`plan_site`), every shape fixed by
+    (n_pairs, n_experts, tile). Foreign pairs (expert id >= ``n_experts``)
+    get no slot."""
+    r = experts_flat.shape[0]
+    tile = tile_rows or default_tile_rows(r, n_experts)
+    return DispatchPlan(*plan_site(experts_flat, n_tokens, n_experts, top_k,
+                                   tile),
+                        tile_rows=tile, n_tokens=n_tokens, n_pairs=r,
+                        n_experts=n_experts, top_k=top_k)
+
+
+@torch.library.custom_op("tpu_dra::moe_plan", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def plan_site(experts_flat: torch.Tensor, n_tokens: int, n_experts: int,
+              top_k: int, tile: int) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The plan's index tensors (row_ids, pair_ids, slot_of_pair,
+    tile_expert, sizes_aligned; int32) as one op the dispatcher sees: the
+    ``moe_routing`` site of the named remat policies
+    (``models/remat.py``), whose recompute then skips the sort and the
+    scatters."""
     dev = experts_flat.device
     r = experts_flat.shape[0]
     e = n_experts
-    tile = tile_rows or default_tile_rows(r, e)
     r_pad = _round_up(r, tile) + e * tile
 
     key = torch.where(experts_flat < e, experts_flat,
@@ -259,12 +280,8 @@ def build_plan(
                            right=True) - 1
     ).clamp(0, e - 1)
     i32 = torch.int32
-    return DispatchPlan(
-        row_ids=row_ids[:r_pad].to(i32), pair_ids=pair_ids[:r_pad].to(i32),
-        slot_of_pair=slot_of_pair.to(i32), tile_expert=tile_expert.to(i32),
-        sizes_aligned=aligned.to(i32), tile_rows=tile, n_tokens=n_tokens,
-        n_pairs=r, n_experts=e, top_k=top_k,
-    )
+    return (row_ids[:r_pad].to(i32), pair_ids[:r_pad].to(i32),
+            slot_of_pair.to(i32), tile_expert.to(i32), aligned.to(i32))
 
 
 # ---------------------------------------------------------------------------

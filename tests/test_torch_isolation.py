@@ -69,8 +69,10 @@ def test_static_scan_finds_no_jax_or_reference_import():
     ("k8s_dra_driver_tpu_torch.models.speculative",),
     ("k8s_dra_driver_tpu_torch.models.compute_telemetry",),
     ("k8s_dra_driver_tpu_torch.parallel.collectives",),
+    ("k8s_dra_driver_tpu_torch.models.remat",
+     "k8s_dra_driver_tpu_torch.models.checkpoint"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
-        "collectives"])
+        "collectives", "remat-checkpoint"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"

@@ -17,8 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from k8s_dra_driver_tpu.models import moe as jmoe
+from k8s_dra_driver_tpu.models import quant as jquant
 from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
 from k8s_dra_driver_tpu.ops import moe_dispatch as jmd
 from k8s_dra_driver_tpu_torch.models import moe
@@ -74,7 +76,7 @@ def test_presets_and_counts_match():
 
 
 def test_resolve_moe_impl_table_equal():
-    for impl in ("auto", "einsum", "dropless"):
+    for impl in ("auto", "einsum", "binned", "dropless"):
         for h, m in ((64, 128), (768, 2048), (4096, 14336), (4096, 4096)):
             c = dataclasses.replace(CFG, moe_impl=impl, hidden=h,
                                     mlp_hidden=m)
@@ -125,6 +127,7 @@ def test_route_topk_and_route_equal(params):
     ("dropless", "primitive"),
     ("dropless", "fused"),       # JAX: Pallas interpret; port: K7/K8 plain
     ("einsum", "auto"),
+    ("binned", "auto"),
 ])
 def test_moe_block_matches_jax(params, impl, dispatch):
     jl, tl = _layer(params)
@@ -263,8 +266,8 @@ def test_first_use_counter_and_unported_paths(params):
     assert moe.MOE_TRACE_COUNTS["dropless:primitive:t5"] == 1
     assert seen in ([], [("moe_block", "dropless:primitive",
                           {"tokens": 5})])
-    with pytest.raises(NotImplementedError):
-        moe._moe_block(x, tl, dataclasses.replace(CFG, moe_impl="binned"))
+    moe._moe_block(x, tl, dataclasses.replace(CFG, moe_impl="binned"))
+    assert moe.MOE_TRACE_COUNTS["binned:primitive:t5"] == 1
     # MoE training is ported: the loss is finite (parity in
     # tests/test_torch_moe_train.py).
     loss = moe.loss_fn(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
@@ -273,3 +276,135 @@ def test_first_use_counter_and_unported_paths(params):
         moe.param_specs(CFG)
     with pytest.raises(NotImplementedError):
         moe.forward_pipelined(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
+
+
+class TestBinned:
+    """``moe_impl="binned"``: the reference's ``_moe_block_binned`` when
+    tokens drop (forward and gradients), the reference's own binned ==
+    einsum checks on the port, and int8 experts through ``int8_matmul``."""
+
+    TIGHT = dict(capacity_factor=0.25)
+
+    @pytest.mark.parametrize("group", [0, 16])
+    def test_block_and_grads_match_reference_binned_with_drops(self, params,
+                                                               group):
+        jl, tl = _layer(params)
+        c = dataclasses.replace(CFG, moe_impl="binned", router_group=group,
+                                **self.TIGHT)
+        j = dataclasses.replace(JCFG, moe_impl="binned", router_group=group,
+                                **self.TIGHT)
+        rng = np.random.RandomState(9)
+        x = rng.randn(2, 32, CFG.hidden).astype(np.float32)
+        dy = rng.randn(*x.shape).astype(np.float32)
+        names = ("ln_mlp", "wr", "w_gateup", "w_down")
+
+        def jblock(x_, *ws):
+            return jmoe._moe_block_binned(x_, {**jl, **dict(zip(names, ws))},
+                                          j)
+
+        (jy, jaux), vjp = jax.vjp(jblock, jnp.asarray(x),
+                                  *[jl[n] for n in names])
+        jgrads = vjp((jnp.asarray(dy), jnp.zeros(())))
+        leaves = [torch.from_numpy(x).requires_grad_()] + [
+            tl[n].clone().requires_grad_() for n in names]
+        ty, taux = moe._moe_block_binned(
+            leaves[0], {**tl, **dict(zip(names, leaves[1:]))}, c)
+        grads = torch.autograd.grad(ty, leaves, torch.from_numpy(dy))
+        np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(taux.item(), float(jaux), rtol=1e-5)
+        for name, a, b_ in zip(("x",) + names, grads, jgrads):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=1e-5,
+                                       rtol=1e-4, err_msg=name)
+        # The capacity is tight enough that pairs drop.
+        g = moe.effective_router_group(c, 32)
+        xn = moe.rmsnorm(torch.from_numpy(x), tl["ln_mlp"], c.norm_eps)
+        probs = torch.softmax(xn.reshape(-1, g, CFG.hidden) @ tl["wr"], -1)
+        dispatch, _, _ = moe._route(probs, c, moe._capacity(c, g))
+        assert dispatch.sum() < 2 * 32 * c.top_k
+
+    @pytest.mark.parametrize("group", [0, 16])
+    def test_matches_einsum_exactly_with_drops(self, params, group):
+        """The reference's ``test_binned_matches_einsum_exactly_with_drops``
+        on the port: the same routing, drops and gates."""
+        _, tp = params
+        einsum = dataclasses.replace(CFG, moe_impl="einsum",
+                                     router_group=group, **self.TIGHT)
+        binned = dataclasses.replace(einsum, moe_impl="binned")
+        toks = torch.from_numpy(np.random.RandomState(10).randint(
+            0, CFG.vocab_size, size=(2, 32)).astype(np.int32))
+        o1, aux1 = moe.forward(tp, toks, einsum)
+        o2, aux2 = moe.forward(tp, toks, binned)
+        np.testing.assert_allclose(o1.numpy(), o2.numpy(), atol=3e-5,
+                                   rtol=3e-5)
+        assert aux1.item() == aux2.item()
+
+    @pytest.mark.parametrize("impl", ["binned", "dropless"])
+    def test_grads_match_einsum_when_nothing_drops(self, params, impl):
+        """The reference's check of the sorted paths' gradients (custom
+        gathers, the inverse maps) against autograd of einsum at ample
+        capacity."""
+        _, tp = params
+        einsum = dataclasses.replace(CFG, moe_impl="einsum",
+                                     capacity_factor=8.0, router_group=0)
+        other = dataclasses.replace(einsum, moe_impl=impl)
+        toks = torch.from_numpy(np.random.RandomState(11).randint(
+            0, CFG.vocab_size, size=(2, 17)).astype(np.int32))
+        grads = []
+        for c in (einsum, other):
+            leaves = {k: w.clone().requires_grad_()
+                      for k, w in tp["layers"].items()}
+            loss = moe.loss_fn({**tp, "layers": leaves}, toks, c,
+                               remat=False)
+            grads.append(torch.autograd.grad(loss, list(leaves.values())))
+        for name, a, b_ in zip(tp["layers"], *grads):
+            np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=3e-5,
+                                       rtol=3e-4, err_msg=name)
+
+    def test_int8_experts_run_int8_matmul_and_make_no_float_copy(
+            self, monkeypatch):
+        """int8 expert stacks (``quantize_params``) go through
+        ``int8_matmul``'s prologue mode, one call per product, and
+        nothing outside it converts an int8 tensor to a float one; the
+        block matches the reference's binned on the same int8 weights
+        (its ``q_dequant`` form)."""
+        jcfg = dataclasses.replace(JCFG, moe_impl="binned", **self.TIGHT)
+        tcfg = dataclasses.replace(CFG, moe_impl="binned", **self.TIGHT)
+        jq = jquant.quantize_params(jmoe.init_params(jcfg,
+                                                     jax.random.PRNGKey(1)))
+        tq = params_from_numpy(jax.tree.map(np.asarray, jq), tcfg,
+                               device="cpu")
+        jlayer = jax.tree.map(lambda a: a[0], jq["layers"])
+        tlayer = {k: w[0] for k, w in tq["layers"].items()}
+        x = np.random.RandomState(12).randn(2, 16, CFG.hidden).astype(
+            np.float32)
+        calls, inside = [], []
+        real = moe.int8_matmul
+
+        def counted(*args, prologue=False):
+            calls.append(prologue)
+            inside.append(1)
+            try:
+                return real(*args, prologue=prologue)
+            finally:
+                inside.pop()
+
+        class Casts(TorchDispatchMode):
+            found = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if (not inside and isinstance(out, torch.Tensor)
+                        and out.is_floating_point() and args
+                        and isinstance(args[0], torch.Tensor)
+                        and args[0].dtype == torch.int8):
+                    self.found.append(func.name())
+                return out
+
+        monkeypatch.setattr(moe, "int8_matmul", counted)
+        with Casts():
+            ty, _ = moe._moe_block(torch.from_numpy(x), tlayer, tcfg)
+        assert calls == [True, True]
+        assert Casts.found == []
+        jy, _ = jmoe._moe_block(jnp.asarray(x), jlayer, jcfg, None)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)

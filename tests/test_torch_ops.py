@@ -378,9 +378,12 @@ class TestFlashAttention:
                                        rtol=5e-4, err_msg=name)
 
     def test_autograd_matches_jax_grad_through_flash_diff(self):
-        """Both the model's entry (plain autograd on the CPU) and the
-        autograd.Function the card uses, against ``jax.grad`` through
-        ``_flash_diff`` (Pallas forward and backward, interpret mode)."""
+        """The model's entry and the site op under it (plain versions
+        forward, autograd through plain attention backward, on the CPU),
+        and the backward the site runs on the card
+        (``flash_attention_backward`` on the forward's out and lse),
+        against ``jax.grad`` through ``_flash_diff`` (Pallas forward and
+        backward, interpret mode)."""
         hq, hkv = 4, 2
         q, k, v = _qkv(3, self.B, hq, hkv, self.S, self.D)
         w = np.random.RandomState(4).randn(*q.shape).astype(np.float32)
@@ -393,9 +396,15 @@ class TestFlashAttention:
 
         want = jax.grad(jloss, argnums=(0, 1, 2))(
             *[jnp.asarray(x) for x in (q, k, v)])
+
+        def card_backward(q_, k_, v_):
+            out, lse = tatt.flash_attention_forward(q_, k_, v_, True, scale,
+                                                    return_lse=True)
+            return tatt.flash_attention_backward(q_, k_, v_, out, lse, _t(w),
+                                                 True, scale)
+
         for fn in (lambda *a: tatt.flash_attention(*a, causal=True),
-                   lambda *a: tatt.FlashAttentionFunction.apply(
-                       *a, True, scale)):
+                   lambda *a: tatt.flash_site(*a, True, scale)[0]):
             leaves = [_t(x).requires_grad_() for x in (q, k, v)]
             loss = (fn(*leaves) * _t(w)).sum()
             got = torch.autograd.grad(loss, leaves)
@@ -403,6 +412,10 @@ class TestFlashAttention:
                 np.testing.assert_allclose(a.numpy(), np.asarray(b_),
                                            atol=5e-4, rtol=5e-4,
                                            err_msg=name)
+        got = card_backward(*[_t(x) for x in (q, k, v)])
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_),
+                                       atol=5e-4, rtol=5e-4, err_msg=name)
 
     def test_attention_reference_causal_offset_matches_jax(self):
         """sq < skv: query i sees kv positions <= i + skv - sq."""

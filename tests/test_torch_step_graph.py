@@ -26,6 +26,7 @@ its stream's state behind), and a temperature > 0 step draws new numbers
 on every replay.
 """
 
+import gc
 import subprocess
 import sys
 from pathlib import Path
@@ -406,6 +407,37 @@ def test_a_capture_that_syncs_raises(dev):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "raised:" in proc.stdout
+
+
+@pytest.mark.cuda
+def test_a_collection_during_a_capture_leaves_it_whole(dev):
+    """A captured step whose last holder is a reference cycle that dies
+    inside another step's capture, with the collector made to run at
+    every allocation: it must not be collected there (destroying its
+    graph is a CUDA call a capture forbids), and the capture holds."""
+    counts = {"s": 0}
+    holder = [sg.StepGraph(lambda a: a + 1, dev, counts=counts, name="s")]
+    holder[0]((np.zeros(4, np.int32),))
+    assert holder[0].graphs == 1
+
+    def fn(a):
+        if sg.phase() == "capture" and holder:
+            cycle = [holder.pop()]          # a young cycle, its only holder
+            cycle.append(cycle)
+            del cycle
+            [[] for _ in range(1000)]       # allocations: collections
+        return a * 2
+
+    step = sg.StepGraph(fn, dev, counts=counts, name="s")
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = step((np.arange(4, dtype=np.int32),))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not holder and step.graphs == 1
+    assert out.tolist() == [0, 2, 4, 6]
+    gc.collect()
 
 
 @pytest.mark.cuda

@@ -16,11 +16,14 @@ rounding of that gradient (a relative error far above 1e-4) into an
 update of size lr.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from k8s_dra_driver_tpu.models import llama as jllama
 from k8s_dra_driver_tpu.models import train as jtrain
@@ -28,6 +31,7 @@ from k8s_dra_driver_tpu.parallel import MeshConfig, build_mesh
 from k8s_dra_driver_tpu_torch.models import llama as tllama
 from k8s_dra_driver_tpu_torch.models import train as ttrain
 from k8s_dra_driver_tpu_torch.models.convert import params_from_numpy
+from k8s_dra_driver_tpu_torch.ops import attention as tatt
 
 JTINY, TINY = jllama.PRESETS["tiny"], tllama.PRESETS["tiny"]
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -76,15 +80,10 @@ class TestForward:
             np.testing.assert_allclose(got.detach().numpy(),
                                        np.asarray(want), **FWD_TOL)
 
-    def test_named_remat_policies_raise(self, params):
+    def test_unknown_remat_policy_raises_and_none_is_plain(self, params):
         _, np_params = params
         tp = _port(np_params)
         toks = torch.from_numpy(_tokens(1, 8))
-        for policy in ("flash", "flash_qkv", "flash_mlp", "flash_min",
-                       "flash_moe"):
-            with pytest.raises(NotImplementedError, match="selective"):
-                tllama.forward(tp, toks, TINY, remat=True,
-                               remat_policy=policy)
         with pytest.raises(ValueError, match="unknown remat_policy"):
             tllama.forward(tp, toks, TINY, remat=True, remat_policy="bogus")
         # "none" and remat=False both run the plain layer loop.
@@ -97,6 +96,92 @@ class TestForward:
             j, t = jllama.PRESETS[name], tllama.PRESETS[name]
             assert t.flops_per_token(2048) == j.flops_per_token(2048)
             assert t.flops_per_token() == j.flops_per_token()
+
+
+POLICIES = ["none", *tllama.REMAT_POLICIES]
+
+
+class SiteCounts(TorchDispatchMode):
+    """How many times each op ran, the backward's recompute included: a
+    site a policy saves is handed back from the cache in the recompute,
+    without reaching this mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func.name()] += 1
+        return func(*args, **(kwargs or {}))
+
+
+class TestRematPolicies:
+    """Every remat policy against the reference's under the same policy
+    (loss rtol 1e-5, leaves atol 1e-5 / rtol 1e-4), and what the backward
+    recomputes per layer and step."""
+
+    @pytest.mark.parametrize("policy", POLICIES)
+    def test_loss_and_every_grad_leaf_match_jax(self, params, policy):
+        jp, np_params = params
+        toks = _tokens(2, 33, seed=1)
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: jllama.loss_fn(p, jnp.asarray(toks), JTINY,
+                                     remat=True, remat_policy=policy))(jp)
+        tp = _port(np_params)
+        for p in ttrain.leaves(tp):
+            p.requires_grad_(True)
+        flat = _flat(tp)
+        loss = tllama.loss_fn(tp, torch.from_numpy(toks), TINY, remat=True,
+                              remat_policy=policy)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+        jflat = _flat(jax.tree.map(np.asarray, jgrads))
+        assert sorted(jflat) == sorted(flat)
+        for name, g in zip(flat, grads):
+            np.testing.assert_allclose(g.numpy(), jflat[name], **GRAD_TOL,
+                                       err_msg=f"{policy}: {name}")
+
+    @pytest.mark.parametrize("policy", POLICIES)
+    def test_backward_recomputes_only_the_unsaved_sites(self, params,
+                                                        policy, monkeypatch):
+        """Per layer and step: the attention core (the plain path's
+        ``flash_fwd_reference``, K4 on the card) once under every policy
+        that saves ``flash_out``, twice under "full"; the QKV product with
+        rope once under ``flash_qkv``; the output projection once under
+        ``attn_o``; the SwiGLU product once under ``mlp_prod``. The
+        gradients equal remat "none"'s bit for bit."""
+        _, np_params = params
+        tp = _port(np_params)
+        for p in ttrain.leaves(tp):
+            p.requires_grad_(True)
+        toks = torch.from_numpy(_tokens(2, 17, seed=4))
+        core = []
+        real = tatt.flash_fwd_reference
+        monkeypatch.setattr(tatt, "flash_fwd_reference",
+                            lambda *a: core.append(1) or real(*a))
+        runs = {}
+        for name in ("none", policy):
+            core.clear()
+            with SiteCounts() as mode:
+                loss = tllama.loss_fn(tp, toks, TINY, remat=True,
+                                      remat_policy=name)
+                grads = torch.autograd.grad(loss, ttrain.leaves(tp))
+            runs[name] = (len(core), mode.counts, grads)
+        n, counts, grads = runs[policy]
+        saved = {"none": None, "full": ()}.get(
+            policy, tllama.REMAT_POLICIES.get(policy))
+        layers = TINY.n_layers
+
+        def want(site):
+            return layers * (1 if saved is None or site in saved else 2)
+
+        assert n == want("flash_out")
+        assert counts["tpu_dra::flash_attention"] == want("flash_out")
+        for site, op in (("flash_qkv", "project_qkv"), ("attn_o", "attn_proj"),
+                         ("mlp_prod", "swiglu")):
+            assert counts[f"tpu_dra::{op}"] == want(site), (site, counts)
+        for a, b in zip(grads, runs["none"][2]):
+            assert torch.equal(a, b)
 
 
 class TestChunkedCrossEntropy:
