@@ -167,10 +167,42 @@ fixed seed, and checks every hand-written kernel of those paths:
     2 more steps, restores the checkpoint into a fresh state's template
     (``restore_template``, ``restore_checkpoint``) and trains the same 2
     steps: losses, parameters and both moments bitwise equal; prints the
-    save and restore seconds and GB/s (``checkpoint:`` line).
+    save and restore seconds and GB/s (``checkpoint:`` line);
+25. frees that state and brings up the node plugin's device layer on the
+    card (``tpulib``, ``cdi``, ``plugin``, with state under
+    ``build/dra``): ``RealChipLib`` over the host's ``libnvidia-ml.so.1``
+    finds the card, whose uuid, name and PCI bus id (where NVML reports
+    one) must equal torch's;
+    it reads healthy, a 0.1 s ``wait_device_event`` returns False, and
+    ``DeviceState.published_resources()`` renders it as one ``h100``
+    device (printed, beside NVML's memory, driver and power limit and
+    torch's memory);
+26. prepares an exclusive claim on it. The stand-in for kubelet and a
+    container runtime reads the claim's CDI spec files, checks that every
+    device node and mount exists on the host, and starts this script in
+    a worker mode (``--dra-worker``) with the spec's env merged over the
+    environment: the worker must see exactly that GPU
+    (``CUDA_VISIBLE_DEVICES=<uuid>``) and serve phase 4's traffic on its
+    own 8B engine (the same seed and settings) with phase 4's streams and
+    K1-K3 launches; unprepare removes the claim spec and the checkpoint
+    entry;
+27. prepares a process-shared claim (``maxProcesses`` 2, a 36Gi limit):
+    two workers at once take slots 0 and 1 through the shim
+    (``parallel/shim.py``), cap PyTorch's allocator at the limit's
+    fraction (an allocation just under the cap succeeds, one just over
+    raises ``torch.OutOfMemoryError``), and serve phase 4's traffic
+    together with phase 4's streams; a third worker is refused a slot;
+    then ``resize_claim_limits`` lowers the limit to 24Gi and each worker,
+    at its step boundary, applies the new generation
+    (``poll_sharing_update``) and hits the new cap;
+28. prepares a time-shared claim: two workers serve phase 4's traffic
+    with each engine tick inside ``timeshare_lease``, record their lease
+    intervals on CLOCK_MONOTONIC (no two overlap) and match phase 4's
+    streams.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23 and 24) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23 and 24, and in each worker of
+phases 26-28) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -183,6 +215,7 @@ result, where no CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -807,7 +840,7 @@ def step_objects(eng) -> tuple:
 
 
 def serve(torch, params, cfg, dev, quantize_cache=False,
-          capture=True, attach=None) -> dict:
+          capture=True, attach=None, lease=None) -> dict:
     """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
     weights with the int8 KV cache): the engine run (a main path), its
     steps captured as CUDA graphs, or eager with ``capture=False``.
@@ -815,8 +848,12 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     ``same_engines`` compares (streams, counters, allocator state).
     ``attach(engine)``, where given, runs before the engine's first tick
     (phase 20's telemetry), and the metrics then hold the engine under
-    "_engine"."""
+    "_engine". ``lease``, where given, is a context manager factory that
+    every tick and the engine's construction run inside (phase 28's
+    time-shared workers)."""
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
+
+    hold = lease if lease is not None else contextlib.nullcontext
 
     rng = torch.Generator()
     rng.manual_seed(SEED + 2)
@@ -827,9 +864,15 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     prefix = toks(PREFIX_LEN)
     first = [toks(96), toks(180), toks(300), toks(700), prefix + toks(64)]
     later = [prefix + toks(150), prefix + toks(444), list(prefix)]
-    eng = smoke_engine(params, cfg, dev, quantize_cache, capture)
+    with hold():
+        eng = smoke_engine(params, cfg, dev, quantize_cache, capture)
     if attach is not None:
         attach(eng)
+
+    def tick():
+        with hold():
+            eng.tick()
+
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -840,11 +883,16 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     for _ in range(10000):
         if reqs[-1].state == RUNNING or reqs[-1].done:
             break
-        eng.tick()
+        tick()
     else:
         raise AssertionError("the first shared-prefix request never ran")
     reqs += [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in later]
-    eng.run()
+    for _ in range(100000):
+        if eng.idle:
+            break
+        tick()
+    else:
+        raise AssertionError("the engine never drained")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     eng.assert_no_leaks()
@@ -3209,6 +3257,560 @@ def compute_telemetry(torch, params, cfg, dev, phase4) -> dict:
         server.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: the node plugin's device layer on the card
+# ---------------------------------------------------------------------------
+
+DRA_DRIVER = "tpu.google.com"
+DRA_LIMIT = "36Gi"        # phase 27's HBM limit: about 45% of an H100
+DRA_RESIZED = "24Gi"      # what resize_claim_limits lowers it to
+DRA_MARGIN = 64 << 20     # the cap probes' distance from the cap
+DRA_TIMEOUT = 300         # seconds a worker may take to answer
+# How a worker process starts: this script in its worker mode.
+WORKER_ARGV = [sys.executable, str(ROOT / "chip_smoke.py"), "--dra-worker"]
+
+
+def dra_state(root: Path, nvml=None):
+    """The node plugin's device layer over the host's GPUs: ``RealChipLib``
+    on NVML (``nvml`` overrides the binding), CDI specs, checkpoint and
+    sharing state under ``root``."""
+    from k8s_dra_driver_tpu_torch.cdi import CDIHandler
+    from k8s_dra_driver_tpu_torch.plugin import CheckpointManager, DeviceState
+    from k8s_dra_driver_tpu_torch.tpulib import ChipLibConfig, RealChipLib
+
+    lib = RealChipLib(ChipLibConfig(state_dir=str(root / "modes")),
+                      nvml=nvml)
+    return DeviceState(
+        chiplib=lib, cdi=CDIHandler(str(root / "cdi")),
+        checkpoint=CheckpointManager(str(root / "checkpoint.json")),
+        driver_name=DRA_DRIVER, pool_name=os.uname().nodename,
+        state_dir=str(root / "state"), device_classes={"chip"})
+
+
+def dra_claim(uid: str, device: str, sharing=None) -> dict:
+    """A ResourceClaim allocated ``device``, in wire form, with a
+    ``TpuChipConfig`` of ``sharing`` where given."""
+    configs = [] if sharing is None else [{
+        "source": "FromClaim", "requests": [],
+        "opaque": {"driver": DRA_DRIVER, "parameters": {
+            "apiVersion": "tpu.google.com/v1alpha1",
+            "kind": "TpuChipConfig", "sharing": sharing}}}]
+    return {
+        "apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+        "metadata": {"name": uid, "namespace": "chip-smoke", "uid": uid},
+        "spec": {"devices": {"requests": [
+            {"name": "gpu", "deviceClassName": DRA_DRIVER}]}},
+        "status": {"allocation": {"devices": {
+            "results": [{"request": "gpu", "driver": DRA_DRIVER,
+                         "pool": os.uname().nodename, "device": device}],
+            "config": configs}}},
+    }
+
+
+def cdi_container(cdi_root: str, devices) -> dict:
+    """The stand-in for kubelet and a container runtime: the edits that
+    the CDI ids of a prepared claim's devices name, read from the spec
+    files (each spec's common edits, then each device's). Every device
+    node and every mount's host path must exist on this host. With no
+    mount namespace here, a variable naming a mount's container path is
+    pointed at its host path."""
+    specs = {}
+    for name in sorted(os.listdir(cdi_root)):
+        with open(os.path.join(cdi_root, name)) as f:
+            spec = json.load(f)
+        specs[spec["kind"]] = spec
+    env, nodes, mounts, kinds = {}, [], [], []
+
+    def take(edits):
+        env.update(e.split("=", 1) for e in edits.get("env", []))
+        nodes.extend(n["path"] for n in edits.get("deviceNodes", []))
+        # The base and the claim spec both carry the driver libraries.
+        mounts.extend(m for m in edits.get("mounts", []) if m not in mounts)
+
+    for dev in devices:
+        for cdi_id in dev.cdi_device_ids:
+            kind, name = cdi_id.split("=", 1)
+            spec = specs[kind]
+            if kind not in kinds:
+                kinds.append(kind)
+                take(spec.get("containerEdits", {}))
+            take(next(d for d in spec["devices"]
+                      if d["name"] == name)["containerEdits"])
+    paths = nodes + [m["hostPath"] for m in mounts]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"CDI edits name paths the host lacks: "
+                             f"{missing}")
+    for m in mounts:
+        for key, value in env.items():
+            if value == m["containerPath"]:
+                env[key] = m["hostPath"]
+    return dict(env=env, device_nodes=sorted(set(nodes)), mounts=mounts,
+                kinds=kinds)
+
+
+class Worker:
+    """``chip_smoke.py --dra-worker MODE`` in a process of its own with a
+    claim's container env: commands go to its stdin, its events (one JSON
+    object a line) come from its stdout, its log goes to ``log_path``."""
+
+    def __init__(self, mode: str, env: dict, log_path: Path):
+        import queue
+        import threading
+
+        self.mode = mode
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [*WORKER_ARGV, mode], env=env, cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self._log, text=True)
+        self._lines = queue.Queue()
+        self._empty = queue.Empty
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def tail(self) -> str:
+        self._log.flush()
+        return self.log_path.read_text()[-4000:]
+
+    def send(self, command: str) -> None:
+        self.proc.stdin.write(command + "\n")
+        self.proc.stdin.flush()
+
+    def expect(self, event: str) -> dict:
+        try:
+            line = self._lines.get(timeout=DRA_TIMEOUT)
+        except self._empty:
+            raise AssertionError(f"{self.mode} worker: no {event!r} within "
+                                 f"{DRA_TIMEOUT} s:\n{self.tail()}") from None
+        if line is None:
+            raise AssertionError(
+                f"{self.mode} worker exited (rc {self.proc.wait()}) before "
+                f"{event!r}:\n{self.tail()}")
+        msg = json.loads(line)
+        if msg.get("event") != event:
+            raise AssertionError(f"{self.mode} worker sent {msg} where "
+                                 f"{event!r} was due:\n{self.tail()}")
+        return msg
+
+    def finish(self) -> None:
+        """Close its stdin and wait for it; it must exit 0."""
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=DRA_TIMEOUT)
+        self._log.close()
+        if rc != 0:
+            raise AssertionError(f"{self.mode} worker exited {rc}:\n"
+                                 f"{self.log_path.read_text()[-4000:]}")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+
+def cuda_uuid(props) -> str:
+    """NVML's form of a device's uuid (``GPU-`` and the 8-4-4-4-12 hex)."""
+    u = str(props.uuid)
+    return u if u.startswith("GPU-") else f"GPU-{u}"
+
+
+def torch_pci_bus_id(props):
+    """NVML's bus id form of the device's PCI address, where this torch
+    exposes it."""
+    if not all(hasattr(props, a) for a in ("pci_domain_id", "pci_bus_id",
+                                          "pci_device_id")):
+        return None
+    return (f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:"
+            f"{props.pci_device_id:02X}.0")
+
+
+def probe_cap(torch, fraction: float) -> dict:
+    """Two allocations beside the allocator's cap (``fraction`` x the
+    card's memory, less what the allocator already holds): DRA_MARGIN
+    under it must succeed, DRA_MARGIN over it must raise
+    ``torch.OutOfMemoryError`` naming the cap ("allowed")."""
+    torch.cuda.empty_cache()
+    total = torch.cuda.mem_get_info()[1]
+    cap = int(fraction * total)
+    reserved = torch.cuda.memory_reserved()
+    room = cap - reserved
+    under = torch.empty(room - DRA_MARGIN, dtype=torch.uint8, device="cuda")
+    del under
+    torch.cuda.empty_cache()
+    try:
+        torch.empty(room + DRA_MARGIN, dtype=torch.uint8, device="cuda")
+    except torch.OutOfMemoryError as e:
+        message = str(e)
+    else:
+        raise AssertionError(f"an allocation {DRA_MARGIN} bytes over the "
+                             f"cap ({cap} bytes) did not raise")
+    if "allowed" not in message:
+        raise AssertionError(f"the allocation over the cap failed for "
+                             f"another reason: {message}")
+    torch.cuda.empty_cache()
+    return dict(cap_bytes=cap, device_total=total, reserved_bytes=reserved,
+                under_bytes=room - DRA_MARGIN, over_bytes=room + DRA_MARGIN,
+                over_message=message.splitlines()[0][:300])
+
+
+def worker_serve(torch, lease=None, dev="cuda") -> tuple:
+    """Phase 4's traffic on phase 4's 8B engine (the same seed and
+    settings); returns (params, metrics with the streams and the
+    serving path's launches)."""
+    from k8s_dra_driver_tpu_torch.models import PRESETS, init_params
+    from k8s_dra_driver_tpu_torch.models.step_graph import write_launches
+    from k8s_dra_driver_tpu_torch.ops import LAUNCH_COUNTERS, attention, norms
+
+    cfg = PRESETS["8b"]
+    dev = torch.device(dev)
+    with (lease or contextlib.nullcontext)():
+        params = init_params(cfg, seed=SEED, device=dev)
+    write_launches([0] * len(LAUNCH_COUNTERS))
+    m = serve(torch, params, cfg, dev, lease=lease)
+    launches = {"paged_decode": attention.paged_decode_attention.launches,
+                "paged_prefill": attention.paged_prefill_attention.launches,
+                "rmsnorm": norms.rmsnorm.launches}
+    gc.collect()
+    free, total = torch.cuda.mem_get_info()
+    return params, dict(
+        streams=m["_streams"], launches=launches, wall_s=m["wall_s"],
+        tokens_per_s=m["tokens_per_s"], ttft_p50_ms=m["ttft_p50_ms"],
+        decode_step_p50_ms=m["decode_step_p50_ms"],
+        capture_s=m["capture_s"], peak_mem_gb=m["peak_mem_gb"],
+        reserved_bytes=torch.cuda.memory_reserved(),
+        device_used_bytes=total - free)
+
+
+def dra_worker(mode: str) -> int:
+    """The workload a container runtime would start for a prepared claim
+    (phases 26-28): ``exclusive`` serves phase 4's traffic; ``shared``
+    takes a process slot through the shim, caps PyTorch's allocator and
+    answers ``probe``, ``serve`` and ``poll`` (a limits update at a step
+    boundary); ``timeshared`` serves with every tick under
+    ``timeshare_lease`` and reports its lease intervals on
+    CLOCK_MONOTONIC. Events go to stdout as JSON lines."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    from k8s_dra_driver_tpu_torch.parallel import shim
+
+    def emit(event, **fields):
+        print(json.dumps({"event": event, **fields}), flush=True)
+
+    def command(want):
+        got = sys.stdin.readline().strip()
+        if got != want:
+            raise AssertionError(f"command {got!r} where {want!r} was due")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt = None
+    if mode in ("shared", "timeshared"):
+        # Before the card is touched, as the shim asks.
+        try:
+            rt = shim.apply_sharing_env()
+        except shim.SharingRuntimeError as e:
+            emit("refused", error=str(e))
+            return 0
+    free, total = torch.cuda.mem_get_info()
+    props = torch.cuda.get_device_properties(0)
+    seen = dict(count=torch.cuda.device_count(), uuid=cuda_uuid(props),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device_used_bytes=total - free)
+    if mode == "exclusive":
+        emit("device", **seen)
+        _, served = worker_serve(torch)
+        emit("served", **served)
+        return 0
+    if mode == "shared":
+        fraction = shim.apply_memory_fraction()
+        emit("slot", slot=rt.slot, fraction=fraction, **seen)
+        command("probe")
+        emit("probe", **probe_cap(torch, fraction))
+        command("serve")
+        params, served = worker_serve(torch)
+        emit("served", **served)
+        command("poll")
+        update = shim.poll_sharing_update()
+        if update is None:
+            raise AssertionError("no new limits generation to apply")
+        fraction = shim.apply_memory_fraction()
+        emit("resized", generation=update.generation, fraction=fraction,
+             hbm_limit_bytes=update.hbm_limit_bytes,
+             **probe_cap(torch, fraction))
+        del params
+        command("exit")
+        return 0
+    if mode == "timeshared":
+        emit("ready", **seen)
+        command("go")
+        intervals = []
+
+        @contextlib.contextmanager
+        def lease():
+            with shim.timeshare_lease():
+                start = time.clock_gettime(time.CLOCK_MONOTONIC)
+                yield
+                torch.cuda.synchronize()
+                intervals.append(
+                    (start, time.clock_gettime(time.CLOCK_MONOTONIC)))
+
+        _, served = worker_serve(torch, lease)
+        emit("served", intervals=intervals, **served)
+        return 0
+    raise ValueError(f"unknown worker mode {mode!r}")
+
+
+def hold_serving(what: str, served: dict, streams: list,
+                 launches: dict) -> None:
+    if served["streams"] != streams:
+        raise AssertionError(f"{what}: streams differ from phase 4's")
+    if served["launches"] != launches:
+        raise AssertionError(f"{what}: launches {served['launches']}, "
+                             f"phase 4 {launches}")
+
+
+def device_layer(torch, streams: list, launches: dict, phase_done) -> dict:
+    """Phases 25-28 (module docstring). ``streams`` and ``launches`` are
+    phase 4's, which every worker's serving must equal."""
+    from k8s_dra_driver_tpu_torch.tpulib import _nvml
+
+    root = ROOT / "build" / "dra"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+    workers = []
+
+    def worker(mode, env, tag):
+        w = Worker(mode, {**os.environ, **env}, root / f"{tag}.log")
+        workers.append(w)
+        return w
+
+    t0 = time.perf_counter()
+    state = dra_state(root)
+    try:
+        # Phase 25: discovery.
+        lib = state.chiplib
+        chips = lib.enumerate_chips()
+        props = torch.cuda.get_device_properties(0)
+        mine = [c for c in chips if c.uuid == cuda_uuid(props)]
+        if len(mine) != 1:
+            raise AssertionError(f"NVML's GPUs {[c.uuid for c in chips]} "
+                                 f"hold no {cuda_uuid(props)}")
+        chip = mine[0]
+        nv = _nvml.load()
+        nv.init()
+        try:
+            handle = nv.handle_by_uuid(chip.uuid)
+            nvml = dict(name=nv.name(handle), uuid=chip.uuid,
+                        memory_total=chip.hbm_bytes,
+                        pci_bus_id=chip.pci_address or None,
+                        driver=chip.driver_version,
+                        vbios=chip.firmware_version,
+                        power_limit_w=nv.power_limit_mw(handle) / 1000,
+                        minor_node=chip.device_paths[0],
+                        numa_node=chip.numa_node, gpus=len(chips))
+        finally:
+            nv.shutdown()
+        cuda = dict(name=torch.cuda.get_device_name(0),
+                    uuid=cuda_uuid(props), total_memory=props.total_memory,
+                    pci_bus_id=torch_pci_bus_id(props),
+                    count=torch.cuda.device_count())
+        if nvml["name"] != cuda["name"]:
+            raise AssertionError(f"NVML names {nvml['name']}, torch "
+                                 f"{cuda['name']}")
+        if cuda["pci_bus_id"] is not None and chip.pci_address and \
+                cuda["pci_bus_id"].upper() != chip.pci_address.upper():
+            raise AssertionError(f"PCI bus id: NVML {chip.pci_address}, "
+                                 f"torch {cuda['pci_bus_id']}")
+        health = lib.chip_health()
+        if not health[chip.uuid].is_healthy():
+            raise AssertionError(f"chip health: {health[chip.uuid]}")
+        t = time.perf_counter()
+        if lib.wait_device_event(0.1):
+            raise AssertionError("a device event arrived on an idle card")
+        waited = time.perf_counter() - t
+        published = state.published_resources()
+        gpus = [d for d in published["devices"]
+                if d["basic"]["attributes"]["uuid"] == {"string": chip.uuid}]
+        if len(gpus) != 1 or gpus[0]["basic"]["attributes"][
+                "generation"] != {"string": "h100"}:
+            raise AssertionError(f"published: {published}")
+        device = gpus[0]["name"]
+        log(f"device layer: NVML {json.dumps(nvml)}")
+        log(f"device layer: torch {json.dumps(cuda)}")
+        log(f"device layer: published {json.dumps(published)}")
+        out["discovery"] = dict(nvml=nvml, torch=cuda, device=device,
+                                health=health[chip.uuid].state,
+                                event_wait_s=waited,
+                                published_devices=len(published["devices"]))
+        out["discovery"]["s"] = time.perf_counter() - t0
+        phase_done(f"phase 25: NVML found {chip.uuid} ({nvml['name']}, "
+                   f"{chip.hbm_bytes} bytes; torch {props.total_memory}), "
+                   f"as torch names it; healthy; published as {device}")
+
+        # Phase 26: an exclusive claim.
+        t0 = time.perf_counter()
+        uid = "dra-exclusive"
+        devices = state.prepare(dra_claim(uid, device))
+        ctr = cdi_container(state.cdi.cdi_root, devices)
+        if ctr["env"].get("CUDA_VISIBLE_DEVICES") != chip.uuid:
+            raise AssertionError(f"claim env {ctr['env']}")
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        parent_used = total - free
+        w = worker("exclusive", ctr["env"], "exclusive")
+        seen = w.expect("device")
+        if (seen["count"], seen["uuid"]) != (1, chip.uuid):
+            raise AssertionError(f"the worker sees {seen}")
+        served = w.expect("served")
+        w.finish()
+        hold_serving("exclusive claim", served, streams, launches)
+        state.unprepare(uid)
+        if uid in state.cdi.list_claim_spec_uids() or \
+                uid in state.checkpoint.read() or \
+                state.share_state.list_chips():
+            raise AssertionError("unprepare left the claim behind")
+        out["exclusive"] = dict(
+            cdi=ctr, worker_device=seen,
+            **{k: served[k] for k in ("tokens_per_s", "wall_s",
+                                      "ttft_p50_ms", "decode_step_p50_ms",
+                                      "capture_s", "peak_mem_gb")},
+            # What the worker holds on the card outside PyTorch's
+            # allocator: its CUDA context at start; after serving, the
+            # context, the kernels' code and what else CUDA keeps.
+            context_bytes=seen["device_used_bytes"] - parent_used,
+            outside_allocator_bytes=(served["device_used_bytes"]
+                                     - parent_used
+                                     - served["reserved_bytes"]),
+            s=time.perf_counter() - t0)
+        phase_done(f"phase 26: an exclusive claim's worker saw one GPU "
+                   f"({chip.uuid}) and served phase 4's streams; "
+                   f"unprepared")
+
+        # Phase 27: a process-shared claim, two workers, a third refused,
+        # then the cap lowered under the running workers.
+        t0 = time.perf_counter()
+        uid = "dra-shared"
+        devices = state.prepare(dra_claim(uid, device, {
+            "strategy": "ProcessShared", "processSharedConfig": {
+                "maxProcesses": 2, "defaultHbmLimit": DRA_LIMIT,
+                "defaultActiveCorePercentage": 50}}))
+        ctr = cdi_container(state.cdi.cdi_root, devices)
+        env = ctr["env"]
+        want = {"TPU_DRA_RUNTIME": "cuda", "CUDA_VISIBLE_DEVICES": chip.uuid,
+                "TPU_DRA_MAX_PROCESSES": "2",
+                "TPU_DRA_HBM_LIMIT_BYTES": str(36 << 30),
+                "TPU_DRA_CHIP_HBM_BYTES": str(chip.hbm_bytes),
+                "CUDA_MPS_ACTIVE_THREAD_PERCENTAGE": "50"}
+        if any(env.get(k) != v for k, v in want.items()) or \
+                "XLA_PYTHON_CLIENT_MEM_FRACTION" in env:
+            raise AssertionError(f"process-shared env {env}")
+        pair = [worker("shared", env, f"shared{i}") for i in range(2)]
+        slots = [w.expect("slot") for w in pair]
+        if sorted(s["slot"] for s in slots) != [0, 1] or any(
+                (s["count"], s["uuid"]) != (1, chip.uuid) for s in slots):
+            raise AssertionError(f"slots {slots}")
+        third = worker("shared", env, "shared2")
+        refused = third.expect("refused")
+        third.finish()
+        probes = []
+        for w in pair:              # one at a time: each fills its cap
+            w.send("probe")
+            probes.append(w.expect("probe"))
+        for w in pair:
+            w.send("serve")
+        served2 = [w.expect("served") for w in pair]
+        for i, s in enumerate(served2):
+            hold_serving(f"process-shared worker {i}", s, streams, launches)
+        resized = state.resize_claim_limits(uid, hbm_limit=DRA_RESIZED)
+        after = []
+        for w in pair:
+            w.send("poll")
+            after.append(w.expect("resized"))
+        for a in after:
+            if a["generation"] != resized["generation"] or \
+                    a["hbm_limit_bytes"] != 24 << 30:
+                raise AssertionError(f"resize {resized}, worker {a}")
+        for w in pair:
+            w.send("exit")
+            w.finish()
+        state.unprepare(uid)
+        out["shared"] = dict(
+            limit_bytes=36 << 30, slots=slots, refused=refused["error"],
+            probes=probes,
+            served=[{k: s[k] for k in ("tokens_per_s", "wall_s",
+                                       "ttft_p50_ms", "decode_step_p50_ms",
+                                       "capture_s", "peak_mem_gb")}
+                    for s in served2],
+            resized_limit_bytes=24 << 30,
+            generation=resized["generation"], after_resize=after,
+            s=time.perf_counter() - t0)
+        phase_done(f"phase 27: a process-shared claim's two workers took "
+                   f"slots 0 and 1, a third was refused, each hit its cap "
+                   f"({[p['cap_bytes'] for p in probes]} bytes for a "
+                   f"{36 << 30}-byte limit), served phase 4's streams at "
+                   f"once, and after the resize to {DRA_RESIZED} hit the "
+                   f"new cap ({[a['cap_bytes'] for a in after]})")
+
+        # Phase 28: a time-shared claim, two workers taking turns.
+        t0 = time.perf_counter()
+        uid = "dra-timeshared"
+        devices = state.prepare(dra_claim(uid, device, {
+            "strategy": "TimeShared",
+            "timeSharedConfig": {"interval": "Short"}}))
+        ctr = cdi_container(state.cdi.cdi_root, devices)
+        pair = [worker("timeshared", ctr["env"], f"timeshared{i}")
+                for i in range(2)]
+        for w in pair:
+            seen = w.expect("ready")
+            if (seen["count"], seen["uuid"]) != (1, chip.uuid):
+                raise AssertionError(f"the worker sees {seen}")
+        for w in pair:
+            w.send("go")
+        served3 = [w.expect("served") for w in pair]
+        for w in pair:
+            w.finish()
+        for i, s in enumerate(served3):
+            hold_serving(f"time-shared worker {i}", s, streams, launches)
+        merged = sorted((a, b, i) for i, s in enumerate(served3)
+                        for a, b in s["intervals"])
+        for (a0, b0, i0), (a1, b1, i1) in zip(merged, merged[1:]):
+            if a1 < b0:
+                raise AssertionError(f"leases overlap: worker {i0} "
+                                     f"[{a0}, {b0}], worker {i1} [{a1}, {b1}]")
+        handoffs = sum(x[2] != y[2] for x, y in zip(merged, merged[1:]))
+        state.unprepare(uid)
+        held = sum(b - a for a, b, _ in merged)
+        out["timeshared"] = dict(
+            leases=[len(s["intervals"]) for s in served3],
+            handoffs=handoffs, leased_s=held,
+            span_s=merged[-1][1] - merged[0][0],
+            lease_ms_p50=statistics.median(
+                (b - a) * 1e3 for a, b, _ in merged),
+            served=[{k: s[k] for k in ("tokens_per_s", "wall_s",
+                                       "ttft_p50_ms", "decode_step_p50_ms",
+                                       "capture_s", "peak_mem_gb")}
+                    for s in served3],
+            longest_lease_s=max(b - a for a, b, _ in merged),
+            s=time.perf_counter() - t0)
+        phase_done(f"phase 28: a time-shared claim's two workers served "
+                   f"phase 4's streams in {len(merged)} disjoint leases "
+                   f"({handoffs} handoffs)")
+    finally:
+        for w in workers:
+            w.stop()
+        state.chiplib.shutdown()
+    return out
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -3739,6 +4341,14 @@ def main() -> int:
                f"train state (save {ckpt['save_s']:.2f} s, restore "
                f"{ckpt['restore_s']:.2f} s); the resumed run is bitwise "
                f"equal (launches {counts})")
+    # Phases 25-28: the node plugin's device layer prepares the card for
+    # claims whose workers (processes of this script, started with each
+    # claim's CDI edits) serve phase 4's traffic.
+    gc.collect()
+    torch.cuda.empty_cache()
+    dra = device_layer(torch, kept["serving"]["streams"],
+                       {k: by_path["serving"][k] for k in paths["serving"]},
+                       phase_done)
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -3874,7 +4484,7 @@ def main() -> int:
                     "gateway": gateway, "speculative": spec,
                     "compute": telemetry, "speculative_int8": spec_int8,
                     "remat": remat, "moe_remat": moe_remat,
-                    "checkpoint": ckpt}))
+                    "checkpoint": ckpt, "device_layer": dra}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3883,4 +4493,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dra-worker"]:
+        sys.exit(dra_worker(sys.argv[2]))
     sys.exit(main())

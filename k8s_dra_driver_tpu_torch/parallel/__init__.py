@@ -1,6 +1,7 @@
-"""Parallelism. So far only the host-side collective accounting
-(:mod:`.collectives`), which the compute telemetry installs; the device
-mesh, ring attention and expert parallelism are still to port."""
+"""Parallelism. So far the host-side collective accounting
+(:mod:`.collectives`), which the compute telemetry installs, and the
+workload's sharing shim (:mod:`.shim`); the device mesh, ring attention
+and expert parallelism are still to port."""
 
 from . import collectives
 

@@ -4,6 +4,9 @@ fall back to the CPU.
 The machine with the card has no JAX, so ``k8s_dra_driver_tpu_torch`` and
 ``chip_smoke.py`` must import neither ``jax`` nor ``k8s_dra_driver_tpu``
 (as a module -- ``k8s_dra_driver_tpu_torch`` merely shares the prefix).
+It has no ``grpcio`` or ``protobuf`` either (the sandbox does, so a stray
+import would pass here and fail there): neither ``grpc`` nor
+``google.protobuf`` may be imported.
 """
 
 import ast
@@ -29,7 +32,9 @@ from k8s_dra_driver_tpu_torch.models.llama import PRESETS
 from k8s_dra_driver_tpu_torch.models.speculative import speculative_generate
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu")
+FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "grpc")
+# Forbidden below a top-level name that is itself allowed.
+FORBIDDEN_PACKAGES = ("google.protobuf",)
 
 
 def _port_files():
@@ -49,7 +54,8 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in FORBIDDEN
+    return top in FORBIDDEN or any(
+        module == p or module.startswith(p + ".") for p in FORBIDDEN_PACKAGES)
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -60,6 +66,8 @@ def test_static_scan_finds_no_jax_or_reference_import():
     assert not bad, bad
     assert not _forbidden("k8s_dra_driver_tpu_torch.models")
     assert _forbidden("k8s_dra_driver_tpu.models")
+    assert _forbidden("grpc.aio") and _forbidden("google.protobuf.message")
+    assert not _forbidden("google")
 
 
 @pytest.mark.parametrize("modules", [
@@ -71,14 +79,23 @@ def test_static_scan_finds_no_jax_or_reference_import():
     ("k8s_dra_driver_tpu_torch.parallel.collectives",),
     ("k8s_dra_driver_tpu_torch.models.remat",
      "k8s_dra_driver_tpu_torch.models.checkpoint"),
+    ("k8s_dra_driver_tpu_torch.tpulib",
+     "k8s_dra_driver_tpu_torch.tpulib._nvml",
+     "k8s_dra_driver_tpu_torch.tpulib.driverroot",
+     "k8s_dra_driver_tpu_torch.cdi",
+     "k8s_dra_driver_tpu_torch.plugin",
+     "k8s_dra_driver_tpu_torch.parallel.shim",
+     "k8s_dra_driver_tpu_torch.api.v1alpha1",
+     "k8s_dra_driver_tpu_torch.utils.fs"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
-        "collectives", "remat-checkpoint"])
+        "collectives", "remat-checkpoint", "device-layer"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in modules)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'k8s_dra_driver_tpu'))\n"
+        "('jax', 'jaxlib', 'k8s_dra_driver_tpu', 'grpc') or "
+        "m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
