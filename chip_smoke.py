@@ -198,11 +198,26 @@ fixed seed, and checks every hand-written kernel of those paths:
 28. prepares a time-shared claim: two workers serve phase 4's traffic
     with each engine tick inside ``timeshare_lease``, record their lease
     intervals on CLOCK_MONOTONIC (no two overlap) and match phase 4's
-    streams.
+    streams;
+29. runs the scheduler side of the control plane (``kube/``) on that card:
+    the port's ``ResourceSliceController`` publishes
+    ``published_resources()`` into an in-memory ``FakeKubeClient`` (there
+    is no API server), and the port's ``ReferenceAllocator``, under a
+    DeviceClass selector for chips, allocates a claim whose CEL request
+    selector reads the card's ``generation`` and ``hbm`` capacity: the
+    allocation must name the card's device in this node's pool. A second
+    claim asks for one byte more HBM than the card has and must fail with
+    the same terminal reason in ``AllocationError.reason``, the newest
+    ``export_allocations_jsonl()`` record and
+    ``tpu_dra_alloc_unsat_total``. ``DeviceState.prepare`` takes the
+    allocated claim as the allocator wrote it; one exclusive worker serves
+    phase 4's traffic with phase 4's streams and K1-K3 launches; then
+    unprepare, deallocate, and a third claim allocates the same device.
+    Times 20 allocate/deallocate pairs and prints a ``scheduler:`` line.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23 and 24, and in each worker of
-phases 26-28) and read just after.
+phases 26-29) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -3258,7 +3273,8 @@ def compute_telemetry(torch, params, cfg, dev, phase4) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 25-28: the node plugin's device layer on the card
+# Phases 25-29: the node plugin's device layer and the scheduler side on
+# the card
 # ---------------------------------------------------------------------------
 
 DRA_DRIVER = "tpu.google.com"
@@ -3411,6 +3427,94 @@ class Worker:
             self.proc.kill()
             self.proc.wait()
         self._log.close()
+
+
+# Phase 29's DeviceClass: every chip the driver publishes.
+DRA_CLASS_CEL = (f"device.driver == '{DRA_DRIVER}' && "
+                 f"device.attributes['{DRA_DRIVER}'].type == 'chip'")
+DRA_ALLOC_PAIRS = 20      # allocate/deallocate pairs timed in phase 29
+
+
+def hbm_claim(uid: str, generation: str, hbm: int) -> dict:
+    """A ResourceClaim for one chip of ``generation`` with at least
+    ``hbm`` bytes, as a user writes it (no status)."""
+    attrs = f"device.attributes['{DRA_DRIVER}']"
+    return {
+        "apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+        "metadata": {"name": uid, "namespace": "chip-smoke", "uid": uid},
+        "spec": {"devices": {"requests": [{
+            "name": "gpu", "deviceClassName": DRA_DRIVER,
+            "selectors": [{"cel": {"expression": (
+                f"{attrs}.generation == '{generation}' && "
+                f"device.capacity['{DRA_DRIVER}'].hbm >= {hbm}")}}]}]}},
+    }
+
+
+def scheduler(state, chip, device: str) -> dict:
+    """Phase 29's control plane on ``state``'s card, up to the prepare:
+    publish, allocate a claim the card meets (returned allocated) and one
+    it cannot (its reason checked three ways)."""
+    from k8s_dra_driver_tpu_torch.kube import FakeKubeClient
+    from k8s_dra_driver_tpu_torch.kube.allocator import (
+        AllocationError,
+        ReferenceAllocator,
+    )
+    from k8s_dra_driver_tpu_torch.kube.resourceslice import (
+        DriverResources,
+        Pool,
+        ResourceSliceController,
+    )
+    from k8s_dra_driver_tpu_torch.utils.metrics import Registry
+
+    node = state.pool_name
+    client = FakeKubeClient()
+    published = state.published_resources()
+    ctrl = ResourceSliceController(client, DRA_DRIVER, scope=node)
+    ctrl.update(DriverResources(pools={node: Pool(
+        devices=published["devices"],
+        shared_counters=published["sharedCounters"], node_name=node)}))
+    ctrl.sync_once()
+    reg = Registry()
+    alloc = ReferenceAllocator(client, registry=reg,
+                               device_classes={DRA_DRIVER: [DRA_CLASS_CEL]})
+    want = [{"request": "gpu", "driver": DRA_DRIVER, "pool": node,
+             "device": device}]
+    # 64 GiB: the selector the card meets.
+    claim = alloc.allocate(hbm_claim("dra-allocated", "h100", 64 << 30))
+    got = claim["status"]["allocation"]["devices"]["results"]
+    if [{k: r[k] for k in want[0]} for r in got] != want:
+        raise AssertionError(f"allocation {got}, want {want}")
+    too_big = hbm_claim("dra-too-big", "h100", chip.hbm_bytes + 1)
+    try:
+        alloc.allocate(too_big)
+    except AllocationError as e:
+        reason = e.reason
+    else:
+        raise AssertionError(f"a claim for {chip.hbm_bytes + 1} bytes of "
+                             f"HBM was allocated")
+    newest = json.loads(alloc.export_allocations_jsonl().splitlines()[-1])
+    metric = alloc._m_unsat.value(reason=reason)
+    line = f'tpu_dra_alloc_unsat_total{{reason="{reason}"}} 1'
+    if (newest["claim"]["uid"], newest["reason"]) != (
+            "dra-too-big", reason) or metric != 1 or \
+            line not in reg.render():
+        raise AssertionError(f"unsat reason {reason!r}: newest record "
+                             f"{newest}, metric {metric}")
+    return dict(alloc=alloc, claim=claim, reason=reason,
+                newest_record=newest, slices=client.list(ctrl.api.slices))
+
+
+def allocate_ms(alloc) -> list:
+    """Milliseconds of each of DRA_ALLOC_PAIRS allocations of one chip on
+    ``alloc``'s inventory, each deallocated before the next."""
+    times = []
+    for i in range(DRA_ALLOC_PAIRS):
+        uid = f"dra-timed-{i}"
+        t = time.perf_counter()
+        alloc.allocate(hbm_claim(uid, "h100", 64 << 30))
+        times.append((time.perf_counter() - t) * 1e3)
+        alloc.deallocate(uid)
+    return times
 
 
 def cuda_uuid(props) -> str:
@@ -3578,7 +3682,7 @@ def hold_serving(what: str, served: dict, streams: list,
 
 
 def device_layer(torch, streams: list, launches: dict, phase_done) -> dict:
-    """Phases 25-28 (module docstring). ``streams`` and ``launches`` are
+    """Phases 25-29 (module docstring). ``streams`` and ``launches`` are
     phase 4's, which every worker's serving must equal."""
     from k8s_dra_driver_tpu_torch.tpulib import _nvml
 
@@ -3656,24 +3760,31 @@ def device_layer(torch, streams: list, launches: dict, phase_done) -> dict:
                    f"{chip.hbm_bytes} bytes; torch {props.total_memory}), "
                    f"as torch names it; healthy; published as {device}")
 
+        def serve_exclusive(claim, tag):
+            """Prepare ``claim``, serve phase 4's traffic in one worker
+            with its CDI env, unprepare; (CDI edits, what the worker saw,
+            what it served)."""
+            ctr = cdi_container(state.cdi.cdi_root, state.prepare(claim))
+            if ctr["env"].get("CUDA_VISIBLE_DEVICES") != chip.uuid:
+                raise AssertionError(f"claim env {ctr['env']}")
+            w = worker("exclusive", ctr["env"], tag)
+            seen = w.expect("device")
+            if (seen["count"], seen["uuid"]) != (1, chip.uuid):
+                raise AssertionError(f"the worker sees {seen}")
+            served = w.expect("served")
+            w.finish()
+            hold_serving(f"{tag} claim", served, streams, launches)
+            state.unprepare(claim["metadata"]["uid"])
+            return ctr, seen, served
+
         # Phase 26: an exclusive claim.
         t0 = time.perf_counter()
         uid = "dra-exclusive"
-        devices = state.prepare(dra_claim(uid, device))
-        ctr = cdi_container(state.cdi.cdi_root, devices)
-        if ctr["env"].get("CUDA_VISIBLE_DEVICES") != chip.uuid:
-            raise AssertionError(f"claim env {ctr['env']}")
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info()
         parent_used = total - free
-        w = worker("exclusive", ctr["env"], "exclusive")
-        seen = w.expect("device")
-        if (seen["count"], seen["uuid"]) != (1, chip.uuid):
-            raise AssertionError(f"the worker sees {seen}")
-        served = w.expect("served")
-        w.finish()
-        hold_serving("exclusive claim", served, streams, launches)
-        state.unprepare(uid)
+        ctr, seen, served = serve_exclusive(dra_claim(uid, device),
+                                            "exclusive")
         if uid in state.cdi.list_claim_spec_uids() or \
                 uid in state.checkpoint.read() or \
                 state.share_state.list_chips():
@@ -3804,6 +3915,37 @@ def device_layer(torch, streams: list, launches: dict, phase_done) -> dict:
         phase_done(f"phase 28: a time-shared claim's two workers served "
                    f"phase 4's streams in {len(merged)} disjoint leases "
                    f"({handoffs} handoffs)")
+
+        # Phase 29: the scheduler side allocates the claim that is
+        # prepared and served.
+        t0 = time.perf_counter()
+        sched = scheduler(state, chip, device)
+        alloc, claim = sched["alloc"], sched["claim"]
+        _, _, served = serve_exclusive(claim, "allocated")
+        alloc.deallocate(claim["metadata"]["uid"])
+        again = alloc.allocate(hbm_claim("dra-again", "h100", 64 << 30))
+        if again["status"]["allocation"] != claim["status"]["allocation"]:
+            raise AssertionError(f"re-allocated {again['status']}, first "
+                                 f"{claim['status']}")
+        alloc.deallocate("dra-again")
+        times = allocate_ms(alloc)
+        out["scheduler"] = dict(
+            allocation=claim["status"]["allocation"],
+            unsat_reason=sched["reason"],
+            unsat_record=sched["newest_record"], slices=sched["slices"],
+            allocate_ms=times, allocate_ms_p50=statistics.median(times),
+            ttft_p50_ms=served["ttft_p50_ms"],
+            decode_step_p50_ms=served["decode_step_p50_ms"],
+            tokens_per_s=served["tokens_per_s"],
+            s=time.perf_counter() - t0)
+        log("scheduler: " + json.dumps(
+            {k: out["scheduler"][k] for k in (
+                "allocate_ms_p50", "unsat_reason", "ttft_p50_ms",
+                "decode_step_p50_ms", "tokens_per_s", "s")}))
+        phase_done(f"phase 29: the allocator placed a CEL-selected claim "
+                   f"on {device}, refused one for {chip.hbm_bytes + 1} "
+                   f"bytes ({sched['reason']}), and its prepared worker "
+                   f"served phase 4's streams; re-allocated after release")
     finally:
         for w in workers:
             w.stop()
@@ -4341,9 +4483,10 @@ def main() -> int:
                f"train state (save {ckpt['save_s']:.2f} s, restore "
                f"{ckpt['restore_s']:.2f} s); the resumed run is bitwise "
                f"equal (launches {counts})")
-    # Phases 25-28: the node plugin's device layer prepares the card for
+    # Phases 25-29: the node plugin's device layer prepares the card for
     # claims whose workers (processes of this script, started with each
-    # claim's CDI edits) serve phase 4's traffic.
+    # claim's CDI edits) serve phase 4's traffic; in phase 29 the
+    # scheduler side allocates the claim.
     gc.collect()
     torch.cuda.empty_cache()
     dra = device_layer(torch, kept["serving"]["streams"],

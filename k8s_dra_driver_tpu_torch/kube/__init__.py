@@ -1,5 +1,6 @@
-"""Minimal Kubernetes client layer: the client interface, its in-memory
-fake, and the Event recorder the serving gateway narrates through."""
+"""Minimal Kubernetes client layer (fake + real) and the scheduler side of
+the control plane: ResourceSlice publishing, the CEL subset, the reference
+allocator and the defragmenter."""
 
 from .client import (
     DEVICE_CLASSES,
@@ -9,8 +10,11 @@ from .client import (
     PODS,
     RESOURCE_CLAIMS,
     RESOURCE_SLICES,
+    ExecAuthConfig,
     FakeKubeClient,
     KubeClient,
+    RealKubeClient,
+    RestConfig,
     Watch,
     WatchEvent,
     matches_labels,
@@ -26,9 +30,11 @@ from .errors import (
     is_not_found,
 )
 from .events import EventRecorder, ObjectRef
+from .resourceapi import ResourceApi
 
 __all__ = [
     "GVR",
+    "ResourceApi",
     "RESOURCE_SLICES",
     "RESOURCE_CLAIMS",
     "DEVICE_CLASSES",
@@ -37,6 +43,9 @@ __all__ = [
     "EVENTS",
     "KubeClient",
     "FakeKubeClient",
+    "RealKubeClient",
+    "RestConfig",
+    "ExecAuthConfig",
     "Watch",
     "WatchEvent",
     "EventRecorder",

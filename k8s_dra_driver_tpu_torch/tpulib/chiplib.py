@@ -55,6 +55,12 @@ HEALTH_HEALTHY = "healthy"
 HEALTH_DEGRADED = "degraded"   # present but erroring; drain, don't allocate
 HEALTH_GONE = "gone"           # device node vanished (unplug, vfio rebind)
 
+# Xids that a workload causes (a kernel's illegal address, a page fault, a
+# stopped context, ...), not the card: NVIDIA's k8s-device-plugin leaves
+# exactly this set out of its health check. Recording them would let one
+# pod's faulting kernel refuse the next claim on a sound card.
+APPLICATION_XIDS = frozenset({13, 31, 43, 45, 68, 109})
+
 
 @dataclasses.dataclass(frozen=True)
 class HealthStatus:
@@ -678,8 +684,8 @@ class RealChipLib(ChipLib):
 
     def _drain_events(self, timeout_ms: int) -> bool:
         """Wait up to ``timeout_ms`` for an event, then take every event
-        already queued; remember each Xid against its GPU. True when an
-        event came."""
+        already queued; remember each Xid against its GPU, except those in
+        ``APPLICATION_XIDS``. True when an event came."""
         from ._nvml import EVENT_XID_CRITICAL_ERROR, NvmlTimeout
 
         if self._events is None:
@@ -693,7 +699,9 @@ class RealChipLib(ChipLib):
             got = True
             timeout_ms = 0
             uuid = self._event_uuids.get(event.handle)
-            if uuid is not None and event.event_type & EVENT_XID_CRITICAL_ERROR:
+            if (uuid is not None
+                    and event.event_type & EVENT_XID_CRITICAL_ERROR
+                    and event.data not in APPLICATION_XIDS):
                 with self._xid_lock:
                     self._xids[uuid] = event.data
 

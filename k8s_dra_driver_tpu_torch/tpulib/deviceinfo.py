@@ -3,7 +3,8 @@
 The port's copy of the reference module. A GPU renders as a ``ChipInfo``
 too (``generation`` "h100", ``uuid`` NVML's ``GPU-...``); it has no
 partition profile and, NVLink being no mesh, ``coords_reliable`` False,
-so no ``submesh*Id`` tile attributes.
+so no ``submesh*Id`` tile attributes. Its NVML version strings publish in
+semver form (``_version_attr``).
 
 TPU-native analog of the reference's deviceinfo.go + allocatable.go
 (lengrongfu/k8s-dra-driver, cmd/nvidia-dra-plugin/deviceinfo.go:30-217,
@@ -22,6 +23,7 @@ matchAttribute machinery can express things the reference could not, e.g.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Optional
 
 from .topology import GENERATIONS, Coord, MeshShape
@@ -47,8 +49,39 @@ def _attr(value: Any) -> dict[str, Any]:
     raise TypeError(f"unsupported attribute type: {type(value)!r}")
 
 
+# semver.org 2.0.0, as the API server parses a version attribute.
+_SEMVER = re.compile(
+    r"^(0|[1-9][0-9]*)(\.(0|[1-9][0-9]*)){2}"
+    r"(-[0-9A-Za-z.-]+)?(\+[0-9A-Za-z.-]+)?$"
+)
+# NVML's VBIOS version: five hex bytes, "96.00.DA.00.0C".
+_VBIOS = re.compile(r"^[0-9A-Fa-f]{2}(\.[0-9A-Fa-f]{2}){4}$")
+
+
 def _version_attr(value: str) -> dict[str, Any]:
-    return {"version": value}
+    """A version attribute, which the API server takes as semver only.
+    A semver value publishes as it is. A VBIOS version reads its first
+    three bytes as the core and keeps the whole string as build metadata
+    ("96.00.DA.00.0C" -> "150.0.218+96.00.DA.00.0C"). Any other value
+    takes its leading decimal fields as the core, leading zeros dropped
+    and missing fields 0, and the rest as build metadata, characters
+    semver does not allow there made "-": NVML's driver "570.124.06" ->
+    "570.124.6", "535.98" -> "535.98.0", "N/A" -> "0.0.0+N-A"."""
+    if _SEMVER.match(value):
+        return {"version": value}
+    parts = value.split(".")
+    if _VBIOS.match(value):
+        core, build = [int(p, 16) for p in parts[:3]], parts
+    else:
+        n = 0
+        while n < min(3, len(parts)) and parts[n].isdigit() \
+                and parts[n].isascii():
+            n += 1
+        core = [int(p) for p in parts[:n]] + [0] * (3 - n)
+        build = parts[n:]
+    build = [re.sub(r"[^0-9A-Za-z-]", "-", p) for p in build if p]
+    return {"version": ".".join(map(str, core))
+            + ("+" + ".".join(build) if build else "")}
 
 
 @dataclasses.dataclass

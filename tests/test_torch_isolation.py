@@ -87,8 +87,12 @@ def test_static_scan_finds_no_jax_or_reference_import():
      "k8s_dra_driver_tpu_torch.parallel.shim",
      "k8s_dra_driver_tpu_torch.api.v1alpha1",
      "k8s_dra_driver_tpu_torch.utils.fs"),
+    ("k8s_dra_driver_tpu_torch.kube",
+     "k8s_dra_driver_tpu_torch.kube.allocator",
+     "k8s_dra_driver_tpu_torch.kube.defrag_executor",
+     "k8s_dra_driver_tpu_torch.utils.cli"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
-        "collectives", "remat-checkpoint", "device-layer"])
+        "collectives", "remat-checkpoint", "device-layer", "control-plane"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
@@ -97,6 +101,10 @@ def test_importing_the_port_loads_no_jax(modules):
         "('jax', 'jaxlib', 'k8s_dra_driver_tpu', 'grpc') or "
         "m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
+        # The control plane reads a kubeconfig through PyYAML only when
+        # one is read: the card's machine need not have it.
+        + ("assert 'yaml' not in sys.modules, 'yaml'\n"
+           if "k8s_dra_driver_tpu_torch.kube" in modules else "")
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -334,6 +334,48 @@ class TestRealChipLibOverFakeNvml:
         assert not any(k.startswith("submesh")
                        for k in dev["basic"]["attributes"])
 
+    def test_published_gpu_passes_the_api_servers_schema(self, gpu_host):
+        """NVML's version strings are not semver; the published device
+        carries them in semver form, and the slice validates with each."""
+        from k8s_dra_driver_tpu_torch.kube import FakeKubeClient, ResourceApi
+        from k8s_dra_driver_tpu_torch.kube.resourceslice import (
+            DriverResources,
+            Pool,
+            ResourceSliceController,
+        )
+        from k8s_dra_driver_tpu_torch.kube.schema import validate_for_resource
+
+        lib = real_lib(gpu_host, FakeNvml())
+        devices = lib.enumerate_all_possible_devices({"chip"})
+        attrs = devices["tpu-0"].get_device()["basic"]["attributes"]
+        assert attrs["driverVersion"] == {"version": "570.124.6"}
+        assert attrs["firmwareVersion"] == \
+            {"version": "150.0.153+96.00.99.00.01"}
+        client = FakeKubeClient()
+        ctrl = ResourceSliceController(client, "tpu.google.com", scope="n0")
+        ctrl.update(DriverResources(pools={"n0": Pool(
+            devices=[d.get_device() for d in devices.values()],
+            shared_counters=deviceinfo.counter_sets(devices),
+            node_name="n0")}))
+        ctrl.sync_once()
+        (published_slice,) = client.list(
+            ResourceApi.discover(client).slices)
+        assert len(published_slice["spec"]["devices"]) == 2
+        wire = published_slice["spec"]["devices"][0]
+        for raw, published in [
+                ("1.0.0", "1.0.0"),
+                ("1.2.3-rc1", "1.2.3-rc1"),
+                ("96.00.99.00.0D", "150.0.153+96.00.99.00.0D"),
+                ("96.00.DA.00.0C", "150.0.218+96.00.DA.00.0C"),
+                ("570.124.06", "570.124.6"),
+                ("535.98", "535.98.0"),
+                ("N/A", "0.0.0+N-A"),
+                ("", "0.0.0")]:
+            attr = deviceinfo._version_attr(raw)
+            assert attr == {"version": published}
+            wire.get("basic", wire)["attributes"]["firmwareVersion"] = attr
+            validate_for_resource("resourceslices", published_slice)
+
     def test_missing_symbols_read_as_no_signal(self, gpu_host):
         nv = FakeNvml()
         nv.missing = {"numa_node", "mig_mode", "ecc_uncorrected"}
@@ -382,6 +424,24 @@ class TestRealChipLibOverFakeNvml:
         # An event the poll drains itself counts as well.
         nv.queue.append(_nvml.Event(100, _nvml.EVENT_XID_CRITICAL_ERROR, 48))
         assert not lib.chip_health()[nv.devices[100]["uuid"]].is_healthy()
+
+    @pytest.mark.parametrize("xid", sorted(chiplib.APPLICATION_XIDS))
+    def test_application_xid_leaves_the_gpu_healthy(self, gpu_host, xid):
+        nv = FakeNvml()
+        lib = real_lib(gpu_host, nv)
+        nv.queue.append(_nvml.Event(101, _nvml.EVENT_XID_CRITICAL_ERROR, xid))
+        assert lib.wait_device_event(0.01) is True
+        assert {h.state for h in lib.chip_health().values()} == \
+            {chiplib.HEALTH_HEALTHY}
+        # One the poll drains itself is skipped as well; a card's own Xid
+        # beside it still degrades its GPU.
+        nv.queue.append(_nvml.Event(100, _nvml.EVENT_XID_CRITICAL_ERROR, xid))
+        nv.queue.append(_nvml.Event(101, _nvml.EVENT_XID_CRITICAL_ERROR, 79))
+        health = lib.chip_health()
+        assert health[nv.devices[100]["uuid"]].is_healthy()
+        assert health[nv.devices[101]["uuid"]].state == \
+            chiplib.HEALTH_DEGRADED
+        assert "Xid 79" in health[nv.devices[101]["uuid"]].reason
 
     def test_no_event_support_paces(self, gpu_host):
         nv = FakeNvml(events=False)
