@@ -1,7 +1,9 @@
-"""Node plugin's device layer: the Prepare/Unprepare engine, its
-checkpoint and the sharing managers (the port's twin of
-``k8s_dra_driver_tpu.plugin`` without the kubelet-facing gRPC server,
-which is still to port)."""
+"""Node plugin: the Prepare/Unprepare engine, its checkpoint, the sharing
+managers, and the kubelet-facing Driver (``driver.py``) with its
+accounting, audit, cleanup and rebalancer loops, the CLI (``main.py``)
+and ``inspect.py`` -- the port's twin of ``k8s_dra_driver_tpu.plugin``.
+The DRA services answer through an in-process transport
+(``kubeletplugin.LocalTransport``); a kubelet socket is ROADMAP A15f."""
 
 from .checkpoint import CheckpointManager, CorruptCheckpointError
 from .device_state import DeviceState, PrepareError

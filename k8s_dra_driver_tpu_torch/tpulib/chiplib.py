@@ -526,6 +526,11 @@ class RealChipLib(ChipLib):
 
     # Substring of NVML's device name -> generation.
     GPU_GENERATIONS = (("H100", "h100"),)
+    # The longest single NVML event wait. A caller stopping the device
+    # watch wakes it through ``device_event`` and joins the waiting thread
+    # for a second (``Driver.shutdown``); NVML's own wait cannot be woken,
+    # and ``nvmlShutdown`` blocks until it returns.
+    EVENT_WAIT_SLICE_S = 0.25
 
     def __init__(self, config: Optional[ChipLibConfig] = None, nvml=None):
         self.config = config or ChipLibConfig()
@@ -540,6 +545,8 @@ class RealChipLib(ChipLib):
         self._event_uuids: dict[int, str] = {}   # device handle -> uuid
         self._xids: dict[str, int] = {}
         self._xid_lock = threading.Lock()
+        # Set to end a wait_device_event early (FakeChipLib's seam).
+        self.device_event = threading.Event()
 
     def init(self) -> None:
         from . import _nvml
@@ -706,11 +713,22 @@ class RealChipLib(ChipLib):
                     self._xids[uuid] = event.data
 
     def wait_device_event(self, timeout_s: float) -> bool:
-        """Block on the Xid event set; paces like the base class where the
-        driver offers no events."""
-        if self._events is None:
-            return super().wait_device_event(timeout_s)
-        return self._drain_events(int(timeout_s * 1000))
+        """Block on the Xid event set (only pace where the driver offers
+        no events), in NVML waits of at most ``EVENT_WAIT_SLICE_S``; True
+        when an event came or ``device_event`` was set."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            if self.device_event.is_set():
+                self.device_event.clear()
+                return True
+            now = time.monotonic()
+            if now >= deadline:
+                return False
+            step_end = min(deadline, now + self.EVENT_WAIT_SLICE_S)
+            if self._events is not None and self._drain_events(
+                    int((step_end - now) * 1000)):
+                return True
+            self.device_event.wait(max(0.0, step_end - time.monotonic()))
 
     def chip_health(
         self, chips: Optional[list[ChipInfo]] = None

@@ -91,8 +91,15 @@ def test_static_scan_finds_no_jax_or_reference_import():
      "k8s_dra_driver_tpu_torch.kube.allocator",
      "k8s_dra_driver_tpu_torch.kube.defrag_executor",
      "k8s_dra_driver_tpu_torch.utils.cli"),
+    ("k8s_dra_driver_tpu_torch.kube.protos",
+     "k8s_dra_driver_tpu_torch.kube.protos.dra_v1alpha4",
+     "k8s_dra_driver_tpu_torch.kube.protos.pluginregistration_v1",
+     "k8s_dra_driver_tpu_torch.plugin.driver",
+     "k8s_dra_driver_tpu_torch.plugin.main",
+     "k8s_dra_driver_tpu_torch.plugin.inspect"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
-        "collectives", "remat-checkpoint", "device-layer", "control-plane"])
+        "collectives", "remat-checkpoint", "device-layer", "control-plane",
+        "kubelet-plugin"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
@@ -106,6 +113,54 @@ def test_importing_the_port_loads_no_jax(modules):
         + ("assert 'yaml' not in sys.modules, 'yaml'\n"
            if "k8s_dra_driver_tpu_torch.kube" in modules else "")
     )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_kubelet_plugin_runs_where_grpc_and_protobuf_are_missing():
+    """The card's machine has neither package: with an import finder
+    refusing both, the kubelet-facing modules import, the CLI parses its
+    flags and the in-process transport answers a prepare in wire form."""
+    code = """
+import sys, tempfile
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] == 'grpc' or name == 'google.protobuf' or \\
+                name.startswith('google.protobuf.'):
+            raise ImportError(f'{name} is not installed here')
+        return None
+
+sys.meta_path.insert(0, Refuse())
+try:
+    import grpc
+except ImportError:
+    pass
+else:
+    raise AssertionError('the finder let grpc through')
+from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
+from k8s_dra_driver_tpu_torch.plugin import driver, inspect, main
+from k8s_dra_driver_tpu_torch.tpulib import FakeChipLib
+args = main.build_parser().parse_args(['--no-kube', '--node-name', 'x'])
+assert args.no_kube and args.node_name == 'x'
+root = tempfile.mkdtemp()
+d = driver.Driver(driver.DriverConfig(
+    node_name='x', chiplib=FakeChipLib(topology='2x2x1'),
+    cdi_root=root + '/cdi', plugin_root=root + '/p',
+    registrar_root=root + '/r', state_root=root + '/s',
+    cleanup_interval_seconds=0, device_watch_interval_seconds=0,
+    audit_interval_seconds=0))
+d.start()
+req = drapb.NodePrepareResourcesRequest(claims=[drapb.Claim(uid='u')])
+out = drapb.NodePrepareResourcesResponse.FromString(d.config.transport.call(
+    '/v1alpha3.Node/NodePrepareResources', req.SerializeToString()))
+assert 'no kube client' in out.claims['u'].error, out
+d.shutdown()
+bad = sorted(m for m in sys.modules if m.split('.')[0] == 'grpc'
+             or m.startswith('google.protobuf'))
+assert not bad, bad
+"""
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -12,6 +12,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import threading
+import time
 import types
 
 import pytest
@@ -442,6 +444,42 @@ class TestRealChipLibOverFakeNvml:
         assert health[nv.devices[101]["uuid"]].state == \
             chiplib.HEALTH_DEGRADED
         assert "Xid 79" in health[nv.devices[101]["uuid"]].reason
+
+    def test_a_wake_ends_the_event_wait_within_a_slice(self, gpu_host):
+        """NVML's event wait blocks for its whole timeout and cannot be
+        woken, and ``nvmlShutdown`` waits for it: a plugin whose device
+        watch sat in one 30 s wait took 30 s to exit on SIGTERM (found on
+        the card). The wait runs in slices and ``device_event`` ends it."""
+
+        class BlockingNvml(FakeNvml):
+            def __init__(self):
+                super().__init__()
+                self.waits = []
+
+            def event_set_wait(self, event_set, timeout_ms):
+                self.waits.append(timeout_ms)
+                if not self.queue:
+                    time.sleep(timeout_ms / 1000)
+                return super().event_set_wait(event_set, timeout_ms)
+
+        nv = BlockingNvml()
+        lib = real_lib(gpu_host, nv)
+        got = []
+        waiter = threading.Thread(
+            target=lambda: got.append(lib.wait_device_event(30.0)))
+        t0 = time.monotonic()
+        waiter.start()
+        time.sleep(0.1)
+        lib.device_event.set()
+        waiter.join(timeout=5)
+        assert not waiter.is_alive() and got == [True]
+        assert time.monotonic() - t0 < 1.0
+        assert max(nv.waits) <= 1000 * lib.EVENT_WAIT_SLICE_S
+        assert not lib.device_event.is_set()
+        # An event still ends the wait, and a quiet wait times out.
+        nv.queue.append(_nvml.Event(101, _nvml.EVENT_XID_CRITICAL_ERROR, 79))
+        assert lib.wait_device_event(30.0) is True
+        assert lib.wait_device_event(0.3) is False
 
     def test_no_event_support_paces(self, gpu_host):
         nv = FakeNvml(events=False)
