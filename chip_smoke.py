@@ -239,10 +239,35 @@ fixed seed, and checks every hand-written kernel of those paths:
     transport's round trip. Last, ``plugin.main`` runs as a process on
     ``RealChipLib``, answers ``/readyz`` and ``/metrics`` (one device)
     and exits 0 on SIGTERM. Prints a ``driver:`` line.
+31. runs the port's fleet doctor against the card's live node: a
+    ``Driver`` over ``RealChipLib`` (state under ``build/dra/doctor``)
+    publishing into a ``FakeKubeClient`` that holds the card's Node (no
+    slice label), one ``MetricsServer`` wired as the doctor-ready node of
+    ``tools/run_doctor_sim_torch.py`` wires it (readiness, usage,
+    allocations, rebalance) plus a phase-4-shaped 8B ``DecodeEngine``
+    behind a ``ServingGateway`` with ``ComputeTelemetry`` and
+    ``KVTelemetry`` (gateway, residency and compute documents). The
+    allocator places one exclusive claim on the card, prepared through the
+    transport; a warm-up request captures both programs, then
+    ``mark_warm``; phase 4's traffic goes through the gateway (streams
+    held to phase 4's, K1-K3 launches counted) and a decode wave scraped
+    every tick. ``IciSliceManager`` over the same client publishes no
+    channel pool. ``doctor.run`` then reads: clean (status 0, the node's
+    occupancy the claim's device, ICI 0 of 0, a ``--bundle`` tar holding
+    the compute, gateway and residency documents); ``python -m
+    k8s_dra_driver_tpu_torch.doctor --no-kube --json`` exits 0; an
+    orphaned CDI spec (status 1, the auditor naming it); a claim whose
+    selector matches nothing on the card (an ``explain`` finding with
+    the allocator's runbook hint); after a second decode wave, no
+    ``mfu-regression`` against a ``BENCH_r01.json`` holding the decode
+    MFU that ``/debug/compute`` reported and exactly one against a
+    baseline 3x that. Last, the fleet soak's mini profile
+    (``fleetsim``) replays on this host and its artifact must hash to
+    FLEET_MINI_SHA256. Prints a ``doctor:`` line.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23 and 24, and in each worker of
-phases 26-30) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24 and 31, and in each worker
+of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -4474,6 +4499,401 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the fleet doctor against the card's live node
+# ---------------------------------------------------------------------------
+
+DOCTOR_NS = "chip-smoke"
+DOCTOR_CLAIM = "doctor-serve"     # the exclusive claim the engine serves on
+DOCTOR_ORPHAN = "doctor-orphan"   # the CDI spec planted for the drift pass
+DOCTOR_UNSAT = "doctor-unsat"     # the claim no device on the card meets
+DOCTOR_MFU_OVER = 3.0             # the regressed baseline over the measured
+DOCTOR_CLI_S = 120                # seconds the doctor's CLI may take
+# The fleet soak's mini profile, written by ``fleetsim.write_artifact``
+# with no wall-clock section, as the reference package writes it on
+# Python 3.12: its sha256, and each top-level key's (the first 16 hex
+# digits of the sha256 of ``json.dumps(value, indent=2, sort_keys=True)``)
+# to name the first key that differs.
+FLEET_MINI_SHA256 = ("273e0fdc2686467f8e67e87bd232302c"
+                     "3353c7beff431d1e8febd18314cbc505")
+FLEET_MINI_KEYS = {
+    "audit": "592c03b2a66d3da5", "autoscaler": "59cff234dc83ff24",
+    "chaos": "6f7b26ba107bf1cb", "counters": "e1a067069f28398d",
+    "defrag": "e8663e430e70e2aa", "elastic": "ffd386fcbbee96a5",
+    "gates": "d728a15c94d235b7", "kvResidency": "7620f920e8e1d7e4",
+    "loss": "9e0c5890fc9dd893", "lossByClass": "d0e4ed678b224117",
+    "pass": "b5bea41b6c623f7c", "prefixCache": "d452834ad333b86f",
+    "rebalancer": "17aec1ae2533a83f", "scenario": "30be104985d9d0fe",
+    "schema": "635298700503838e", "slo": "2ba74892b1b9ace0",
+}
+
+
+def key_digest(value) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(value, indent=2, sort_keys=True)
+                          .encode()).hexdigest()[:16]
+
+
+def bench_round(root: Path, name: str, mfu: float, kind: str) -> str:
+    """A directory holding one ``BENCH_r01.json`` in ``bench.py``'s format
+    whose one metric is the decode program's MFU ``mfu`` on ``kind``; the
+    doctor's ``--bench-dir``."""
+    d = root / name
+    d.mkdir()
+    parsed = {"metric": "h100_8b_decode_mfu", "value": mfu,
+              "unit": "mfu_fraction", "vs_baseline": None, "repeats": 1,
+              "spread": 0.0, "detail": {"device": kind,
+                                        "program": "decode_step"}}
+    doc = {"n": 1, "cmd": "python3 chip_smoke.py", "rc": 0,
+           "tail": json.dumps(parsed), "parsed": parsed}
+    (d / "BENCH_r01.json").write_text(json.dumps(doc, indent=2) + "\n")
+    return str(d)
+
+
+def by_check(findings) -> dict:
+    """{check: {severity: count}} of a doctor pass's findings."""
+    out = {}
+    for f in findings:
+        cell = out.setdefault(f.check, {})
+        cell[f.severity] = cell.get(f.severity, 0) + 1
+    return out
+
+
+def doctor_phase(torch, params, cfg, dev, phase4) -> dict:
+    """Phase 31 (module docstring). ``params`` are phase 4's weights from
+    the seed and ``phase4`` its streams and prompt lengths. Returns the
+    figures and the gateway's streams (held to phase 4's by the caller,
+    outside the counted run)."""
+    import hashlib
+    import tarfile
+
+    from k8s_dra_driver_tpu_torch import doctor
+    from k8s_dra_driver_tpu_torch.controller import IciSliceManager
+    from k8s_dra_driver_tpu_torch.fleetsim import (
+        FleetSim,
+        mini_scenario,
+        write_artifact,
+    )
+    from k8s_dra_driver_tpu_torch.kube import NODES, FakeKubeClient
+    from k8s_dra_driver_tpu_torch.kube.allocator import (
+        RUNBOOK_HINTS,
+        AllocationError,
+        ReferenceAllocator,
+    )
+    from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
+    from k8s_dra_driver_tpu_torch.models.compute_telemetry import (
+        ComputeTelemetry,
+    )
+    from k8s_dra_driver_tpu_torch.models.serving import RUNNING, KVTelemetry
+    from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig
+    from k8s_dra_driver_tpu_torch.serving_gateway import (
+        Router,
+        ServingGateway,
+    )
+    from k8s_dra_driver_tpu_torch.tpulib import ChipLibConfig, RealChipLib
+    from k8s_dra_driver_tpu_torch.utils.metrics import MetricsServer, Registry
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    root = ROOT / "build" / "dra" / "doctor"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    node = os.uname().nodename
+    client = FakeKubeClient()
+    client.create(NODES, {"metadata": {"name": node, "uid": f"uid-{node}"}})
+    config = DriverConfig(
+        node_name=node,
+        chiplib=RealChipLib(ChipLibConfig(state_dir=str(root / "modes"))),
+        kube_client=client, cdi_root=str(root / "cdi"),
+        plugin_root=str(root / "plugin"),
+        registrar_root=str(root / "registry"),
+        state_root=str(root / "state"), node_uid=f"uid-{node}",
+        device_classes=frozenset({"chip"}), cleanup_interval_seconds=0,
+        device_watch_interval_seconds=0, audit_interval_seconds=0)
+    driver = Driver(config)
+    registry = driver.registry
+    server = mgr = tel = eng = gw = None
+    ones = {"decode_step": 1, "prefill_chunk": 1}
+    try:
+        # a. The node: the Driver publishes the card, the allocator
+        # places one exclusive claim there, prepared through the
+        # transport, and the engine serves behind the gateway on the
+        # Driver's registry, every document on one server.
+        driver.start()
+        deadline = time.monotonic() + 30
+        while not client.list(driver.resource_api.slices) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        alloc = ReferenceAllocator(client, registry=Registry(),
+                                   device_classes={DRA_DRIVER:
+                                                   [DRA_CLASS_CEL]})
+        claim = alloc.allocate(hbm_claim(DOCTOR_CLAIM, "h100", 64 << 30),
+                               node_name=node)
+        (result,) = claim["status"]["allocation"]["devices"]["results"]
+        device = result["device"]
+        client.create(driver.resource_api.claims, claim, namespace=DOCTOR_NS)
+        reply, prepare_ms = kubelet_call(
+            config.transport, "/v1beta1.DRAPlugin/NodePrepareResources",
+            drapb.NodePrepareResourcesRequest(claims=[drapb.Claim(
+                namespace=DOCTOR_NS, uid=DOCTOR_CLAIM, name=DOCTOR_CLAIM)]),
+            drapb.NodePrepareResourcesResponse)
+        got = reply.claims[DOCTOR_CLAIM]
+        if got.error or [d.device_name for d in got.devices] != [device]:
+            raise AssertionError(f"prepare of {DOCTOR_CLAIM}: {got}")
+        eng = smoke_engine(params, cfg, dev)
+        tel = ComputeTelemetry(registry)
+        tel.attach(eng, replica="r0", claim_uid=DOCTOR_CLAIM)
+        KVTelemetry(registry).attach(eng, replica="r0")
+        gw = ServingGateway(registry, router=Router(policy="affinity",
+                                                    block_size=BLOCK_SIZE),
+                            node_name=node)
+        gw.add_replica(eng, "r0", claim_uid=DOCTOR_CLAIM)
+        server = MetricsServer(registry, host="127.0.0.1", port=0,
+                               tracer=driver.tracer)
+        for name, check in driver.readiness_checks().items():
+            server.add_readiness_check(name, check)
+        for name, check in driver.degraded_checks().items():
+            server.add_readiness_check(name, check, critical=False)
+        server.set_usage_provider(driver.usage.snapshot)
+        server.set_rebalance_provider(driver.rebalancer.snapshot)
+        server.set_allocations_provider(alloc.export_allocations_jsonl)
+        server.set_gateway_provider(gw.snapshot)
+        server.set_residency_provider(gw.residency.snapshot)
+        server.set_compute_provider(tel.compute_debug)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+        urls = {node: url}
+
+        # Both programs captured by a warm-up request, then mark_warm:
+        # every capture after it would read as a recompile.
+        gen = torch.Generator()
+        gen.manual_seed(SEED + 131)
+        warm = gw.submit(torch.randint(0, cfg.vocab_size,
+                                       (GW_WARMUP_PROMPT,),
+                                       generator=gen).tolist(),
+                         GW_WARMUP_NEW)
+        gw.run()
+        if warm.state != "finished" or dict(eng.compile_counts) != ones:
+            raise AssertionError(f"warm-up {warm.state}, compile_counts "
+                                 f"{eng.compile_counts}")
+        tel.mark_warm()
+        prompts = [s[:n] for s, n in zip(phase4["streams"],
+                                          phase4["prompt_lens"])]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reqs = [gw.submit(p, NEW_TOKENS) for p in prompts[:5]]
+        # The shared-prefix family once the first holder of the prefix
+        # runs, as phase 4 submits it.
+        for _ in range(10000):
+            if reqs[-1].done or (reqs[-1].engine_req is not None
+                                 and reqs[-1].engine_req.state == RUNNING):
+                break
+            gw.tick()
+        else:
+            raise AssertionError("the first shared-prefix request never ran")
+        reqs += [gw.submit(p, NEW_TOKENS) for p in prompts[5:]]
+        gw.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        bad = [(r.gid, r.state) for r in reqs if r.state != "finished"
+               or len(r.tokens) - len(r.prompt) != NEW_TOKENS]
+        if bad:
+            raise AssertionError(f"gateway requests not finished: {bad}")
+
+        def mfu_wave(seed):
+            """A decode-heavy wave through the gateway, the registry
+            scraped every tick (the roofline window is the last 32
+            scrapes); the decode program's MFU as /debug/compute reports
+            it just after."""
+            g = torch.Generator()
+            g.manual_seed(seed)
+            wave = [gw.submit(torch.randint(0, cfg.vocab_size, (TEL_PROMPT,),
+                                            generator=g).tolist(), TEL_NEW)
+                    for _ in range(TEL_REQUESTS)]
+            for _ in range(100000):
+                if all(r.done for r in wave):
+                    break
+                gw.tick()
+                registry.render()
+            else:
+                raise AssertionError("the decode wave never finished")
+            if any(r.state != "finished" for r in wave):
+                raise AssertionError("the decode wave lost requests")
+            status, body = http_get(url + "/debug/compute")
+            if status != 200:
+                raise AssertionError(f"/debug/compute answered {status}")
+            return json.loads(body)["programs"]["decode_step"]["r0"]["mfu"]
+
+        def diagnose(**kwargs):
+            t = time.perf_counter()
+            report, findings, status = doctor.run(urls, kube_client=client,
+                                                  **kwargs)
+            return report, findings, status, (time.perf_counter() - t) * 1e3
+
+        # b. The controller: the card's Node has no slice label.
+        mgr = IciSliceManager(client, DRA_DRIVER, registry=Registry())
+        mgr.start()
+        deadline = time.monotonic() + 10
+        while not mgr.healthy()[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not mgr.healthy()[0] or mgr.domains():
+            raise AssertionError(f"slice manager {mgr.healthy()}, domains "
+                                 f"{mgr.domains()}")
+        audit = driver.auditor.run_once()
+        if audit:
+            raise AssertionError(f"audit before the doctor: {audit}")
+
+        # c. Clean, against a baseline of this run's own decode MFU.
+        mfu_c = mfu_wave(SEED + 132)
+        clean_dir = bench_round(root, "bench-clean", mfu_c, kind)
+        bundle = root / "bundle.tar"
+        report, found, status, clean_ms = diagnose(bench_dir=clean_dir,
+                                                   bundle=str(bundle))
+        loud = [str(f) for f in found if f.severity != doctor.SEVERITY_INFO]
+        line = next((ln for ln in report.splitlines()
+                     if ln.startswith(f"[{node}] ")), "")
+        if status != 0 or loud or "chip 1/1" not in line \
+                or "holds: 1" not in line \
+                or "ICI channels 0/0 allocated" not in report:
+            raise AssertionError(f"clean pass: status {status}, {loud}\n"
+                                 f"{report}")
+        held = {d["name"] for h in doctor.collect_node(node, url).holds
+                for d in h.get("devices", [])}
+        if held != {device}:
+            raise AssertionError(f"the doctor reads holds {held}, the claim "
+                                 f"holds {device}")
+        with tarfile.open(bundle) as tar:
+            members = tar.getnames()
+        want = {f"nodes/{node}/{doc}.json"
+                for doc in ("compute", "gateway", "residency")}
+        if not want <= set(members):
+            raise AssertionError(f"bundle members {members}")
+        clean = dict(ms=clean_ms, status=status, findings=by_check(found),
+                     mfu=mfu_c, report=report)
+        log("doctor report (clean pass):\n" + report)
+
+        # g. The CLI, as an operator runs it, on this node alone.
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "k8s_dra_driver_tpu_torch.doctor",
+             "--node", f"{node}={url}", "--no-kube", "--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=DOCTOR_CLI_S)
+        cli_s = time.perf_counter() - t
+        try:
+            listed = json.loads(proc.stdout)
+        except ValueError:
+            listed = None
+        if proc.returncode != 0 or not isinstance(listed, list):
+            raise AssertionError(f"doctor CLI exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        cli = dict(rc=proc.returncode, s=cli_s, findings=len(listed))
+
+        # d. Drift: an orphaned CDI claim spec, as a crash leaves it.
+        driver.state.cdi.create_claim_spec_file(DOCTOR_ORPHAN, {}, {})
+        audit = driver.auditor.run_once()
+        if not any(f.check == "cdi" and f.subject == DOCTOR_ORPHAN
+                   for f in audit):
+            raise AssertionError(f"the auditor missed the orphan: {audit}")
+        report, found, status, drift_ms = diagnose()
+        audit_drift = [f for f in found if f.check == "node-audit"
+                       and f.severity == doctor.SEVERITY_DRIFT]
+        if status != 1 or [f.subject for f in audit_drift] != [f"{node}/cdi"]:
+            raise AssertionError(f"drift pass: status {status}\n{report}")
+        driver.state.cdi.delete_claim_spec_file(DOCTOR_ORPHAN)
+        audit_after = driver.auditor.run_once()
+        if audit_after:
+            raise AssertionError(f"audit after the orphan: {audit_after}")
+        drift = dict(ms=drift_ms, status=status, findings=by_check(found),
+                     auditor=[f"[{f.check}] {f.subject}" for f in audit])
+
+        # e. Explain: a claim whose selector nothing on the card meets.
+        unsat = hbm_claim(DOCTOR_UNSAT, "h100", 0)
+        unsat["spec"]["devices"]["requests"][0]["selectors"] = [{"cel": {
+            "expression": f"device.attributes['{DRA_DRIVER}'].type == "
+                          "'optical-interconnect'"}}]
+        try:
+            alloc.allocate(unsat)
+        except AllocationError as e:
+            reason = e.reason
+        else:
+            raise AssertionError("a claim nothing meets was allocated")
+        client.create(driver.resource_api.claims, unsat, namespace=DOCTOR_NS)
+        report, found, status, explain_ms = diagnose()
+        hint = RUNBOOK_HINTS.get(reason, "")
+        explain = [f for f in found if f.check == "explain"]
+        if status != 1 or not hint or len(explain) != 1 \
+                or explain[0].subject != f"{DOCTOR_NS}/{DOCTOR_UNSAT}" \
+                or hint not in explain[0].detail:
+            raise AssertionError(f"explain pass (reason {reason!r}): status "
+                                 f"{status}\n{report}")
+        explained = dict(ms=explain_ms, status=status, reason=reason,
+                         findings=by_check(found), detail=explain[0].detail)
+
+        # f. mfu-regression against this run's measurement and 3x it.
+        mfu_f = mfu_wave(SEED + 133)
+        measured_dir = bench_round(root, "bench-measured", mfu_f, kind)
+        over_dir = bench_round(root, "bench-3x", DOCTOR_MFU_OVER * mfu_f,
+                               kind)
+        _, found_ok, _, mfu_ok_ms = diagnose(bench_dir=measured_dir)
+        _, found_over, _, mfu_over_ms = diagnose(bench_dir=over_dir)
+        reg_ok = [f for f in found_ok if f.check == "mfu-regression"]
+        reg_over = [f for f in found_over if f.check == "mfu-regression"]
+        if reg_ok or [(f.severity, f.subject) for f in reg_over] != [
+                (doctor.SEVERITY_DRIFT, f"{node}/r0/decode_step")]:
+            raise AssertionError(f"mfu-regression: {reg_ok} against the "
+                                 f"measured baseline, {reg_over} against "
+                                 f"{DOCTOR_MFU_OVER}x")
+        if any(f.check == "recompile-storm" for f in found_over) \
+                or dict(eng.compile_counts) != ones:
+            raise AssertionError(f"captures after warm-up: "
+                                 f"{eng.compile_counts}")
+        mfu = dict(measured=mfu_f, ok_ms=mfu_ok_ms, over_ms=mfu_over_ms,
+                   findings_ok=by_check(found_ok),
+                   findings_over=by_check(found_over),
+                   detail=reg_over[0].detail)
+        st = eng.stats
+        serving = dict(
+            device=device, prepare_ms=prepare_ms, serve_s=serve_s,
+            streams=[r.tokens for r in reqs],
+            decode_p50_ms=st.p50_token_ms(), ttft_p50_ms=st.p50_ttft_ms(),
+            decode_steps=st.decode_steps,
+            prefill_launches=st.prefill_lanes_launched // eng.prefill_batch,
+            compile_counts=dict(eng.compile_counts))
+    finally:
+        if mgr is not None:
+            mgr.stop(cleanup=False)
+        if tel is not None:
+            tel.close()
+        if server is not None:
+            server.stop()
+        driver.shutdown()
+        gw = eng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # h. The fleet soak's mini profile on this host: byte for byte.
+    t = time.perf_counter()
+    fleet = FleetSim(mini_scenario()).run()
+    path = root / "FLEET_mini.json"
+    write_artifact(fleet, str(path))
+    soak_s = time.perf_counter() - t
+    sha = hashlib.sha256(path.read_bytes()).hexdigest()
+    if sha != FLEET_MINI_SHA256:
+        keys = sorted(set(fleet) | set(FLEET_MINI_KEYS))
+        first = next((k for k in keys if k not in fleet
+                      or key_digest(fleet[k]) != FLEET_MINI_KEYS.get(k)),
+                     None)
+        raise AssertionError(f"the fleet soak's artifact hashes to {sha}, "
+                             f"not {FLEET_MINI_SHA256}; the first differing "
+                             f"top-level key is {first!r}")
+    return dict(serving=serving, clean=clean, cli=cli, drift=drift,
+                explain=explained, mfu=mfu, bundle_members=len(members),
+                soak=dict(s=soak_s, sha256=sha, passed=fleet["pass"]),
+                s=time.perf_counter() - t0)
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -4594,7 +5014,8 @@ def main() -> int:
                            "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                            "rmsnorm"),
              "checkpoint": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
-                            "flash_bwd_dq")}
+                            "flash_bwd_dq"),
+             "doctor": ("paged_decode", "paged_prefill", "rmsnorm")}
     by_path = {}
 
     def reset_counts():
@@ -5021,6 +5442,55 @@ def main() -> int:
                           {k: by_path["serving"][k]
                            for k in paths["serving"]},
                           dra["scheduler"]["slices"], phase_done)
+    # Phase 31: the fleet doctor against the card's live node, its engine
+    # on phase 4's weights from the seed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=SEED, device=dev)
+    diag = drive("doctor", doctor_phase, torch, params, cfg, dev,
+                 kept["serving"])
+    served = diag["serving"]
+    counts = by_path["doctor"]
+    forwards = served["decode_steps"] + served["prefill_launches"]
+    want = {"paged_decode": cfg.n_layers * served["decode_steps"],
+            "paged_prefill": cfg.n_layers * served["prefill_launches"],
+            "rmsnorm": (2 * cfg.n_layers + 1) * forwards}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"doctor launches {counts}, expected {want}")
+    flips = stream_flips(torch, served.pop("streams"),
+                         kept["serving"]["streams"],
+                         kept["serving"]["prompt_lens"],
+                         ("doctor", "phase 4"), params, cfg, dev)
+    bad = [f for f in flips if f["logit_margin"] >= FLIP_MARGIN_LIMIT]
+    if bad:
+        raise AssertionError(f"streams through the doctor's node differ "
+                             f"from phase 4's beyond a near-tie: {bad}")
+    diag["stream_flips"] = flips
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("doctor: " + json.dumps({
+        "card": card,
+        "clean_ms": diag["clean"]["ms"], "drift_ms": diag["drift"]["ms"],
+        "explain_ms": diag["explain"]["ms"],
+        "mfu_ms": [diag["mfu"]["ok_ms"], diag["mfu"]["over_ms"]],
+        "findings": {"clean": diag["clean"]["findings"],
+                     "drift": diag["drift"]["findings"],
+                     "explain": diag["explain"]["findings"],
+                     "mfu_measured": diag["mfu"]["findings_ok"],
+                     "mfu_3x": diag["mfu"]["findings_over"]},
+        "decode_mfu": [diag["clean"]["mfu"], diag["mfu"]["measured"]],
+        "bundle_members": diag["bundle_members"],
+        "cli_rc": diag["cli"]["rc"], "cli_s": diag["cli"]["s"],
+        "soak_s": diag["soak"]["s"], "soak_sha256": diag["soak"]["sha256"],
+        "decode_p50_ms": served["decode_p50_ms"],
+        "ttft_p50_ms": served["ttft_p50_ms"],
+        "stream_flips": len(flips), "s": diag["s"]}))
+    phase_done(f"phase 31: the doctor read the card's node clean, caught "
+               f"the orphan and explained the unsatisfiable claim, flagged "
+               f"mfu-regression only against the {DOCTOR_MFU_OVER:g}x "
+               f"baseline; the CLI exited 0 and the fleet soak replayed "
+               f"byte for byte (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -5157,7 +5627,7 @@ def main() -> int:
                     "compute": telemetry, "speculative_int8": spec_int8,
                     "remat": remat, "moe_remat": moe_remat,
                     "checkpoint": ckpt, "device_layer": dra,
-                    "plugin": plugin}))
+                    "plugin": plugin, "doctor": diag}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,9 @@ wired via ``MetricsServer.set_compute_provider``.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -62,6 +65,8 @@ __all__ = [
     "train_state_hbm",
     "CompileLedger",
     "ComputeTelemetry",
+    "load_bench_trajectory",
+    "bench_mfu_baseline",
 ]
 
 # Per-device peak (FLOP/s, HBM bytes/s), keyed by substring of the
@@ -708,3 +713,56 @@ class ComputeTelemetry:
             "hbm": hbm,
             "collectives": self.collectives.snapshot(),
         }
+
+
+# -- BENCH artifact trajectory ---------------------------------------------
+
+
+def load_bench_trajectory(bench_dir: str) -> list[dict]:
+    """Tolerantly load the ``BENCH_r*.json`` rounds in ``bench_dir``.
+
+    Older rounds predate fields the newer ones carry (r01 has no
+    ``repeats``/``spread``/``mfu_all``) — every field is read with a
+    default instead of KeyError-ing, and unreadable files are skipped.
+    Returns one normalized row per parsed metric, sorted by round."""
+    rows: list[dict] = []
+    for path in sorted(glob.glob(os.path.join(bench_dir, "BENCH_r*.json"))):
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        parsed = doc.get("parsed")
+        metrics = (
+            parsed if isinstance(parsed, list)
+            else [parsed] if isinstance(parsed, dict) else []
+        )
+        for m in metrics:
+            if not isinstance(m, dict):
+                continue
+            rows.append({
+                "round": doc.get("n"),
+                "metric": m.get("metric", ""),
+                "value": m.get("value"),
+                "unit": m.get("unit", ""),
+                "vs_baseline": m.get("vs_baseline"),
+                "repeats": m.get("repeats", 1),
+                "spread": m.get("spread", 0.0),
+                "detail": m.get("detail") or {},
+            })
+    return rows
+
+
+def bench_mfu_baseline(rows: list[dict]) -> Optional[float]:
+    """Best MFU across the BENCH trajectory — the baseline the doctor's
+    mfu-regression finding compares measured MFU against. On the port the
+    directory holds rounds measured on the card; the TPU rounds committed
+    at the repo's root are no baseline for it.
+    None when no round recorded an MFU metric (the finding is skipped,
+    never raised on a missing baseline)."""
+    values = [
+        float(r["value"]) for r in rows
+        if r.get("unit") == "mfu_fraction"
+        and isinstance(r.get("value"), (int, float))
+    ]
+    return max(values) if values else None

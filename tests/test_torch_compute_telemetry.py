@@ -18,10 +18,13 @@ difference is by design: the port's pools carry one scratch row, which
 exact bytes are checked); the per-token KV bytes and ``kvUsedBytes``
 count positions only, so they equal the reference's. And the telemetry
 costs nothing: on and off, the tokens, ticks, ``compile_counts`` and
-launch counters are identical.
+launch counters are identical. Last, the doctor's compute checks
+(``recompile-storm``, ``mfu-regression``) and the BENCH trajectory
+loader run on both packages with equal findings and rows.
 """
 
 import json
+import os
 import urllib.error
 import urllib.request
 
@@ -30,12 +33,14 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_dra_driver_tpu import doctor as rdoctor
 from k8s_dra_driver_tpu.models import compute_telemetry as rct
 from k8s_dra_driver_tpu.models.llama import PRESETS as REF_PRESETS
 from k8s_dra_driver_tpu.models.llama import init_params as ref_init
 from k8s_dra_driver_tpu.models.serving import DecodeEngine as RefEngine
 from k8s_dra_driver_tpu.parallel import collectives as rcollectives
 from k8s_dra_driver_tpu.utils.metrics import Registry as RefRegistry
+from k8s_dra_driver_tpu_torch import doctor
 from k8s_dra_driver_tpu_torch.models import DecodeEngine, params_from_numpy
 from k8s_dra_driver_tpu_torch.models import compute_telemetry as ct
 from k8s_dra_driver_tpu_torch.models import decode as tdecode
@@ -43,6 +48,7 @@ from k8s_dra_driver_tpu_torch.models.llama import PRESETS
 from k8s_dra_driver_tpu_torch.models.step_graph import read_launches
 from k8s_dra_driver_tpu_torch.parallel import collectives
 from k8s_dra_driver_tpu_torch.utils.metrics import MetricsServer, Registry
+from test_torch_doctor import RECOMPILE_TEXT
 
 TINY = PRESETS["tiny"]
 
@@ -540,3 +546,127 @@ def test_telemetry_is_zero_cost(params, overlap):
                      tuple(b - a for a, b in zip(launches, read_launches())),
                      eng.snapshot()))
     assert runs[0] == runs[1]
+
+
+# -- the doctor's compute checks and the BENCH trajectory ---------------------
+# (test_compute_telemetry.py's TestDoctorComputeChecks and
+# TestBenchTrajectory): each check runs on both packages' doctors and
+# loaders, and their findings and rows must be equal (the port's
+# recompile-storm text written as the reference's, RECOMPILE_TEXT).
+
+
+def _doctor_findings(compute, bench_mfu=None):
+    """Both doctors' findings on one node's /debug/compute document."""
+    seen = []
+    for dr in (rdoctor, doctor):
+        scrape = dr.NodeScrape(name="node-a", url="http://x")
+        scrape.compute = compute
+        seen.append([(f.severity, f.check, f.subject, f.detail.replace(
+            RECOMPILE_TEXT[1], RECOMPILE_TEXT[0])) for f in dr.fleet_findings(
+                [scrape], {"resourceSlices": [], "resourceClaims": []},
+                "tpu.google.com", bench_mfu=bench_mfu)])
+    assert seen[1] == seen[0]
+    return seen[1]
+
+
+class TestDoctorComputeChecks:
+    def test_recompile_after_warm_is_drift(self):
+        found = _doctor_findings({"warm": True,
+                                  "recompilesSinceWarm": {"decode_step": 3}})
+        storm = [f for f in found if f[1] == "recompile-storm"]
+        assert len(storm) == 1 and storm[0][0] == doctor.SEVERITY_DRIFT
+        assert storm[0][2] == "node-a/decode_step"
+        assert "3 recompile(s)" in storm[0][3]
+
+    def test_builds_before_warm_are_not_storms(self):
+        found = _doctor_findings({"warm": False, "recompilesSinceWarm": {},
+                                  "builds": {"decode_step": 4}})
+        assert not any(f[1] == "recompile-storm" for f in found)
+
+    def test_mfu_regression_needs_baseline_and_steps(self):
+        compute = {"warm": True, "recompilesSinceWarm": {},
+                   "programs": {"decode_step": {
+                       "r0": {"mfu": 0.10, "steps": 50,
+                              "boundBy": "memory"}}}}
+        reg = [f for f in _doctor_findings(compute, bench_mfu=0.40)
+               if f[1] == "mfu-regression"]
+        assert len(reg) == 1 and reg[0][2] == "node-a/r0/decode_step"
+        assert "memory-bound" in reg[0][3]
+        assert not any(f[1] == "mfu-regression"
+                       for f in _doctor_findings(compute, bench_mfu=0.15))
+        assert not any(f[1] == "mfu-regression"
+                       for f in _doctor_findings(compute))
+        compute["programs"]["decode_step"]["r0"]["steps"] = 0
+        assert not any(f[1] == "mfu-regression"
+                       for f in _doctor_findings(compute, bench_mfu=0.40))
+
+    def test_acceptance_triple_for_injected_storm(self, params):
+        """ONE injected recompile storm surfaces the same program name in
+        the port's CompileLedger record, its recompiles_total label and
+        both doctors' DRIFT finding."""
+        registry = Registry()
+        tel = _telemetry(registry)
+        eng = _engine(params)
+        tel.attach(eng, replica="r0")
+        try:
+            tel.mark_warm()
+            _drive(eng, _prompts(5, (6, 9)))
+            program = "decode_step"
+            snap = tel.ledger.snapshot()
+            assert snap["recompilesSinceWarm"][program] == 1
+            rec = [r for r in snap["records"] if r["program"] == program][-1]
+            assert rec["afterWarm"] is True
+            assert (f'tpu_dra_compute_recompiles_total'
+                    f'{{program="{program}"}} 1') in registry.render()
+            storm = [f for f in _doctor_findings(tel.compute_debug())
+                     if f[1] == "recompile-storm"
+                     and f[2] == f"node-a/{program}"]
+            assert len(storm) == 1 and storm[0][0] == doctor.SEVERITY_DRIFT
+        finally:
+            tel.close()
+
+
+def _both_loaders(bench_dir):
+    rows = [m.load_bench_trajectory(str(bench_dir)) for m in (rct, ct)]
+    assert rows[1] == rows[0]
+    baselines = [m.bench_mfu_baseline(rows[1]) for m in (rct, ct)]
+    assert baselines[1] == baselines[0]
+    return rows[1], baselines[1]
+
+
+class TestBenchTrajectory:
+    def _write(self, path, doc):
+        path.write_text(json.dumps(doc))
+
+    def test_loader_tolerates_old_rounds_and_junk(self, tmp_path):
+        self._write(tmp_path / "BENCH_r01.json", {"n": 1, "parsed": {
+            "metric": "llama3_tiny_train_mfu_b8_s128", "value": 0.31,
+            "unit": "mfu_fraction"}})
+        self._write(tmp_path / "BENCH_r02.json", {"n": 2, "parsed": [
+            {"metric": "llama3_tiny_train_mfu_b8_s128", "value": 0.42,
+             "unit": "mfu_fraction", "repeats": 3, "spread": 0.01,
+             "detail": {"step_ms": 10.0}},
+            {"metric": "llama3_tiny_decode_toks_b8_p128", "value": 900.0,
+             "unit": "tokens_per_s"},
+            "not-a-dict"]})
+        (tmp_path / "BENCH_r03.json").write_text("{ truncated")
+        rows, baseline = _both_loaders(tmp_path)
+        assert [r["round"] for r in rows] == [1, 2, 2]
+        assert rows[0]["repeats"] == 1 and rows[0]["spread"] == 0.0
+        assert rows[0]["detail"] == {}
+        assert baseline == pytest.approx(0.42)
+
+    def test_baseline_none_without_mfu_rounds(self, tmp_path):
+        assert ct.bench_mfu_baseline([]) is None
+        self._write(tmp_path / "BENCH_r01.json", {"n": 1, "parsed": [{
+            "metric": "x_decode_toks", "value": 1.0,
+            "unit": "tokens_per_s"}]})
+        assert _both_loaders(tmp_path)[1] is None
+
+    def test_committed_trajectory_parses_alike(self):
+        """The repo's BENCH rounds (TPU rounds of the JAX package) read
+        the same through both loaders. They are no baseline for the
+        port: its doctor is given rounds measured on the card."""
+        rows, baseline = _both_loaders(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        assert rows and baseline is not None

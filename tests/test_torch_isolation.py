@@ -39,7 +39,8 @@ FORBIDDEN_PACKAGES = ("google.protobuf",)
 
 def _port_files():
     files = sorted((ROOT / "k8s_dra_driver_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "tools" / "run_doctor_sim_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -97,9 +98,13 @@ def test_static_scan_finds_no_jax_or_reference_import():
      "k8s_dra_driver_tpu_torch.plugin.driver",
      "k8s_dra_driver_tpu_torch.plugin.main",
      "k8s_dra_driver_tpu_torch.plugin.inspect"),
+    ("k8s_dra_driver_tpu_torch.controller",
+     "k8s_dra_driver_tpu_torch.controller.main",
+     "k8s_dra_driver_tpu_torch.fleetsim",
+     "k8s_dra_driver_tpu_torch.doctor"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
         "collectives", "remat-checkpoint", "device-layer", "control-plane",
-        "kubelet-plugin"])
+        "kubelet-plugin", "controller-fleetsim-doctor"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
         "import sys\n"
