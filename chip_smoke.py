@@ -264,10 +264,33 @@ fixed seed, and checks every hand-written kernel of those paths:
     baseline 3x that. Last, the fleet soak's mini profile
     (``fleetsim``) replays on this host and its artifact must hash to
     FLEET_MINI_SHA256. Prints a ``doctor:`` line.
+32. rebuilds phase 8's 8x7b-L16 from the seed and serves it expert
+    parallel on a single-controller mesh of 4 ``expert`` shards, all on
+    the card (``build_mesh(MeshConfig(expert=4), devices=[card] * 4)``,
+    the expert stacks placed by ``shard_pytree(params, mesh,
+    param_specs(cfg))`` as views, no new memory; 2 experts a shard).
+    Holds K9's twin (``csrc/ring_permute.cu``, the ring hop) bit for bit
+    against its plain version for rings of 2 and 4, shifts 1, -1 and 3,
+    bf16, f32 and int8, at a size of no whole 16-byte word with a nonzero
+    storage offset and at the hop chunk, and its gradient as the inverse
+    rotation; times it at the hop buffers ([128, 4096] bf16 chunk and f32
+    carrier) and at 256 MB a shard beside the plain version and
+    ``torch._foreach_copy_`` (``ring_permute:`` lines). Runs the dropless
+    EP forward at 4 x 128 tokens (the ring) and at 13 (the psum path under
+    ``"auto"``; ``"ring"`` must raise) against the single-device forward
+    on the same weights (phase 8's limits, the single run's routing
+    replayed; K7 and K8 launched n_ep**2 L times on the ring and n_ep L
+    on psum, K9 (2 n_ep - 1) L times on the ring and never on psum). Then
+    serves phase 9's traffic through ``DecodeEngine(mesh=mesh)`` with
+    ``moe_impl="dropless"``, its steps captured with K9 inside, holds its
+    launches (K7 and K8 n_ep**2 L, K9 (2 n_ep - 1) L a forward), and
+    prints how many streams equal phase 9's single-device engine's (the
+    first divergence where one exists) and its TTFT and decode p50 beside
+    phase 9's.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24 and 31, and in each worker
-of phases 26-30) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31 and 32, and in each
+worker of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -884,17 +907,19 @@ def compare_forward(torch, params, cfg, dev, quantize_cache=False) -> dict:
     return result
 
 
-def smoke_engine(params, cfg, dev, quantize_cache=False, capture=True):
+def smoke_engine(params, cfg, dev, quantize_cache=False, capture=True,
+                 mesh=None):
     """The engine every serving phase runs: 8 slots, a 1024-block pool
     of 16-token blocks, 4 x 128 packed prefill, prefix cache and
-    overlapped tick on."""
+    overlapped tick on (phase 32: on ``mesh``)."""
     from k8s_dra_driver_tpu_torch.models import DecodeEngine
 
     return DecodeEngine(
         params, cfg, batch_slots=BATCH_SLOTS, num_blocks=NUM_BLOCKS,
         block_size=BLOCK_SIZE, prefill_chunk=PREFILL_CHUNK,
         prefill_batch=PREFILL_BATCH, prefix_cache=True, overlap=True,
-        quantize_cache=quantize_cache, device=dev, capture=capture)
+        quantize_cache=quantize_cache, device=dev, capture=capture,
+        mesh=mesh)
 
 
 def step_objects(eng) -> tuple:
@@ -905,7 +930,7 @@ def step_objects(eng) -> tuple:
 
 
 def serve(torch, params, cfg, dev, quantize_cache=False,
-          capture=True, attach=None, lease=None) -> dict:
+          capture=True, attach=None, lease=None, mesh=None) -> dict:
     """Phase 4 (phase 9 on the MoE config, phase 15 on its full-depth int8
     weights with the int8 KV cache): the engine run (a main path), its
     steps captured as CUDA graphs, or eager with ``capture=False``.
@@ -915,7 +940,8 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     (phase 20's telemetry), and the metrics then hold the engine under
     "_engine". ``lease``, where given, is a context manager factory that
     every tick and the engine's construction run inside (phase 28's
-    time-shared workers)."""
+    time-shared workers). ``mesh``, where given, is the expert-parallel
+    engine's (phase 32)."""
     from k8s_dra_driver_tpu_torch.models.serving import RUNNING
 
     hold = lease if lease is not None else contextlib.nullcontext
@@ -930,7 +956,7 @@ def serve(torch, params, cfg, dev, quantize_cache=False,
     first = [toks(96), toks(180), toks(300), toks(700), prefix + toks(64)]
     later = [prefix + toks(150), prefix + toks(444), list(prefix)]
     with hold():
-        eng = smoke_engine(params, cfg, dev, quantize_cache, capture)
+        eng = smoke_engine(params, cfg, dev, quantize_cache, capture, mesh)
     if attach is not None:
         attach(eng)
 
@@ -4894,6 +4920,298 @@ def doctor_phase(torch, params, cfg, dev, phase4) -> dict:
                 s=time.perf_counter() - t0)
 
 
+# Phase 32: expert-parallel MoE serving on a single-controller mesh
+# (parallel/mesh.py) of EP_SHARDS shards, all on the one card, its ring hops
+# through K9's twin (csrc/ring_permute.cu).
+EP_SHARDS = 4
+EP_PSUM_TOKENS = 13             # does not divide the ring: "auto" takes psum
+RING_CHECK_SHAPE = (37, 129)    # no whole 16-byte word in any dtype
+RING_BIG_BYTES = 256 << 20      # K9's largest timed size, per shard
+
+
+def ring_inputs(torch, gen, dev, n, shape, dtype, offset=0) -> list:
+    """``n`` shard buffers of ``shape``, views into one buffer from
+    ``offset`` elements on (a nonzero storage offset where ``offset`` is),
+    random values (int8: from [-127, 127])."""
+    numel = math.prod(shape)
+    whole = torch.randn(offset + n * numel, generator=gen, device=dev)
+    whole = ((whole * 40).clamp(-127, 127).to(dtype) if dtype == torch.int8
+             else whole.to(dtype))
+    return [whole[offset + i * numel:offset + (i + 1) * numel].view(shape)
+            for i in range(n)]
+
+
+def same_bytes(torch, out, ref) -> bool:
+    return all(o.device == r.device and o.dtype == r.dtype
+               and torch.equal(o.reshape(-1).view(torch.uint8),
+                               r.reshape(-1).view(torch.uint8))
+               for o, r in zip(out, ref))
+
+
+def check_ring_permute(torch, cfg, dev) -> dict:
+    """Phase 32's first step: K9's twin against its plain version, bit for
+    bit, for rings of 2 and 4 shards of the card, shifts 1, -1 and 3, in
+    bf16, f32 and int8, at a size of no whole 16-byte word whose shards
+    start one element into a buffer (a nonzero storage offset, 1-, 2- or
+    4-byte aligned) and at the phase's hop chunk [128, H]; the gradient
+    (``RingPermuteFunction``) is the inverse rotation. Then times it at the
+    hop buffers ([128, H] bf16 chunk, [128, H] f32 carrier) and at
+    RING_BIG_BYTES a shard, beside the plain version and
+    ``torch._foreach_copy_`` into preallocated buffers (the library
+    yardstick: one call, the same bytes); the bound reads and writes every
+    byte once at the card's memory rate."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 32)
+    h = cfg.hidden
+    checked = 0
+    for n in (2, EP_SHARDS):
+        for shift in (1, -1, 3):
+            for dtype in (torch.bfloat16, torch.float32, torch.int8):
+                for shape, offset in ((RING_CHECK_SHAPE, 1), ((128, h), 0)):
+                    xs = ring_inputs(torch, gen, dev, n, shape, dtype, offset)
+                    out = ring.ring_permute_kernel(xs, shift)
+                    ref = ring.ring_permute_reference(xs, shift)
+                    torch.cuda.synchronize()
+                    if not same_bytes(torch, out, ref):
+                        raise AssertionError(
+                            f"ring_permute n {n} shift {shift} {dtype} "
+                            f"{shape} offset {offset}: not the plain "
+                            f"version's bytes")
+                    checked += 1
+    xs = [x.clone().requires_grad_() for x in ring_inputs(
+        torch, gen, dev, EP_SHARDS, RING_CHECK_SHAPE, torch.float32)]
+    w = ring_inputs(torch, gen, dev, EP_SHARDS, RING_CHECK_SHAPE,
+                    torch.float32)
+    sum((o * wi).sum() for o, wi in zip(
+        ring.ring_permute(xs, "expert", EP_SHARDS), w)).backward()
+    if not same_bytes(torch, [x.grad for x in xs],
+                      ring.ring_permute_reference(w, -1)):
+        raise AssertionError("ring_permute's gradient is not the inverse "
+                             "rotation")
+    log(f"ring_permute: {checked} rotations and the gradient bitwise equal "
+        f"to the plain version")
+    rows = {}
+    for name, shape, dtype in (
+            ("ring_permute", (PREFILL_CHUNK, h), torch.bfloat16),
+            ("ring_permute_carrier", (PREFILL_CHUNK, h), torch.float32),
+            ("ring_permute_256mb", (RING_BIG_BYTES // 2,), torch.bfloat16)):
+        xs = ring_inputs(torch, gen, dev, EP_SHARDS, shape, dtype)
+        moved = 2 * EP_SHARDS * xs[0].numel() * xs[0].element_size()
+        dst = [torch.empty_like(x) for x in xs]
+        rotated = [xs[(j - 1) % EP_SHARDS] for j in range(EP_SHARDS)]
+        row = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ring.ring_permute_kernel(xs, 1)),
+            plain_ms=time_ms(lambda: ring.ring_permute_reference(xs, 1)),
+            library_ms=time_ms(lambda: torch._foreach_copy_(dst, rotated)),
+            shape=(f"{EP_SHARDS} shards of {list(shape)} {dtype} on one "
+                   f"card, shift 1"),
+            **bound_fields(name, moved, 0.0, BF16_FLOPS),
+        )
+        row["gb_per_s"] = moved / row["ms"] / 1e6
+        rows[name] = row
+        log(f"ring_permute: {row['shape']}: kernel {row['ms']:.4f} ms "
+            f"({row['gb_per_s']:.1f} GB/s read + write), plain "
+            f"{row['plain_ms']:.4f} ms, _foreach_copy_ "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; "
+            f"{card_line()}")
+        del xs, dst, rotated
+        torch.cuda.empty_cache()
+    rows["ring_permute"]["checked_rotations"] = checked
+    return rows
+
+
+class EpRoutingReplay(RoutingReplay):
+    """``RoutingReplay`` for the ring path: the single-device forward
+    records one [T, k] choice a layer, the ring routes chunk by chunk --
+    n_ep * n_ep calls a layer, hop-major, shard i at hop h holding chunk
+    (i - h) mod n_ep -- and each call replays its chunk's rows of its
+    layer's record."""
+
+    def __init__(self, moe, n_ep: int):
+        super().__init__(moe)
+        self.n_ep = n_ep
+        self.calls = 0
+
+    def _next(self, experts):
+        layer, j = divmod(self.calls, self.n_ep ** 2)
+        self.calls += 1
+        hop, i = divmod(j, self.n_ep)
+        chunk = (i - hop) % self.n_ep
+        t_loc = experts.shape[0]
+        return self.recorded[layer][chunk * t_loc:(chunk + 1) * t_loc]
+
+
+def ep_forward(torch, params, sharded, mesh, cfg, dev, read_counts) -> dict:
+    """Phase 32's forwards: ``moe.forward(..., mesh=mesh)`` with dropless
+    at B 4 x 128 (512 tokens: the ring) and at 13 tokens (the psum path
+    under ``"auto"``) against the single-device dropless forward on the
+    same weights and tokens, through the kernels both. As in phase 8 the
+    EP run is compared with the single run's expert choices replayed (the
+    limit: relative logit difference 5e-2), and its own choices must
+    differ only at near-ties (FLIP_MARGIN_LIMIT, FLIP_SHARE_LIMIT); its
+    free run's difference is reported. Holds each EP forward's launches:
+    K7 and K8 n_ep**2 L times on the ring (every shard at every hop), n_ep
+    L on psum; K9 (2 n_ep - 1) L times on the ring, never on psum. At 13
+    tokens ``ep_overlap="ring"`` must raise. On the ring every shard routes
+    each chunk at its hop, so the flips and routed choices count each
+    chunk's routing n_ep times (their share is the distinct ones')."""
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    n_ep, layers = mesh.shape["expert"], cfg.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 33)
+    dropless = dataclasses.replace(cfg, moe_impl="dropless")
+    result = {}
+    for name, (b, s) in (("ring", (PREFILL_BATCH, PREFILL_CHUNK)),
+                         ("psum", (1, EP_PSUM_TOKENS))):
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev, dtype=torch.int32)
+        with torch.no_grad():
+            with RoutingReplay(moe) as single:
+                single.mode = "record"
+                want, want_aux = moe.forward(params, tokens, dropless)
+            before = read_counts()
+            free, free_aux = moe.forward(sharded, tokens, dropless, mesh=mesh)
+            torch.cuda.synchronize()
+            after = read_counts()
+            replay = (EpRoutingReplay(moe, n_ep) if name == "ring"
+                      else RoutingReplay(moe))
+            replay.recorded = list(single.recorded)
+            with replay:
+                replay.mode = "replay"
+                got, _ = moe.forward(sharded, tokens, dropless, mesh=mesh)
+        pairs = n_ep * n_ep if name == "ring" else n_ep
+        want_counts = {"moe_gateup": pairs * layers,
+                       "moe_down_combine": pairs * layers,
+                       "ring_permute": ((2 * n_ep - 1) * layers
+                                        if name == "ring" else 0)}
+        launched = {k: after[k] - before[k] for k in want_counts}
+        if launched != want_counts:
+            raise AssertionError(f"EP {name} forward launches {launched}, "
+                                 f"expected {want_counts}")
+        for x in (got, free):
+            if not bool(torch.isfinite(x).all()) or x.shape != want.shape:
+                raise AssertionError(f"EP {name} forward: logits "
+                                     f"{tuple(x.shape)}, finite "
+                                     f"{bool(torch.isfinite(x).all())}")
+        a, w, f = got[:, -1], want[:, -1], free[:, -1]
+        row = dict(
+            tokens=b * s,
+            rel_logit_diff=((got - want).norm() / want.norm()).item(),
+            max_logit_diff=(got - want).abs().max().item(),
+            free_rel_logit_diff=((free - want).norm() / want.norm()).item(),
+            free_max_logit_diff=(free - want).abs().max().item(),
+            free_top1_agreement=float((f.argmax(-1) == w.argmax(-1))
+                                      .float().mean()),
+            top1_agreement=float((a.argmax(-1) == w.argmax(-1))
+                                 .float().mean()),
+            aux_diff=abs(float(free_aux) - float(want_aux)),
+            launches=launched,
+            **{k: v for k, v in replay.summary().items()
+               if k != "flip_margins"})
+        log(f"EP {name} forward vs single-device:", json.dumps(row))
+        if row["rel_logit_diff"] > 5e-2:
+            raise AssertionError(f"EP {name} forward: relative logit "
+                                 f"difference {row['rel_logit_diff']} "
+                                 f"(limit 5e-2)")
+        replay.check(f"EP {name} forward")
+        result[name] = row
+    try:
+        moe.forward(sharded, tokens, dataclasses.replace(
+            dropless, ep_overlap="ring"), mesh=mesh)
+    except ValueError as e:
+        if "ep_overlap='ring'" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"ep_overlap='ring' at {EP_PSUM_TOKENS} "
+                             f"tokens did not raise")
+    return result
+
+
+def ep_phase(torch, cfg, dev, single: dict, kept_streams: dict,
+             drive, read_counts) -> dict:
+    """Phase 32: expert-parallel MoE serving. Rebuilds phase 8's model
+    (``cfg``, the seed's weights) and shards its expert stacks over
+    ``build_mesh(MeshConfig(expert=EP_SHARDS), devices=[card] *
+    EP_SHARDS)`` by ``shard_pytree(params, mesh, param_specs(cfg))``: views
+    of the stacks, no new memory. Then K9 against its plain version and
+    its times (``check_ring_permute``), the EP forwards
+    (``ep_forward``), and the EP engine: ``DecodeEngine(mesh=mesh)`` with
+    ``moe_impl="dropless"`` (decode steps of BATCH_SLOTS tokens and packed
+    prefills of PREFILL_BATCH x PREFILL_CHUNK both divide the ring) serves
+    phase 9's traffic, its steps captured (the main path, through
+    ``drive``); its streams are compared with phase 9's single-device
+    engine on the same weights (``kept_streams``), the count equal and
+    the first divergence reported, not required, and its launches held:
+    K7 and K8 n_ep**2 L, K9 (2 n_ep - 1) L times a forward."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.parallel import (
+        MeshConfig,
+        Sharded,
+        build_mesh,
+        shard_pytree,
+    )
+
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    mesh = build_mesh(MeshConfig(expert=EP_SHARDS), devices=[dev] * EP_SHARDS)
+    sharded = shard_pytree(params, mesh, moe.param_specs(cfg))
+    stack = sharded["layers"]["w_gateup"]
+    whole = params["layers"]["w_gateup"]
+    if not (isinstance(stack, Sharded) and len(stack.shards) == EP_SHARDS
+            and all(s.untyped_storage().data_ptr()
+                    == whole.untyped_storage().data_ptr()
+                    for s in stack.shards)
+            and torch.cuda.memory_allocated() == held):
+        raise AssertionError("shard_pytree copied the expert stacks on one "
+                             "card")
+    log(f"phase 32: {mesh}, {cfg.n_experts // EP_SHARDS} experts a shard, "
+        f"weights {held / 1e9:.1f} GB sharded in place "
+        f"({time.perf_counter() - t0:.1f}s)")
+    kernels = check_ring_permute(torch, cfg, dev)
+    forwards = ep_forward(torch, params, sharded, mesh, cfg, dev,
+                          read_counts)
+    dropless = dataclasses.replace(cfg, moe_impl="dropless")
+    served = drive("ep_serving", serve, torch, sharded, dropless, dev,
+                   False, True, None, None, mesh)
+    if served["moe_impl"] != {"decode_step": "dropless",
+                              "prefill_chunk": "dropless"} \
+            or served["compile_counts"] != {"decode_step": 1,
+                                            "prefill_chunk": 1}:
+        raise AssertionError(f"EP engine: moe_impl {served['moe_impl']}, "
+                             f"compile counts {served['compile_counts']}")
+    streams = served.pop("_streams")
+    prompt_lens = served.pop("_prompt_lens")
+    for key in [k for k in served if k.startswith("_")]:
+        del served[key]
+    # Where a stream differs: the first differing token of each, and the
+    # two tokens' logit margin after the common prefix on the single-device
+    # model (reported, not held: chunked routing flips near-ties).
+    flips = stream_flips(torch, streams, kept_streams["streams"],
+                         prompt_lens, ("ep", "single"), params, cfg, dev)
+    same = len(streams) - len(flips)
+    served.update(streams_equal_single=same, stream_flips=flips,
+                  single_ttft_p50_ms=single["ttft_p50_ms"],
+                  single_decode_step_p50_ms=single["decode_step_p50_ms"])
+    log(f"EP engine: {same} of {len(streams)} streams equal phase 9's "
+        f"single-device engine's; first divergences {json.dumps(flips)}; "
+        f"TTFT p50 {served['ttft_p50_ms']:.2f} ms (phase 9: "
+        f"{single['ttft_p50_ms']:.2f}), decode p50 "
+        f"{served['decode_step_p50_ms']:.3f} ms (phase 9: "
+        f"{single['decode_step_p50_ms']:.3f}), capture "
+        f"{served['capture_s']:.2f} s; {card_line()}")
+    del sharded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, forward=forwards, engine=served,
+                s=time.perf_counter() - t0)
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -4928,6 +5246,7 @@ def main() -> int:
             norms,
             quant_matmul,
         )
+        from k8s_dra_driver_tpu_torch.parallel import ring
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}",
               file=sys.stderr)
@@ -4986,6 +5305,7 @@ def main() -> int:
         "moe_gateup_int8": moe_dispatch.moe_gateup_int8,
         "moe_down_combine_int8": moe_dispatch.moe_down_combine_int8,
         "int8_matmul": quant_matmul.int8_matmul,
+        "ring_permute": ring.ring_permute_kernel,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
@@ -5015,7 +5335,10 @@ def main() -> int:
                            "rmsnorm"),
              "checkpoint": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
                             "flash_bwd_dq"),
-             "doctor": ("paged_decode", "paged_prefill", "rmsnorm")}
+             "doctor": ("paged_decode", "paged_prefill", "rmsnorm"),
+             "ep_serving": ("moe_gateup", "moe_down_combine",
+                            "ring_permute", "paged_decode", "paged_prefill",
+                            "rmsnorm")}
     by_path = {}
 
     def reset_counts():
@@ -5491,6 +5814,29 @@ def main() -> int:
                f"mfu-regression only against the {DOCTOR_MFU_OVER:g}x "
                f"baseline; the CLI exited 0 and the fleet soak replayed "
                f"byte for byte (launches {counts})")
+    # Phase 32: expert-parallel MoE serving on a mesh of EP_SHARDS shards of
+    # the card, phase 8's model rebuilt from the seed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = ep_phase(torch, mcfg, dev, moe_engine, kept["moe_serving"], drive,
+                  read_counts)
+    kernels.update(ep.pop("kernels"))
+    served = ep["engine"]
+    counts = by_path["ep_serving"]
+    forwards = served["decode_steps"] + served["prefill_launches"]
+    want = {"moe_gateup": EP_SHARDS ** 2 * MOE_LAYERS * forwards,
+            "moe_down_combine": EP_SHARDS ** 2 * MOE_LAYERS * forwards,
+            "ring_permute": (2 * EP_SHARDS - 1) * MOE_LAYERS * forwards,
+            "paged_decode": MOE_LAYERS * served["decode_steps"],
+            "paged_prefill": MOE_LAYERS * served["prefill_launches"]}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"EP serving launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+    phase_done(f"phase 32: K9 bitwise equal to its plain version; the EP "
+               f"ring and psum forwards match the single-device forward; "
+               f"the EP engine served 8 requests on {EP_SHARDS} shards, "
+               f"steps captured ({served['streams_equal_single']} of 8 "
+               f"streams equal phase 9's; launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -5584,6 +5930,9 @@ def main() -> int:
                                 "(q_dequant, then XLA's einsum; no Pallas "
                                 "kernel)"),
     }
+    meta["ring_permute"] = ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                            "ring_permute.cu",
+                            "k8s_dra_driver_tpu/parallel/ring.py:393")
     for name in ("moe_gateup", "moe_down_combine"):
         meta[name + "_train"] = meta[name]
     for suffix in ("", "_int8"):
@@ -5595,6 +5944,13 @@ def main() -> int:
         meta[name + "_long"] = meta[name]
         launches[name + "_long"] = launches[name]
         by_path = {p: {**c, name + "_long": c[name]}
+                   for p, c in by_path.items()}
+    # K9 at the f32 carrier and at 256 MB a shard: the same kernel and
+    # launch count as its row at the bf16 hop chunk.
+    for name in ("ring_permute_carrier", "ring_permute_256mb"):
+        meta[name] = meta["ring_permute"]
+        launches[name] = launches["ring_permute"]
+        by_path = {p: {**c, name: c["ring_permute"]}
                    for p, c in by_path.items()}
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -5627,7 +5983,8 @@ def main() -> int:
                     "compute": telemetry, "speculative_int8": spec_int8,
                     "remat": remat, "moe_remat": moe_remat,
                     "checkpoint": ckpt, "device_layer": dra,
-                    "plugin": plugin, "doctor": diag}))
+                    "plugin": plugin, "doctor": diag,
+                    "expert_parallel": ep}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

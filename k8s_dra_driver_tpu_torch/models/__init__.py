@@ -1,7 +1,8 @@
 """Llama-3 on the card: configuration and parameters, serving on the paged
 KV cache (the cached forward, greedy speculative decoding and the
 continuous-batching engine, for dense and Mixtral-style MoE configs, with
-int8 weights and an int8 KV cache as options), and training of both
+int8 weights and an int8 KV cache as options, and MoE expert parallel on a
+mesh), and training of both
 (forward, loss, optimizer and train step, the named remat policies) with
 train-state checkpoints. ``compute_telemetry`` observes the engine's
 builds, roofline and HBM footprint."""
@@ -33,7 +34,7 @@ from .paged import (
     PagedQuantKVCache,
     PrefixCache,
 )
-from .quant import QuantTensor, quantize_params
+from .quant import QuantTensor, quantize_params, quantize_specs
 from .speculative import speculative_generate
 from .serving import (
     AdmissionClosedError,
@@ -63,6 +64,7 @@ __all__ = [
     "PagedQuantKVCache",
     "QuantTensor",
     "quantize_params",
+    "quantize_specs",
     "BlockAllocator",
     "OutOfBlocksError",
     "PrefixCache",

@@ -35,7 +35,11 @@ because the telemetry only *reads* seams the engine already maintains —
   accountant.
 - **Collective accounting**: the ``parallel/collectives.py`` emission
   layer's per-site byte/invocation ledger, exported as
-  ``tpu_dra_compute_collective_*``.
+  ``tpu_dra_compute_collective_*``. Its sites are the expert-parallel MoE
+  paths' (``moe.ep_ring.x``/``.y``/``.all_gather``/``.aux``,
+  ``moe.ep_psum.combine``), so an engine on a mesh reads the ring's and
+  the psum's traffic apart; a sharded engine's weight bytes count each
+  shard once (``parallel.sharding.Sharded.nbytes``).
 
 Scrape surface: the ``tpu_dra_compute_*`` families and the GET-only
 ``/debug/compute`` document (:meth:`ComputeTelemetry.compute_debug`),

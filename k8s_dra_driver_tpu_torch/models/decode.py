@@ -11,7 +11,10 @@ decode step goes to ``paged_decode_attention`` and multi-token windows to
 version on the CPU. The per-layer FFN follows the config's family
 (:func:`_mlp_or_moe`): the dense SwiGLU MLP for a ``LlamaConfig``, the
 sparse MoE block (``models/moe.py``, the fused dispatch kernels K7 and K8
-on the card) for a ``MoeConfig``.
+on the card) for a ``MoeConfig``. Every entry point takes a ``mesh``
+(``parallel/mesh.py``, expert axis only) for expert-parallel serving:
+the MoE blocks then run over its shards (``moe._moe_block``) and the rest
+of the stack, the cache included, on its first device.
 
 The int8 variants follow the reference's (``variant_label``): int8
 weights from ``quant.quantize_params`` run through the seams of
@@ -110,14 +113,16 @@ def _rope_tables(config: LlamaConfig, span: int, device):
     return tables
 
 
-def _mlp_or_moe(x, layer, config, use_kernels: bool = True):
+def _mlp_or_moe(x, layer, config, mesh=None, use_kernels: bool = True):
     """The per-layer FFN for the config's family: sparse MoE routing for a
     ``MoeConfig`` (aux loss dropped -- inference), dense otherwise. The
     MoE impl follows ``resolve_moe_impl``: decode steps and prefill chunks
     of up to 512 tokens run dropless, which on the card is the fused
-    dispatch pipeline (K7 then K8, once each per layer)."""
+    dispatch pipeline (K7 then K8, once each per layer). On an expert
+    ``mesh``, ``auto`` keeps the einsum body (its experts split over the
+    shards), and an explicit dropless runs the ring or psum EP path."""
     if isinstance(config, MoeConfig):
-        x, _aux = _moe_block(x, layer, config, use_kernels=use_kernels)
+        x, _aux = _moe_block(x, layer, config, mesh, use_kernels=use_kernels)
         return x
     return _mlp_block(x, layer, config, use_kernels=use_kernels)
 
@@ -149,6 +154,7 @@ def _forward_with_cache(
     n_valid: torch.Tensor | None = None,   # [] or [B] real tokens per row
     active: torch.Tensor | None = None,    # [B] bool: rows allowed to write
     use_kernels: bool = True,
+    mesh=None,
 ) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
     """Run the stack over new tokens, reading and writing the paged cache
     (its pools in place; an int8 cache gets int8 rows and their scales).
@@ -230,7 +236,7 @@ def _forward_with_cache(
                 **scales,
             )
         x = attn_out(x, o, layer, use_kernels)
-        x = _mlp_or_moe(x, layer, c, use_kernels=use_kernels)
+        x = _mlp_or_moe(x, layer, c, mesh, use_kernels=use_kernels)
 
     # Committed length: last real position + 1, frozen for padded columns
     # and inactive rows.
@@ -265,6 +271,7 @@ def prefill(
     max_len: int,
     quantize_cache: bool = False,
     block_size: int | None = None,
+    mesh=None,
 ) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
     """Process the prompt into a fixed-reservation paged cache (int8 with
     per-position scales when ``quantize_cache``); returns (last-position
@@ -277,7 +284,7 @@ def prefill(
                            device=dev)
     positions = torch.arange(s, device=dev)
     logits, cache = _forward_with_cache(params, tokens, cache, config,
-                                        positions)
+                                        positions, mesh=mesh)
     return logits[:, -1], cache
 
 
@@ -292,6 +299,7 @@ def prefill_cached(
     block_size: int,
     prefix_cache: "PrefixCache | None" = None,
     quantize_cache: bool = False,
+    mesh=None,
 ):
     """Single-sequence prefill over a caller-owned shared pool, reusing
     the prefix cache; a fully cached prompt drops its trailing matched
@@ -334,7 +342,7 @@ def prefill_cached(
     tail = torch.tensor([prompt[hit_tokens:]], dtype=torch.int32, device=dev)
     positions = hit_tokens + torch.arange(s - hit_tokens, device=dev)
     logits, cache = _forward_with_cache(params, tail, cache, config,
-                                        positions)
+                                        positions, mesh=mesh)
     return logits[:, -1], cache, blocks, hit_tokens
 
 
@@ -343,11 +351,12 @@ def decode_step(
     token: torch.Tensor,          # [B] latest token
     cache: "PagedKVCache | PagedQuantKVCache",
     config: LlamaConfig,
+    mesh=None,
 ) -> "tuple[torch.Tensor, PagedKVCache | PagedQuantKVCache]":
     """One autoregressive step; returns (next-token logits [B, V], cache)."""
     positions = cache.lengths[:, None]
     logits, cache = _forward_with_cache(params, token[:, None], cache,
-                                        config, positions)
+                                        config, positions, mesh=mesh)
     return logits[:, 0], cache
 
 
@@ -376,6 +385,7 @@ def generate(
     generator: torch.Generator | None = None,
     quantize_cache: bool = False,
     device=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Greedy (or sampled) generation; returns [B, S + N] int32 tokens on
     ``device`` (default CUDA), where ``params`` must already live."""
@@ -387,13 +397,14 @@ def generate(
     prompt = _as_tokens(prompt, _param_device(params))
     b, s = prompt.shape
     logits, cache = prefill(params, prompt, config, s + max_new_tokens,
-                            quantize_cache=quantize_cache)
+                            quantize_cache=quantize_cache, mesh=mesh)
     out = []
     for i in range(max_new_tokens):
         tok = sample(logits, temperature, generator)
         out.append(tok)
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, tok, cache, config)
+            logits, cache = decode_step(params, tok, cache, config,
+                                        mesh=mesh)
     if not out:
         return prompt
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)

@@ -29,9 +29,36 @@ remat policies. Under a named policy the MoE block's sites are the
 dispatch plan and binned's slot map (``moe_routing``) and the einsum and
 binned gate/up product (``moe_gu``); the recompute still runs the
 router, and in the fused dropless pipeline K7 and K8 (``moe_act`` is in
-no policy), as the reference's does. Not ported yet: expert parallelism
-(meshes, the ring and psum paths), the pipelined forward and
-``param_specs``; they raise ``NotImplementedError``.
+no policy), as the reference's does.
+
+**Expert parallelism** (``forward(..., mesh=...)``, a mesh of
+``parallel/mesh.py`` whose ``expert`` axis is larger than 1, its expert
+stacks placed by ``shard_pytree(params, mesh, param_specs(cfg))``). The
+reference's ``shard_map`` bodies run per shard; the port's run over all
+shards at once in one process, each shard's work on its shard's device,
+with the dense trunk and the replicated inputs on the mesh's first
+device:
+
+- dropless **ring** (``_moe_block_dropless_ep_ring``): tokens chunk over
+  the expert ring; at each hop every shard routes its resident chunk and
+  runs its local experts on it (``_pairs_mlp`` with its expert window,
+  K7 and K8 on the card), and ``parallel/ring.py::ring_permute`` (K9's
+  twin) rotates the chunks and the f32 carriers that collect each chunk's
+  output. After ``n_ep`` carrier hops chunk i's output is home on shard
+  i; concatenating in shard order is the all-gather. ``2 n_ep - 1`` ring
+  hops and ``n_ep**2`` K7/K8 pairs a layer;
+- dropless **psum** (``_moe_block_dropless_ep_psum``): every shard runs
+  its local pairs of the whole batch, and their sum is the psum. The
+  fallback where the token count does not divide the ring
+  (``ep_overlap="auto"``), and the parity oracle;
+- **einsum** on an expert mesh (what ``auto`` picks there): each shard
+  runs its experts' rows of the dispatched ``[E, ...]`` tensor with its
+  weights; the results concatenate along E.
+
+Only the expert axis may be larger than 1 (``NotImplementedError``
+otherwise, A12 in ROADMAP.md). Each body records the reference's
+collective sites and byte counts. Not ported yet: the pipelined forward
+(it raises ``NotImplementedError``) and training on a mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +75,10 @@ from ..ops import moe_dispatch
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
 from ..ops.rotary import rope_frequencies
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, require_expert_only
+from ..parallel.ring import ring_permute
+from ..parallel.sharding import P, Sharded
 from .llama import (
     LlamaConfig,
     _attention_block,
@@ -72,6 +103,12 @@ class MoeConfig(LlamaConfig):
     moe_impl: str = "auto"
     # Weight of the Switch load-balancing loss in ``loss_fn``.
     aux_coef: float = 0.01
+    # Expert-parallel dropless dispatch on a mesh's "expert" axis:
+    # "ring" (chunks rotate over the ring while each shard runs its local
+    # experts; needs the token count to divide the axis), "psum" (every
+    # shard runs its local pairs of the whole batch, one sum combines),
+    # "auto" (ring where the token count divides the axis, else psum).
+    ep_overlap: str = "auto"
 
     def num_params(self) -> int:
         h, m, v, l = self.hidden, self.mlp_hidden, self.vocab_size, self.n_layers
@@ -213,9 +250,23 @@ def init_params(config: MoeConfig, seed: int = 0, device=None) -> dict:
 
 
 def param_specs(config: MoeConfig) -> dict:
-    raise NotImplementedError(
-        "param_specs: sharded MoE (expert parallelism) is not ported yet"
-    )
+    """Partition specs: the dense trunk's tensor/fsdp axes plus the expert
+    axis on every per-expert weight (the leading None is the layer axis),
+    the reference's tree."""
+    return {
+        "embed": P("tensor", "fsdp"),
+        "layers": {
+            "wqkv": P(None, "fsdp", "tensor", None, None),
+            "wo": P(None, "tensor", "fsdp"),
+            "wr": P(None, None, None),
+            "w_gateup": P(None, "expert", "fsdp", None, "tensor"),
+            "w_down": P(None, "expert", "tensor", "fsdp"),
+            "ln_attn": P(None, None),
+            "ln_mlp": P(None, None),
+        },
+        "final_norm": P(None),
+        "lm_head": P("fsdp", "tensor"),
+    }
 
 
 def effective_router_group(config: MoeConfig, seq: int) -> int:
@@ -366,6 +417,180 @@ def _moe_block_dropless(x, layer, config: MoeConfig,
     return x + out.reshape(b, s, h).to(x.dtype), aux
 
 
+def _to_transport(w):
+    """An int8 ``QuantTensor`` as its (q, scale) pair, cut into shards
+    alike (:func:`_expert_shards`); float weights pass through."""
+    if isinstance(w, QuantTensor):
+        return (w.q, w.scale)
+    return w
+
+
+def _from_transport(w):
+    if isinstance(w, tuple):
+        return QuantTensor(q=w[0], scale=w[1])
+    return w
+
+
+def _local_experts(w, mesh: Mesh, i: int, e_loc: int) -> torch.Tensor:
+    """Shard i's experts [e_loc, ...] of one layer's stack: its shard of a
+    :class:`Sharded` stack, or its slice of a whole one moved to its
+    device (as a ``shard_map`` reshards an unsharded input)."""
+    if isinstance(w, Sharded):
+        if w.dim != 0 or w.mesh.size != mesh.size:
+            raise ValueError(f"expert stack {w} is not cut by this mesh's "
+                             f"expert axis")
+        return w.shards[i]
+    return w.narrow(0, i * e_loc, e_loc).to(mesh.devices[i])
+
+
+def _parts(w) -> tuple:
+    """The tensors an expert stack travels as: (q, scale) or (w,)."""
+    t = _to_transport(w)
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _expert_shards(w, mesh: Mesh, e_loc: int) -> list:
+    """Every shard's local expert weights, in shard order (float stacks,
+    or int8 stacks carried as (q, scale) and rebuilt per shard)."""
+    local = [tuple(_local_experts(p, mesh, i, e_loc) for p in _parts(w))
+             for i in range(mesh.size)]
+    if isinstance(w, QuantTensor):
+        return [_from_transport(ps) for ps in local]
+    return [ps[0] for ps in local]
+
+
+def _ep_geometry(config: MoeConfig, mesh: Mesh) -> tuple:
+    """(n_ep, e_loc): the expert axis's size and the experts per shard."""
+    require_expert_only(mesh, "expert parallelism")
+    n_ep = mesh.shape["expert"]
+    e = config.n_experts
+    if e % n_ep:
+        raise ValueError(
+            f"n_experts={e} does not divide over expert axis size {n_ep}"
+        )
+    return n_ep, e // n_ep
+
+
+def _moe_block_dropless_ep(x, layer, config: MoeConfig, mesh: Mesh,
+                           use_kernels: bool = True):
+    """Expert-parallel dropless MLP over the mesh's expert axis: the ring
+    where the geometry allows, the psum formulation as fallback and
+    parity oracle (``config.ep_overlap``)."""
+    c = config
+    n_ep, _ = _ep_geometry(c, mesh)
+    t = x.shape[0] * x.shape[1]
+    ring_ok = n_ep > 1 and t % n_ep == 0
+    if c.ep_overlap == "ring" and not ring_ok:
+        raise ValueError(
+            f"ep_overlap='ring' needs the token count ({t}) to divide "
+            f"the expert axis ({n_ep}); use 'auto' or 'psum'"
+        )
+    if c.ep_overlap not in ("auto", "ring", "psum"):
+        raise ValueError(
+            f"unknown ep_overlap {c.ep_overlap!r}; valid: auto, ring, "
+            "psum"
+        )
+    if c.ep_overlap != "psum" and ring_ok:
+        return _moe_block_dropless_ep_ring(x, layer, c, mesh, use_kernels)
+    return _moe_block_dropless_ep_psum(x, layer, c, mesh, use_kernels)
+
+
+def _moe_block_dropless_ep_psum(x, layer, config: MoeConfig, mesh: Mesh,
+                                use_kernels: bool = True):
+    """Replicate-and-reduce expert parallelism: the routing of the whole
+    batch is computed once (the reference computes the same, replicated,
+    on every shard), each shard runs the pairs routed to its local
+    experts over the whole batch, and the sum of the shards'
+    contributions is the psum. Each (token, expert) pair runs on exactly
+    one shard, so the sum equals the single-device dropless result up to
+    the order of the sum."""
+    c = config
+    n_ep, e_loc = _ep_geometry(c, mesh)
+    b, s, h = x.shape
+    t = b * s
+    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps).reshape(t, h)
+    gates, experts, _probs, aux = _route_topk(xn, layer["wr"], c)
+    w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
+    w_down = _expert_shards(layer["w_down"], mesh, e_loc)
+    out = None
+    for i, dev in enumerate(mesh.devices):
+        contrib = _pairs_mlp(
+            xn.to(dev), gates.to(dev), experts.to(dev), w_gu[i], w_down[i],
+            c, lo=i * e_loc, e_loc=e_loc, use_kernels=use_kernels,
+        ).to(x.device)
+        out = contrib if out is None else out + contrib
+    # The full [T, H] reduction: this path's traffic against the ring's.
+    collectives.emit(
+        "moe.ep_psum.combine", collectives.MEDIUM_ICI,
+        collectives.all_reduce_bytes(
+            collectives.payload_bytes(contrib.shape, contrib.dtype), n_ep,
+        ),
+    )
+    return x + out.reshape(b, s, h).to(x.dtype), aux
+
+
+def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
+                                use_kernels: bool = True):
+    """Ring expert parallelism: the all-to-all in n_ep hops. Chunk i of
+    the tokens starts on shard i; at each hop every shard routes the chunk
+    it holds (chunk (i - hop) mod n_ep), runs its local experts on it and
+    adds the result to a carrier that rotates with the chunk, so after
+    n_ep carrier hops chunk i's output is back on shard i, and the
+    concatenation in shard order restores the token order. The next
+    chunk's hop is issued before the hop's expert work, as in the
+    reference (on one card the stream orders the two).
+
+    The row buffers are [T k / n_ep, H] per shard and hop, against the
+    psum path's [T k, H]. The Switch aux statistics come from hop 0 (each
+    shard's own chunk) and are averaged over the shards: equal to the
+    whole batch's up to the f32 order of the means."""
+    c = config
+    n_ep, e_loc = _ep_geometry(c, mesh)
+    b, s, h = x.shape
+    e = c.n_experts
+    t = b * s
+    t_loc = t // n_ep
+    devs = mesh.devices
+    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps).reshape(t, h)
+    wr = [layer["wr"].to(d) for d in devs]
+    w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
+    w_down = _expert_shards(layer["w_down"], mesh, e_loc)
+    x_cur = [xn[i * t_loc:(i + 1) * t_loc].to(d) for i, d in enumerate(devs)]
+    y = [torch.zeros(t_loc, h, dtype=torch.float32, device=d) for d in devs]
+    frac, meanprob = [None] * n_ep, [None] * n_ep
+    for hop in range(n_ep):
+        if hop < n_ep - 1:
+            x_nxt = ring_permute(x_cur, "expert", n_ep, site="moe.ep_ring.x")
+        for i in range(n_ep):
+            gates, experts, probs, _aux = _route_topk(x_cur[i], wr[i], c)
+            if hop == 0:
+                frac[i] = _one_hot(experts[:, 0], e, probs.dtype).mean(0)
+                meanprob[i] = probs.mean(0)
+            y[i] = y[i] + _pairs_mlp(
+                x_cur[i], gates, experts, w_gu[i], w_down[i], c,
+                lo=i * e_loc, e_loc=e_loc, use_kernels=use_kernels,
+            )
+        y = ring_permute(y, "expert", n_ep, site="moe.ep_ring.y")
+        if hop < n_ep - 1:
+            x_cur = x_nxt
+    out = torch.cat([yi.to(x.device) for yi in y], dim=0)
+    collectives.emit(
+        "moe.ep_ring.all_gather", collectives.MEDIUM_ICI,
+        collectives.all_gather_bytes(
+            collectives.payload_bytes(y[0].shape, y[0].dtype), n_ep),
+    )
+    frac = torch.stack([f.to(x.device) for f in frac]).mean(0)
+    meanprob = torch.stack([p.to(x.device) for p in meanprob]).mean(0)
+    collectives.emit(
+        "moe.ep_ring.aux", collectives.MEDIUM_ICI,
+        2 * collectives.all_reduce_bytes(
+            collectives.payload_bytes(frac.shape, frac.dtype), n_ep),
+        invocations=2,
+    )
+    aux = e * torch.sum(frac * meanprob)
+    return x + out.reshape(b, s, h).to(x.dtype), aux
+
+
 def _note_first_use(impl: str, dispatch: str, tokens: int) -> None:
     key = f"{impl}:{dispatch}:t{tokens}"
     if key in MOE_TRACE_COUNTS:
@@ -375,25 +600,46 @@ def _note_first_use(impl: str, dispatch: str, tokens: int) -> None:
         observer("moe_block", f"{impl}:{dispatch}", {"tokens": tokens})
 
 
-def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
+def _moe_block(x, layer, config: MoeConfig, mesh: Mesh | None = None,
+               use_kernels: bool = True):
     """Sparse MLP: route -> dispatch -> experts -> combine -> residual.
     Returns (x, aux). ``config.moe_impl`` picks the formulation ("auto"
     resolved by :func:`resolve_moe_impl`); this body is the einsum one.
     ``use_kernels=False`` runs the plain versions of RMSNorm, K7 and K8
-    (and of ``int8_matmul`` for int8 experts) even on CUDA tensors.
-    Single device only: expert parallelism is not ported."""
+    (and of ``int8_matmul`` for int8 experts) even on CUDA tensors. On a
+    ``mesh`` with an expert axis larger than 1, dropless runs expert
+    parallel (ring or psum) and einsum splits its experts over the shards;
+    binned refuses, as in the reference."""
     c = config
     tokens = x.shape[0] * x.shape[1]
-    impl = resolve_moe_impl(c, tokens)
+    if mesh is not None:
+        require_expert_only(mesh, "the MoE block")
+    # An expert axis of size 1 shards nothing -- treat it as absent.
+    expert_mesh = mesh is not None and mesh.shape.get("expert", 1) > 1
+    if not expert_mesh and any(isinstance(p, Sharded)
+                               for p in _parts(layer["w_gateup"])):
+        raise ValueError("sharded expert stacks need the mesh they were "
+                         "sharded on (mesh=...)")
+    impl = resolve_moe_impl(c, tokens, expert_mesh=expert_mesh)
     _note_first_use(
         impl,
         moe_dispatch.dispatch_impl_label(c.hidden, c.mlp_hidden,
                                          device=x.device),
         tokens,
     )
+    if impl in ("binned", "grouped") and expert_mesh:
+        # binned carries no expert placement; its routing and drops are
+        # the einsum path's, which does.
+        raise ValueError(
+            f"moe_impl={c.moe_impl!r} does not support an expert-sharded "
+            "mesh; use 'einsum'/'auto' (same drop semantics) or "
+            "'dropless' for expert-parallel runs"
+        )
     if impl in ("binned", "grouped"):   # "grouped": the megablocks term
         return _moe_block_binned(x, layer, c, use_kernels=use_kernels)
     if impl == "dropless":
+        if expert_mesh:
+            return _moe_block_dropless_ep(x, layer, c, mesh, use_kernels)
         return _moe_block_dropless(x, layer, c, use_kernels=use_kernels)
     if impl != "einsum":
         raise ValueError(
@@ -412,8 +658,19 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _route(probs, c, cap)
     xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
-    ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
-                  use_kernels)
+    if expert_mesh:
+        # [E, ...] is expert-major: shard i runs experts [lo, lo + e_loc)
+        # with its weights, and the results concatenate along E.
+        _, e_loc = _ep_geometry(c, mesh)
+        w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
+        w_down = _expert_shards(layer["w_down"], mesh, e_loc)
+        ye = torch.cat([
+            _experts(xe[i * e_loc:(i + 1) * e_loc].to(dev), w_gu[i],
+                     w_down[i], x.dtype, use_kernels).to(x.device)
+            for i, dev in enumerate(mesh.devices)], dim=0)
+    else:
+        ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
+                      use_kernels)
     out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
     out = out.reshape(b, s, h)
     return x + out.to(x.dtype), aux
@@ -534,10 +791,11 @@ def _moe_block_binned(x, layer, config: MoeConfig,
     return x + out.reshape(b, s, h).to(x.dtype), aux
 
 
-def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):
+def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool,
+           mesh: Mesh | None = None):
     """One layer: attention, then the sparse MLP. Returns (x, aux)."""
     x = _attention_block(x, layer, config, cos, sin, use_kernels)
-    return _moe_block(x, layer, config, use_kernels=use_kernels)
+    return _moe_block(x, layer, config, mesh, use_kernels=use_kernels)
 
 
 def forward(
@@ -548,13 +806,17 @@ def forward(
     return_hidden: bool = False,
     remat_policy: str = "full",
     use_kernels: bool = True,
+    mesh: Mesh | None = None,
 ):
-    """Causal LM forward on one device. Returns (logits [B, S, V] f32, or
-    the final hidden states with ``return_hidden``, and the aux loss
-    averaged over layers). Differentiable; ``remat`` takes the dense
-    trunk's policies ("full" checkpoints each layer, the named ones raise
-    as in ``llama.forward``). Weights are unbound per layer once, as
-    ``llama.forward`` does. Meshes and ring attention are not ported."""
+    """Causal LM forward. Returns (logits [B, S, V] f32, or the final
+    hidden states with ``return_hidden``, and the aux loss averaged over
+    layers). Differentiable; ``remat`` takes the dense trunk's policies
+    ("full" checkpoints each layer, the named ones raise as in
+    ``llama.forward``). Weights are unbound per layer once, as
+    ``llama.forward`` does. On a ``mesh`` (expert axis only) the MoE
+    blocks run expert parallel (the module docstring); the trunk runs on
+    the mesh's first device, where ``tokens`` and the replicated weights
+    live. Ring attention is not ported."""
     c = config
     s = tokens.shape[1]
     x = q_lookup(params["embed"], tokens, c.dtype)
@@ -565,7 +827,7 @@ def forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in layers.items()}
-        x, aux_l = block(x, layer, c, cos, sin, use_kernels)
+        x, aux_l = block(x, layer, c, cos, sin, use_kernels, mesh)
         aux = aux + aux_l
     aux = aux / c.n_layers
     x = _norm(use_kernels)(x, params["final_norm"], c.norm_eps)

@@ -26,7 +26,8 @@
   axis (``w[i]``, ``w.unbind(0)``), so the layer loops index quantized
   and float stacks alike.
 
-``quantize_specs`` (sharding) is not ported: the port has no mesh yet.
+:func:`quantize_specs` maps a float spec tree (``moe.param_specs``)
+onto the quantized tree for ``parallel.sharding.shard_pytree``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import itertools
 import torch
 
 from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
+from ..parallel.sharding import P
 
 
 @dataclasses.dataclass
@@ -118,6 +120,21 @@ def _map_quant_tree(tree: dict, leaf_fn) -> dict:
 def quantize_params(params: dict) -> dict:
     """Quantize every large matmul weight of a Llama or MoE param dict."""
     return _map_quant_tree(params, _quantize_sliced)
+
+
+def quantize_specs(specs: dict) -> dict:
+    """A float spec tree mapped onto :func:`quantize_params`' tree: each
+    quantized weight becomes a QuantTensor of specs, q keeping the
+    weight's spec and the scale dropping the contraction axis's placement
+    (a length-1 axis cannot be split). The same traversal as
+    :func:`quantize_params`, so the two trees match."""
+
+    def one(spec, axis):
+        scale_spec = P(*[None if i == axis else s
+                         for i, s in enumerate(spec)])
+        return QuantTensor(q=spec, scale=scale_spec)
+
+    return _map_quant_tree(specs, one)
 
 
 # ---------------------------------------------------------------------------

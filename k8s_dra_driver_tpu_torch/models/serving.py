@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import require_expert_only
 from .decode import _forward_with_cache, _require_supported, sample
 from .moe import resolve_moe_impl
 from .paged import (
@@ -249,7 +250,13 @@ class DecodeEngine:
     captured as CUDA graphs and replayed (see the module docstring);
     ``capture=False`` runs them eagerly there too, to compare the two:
     the same kernels on the same inputs, so the same streams, counters
-    and launch counts.
+    and launch counts. ``mesh`` (``parallel/mesh.py``, expert axis only)
+    serves expert parallel, the reference's ``mesh``: ``params`` placed by
+    ``shard_pytree(params, mesh, moe.param_specs(config))``, the MoE
+    blocks over the mesh's shards (on an expert mesh ``auto`` resolves to
+    einsum; ``moe_impl="dropless"`` runs the ring or psum path, K9's twin
+    inside the captured steps), everything else on the mesh's first
+    device, which is the engine's device unless ``device`` says otherwise.
     """
 
     def __init__(
@@ -268,12 +275,17 @@ class DecodeEngine:
         temperature: float = 0.0,
         prefix_cache: bool = True,
         overlap: bool = True,
+        mesh=None,
         clock=time.monotonic,
         device=None,
         capture: bool = True,
     ):
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         _require_supported(config)
+        if mesh is not None:
+            require_expert_only(mesh, "DecodeEngine")
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs "
@@ -291,6 +303,7 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.temperature = temperature
         self.overlap = overlap
+        self.mesh = mesh
         self._clock = clock
         # What the MoE MLP runs per program, as the reference surfaces it.
         # The prefill program pins its impl at the per-lane chunk width:
@@ -301,12 +314,17 @@ class DecodeEngine:
         self.moe_impl = {}
         self._prefill_config = config
         if hasattr(config, "moe_impl"):
-            prefill_impl = resolve_moe_impl(config, prefill_chunk)
+            expert_mesh = (
+                mesh is not None and mesh.shape.get("expert", 1) > 1
+            )
+            prefill_impl = resolve_moe_impl(config, prefill_chunk,
+                                            expert_mesh=expert_mesh)
             self._prefill_config = dataclasses.replace(
                 config, moe_impl=prefill_impl
             )
             self.moe_impl = {
-                "decode_step": resolve_moe_impl(config, batch_slots),
+                "decode_step": resolve_moe_impl(config, batch_slots,
+                                                expert_mesh=expert_mesh),
                 "prefill_chunk": prefill_impl,
             }
         span = max_seq_len or min(config.max_seq_len,
@@ -376,6 +394,7 @@ class DecodeEngine:
         logits, _ = _forward_with_cache(
             self.params, tokens[:, None], self._cache(tables, lengths),
             self.config, positions=lengths[:, None], active=active != 0,
+            mesh=self.mesh,
         )
         return sample(logits[:, 0], self.temperature, self._generator)
 
@@ -389,7 +408,7 @@ class DecodeEngine:
         logits, _ = _forward_with_cache(
             self.params, chunks, self._cache(tables, starts),
             self._prefill_config, positions, n_valid=n_valid,
-            active=active != 0,
+            active=active != 0, mesh=self.mesh,
         )
         # Each lane's last VALID column samples its first token.
         last = logits[

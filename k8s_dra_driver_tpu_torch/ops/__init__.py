@@ -1,7 +1,8 @@
 """Ops of the serving and training paths: paged and flash attention, the
 fused MoE dispatch pipeline and its grouped matmuls, the int8-weight
 matmul, and RMSNorm (hand-written Hopper kernels with their plain PyTorch
-versions) and rotary embeddings."""
+versions) and rotary embeddings. ``LAUNCH_COUNTERS`` also lists K9's
+twin, the ring hop of ``parallel/ring.py``."""
 
 from .attention import (
     flash_site,
@@ -44,6 +45,7 @@ from .moe_dispatch import (
 from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
 from .quant_matmul import int8_matmul, int8_matmul_reference
 from .rotary import apply_rope, rope_frequencies
+from ..parallel.ring import ring_permute_kernel
 
 #: Every launch counter of the kernels' wrappers, as (wrapper, attribute).
 #: A wrapper adds to its counter in Python where it launches, so under a
@@ -64,6 +66,7 @@ LAUNCH_COUNTERS = (
     (grouped_matmul, "launches"),
     (grouped_weight_grad, "launches"),
     (rmsnorm, "launches"),
+    (ring_permute_kernel, "launches"),
     (int8_matmul, "launches"),
     (int8_matmul, "wide_launches"),
     (int8_matmul, "wide_prologue_launches"),
@@ -112,4 +115,5 @@ __all__ = [
     "RMSNormFunction",
     "apply_rope",
     "rope_frequencies",
+    "ring_permute_kernel",
 ]

@@ -3,14 +3,15 @@ compute-plane telemetry (models/compute_telemetry.py). Counterpart of
 ``k8s_dra_driver_tpu/parallel/collectives.py``, copied as it is.
 
 Each collective site calls :func:`emit` with an *analytic* byte volume
-derived from static shapes. The port has no such site yet: the ring
-permutes, ring attention and the expert-parallel combines come with the
-device mesh. The call happens in host Python — at capture for sites
-inside a captured CUDA graph, at call time for eager and host-level
-sites — so the accounting never adds a launch to a step and can never
-perturb tokens, tick counts, or the compile-once counters. With no
-ledger installed, :func:`emit` is a single list-truthiness check: the
-zero-cost contract tests/test_torch_compute_telemetry.py pins.
+derived from static shapes: the ring hops (``parallel/ring.py``) and
+the expert-parallel combines of ``models/moe.py``. The call happens in
+host Python — at capture for sites inside a captured CUDA graph (a
+``StepGraph``'s warm-up runs record nothing), at call time for eager
+and host-level sites — so the accounting never adds a launch to a step
+and can never perturb tokens, tick counts, or the compile-once
+counters. With no ledger installed, :func:`emit` is a single
+list-truthiness check: the zero-cost contract
+tests/test_torch_compute_telemetry.py pins.
 
 Accounting convention (pinned by tests/test_torch_compute_telemetry.py): a
 record's ``bytes`` is the total fabric traffic of one logical invocation
@@ -29,7 +30,10 @@ algorithms —
 Sites inside a captured step fire once per *capture* (per program
 build), not per replay — the record is the per-invocation volume of the
 captured program; multiply by the program's step counters for cumulative
-traffic. Eager calls and host-level sites fire per call.
+traffic. Eager calls and host-level sites fire per call. A site inside
+the layer loop fires once per layer: the record is what the program
+moves. (The reference's layers run under ``lax.scan``, whose body traces
+once, so its record is one layer's.)
 """
 
 from __future__ import annotations
@@ -78,6 +82,10 @@ def emit(site: str, medium: str, nbytes: int, invocations: int = 1) -> None:
     """Record ``nbytes`` of fabric traffic for ``site``. No-op (one
     truthiness check) unless a ledger is installed."""
     if not _LEDGERS:
+        return
+    from ..models.step_graph import phase
+
+    if phase() == "warmup":
         return
     with _LOCK:
         for ledger in _LEDGERS:

@@ -23,6 +23,7 @@ launch counters are identical. Last, the doctor's compute checks
 loader run on both packages with equal findings and rows.
 """
 
+import dataclasses
 import json
 import os
 import urllib.error
@@ -213,6 +214,23 @@ class TestCollectiveConvention:
         collectives.emit("nowhere", collectives.MEDIUM_ICI, 1 << 40)
         assert not collectives._LEDGERS
 
+    def test_emit_skips_graph_warmups(self):
+        """A captured step's warm-up runs record nothing: its capture
+        records the program's traffic once (``models/step_graph.py``)."""
+        from k8s_dra_driver_tpu_torch.models import step_graph
+
+        ledger = collectives.CollectiveLedger()
+        ledger.install()
+        try:
+            with step_graph._in_phase("warmup"):
+                collectives.emit("a.site", "ici", 100)
+            with step_graph._in_phase("capture"):
+                collectives.emit("a.site", "ici", 10)
+        finally:
+            ledger.uninstall()
+        assert ledger.snapshot() == [{"site": "a.site", "medium": "ici",
+                                      "bytes": 10, "invocations": 1}]
+
     def test_ledger_records_and_uninstalls(self):
         ledger = collectives.CollectiveLedger()
         ledger.install()
@@ -231,6 +249,134 @@ class TestCollectiveConvention:
              "bytes": 7, "invocations": 1},
         ]
         json.dumps(snap)
+
+
+class TestCollectiveRingVsPsum:
+    """The twin of the reference's MoE expert-parallel A/B: both EP paths'
+    fabric traffic equals the analytic ring-algorithm volumes on
+    ``tiny-moe`` over a 4-shard expert mesh, and equals the reference's
+    record times the layer count (the port's eager layer loop records
+    each layer; the reference's ``lax.scan`` body traces once)."""
+
+    @pytest.fixture(scope="class")
+    def moe_setup(self):
+        from k8s_dra_driver_tpu.models import moe as rmoe
+        from k8s_dra_driver_tpu.parallel import MeshConfig as RMeshConfig
+        from k8s_dra_driver_tpu.parallel import build_mesh as rbuild_mesh
+        from k8s_dra_driver_tpu.parallel.sharding import (
+            shard_pytree as rshard,
+        )
+        from k8s_dra_driver_tpu_torch.models import moe
+        from k8s_dra_driver_tpu_torch.parallel import (
+            MeshConfig,
+            build_mesh,
+            shard_pytree,
+        )
+
+        rcfg, cfg = rmoe.MOE_PRESETS["tiny-moe"], moe.MOE_PRESETS["tiny-moe"]
+        rp = rmoe.init_params(rcfg, jax.random.PRNGKey(0))
+        p = params_from_numpy(jax.tree.map(np.asarray, rp), cfg,
+                              device="cpu")
+        rmesh = rbuild_mesh(RMeshConfig(expert=4), devices=jax.devices()[:4])
+        mesh = build_mesh(MeshConfig(expert=4),
+                          devices=[torch.device("cpu")] * 4)
+        tokens = np.asarray(jax.random.randint(
+            jax.random.PRNGKey(1), (2, 64), 0, cfg.vocab_size))
+        return {
+            "ref": (rmoe, rcfg, rmesh,
+                    rshard(rp, rmesh, rmoe.param_specs(rcfg))),
+            "port": (moe, cfg, mesh,
+                     shard_pytree(p, mesh, moe.param_specs(cfg))),
+            "tokens": tokens, "cache": {},
+        }
+
+    def _run(self, moe_setup, mode, side="port"):
+        key = (side, mode)
+        if key in moe_setup["cache"]:
+            return moe_setup["cache"][key]
+        mod, cfg, mesh, sharded = moe_setup[side]
+        run_cfg = dataclasses.replace(cfg, moe_impl="dropless",
+                                      ep_overlap=mode)
+        tokens = moe_setup["tokens"]
+        coll = rcollectives if side == "ref" else collectives
+        ledger = coll.CollectiveLedger()
+        ledger.install()
+        try:
+            if side == "ref":
+                jax.jit(lambda p, t: mod.forward(p, t, run_cfg, mesh=mesh))(
+                    sharded, jax.numpy.asarray(tokens))
+            else:
+                mod.forward(sharded, torch.tensor(tokens), run_cfg, mesh=mesh)
+        finally:
+            ledger.uninstall()
+        sites = {(s, m): tuple(c) for (s, m), c in ledger.sites.items()}
+        moe_setup["cache"][key] = sites
+        return sites
+
+    @pytest.mark.parametrize("mode", ["ring", "psum"])
+    def test_port_records_the_reference_times_layers(self, moe_setup, mode):
+        _, cfg, _, _ = moe_setup["port"]
+        ref = self._run(moe_setup, mode, "ref")
+        assert self._run(moe_setup, mode) == {
+            k: (b * cfg.n_layers, n * cfg.n_layers)
+            for k, (b, n) in ref.items()}
+
+    def test_ring_path_matches_analytic_volumes(self, moe_setup):
+        _, cfg, _, _ = moe_setup["port"]
+        n_ep, e, layers = 4, cfg.n_experts, cfg.n_layers
+        t, h = 2 * 64, cfg.hidden
+        t_loc = t // n_ep
+        item = 4  # tiny-moe is f32; the carrier is f32 by construction
+        sites = self._run(moe_setup, "ring")
+        assert sites[("moe.ep_ring.x", "ici")] == (
+            layers * (n_ep - 1) * n_ep * t_loc * h * item,
+            layers * (n_ep - 1),
+        )
+        assert sites[("moe.ep_ring.y", "ici")] == (
+            layers * n_ep * n_ep * t_loc * h * 4, layers * n_ep,
+        )
+        assert sites[("moe.ep_ring.all_gather", "ici")] == (
+            layers * n_ep * (n_ep - 1) * t_loc * h * 4, layers,
+        )
+        assert sites[("moe.ep_ring.aux", "ici")] == (
+            layers * 2 * 2 * (n_ep - 1) * e * 4, layers * 2,
+        )
+        assert ("moe.ep_psum.combine", "ici") not in sites
+
+    def test_psum_path_matches_analytic_volume(self, moe_setup):
+        _, cfg, _, _ = moe_setup["port"]
+        n_ep, layers = 4, cfg.n_layers
+        t, h = 2 * 64, cfg.hidden
+        sites = self._run(moe_setup, "psum")
+        assert sites[("moe.ep_psum.combine", "ici")] == (
+            layers * 2 * (n_ep - 1) * t * h * 4, layers,
+        )
+        assert not any(s.startswith("moe.ep_ring") for s, _ in sites)
+
+    def test_sharded_weights_count_once(self, moe_setup):
+        """The HBM ledger's weight bytes of a sharded params dict equal the
+        whole dict's (each shard counted once)."""
+        from k8s_dra_driver_tpu_torch.parallel import Sharded
+
+        _, cfg, mesh, sharded = moe_setup["port"]
+        whole = {k: v for k, v in sharded.items() if k != "layers"}
+        whole["layers"] = {k: (v.gather() if isinstance(v, Sharded) else v)
+                           for k, v in sharded["layers"].items()}
+        assert whole["layers"]["w_down"].shape[1] == cfg.n_experts
+        assert ct.tree_nbytes(sharded) == ct.tree_nbytes(whole) > 0
+
+    def test_ring_per_hop_buffer_is_psum_fraction(self, moe_setup):
+        """The ring ships 1/n_ep of the tokens a hop where psum reduces
+        the full [t, h]."""
+        _, cfg, _, _ = moe_setup["port"]
+        ring = self._run(moe_setup, "ring")
+        psum = self._run(moe_setup, "psum")
+        n_ep, layers = 4, cfg.n_layers
+        chunk = ring[("moe.ep_ring.x", "ici")][0] // (
+            layers * (n_ep - 1) * n_ep)
+        payload = psum[("moe.ep_psum.combine", "ici")][0] // (
+            layers * 2 * (n_ep - 1))
+        assert chunk * n_ep == payload
 
 
 class TestCompileLedger:

@@ -1162,3 +1162,47 @@ def test_moe_wrappers_refuse_a_bad_launch(dev):
     with pytest.raises(RuntimeError, match="error -1"):  # 256 columns
         md._gateup_launch("moe_gateup", xf, gu[0], None, plan,
                           md.MoePlan("wgmma", 256, "wgmma", 64, 1, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shift", [(2, 1), (4, 1), (4, -1), (4, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_ring_permute_matches_its_plain_version(dev, n, shift, dtype):
+    """K9's twin (``csrc/ring_permute.cu``) against its plain version, bit
+    for bit: four shards of one card, a size of no whole 16-byte word (100
+    x 37 elements) and views at a nonzero storage offset (rows of one
+    buffer, which start 2- or 4-byte aligned for the narrow types); the
+    gradient is the inverse rotation; one launch a call; no host sync."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n * 10 + shift)
+    whole = torch.randn(n * 100 * 37 + 1, generator=g, device=dev)
+    if dtype == torch.int8:
+        whole = (whole * 40).to(torch.int8)
+    else:
+        whole = whole.to(dtype)
+    xs = [whole[1 + i * 3700:1 + (i + 1) * 3700].view(100, 37)
+          for i in range(n)]
+    assert all(x.storage_offset() > 0 for x in xs)
+    before = ring.ring_permute_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ring.ring_permute(xs, "expert", n, shift=shift)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ring.ring_permute_kernel.launches == before + 1
+    ref = ring.ring_permute_reference(xs, shift)
+    for o, r in zip(out, ref):
+        assert o.device == r.device and torch.equal(o, r)
+    if dtype == torch.float32:
+        leaves = [x.clone().requires_grad_() for x in xs]
+        w = [torch.randn(100, 37, generator=g, device=dev) for _ in xs]
+        sum((o * wi).sum() for o, wi in zip(
+            ring.ring_permute(leaves, "expert", n, shift=shift), w)
+            ).backward()
+        for got, want in zip([x.grad for x in leaves],
+                             ring.ring_permute_reference(w, -shift)):
+            assert torch.equal(got, want)

@@ -272,8 +272,10 @@ def test_first_use_counter_and_unported_paths(params):
     # tests/test_torch_moe_train.py).
     loss = moe.loss_fn(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
     assert loss.dim() == 0 and torch.isfinite(loss)
-    with pytest.raises(NotImplementedError):
-        moe.param_specs(CFG)
+    # param_specs is ported (expert parallelism, tests/test_torch_moe_ep.py);
+    # the pipelined forward is not.
+    assert moe.param_specs(CFG)["layers"]["w_down"] == (
+        None, "expert", "tensor", "fsdp")
     with pytest.raises(NotImplementedError):
         moe.forward_pipelined(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
 

@@ -1,0 +1,236 @@
+"""Expert-parallel MoE serving on a single-controller mesh against the JAX
+package's: the twin of ``tests/test_moe.py::TestRingOverlapEP``.
+
+The reference shards ``tiny-moe`` (f32) over a 4-shard ``expert`` mesh of
+conftest's virtual CPU devices and runs its ``shard_map`` bodies; the port
+shards the same weights (converted by ``params_from_numpy``) over a mesh
+of 4 CPU shards (``build_mesh(..., devices=[cpu] * 4)``) and runs its
+bodies over all shards at once. Tolerances, the reference's own: the ring
+and psum forwards within atol/rtol 3e-5 of the reference's EP forward and
+of single-device dropless (f32 sums in another order, the psum's and the
+aux means' included), aux within 1e-5; the int8 stacks within 1e-4 (the
+reference's int8 EP pin). The EP engine's greedy streams must equal the
+reference's EP engine's (``DecodeEngine(mesh=...)``, which runs on the
+CPU there) token for token.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_tpu.models import moe as jmoe
+from k8s_dra_driver_tpu.models import quant as jquant
+from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
+from k8s_dra_driver_tpu.parallel import MeshConfig as JMeshConfig
+from k8s_dra_driver_tpu.parallel import build_mesh as jbuild_mesh
+from k8s_dra_driver_tpu.parallel.sharding import shard_pytree as jshard
+from k8s_dra_driver_tpu_torch.models import moe, quant
+from k8s_dra_driver_tpu_torch.models.convert import params_from_numpy
+from k8s_dra_driver_tpu_torch.models.serving import DecodeEngine
+from k8s_dra_driver_tpu_torch.parallel import (
+    MeshConfig,
+    Sharded,
+    build_mesh,
+    shard_pytree,
+)
+
+JCFG = jmoe.MOE_PRESETS["tiny-moe"]
+CFG = moe.MOE_PRESETS["tiny-moe"]
+N_EP = 4
+TOL = dict(atol=3e-5, rtol=3e-5)
+CPU = torch.device("cpu")
+
+MODES = ["ring", "psum", "auto_13_tokens", "int8_ring", "int8_psum",
+         "einsum_on_mesh", "specs", "experts_do_not_divide", "data_axis",
+         "binned_refused", "sharded_without_mesh", "engine"]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jp = jmoe.init_params(JCFG, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CFG, device="cpu")
+    jmesh = jbuild_mesh(JMeshConfig(expert=N_EP), devices=jax.devices()[:4])
+    mesh = build_mesh(MeshConfig(expert=N_EP), devices=[CPU] * N_EP)
+    return jp, tp, jmesh, mesh
+
+
+def _tokens(b=2, s=64, seed=1) -> np.ndarray:
+    return np.asarray(jax.random.randint(
+        jax.random.PRNGKey(seed), (b, s), 0, CFG.vocab_size))
+
+
+def _cfgs(**kw):
+    return (dataclasses.replace(JCFG, **kw), dataclasses.replace(CFG, **kw))
+
+
+def _jforward(p, tokens, cfg, mesh=None):
+    if mesh is None:
+        out, aux = jmoe.forward(p, jnp.asarray(tokens), cfg)
+    else:
+        out, aux = jax.jit(
+            lambda p_, t_: jmoe.forward(p_, t_, cfg, mesh=mesh)
+        )(p, jnp.asarray(tokens))
+    return np.asarray(out), float(aux)
+
+
+def _tforward(p, tokens, cfg, mesh=None):
+    out, aux = moe.forward(p, torch.tensor(tokens), cfg, mesh=mesh)
+    return out.numpy(), float(aux)
+
+
+def _ep_forward(setup, mode: str, tokens, quantized=False):
+    """The port's EP forward against the reference's EP forward and the
+    single-device dropless forward of both packages."""
+    jp, tp, jmesh, mesh = setup
+    jcfg, tcfg = _cfgs(moe_impl="dropless", ep_overlap=mode)
+    jspecs, tspecs = jmoe.param_specs(jcfg), moe.param_specs(tcfg)
+    if quantized:
+        jp = jquant.quantize_params(jp)
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), CFG,
+                               device="cpu")
+        jspecs, tspecs = jquant.quantize_specs(jspecs), \
+            quant.quantize_specs(tspecs)
+    sharded = shard_pytree(tp, mesh, tspecs)
+    w = sharded["layers"]["w_gateup"]
+    if quantized:
+        assert isinstance(w, quant.QuantTensor)
+        w = w.q
+    assert isinstance(w, Sharded) and len(w.shards) == N_EP
+    jref, jref_aux = _jforward(jshard(jp, jmesh, jspecs), tokens, jcfg,
+                               jmesh)
+    out, aux = _tforward(sharded, tokens, tcfg, mesh)
+    single, single_aux = _tforward(
+        tp, tokens, dataclasses.replace(tcfg, ep_overlap="auto"))
+    tol = dict(atol=1e-4, rtol=1e-4) if quantized else TOL
+    if not quantized:
+        # Whole stacks on a mesh are cut per call, as a shard_map cuts an
+        # unsharded input: the same numbers.
+        np.testing.assert_array_equal(_tforward(tp, tokens, tcfg, mesh)[0],
+                                      out)
+    np.testing.assert_allclose(out, jref, **tol)
+    np.testing.assert_allclose(out, single, **tol)
+    assert abs(aux - jref_aux) < 1e-5 and abs(aux - single_aux) < 1e-5
+    return out
+
+
+def _engine_streams(eng) -> list:
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, CFG.vocab_size, size=n).tolist()
+               for n in (5, 9, 13)]
+    reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    eng.run()
+    eng.assert_no_leaks()
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_expert_parallel(setup, mode):
+    jp, tp, jmesh, mesh = setup
+    if mode in ("ring", "psum"):
+        _ep_forward(setup, mode, _tokens())
+    elif mode == "auto_13_tokens":
+        # 13 tokens do not chunk over 4 shards: "auto" takes psum, "ring"
+        # refuses.
+        t = _tokens(b=1, s=13)
+        _ep_forward(setup, "auto", t)
+        _, tcfg = _cfgs(moe_impl="dropless", ep_overlap="ring")
+        with pytest.raises(ValueError, match="ep_overlap='ring'"):
+            moe.forward(tp, torch.tensor(t), tcfg, mesh=mesh)
+    elif mode in ("int8_ring", "int8_psum"):
+        _ep_forward(setup, mode.split("_")[1], _tokens(), quantized=True)
+    elif mode == "einsum_on_mesh":
+        # "auto" resolves to einsum on an expert mesh; each shard runs its
+        # experts' rows of the dispatched tensor.
+        jcfg, tcfg = _cfgs(capacity_factor=1.0)
+        assert moe.resolve_moe_impl(tcfg, 128, expert_mesh=True) == "einsum"
+        t = _tokens()
+        sharded = shard_pytree(tp, mesh, moe.param_specs(tcfg))
+        jref, jaux = _jforward(jshard(jp, jmesh, jmoe.param_specs(jcfg)), t,
+                               jcfg, jmesh)
+        out, aux = _tforward(sharded, t, tcfg, mesh)
+        single, _ = _tforward(tp, t, dataclasses.replace(
+            tcfg, moe_impl="einsum"))
+        np.testing.assert_allclose(out, jref, **TOL)
+        np.testing.assert_allclose(out, single, **TOL)
+        assert abs(aux - jaux) < 1e-5
+    elif mode == "specs":
+        tspecs, jspecs = moe.param_specs(CFG), jmoe.param_specs(JCFG)
+        for got, want in ((tspecs, jspecs),
+                          (quant.quantize_specs(tspecs),
+                           jquant.quantize_specs(jspecs))):
+            flat_j = jax.tree_util.tree_leaves_with_path(
+                want, is_leaf=lambda s: isinstance(
+                    s, jax.sharding.PartitionSpec))
+            flat_t = {jax.tree_util.keystr(path): tuple(spec) for path, spec
+                      in _flatten(got)}
+            assert len(flat_t) == len(flat_j) >= 10
+            assert flat_t == {jax.tree_util.keystr(path): tuple(spec)
+                              for path, spec in flat_j}
+        # The spec tree must match the parameter tree: int8 weights take
+        # quantize_specs.
+        with pytest.raises(TypeError, match="quantize_specs"):
+            shard_pytree(quant.quantize_params(tp), mesh, tspecs)
+    elif mode == "experts_do_not_divide":
+        mesh3 = build_mesh(MeshConfig(expert=3), devices=[CPU] * 3)
+        _, tcfg = _cfgs(moe_impl="dropless")
+        with pytest.raises(ValueError, match="does not divide"):
+            moe.forward(tp, torch.tensor(_tokens()), tcfg, mesh=mesh3)
+    elif mode == "data_axis":
+        mesh_dp = build_mesh(MeshConfig(data=2, expert=2), devices=[CPU] * 4)
+        _, tcfg = _cfgs(moe_impl="dropless")
+        with pytest.raises(NotImplementedError, match="A12"):
+            moe.forward(tp, torch.tensor(_tokens()), tcfg, mesh=mesh_dp)
+        with pytest.raises(NotImplementedError, match="A12"):
+            shard_pytree(tp, mesh_dp, moe.param_specs(tcfg))
+        with pytest.raises(NotImplementedError, match="A12"):
+            DecodeEngine(tp, tcfg, mesh=mesh_dp, device="cpu")
+    elif mode == "binned_refused":
+        _, tcfg = _cfgs(moe_impl="binned")
+        with pytest.raises(ValueError, match="expert-sharded"):
+            moe.forward(tp, torch.tensor(_tokens()), tcfg, mesh=mesh)
+    elif mode == "sharded_without_mesh":
+        sharded = shard_pytree(tp, mesh, moe.param_specs(CFG))
+        # Views of the whole stack on one device: no copy, no new memory.
+        w = tp["layers"]["w_gateup"]
+        shards = sharded["layers"]["w_gateup"].shards
+        assert all(s.untyped_storage().data_ptr()
+                   == w.untyped_storage().data_ptr() for s in shards)
+        assert sharded["layers"]["wqkv"] is tp["layers"]["wqkv"]
+        assert torch.equal(sharded["layers"]["w_gateup"].gather(), w)
+        with pytest.raises(ValueError, match="mesh"):
+            moe.forward(sharded, torch.tensor(_tokens()), CFG)
+    else:
+        # The EP engine: 4 slots decode 4 tokens a step (ring), 4 lanes of
+        # 8-token chunks prefill 32 (ring), against the reference's EP
+        # engine on its virtual mesh.
+        jcfg, tcfg = _cfgs(capacity_factor=8.0, moe_impl="dropless")
+        kw = dict(batch_slots=4, num_blocks=16, block_size=8,
+                  max_seq_len=32, prefill_chunk=8)
+        ref = _engine_streams(JEngine(
+            jshard(jp, jmesh, jmoe.param_specs(jcfg)), jcfg, mesh=jmesh,
+            **kw))
+        eng = DecodeEngine(shard_pytree(tp, mesh, moe.param_specs(tcfg)),
+                           tcfg, mesh=mesh, device="cpu", **kw)
+        assert eng.device == CPU and eng.mesh is mesh
+        assert eng.moe_impl == {"decode_step": "dropless",
+                                "prefill_chunk": "dropless"}
+        assert _engine_streams(eng) == ref
+        assert eng.compile_counts == {"decode_step": 1, "prefill_chunk": 1}
+
+
+def _flatten(tree, path=()):
+    """(key path, spec) pairs of the port's spec tree, keyed as jax's
+    ``keystr`` renders the reference's."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], path + (jax.tree_util.DictKey(k),))
+    elif isinstance(tree, quant.QuantTensor):
+        for name in ("q", "scale"):
+            yield from _flatten(getattr(tree, name),
+                                path + (jax.tree_util.GetAttrKey(name),))
+    else:
+        yield path, tree

@@ -80,12 +80,15 @@ def test_read_and_write_launches_round_trip():
 
 
 def test_launch_counters_list_every_counting_wrapper():
-    """Every ``*launches`` attribute of an ops function is in the one
-    list a captured step reads."""
+    """Every ``*launches`` attribute of an ops function (and of the ring
+    hop's kernel wrapper, ``parallel/ring.py``) is in the one list a
+    captured step reads."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
     listed = {(id(fn), attr) for fn, attr in ops.LAUNCH_COUNTERS}
     found = set()
     for module in (ops.attention, ops.moe_dispatch, ops.norms,
-                   ops.quant_matmul):
+                   ops.quant_matmul, ring):
         for obj in vars(module).values():
             if callable(obj):
                 for attr in vars(obj) if hasattr(obj, "__dict__") else ():
