@@ -14,9 +14,10 @@ Mixtral-8x7B (int8 weights and KV cache, 47 GB), with random weights from a
 fixed seed, and checks every hand-written kernel of those paths:
 
 1. builds the CUDA sources of ``k8s_dra_driver_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and the Triton RMSNorm;
+   ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the same inputs
-   at its path's shapes (paged attention and RMSNorm at the engine's,
+   at its path's shapes (paged attention at the engine's, RMSNorm at
+   every row count the paths launch and its gradient at the train steps',
    flash attention forward and backward at the train step's), and times
    kernel, plain version and (where one PyTorch call computes the same
    function) that call; the split-KV decode kernel K2 also at one sequence
@@ -88,11 +89,11 @@ fixed seed, and checks every hand-written kernel of those paths:
     in which the only int8 -> float copy must be the embedding's gathered
     rows;
 16. holds ``int8_matmul`` (``csrc/quant_matmul.cu``) in both modes against
-    its plain version at the seams' shapes (M 8 and 512, K 4096 to N 6144,
-    4096, 32000) and at the einsum MoE body's expert product ([8, 512,
-    4096] against [8, 4096, 28672]), and times it beside a bf16
-    ``torch.matmul`` on a converted weight: M 8 runs its M <= 64 body, M
-    512 and the experts its wgmma body;
+    its plain version at the seams' shapes (M 1, 5, 8, 16, 64 and 512, K
+    4096 to N 6144, 4096, 32000) and at the einsum MoE body's expert
+    product ([8, 512, 4096] against [8, 4096, 28672]), and times it beside
+    a bf16 ``torch.matmul`` on a converted weight: M <= 64 runs its
+    swapped form, M 512 and the experts its wgmma body;
 17. runs one ``prefill`` of a 1024-token prompt on the full-depth int8 model
     (``auto`` takes the einsum MoE body, its expert products through
     ``int8_matmul``'s prologue mode), holds it against the plain forward
@@ -599,40 +600,94 @@ def check_paged(torch, cfg, dev, quantized: bool) -> dict:
 
 def check_kernels(torch, cfg, dev) -> dict:
     """Phase 2: each kernel against its plain version at main-path shapes."""
-    from k8s_dra_driver_tpu_torch.ops import norms
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 60)
-    t = PREFILL_CHUNK
     results = check_paged(torch, cfg, dev, quantized=False)
+    results.update(check_rmsnorm(torch, cfg, dev, gen))
+    return results
 
-    # K1: the prefill chunk's norm input [4, 128, 4096].
-    x = torch.randn((PREFILL_BATCH, t, cfg.hidden), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    w = (1 + 0.1 * torch.randn((cfg.hidden,), generator=gen,
-                               device=dev)).to(torch.bfloat16)
+
+# K1's rows in the kernels line: (row, rows, width) at every shape the
+# paths launch it: a packed prefill chunk (4 x 128 tokens, the row of
+# earlier trees), the decode step, a `1b` draft's step at B 1, the 8B's
+# verify window (k 4 + 1), and the train steps' token counts (4 x 2048 at
+# 8x7b-L1, 8 x 2048 at 8b-L8). The gradient at the two train shapes.
+RMSNORM_SHAPES = (("rmsnorm", 512, 4096), ("rmsnorm_decode", 8, 4096),
+                  ("rmsnorm_draft", 1, 2048), ("rmsnorm_verify", 5, 4096),
+                  ("rmsnorm_train_8k", 8192, 4096),
+                  ("rmsnorm_train", 16384, 4096))
+RMSNORM_BACKWARD_SHAPES = (("rmsnorm_backward_8k", 8192, 4096),
+                           ("rmsnorm_backward", 16384, 4096))
+
+
+def check_rmsnorm(torch, cfg, dev, gen) -> dict:
+    """Phase 2, K1: the forward at each of RMSNORM_SHAPES and its gradient
+    at RMSNORM_BACKWARD_SHAPES (bf16, the 8B's eps), each against its
+    plain version (the forward within 1e-2 of the largest output, the
+    gradient by the bf16 2% / 1% rule) and timed beside its bound and the
+    library: ``F.rms_norm``, and its autograd backward for the gradient.
+    Each row names its launch (``norms.plan``, ``norms.backward_plan``)."""
+    from k8s_dra_driver_tpu_torch.ops import norms
+    from k8s_dra_driver_tpu_torch.ops._device import sm_count
+
+    F = torch.nn.functional
     eps = cfg.norm_eps
-    out = norms.rmsnorm(x, w, eps)
-    ref = norms.rmsnorm_reference(x, w, eps)
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    rel = (diff.max() / ref.float().abs().max()).item()
-    log(f"rmsnorm: max_abs_err={diff.max().item():.3e} rel_err={rel:.3e}")
-    if not bool(torch.isfinite(out.float()).all()) or rel > 1e-2:
-        raise AssertionError(f"rmsnorm rel error {rel} (limit 1e-2)")
-    rows = x.numel() // cfg.hidden
-    t_b, by = bound(2 * x.numel() * 2 + w.numel() * 2,
-                    4 * x.numel(), F32_FLOPS)
-    lib = getattr(torch.nn.functional, "rms_norm", None)
-    results["rmsnorm"] = dict(
-        max_abs_err=diff.max().item(),
-        ms=time_ms(lambda: norms.rmsnorm(x, w, eps)),
-        plain_ms=time_ms(lambda: norms.rmsnorm_reference(x, w, eps)),
-        bound_ms=t_b, bound_by=by,
-        library_ms=(time_ms(lambda: lib(x, (cfg.hidden,), w, eps))
-                    if lib is not None else None),
-        shape=f"x[{rows},{cfg.hidden}]",
-    )
+    results = {}
+
+    def inputs(rows, d):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                   device=dev)).to(torch.bfloat16)
+        return x, w
+
+    for name, rows, d in RMSNORM_SHAPES:
+        x, w = inputs(rows, d)
+        out = norms.rmsnorm(x, w, eps)
+        ref = norms.rmsnorm_reference(x, w, eps)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        r = (diff.max() / ref.float().abs().max()).item()
+        log(f"{name}: max_abs_err={diff.max().item():.3e} rel_err={r:.3e}")
+        if not bool(torch.isfinite(out.float()).all()) or r > 1e-2:
+            raise AssertionError(f"{name} rel error {r} (limit 1e-2)")
+        results[name] = dict(
+            max_abs_err=diff.max().item(),
+            ms=time_ms(lambda: norms.rmsnorm(x, w, eps)),
+            plain_ms=time_ms(lambda: norms.rmsnorm_reference(x, w, eps)),
+            library_ms=time_ms(lambda: F.rms_norm(x, (d,), w, eps)),
+            plan=norms.plan(rows, d)._asdict(),
+            shape=f"x[{rows},{d}]",
+            **bound_fields(name, 2 * x.numel() * 2 + w.numel() * 2,
+                           4 * x.numel(), F32_FLOPS))
+        del x, w, out, ref, diff
+
+    for name, rows, d in RMSNORM_BACKWARD_SHAPES:
+        x, w = inputs(rows, d)
+        g = torch.randn((rows, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        dx, dw = norms.rmsnorm_backward(x, w, g, eps)
+        ref_dx, ref_dw = norms.rmsnorm_backward_reference(x, w, g, eps)
+        torch.cuda.synchronize()
+        err_dx, _ = rel(f"{name} dx", dx, ref_dx)
+        err_dw, _ = rel(f"{name} dw", dw, ref_dw)
+        del dx, dw, ref_dx, ref_dw
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yl = F.rms_norm(xl, (d,), wl, eps)
+        results[name] = dict(
+            max_abs_err=max(err_dx, err_dw),
+            ms=time_ms(lambda: norms.rmsnorm_backward(x, w, g, eps)),
+            plain_ms=time_ms(lambda: norms.rmsnorm_backward_reference(
+                x, w, g, eps)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), g, retain_graph=True)),
+            plan=norms.backward_plan(rows, d, sm_count(dev))._asdict(),
+            shape=f"x, g, dx [{rows},{d}]; dw [{d}]",
+            **bound_fields(name, 3 * x.numel() * 2 + 2 * w.numel() * 2,
+                           8 * x.numel(), F32_FLOPS))
+        del x, w, g, xl, wl, yl
+        torch.cuda.empty_cache()
+    log("rmsnorm:", json.dumps(results))
     return results
 
 
@@ -1340,7 +1395,8 @@ def remat_launches(cfg, impl: str, policy: str) -> dict:
     """The launches a train step implies under ``policy``: K4 once a
     layer where ``flash_out`` is saved (twice under "full": the
     recompute), K5 and K6 once, K1 at both norms of a layer in the
-    forward and the recompute plus the final norm; the fused dropless
+    forward and the recompute plus the final norm, its gradient kernel at
+    both norms of a layer plus the final norm; the fused dropless
     pipeline K7 and K8 twice (``moe_act`` is in no policy), 3 gmm and 2
     tgmm in its backward."""
     from k8s_dra_driver_tpu_torch.models.llama import REMAT_POLICIES
@@ -1351,6 +1407,7 @@ def remat_launches(cfg, impl: str, policy: str) -> dict:
     return {"flash_fwd": layers * (1 if "flash_out" in saved else 2),
             "flash_bwd_dkdv": layers, "flash_bwd_dq": layers,
             "rmsnorm": 4 * layers + 1,
+            "rmsnorm_backward": 2 * layers + 1,
             "moe_gateup": 2 * layers * fused,
             "moe_down_combine": 2 * layers * fused,
             "grouped_matmul": 3 * layers * fused,
@@ -1516,10 +1573,13 @@ def checkpoint_resume(torch, dev, cfg, batch: int) -> dict:
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
-    # int8_matmul's wgmma body (M > 64), then its M <= 64 body and the
+    # int8_matmul's wgmma body (M > 64), then its M <= 64 body (the
+    # swapped form; int8_matmul_kernel: the mma.sync body before it, so a
+    # tree from before the redesign is profiled the same way) and the
     # split-K pass both bodies share.
     ("int8_matmul_wide", ("int8_matmul_wide_kernel",)),
-    ("int8_matmul", ("int8_matmul_kernel", "int8_matmul_reduce")),
+    ("int8_matmul", ("int8_matmul_swap_kernel", "int8_matmul_kernel",
+                     "int8_matmul_reduce")),
     # The int8 branches first: the bf16 groups' substrings match them too.
     # K2 and K3 by kernel; each group also takes the names of the earlier
     # single-body design (paged_attention_kernel<D, ROWS, DECODE, QUANT>),
@@ -1565,7 +1625,10 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     # gmm, 1 is tgmm.
     ("tgmm", ("grouped_kernel<1,",)),
     ("gmm", ("grouped_kernel<0,",)),
-    ("rmsnorm", ("_rmsnorm_row",)),
+    # K1: the forward, the gradient kernel and its dw pass
+    # (csrc/rmsnorm.cu); _rmsnorm_row, the Triton kernel before them.
+    ("rmsnorm", ("rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dw_reduce",
+                 "_rmsnorm_row")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
 
@@ -2213,9 +2276,12 @@ def int8_moe_params(torch, cfg, dev) -> dict:
 
 
 # Phase 16: the int8 seams of Mixtral-8x7B (K -> N) and its einsum MoE
-# body's expert product (E, capacity rows, K -> N).
+# body's expert product (E, capacity rows, K -> N). The seams' M <= 64
+# rows (the swapped form): a B 1 draft's step, a verify window (k 4 + 1),
+# the decode step, and 16 and 64 rows; M 512 a packed prefill.
 INT8_SEAMS = (("wqkv", 4096, 6144), ("wo", 4096, 4096),
               ("lm_head", 4096, 32000))
+INT8_SEAM_MS = (1, 5, BATCH_SLOTS, 16, 64)
 INT8_EXPERTS = (8, 512, 4096, 28672)
 
 
@@ -2238,8 +2304,9 @@ def int8pack_ms(torch, x, q, scale):
 
 def check_int8_matmul(torch, dev) -> dict:
     """Phase 16: ``int8_matmul`` in both modes against its plain version at
-    the seams' shapes (decode M 8 and a packed prefill's M 512, K 4096 to
-    N 6144, 4096 and 32000) and in the prologue mode at the einsum MoE
+    the seams' shapes (M 1, 5, 8, 16 and 64, the swapped form, and a
+    packed prefill's M 512; K 4096 to N 6144, 4096 and 32000) and in the
+    prologue mode at the einsum MoE
     body's expert shape ([8, 512, 4096] against [8, 4096, 28672]). Random
     int8 weights and per-column scales, random bf16 activations. Times each
     call beside its bound, its plain version and the library's yardsticks
@@ -2262,7 +2329,7 @@ def check_int8_matmul(torch, dev) -> dict:
     cases = []
     for name, k, n in INT8_SEAMS:
         q, scale = weight(k, n)
-        for m in (BATCH_SLOTS, PREFILL_BATCH * PREFILL_CHUNK):
+        for m in INT8_SEAM_MS + (PREFILL_BATCH * PREFILL_CHUNK,):
             for prologue in (False, True):
                 cases.append((f"{name} M {m}" + (" prologue" if prologue
                                                  else ""),
@@ -2300,10 +2367,10 @@ def check_int8_matmul(torch, dev) -> dict:
             **bound_fields(f"int8_matmul {name}", nbytes, ops, BF16_FLOPS))
         torch.cuda.empty_cache()
     # The kernels line carries one decode step's three seam calls (M 8,
-    # the epilogue mode the seams run, the mma.sync body), summed, with
-    # every call beside; a packed prefill's three (M 512, the wgmma body),
-    # summed; and the einsum MoE body's expert product (the wgmma body,
-    # prologue mode).
+    # the epilogue mode the seams run, the swapped form), summed, with
+    # every call beside; the same at M 1, 5, 16 and 64; a packed
+    # prefill's three (M 512, the wgmma body), summed; and the einsum MoE
+    # body's expert product (the wgmma body, prologue mode).
     def summed(m, body):
         step = [calls[f"{name} M {m}"] for name, _, _ in INT8_SEAMS]
         return dict(
@@ -2318,10 +2385,13 @@ def check_int8_matmul(torch, dev) -> dict:
                    + f"), epilogue mode, {body}, summed; library: bf16 "
                    f"torch.matmul on weights converted beforehand"))
 
-    rows = {"int8_matmul": dict(summed(BATCH_SLOTS, "the M <= 64 body"),
+    rows = {"int8_matmul": dict(summed(BATCH_SLOTS, "the swapped form"),
                                 calls=calls),
             "int8_matmul_prefill": summed(PREFILL_BATCH * PREFILL_CHUNK,
                                           "the wgmma body")}
+    for m in INT8_SEAM_MS:
+        if m != BATCH_SLOTS:
+            rows[f"int8_matmul_m{m}"] = summed(m, "the swapped form")
     experts = calls[f"experts [{e},{m_e},{k_e}]x[{e},{k_e},{n_e}] prologue"]
     rows["int8_matmul_experts"] = dict(
         {key: experts[key] for key in ("max_abs_err", "ms", "plain_ms",
@@ -2330,7 +2400,7 @@ def check_int8_matmul(torch, dev) -> dict:
         shape=(f"experts [{e},{m_e},{k_e}] x [{e},{k_e},{n_e}], prologue "
                f"mode, the wgmma body; library: batched bf16 torch.matmul "
                f"on weights converted beforehand"))
-    for name in ("int8_matmul_prefill", "int8_matmul_experts"):
+    for name in [r for r in rows if r != "int8_matmul"]:
         log(f"{name}:", json.dumps(rows[name]))
     log("int8_matmul:", json.dumps(rows["int8_matmul"]))
     return rows
@@ -5251,7 +5321,6 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {e}",
               file=sys.stderr)
         return 2
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5293,6 +5362,7 @@ def main() -> int:
         "paged_decode": attention.paged_decode_attention,
         "paged_prefill": attention.paged_prefill_attention,
         "rmsnorm": norms.rmsnorm,
+        "rmsnorm_backward": norms.rmsnorm_backward,
         "flash_fwd": attention.flash_fwd,
         "flash_bwd_dkdv": attention.flash_bwd_dkdv,
         "flash_bwd_dq": attention.flash_bwd_dq,
@@ -5308,14 +5378,14 @@ def main() -> int:
         "ring_permute": ring.ring_permute_kernel,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
-             "training": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
-                          "flash_bwd_dq"),
+             "training": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                          "flash_bwd_dkdv", "flash_bwd_dq"),
              "moe_serving": ("moe_gateup", "moe_down_combine",
                              "paged_decode", "paged_prefill", "rmsnorm"),
              "moe_training": ("moe_gateup", "moe_down_combine",
                               "grouped_matmul", "grouped_weight_grad",
                               "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                              "rmsnorm"),
+                              "rmsnorm", "rmsnorm_backward"),
              "moe_serving_int8": ("moe_gateup_int8", "moe_down_combine_int8",
                                   "paged_decode_int8", "paged_prefill_int8",
                                   "rmsnorm", "int8_matmul",
@@ -5327,14 +5397,14 @@ def main() -> int:
              "speculative_int8": ("paged_decode_int8", "paged_prefill_int8",
                                   "moe_gateup_int8", "moe_down_combine_int8",
                                   "int8_matmul", "rmsnorm"),
-             "remat_dense": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
-                             "flash_bwd_dq"),
+             "remat_dense": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                             "flash_bwd_dkdv", "flash_bwd_dq"),
              "remat_moe": ("moe_gateup", "moe_down_combine",
                            "grouped_matmul", "grouped_weight_grad",
                            "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                           "rmsnorm"),
-             "checkpoint": ("rmsnorm", "flash_fwd", "flash_bwd_dkdv",
-                            "flash_bwd_dq"),
+                           "rmsnorm", "rmsnorm_backward"),
+             "checkpoint": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                            "flash_bwd_dkdv", "flash_bwd_dq"),
              "doctor": ("paged_decode", "paged_prefill", "rmsnorm"),
              "ep_serving": ("moe_gateup", "moe_down_combine",
                             "ring_permute", "paged_decode", "paged_prefill",
@@ -5426,9 +5496,12 @@ def main() -> int:
     layers = PRESETS["8b-L8"].n_layers
     steps = 1 + TRAIN_STEPS + 1    # warm-up, timed, profiled
     # Remat "full" re-runs each layer's forward in the backward: K4 runs
-    # twice per layer and step, K5 and K6 once.
+    # twice per layer and step, K5 and K6 once; K1's gradient kernel at
+    # each norm of a layer and the final norm.
     want = {"flash_fwd": 2 * layers * steps,
-            "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps}
+            "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps,
+            "rmsnorm": (4 * layers + 1) * steps,
+            "rmsnorm_backward": (2 * layers + 1) * steps}
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"training launches {counts}, expected {want}")
     phase_done(f"phase 6: trained 8b-L8 for {steps} steps through every "
@@ -5505,7 +5578,8 @@ def main() -> int:
             "grouped_weight_grad": 2 * layers * steps,
             "flash_fwd": 2 * layers * steps,
             "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps,
-            "rmsnorm": (4 * layers + 1) * steps}
+            "rmsnorm": (4 * layers + 1) * steps,
+            "rmsnorm_backward": (2 * layers + 1) * steps}
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"MoE training launches {counts}, expected "
                              f"{want}")
@@ -5877,8 +5951,13 @@ def main() -> int:
         "paged_prefill": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                           "paged_attention.cu",
                           "k8s_dra_driver_tpu/ops/attention.py:772"),
-        "rmsnorm": ("triton", "k8s_dra_driver_tpu_torch/ops/norms.py",
+        "rmsnorm": ("cuda", "k8s_dra_driver_tpu_torch/csrc/rmsnorm.cu",
                     "k8s_dra_driver_tpu/ops/norms.py:26"),
+        "rmsnorm_backward": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                             "rmsnorm.cu",
+                             "k8s_dra_driver_tpu/ops/norms.py:69 "
+                             "(_rmsnorm_diff_bwd: jax.vjp of the reference, "
+                             "XLA; no Pallas kernel)"),
         "flash_fwd": ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                       "flash_attention.cu",
                       "k8s_dra_driver_tpu/ops/attention.py:58"),
@@ -5945,6 +6024,18 @@ def main() -> int:
         launches[name + "_long"] = launches[name]
         by_path = {p: {**c, name + "_long": c[name]}
                    for p, c in by_path.items()}
+    # K1 at the paths' other shapes, its gradient at the 8192-row shape,
+    # and the int8 seams at M 1, 5, 16 and 64: the same kernels and launch
+    # counts as their rows.
+    for base, names in (("rmsnorm", [n for n, _, _ in RMSNORM_SHAPES[1:]]),
+                        ("rmsnorm_backward", ["rmsnorm_backward_8k"]),
+                        ("int8_matmul", [f"int8_matmul_m{m}"
+                                         for m in INT8_SEAM_MS
+                                         if m != BATCH_SLOTS])):
+        for name in names:
+            meta[name] = meta[base]
+            launches[name] = launches[base]
+            by_path = {p: {**c, name: c[base]} for p, c in by_path.items()}
     # K9 at the f32 carrier and at 256 MB a shard: the same kernel and
     # launch count as its row at the bf16 hop chunk.
     for name in ("ring_permute_carrier", "ring_permute_256mb"):

@@ -1,12 +1,18 @@
 // int8 weight tiles into bf16 wgmma operands, shared by the int8 wgmma
 // bodies: int8_matmul's (quant_matmul.cu) and the int8 branches of the
-// fused MoE dispatch kernels' wide body (moe_dispatch.cu).
+// fused MoE dispatch kernels (moe_dispatch.cu).
 //
-// An int8 tile lands by TMA as plain rows (contracted index k, output
-// columns contiguous). A consumer thread converts one group of 8 columns
-// of every RP-th row into a bf16 image of the tile in the 128-byte
-// swizzled MN-major layout a TMA load of a bf16 [K, N] matrix would have
-// left, which wgmma then reads through the transpose bit.
+// Two forms:
+//   - Images (the wide bodies): an int8 tile lands by TMA as plain rows
+//     (contracted index k, output columns contiguous). A consumer thread
+//     converts one group of 8 columns of every RP-th row into a bf16 image
+//     of the tile in the 128-byte swizzled MN-major layout a TMA load of a
+//     bf16 [K, N] matrix would have left, which wgmma then reads through
+//     the transpose bit.
+//   - Swapped register fragments (the decode bodies, swap_fragments): the
+//     weights' columns are wgmma's M, and each thread converts its A
+//     fragments straight from a 128-byte swizzled int8 box into registers,
+//     with no image, fence or barrier.
 
 #pragma once
 
@@ -68,6 +74,39 @@ __device__ __forceinline__ void convert_rows(const unsigned char* q8,
     *reinterpret_cast<uint4*>(box + kr * kRowBytes +
                               ((chunk ^ (kr & 7)) << 4)) =
         cvt8<PROLOGUE>(w.x, w.y, s);
+  }
+}
+
+// The swapped form's A fragments of one m64 block and one 64-deep stage:
+// `box` is a TMA box of 64 rows (k) x 128 int8 columns with the 128-byte
+// swizzle (16-byte chunk ch of row k at chunk ch ^ (k & 7)). Thread (warp,
+// g8 = lane / 4, t = lane % 4) of the warpgroup holds the block's rows g8
+// and g8 + 8 of its warp's 16 as the box's columns bx and bx + 1 (bx = the
+// block's first column + 16 warp + 2 g8: two adjacent columns, so one
+// 16-bit load reads both). For k16 step kk its fragment is rows k = 16 kk
+// + 2 t, k + 1, k + 8, k + 9 (four 16-bit loads from distinct banks), one
+// byte permute and cvt4 a pair of rows; fr[kk] is the mma.sync A fragment
+// layout that wgmma's register operand takes. PROLOGUE: s holds the two
+// columns' scales as {s(bx), s(bx), s(bx + 1), s(bx + 1)}.
+template <bool PROLOGUE>
+__device__ __forceinline__ void swap_fragments(const unsigned char* box,
+                                               int bx, int t, const float* s,
+                                               uint32_t (&fr)[4][4]) {
+  auto ld = [&](int k) -> uint32_t {
+    return *reinterpret_cast<const uint16_t*>(
+        box + k * kRowBytes + (((bx >> 4) ^ (k & 7)) << 4) + (bx & 15));
+  };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = kk * 16 + 2 * t;
+    const uint2 lo =
+        cvt4<PROLOGUE>(__byte_perm(ld(k), ld(k + 1), 0x5140), s);
+    const uint2 hi =
+        cvt4<PROLOGUE>(__byte_perm(ld(k + 8), ld(k + 9), 0x5140), s);
+    fr[kk][0] = lo.x;
+    fr[kk][1] = lo.y;
+    fr[kk][2] = hi.x;
+    fr[kk][3] = hi.y;
   }
 }
 

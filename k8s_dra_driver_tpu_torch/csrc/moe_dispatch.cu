@@ -383,9 +383,8 @@ moe_dispatch_kernel(const __grid_constant__ CUtensorMap a_map,
     // moe_down_combine columns c NW + 64 mb.. In block mb, thread (warp,
     // g8) holds rows g8 and g8 + 8 as columns x and x + 1, x = 16 warp + 2
     // g8 of the block, so K7's g and u of a column meet in one thread. Each
-    // k16 step's A fragment comes from four 16-bit loads of the swizzled
-    // int8 box (rows 2t, 2t + 1, 2t + 8, 2t + 9: distinct banks), one byte
-    // permute and cvt4 a pair of rows; B is the tile's 16 rows, K-major.
+    // k16 step's A fragment comes straight from the swizzled int8 box
+    // (int8_image.cuh, swap_fragments); B is the tile's 16 rows, K-major.
     const int g8 = lane >> 2, t = lane & 3;
     int box_off[2], bx[2];
 #pragma unroll
@@ -406,26 +405,9 @@ moe_dispatch_kernel(const __grid_constant__ CUtensorMap a_map,
       const unsigned char* base = smem + st * W::STAGE;
 #ifndef MOE_DISPATCH_NO_CONVERT
 #pragma unroll
-      for (int mb = 0; mb < 2; ++mb) {
-        const unsigned char* box = base + W::A + box_off[mb];
-        auto ld = [&](int k) -> uint32_t {
-          return *reinterpret_cast<const uint16_t*>(
-              box + k * kRowBytes + (((bx[mb] >> 4) ^ (k & 7)) << 4) +
-              (bx[mb] & 15));
-        };
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int k = kk * 16 + 2 * t;
-          const uint2 lo = cvt4<false>(__byte_perm(ld(k), ld(k + 1), 0x5140),
-                                       nullptr);
-          const uint2 hi = cvt4<false>(
-              __byte_perm(ld(k + 8), ld(k + 9), 0x5140), nullptr);
-          fr[mb][kk][0] = lo.x;
-          fr[mb][kk][1] = lo.y;
-          fr[mb][kk][2] = hi.x;
-          fr[mb][kk][3] = hi.y;
-        }
-      }
+      for (int mb = 0; mb < 2; ++mb)
+        swap_fragments<false>(base + W::A + box_off[mb], bx[mb], t, nullptr,
+                              fr[mb]);
 #endif
       fence_regs(fr[0]);
       fence_regs(fr[1]);

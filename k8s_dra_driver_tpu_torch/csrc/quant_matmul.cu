@@ -30,16 +30,34 @@
 // Two bodies, chosen by M; the wrapper (ops/quant_matmul.py::plan) picks
 // the K split from host integers.
 //
-// M <= 64 (decode): one block of 8 warps owns BM rows (16 or 64; M padded
-// up by zero-filled rows) and 64 output columns, and walks its slice of K
-// in steps of 64 through a cp.async ring (6 stages at BM 16 where only the
-// weight stream matters, 3 at BM 64). The weight tile is staged as int8
-// (16 weights per 16-byte cp.async), converted once per stage into one
-// bf16 image in shared memory (exactly, or times the column's scale in the
-// prologue mode; each converting thread keeps its 16 columns' scales in
-// registers), and a barrier later ldmatrix.trans and mma.sync.m16n8k16
-// read it. N/64 blocks do not fill 132 SMs (wo: 64 blocks), so the wrapper
-// may split K 2 or 4 ways.
+// M <= 64 (decode, drafts, verify windows): the swapped form of the int8
+// MoE kernels' decode body (moe_dispatch.cu, kSwap). There the weight
+// stream binds, and a first version here (a cp.async ring, each stage
+// converted into a bf16 image in shared memory, ldmatrix.trans +
+// mma.sync.m16n8k16 after a barrier, M padded to 16 rows, 64 columns a
+// block) spent more shared-memory traffic on the image's store, fence,
+// barrier and reads than on the products. So the operands swap: the
+// weight's columns are wgmma's M, as register A fragments each thread
+// converts straight from the int8 tile (int8_image.cuh, swap_fragments;
+// two register buffers, a stage converting while the one before
+// multiplies), and x's rows are N, rounded up to 8, 16, 32 or 64 (M 1, 5
+// and 8 pay for 8 rows, not 16), its tile K-major.
+//   - A block of 160 threads owns 128 columns (two m64 blocks): warps 0-3,
+//     the consumer warpgroup, warp 4 the producer, one thread of which
+//     keeps a TMA ring of up to 8 stages full: the int8 box [64 k][128]
+//     (128-byte swizzle, so a fragment's rows load from distinct banks)
+//     and x's box [NR rows][64 k] (rows past M, and a padding stage past
+//     K, read as zeros through the maps). Three blocks fit an SM (two at
+//     32 and 64 rows, whose accumulators take the registers).
+//   - The epilogue mode scales the f32 sums by the column's scale; the
+//     prologue mode converts each weight to bf16(q * scale) as it builds
+//     the fragment (the scales of the thread's 4 columns in registers).
+//   - 128 columns do not fill 132 SMs at the seams' widths (wo: 32
+//     blocks), so the plan splits K (up to 8 ways) until the blocks cover
+//     the SMs; the split pass is launched as a programmatic dependent, so
+//     its launch overlaps this kernel's tail.
+//   tools/int8_matmul_parts.py compiles its conversions, products or loads
+//   out (the INT8_SWAP_NO_* macros below; the outputs are then wrong).
 //
 // M > 64 (prefill, expert products): the warp-specialised wgmma body of
 // grouped_matmul.cu, its consumers converting the weights between the loads
@@ -85,243 +103,14 @@
 // fixed order, applies the epilogue scale and casts.
 
 #include "hopper.cuh"      // mbarriers, TMA, wgmma, setmaxnreg, tensor maps
-#include "int8_image.cuh"  // cvt8, convert_rows: int8 tiles into bf16 images
+#include "int8_image.cuh"  // int8 tiles into bf16 images or swapped
+                           // register fragments
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = 8;
-constexpr int kBK = 64;        // K depth of one stage
-constexpr int kCols = 64;      // output columns of one block
-constexpr int kPad = 8;        // bf16 of padding per shared-memory row
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a * b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment: rows [r0, r0 + 16) x k [k0, k0 + 16) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int r0, int k0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment: k [k0, k0 + 16) x n [n0, n0 + 8) of a tile stored [k][n]
-// (n contiguous), transposed by ldmatrix.trans.
-__device__ __forceinline__ void load_b_trans(uint32_t& b0, uint32_t& b1,
-                                             const bf16* s, int ld, int k0,
-                                             int n0, int lane) {
-  const bf16* p = s + (k0 + (lane & 15)) * ld + n0;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
-// source is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two int8 of w (bits sh and sh + 8) as a bf16 pair: exact, or times
-// their columns' scales s0, s1 in f32 and then rounded (PROLOGUE).
-template <bool PROLOGUE>
-__device__ __forceinline__ uint32_t cvt2(int32_t w, int sh, float s0,
-                                         float s1) {
-  float a = static_cast<float>(static_cast<int8_t>(w >> sh));
-  float b = static_cast<float>(static_cast<int8_t>(w >> (sh + 8)));
-  if (PROLOGUE) {
-    a *= s0;
-    b *= s1;
-  }
-  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-template <int BM>
-struct Cfg {
-  static constexpr int WM = BM / 16;        // warps on rows
-  static constexpr int WN = kWarps / WM;    // warps on columns
-  static constexpr int WCOLS = kCols / WN;  // output columns of one warp
-  static constexpr int NT = WCOLS / 8;      // its n-tiles
-  static constexpr int STAGES = BM <= 16 ? 6 : 3;
-  static constexpr int LDA = kBK + kPad;
-  static constexpr int LDB = kCols + kPad;
-  // A stage in bf16 elements: the row tile, then the int8 weight tile
-  // [kBK][kCols] (half as many bf16 elements).
-  static constexpr int B_STAGE = kBK * kCols / 2;
-  static constexpr int STAGE = BM * LDA + B_STAGE;
-  static constexpr int IMAGE = kBK * LDB;   // the weight tile as bf16
-  static constexpr int SMEM = (STAGES * STAGE + IMAGE) * 2;
-  static_assert(WM * WN == kWarps && NT >= 1, "warp layout");
-  static_assert(BM * LDA % 8 == 0 && B_STAGE % 8 == 0, "16-byte stages");
-  // Each converting thread keeps one fixed group of 16 columns.
-  static_assert(kThreads % (kCols / 16) == 0, "fixed conversion columns");
-};
-
-// SPLIT: write f32 partial sums to part[s, e, m, n] (the reduce pass
-// finishes them); else apply the epilogue and write y.
-template <int BM, bool PROLOGUE, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, bf16* __restrict__ y,
-                   float* __restrict__ part, int m, int n, int k,
-                   int split) {
-  using C = Cfg<BM>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  bf16* image = stages + C::STAGES * C::STAGE;
-
-  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * BM;
-  const int e = blockIdx.z / split, s = blockIdx.z % split;
-  const int e_count = gridDim.z / split;
-  const int k_len = k / split, k_base = s * k_len;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % C::WM, wn = warp / C::WM;
-  const int g = lane >> 2, t = lane & 3;
-
-  const bf16* xe = x + (size_t)e * m * k;
-  const int8_t* qe = q + (size_t)e * k * n;
-  const float* se = scale + (size_t)e * n;
-
-  // The 16 columns this thread converts, and (PROLOGUE) their scales.
-  const int cv_col = (threadIdx.x % (kCols / 16)) * 16;
-  float cs[16];
-#pragma unroll
-  for (int u = 0; u < 16; ++u)
-    cs[u] = (PROLOGUE && n0 + cv_col + u < n) ? se[n0 + cv_col + u] : 0.f;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* as = stages + stage * C::STAGE;
-    int8_t* b8 = reinterpret_cast<int8_t*>(as + BM * C::LDA);
-    for (int i = threadIdx.x; i < BM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bool ok = m0 + r < m;
-      cp_async16(as + r * C::LDA + c,
-                 xe + (size_t)(ok ? m0 + r : 0) * k + k0 + c, ok);
-    }
-    for (int i = threadIdx.x; i < kBK * (kCols / 16); i += kThreads) {
-      const int kr = i / (kCols / 16), c = (i % (kCols / 16)) * 16;
-      const bool ok = n0 + c < n;
-      cp_async16(b8 + kr * kCols + c,
-                 qe + (size_t)(k0 + kr) * n + (ok ? n0 + c : 0), ok);
-    }
-  };
-
-  // The landed int8 weight tile of a stage -> the bf16 image.
-  auto convert_stage = [&](int stage) {
-    const int8_t* b8 = reinterpret_cast<const int8_t*>(
-        stages + stage * C::STAGE + BM * C::LDA);
-    for (int i = threadIdx.x; i < kBK * (kCols / 16); i += kThreads) {
-      const int kr = i / (kCols / 16);
-      const int4 raw =
-          *reinterpret_cast<const int4*>(b8 + kr * kCols + cv_col);
-      uint4* dst = reinterpret_cast<uint4*>(image + kr * C::LDB + cv_col);
-      dst[0] = make_uint4(cvt2<PROLOGUE>(raw.x, 0, cs[0], cs[1]),
-                          cvt2<PROLOGUE>(raw.x, 16, cs[2], cs[3]),
-                          cvt2<PROLOGUE>(raw.y, 0, cs[4], cs[5]),
-                          cvt2<PROLOGUE>(raw.y, 16, cs[6], cs[7]));
-      dst[1] = make_uint4(cvt2<PROLOGUE>(raw.z, 0, cs[8], cs[9]),
-                          cvt2<PROLOGUE>(raw.z, 16, cs[10], cs[11]),
-                          cvt2<PROLOGUE>(raw.w, 0, cs[12], cs[13]),
-                          cvt2<PROLOGUE>(raw.w, 16, cs[14], cs[15]));
-    }
-  };
-
-  float acc[C::NT][4];
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
-
-  const int kt_n = k_len / kBK;
-#pragma unroll
-  for (int st = 0; st < C::STAGES - 1; ++st) {
-    if (st < kt_n) load_stage(st, k_base + st * kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1's readers are done
-    {
-      const int nk = kt + C::STAGES - 1;
-      if (nk < kt_n) load_stage(nk % C::STAGES, k_base + nk * kBK);
-      cp_async_commit();
-    }
-    const bf16* as = stages + (kt % C::STAGES) * C::STAGE;
-    // The image's previous readers passed the barrier above.
-    convert_stage(kt % C::STAGES);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4];
-      load_a(a, as, C::LDA, wm * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j) {
-        uint32_t b0, b1;
-        load_b_trans(b0, b1, image, C::LDB, kk, wn * C::WCOLS + 8 * j, lane);
-        mma(acc[j], a, b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j) {
-    const int col = n0 + wn * C::WCOLS + 8 * j + 2 * t;
-    if (col >= n) continue;  // n % 16 == 0: col < n means col + 1 < n too
-    float s0 = 1.f, s1 = 1.f;
-    if (!PROLOGUE && !SPLIT) {
-      s0 = se[col];
-      s1 = se[col + 1];
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + wm * 16 + g + 8 * hh;
-      if (row >= m) continue;
-      const float v0 = acc[j][2 * hh], v1 = acc[j][2 * hh + 1];
-      if (SPLIT) {
-        *reinterpret_cast<float2*>(
-            part + (((size_t)s * e_count + e) * m + row) * n + col) =
-            make_float2(v0, v1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(
-            y + ((size_t)e * m + row) * n + col) =
-            __floats2bfloat162_rn(v0 * s0, v1 * s1);
-      }
-    }
-  }
-}
+constexpr int kBK = 64;  // K depth of one stage (both bodies)
 
 // The split-K epilogue: y[e, m, n] = bf16(sum over s of part[s, e, m, n],
 // times scale[e, n] unless PROLOGUE), the splits summed in order.
@@ -330,6 +119,9 @@ __global__ void __launch_bounds__(256)
 int8_matmul_reduce(const float* __restrict__ part,
                    const float* __restrict__ scale, bf16* __restrict__ y,
                    int m, int n, int e_count, int split) {
+  // A programmatic dependent of the swapped form (its launch overlaps
+  // that kernel's tail): wait for the partials. A no-op otherwise.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t total = (size_t)e_count * m * n;
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 2;
   if (i >= total) return;
@@ -349,45 +141,264 @@ int8_matmul_reduce(const float* __restrict__ part,
 }
 
 // Launches the split-K epilogue pass after a split kernel (checking that
-// kernel's launch first).
+// kernel's launch first); `dependent`: as a programmatic dependent of it.
 template <bool PROLOGUE>
 int reduce(void* part, const void* scale, void* y, int e, int m, int n,
-           int split, cudaStream_t st) {
+           int split, cudaStream_t st, bool dependent = false) {
   if (int rc = static_cast<int>(cudaGetLastError())) return rc;
   const size_t pairs = (size_t)e * m * n / 2;
-  int8_matmul_reduce<PROLOGUE>
-      <<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const float*>(scale),
-      static_cast<bf16*>(y), m, n, e, split);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((pairs + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, int8_matmul_reduce<PROLOGUE>, static_cast<const float*>(part),
+      static_cast<const float*>(scale), static_cast<bf16*>(y), m, n, e,
+      split));
 }
 
-template <int BM, bool PROLOGUE>
-int launch(const void* x, const void* q, const void* scale, void* y,
-           void* part, int e, int m, int n, int k, int split,
-           cudaStream_t st) {
-  using C = Cfg<BM>;
-  const dim3 grid((n + kCols - 1) / kCols, (m + BM - 1) / BM, e * split);
-  if (split > 1) {
-    auto kernel = int8_matmul_kernel<BM, PROLOGUE, true>;
-    if (int rc = static_cast<int>(cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)))
-      return rc;
-    kernel<<<grid, kThreads, C::SMEM, st>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<bf16*>(y),
-        static_cast<float*>(part), m, n, k, split);
-    return reduce<PROLOGUE>(part, scale, y, e, m, n, split, st);
-  } else {
-    auto kernel = int8_matmul_kernel<BM, PROLOGUE, false>;
-    if (int rc = static_cast<int>(cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)))
-      return rc;
-    kernel<<<grid, kThreads, C::SMEM, st>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<bf16*>(y), nullptr, m,
-        n, k, 1);
+// ---------------------------------------------------------------------------
+// M <= 64: the swapped form.
+// ---------------------------------------------------------------------------
+
+constexpr int kSwapCols = 128;              // weight columns of a block
+constexpr int kSwapThreads = 160;           // a consumer warpgroup + a
+                                            // producer warp
+constexpr int kSwapQBox = kBK * kSwapCols;  // int8 box: 64 k x 128 columns
+constexpr int kSwapRing = 64 * 1024;        // bytes of stages: 3 blocks an SM
+
+// NR token rows (M rounded up to 8, 16, 32 or 64) as wgmma's N. Shared
+// memory (byte offsets from a 1024-aligned base): STAGES stages of the
+// int8 box then the x box (NR rows x 64 k, 128-byte swizzle: both start
+// 1024-aligned), then the full and empty barriers.
+template <int NR>
+struct Swap {
+  static constexpr int XBOX = NR * kRowBytes;
+  static constexpr int STAGE = kSwapQBox + XBOX;
+  static constexpr int STAGES = kSwapRing / STAGE < 8 ? kSwapRing / STAGE : 8;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+  // Blocks an SM runs at once: three, where their registers allow (the
+  // accumulators of 32 and 64 rows do not).
+  static constexpr int BLOCKS = NR <= 16 ? 3 : 2;
+  static_assert(STAGES >= 2 && XBOX % 1024 == 0, "ring");
+};
+
+// x_map: [E, M, K] bf16 in 64 x NR x 1 swizzled boxes; q_map: [E, K, N]
+// int8 in 128 x 64 x 1 swizzled boxes. Block (blockIdx.x, blockIdx.y):
+// columns 128 blockIdx.x.., batch entry blockIdx.y / split, K split
+// blockIdx.y % split. SPLIT as in int8_matmul_wide_kernel.
+template <int NR, bool PROLOGUE, bool SPLIT>
+__global__ void __launch_bounds__(kSwapThreads, Swap<NR>::BLOCKS)
+int8_matmul_swap_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap q_map,
+                        const float* __restrict__ scale,
+                        bf16* __restrict__ y, float* __restrict__ part,
+                        int m, int n, int k, int split) {
+  using W = Swap<NR>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::BARS);
+  uint64_t* empty = full + W::STAGES;
+
+  const int n0 = blockIdx.x * kSwapCols;
+  const int e = blockIdx.y / split, s = blockIdx.y % split;
+  const int e_count = gridDim.y / split;
+  const int k_len = k / split, k_base = s * k_len;
+  const int n_steps = k_len / kBK;
+  // The consumers take stages in pairs (two register buffers): an odd
+  // count gets one more stage, loaded from past K, where every box reads
+  // as zeros.
+  const int steps = (n_steps + 1) & ~1;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < W::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4) {
+    // Producer: one thread keeps the ring full.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&q_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&x_map))
+                   : "memory");
+      for (int step = 0; step < steps; ++step) {
+        const int st = step % W::STAGES;
+        mbar_wait(&empty[st], ((step / W::STAGES) & 1) ^ 1);
+#ifdef INT8_SWAP_NO_LOADS
+        mbar_arrive(&full[st]);
+#else
+        unsigned char* b = smem + st * W::STAGE;
+        const int k0 = step < n_steps ? k_base + step * kBK : k;
+        mbar_expect_tx(&full[st], W::STAGE);
+        tma_load(b, &q_map, &full[st], n0, k0, e);
+        tma_load(b + kSwapQBox, &x_map, &full[st], k0, 0, e);
+#endif
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup owns the block's 128 columns as two m64 blocks:
+  // in block mb, thread (warp, g8) holds columns bx and bx + 1, bx = 64 mb
+  // + 16 warp + 2 g8 (int8_image.cuh, swap_fragments), and (PROLOGUE)
+  // their scales.
+  const int g8 = lane >> 2, t = lane & 3;
+  int bx[2];
+  float sc[2][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+    bx[mb] = 64 * mb + 16 * warp + 2 * g8;
+    const int col = n0 + bx[mb];
+    const float s0 = PROLOGUE && col < n ? scale[(size_t)e * n + col] : 0.f;
+    const float s1 =
+        PROLOGUE && col + 1 < n ? scale[(size_t)e * n + col + 1] : 0.f;
+    sc[mb][0] = sc[mb][1] = s0;
+    sc[mb][2] = sc[mb][3] = s1;
+  }
+  float acc[2][NR / 2];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[mb][i] = 0.f;
+
+  // One stage: its fragments into fr, its 8 products issued, then the
+  // previous stage's products waited for and that stage released. No
+  // conditional product, and the accumulators are touched only after the
+  // last wait: either would make ptxas serialise the products.
+  auto stage = [&](int step, uint32_t (&fr)[2][4][4]) {
+    const int st = step % W::STAGES;
+    mbar_wait(&full[st], (step / W::STAGES) & 1);
+    const unsigned char* base = smem + st * W::STAGE;
+#ifndef INT8_SWAP_NO_CONVERT
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+      swap_fragments<PROLOGUE>(base, bx[mb], t, sc[mb], fr[mb]);
+#endif
+    fence_regs(fr[0]);
+    fence_regs(fr[1]);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
+#ifndef INT8_SWAP_NO_PRODUCTS
+    const uint32_t xa = smem_u32(base + kSwapQBox);
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_kmajor<NR>(acc[mb], fr[mb][kk], kmajor_desc(xa + kk * 32));
+#endif
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    if (step > 0 && lane == 0) mbar_arrive(&empty[(step - 1) % W::STAGES]);
+  };
+  // Two register buffers: a stage's fragments are written only after the
+  // products that read the same buffer two stages before are done.
+  uint32_t fa[2][4][4], fb[2][4][4];
+  for (int step = 0; step < steps; step += 2) {
+    stage(step, fa);
+    fence_regs(fb[0]);
+    fence_regs(fb[1]);
+    stage(step + 1, fb);
+    fence_regs(fa[0]);
+    fence_regs(fa[1]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  // The split pass may launch now; it waits for this grid's end before it
+  // reads the partials.
+  if (SPLIT) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // acc[mb][4 j + q]: token row 8 j + 2 t + (q & 1), column bx + (q >> 1).
+  const float* se = scale + (size_t)e * n;
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+    const int col = n0 + bx[mb];
+    if (col >= n) continue;  // n % 16 == 0: col < n means col + 1 < n too
+    float s0 = 1.f, s1 = 1.f;
+    if (!PROLOGUE && !SPLIT) {
+      s0 = se[col];
+      s1 = se[col + 1];
+    }
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 8 * j + 2 * t + h;
+        if (row >= m) continue;
+        const float v0 = acc[mb][4 * j + h], v1 = acc[mb][4 * j + 2 + h];
+        if (SPLIT) {
+          *reinterpret_cast<float2*>(
+              part + (((size_t)s * e_count + e) * m + row) * n + col) =
+              make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + ((size_t)e * m + row) * n + col) =
+              __floats2bfloat162_rn(v0 * s0, v1 * s1);
+        }
+      }
+  }
+}
+
+template <int NR, bool PROLOGUE>
+int launch_swap(const void* x, const void* q, const void* scale, void* y,
+                void* part, int e, int m, int n, int k, int split,
+                cudaStream_t st) {
+  using W = Swap<NR>;
+  auto kernel = split > 1 ? int8_matmul_swap_kernel<NR, PROLOGUE, true>
+                          : int8_matmul_swap_kernel<NR, PROLOGUE, false>;
+  // Raised before the tensor maps are encoded: this runtime call binds the
+  // device's context to the calling thread, which the driver's encoder
+  // needs.
+  if (int rc = static_cast<int>(cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM)))
+    return rc;
+  CUtensorMap xm, qm;
+  {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(m),
+                                static_cast<cuuint64_t>(e)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k) * 2,
+                                   static_cast<cuuint64_t>(m) * k * 2};
+    const cuuint32_t box[3] = {kBK, NR, 1};
+    if (int rc = bf16_tensor_map(&xm, x, 3, dims, strides, box)) return rc;
+  }
+  {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(e)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n),
+                                   static_cast<cuuint64_t>(k) * n};
+    const cuuint32_t box[3] = {kSwapCols, kBK, 1};
+    if (int rc = tensor_map_of(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                               CU_TENSOR_MAP_SWIZZLE_128B, q, 3, dims,
+                               strides, box))
+      return rc;
+  }
+  const dim3 grid((n + kSwapCols - 1) / kSwapCols, e * split);
+  kernel<<<grid, kSwapThreads, W::SMEM, st>>>(
+      xm, qm, static_cast<const float*>(scale), static_cast<bf16*>(y),
+      static_cast<float*>(part), m, n, k, split);
+  if (split > 1)
+    return reduce<PROLOGUE>(part, scale, y, e, m, n, split, st, true);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -640,10 +651,15 @@ template <bool PROLOGUE>
 int dispatch(const void* x, const void* q, const void* scale, void* y,
              void* part, int e, int m, int n, int k, int split,
              cudaStream_t st) {
-  if (m <= 16) return launch<16, PROLOGUE>(x, q, scale, y, part, e, m, n, k,
-                                           split, st);
-  if (m <= 64) return launch<64, PROLOGUE>(x, q, scale, y, part, e, m, n, k,
-                                           split, st);
+  if (m <= 8) return launch_swap<8, PROLOGUE>(x, q, scale, y, part, e, m, n,
+                                              k, split, st);
+  if (m <= 16) return launch_swap<16, PROLOGUE>(x, q, scale, y, part, e, m,
+                                                n, k, split, st);
+  if (m <= 32) return launch_swap<32, PROLOGUE>(x, q, scale, y, part, e, m,
+                                                n, k, split, st);
+  if (m <= 64) return launch_swap<64, PROLOGUE>(x, q, scale, y, part, e, m,
+                                                n, k, split, st);
+  if (split == 8) return -1;
   return launch_wide<PROLOGUE>(x, q, scale, y, part, e, m, n, k, split, st);
 }
 
@@ -657,7 +673,8 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
                            void* y, void* part, int e, int m, int n, int k,
                            int split, int prologue, void* stream) {
   if (e <= 0 || m <= 0 || n <= 0 || n % 16 || k <= 0 ||
-      (split != 1 && split != 2 && split != 4) || k % (kBK * split) ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      k % (kBK * split) ||
       (split > 1 && part == nullptr) || e * split > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

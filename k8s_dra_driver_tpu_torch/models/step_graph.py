@@ -16,9 +16,8 @@ tensors'), on a CUDA device:
 
 1. **warm-up**: ``fn`` runs eagerly twice on a side stream, on zeroed
    inputs, so that every lazy thing is filled before the capture: the
-   ``nvcc`` build and ``ctypes`` load of the kernels, the Triton compile
-   of RMSNorm, the cuBLAS handle and its workspace for that stream, the SM
-   count, the rope tables. Zeroed inputs are a neutral step for the
+   ``nvcc`` build and ``ctypes`` load of the kernels, the cuBLAS handle
+   and its workspace for that stream, the SM count, the rope tables. Zeroed inputs are a neutral step for the
    engine: every row is inactive, so the pools see writes only in their
    scratch row;
 2. **capture**: ``fn`` runs once more under ``torch.cuda.graph`` into a

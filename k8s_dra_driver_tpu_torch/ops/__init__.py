@@ -42,7 +42,13 @@ from .moe_dispatch import (
     moe_gateup_reference,
     reference_moe_mlp,
 )
-from .norms import RMSNormFunction, rmsnorm, rmsnorm_reference
+from .norms import (
+    RMSNormFunction,
+    rmsnorm,
+    rmsnorm_backward,
+    rmsnorm_backward_reference,
+    rmsnorm_reference,
+)
 from .quant_matmul import int8_matmul, int8_matmul_reference
 from .rotary import apply_rope, rope_frequencies
 from ..parallel.ring import ring_permute_kernel
@@ -66,6 +72,7 @@ LAUNCH_COUNTERS = (
     (grouped_matmul, "launches"),
     (grouped_weight_grad, "launches"),
     (rmsnorm, "launches"),
+    (rmsnorm_backward, "launches"),
     (ring_permute_kernel, "launches"),
     (int8_matmul, "launches"),
     (int8_matmul, "wide_launches"),
@@ -112,6 +119,8 @@ __all__ = [
     "int8_matmul_reference",
     "rmsnorm",
     "rmsnorm_reference",
+    "rmsnorm_backward",
+    "rmsnorm_backward_reference",
     "RMSNormFunction",
     "apply_rope",
     "rope_frequencies",

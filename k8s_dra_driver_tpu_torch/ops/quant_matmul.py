@@ -21,9 +21,12 @@ of them in the prologue mode in ``int8_matmul.wide_prologue_launches``)
 or raises: bf16 x, int8 q, f32 scales, K a multiple of 64 and N of 16,
 contiguous 16-byte aligned operands on one device. :func:`plan` picks the
 body and a K split from the shape and the card's SM count alone (host
-integers, no sync); where the output tiles alone would leave SMs idle it
-splits K two or four ways (f32 partial sums in a scratch buffer the
-wrapper allocates, summed by the source's second pass).
+integers, no sync): at M <= 64 the swapped form (the weight's columns as
+wgmma's M, x's rows as its N), 128 columns a block, K split up to 8 ways
+until the blocks cover the SMs; above, the wgmma body, K split two or
+four ways where its tiles alone would leave SMs idle. A split's f32
+partial sums go to a scratch buffer the wrapper allocates, summed in a
+fixed order by the source's second pass.
 """
 
 from __future__ import annotations
@@ -42,19 +45,18 @@ _INT = ctypes.c_int
 _ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 _LIB = None
 
-#: The M <= 64 body's column block and both bodies' K step
-#: (``csrc/quant_matmul.cu``).
-KERNEL_COLS = 64
+#: The M <= 64 body's (the swapped form's) weight columns a block, and both
+#: bodies' K step (``csrc/quant_matmul.cu``).
+SWAP_COLS = 128
 KERNEL_K_STEP = 64
-#: Blocks the M <= 64 body should see before K is split (two per SM of the
-#: H100).
-_FILL_BLOCKS = 264
+#: The K splits the swapped form takes (the wgmma body: 1, 2, 4).
+SWAP_SPLITS = (1, 2, 4, 8)
 #: The wgmma body (M > 64): its output tile.
 WIDE_MIN_M = 65
 WIDE_ROWS = 128
 WIDE_COLS = 256
-#: The CUDA grid's limit on entries times splits (along y, or z in the
-#: M <= 64 body); the source refuses a grid past it.
+#: The CUDA grid's limit on entries times splits (along y in both bodies);
+#: the source refuses a grid past it.
 GRID_Y_MAX = 65535
 
 
@@ -104,17 +106,21 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
     return y if batched else y[0]
 
 
-def split_k(e: int, m: int, n: int, k: int) -> int:
-    """How many ways the M <= 64 body splits K: 4 or 2 where the output
-    blocks alone would leave the card idle (and K divides), else 1."""
-    bm = 16 if m <= 16 else 64
-    blocks = e * -(-m // bm) * -(-n // KERNEL_COLS)
+def split_k(e: int, n: int, k: int, sms: int) -> int:
+    """How many ways the M <= 64 body splits K: the fewest of 1, 2, 4, 8
+    whose blocks (128 weight columns of an entry, per split) cover the
+    card's SMs, among those that cut K into whole 64-deep steps and keep
+    entries times splits within the grid; 8 where none covers them."""
+    blocks = e * -(-n // SWAP_COLS)
     steps = k // KERNEL_K_STEP
-    if 2 * blocks < _FILL_BLOCKS and steps % 4 == 0:
-        return 4
-    if blocks < _FILL_BLOCKS and steps % 2 == 0:
-        return 2
-    return 1
+    split = 1
+    for s in SWAP_SPLITS:
+        if steps % s or e * s > GRID_Y_MAX:
+            break
+        split = s
+        if blocks * s >= sms:
+            break
+    return split
 
 
 class Plan(NamedTuple):
@@ -126,13 +132,13 @@ class Plan(NamedTuple):
 
 def plan(e: int, m: int, n: int, k: int, sms: int) -> Plan:
     """The launch for x [e, m, k] times q [e, k, n] on a card of ``sms``
-    SMs, from host integers only. M <= 64 keeps the mma.sync body and
+    SMs, from host integers only. M <= 64 takes the swapped form and
     :func:`split_k`. Above, the wgmma body splits K (2 or 4 ways, where K
     divides) only where that cuts the waves of 128 x 256 blocks a unit of
     work takes by a quarter or more: a wave that a split would not fill is
     no gain, and the split's partial sums cost a second pass."""
     if m < WIDE_MIN_M:
-        return Plan(False, split_k(e, m, n, k))
+        return Plan(False, split_k(e, n, k, sms))
     tiles = e * -(-m // WIDE_ROWS) * -(-n // WIDE_COLS)
     split = 1
     for s in (2, 4):

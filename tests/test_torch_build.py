@@ -94,3 +94,12 @@ def test_editing_attention_tile_header_changes_the_attention_libraries(
     flash and paged attention libraries, and no other."""
     assert _edited(tmp_path, monkeypatch, "attention_tile.cuh") == {
         "flash_attention", "paged_attention"}
+
+
+def test_the_standalone_sources_include_no_header():
+    """``rmsnorm.cu`` (K1 and its gradient) and ``ring_permute.cu`` (K9)
+    include no header of ``csrc/``: no header edit renames their
+    libraries, and ``rmsnorm.cu`` is one of the sources a build takes."""
+    for name in ("rmsnorm", "ring_permute"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu"]
+    assert "rmsnorm" in _build.sources()

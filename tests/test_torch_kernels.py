@@ -176,19 +176,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     (512, 4096, torch.bfloat16),    # the 8B prefill chunk
     (8, 4096, torch.bfloat16),      # the 8B decode step
     (5, 1000, torch.float32),       # a width that is not a power of two
+    (1, 2048, torch.bfloat16),      # the 1b draft's step
+    (5, 4096, torch.bfloat16),      # the 8B verify window
+    (8192, 4096, torch.bfloat16),
+    (16384, 4096, torch.bfloat16),  # the 8b-L8 train step
+    (8, 64, torch.float32),         # the tiny preset
+    (512, 64, torch.float32),
+    (8, 768, torch.float16),        # the 160m preset
+    (512, 768, torch.float16),
+    (700, 1000, torch.float32),     # a ragged last warp
+    (300, 4100, torch.bfloat16),    # 4 slots a thread, a tail
+    (3, 77, torch.bfloat16),        # no whole 16-byte word a row
+    (3, 10000, torch.bfloat16),     # wider than a CTA: a cluster of 2
+    (2, 16384, torch.float32),
+    (4, 8200, torch.float16),       # a cluster of 2, a tail
+    (3, 20000, torch.bfloat16),     # a cluster of 4
+    (2, 65536, torch.bfloat16),     # a cluster of 8, the widest row
 ])
 def test_rmsnorm_matches_plain(dev, rows, width, dtype):
+    """Each launch ``norms.plan`` picks (one CTA a row up to width 8192, a
+    cluster of 2, 4 or 8 CTAs a row past it) against the plain version,
+    1e-2 of the largest output, and the same bits on a second call."""
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     x = torch.randn(rows, width, generator=g, device=dev).to(dtype)
     w = (1 + 0.1 * torch.randn(width, generator=g, device=dev)).to(dtype)
     before = norms.rmsnorm.launches
-    out = norms.rmsnorm(x, w, 1e-5).float()
+    out = norms.rmsnorm(x, w, 1e-5)
+    again = norms.rmsnorm(x, w, 1e-5)
     ref = norms.rmsnorm_reference(x, w, 1e-5).float()
     torch.cuda.synchronize()
-    assert norms.rmsnorm.launches == before + 1
+    assert norms.rmsnorm.launches == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    out = out.float()
     assert torch.isfinite(out).all()
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.float16, torch.bfloat16)])
+@pytest.mark.parametrize("rows", [8, 512])
+def test_rmsnorm_takes_a_weight_of_another_dtype(dev, rows, xdt, wdt):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn(rows, 4096, generator=g, device=dev).to(xdt)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(wdt)
+    out = norms.rmsnorm(x, w, 1e-6).float()
+    ref = norms.rmsnorm_reference(x, w, 1e-6).float()
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_rmsnorm_is_captured_in_a_graph(dev):
+    """Both launches (a CTA and a cluster a row) under a CUDA graph: no
+    host sync, the replay equal to an eager call."""
+    for rows, d in ((8, 4096), (512, 4096), (8, 16384)):
+        x = torch.randn(rows, d, device=dev).bfloat16()
+        w = torch.randn(d, device=dev).bfloat16()
+        eager = norms.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = norms.rmsnorm(x, w)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (rows, d)
 
 
 def _flash_inputs(dev, b, hq, hkv, s, d, seed=0):
@@ -296,22 +350,58 @@ def test_flash_bwd_dq_repeats_bitwise(dev):
 @pytest.mark.cuda
 def test_rmsnorm_grads_match_plain(dev):
     """The kernel's output carries autograd history on the card: x and
-    weight gradients equal those through the plain version."""
+    weight gradients (the gradient kernel) equal those through the plain
+    version."""
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     x = torch.randn(4, 128, 4096, generator=g, device=dev).bfloat16()
     w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).bfloat16()
     dy = torch.randn(4, 128, 4096, generator=g, device=dev).bfloat16()
     grads = []
+    before = norms.rmsnorm_backward.launches
     for fn in (norms.rmsnorm, norms.rmsnorm_reference):
         xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
         y = fn(xt, wt, 1e-5)
         assert y.requires_grad
         grads.append(torch.autograd.grad(y, (xt, wt), dy))
     torch.cuda.synchronize()
+    assert norms.rmsnorm_backward.launches == before + 1
     for name, a, b_ in zip(("dx", "dw"), *grads):
         assert a.abs().max() > 0, name
         _rel_close(name, a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,xdt,wdt", [
+    (8192, 4096, torch.bfloat16, torch.bfloat16),
+    (16384, 4096, torch.bfloat16, torch.bfloat16),   # the 8b-L8 step
+    (512, 4096, torch.bfloat16, torch.bfloat16),
+    (5, 1000, torch.float32, torch.float32),
+    (1, 4096, torch.bfloat16, torch.bfloat16),
+    (700, 768, torch.float16, torch.float16),
+    (64, 64, torch.float32, torch.float32),
+    (300, 8192, torch.bfloat16, torch.float32),      # 4 slots a thread
+    (9, 77, torch.bfloat16, torch.bfloat16),         # no whole word a row
+])
+def test_rmsnorm_backward_matches_plain(dev, rows, width, xdt, wdt):
+    """The gradient kernel against ``rmsnorm_backward_reference`` by the
+    bf16 2% / 1% rule, and the same bits on a second call (dw's partial
+    sums are summed in a fixed order, no atomics)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x = torch.randn(rows, width, generator=g, device=dev).to(xdt)
+    w = (1 + 0.1 * torch.randn(width, generator=g, device=dev)).to(wdt)
+    dy = torch.randn(rows, width, generator=g, device=dev).to(xdt)
+    before = norms.rmsnorm_backward.launches
+    dx, dw = norms.rmsnorm_backward(x, w, dy, 1e-5)
+    dx2, dw2 = norms.rmsnorm_backward(x, w, dy, 1e-5)
+    ref_dx, ref_dw = norms.rmsnorm_backward_reference(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert norms.rmsnorm_backward.launches == before + 2
+    assert dx.dtype == xdt and dw.dtype == wdt
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    _rel_close("dx", dx, ref_dx)
+    _rel_close("dw", dw, ref_dw)
 
 
 @pytest.mark.cuda
@@ -899,11 +989,15 @@ def _int8_weight(dev, e, k, n, seed):
 @pytest.mark.parametrize("e", [None, 3, 8])     # 3, 8: the MoE body's batch
 @pytest.mark.parametrize("k,n", [(256, 192), (512, 208), (512, 112),
                                  (1024, 4096), (14336, 4096 + 16)])
-@pytest.mark.parametrize("m", [1, 8, 13, 65, 128, 129, 320, 512, 1000])
+@pytest.mark.parametrize("m", [1, 5, 8, 13, 16, 33, 64, 65, 128, 129, 320,
+                               512, 1000])
 def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
-    """Both modes against the plain version. M <= 64 runs the mma.sync
-    body (K split 4, 2 and 1 ways), M > 64 the wgmma body (column tiles
-    of 256; K split where the tiles leave SMs idle); M 65, 129 and 1000
+    """Both modes against the plain version. M <= 64 runs the swapped form
+    (x's rows as wgmma's N: 8 at M 1, 5 and 8, 16 at 13 and 16, 64 at 33
+    and 64; 128 columns a block; K split 8, 4, 2 and 1 ways, one 64-deep
+    step a split at K 256 and 512, so a padding stage past K), M > 64 the
+    wgmma body (column tiles of 256; K split where the tiles leave SMs
+    idle); M 65, 129 and 1000
     leave a ragged row tile, 320 one of 64 rows (the upper m64 half
     idle); N 112, 192, 208 and 4112 a ragged last column tile (at 112 and
     4112 the second consumer has no columns); K 14336 is the expert
@@ -931,11 +1025,14 @@ def test_int8_matmul_matches_plain(dev, m, k, n, e, prologue):
 @pytest.mark.parametrize("prologue", [False, True])
 def test_int8_matmul_repeats_bitwise(dev, prologue):
     """Two calls on the same inputs give the same bits (no atomics; split
-    K summed in a fixed order): the expert shape at capacity 320, and a
-    seam at M 512 whose plan splits K."""
+    K summed in a fixed order): the expert shape at capacity 320, a seam
+    at M 512 whose plan splits K, and the swapped form at the decode
+    seams (wo split 8 ways, the LM head unsplit) and at E 8."""
     from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
 
-    for e, m, k, n in ((8, 320, 1024, 4096), (None, 512, 4096, 4096)):
+    for e, m, k, n in ((8, 320, 1024, 4096), (None, 512, 4096, 4096),
+                       (None, 8, 4096, 4096), (None, 1, 4096, 32000),
+                       (8, 5, 1024, 4096), (None, 64, 4096, 6144)):
         w = _int8_weight(dev, e, k, n, seed=7)
         x = torch.randn(*((m, k) if e is None else (e, m, k)),
                         device=dev).bfloat16()

@@ -458,3 +458,58 @@ def test_rmsnorm_function_grads_match_jax_vjp():
         for a, b_ in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=1e-5,
                                        rtol=1e-5)
+
+
+def _bf16_close(name, got, want):
+    """bf16 results against the reference's: the largest error within 2%
+    of the largest value, the mean error within 1% of the mean value (the
+    two round to bf16 at other places)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    assert err.max() <= 2e-2 * np.abs(want).max(), (name, err.max())
+    assert err.mean() <= 1e-2 * np.abs(want).mean(), (name, err.mean())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 4096), (1, 1000), (3, 5, 1000),
+                                   (4, 4096)])
+def test_rmsnorm_backward_reference_matches_jax_vjp(shape, dtype):
+    """The gradient's closed form (the plain version the card's gradient
+    kernel is held to) against ``jax.vjp`` of the reference's
+    ``rmsnorm_reference``: one row and several, widths 1000 and 4096; f32
+    to 1e-5, bf16 by the 2% / 1% rule."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(*shape).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    eps = 1e-5
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx, jw, jg = (jnp.asarray(a).astype(jdt) for a in (x, w, g))
+    _, vjp = jax.vjp(lambda a, b: jnorms.rmsnorm_reference(a, b, eps), jx, jw)
+    want = vjp(jg)
+    got = tnorms.rmsnorm_backward_reference(
+        *(_t(a).to(tdt) for a in (x, w, g)), eps)
+    assert got[0].dtype == got[1].dtype == tdt
+    assert got[0].shape == x.shape and got[1].shape == w.shape
+    for name, a, b_ in zip(("dx", "dw"), got, want):
+        a, b_ = a.float().numpy(), np.asarray(b_.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b_, atol=1e-5, rtol=1e-5)
+        else:
+            _bf16_close(name, a, b_)
+
+
+def test_rmsnorm_backward_cpu_path_is_not_a_launch():
+    """CPU tensors take the closed form, whether called directly or as the
+    ``RMSNormFunction``'s backward; no launch is counted."""
+    before = (tnorms.rmsnorm.launches, tnorms.rmsnorm_backward.launches)
+    x = torch.randn(2, 8, requires_grad=True)
+    w = torch.ones(8, requires_grad=True)
+    tnorms.RMSNormFunction.apply(x, w, 1e-6).sum().backward()
+    tnorms.rmsnorm_backward(x.detach(), w.detach(), torch.ones(2, 8))
+    assert (tnorms.rmsnorm.launches,
+            tnorms.rmsnorm_backward.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorms.rmsnorm_backward(torch.empty(2, 8, device="meta"),
+                                torch.empty(8, device="meta"),
+                                torch.empty(2, 8, device="meta"))

@@ -2,7 +2,9 @@
 CPU, no card: which body runs, how the output is tiled and K split, from
 host integers alone, at the shapes of the int8 serving path (the seams of
 Mixtral-8x7B at decode, at a packed prefill and at a 1024-token prompt,
-and the einsum MoE body's expert products)."""
+and the einsum MoE body's expert products). At M <= 64 the swapped form
+runs: 128 weight columns a block, K split 1, 2, 4 or 8 ways, the fewest
+whose blocks cover the SMs."""
 
 import inspect
 
@@ -28,7 +30,7 @@ def test_the_wgmma_body_runs_exactly_above_m_64(e, k, n):
         p = qm.plan(e, m, n, k, SMS)
         assert p.wide == (m > 64), (m, p)
         if not p.wide:
-            assert p.split == qm.split_k(e, m, n, k), (m, p)
+            assert p.split == qm.split_k(e, n, k, SMS), (m, p)
 
 
 def _tiles(e, m, n):
@@ -49,7 +51,7 @@ def test_a_split_cuts_the_waves_by_a_quarter_or_is_not_taken(e, m, k, n):
     doubling would not)."""
     p = qm.plan(e, m, n, k, SMS)
     if m <= 64:
-        assert p.split == qm.split_k(e, m, n, k)
+        assert p.split == qm.split_k(e, n, k, SMS)
         return
     tiles = _tiles(e, m, n)
     if p.split > 1:
@@ -93,20 +95,22 @@ def test_narrow_outputs_split_k_four_ways(n):
 @pytest.mark.parametrize("e,m,k,n", SHAPES + [(1, 65, 256, 208),
                                                (4000, 100, 4096, 16),
                                                (65535, 100, 256, 16),
-                                               (1, 2 ** 20, 64, 2 ** 16)])
+                                               (1, 2 ** 20, 64, 2 ** 16),
+                                               (10000, 8, 4096, 16),
+                                               (65535, 1, 512, 16),
+                                               (1, 64, 192, 16)])
 def test_the_plan_keeps_the_grid_limits(e, m, k, n):
     """The kernel's grid: blocks per (entry, split) along x at most
     2^31 - 1, entries times splits along y (z for M <= 64) at most 65535;
     a split divides K into whole 64-deep steps."""
     p = qm.plan(e, m, n, k, SMS)
-    assert p.split in (1, 2, 4)
+    assert p.split in ((1, 2, 4) if p.wide else qm.SWAP_SPLITS)
     assert (k // qm.KERNEL_K_STEP) % p.split == 0
     assert e * p.split <= qm.GRID_Y_MAX
     if p.wide:
         assert _tiles(e, m, n) // e <= 2 ** 31 - 1
     else:
-        bm = 16 if m <= 16 else 64
-        assert -(-m // bm) * -(-n // qm.KERNEL_COLS) <= 2 ** 31 - 1
+        assert -(-n // qm.SWAP_COLS) <= 2 ** 31 - 1
 
 
 def test_the_plan_reads_host_integers_only():
@@ -118,3 +122,38 @@ def test_the_plan_reads_host_integers_only():
     assert all(type(v) in (int, bool) for v in p), p
     source = inspect.getsource(qm.plan)
     assert "torch" not in source and ".item(" not in source
+
+
+# The swapped form's splits at the int8 paths' M <= 64 shapes: the seams
+# at decode M 8, a B 1 draft's M 1, a verify window's M 5, M 16 and 64 (a
+# packed prefill of 64 tokens), and the expert products at a small
+# capacity.
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 64])
+@pytest.mark.parametrize("e,k,n,split", [
+    (1, 4096, 6144, 4),     # wqkv: 48 blocks; 4 ways cover the 132 SMs
+    (1, 4096, 4096, 8),     # wo: 32 blocks; 4 ways leave 4 SMs idle
+    (1, 4096, 32000, 1),    # the LM head: 250 blocks
+    (8, 4096, 28672, 1),    # the expert gate/up: 1792 blocks
+    (8, 14336, 4096, 1),    # the expert down: 256 blocks
+])
+def test_the_swapped_form_at_the_int8_paths_shapes(m, e, k, n, split):
+    assert qm.plan(e, m, n, k, SMS) == qm.Plan(False, split)
+
+
+@pytest.mark.parametrize("sms", [16, 66, 132, 264])
+@pytest.mark.parametrize("e,k,n", [(1, 4096, 6144), (1, 4096, 4096),
+                                   (1, 4096, 32000), (3, 512, 208),
+                                   (1, 256, 192), (1, 192, 16)])
+def test_the_swapped_form_splits_k_the_fewest_ways_that_cover_the_sms(
+        sms, e, k, n):
+    """At M <= 64: a split only where the unsplit blocks leave SMs idle,
+    and never one more than needed to cover them; K cut into whole
+    64-deep steps (at K 192, three steps: no split divides them)."""
+    blocks = e * -(-n // qm.SWAP_COLS)
+    p = qm.plan(e, 8, n, k, sms)
+    assert (k // qm.KERNEL_K_STEP) % p.split == 0
+    if p.split > 1:
+        assert blocks * (p.split // 2) < sms
+    nxt = 2 * p.split
+    if blocks * p.split < sms and nxt in qm.SWAP_SPLITS:
+        assert (k // qm.KERNEL_K_STEP) % nxt, (sms, p)

@@ -5,7 +5,7 @@ times longer for its first token than phase 4's engine does in a warm
 process. This script splits that wait. For each mode it starts a fresh process
 of itself, which times in turn: importing torch, the CUDA start, loading
 the kernels' libraries (built beforehand by this script's parent),
-drawing the 8B weights, the first Triton RMSNorm call, and phase 4's
+drawing the 8B weights, the first RMSNorm call, and phase 4's
 traffic served twice through ``chip_smoke.serve`` (steps captured, or
 eager with ``--modes eager``). With ``--profile`` the first serve runs
 under ``cProfile`` and the child reports the seconds it spent compiling
@@ -48,7 +48,6 @@ def profile_summary(prof) -> dict:
 
 
 def child(mode: str, profile: bool) -> dict:
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
 
     out = {"mode": mode, "import_torch_s": time.perf_counter() - T0}

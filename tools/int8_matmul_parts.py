@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of ``int8_matmul``'s wgmma body (M > 64) goes, on one
-GPU, at chip_smoke.py's phase-16 shapes (the seams at M 512 and the
-expert product [8, 512, 4096] x [8, 4096, 28672], prologue mode):
+"""Where the time of ``int8_matmul``'s two bodies goes, on one GPU, at
+chip_smoke.py's phase-16 shapes: the wgmma body (M > 64: the seams at M
+512 and the expert product [8, 512, 4096] x [8, 4096, 28672], prologue
+mode) and the swapped form (M <= 64: the seams at M 8):
 
     python3 tools/int8_matmul_parts.py
 
 1. ``plans``: the library as built from ``csrc/quant_matmul.cu``, called
-   through its C entry point with every K split (1, 2, 4) that divides K,
-   beside the one ``ops.quant_matmul.plan`` picks.
+   through its C entry point with every K split the body takes (1, 2, 4;
+   the swapped form also 8) that divides K, beside the one
+   ``ops.quant_matmul.plan`` picks.
 2. ``parts``: ``csrc/quant_matmul.cu`` built again (into
-   ``build/int8_matmul_parts/``) with parts of the wgmma body compiled
-   out by its ``INT8_WIDE_NO_*`` macros, one ``nvcc`` each, all started
+   ``build/int8_matmul_parts/``) with parts of both bodies compiled
+   out by their ``INT8_WIDE_NO_*`` and ``INT8_SWAP_NO_*`` macros, one
+   ``nvcc`` each, all started
    together: ``full`` (none), ``no_convert`` (the consumers skip the int8
    -> bf16 conversion), ``no_products`` (no wgmma), ``loads_only``
    (neither), and ``no_loads`` (neither, and the producer arrives on each
@@ -36,16 +39,21 @@ from k8s_dra_driver_tpu_torch.ops import _build  # noqa: E402
 from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from k8s_dra_driver_tpu_torch.ops._device import sm_count  # noqa: E402
 
-SHAPES = [(f"{name} M 512", 1, 512, k, n, False)
-          for name, k, n in cs.INT8_SEAMS]
+SHAPES = [(f"{name} M {m}", 1, m, k, n, False)
+          for m in (cs.BATCH_SLOTS, 512) for name, k, n in cs.INT8_SEAMS]
 SHAPES.append(("experts", *cs.INT8_EXPERTS, True))
 
-# The source's macros that compile parts of the wgmma body out.
-CONVERT, PRODUCTS, LOADS = (f"-DINT8_WIDE_NO_{part}"
-                            for part in ("CONVERT", "PRODUCTS", "LOADS"))
-VARIANTS = {"full": (), "no_convert": (CONVERT,), "no_products": (PRODUCTS,),
-            "loads_only": (CONVERT, PRODUCTS),
-            "no_loads": (CONVERT, PRODUCTS, LOADS)}
+
+def _off(*parts):
+    """The source's macros that compile these parts of both bodies out."""
+    return tuple(f"-DINT8_{body}_NO_{part}" for part in parts
+                 for body in ("WIDE", "SWAP"))
+
+
+VARIANTS = {"full": (), "no_convert": _off("CONVERT"),
+            "no_products": _off("PRODUCTS"),
+            "loads_only": _off("CONVERT", "PRODUCTS"),
+            "no_loads": _off("CONVERT", "PRODUCTS", "LOADS")}
 
 
 def build_variants() -> dict:
@@ -89,7 +97,7 @@ def main() -> int:
         x = torch.randn((e, m, k), generator=gen, device=dev).to(
             torch.bfloat16)
         y = torch.empty((e, m, n), dtype=torch.bfloat16, device=dev)
-        part = torch.empty((4, e, m, n), dtype=torch.float32, device=dev)
+        part = torch.empty((8, e, m, n), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(lib, split):
@@ -99,9 +107,10 @@ def main() -> int:
             _build.check(rc, "int8_matmul")
 
         chosen = qm.plan(e, m, n, k, sm_count(dev))
+        splits = (1, 2, 4) if chosen.wide else qm.SWAP_SPLITS
         plans = {f"split {split}": cs.time_ms(
             lambda: call(libs["library"], split))
-            for split in (1, 2, 4) if k % (qm.KERNEL_K_STEP * split) == 0}
+            for split in splits if k % (qm.KERNEL_K_STEP * split) == 0}
         parts = {variant: cs.time_ms(lambda: call(libs[variant], chosen.split))
                  for variant in VARIANTS}
         result[name] = dict(plan=chosen._asdict(), plans=plans, parts=parts)
