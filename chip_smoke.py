@@ -273,24 +273,38 @@ fixed seed, and checks every hand-written kernel of those paths:
     Holds K9's twin (``csrc/ring_permute.cu``, the ring hop) bit for bit
     against its plain version for rings of 2 and 4, shifts 1, -1 and 3,
     bf16, f32 and int8, at a size of no whole 16-byte word with a nonzero
-    storage offset and at the hop chunk, and its gradient as the inverse
-    rotation; times it at the hop buffers ([128, 4096] bf16 chunk and f32
-    carrier) and at 256 MB a shard beside the plain version and
+    storage offset and at the hop chunk, and as grouped launches (several
+    rings, mixed dtypes, empty pairs, one launch); its gradient as the
+    inverse rotation, of one ring and of a group; times it at the hop
+    buffers ([128, 4096] bf16 chunk and f32 carrier), at 256 MB a shard,
+    and as the hop's grouped launch at the prefill and the decode shapes,
+    by CUDA events and inside a CUDA graph, beside the plain version and
     ``torch._foreach_copy_`` (``ring_permute:`` lines). Runs the dropless
     EP forward at 4 x 128 tokens (the ring) and at 13 (the psum path under
     ``"auto"``; ``"ring"`` must raise) against the single-device forward
     on the same weights (phase 8's limits, the single run's routing
     replayed; K7 and K8 launched n_ep**2 L times on the ring and n_ep L
-    on psum, K9 (2 n_ep - 1) L times on the ring and never on psum). Then
-    serves phase 9's traffic through ``DecodeEngine(mesh=mesh)`` with
+    on psum, K9 n_ep L times on the ring -- one grouped launch a hop, the
+    shards sharing the card -- and never on psum). Then serves phase 9's
+    traffic through ``DecodeEngine(mesh=mesh)`` with
     ``moe_impl="dropless"``, its steps captured with K9 inside, holds its
-    launches (K7 and K8 n_ep**2 L, K9 (2 n_ep - 1) L a forward), and
-    prints how many streams equal phase 9's single-device engine's (the
-    first divergence where one exists) and its TTFT and decode p50 beside
-    phase 9's.
+    launches (K7 and K8 n_ep**2 L, K9 n_ep L a forward), prints how many
+    streams equal phase 9's single-device engine's (the first divergence
+    where one exists) and its TTFT and decode p50 beside phase 9's. (K9's
+    share of a profiled EP decode step is ``tools/ring_permute_bench.py``'s.)
+33. trains phase 12's 8x7b-L1 (dropless, its seeded weights and batch of
+    4 x 2048 tokens) expert parallel on the same mesh shape: one
+    ``loss_fn(..., mesh=mesh)`` value and every gradient leaf against the
+    single-device ones with the single run's routing replayed (losses
+    1e-2, leaves 5e-2; the backward through the grouped inverse rotation
+    and each shard's ``FusedMoeMlpFunction``), then ``make_train_step(...,
+    mesh=mesh)`` for phase 12's 7 steps, its launches held a step (K9
+    3 n_ep L: forward, recompute, backward), and prints step p50,
+    tokens/s, peak memory and K9's launches beside phase 12's (``EP
+    train:`` line).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31 and 32, and in each
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32 and 33, and in each
 worker of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
@@ -418,6 +432,33 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def graph_ms(torch, call, n: int = 50) -> float:
+    """Device ms a launch of ``call`` takes among ``n`` back to back in one
+    CUDA graph (median of 5 replays): a captured step's setting, where the
+    host's launch cost is gone and small inputs stay hot in L2."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            call()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -1235,11 +1276,12 @@ def hold_loss_grads(what: str, loss_rel: float, grad_rel: dict) -> None:
                              f"5e-2: {bad}")
 
 
-def train(torch, dev, cfg, preset: str, batch: int) -> dict:
-    """Phase 6 (and phase 12 on the MoE config): the training path (a main
-    path) on ``cfg`` at batch ``batch`` x 2048, remat "full", AdamW (lr
-    1e-3, warm-up 1, 100 total steps) on one fixed batch: one warm-up
-    step, 5 timed steps and one profiled step."""
+def train(torch, dev, cfg, preset: str, batch: int, mesh=None) -> dict:
+    """Phase 6 (and phase 12 on the MoE config, phase 33 on it with an
+    expert ``mesh``): the training path (a main path) on ``cfg`` at batch
+    ``batch`` x 2048, remat "full", AdamW (lr 1e-3, warm-up 1, 100 total
+    steps) on one fixed batch: one warm-up step, 5 timed steps and one
+    profiled step."""
     from k8s_dra_driver_tpu_torch.models import (
         init_train_state,
         make_optimizer,
@@ -1255,7 +1297,7 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
     state = init_train_state(cfg, opt, seed=SEED, device=dev)
-    step = make_train_step(cfg, opt, remat=True, device=dev)
+    step = make_train_step(cfg, opt, remat=True, device=dev, mesh=mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
@@ -1297,7 +1339,7 @@ def train(torch, dev, cfg, preset: str, batch: int) -> dict:
         metrics.update(moe_blocks=dict(moe.MOE_TRACE_COUNTS),
                        dispatch=dispatch_impl_label(
                            cfg.hidden, cfg.mlp_hidden, device=dev))
-        log("moe train:", json.dumps(metrics))
+        log("ep train:" if mesh else "moe train:", json.dumps(metrics))
     else:
         log("train:", json.dumps(metrics))
     return metrics
@@ -1629,6 +1671,8 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
     # (csrc/rmsnorm.cu); _rmsnorm_row, the Triton kernel before them.
     ("rmsnorm", ("rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dw_reduce",
                  "_rmsnorm_row")),
+    # K9, the ring hop (csrc/ring_permute.cu).
+    ("ring_permute", ("ring_permute_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
 
@@ -1641,9 +1685,9 @@ def profile_step(torch, step, state, tokens) -> dict:
 
 def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler``: per call, the
-    wall time, the device time by kernel group, and the device's busy
-    share of the wall time. Raises where the profiler saw no device time,
-    unless ``allow_empty``."""
+    wall time, the device time and the kernel count by kernel group, and
+    the device's busy share of the wall time. Raises where the profiler
+    saw no device time, unless ``allow_empty``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1657,6 +1701,7 @@ def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
+    launches = dict.fromkeys(groups, 0)
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1666,6 +1711,7 @@ def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
         group = next((name for name, keys in KERNEL_GROUPS
                       if any(k in e.key for k in keys)), "other")
         groups[group] += ms
+        launches[group] += e.count // calls
     device_ms = sum(groups.values())
     if device_ms <= 0 and not allow_empty:
         raise AssertionError("the profiler saw no device time")
@@ -1673,16 +1719,19 @@ def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
     return dict(
         wall_ms=wall_ms, device_ms=device_ms,
         device_busy_share=device_ms / wall_ms, group_ms=groups,
-        top_kernels=[dict(ms=ms, count=n, name=name)
+        group_launches=launches, top_kernels=[dict(ms=ms, count=n, name=name)
                      for ms, n, name in kernels[:12]],
     )
 
 
-def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
+def profile_decode(torch, params, cfg, dev, quantize_cache=False,
+                   mesh=None) -> dict:
     """One decode step at the engine's shape (8 sequences at 384 cached
     positions, kernels on): its host-clock time over 5 steps, then 3 steps
     under ``torch.profiler``, and the ratio of the two; then the same step
-    captured by ``StepGraph``, as the engine runs it (``captured_*``)."""
+    captured by ``StepGraph``, as the engine runs it (``captured_*``). On
+    a ``mesh`` the MoE blocks run expert parallel
+    (``tools/ring_permute_bench.py``)."""
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
     from k8s_dra_driver_tpu_torch.models.paged import (
         PagedKVCache,
@@ -1700,7 +1749,7 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
                              generator=gen, device=dev, dtype=torch.int32)
         _, cache = _forward_with_cache(
             params, toks, cache, cfg,
-            torch.arange(c * chunk, (c + 1) * chunk, device=dev))
+            torch.arange(c * chunk, (c + 1) * chunk, device=dev), mesh=mesh)
     state = {"cache": cache,
              "tok": torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, 1),
                                   generator=gen, device=dev,
@@ -1709,7 +1758,7 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     def step():
         c = state["cache"]
         logits, state["cache"] = _forward_with_cache(
-            params, state["tok"], c, cfg, c.lengths[:, None])
+            params, state["tok"], c, cfg, c.lengths[:, None], mesh=mesh)
         state["tok"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
     for _ in range(2):
@@ -1726,12 +1775,12 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False) -> dict:
     # measurements of one run; device_busy_share is the profiled one).
     result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
     result["int8_to_float_copies"] = int8_casts(torch, step)
-    result.update(captured_decode(torch, params, cfg, state))
+    result.update(captured_decode(torch, params, cfg, state, mesh))
     log("decode step profile:", json.dumps(result))
     return result
 
 
-def captured_decode(torch, params, cfg, state) -> dict:
+def captured_decode(torch, params, cfg, state, mesh=None) -> dict:
     """``profile_decode``'s step captured by ``StepGraph`` and replayed as
     the engine replays its decode step (host ints staged, the previous
     tokens copied in, lengths advanced on the host): the host-clock time
@@ -1751,7 +1800,8 @@ def captured_decode(torch, params, cfg, state) -> dict:
         # Zeroed lengths (the warm-up's inputs) write no pool row.
         c = dataclasses.replace(cache, block_tables=tables, lengths=lengths)
         logits, _ = _forward_with_cache(params, tok, c, cfg,
-                                        lengths[:, None], active=lengths > 0)
+                                        lengths[:, None], active=lengths > 0,
+                                        mesh=mesh)
         return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
     counts = {"decode_step": 0}
@@ -1792,7 +1842,8 @@ def captured_decode(torch, params, cfg, state) -> dict:
         captured_device_over_step=device_ms / step_ms,
         captured_profiler_sees_kernels=seen,
         captured_profile=(
-            {k: prof[k] for k in ("wall_ms", "device_ms", "group_ms")}
+            {k: prof[k] for k in ("wall_ms", "device_ms", "group_ms",
+                                  "group_launches")}
             if seen else "the profiler saw no kernel inside the replays: "
             "device time from CUDA events, the group split the eager "
             "step's"))
@@ -5018,24 +5069,94 @@ def same_bytes(torch, out, ref) -> bool:
                for o, r in zip(out, ref))
 
 
+def ring_rows(torch, h: int) -> tuple:
+    """K9's timed rows: (name, rings as (shape, dtype)) -- the prefill
+    hop's bf16 chunk and f32 carrier alone, 256 MB a shard, and the hop as
+    one grouped launch at the prefill chunk and at the decode step's
+    (BATCH_SLOTS // EP_SHARDS rows a shard)."""
+    chunk, decode = (PREFILL_CHUNK, h), (BATCH_SLOTS // EP_SHARDS, h)
+    return (
+        ("ring_permute", ((chunk, torch.bfloat16),)),
+        ("ring_permute_carrier", ((chunk, torch.float32),)),
+        ("ring_permute_256mb", (((RING_BIG_BYTES // 2,), torch.bfloat16),)),
+        ("ring_permute_hop", ((chunk, torch.bfloat16),
+                              (chunk, torch.float32))),
+        ("ring_permute_hop_decode", ((decode, torch.bfloat16),
+                                     (decode, torch.float32))),
+    )
+
+
+def time_ring_rows(torch, ring, gen, dev, h: int) -> dict:
+    """Every ``ring_rows`` row of ``ring`` (the port's ``parallel/ring.py``
+    of this tree or another) on EP_SHARDS shards of the card: the kernel by
+    CUDA events (``ms``) and as a launch among 50 in one CUDA graph
+    (``graph_ms``, 10 at 256 MB) -- a row of several rings as one grouped
+    launch where the tree has ``ring_permute_group``, and also as one
+    launch a ring (``two_launches_ms``, ``two_launches_graph_ms``) --
+    beside the plain version and ``torch._foreach_copy_`` into
+    preallocated buffers (the library yardstick: one call, the same
+    bytes). The bound reads and writes every byte once at the card's
+    memory rate."""
+    rows = {}
+    grouped = hasattr(ring, "ring_permute_group")
+    for name, specs in ring_rows(torch, h):
+        rings = [ring_inputs(torch, gen, dev, EP_SHARDS, shape, dtype)
+                 for shape, dtype in specs]
+        moved = 2 * sum(x.numel() * x.element_size() for r in rings
+                        for x in r)
+        dst = [torch.empty_like(x) for r in rings for x in r]
+        rotated = [r[(j - 1) % EP_SHARDS] for r in rings
+                   for j in range(EP_SHARDS)]
+
+        def apart():
+            for r in rings:
+                ring.ring_permute_kernel(r, 1)
+
+        def launch():
+            ring.ring_permute_group(rings, 1)
+
+        in_graph = 10 if name == "ring_permute_256mb" else 50
+        row = dict(
+            plain_ms=time_ms(
+                lambda: [ring.ring_permute_reference(r, 1) for r in rings]),
+            library_ms=time_ms(lambda: torch._foreach_copy_(dst, rotated)),
+            shape=(f"{EP_SHARDS} shards of "
+                   + " + ".join(f"{list(shape)} {dtype}"
+                                for shape, dtype in specs)
+                   + " on one card, shift 1"),
+            **bound_fields(name, moved, 0.0, BF16_FLOPS),
+        )
+        if len(rings) > 1:
+            row.update(two_launches_ms=time_ms(apart),
+                       two_launches_graph_ms=graph_ms(torch, apart))
+        if len(rings) == 1 or grouped:
+            call = apart if len(rings) == 1 else launch
+            row.update(ms=time_ms(call),
+                       graph_ms=graph_ms(torch, call, in_graph))
+            row["gb_per_s"] = moved / row["ms"] / 1e6
+        rows[name] = row
+        del rings, dst, rotated
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_ring_permute(torch, cfg, dev) -> dict:
     """Phase 32's first step: K9's twin against its plain version, bit for
-    bit, for rings of 2 and 4 shards of the card, shifts 1, -1 and 3, in
-    bf16, f32 and int8, at a size of no whole 16-byte word whose shards
-    start one element into a buffer (a nonzero storage offset, 1-, 2- or
-    4-byte aligned) and at the phase's hop chunk [128, H]; the gradient
-    (``RingPermuteFunction``) is the inverse rotation. Then times it at the
-    hop buffers ([128, H] bf16 chunk, [128, H] f32 carrier) and at
-    RING_BIG_BYTES a shard, beside the plain version and
-    ``torch._foreach_copy_`` into preallocated buffers (the library
-    yardstick: one call, the same bytes); the bound reads and writes every
-    byte once at the card's memory rate."""
+    bit. One ring (``ring_permute_kernel``) of 2 and 4 shards of the card,
+    shifts 1, -1 and 3, in bf16, f32 and int8, at a size of no whole
+    16-byte word whose shards start one element into a buffer (a nonzero
+    storage offset, 1-, 2- or 4-byte aligned) and at the phase's hop chunk
+    [128, H]; then groups of rings in one launch (``ring_permute_group``,
+    one launch each): those three misaligned rings beside a ring of empty
+    pairs, and the hop's bf16 chunk beside its f32 carrier. The gradients
+    (``RingPermuteFunction``) are the inverse rotations, of one ring and of
+    a group. Then times every ``ring_rows`` row (``time_ring_rows``)."""
     from k8s_dra_driver_tpu_torch.parallel import ring
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 32)
     h = cfg.hidden
-    checked = 0
+    checked = groups = 0
     for n in (2, EP_SHARDS):
         for shift in (1, -1, 3):
             for dtype in (torch.bfloat16, torch.float32, torch.int8):
@@ -5050,46 +5171,58 @@ def check_ring_permute(torch, cfg, dev) -> dict:
                             f"{shape} offset {offset}: not the plain "
                             f"version's bytes")
                     checked += 1
-    xs = [x.clone().requires_grad_() for x in ring_inputs(
-        torch, gen, dev, EP_SHARDS, RING_CHECK_SHAPE, torch.float32)]
-    w = ring_inputs(torch, gen, dev, EP_SHARDS, RING_CHECK_SHAPE,
-                    torch.float32)
-    sum((o * wi).sum() for o, wi in zip(
-        ring.ring_permute(xs, "expert", EP_SHARDS), w)).backward()
-    if not same_bytes(torch, [x.grad for x in xs],
-                      ring.ring_permute_reference(w, -1)):
-        raise AssertionError("ring_permute's gradient is not the inverse "
-                             "rotation")
-    log(f"ring_permute: {checked} rotations and the gradient bitwise equal "
-        f"to the plain version")
-    rows = {}
-    for name, shape, dtype in (
-            ("ring_permute", (PREFILL_CHUNK, h), torch.bfloat16),
-            ("ring_permute_carrier", (PREFILL_CHUNK, h), torch.float32),
-            ("ring_permute_256mb", (RING_BIG_BYTES // 2,), torch.bfloat16)):
-        xs = ring_inputs(torch, gen, dev, EP_SHARDS, shape, dtype)
-        moved = 2 * EP_SHARDS * xs[0].numel() * xs[0].element_size()
-        dst = [torch.empty_like(x) for x in xs]
-        rotated = [xs[(j - 1) % EP_SHARDS] for j in range(EP_SHARDS)]
-        row = dict(
-            max_abs_err=0.0,
-            ms=time_ms(lambda: ring.ring_permute_kernel(xs, 1)),
-            plain_ms=time_ms(lambda: ring.ring_permute_reference(xs, 1)),
-            library_ms=time_ms(lambda: torch._foreach_copy_(dst, rotated)),
-            shape=(f"{EP_SHARDS} shards of {list(shape)} {dtype} on one "
-                   f"card, shift 1"),
-            **bound_fields(name, moved, 0.0, BF16_FLOPS),
-        )
-        row["gb_per_s"] = moved / row["ms"] / 1e6
-        rows[name] = row
+            for rings in (
+                    [ring_inputs(torch, gen, dev, n, RING_CHECK_SHAPE, dt, 1)
+                     for dt in (torch.int8, torch.bfloat16, torch.float32)]
+                    + [ring_inputs(torch, gen, dev, n, (0, h),
+                                   torch.float32)],
+                    [ring_inputs(torch, gen, dev, n, (128, h), dt)
+                     for dt in (torch.bfloat16, torch.float32)]):
+                before = ring.ring_permute_kernel.launches
+                out = ring.ring_permute_group(rings, shift % n)
+                ref = ring.ring_permute_many_reference(rings, shift)
+                torch.cuda.synchronize()
+                if ring.ring_permute_kernel.launches != before + 1 or not all(
+                        same_bytes(torch, o, r) for o, r in zip(out, ref)):
+                    raise AssertionError(
+                        f"ring_permute_group n {n} shift {shift} "
+                        f"{[(tuple(r[0].shape), r[0].dtype) for r in rings]}"
+                        f": not the plain version's bytes, or not one "
+                        f"launch")
+                groups += 1
+    rings = [[x.clone().requires_grad_() for x in ring_inputs(
+        torch, gen, dev, EP_SHARDS, shape, dtype)] for shape, dtype in (
+            (RING_CHECK_SHAPE, torch.float32), ((128, h), torch.float32),
+            ((128, h), torch.bfloat16))]
+    w = [ring_inputs(torch, gen, dev, EP_SHARDS, r[0].shape, r[0].dtype)
+         for r in rings]
+    out = [ring.ring_permute(rings[0], "expert", EP_SHARDS)] + \
+        ring.ring_permute_many(rings[1:], "expert", EP_SHARDS,
+                               sites=("x", "y"))
+    sum((o.float() * wi.float()).sum() for os_, ws in zip(out, w)
+        for o, wi in zip(os_, ws)).backward()
+    for r, ws in zip(rings, w):
+        if not same_bytes(torch, [x.grad for x in r],
+                          ring.ring_permute_reference(ws, -1)):
+            raise AssertionError("ring_permute's gradient is not the "
+                                 "inverse rotation")
+    log(f"ring_permute: {checked} rotations, {groups} grouped launches and "
+        f"the gradients (one ring, a group) bitwise equal to the plain "
+        f"version")
+    rows = time_ring_rows(torch, ring, gen, dev, h)
+    for row in rows.values():
+        row["max_abs_err"] = 0.0
         log(f"ring_permute: {row['shape']}: kernel {row['ms']:.4f} ms "
-            f"({row['gb_per_s']:.1f} GB/s read + write), plain "
-            f"{row['plain_ms']:.4f} ms, _foreach_copy_ "
+            f"({row['gb_per_s']:.1f} GB/s read + write), in a graph "
+            f"{row['graph_ms']:.4f} ms"
+            + (f" (one launch a ring: {row['two_launches_ms']:.4f}, in a "
+               f"graph {row['two_launches_graph_ms']:.4f})"
+               if "two_launches_ms" in row else "")
+            + f", plain {row['plain_ms']:.4f} ms, _foreach_copy_ "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; "
             f"{card_line()}")
-        del xs, dst, rotated
-        torch.cuda.empty_cache()
-    rows["ring_permute"]["checked_rotations"] = checked
+    rows["ring_permute"].update(checked_rotations=checked,
+                                checked_groups=groups)
     return rows
 
 
@@ -5124,7 +5257,8 @@ def ep_forward(torch, params, sharded, mesh, cfg, dev, read_counts) -> dict:
     differ only at near-ties (FLIP_MARGIN_LIMIT, FLIP_SHARE_LIMIT); its
     free run's difference is reported. Holds each EP forward's launches:
     K7 and K8 n_ep**2 L times on the ring (every shard at every hop), n_ep
-    L on psum; K9 (2 n_ep - 1) L times on the ring, never on psum. At 13
+    L on psum; K9 n_ep L times on the ring (the mesh's shards share the
+    card: one grouped launch a hop), never on psum. At 13
     tokens ``ep_overlap="ring"`` must raise. On the ring every shard routes
     each chunk at its hop, so the flips and routed choices count each
     chunk's routing n_ep times (their share is the distinct ones')."""
@@ -5156,7 +5290,7 @@ def ep_forward(torch, params, sharded, mesh, cfg, dev, read_counts) -> dict:
         pairs = n_ep * n_ep if name == "ring" else n_ep
         want_counts = {"moe_gateup": pairs * layers,
                        "moe_down_combine": pairs * layers,
-                       "ring_permute": ((2 * n_ep - 1) * layers
+                       "ring_permute": (n_ep * layers
                                         if name == "ring" else 0)}
         launched = {k: after[k] - before[k] for k in want_counts}
         if launched != want_counts:
@@ -5216,20 +5350,15 @@ def ep_phase(torch, cfg, dev, single: dict, kept_streams: dict,
     ``drive``); its streams are compared with phase 9's single-device
     engine on the same weights (``kept_streams``), the count equal and
     the first divergence reported, not required, and its launches held:
-    K7 and K8 n_ep**2 L, K9 (2 n_ep - 1) L times a forward."""
+    K7 and K8 n_ep**2 L, K9 n_ep L times a forward."""
     from k8s_dra_driver_tpu_torch.models import moe
-    from k8s_dra_driver_tpu_torch.parallel import (
-        MeshConfig,
-        Sharded,
-        build_mesh,
-        shard_pytree,
-    )
+    from k8s_dra_driver_tpu_torch.parallel import Sharded, shard_pytree
 
     t0 = time.perf_counter()
     params = moe.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    mesh = build_mesh(MeshConfig(expert=EP_SHARDS), devices=[dev] * EP_SHARDS)
+    mesh = ep_mesh(dev)
     sharded = shard_pytree(params, mesh, moe.param_specs(cfg))
     stack = sharded["layers"]["w_gateup"]
     whole = params["layers"]["w_gateup"]
@@ -5280,6 +5409,87 @@ def ep_phase(torch, cfg, dev, single: dict, kept_streams: dict,
     torch.cuda.empty_cache()
     return dict(kernels=kernels, forward=forwards, engine=served,
                 s=time.perf_counter() - t0)
+
+
+def ep_train_launches(n_ep: int, layers: int) -> dict:
+    """The EP ring's kernel launches a train step under remat "full": the
+    forward and its recompute each run every (shard, hop) pair's K7 and K8
+    and n_ep K9 launches a layer (one group a hop); the backward runs each
+    pair's three gmm and two tgmm and one K9 launch a group (the inverse
+    rotation)."""
+    pairs = n_ep * n_ep * layers
+    return {"ring_permute": 3 * n_ep * layers,
+            "moe_gateup": 2 * pairs, "moe_down_combine": 2 * pairs,
+            "grouped_matmul": 3 * pairs, "grouped_weight_grad": 2 * pairs}
+
+
+def ep_mesh(dev):
+    from k8s_dra_driver_tpu_torch.parallel import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(expert=EP_SHARDS), devices=[dev] * EP_SHARDS)
+
+
+def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
+    """Phase 33's first step: one ``loss_fn`` value and every gradient
+    leaf of ``cfg`` (phase 12's 8x7b-L1 dropless, its seeded weights and
+    its batch of MOE_TRAIN_BATCH x 2048 tokens, remat "full") expert
+    parallel on ``ep_mesh`` -- the ring, the expert stacks cut into views
+    inside the loss -- against the single-device loss on the same weights
+    and tokens, the EP run replaying the single run's expert choices
+    (``EpRoutingReplay``, the recompute's too). Holds §2's limits (loss
+    1e-2, leaves 5e-2), the flips to near-ties, and the EP run's launches
+    to ``ep_train_launches``."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+    from k8s_dra_driver_tpu_torch.parallel import shard_pytree
+
+    mesh = ep_mesh(dev)
+    n_ep = mesh.shape["expert"]
+    params = moe.init_params(cfg, seed=SEED, device=dev)
+    names, flat = param_names(params), leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MOE_TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
+                           device=dev)
+    with RoutingReplay(moe) as single:
+        single.mode = "record"
+        loss_s = moe.loss_fn(params, tokens, cfg, remat=True)
+        grads_s = torch.autograd.grad(loss_s, flat)
+    replay = EpRoutingReplay(moe, n_ep)
+    replay.recorded = list(single.recorded)
+    want = ep_train_launches(n_ep, cfg.n_layers)
+    torch.cuda.synchronize()
+    before = read_counts()
+    with replay:
+        replay.mode = "replay"
+        loss_e = moe.loss_fn(shard_pytree(params, mesh,
+                                          moe.param_specs(cfg)),
+                             tokens, cfg, mesh=mesh, remat=True)
+        grads_e = torch.autograd.grad(loss_e, flat)
+    torch.cuda.synchronize()
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in want}
+    if launched != want:
+        raise AssertionError(f"EP loss and gradients launched {launched}, "
+                             f"expected {want}")
+    loss_rel, grad_rel = loss_grad_rel(names, (loss_e.item(), grads_e),
+                                       (loss_s.item(), grads_s))
+    result = dict(loss_ep=loss_e.item(), loss_single=loss_s.item(),
+                  loss_rel_diff=loss_rel, grad_rel_diff=grad_rel,
+                  batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ, layers=cfg.n_layers,
+                  shards=n_ep, launches=launched,
+                  **{k: v for k, v in replay.summary().items()
+                     if k != "flip_margins"})
+    log("EP loss/grad vs single-device:", json.dumps(result))
+    hold_loss_grads("EP vs single-device", loss_rel, grad_rel)
+    replay.check("EP loss/grad")
+    del params, flat, grads_s, grads_e, loss_s, loss_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
 def nbytes(tree) -> int:
@@ -5408,7 +5618,11 @@ def main() -> int:
              "doctor": ("paged_decode", "paged_prefill", "rmsnorm"),
              "ep_serving": ("moe_gateup", "moe_down_combine",
                             "ring_permute", "paged_decode", "paged_prefill",
-                            "rmsnorm")}
+                            "rmsnorm"),
+             "ep_training": ("ring_permute", "moe_gateup", "moe_down_combine",
+                             "grouped_matmul", "grouped_weight_grad",
+                             "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                             "rmsnorm", "rmsnorm_backward")}
     by_path = {}
 
     def reset_counts():
@@ -5900,7 +6114,7 @@ def main() -> int:
     forwards = served["decode_steps"] + served["prefill_launches"]
     want = {"moe_gateup": EP_SHARDS ** 2 * MOE_LAYERS * forwards,
             "moe_down_combine": EP_SHARDS ** 2 * MOE_LAYERS * forwards,
-            "ring_permute": (2 * EP_SHARDS - 1) * MOE_LAYERS * forwards,
+            "ring_permute": EP_SHARDS * MOE_LAYERS * forwards,
             "paged_decode": MOE_LAYERS * served["decode_steps"],
             "paged_prefill": MOE_LAYERS * served["prefill_launches"]}
     if any(counts[k] != n for k, n in want.items()):
@@ -5911,6 +6125,48 @@ def main() -> int:
                f"the EP engine served 8 requests on {EP_SHARDS} shards, "
                f"steps captured ({served['streams_equal_single']} of 8 "
                f"streams equal phase 9's; launches {counts})")
+    # Phase 33: expert-parallel MoE training on the same mesh shape, phase
+    # 12's model, batch and seed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_grads = ep_compare_train(torch, tcfg, dev, read_counts)
+    ep_trained = drive("ep_training", train, torch, dev, tcfg, "8x7b-L1",
+                       MOE_TRAIN_BATCH, ep_mesh(dev))
+    counts = by_path["ep_training"]
+    layers = tcfg.n_layers
+    want = {k: n * steps
+            for k, n in ep_train_launches(EP_SHARDS, layers).items()}
+    # The trunk as phase 12's: K4 twice a layer, K5 and K6 once; K1 at
+    # each norm twice, its gradient once.
+    want.update({"flash_fwd": 2 * layers * steps,
+                 "flash_bwd_dkdv": layers * steps,
+                 "flash_bwd_dq": layers * steps,
+                 "rmsnorm": (4 * layers + 1) * steps,
+                 "rmsnorm_backward": (2 * layers + 1) * steps})
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"EP training launches {counts}, expected "
+                             f"{want}")
+    if ep_trained["dispatch"] != "fused" \
+            or set(ep_trained["moe_blocks"]) != blocks:
+        raise AssertionError(f"EP training dispatch "
+                             f"{ep_trained['dispatch']}, blocks "
+                             f"{ep_trained['moe_blocks']}; want fused "
+                             f"{blocks}")
+    ep_trained["compare"] = ep_grads
+    ep_trained["k9_launches_per_step"] = counts["ring_permute"] // steps
+    ep_trained["phase12"] = {k: moe_trained[k] for k in (
+        "step_ms_p50", "tokens_per_s", "peak_mem_gb", "losses")}
+    log(f"EP train: step p50 {ep_trained['step_ms_p50']:.1f} ms (phase 12: "
+        f"{moe_trained['step_ms_p50']:.1f}), {ep_trained['tokens_per_s']:.0f}"
+        f" tokens/s ({moe_trained['tokens_per_s']:.0f}), peak memory "
+        f"{ep_trained['peak_mem_gb']:.2f} GB "
+        f"({moe_trained['peak_mem_gb']:.2f}), K9 "
+        f"{ep_trained['k9_launches_per_step']} launches a step, K9 "
+        f"{ep_trained['profile']['group_ms']['ring_permute']:.4f} device ms "
+        f"a step; {card_line()}")
+    phase_done(f"phase 33: 8x7b-L1 loss and gradients expert parallel on "
+               f"{EP_SHARDS} shards match the single device with routing "
+               f"replayed; trained for {steps} steps (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -5924,7 +6180,8 @@ def main() -> int:
                    - c["int8_matmul_wide_prologue"],
                    "int8_matmul_experts": c["int8_matmul_wide_prologue"],
                    **{k + suffix: (c[k] if (p in ("moe_training",
-                                                  "remat_moe"))
+                                                  "remat_moe",
+                                                  "ep_training"))
                                    == (suffix == "_train") else 0)
                       for k in ("moe_gateup", "moe_down_combine")
                       for suffix in ("", "_train")}}
@@ -6036,9 +6293,11 @@ def main() -> int:
             meta[name] = meta[base]
             launches[name] = launches[base]
             by_path = {p: {**c, name: c[base]} for p, c in by_path.items()}
-    # K9 at the f32 carrier and at 256 MB a shard: the same kernel and
-    # launch count as its row at the bf16 hop chunk.
-    for name in ("ring_permute_carrier", "ring_permute_256mb"):
+    # K9 at the f32 carrier, at 256 MB a shard and as the hop's grouped
+    # launch: the same kernel and launch count as its row at the bf16 hop
+    # chunk.
+    for name in ("ring_permute_carrier", "ring_permute_256mb",
+                 "ring_permute_hop", "ring_permute_hop_decode"):
         meta[name] = meta["ring_permute"]
         launches[name] = launches["ring_permute"]
         by_path = {p: {**c, name: c["ring_permute"]}
@@ -6075,7 +6334,8 @@ def main() -> int:
                     "remat": remat, "moe_remat": moe_remat,
                     "checkpoint": ckpt, "device_layer": dra,
                     "plugin": plugin, "doctor": diag,
-                    "expert_parallel": ep}))
+                    "expert_parallel": ep,
+                    "expert_parallel_training": ep_trained}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

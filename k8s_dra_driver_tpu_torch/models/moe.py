@@ -45,8 +45,9 @@ device:
   K7 and K8 on the card), and ``parallel/ring.py::ring_permute`` (K9's
   twin) rotates the chunks and the f32 carriers that collect each chunk's
   output. After ``n_ep`` carrier hops chunk i's output is home on shard
-  i; concatenating in shard order is the all-gather. ``2 n_ep - 1`` ring
-  hops and ``n_ep**2`` K7/K8 pairs a layer;
+  i; concatenating in shard order is the all-gather. ``n_ep**2`` K7/K8
+  pairs and ``n_ep`` K9 launches a layer (each hop's chunk rides with its
+  carrier: ``ring_permute_many``);
 - dropless **psum** (``_moe_block_dropless_ep_psum``): every shard runs
   its local pairs of the whole batch, and their sum is the psum. The
   fallback where the token count does not divide the ring
@@ -55,10 +56,13 @@ device:
   runs its experts' rows of the dispatched ``[E, ...]`` tensor with its
   weights; the results concatenate along E.
 
-Only the expert axis may be larger than 1 (``NotImplementedError``
-otherwise, A12 in ROADMAP.md). Each body records the reference's
-collective sites and byte counts. Not ported yet: the pipelined forward
-(it raises ``NotImplementedError``) and training on a mesh.
+:func:`loss_fn` takes the mesh too, and its gradient runs back through
+the same bodies: the grouped inverse rotation (K9) and each shard's
+``FusedMoeMlpFunction`` backward (K10a, K10b). Only the expert axis may
+be larger than 1 (``NotImplementedError`` otherwise, A12c in
+ROADMAP.md). Each body records the reference's collective sites and byte
+counts. Not ported yet: the pipelined forward and ring attention
+(``use_ring``), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
 from ..ops.rotary import rope_frequencies
 from ..parallel import collectives
 from ..parallel.mesh import Mesh, require_expert_only
-from ..parallel.ring import ring_permute
+from ..parallel.ring import ring_permute, ring_permute_many
 from ..parallel.sharding import P, Sharded
 from .llama import (
     LlamaConfig,
@@ -536,9 +540,17 @@ def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
     it holds (chunk (i - hop) mod n_ep), runs its local experts on it and
     adds the result to a carrier that rotates with the chunk, so after
     n_ep carrier hops chunk i's output is back on shard i, and the
-    concatenation in shard order restores the token order. The next
-    chunk's hop is issued before the hop's expert work, as in the
-    reference (on one card the stream orders the two).
+    concatenation in shard order restores the token order.
+
+    The reference issues the next chunk's hop before the hop's expert
+    work, so the transfer overlaps it. Here a rotation's streams wait on
+    each other (``ring_permute_group``), so that early hop could overlap
+    nothing; the chunk travels with the carrier instead: hop h < n_ep - 1
+    ends with one K9 launch rotating both (``ring_permute_many``), the
+    last hop rotates the carrier alone -- n_ep launches a layer, not
+    2 n_ep - 1. The expert work never writes ``x_cur``, so the values are
+    the reference's; the ledger records ``moe.ep_ring.x`` then
+    ``moe.ep_ring.y`` a hop, as there.
 
     The row buffers are [T k / n_ep, H] per shard and hop, against the
     psum path's [T k, H]. The Switch aux statistics come from hop 0 (each
@@ -559,8 +571,6 @@ def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
     y = [torch.zeros(t_loc, h, dtype=torch.float32, device=d) for d in devs]
     frac, meanprob = [None] * n_ep, [None] * n_ep
     for hop in range(n_ep):
-        if hop < n_ep - 1:
-            x_nxt = ring_permute(x_cur, "expert", n_ep, site="moe.ep_ring.x")
         for i in range(n_ep):
             gates, experts, probs, _aux = _route_topk(x_cur[i], wr[i], c)
             if hop == 0:
@@ -570,9 +580,12 @@ def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
                 x_cur[i], gates, experts, w_gu[i], w_down[i], c,
                 lo=i * e_loc, e_loc=e_loc, use_kernels=use_kernels,
             )
-        y = ring_permute(y, "expert", n_ep, site="moe.ep_ring.y")
         if hop < n_ep - 1:
-            x_cur = x_nxt
+            x_cur, y = ring_permute_many(
+                [x_cur, y], "expert", n_ep,
+                sites=("moe.ep_ring.x", "moe.ep_ring.y"))
+        else:
+            y = ring_permute(y, "expert", n_ep, site="moe.ep_ring.y")
     out = torch.cat([yi.to(x.device) for yi in y], dim=0)
     collectives.emit(
         "moe.ep_ring.all_gather", collectives.MEDIUM_ICI,
@@ -846,14 +859,23 @@ def loss_fn(
     params: dict,
     tokens: torch.Tensor,               # [B, S+1]: inputs + shifted targets
     config: MoeConfig,
+    mesh: Mesh | None = None,
+    use_ring: bool = False,
     remat: bool = True,
     remat_policy: str = "full",
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """Next-token cross-entropy (mean over tokens) plus ``aux_coef`` times
-    the load-balancing aux loss."""
+    the load-balancing aux loss. On a ``mesh`` the MoE blocks run expert
+    parallel (:func:`forward`); ``params`` may hold whole or sharded
+    expert stacks. ``use_ring`` (the reference's ring attention) is not
+    ported and raises."""
+    if use_ring:
+        raise NotImplementedError(
+            "moe.loss_fn(use_ring=True): ring attention over K4-K6 per hop "
+            "is not ported (A12d in ROADMAP.md)")
     hidden, aux = forward(params, tokens[:, :-1], config, remat=remat,
                           return_hidden=True, remat_policy=remat_policy,
-                          use_kernels=use_kernels)
+                          use_kernels=use_kernels, mesh=mesh)
     ce = chunked_cross_entropy(hidden, params["lm_head"], tokens[:, 1:])
     return ce + config.aux_coef * aux

@@ -1,5 +1,6 @@
 """Training: the optimizer, the train state and the train step. Counterpart
-of ``k8s_dra_driver_tpu/models/train.py`` on one device (no mesh yet).
+of ``k8s_dra_driver_tpu/models/train.py`` on one device, or for an MoE
+model on an expert-only single-controller mesh.
 
 The reference jits one program per (batch, seq) with the state donated;
 here the step runs eagerly and updates the state IN PLACE -- parameters
@@ -17,20 +18,27 @@ norm (no epsilon added, unlike ``torch.nn.utils.clip_grad_norm_``).
 
 Both model families train: :func:`_model_fns` picks ``moe``'s parameters
 and loss for an ``MoeConfig`` (whose router stays f32, and so do its
-moments), ``llama``'s otherwise. Not ported yet: ``state_shardings`` and
-``reshard_train_state`` (the multi-GPU slice) and ring attention
-(``use_ring``).
+moments), ``llama``'s otherwise. On a ``mesh`` (an ``MoeConfig`` only,
+the ``expert`` axis only) the step is expert parallel: the state stays
+whole, and the MoE blocks take each shard's experts as a view of the
+whole stack (``moe._local_experts``), so the gradients reach the whole
+leaves that the update writes in place.
+Not ported yet: the other mesh axes, ``state_shardings`` and
+``reshard_train_state`` (A12c in ROADMAP.md) and ring attention
+(``use_ring``, A12d).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import require_expert_only
 from .llama import LlamaConfig
 
 __all__ = [
@@ -217,12 +225,23 @@ def _check_device(params: dict, dev: torch.device) -> None:
 
 
 def make_train_step(config: LlamaConfig, optimizer: AdamW,
-                    remat: bool = True, device=None):
+                    remat: bool = True, device=None, mesh=None):
     """The train step ``(state, tokens [B, S+1]) -> (state, loss)`` on
     ``device`` (default CUDA). It updates ``state`` in place and returns
-    it, with the loss as a 0-dim f32 tensor."""
+    it, with the loss as a 0-dim f32 tensor. With ``mesh`` (an expert-only
+    mesh, an ``MoeConfig``) the MoE blocks run expert parallel."""
     dev = resolve_device(device)
-    loss_fn = _model_fns(config)[1]
+    if mesh is None:
+        loss_fn = _model_fns(config)[1]
+    else:
+        from . import moe
+
+        if not isinstance(config, moe.MoeConfig):
+            raise NotImplementedError(
+                "make_train_step(mesh=...) for a dense model: its tensor "
+                "and fsdp placements are not ported (A12c in ROADMAP.md)")
+        require_expert_only(mesh, "make_train_step")
+        loss_fn = functools.partial(moe.loss_fn, mesh=mesh)
 
     def step(state: TrainState, tokens: torch.Tensor):
         _check_device(state.params, dev)

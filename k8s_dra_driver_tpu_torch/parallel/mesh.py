@@ -159,7 +159,7 @@ def require_expert_only(mesh: Mesh, what: str) -> None:
     if other:
         raise NotImplementedError(
             f"{what}: a mesh with {other} beside the expert axis is not "
-            f"ported (A12 in ROADMAP.md); only the expert axis may be "
+            f"ported (A12c in ROADMAP.md); only the expert axis may be "
             f"larger than 1"
         )
 

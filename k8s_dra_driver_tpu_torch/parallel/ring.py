@@ -7,21 +7,26 @@ all-to-all (``models/moe.py::_moe_block_dropless_ep_ring``). The
 reference calls it per shard inside a ``shard_map``; the port calls it
 once with the list of every shard's buffer, in shard order, and gets the
 rotated list back, each output on its destination shard's device.
+:func:`ring_permute_many` rotates several rings of one axis together (a
+hop's f32 carrier and its next bf16 chunk), each ring its own shape and
+dtype.
 
 On CUDA tensors every ``impl`` ("auto", "pallas", "xla") launches K9's
-twin, ``csrc/ring_permute.cu`` (:func:`ring_permute_kernel`): one launch
-per source card copies every shard that lives there into its
-destination, through peer pointers where the destination is another
-card. There is no fallback: a build or launch error raises. On the CPU it
-runs the plain version, :func:`ring_permute_reference`. The gradient of a
-rotation is the inverse rotation through the same kernel
+twin, ``csrc/ring_permute.cu`` (:func:`ring_permute_group`): one launch
+per source card copies every pair of every ring of the group whose source
+lives there into its destination, through peer pointers where the
+destination is another card. There is no fallback: a build or launch
+error raises. On the CPU it runs the plain version ring by ring,
+:func:`ring_permute_reference`. The gradient of a rotation is the inverse
+rotation of the group through the same kernel, one launch
 (:class:`RingPermuteFunction`, the reference's custom VJP).
 
-Each call records ``permute_bytes(payload, n)`` at its ``site`` in the
-collective ledger (``parallel/collectives.py``), as the reference's does.
+Each call records ``permute_bytes(payload, n)`` per ring at the ring's
+site in the collective ledger (``parallel/collectives.py``), as the
+reference's calls do.
 
 ``ring_attention`` and ``ulysses_attention`` (sequence parallelism over
-K4-K6 per hop) are still to port (A12 in ROADMAP.md) and raise.
+K4-K6 per hop) are still to port (A12d in ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
@@ -32,10 +37,9 @@ import torch
 
 from . import collectives
 
-MAX_SHARDS = 8          # the kernel's pointer pairs per launch
-_THREADS = 256
-_WORD = 16
-_BLOCKS_PER_SM = 8
+MAX_SHARDS = 8          # shards a ring
+MAX_PAIRS = 16          # the kernel's (source, destination) pairs a launch
+_BLOCKS_PER_SM = 8      # 256-thread blocks an SM holds: one wave
 
 _LIB = None
 _PEERS: set = set()
@@ -48,10 +52,10 @@ def _library():
 
         lib = _build.load("ring_permute")
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        lib.ring_permute.argtypes = [ptrs, ptrs, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.ring_permute.restype = ctypes.c_int
+        lib.ring_permute_group.argtypes = [
+            ptrs, ptrs, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.ring_permute_group.restype = ctypes.c_int
         lib.ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ring_enable_peer.restype = ctypes.c_int
         _LIB = lib
@@ -71,6 +75,19 @@ def _check(xs, what: str) -> None:
             )
 
 
+def _check_group(rings, what: str) -> int:
+    """Checks each ring; returns their common shard count."""
+    if not rings:
+        raise ValueError(f"{what}: no ring")
+    for ring in rings:
+        _check(ring, what)
+    n = len(rings[0])
+    if any(len(ring) != n for ring in rings):
+        raise ValueError(f"{what}: rings of {[len(r) for r in rings]} "
+                         f"shards; a group's rings share one axis")
+    return n
+
+
 def ring_permute_reference(xs, shift: int = 1) -> list:
     """The plain version: ``out[(i + shift) mod n] = xs[i]``, each a copy
     on its destination shard's device (the device of ``xs`` at that
@@ -78,6 +95,12 @@ def ring_permute_reference(xs, shift: int = 1) -> list:
     n = len(xs)
     return [xs[(j - shift) % n].to(xs[j].device, copy=True)
             for j in range(n)]
+
+
+def ring_permute_many_reference(rings, shift: int = 1) -> list:
+    """The plain version of a group: :func:`ring_permute_reference` ring
+    by ring."""
+    return [ring_permute_reference(ring, shift) for ring in rings]
 
 
 def _enable_peer(src: torch.device, dst: torch.device) -> None:
@@ -94,37 +117,47 @@ def _enable_peer(src: torch.device, dst: torch.device) -> None:
     _PEERS.add(key)
 
 
-def ring_permute_kernel(xs, shift: int = 1) -> list:
-    """K9's twin on CUDA tensors (``csrc/ring_permute.cu``): the rotated
-    list, ``out[(i + shift) mod n] = xs[i]`` byte for byte, each output
-    allocated on its destination shard's device. One launch per source
-    card, counted in ``ring_permute_kernel.launches``; a destination on
-    another card waits on an event recorded after the launch. CPU tensors
-    go to :func:`ring_permute_reference`."""
-    _check(xs, "ring_permute")
-    n = len(xs)
-    if all(x.device.type == "cpu" for x in xs):
-        return ring_permute_reference(xs, shift)
-    for i, x in enumerate(xs):
-        if not x.is_cuda:
-            raise ValueError(f"ring_permute: shard {i} on {x.device}; every "
-                             f"shard must be on a CUDA device (or all on "
-                             f"the CPU)")
-        if not x.is_contiguous():
-            raise ValueError(f"ring_permute: shard {i} must be contiguous")
-    outs = [torch.empty(xs[j].shape, dtype=xs[j].dtype, device=xs[j].device)
-            for j in range(n)]
-    nbytes = xs[0].numel() * xs[0].element_size()
-    if nbytes == 0:
-        return outs
+def ring_permute_group(rings, shift: int = 1) -> list:
+    """K9's twin on CUDA tensors (``csrc/ring_permute.cu``) for a group of
+    rings of one axis: per ring the rotated list, ``out[r][(i + shift) mod
+    n] = rings[r][i]`` byte for byte, each output allocated on its
+    destination shard's device. One launch per source card for every
+    pair of every ring (empty pairs move nothing; a group with no byte
+    launches nothing), counted in ``ring_permute_kernel.launches``; a
+    destination on another card waits on an event recorded after the
+    launch. CPU tensors go to :func:`ring_permute_many_reference`."""
+    rings = [list(ring) for ring in rings]
+    n = _check_group(rings, "ring_permute")
+    flat = [x for ring in rings for x in ring]
+    if all(x.device.type == "cpu" for x in flat):
+        return ring_permute_many_reference(rings, shift)
+    for r, ring in enumerate(rings):
+        for i, x in enumerate(ring):
+            if not x.is_cuda:
+                raise ValueError(f"ring_permute: ring {r} shard {i} on "
+                                 f"{x.device}; every shard must be on a "
+                                 f"CUDA device (or all on the CPU)")
+            if not x.is_contiguous():
+                raise ValueError(f"ring_permute: ring {r} shard {i} must be "
+                                 f"contiguous")
+    outs = [[torch.empty(ring[j].shape, dtype=ring[j].dtype,
+                         device=ring[j].device) for j in range(n)]
+            for ring in rings]
     pairs: dict = {}
-    for i, x in enumerate(xs):
-        pairs.setdefault(x.device, []).append((x, outs[(i + shift) % n]))
+    for ring, out in zip(rings, outs):
+        for i, x in enumerate(ring):
+            pairs.setdefault(x.device, []).append((x, out[(i + shift) % n]))
     from ..ops._build import check
     from ..ops._device import sm_count
 
     lib = _library()
     for src_dev, group in pairs.items():
+        sizes = [s.numel() * s.element_size() for s, _ in group]
+        if not any(sizes):
+            continue
+        if len(group) > MAX_PAIRS:
+            raise ValueError(f"ring_permute: {len(group)} pairs from "
+                             f"{src_dev}; a launch takes {MAX_PAIRS}")
         stream = torch.cuda.current_stream(src_dev)
         remote = sorted({d.device for _, d in group if d.device != src_dev},
                         key=str)
@@ -135,11 +168,11 @@ def ring_permute_kernel(xs, shift: int = 1) -> list:
         count = len(group)
         srcs = (ctypes.c_void_p * count)(*(s.data_ptr() for s, _ in group))
         dsts = (ctypes.c_void_p * count)(*(d.data_ptr() for _, d in group))
-        blocks = max(1, min(-(-nbytes // (_THREADS * _WORD)),
-                            _BLOCKS_PER_SM * sm_count(src_dev) // count))
+        nbytes = (ctypes.c_longlong * count)(*sizes)
         with torch.cuda.device(src_dev):
-            rc = lib.ring_permute(srcs, dsts, count, nbytes, blocks,
-                                  stream.cuda_stream)
+            rc = lib.ring_permute_group(srcs, dsts, nbytes, count,
+                                        _BLOCKS_PER_SM * sm_count(src_dev),
+                                        stream.cuda_stream)
         check(rc, "ring_permute")
         ring_permute_kernel.launches += 1
         if remote:
@@ -150,23 +183,83 @@ def ring_permute_kernel(xs, shift: int = 1) -> list:
     return outs
 
 
+def ring_permute_kernel(xs, shift: int = 1) -> list:
+    """:func:`ring_permute_group` on one ring: the rotated list.
+    ``ring_permute_kernel.launches`` counts K9's launches from either
+    entry."""
+    return ring_permute_group([xs], shift)[0]
+
+
 ring_permute_kernel.launches = 0
 
 
 class RingPermuteFunction(torch.autograd.Function):
-    """A rotation whose gradient is the inverse rotation, both through
-    :func:`ring_permute_kernel` (the reference's ``_ring_permute_pallas``
-    custom VJP)."""
+    """A group's rotation whose gradient is the group's inverse rotation,
+    one launch each way through :func:`ring_permute_group` (the
+    reference's ``_ring_permute_pallas`` custom VJP, per ring). ``apply(
+    shift, n, *buffers)``: the rings' buffers one ring after another,
+    ``n`` a ring; returns the rotated buffers in the same order."""
 
     @staticmethod
-    def forward(ctx, shift: int, *xs):
-        ctx.shift = shift
-        return tuple(ring_permute_kernel(list(xs), shift))
+    def forward(ctx, shift: int, n: int, *xs):
+        ctx.shift, ctx.n = shift, n
+        rings = [list(xs[r:r + n]) for r in range(0, len(xs), n)]
+        return tuple(x for out in ring_permute_group(rings, shift)
+                     for x in out)
 
     @staticmethod
     def backward(ctx, *gs):
-        grads = ring_permute_kernel([g.contiguous() for g in gs], -ctx.shift)
-        return (None, *grads)
+        n = ctx.n
+        rings = [[g.contiguous() for g in gs[r:r + n]]
+                 for r in range(0, len(gs), n)]
+        grads = [g for out in ring_permute_group(rings, -ctx.shift)
+                 for g in out]
+        return (None, None, *grads)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown ring_permute impl {impl!r}; valid: auto, "
+                         f"pallas, xla")
+
+
+def ring_permute_many(
+    rings,
+    axis_name: str,
+    n: int,
+    *,
+    shift: int = 1,
+    impl: str = "auto",
+    sites,
+) -> list:
+    """Rotate every ring of ``rings`` (each the list of its ``n`` shards'
+    buffers along ``axis_name``, one shape and dtype a ring) by ``shift``
+    in one launch per source device; returns the rotated rings. Each
+    ring's hop is recorded at its own site of ``sites``, in ring order, as
+    that many :func:`ring_permute` calls would record them.
+    Differentiable: the gradient is one inverse launch for the group."""
+    _check_impl(impl)
+    rings = [list(ring) for ring in rings]
+    if len(sites) != len(rings):
+        raise ValueError(f"ring_permute_many: {len(sites)} sites for "
+                         f"{len(rings)} rings")
+    for ring in rings:
+        if len(ring) != n:
+            raise ValueError(f"ring_permute over {axis_name!r}: {len(ring)} "
+                             f"buffers for a ring of {n}")
+    _check_group(rings, "ring_permute")
+    for ring, site in zip(rings, sites):
+        collectives.emit(
+            site, collectives.MEDIUM_ICI,
+            collectives.permute_bytes(
+                collectives.payload_bytes(ring[0].shape, ring[0].dtype), n),
+        )
+    shift %= n
+    flat = [x for ring in rings for x in ring]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
+        out = RingPermuteFunction.apply(shift, n, *flat)
+        return [list(out[r:r + n]) for r in range(0, len(out), n)]
+    return ring_permute_group(rings, shift)
 
 
 def ring_permute(
@@ -184,34 +277,19 @@ def ring_permute(
     shape and dtype). ``impl`` keeps the reference's names; every one runs
     K9's twin on CUDA tensors and the plain version on the CPU.
     Differentiable; ``site`` labels the hop in the collective ledger."""
-    if impl not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown ring_permute impl {impl!r}; valid: auto, "
-                         f"pallas, xla")
-    xs = list(xs)
-    if len(xs) != n:
-        raise ValueError(f"ring_permute over {axis_name!r}: {len(xs)} "
-                         f"buffers for a ring of {n}")
-    _check(xs, "ring_permute")
-    collectives.emit(
-        site, collectives.MEDIUM_ICI,
-        collectives.permute_bytes(
-            collectives.payload_bytes(xs[0].shape, xs[0].dtype), n),
-    )
-    shift %= n
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        return list(RingPermuteFunction.apply(shift, *xs))
-    return ring_permute_kernel(xs, shift)
+    return ring_permute_many([xs], axis_name, n, shift=shift, impl=impl,
+                             sites=(site,))[0]
 
 
 def ring_attention(*args, **kwargs):
     raise NotImplementedError(
         "ring_attention: sequence parallelism over K4-K6 per hop is not "
-        "ported (A12 in ROADMAP.md)"
+        "ported (A12d in ROADMAP.md)"
     )
 
 
 def ulysses_attention(*args, **kwargs):
     raise NotImplementedError(
         "ulysses_attention: all-to-all sequence parallelism is not ported "
-        "(A12 in ROADMAP.md)"
+        "(A12d in ROADMAP.md)"
     )

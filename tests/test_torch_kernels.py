@@ -1303,3 +1303,102 @@ def test_ring_permute_matches_its_plain_version(dev, n, shift, dtype):
         for got, want in zip([x.grad for x in leaves],
                              ring.ring_permute_reference(w, -shift)):
             assert torch.equal(got, want)
+
+
+def _same_bytes(out, ref) -> bool:
+    return all(o.dtype == r.dtype and o.device == r.device and torch.equal(
+        o.reshape(-1).view(torch.uint8), r.reshape(-1).view(torch.uint8))
+        for o, r in zip(out, ref))
+
+
+def _ring_views(dev, g, n, shape, dtype, offset):
+    """``n`` shard buffers of ``shape``, views into one buffer from
+    ``offset`` elements on: a storage offset of ``offset`` x the dtype's
+    size in bytes."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    whole = torch.randn(offset + n * numel, generator=g, device=dev)
+    whole = (whole * 40).to(torch.int8) if dtype == torch.int8 \
+        else whole.to(dtype)
+    return [whole[offset + i * numel:offset + (i + 1) * numel].view(shape)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shift", [(2, 1), (4, 1), (4, -1), (4, 3)])
+def test_ring_permute_group_matches_its_plain_version(dev, n, shift):
+    """K9's grouped launch (``ring.ring_permute_group``) against the plain
+    version ring by ring, bit for bit: rings of mixed dtypes in one launch
+    -- int8, bf16 and f32 views at storage offsets of 1, 2 and 4 bytes
+    (narrow words and a ragged unit), a ring of empty pairs, and the EP
+    hop's aligned bf16 chunk beside its f32 carrier; one launch a group
+    call and none for a group of no byte; no host sync; a CUDA graph's
+    replay (its launch after a memset) equal to the eager call; the
+    gradient of a group the group's inverse rotation, one launch each
+    way."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(200 + n * 10 + shift)
+    groups = [
+        [_ring_views(dev, g, n, (100, 37), torch.int8, 1),
+         _ring_views(dev, g, n, (100, 37), torch.bfloat16, 1),
+         _ring_views(dev, g, n, (100, 37), torch.float32, 1),
+         _ring_views(dev, g, n, (0, 37), torch.float32, 0)],
+        [_ring_views(dev, g, n, (128, 512), torch.bfloat16, 0),
+         _ring_views(dev, g, n, (128, 512), torch.float32, 0),
+         _ring_views(dev, g, n, (3, 5), torch.float32, 0)],
+    ]
+    assert [r[0].storage_offset() * r[0].element_size()
+            for r in groups[0][:3]] == [1, 2, 4]
+    scratch = torch.empty(1 << 20, device=dev)
+    for rings in groups:
+        want = ring.ring_permute_many_reference(rings, shift)
+        before = ring.ring_permute_kernel.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ring.ring_permute_group(rings, shift % n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert ring.ring_permute_kernel.launches == before + 1
+        for out, ref in zip(got, want):
+            assert _same_bytes(out, ref)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ring.ring_permute_group(rings, shift % n)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ring.ring_permute_kernel.launches
+        with torch.cuda.graph(graph):
+            scratch.zero_()
+            captured = ring.ring_permute_group(rings, shift % n)
+        assert ring.ring_permute_kernel.launches == before + 1
+        for out in captured:
+            for o in out:
+                o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, ref in zip(captured, got):
+            assert _same_bytes(out, ref)
+    empty = [_ring_views(dev, g, n, (0, 8), torch.bfloat16, 0)]
+    before = ring.ring_permute_kernel.launches
+    out = ring.ring_permute_group(empty, shift % n)
+    assert ring.ring_permute_kernel.launches == before
+    assert [o.shape for o in out[0]] == [torch.Size([0, 8])] * n
+    leaves = [[x.clone().requires_grad_() for x in ring_]
+              for ring_ in groups[1][:2]]
+    w = [[torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+          for x in ring_] for ring_ in leaves]
+    before = ring.ring_permute_kernel.launches
+    rotated = ring.ring_permute_many(leaves, "expert", n, shift=shift,
+                                     sites=("x", "y"))
+    sum((o.float() * wi.float()).sum() for out, ws in zip(rotated, w)
+        for o, wi in zip(out, ws)).backward()
+    torch.cuda.synchronize()
+    assert ring.ring_permute_kernel.launches == before + 2
+    for ring_, ws in zip(leaves, w):
+        assert _same_bytes([x.grad for x in ring_],
+                           ring.ring_permute_reference(ws, -shift))

@@ -12,6 +12,17 @@ aux means' included), aux within 1e-5; the int8 stacks within 1e-4 (the
 reference's int8 EP pin). The EP engine's greedy streams must equal the
 reference's EP engine's (``DecodeEngine(mesh=...)``, which runs on the
 CPU there) token for token.
+
+Training (the twin of ``TestRingOverlapEP::test_loss_and_grads_match_psum``,
+``slow`` there): the port's ``moe.loss_fn(..., mesh=)`` loss and every
+gradient leaf, ring and psum, against one jitted reference gradient of
+the ring, at the reference's pins (loss 1e-5, gradients atol 1e-4 / rtol
+1e-3); three steps of ``make_train_step(mesh=)`` against the reference's
+``make_train_step`` on its expert mesh and against the port's
+single-device step (losses 1e-5, the first moments -- averages of the
+gradients -- at the gradient pins, the parameters at
+``test_torch_moe_train.py``'s 5e-4, since Adam moves an element by about
+lr whatever its gradient).
 """
 
 import dataclasses
@@ -19,22 +30,27 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from k8s_dra_driver_tpu.models import moe as jmoe
 from k8s_dra_driver_tpu.models import quant as jquant
+from k8s_dra_driver_tpu.models import train as jtrain
 from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
 from k8s_dra_driver_tpu.parallel import MeshConfig as JMeshConfig
 from k8s_dra_driver_tpu.parallel import build_mesh as jbuild_mesh
 from k8s_dra_driver_tpu.parallel.sharding import shard_pytree as jshard
-from k8s_dra_driver_tpu_torch.models import moe, quant
+from k8s_dra_driver_tpu_torch.models import llama, moe, quant
+from k8s_dra_driver_tpu_torch.models import train as ttrain
 from k8s_dra_driver_tpu_torch.models.convert import params_from_numpy
 from k8s_dra_driver_tpu_torch.models.serving import DecodeEngine
 from k8s_dra_driver_tpu_torch.parallel import (
     MeshConfig,
     Sharded,
     build_mesh,
+    collectives,
+    ring,
     shard_pytree,
 )
 
@@ -234,3 +250,160 @@ def _flatten(tree, path=()):
                                 path + (jax.tree_util.GetAttrKey(name),))
     else:
         yield path, tree
+
+
+GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def _leaves(tree, prefix=""):
+    """{"layers/wqkv": tensor, ...}: a parameter dict's leaves by path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def ring_grads(setup):
+    """One jitted reference loss and gradient: dropless on the ring, its
+    expert stacks sharded over the 4 virtual devices, the reference
+    test's tokens."""
+    jp, _, jmesh, _ = setup
+    jcfg, _ = _cfgs(moe_impl="dropless", ep_overlap="ring")
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(3), (2, 65), 0,
+                                         CFG.vocab_size))
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jmoe.loss_fn(p, jnp.asarray(toks), jcfg, mesh=jmesh)
+    ))(jshard(jp, jmesh, jmoe.param_specs(jcfg)))
+    return toks, float(loss), _leaves(jax.tree.map(np.asarray, grads))
+
+
+@pytest.mark.parametrize("mode", ["ring", "psum"])
+def test_loss_and_grads_match_the_reference_ring(setup, ring_grads, mode):
+    """The port's EP loss and every gradient leaf (autograd through the
+    grouped K9 rotation and its inverse, and each shard's expert MLP on
+    its expert window) against the reference's EP ring."""
+    jp, _, _, mesh = setup
+    toks, jloss, jgrads = ring_grads
+    _, tcfg = _cfgs(moe_impl="dropless", ep_overlap=mode)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CFG, device="cpu")
+    flat = _leaves(tp)
+    for p in flat.values():
+        p.requires_grad_(True)
+    # The shards are views made under autograd: the gradients reach the
+    # whole stacks.
+    loss = moe.loss_fn(shard_pytree(tp, mesh, moe.param_specs(tcfg)),
+                       torch.from_numpy(toks), tcfg, mesh=mesh)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    assert abs(loss.item() - jloss) < 1e-5
+    assert sorted(flat) == sorted(jgrads)
+    for name, g in zip(flat, grads):
+        np.testing.assert_allclose(g.numpy(), jgrads[name], **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_ring_rotates_chunk_and_carrier_together_on_one_device(setup,
+                                                               monkeypatch):
+    """Each hop but the last rotates the carrier and the next chunk in one
+    group, the last hop the carrier alone: n_ep groups a layer, not the
+    reference's 2 n_ep - 1 rotations. The ledger keeps the reference's
+    records, x then y a hop."""
+    _, tp, _, mesh = setup
+    _, tcfg = _cfgs(moe_impl="dropless", ep_overlap="ring")
+    calls, sites = [], []
+    group, emit = ring.ring_permute_group, collectives.emit
+    monkeypatch.setattr(ring, "ring_permute_group",
+                        lambda rings, shift=1: calls.append(len(rings))
+                        or group(rings, shift))
+    monkeypatch.setattr(collectives, "emit",
+                        lambda site, *a, **kw: sites.append(site)
+                        or emit(site, *a, **kw))
+    with torch.no_grad():
+        moe.forward(shard_pytree(tp, mesh, moe.param_specs(tcfg)),
+                    torch.tensor(_tokens()), tcfg, mesh=mesh)
+    layers = CFG.n_layers
+    assert calls == ([2] * (N_EP - 1) + [1]) * layers
+    hops = [s for s in sites if s in ("moe.ep_ring.x", "moe.ep_ring.y")]
+    assert hops == (["moe.ep_ring.x", "moe.ep_ring.y"] * (N_EP - 1)
+                    + ["moe.ep_ring.y"]) * layers
+
+
+def test_make_train_step_on_a_mesh_matches_the_single_device_step(setup):
+    """Three AdamW steps of ``make_train_step(mesh=)`` (4 CPU shards, the
+    ring) against three of the reference's ``make_train_step`` on its
+    4-device expert mesh, and against three of the port's single-device
+    step, all from the same parameters and tokens; the state updates in
+    place."""
+    _, _, jmesh, mesh = setup
+    jcfg, tcfg = _cfgs(moe_impl="dropless", ep_overlap="ring")
+    toks = _tokens(b=4, s=33, seed=2)
+    jopt = jtrain.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=100)
+    jstate = jtrain.init_train_state(jcfg, jmesh, jopt, seed=0)
+    np_params = jax.tree.map(np.asarray, jstate.params)
+    jstep = jtrain.make_train_step(jcfg, jmesh, jopt)
+    jlosses = []
+    for _ in range(3):
+        jstate, loss = jstep(jstate, jnp.asarray(toks))
+        jlosses.append(float(loss))
+    ref = dict(
+        losses=jlosses,
+        mu=_leaves(jax.tree.map(
+            np.asarray, optax.tree_utils.tree_get(jstate.opt_state, "mu"))),
+        params=_leaves(jax.tree.map(np.asarray, jstate.params)))
+    runs = []
+    for m in (mesh, None):
+        opt = ttrain.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=100)
+        state = ttrain.train_state_from_params(
+            params_from_numpy(np_params, CFG, device="cpu"), opt)
+        step = ttrain.make_train_step(tcfg, opt, device="cpu", mesh=m)
+        losses = []
+        for _ in range(3):
+            out, loss = step(state, torch.from_numpy(toks))
+            assert out is state
+            losses.append(loss.item())
+        assert state.step == 3
+        runs.append(dict(
+            losses=losses,
+            mu=_leaves(jax.tree.map(lambda t: t.detach().numpy(),
+                                    state.opt_state.mu)),
+            params=_leaves(jax.tree.map(lambda t: t.detach().numpy(),
+                                        state.params))))
+    ep, single = runs
+    assert int(jstate.step) == 3 and ep["losses"][2] < ep["losses"][1]
+    for want in (ref, single):
+        np.testing.assert_allclose(ep["losses"], want["losses"], atol=1e-5,
+                                   rtol=1e-5)
+        for key, tol in (("mu", GRAD_TOL),
+                         ("params", dict(atol=5e-4, rtol=1e-4))):
+            assert sorted(ep[key]) == sorted(want[key])
+            for name, got in ep[key].items():
+                np.testing.assert_allclose(got, want[key][name], **tol,
+                                           err_msg=f"{key} {name}")
+
+
+@pytest.mark.parametrize("bad", ["use_ring", "data_axis_loss",
+                                 "data_axis_step", "dense_step"])
+def test_ep_training_refuses(setup, bad):
+    """Ring attention (A12d), another mesh axis and a dense model on a
+    mesh (A12c) raise."""
+    _, tp, _, mesh = setup
+    _, tcfg = _cfgs(moe_impl="dropless")
+    toks = torch.tensor(_tokens(b=2, s=9))
+    mesh_dp = build_mesh(MeshConfig(data=2, expert=2), devices=[CPU] * 4)
+    opt = ttrain.make_optimizer()
+    if bad == "use_ring":
+        with pytest.raises(NotImplementedError, match="A12d"):
+            moe.loss_fn(tp, toks, tcfg, mesh=mesh, use_ring=True)
+    elif bad == "data_axis_loss":
+        with pytest.raises(NotImplementedError, match="A12c"):
+            moe.loss_fn(tp, toks, tcfg, mesh=mesh_dp)
+    elif bad == "data_axis_step":
+        with pytest.raises(NotImplementedError, match="A12c"):
+            ttrain.make_train_step(tcfg, opt, device="cpu", mesh=mesh_dp)
+    else:
+        with pytest.raises(NotImplementedError, match="A12c"):
+            ttrain.make_train_step(llama.PRESETS["tiny"], opt, device="cpu",
+                                   mesh=mesh)

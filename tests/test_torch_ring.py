@@ -7,7 +7,11 @@ K9 in interpret mode (``impl="pallas"``) and with ``lax.ppermute``
 (``impl="xla"``). The port calls it once with the list of the 4 shards'
 buffers (a single-controller mesh of 4 CPU shards), where it runs its
 plain version. Rotations and gradients must agree exactly; the collective
-ledger must record the same bytes at the same site.
+ledger must record the same bytes at the same site. A group of rings
+(``ring_permute_many``: the EP hop's bf16 chunk beside its f32 carrier,
+one launch on the card) must equal the plain version ring by ring, its
+gradient the group's inverse rotation, its ledger records one call's a
+ring.
 """
 
 import jax
@@ -172,3 +176,98 @@ def test_build_mesh_needs_an_explicit_list_beyond_the_visible_cards():
     assert mesh.devices == (torch.device("cpu"),) * N
     with pytest.raises(ValueError, match="needs 4 devices, have 3"):
         build_mesh(MeshConfig(expert=N), devices=["cpu"] * 3)
+
+
+# A hop's group: the bf16 chunk [t_loc, H] and the f32 carrier beside it,
+# as the EP ring body rotates them in one launch.
+def _group(seed: int, requires_grad: bool = False) -> list:
+    rng = np.random.RandomState(seed)
+    chunk = rng.randn(N, 6, 16).astype(np.float32)
+    carrier = rng.randn(N, 6, 16).astype(np.float32)
+    return [
+        [torch.tensor(chunk[i]).to(torch.bfloat16).requires_grad_(
+            requires_grad) for i in range(N)],
+        [torch.tensor(carrier[i], requires_grad=requires_grad)
+         for i in range(N)],
+    ]
+
+
+@pytest.mark.parametrize("shift", [1, -1, 3])
+def test_group_rotation_equals_the_plain_version_ring_by_ring(shift):
+    """``ring_permute_many`` on a bf16 ring and an f32 ring equals
+    ``ring_permute_reference`` of each ring, bit for bit, and numpy's
+    roll; ``ring_permute_group`` (the kernel's entry) takes the plain
+    version on CPU tensors and launches nothing."""
+    rings = _group(shift + 10)
+    before = ring.ring_permute_kernel.launches
+    got = ring.ring_permute_many(rings, "expert", N, shift=shift,
+                                 sites=("moe.ep_ring.x", "moe.ep_ring.y"))
+    direct = ring.ring_permute_group(rings, shift % N)
+    assert ring.ring_permute_kernel.launches == before
+    for out, same, xs in zip(got, direct, rings):
+        want = ring.ring_permute_reference(xs, shift)
+        assert [o.dtype for o in out] == [x.dtype for x in xs]
+        for o, s, w in zip(out, same, want):
+            assert torch.equal(o.view(torch.uint8), w.view(torch.uint8))
+            assert torch.equal(s.view(torch.uint8), w.view(torch.uint8))
+        np.testing.assert_array_equal(
+            np.stack([o.float().numpy() for o in out]),
+            np.roll(np.stack([x.float().numpy() for x in xs]), shift, axis=0))
+
+
+@pytest.mark.parametrize("shift", [1, -1, 3])
+def test_group_gradient_is_the_inverse_group_rotation(shift):
+    """The group's gradient is each ring's inverse rotation of its
+    cotangents (``RingPermuteFunction`` over the group)."""
+    rings = _group(shift + 20, requires_grad=True)
+    w = [[torch.randn(6, 16, generator=torch.Generator().manual_seed(
+        10 * r + i)) for i in range(N)] for r in range(2)]
+    got = ring.ring_permute_many(rings, "expert", N, shift=shift,
+                                 sites=("a", "b"))
+    assert all(o.requires_grad for out in got for o in out)
+    sum((o.float() * wi).sum() for out, ws in zip(got, w)
+        for o, wi in zip(out, ws)).backward()
+    for xs, ws in zip(rings, w):
+        want = ring.ring_permute_reference(
+            [wi.to(xs[0].dtype) for wi in ws], -shift)
+        for x, g in zip(xs, want):
+            assert x.grad.dtype == x.dtype and torch.equal(x.grad, g)
+
+
+def test_group_ledger_records_equal_single_ring_calls():
+    """A group records, ring by ring, what one ``ring_permute`` call a ring
+    records: the EP hop's ``moe.ep_ring.x`` then ``moe.ep_ring.y``."""
+    sites = ("moe.ep_ring.x", "moe.ep_ring.y")
+    records = []
+    for grouped in (True, False):
+        led = collectives.CollectiveLedger()
+        led.install()
+        try:
+            rings = _group(5)
+            if grouped:
+                ring.ring_permute_many(rings, "expert", N, sites=sites)
+            else:
+                for xs, site in zip(rings, sites):
+                    ring.ring_permute(xs, "expert", N, site=site)
+        finally:
+            led.uninstall()
+        records.append(led.snapshot())
+    assert records[0] == records[1] == [
+        {"site": "moe.ep_ring.x", "medium": "ici",
+         "bytes": N * 6 * 16 * 2, "invocations": 1},
+        {"site": "moe.ep_ring.y", "medium": "ici",
+         "bytes": N * 6 * 16 * 4, "invocations": 1}]
+
+
+@pytest.mark.parametrize("bad", ["sites", "ring_sizes", "empty"])
+def test_group_refuses(bad):
+    rings = _group(6)
+    if bad == "sites":
+        with pytest.raises(ValueError, match="1 sites for 2 rings"):
+            ring.ring_permute_many(rings, "expert", N, sites=("x",))
+    elif bad == "ring_sizes":
+        with pytest.raises(ValueError, match="share one axis"):
+            ring.ring_permute_group([rings[0], rings[1][:2]], 1)
+    else:
+        with pytest.raises(ValueError, match="no ring"):
+            ring.ring_permute_group([], 1)

@@ -92,7 +92,7 @@ def main() -> int:
                               4 * x.numel(), cs.F32_FLOPS))
         if rows <= 512:
             out["rmsnorm"][f"x[{rows},{d}]"].update(
-                graph_ms=graph_ms(torch, lambda: norms.rmsnorm(x, w, eps)),
+                graph_ms=cs.graph_ms(torch, lambda: norms.rmsnorm(x, w, eps)),
                 profiled_ms=profiled_ms(torch,
                                         lambda: norms.rmsnorm(x, w, eps)))
     for name, rows, d in cs.RMSNORM_BACKWARD_SHAPES:
@@ -146,32 +146,6 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(line + "\n")
     return 0
-
-
-def graph_ms(torch, call, n: int = 50) -> float:
-    """Device ms a launch of ``call`` takes among ``n`` back to back in one
-    CUDA graph (median of 5 replays): a decode step's setting, where the
-    host's launch cost is gone."""
-    import statistics
-
-    side = torch.cuda.Stream()
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            call()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
 
 
 def profiled_ms(torch, call, n: int = 50) -> float:
@@ -244,7 +218,7 @@ def explore(torch, gen, dev, eps) -> dict:
                 _build.check(rc, f"rmsnorm {label}")
             row[label] = cs.time_ms(call)
             if rows <= 512:
-                row[label + " (graph)"] = graph_ms(torch, call)
+                row[label + " (graph)"] = cs.graph_ms(torch, call)
                 row[label + " (profiled)"] = profiled_ms(torch, call)
         res["rmsnorm_forms"][f"x[{rows},{d}]"] = row
     return res
