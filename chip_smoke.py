@@ -302,10 +302,46 @@ fixed seed, and checks every hand-written kernel of those paths:
     3 n_ep L: forward, recompute, backward), and prints step p50,
     tokens/s, peak memory and K9's launches beside phase 12's (``EP
     train:`` line).
+34. rebuilds phase 4's 8B from the seed and serves it Megatron-style on a
+    single-controller mesh of ``MeshConfig(data=2, tensor=4)`` over 8
+    shards of the card (weights placed by ``shard_pytree(params, mesh,
+    llama.param_specs(cfg))`` as views, no new memory): a prefill and 4
+    decode steps' logits within 5e-2 relative of the single device's,
+    then phase 4's traffic through ``DecodeEngine(mesh=mesh)``, steps
+    captured, and again eagerly, held equal as phase 4's are; the streams
+    equal phase 4's but near-ties (FLIP_MARGIN_LIMIT); launches held: K2
+    and K3 once per (data, tensor) shard a layer, K1 at both norms of a
+    layer and the final norm once per data group; then the mesh decode
+    step profiled and captured (``megatron serving:`` line: decode p50,
+    TTFT p50 and the captured step's device ms beside phase 4's).
+35. rebuilds phase 15's int8 8x7b (32 layers, int8 KV cache) and serves
+    it on ``MeshConfig(tensor=4)``: dropless takes the primitive path per
+    tensor shard, its expert products through ``grouped_matmul_int8``
+    (``csrc/grouped_matmul_int8.cu``, A7b) on each shard's M block of
+    every expert (the gate/up block a strided view, no copy); first the
+    kernel against its plain version at the decode (8 tokens) and prefill
+    (4 x 128) shapes on layer 0's shard-0 blocks, gate/up and down, and
+    on ragged groups with rows past the last (exactly 0), timed by CUDA
+    events and inside a CUDA graph beside its bound, the plain version
+    and ``torch._grouped_mm`` on a bf16 copy of the weight; then phase
+    15's traffic, the streams equal phase 15's but near-ties
+    (FLIP_MARGIN_LIMIT_KVQ), launches held (the kernel 2 a tensor shard
+    a layer a forward, ``int8_matmul`` 2L + 1 a shard a forward, K2-int8
+    and K3-int8 a shard a layer, K7/K8 never), no int8 -> float copy of
+    a weight in a decode step, the peak memory above the weights
+    (``megatron int8 moe:`` line).
+36. trains phase 6's 8b-L8 at 8 x 2048, remat "full", on
+    ``MeshConfig(data=2, fsdp=2, tensor=2)`` over 8 shards of the card:
+    one loss and every gradient leaf against the single device's on the
+    same state and tokens (loss 1e-2, leaves 5e-2), then 3 steps of
+    ``make_train_step(..., mesh=mesh)``, launches held (K4 2L, K5 and K6
+    L per (group, tensor shard) a step; K1 (4L + 1) and its gradient
+    (2L + 1) per group), step p50, tokens/s, MFU and peak memory beside
+    phase 6's (``megatron train:`` line).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32 and 33, and in each
-worker of phases 26-30) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35 and 36,
+and in each worker of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -376,6 +412,16 @@ FLIP_SHARE_LIMIT = 2e-2
 # first full run: 120 flips of 8448 choices, median margin 1.3e-3, the
 # largest 1.29e-2), so the margin limit doubles and the share limit stays.
 FLIP_MARGIN_LIMIT_KVQ = 2e-2
+# Phase 35 (the mesh against the single device, int8 KV cache): the
+# tensor split moves the routers' inputs by bf16 noise, which flips
+# near-tie choices more often than a kernel against its plain version does
+# (tools/tp_flip_share.py, one H100: 541 of 25600 choices, 2.1%, largest
+# margin 1.96e-2; the same with the shards' partial products summed in f32,
+# 540; 510 with a bf16 KV cache, 414 with both; none on one tensor shard).
+# A psum that loses one shard's expert partial flips 50.5% (largest margin
+# 0.327, logits 0.60 relative). The margin limit stays FLIP_MARGIN_LIMIT_KVQ;
+# the share limit doubles phase 14's, between the two.
+TP_FLIP_SHARE_LIMIT = 4e-2
 # The engine's stats that are host-clock times: the rest must agree between
 # the captured engine and the eager one.
 TIMING_KEYS = ("ttftP50Ms", "ttftP99Ms", "tokenIntervalP50Ms",
@@ -906,15 +952,16 @@ class RoutingReplay:
                     flip_margin_max=max(margins, default=0.0),
                     flip_margins=margins)
 
-    def check(self, what: str, margin_limit=FLIP_MARGIN_LIMIT) -> None:
+    def check(self, what: str, margin_limit=FLIP_MARGIN_LIMIT,
+              share_limit=FLIP_SHARE_LIMIT) -> None:
         """Raises where a flip is not a near-tie (margin >= margin_limit)
-        or the flips exceed FLIP_SHARE_LIMIT of the routed choices."""
+        or the flips exceed ``share_limit`` of the routed choices."""
         share = len(self.margins) / max(self.routed, 1)
         largest = max(self.margins, default=0.0)
-        if share > FLIP_SHARE_LIMIT or largest >= margin_limit:
+        if share > share_limit or largest >= margin_limit:
             raise AssertionError(
                 f"{what}: {len(self.margins)} routing flips of "
-                f"{self.routed} ({share}, limit {FLIP_SHARE_LIMIT}), "
+                f"{self.routed} ({share}, limit {share_limit}), "
                 f"largest margin {largest} (limit {margin_limit})")
 
 
@@ -1276,12 +1323,14 @@ def hold_loss_grads(what: str, loss_rel: float, grad_rel: dict) -> None:
                              f"5e-2: {bad}")
 
 
-def train(torch, dev, cfg, preset: str, batch: int, mesh=None) -> dict:
+def train(torch, dev, cfg, preset: str, batch: int, mesh=None,
+          steps: int = TRAIN_STEPS, profile: bool = True) -> dict:
     """Phase 6 (and phase 12 on the MoE config, phase 33 on it with an
-    expert ``mesh``): the training path (a main path) on ``cfg`` at batch
-    ``batch`` x 2048, remat "full", AdamW (lr 1e-3, warm-up 1, 100 total
-    steps) on one fixed batch: one warm-up step, 5 timed steps and one
-    profiled step."""
+    expert ``mesh``, phase 36 on 8b-L8 with a data x fsdp x tensor one):
+    the training path (a main path) on ``cfg`` at batch ``batch`` x 2048,
+    remat "full", AdamW (lr 1e-3, warm-up 1, 100 total steps) on one
+    fixed batch: one warm-up step, ``steps`` timed steps and, with
+    ``profile``, one profiled step."""
     from k8s_dra_driver_tpu_torch.models import (
         init_train_state,
         make_optimizer,
@@ -1296,7 +1345,7 @@ def train(torch, dev, cfg, preset: str, batch: int, mesh=None) -> dict:
         f"{8 * n / 1e9:.1f} GB before activations")
     torch.cuda.reset_peak_memory_stats()
     opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
-    state = init_train_state(cfg, opt, seed=SEED, device=dev)
+    state = init_train_state(cfg, opt, seed=SEED, device=dev, mesh=mesh)
     step = make_train_step(cfg, opt, remat=True, device=dev, mesh=mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1304,7 +1353,7 @@ def train(torch, dev, cfg, preset: str, batch: int, mesh=None) -> dict:
                            generator=gen, device=dev)
     moe.MOE_TRACE_COUNTS.clear()
     losses, times = [], []
-    for _ in range(1 + TRAIN_STEPS):
+    for _ in range(1 + steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = step(state, tokens)
@@ -1315,10 +1364,10 @@ def train(torch, dev, cfg, preset: str, batch: int, mesh=None) -> dict:
         raise AssertionError(f"non-finite losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    if state.step != 1 + TRAIN_STEPS:
+    if state.step != 1 + steps:
         raise AssertionError(f"step counter {state.step}")
     step_s = statistics.median(times[1:])
-    profile = profile_step(torch, step, state, tokens)
+    profile = profile_step(torch, step, state, tokens) if profile else None
     tokens_per_step = batch * TRAIN_SEQ
     metrics = dict(
         preset=preset, batch=batch, seq=TRAIN_SEQ, remat="full",
@@ -1673,6 +1722,8 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
                  "_rmsnorm_row")),
     # K9, the ring hop (csrc/ring_permute.cu).
     ("ring_permute", ("ring_permute_kernel",)),
+    # A7b, the int8 grouped product (csrc/grouped_matmul_int8.cu).
+    ("grouped_matmul_int8", ("grouped_matmul_int8_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
 
@@ -1725,13 +1776,15 @@ def device_profile(torch, fn, calls: int, allow_empty=False) -> dict:
 
 
 def profile_decode(torch, params, cfg, dev, quantize_cache=False,
-                   mesh=None) -> dict:
+                   mesh=None, eager=True) -> dict:
     """One decode step at the engine's shape (8 sequences at 384 cached
     positions, kernels on): its host-clock time over 5 steps, then 3 steps
     under ``torch.profiler``, and the ratio of the two; then the same step
     captured by ``StepGraph``, as the engine runs it (``captured_*``). On
-    a ``mesh`` the MoE blocks run expert parallel
-    (``tools/ring_permute_bench.py``)."""
+    a ``mesh`` the step runs there (``tools/ring_permute_bench.py``: the
+    expert-parallel one); ``eager=False`` skips the eager step's timing and
+    profile (phases 34-35: the captured step's profile splits its device
+    time) and runs it once, for its int8 -> float copies."""
     from k8s_dra_driver_tpu_torch.models.decode import _forward_with_cache
     from k8s_dra_driver_tpu_torch.models.paged import (
         PagedKVCache,
@@ -1761,19 +1814,21 @@ def profile_decode(torch, params, cfg, dev, quantize_cache=False,
             params, state["tok"], c, cfg, c.lengths[:, None], mesh=mesh)
         state["tok"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 5
-    result = dict(step_ms=step_ms, **device_profile(torch, step, 3))
-    # The profiled steps' device time over the unprofiled steps' host time:
-    # the busy share without the profiler's own host cost (two
-    # measurements of one run; device_busy_share is the profiled one).
-    result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
+    result = {}
+    if eager:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        result = dict(step_ms=step_ms, **device_profile(torch, step, 3))
+        # The profiled steps' device time over the unprofiled steps' host
+        # time: the busy share without the profiler's own host cost (two
+        # measurements of one run; device_busy_share is the profiled one).
+        result["device_ms_over_step_ms"] = result["device_ms"] / step_ms
     result["int8_to_float_copies"] = int8_casts(torch, step)
     result.update(captured_decode(torch, params, cfg, state, mesh))
     log("decode step profile:", json.dumps(result))
@@ -5424,9 +5479,7 @@ def ep_train_launches(n_ep: int, layers: int) -> dict:
 
 
 def ep_mesh(dev):
-    from k8s_dra_driver_tpu_torch.parallel import MeshConfig, build_mesh
-
-    return build_mesh(MeshConfig(expert=EP_SHARDS), devices=[dev] * EP_SHARDS)
+    return card_mesh(dev, expert=EP_SHARDS)
 
 
 def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
@@ -5490,6 +5543,452 @@ def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+# Phases 34-36: the data, fsdp and tensor axes of a single-controller mesh,
+# every shard on the card. Megatron serving of phase 4's 8B on data 2 x
+# tensor 4, phase 15's int8 8x7b on tensor 4 (the int8 grouped product,
+# A7b), and phase 6's 8b-L8 training on data 2 x fsdp 2 x tensor 2.
+TP_SERVE_MESH = dict(data=2, tensor=4)
+TP_MOE_MESH = dict(tensor=4)
+TP_TRAIN_MESH = dict(data=2, fsdp=2, tensor=2)
+TP_TRAIN_STEPS = 2          # timed, after the warm-up step: 3 steps
+TP_LOGITS_PROMPT = 96
+TP_LOGITS_DECODE = 4
+TP_LOGITS_REL = 5e-2
+
+
+def card_mesh(dev, **axes):
+    """A single-controller mesh of ``axes`` with every shard on the card."""
+    from k8s_dra_driver_tpu_torch.parallel import MeshConfig, build_mesh
+
+    mc = MeshConfig(**axes)
+    return build_mesh(mc, devices=[dev] * mc.num_devices)
+
+
+def shard_in_place(torch, params, mesh, specs):
+    """``shard_pytree(params, mesh, specs)``, held to take no new memory:
+    on one card every block is a view of the whole leaf."""
+    from k8s_dra_driver_tpu_torch.parallel import shard_pytree
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    sharded = shard_pytree(params, mesh, specs)
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != held:
+        raise AssertionError(f"shard_pytree on {mesh} took "
+                             f"{torch.cuda.memory_allocated() - held} bytes")
+    return sharded
+
+
+@contextlib.contextmanager
+def primitive_dispatch():
+    """The single device's dropless MoE on the primitive path (the grouped
+    products), the path the mesh runs without an expert axis as the
+    reference's GSPMD program does: the two then differ only by the
+    tensor shards' partial sums."""
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch
+
+    moe_dispatch.set_dispatch_impl("primitive")
+    try:
+        yield
+    finally:
+        moe_dispatch.set_dispatch_impl("auto")
+
+
+def mesh_logits_rel(torch, params, sharded, cfg, dev, mesh,
+                    quantize_cache=False) -> dict:
+    """A prefill of 8 seeded TP_LOGITS_PROMPT-token prompts, then
+    TP_LOGITS_DECODE decode steps, on the single device and on ``mesh``:
+    each step's logits within TP_LOGITS_REL of the single device's
+    largest magnitude. On an MoE config the single device runs the
+    primitive path (``primitive_dispatch``) and the mesh run replays its
+    expert choices (``RoutingReplay``, as phase 14 holds a forward): every
+    routing flip a near-tie, at most TP_FLIP_SHARE_LIMIT of them."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.decode import decode_step, prefill
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 50)
+    n = TP_LOGITS_PROMPT + TP_LOGITS_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    runs = []
+    with RoutingReplay(moe) as replay:
+        for p, m, how in ((params, None, "record"),
+                          (sharded, mesh, "replay")):
+            replay.mode = how
+            with (primitive_dispatch() if m is None
+                  else contextlib.nullcontext()):
+                logits, cache = prefill(p, toks[:, :TP_LOGITS_PROMPT], cfg,
+                                        n + 1, quantize_cache=quantize_cache,
+                                        block_size=BLOCK_SIZE, mesh=m)
+                seq = [logits.float()]
+                for i in range(TP_LOGITS_PROMPT, n):
+                    logits, cache = decode_step(p, toks[:, i], cache, cfg,
+                                                mesh=m)
+                    seq.append(logits.float())
+            del cache
+            runs.append(seq)
+    rels = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(runs[1], runs[0])]
+    if not max(rels) <= TP_LOGITS_REL:
+        raise AssertionError(f"mesh logits against the single device's: "
+                             f"relative differences {rels} (limit "
+                             f"{TP_LOGITS_REL})")
+    result = dict(prefill_rel=rels[0], decode_rel=rels[1:])
+    if isinstance(cfg, moe.MoeConfig):
+        replay.check("mesh vs single routing", FLIP_MARGIN_LIMIT_KVQ
+                     if quantize_cache else FLIP_MARGIN_LIMIT,
+                     TP_FLIP_SHARE_LIMIT)
+        result.update(replay.summary())
+        del result["flip_margins"]
+    return result
+
+
+def explain_mesh_flips(torch, params, sharded, cfg, dev, mesh, flips,
+                       other, prompt_lens, quantize_cache) -> list:
+    """An MoE model's mesh stream and the single device's first differ
+    beyond a logit near-tie: a router's top-2 choice is discrete, so the
+    bf16 noise of another summation order flips near-tie choices, and one
+    flipped expert moves a token's logits far more than that noise. So
+    the common prefix is prefilled (dropless) on the single device (the
+    primitive path, ``primitive_dispatch``), its routing recorded, and on
+    the mesh with that routing replayed: every
+    routing flip must be a near-tie, and the mesh must then choose the
+    single device's token or one within a near-tie of it
+    (``near_tie``). Returns what each flip's rerun found."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.decode import prefill
+
+    limit = FLIP_MARGIN_LIMIT_KVQ if quantize_cache else FLIP_MARGIN_LIMIT
+    dropless = dataclasses.replace(cfg, moe_impl="dropless")
+    found = []
+    for f in flips:
+        if near_tie(f, limit):
+            continue
+        rid, i = f["request"], f["generated_index"]
+        prefix = torch.tensor([other[rid][:prompt_lens[rid] + i]],
+                              device=dev)
+        out = []
+        with RoutingReplay(moe) as replay:
+            for p, m, how in ((params, None, "record"),
+                              (sharded, mesh, "replay")):
+                replay.mode = how
+                with (primitive_dispatch() if m is None
+                      else contextlib.nullcontext()):
+                    logits, _ = prefill(p, prefix, dropless,
+                                        prefix.shape[1] + 1,
+                                        quantize_cache=quantize_cache,
+                                        block_size=BLOCK_SIZE, mesh=m)
+                out.append(logits[0].float())
+        replay.check(f"the routing behind flip {rid}/{i}", limit,
+                     TP_FLIP_SHARE_LIMIT)
+        single, meshed = out
+        a, b = int(single.argmax()), int(meshed.argmax())
+        tie = {"logit_margin": abs(float(meshed[a] - meshed[b])),
+               "logits": [float(meshed[a]), float(meshed[b])]}
+        if a != b and not near_tie(tie, limit):
+            raise AssertionError(f"with the single device's routing replayed "
+                                 f"the mesh chooses {b} at {rid}/{i}, the "
+                                 f"single device {a}: {tie}")
+        summary = replay.summary()
+        del summary["flip_margins"]
+        f["routing"] = dict(summary, single_choice=a, mesh_replayed_choice=b,
+                            replayed_logit_margin=tie["logit_margin"])
+        found.append(f)
+    return found
+
+
+def hold_streams(torch, what, streams, phase_streams, prompt_lens, params,
+                 cfg, dev, quantize_cache, limit) -> list:
+    """The streams equal another phase's but near-ties: at each first
+    differing token the two tokens' logits on the single-device model
+    within ``limit`` or one bf16 step (``near_tie``). Returns the flips."""
+    flips = stream_flips(torch, streams, phase_streams, prompt_lens,
+                         ("mesh", "single"), params, cfg, dev,
+                         quantize_cache)
+    log(f"{what}: stream flips against the single device "
+        f"{json.dumps(flips)}")
+    bad = [f for f in flips if not near_tie(f, limit)]
+    if bad:
+        raise AssertionError(f"{what}: streams differ beyond a near-tie "
+                             f"(limit {limit} or one bf16 step): {bad}")
+    return flips
+
+
+def int8_grouped_inputs(torch, qlayer, cfg, dev, t: int, tp: int, seed: int):
+    """The primitive path's operands at ``t`` tokens on tensor shard 0's
+    blocks of one int8 layer: the plan of ``t`` routed random hidden
+    states, the sorted rows, the gate/up block [E, H, 2, M / tp] (a
+    strided view) and the down block [E, M / tp, H] with their scales."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.quant import QuantTensor
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
+    from k8s_dra_driver_tpu_torch.ops import norms
+
+    m_loc = cfg.mlp_hidden // tp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((t, cfg.hidden), generator=gen, device=dev).to(
+        torch.bfloat16)
+    xf = norms.rmsnorm_reference(x, qlayer["ln_mlp"], cfg.norm_eps)
+    gates, experts, _, _ = moe._route_topk(xf, qlayer["wr"], cfg)
+    plan = md.build_plan(experts.reshape(-1), t, cfg.n_experts, cfg.top_k)
+    gu, dn = qlayer["w_gateup"], qlayer["w_down"]
+    gu_blk = QuantTensor(q=gu.q[..., :m_loc], scale=gu.scale[..., :m_loc])
+    dn_blk = QuantTensor(q=dn.q[:, :m_loc], scale=dn.scale)
+    xs = md._take_rows(xf, plan.row_ids)
+    act = torch.randn((plan.r_pad, m_loc), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return plan, xs, act, gu_blk, dn_blk
+
+
+def check_grouped_int8(torch, qparams, cfg, dev, tp: int) -> dict:
+    """Phase 35: A7b (``grouped_matmul_int8``) against its plain version at
+    the decode (BATCH_SLOTS tokens) and prefill (PREFILL_BATCH x
+    PREFILL_CHUNK) shapes on layer 0's tensor-shard-0 blocks, gate/up
+    (the strided [E, H, 2, M / tp] view, both halves in one launch) and
+    down, at the bf16 gate; on ragged groups with rows past the last
+    (exactly 0). Each row timed by CUDA events (L2 flushed) and, at
+    decode, as a launch among 50 in a CUDA graph, beside its bound (the
+    touched experts' int8 weights and scales, the live lhs rows and the
+    output at 3.35 TB/s, or 2 x live x K x N at 989 TFLOP/s), its plain
+    version and ``torch._grouped_mm`` on a bf16 copy of the weight (a
+    yardstick: no PyTorch call computes the int8 function)."""
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
+
+    qlayer = {k: w[0] for k, w in qparams["layers"].items()}
+    rows = {}
+    for tag, t, seed in (("", BATCH_SLOTS, SEED + 60),
+                         ("_prefill", PREFILL_BATCH * PREFILL_CHUNK,
+                          SEED + 61)):
+        plan, xs, act, gu_blk, dn_blk = int8_grouped_inputs(
+            torch, qlayer, cfg, dev, t, tp, seed)
+        sizes = plan.sizes_aligned
+        live = int((plan.pair_ids < plan.n_pairs).sum())
+        touched = int((sizes > 0).sum())
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+        for part, lhs, w in (("_gateup", xs, gu_blk),
+                             ("_down", act, dn_blk)):
+            name = f"grouped_matmul_int8{tag}{part}"
+            e, k = w.q.shape[0], w.q.shape[1]
+            n = (2 * w.q.shape[-1]) if w.q.dim() == 4 else w.q.shape[-1]
+
+            def kernel(lhs=lhs, w=w):
+                return md.grouped_matmul_int8(lhs, w.q, w.scale, sizes)
+
+            def plain(lhs=lhs, w=w):
+                return md.grouped_matmul_int8_reference(lhs, w.q, w.scale,
+                                                        sizes)
+
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err, r = rel(f"{name} r_pad {plan.r_pad}", out, ref)
+            total = int(sizes.sum())
+            if not bool((out[total:] == 0).all()):
+                raise AssertionError(f"{name}: rows past the groups not 0")
+            del out, ref
+            nbytes = (touched * k * n + touched * n * 4 + live * k * 2
+                      + plan.r_pad * n * 2)
+            ops = 2 * live * k * n
+            wb = md._int8_flat(w.q, w.scale)[0].to(torch.bfloat16)
+            library_ms, refused = library_grouped_mm(torch, lhs, wb, offs,
+                                                     False)
+            del wb
+            row = dict(
+                max_abs_err=err, rel_err=r, ms=time_ms(kernel),
+                plain_ms=time_ms(plain, warmup=1, iters=3),
+                library_ms=library_ms, library_refusals=refused,
+                shape=(f"T {t}, tile {plan.tile_rows}, r_pad {plan.r_pad}, "
+                       f"live rows {live}, experts touched {touched}, K {k},"
+                       f" N {n}, tensor shard 0 of {tp}"),
+                **bound_fields(name, nbytes, ops, BF16_FLOPS))
+            if not tag:
+                row["graph_ms"] = graph_ms(torch, kernel)
+            rows[name] = row
+            torch.cuda.empty_cache()
+    # Ragged groups: an empty group, rows past the last one.
+    plan, xs, act, gu_blk, _ = int8_grouped_inputs(
+        torch, qlayer, cfg, dev, RAGGED_ROWS // 2, tp, SEED + 62)
+    rsizes = torch.tensor(RAGGED_SIZES, dtype=torch.int32, device=dev)
+    total = sum(RAGGED_SIZES)
+    lhs = xs[:RAGGED_ROWS].contiguous()
+    out = md.grouped_matmul_int8(lhs, gu_blk.q, gu_blk.scale, rsizes)
+    ref = md.grouped_matmul_int8_reference(lhs, gu_blk.q, gu_blk.scale,
+                                           rsizes)
+    torch.cuda.synchronize()
+    rel("grouped_matmul_int8 ragged groups", out, ref)
+    if not bool((out[total:] == 0).all()):
+        raise AssertionError("grouped_matmul_int8: rows past ragged groups "
+                             "not 0")
+    rows["grouped_matmul_int8_gateup"]["ragged"] = dict(
+        rows=RAGGED_ROWS, sizes=list(RAGGED_SIZES))
+    log("grouped_matmul_int8:", json.dumps(rows))
+    return rows
+
+
+def megatron_serving(torch, dev, serve_twice, kept, phase4) -> dict:
+    """Phase 34 (see the module docstring). Returns the phase's record."""
+    from k8s_dra_driver_tpu_torch.models import PRESETS, init_params, llama
+
+    t0 = time.perf_counter()
+    cfg = PRESETS["8b"]
+    params = init_params(cfg, seed=SEED, device=dev)
+    mesh = card_mesh(dev, **TP_SERVE_MESH)
+    sharded = shard_in_place(torch, params, mesh, llama.param_specs(cfg))
+    log(f"phase 34: {mesh}, weights placed in place "
+        f"({time.perf_counter() - t0:.1f}s)")
+    logits = mesh_logits_rel(torch, params, sharded, cfg, dev, mesh)
+    served = serve_twice("megatron_serving", "megatron engine", sharded,
+                         cfg, mesh=mesh, whole=params)
+    mine = kept["megatron_serving"]
+    flips = hold_streams(torch, "megatron engine", mine["streams"],
+                         kept["serving"]["streams"], mine["prompt_lens"],
+                         params, cfg, dev, False, FLIP_MARGIN_LIMIT)
+    profile = profile_decode(torch, sharded, cfg, dev, mesh=mesh,
+                             eager=False)
+    base = phase4["decode_profile"]
+    served.update(
+        mesh=str(mesh), logits=logits, phase4_stream_flips=flips,
+        streams_equal_phase4=len(mine["streams"]) - len(flips),
+        decode_profile=profile,
+        phase4={k: phase4[k] for k in ("decode_step_p50_ms", "ttft_p50_ms",
+                                       "tokens_per_s")},
+        phase4_captured_device_ms=base["captured_device_ms"])
+    log(f"megatron serving: {mesh}; decode p50 "
+        f"{served['decode_step_p50_ms']:.3f} ms (phase 4: "
+        f"{phase4['decode_step_p50_ms']:.3f}), TTFT p50 "
+        f"{served['ttft_p50_ms']:.2f} ms ({phase4['ttft_p50_ms']:.2f}), "
+        f"captured decode step {profile['captured_device_ms']:.3f} device "
+        f"ms ({base['captured_device_ms']:.3f}); logits rel "
+        f"{json.dumps(logits)}; {served['streams_equal_phase4']} of 8 "
+        f"streams equal phase 4's; {card_line()}")
+    del sharded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
+
+
+def megatron_int8_moe(torch, dev, qcfg, drive, kept, phase15) -> tuple:
+    """Phase 35 (see the module docstring). Returns (the kernel's rows,
+    the phase's record)."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_specs
+
+    t0 = time.perf_counter()
+    tp = TP_MOE_MESH["tensor"]
+    qparams = int8_moe_params(torch, qcfg, dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    mesh = card_mesh(dev, **TP_MOE_MESH)
+    sharded = shard_in_place(torch, qparams, mesh,
+                             quantize_specs(moe.param_specs(qcfg)))
+    log(f"phase 35: {mesh}, int8 weights {weights / 1e9:.1f} GB placed in "
+        f"place ({time.perf_counter() - t0:.1f}s)")
+    rows = check_grouped_int8(torch, qparams, qcfg, dev, tp)
+    logits = mesh_logits_rel(torch, qparams, sharded, dataclasses.replace(
+        qcfg, moe_impl="dropless"), dev, mesh, True)
+    log(f"megatron int8 moe: logits against the single device, routing "
+        f"replayed {json.dumps(logits)}")
+    served = drive("megatron_int8", serve, torch, sharded, qcfg, dev, True,
+                   True, None, None, mesh)
+    if served["moe_impl"] != {"decode_step": "dropless",
+                              "prefill_chunk": "dropless"}:
+        raise AssertionError(f"tensor-mesh int8 MoE impl "
+                             f"{served['moe_impl']}")
+    streams, lens = served.pop("_streams"), served.pop("_prompt_lens")
+    for key in [k for k in served if k.startswith("_")]:
+        del served[key]
+    single = kept["moe_serving_int8"]["streams"]
+    flips = stream_flips(torch, streams, single, lens, ("mesh", "single"),
+                         qparams, qcfg, dev, True)
+    log(f"megatron int8 moe engine: stream flips against the single device "
+        f"{json.dumps(flips)}")
+    explained = explain_mesh_flips(torch, qparams, sharded, qcfg, dev, mesh,
+                                   flips, single, lens, True)
+    log(f"megatron int8 moe engine: flips beyond a logit near-tie explained "
+        f"by routing near-ties {json.dumps(explained)}")
+    profile = profile_decode(torch, sharded, qcfg, dev, quantize_cache=True,
+                             mesh=mesh, eager=False)
+    # The only int8 -> float copies a decode step may make are the
+    # embedding's gathered rows, one per tensor shard's vocabulary block:
+    # no weight is converted.
+    copies = profile["int8_to_float_copies"]
+    weight_copies = [c for c in copies if c > BATCH_SLOTS * qcfg.hidden]
+    if weight_copies or len(copies) > tp:
+        raise AssertionError(f"tensor-mesh decode step int8 -> float copies "
+                             f"{copies}; expected the embedding rows only")
+    served.update(
+        mesh=str(mesh), weights_gb=weights / 1e9, logits=logits,
+        peak_above_weights_gb=served["peak_mem_gb"] - weights / 1e9,
+        phase15_stream_flips=flips,
+        routing_explained_flips=len(explained),
+        streams_equal_phase15=len(streams) - len(flips),
+        int8_to_float_copies=copies, int8_weight_copies=len(weight_copies),
+        decode_profile=profile,
+        phase15={k: phase15[k] for k in ("decode_step_p50_ms",
+                                         "ttft_p50_ms", "tokens_per_s",
+                                         "peak_mem_gb")})
+    log(f"megatron int8 moe: {mesh}; decode p50 "
+        f"{served['decode_step_p50_ms']:.3f} ms (phase 15: "
+        f"{phase15['decode_step_p50_ms']:.3f}), TTFT p50 "
+        f"{served['ttft_p50_ms']:.2f} ms ({phase15['ttft_p50_ms']:.2f}), "
+        f"peak {served['peak_mem_gb']:.2f} GB, "
+        f"{served['peak_above_weights_gb']:.2f} GB above the weights; "
+        f"int8 -> float copies {copies}; {served['streams_equal_phase15']} "
+        f"of 8 streams equal phase 15's; captured decode step "
+        f"{profile['captured_device_ms']:.3f} device ms; {card_line()}")
+    del sharded, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, served
+
+
+def megatron_compare_train(torch, cfg, dev, mesh) -> dict:
+    """Phase 36's hold: one loss and every gradient leaf of 8b-L8 at 8 x
+    2048 (remat "full") on ``mesh`` against the single device's, the same
+    seeded state and tokens as ``train``'s."""
+    from k8s_dra_driver_tpu_torch.models import llama
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    params = llama.init_params(cfg, seed=SEED, device=dev)
+    names = param_names(params)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    runs = []
+    for m in (None, mesh):
+        loss = llama.loss_fn(params, tokens, cfg, remat=True, mesh=m)
+        grads = torch.autograd.grad(loss, flat)
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+        del loss, grads
+        torch.cuda.empty_cache()
+    (l_single, g_single), (l_mesh, g_mesh) = runs
+    loss_rel, grad_rel = loss_grad_rel(names, (l_mesh, g_mesh),
+                                       (l_single, g_single))
+    hold_loss_grads("mesh vs single device", loss_rel, grad_rel)
+    del params, flat
+    torch.cuda.empty_cache()
+    return dict(loss_single=l_single, loss_mesh=l_mesh,
+                loss_rel_diff=loss_rel, grad_rel_diff=grad_rel)
+
+
+def megatron_train_launches(layers: int, groups: int, tp: int) -> dict:
+    """A mesh train step's launches under remat "full": K4 twice a layer
+    per (group, tensor shard) (forward and recompute), K5 and K6 once; K1
+    at both norms of a layer twice and the final norm once per group, its
+    gradient at each once."""
+    shards = groups * tp
+    return {"flash_fwd": 2 * layers * shards,
+            "flash_bwd_dkdv": layers * shards,
+            "flash_bwd_dq": layers * shards,
+            "rmsnorm": (4 * layers + 1) * groups,
+            "rmsnorm_backward": (2 * layers + 1) * groups}
 
 
 def nbytes(tree) -> int:
@@ -5586,6 +6085,7 @@ def main() -> int:
         "moe_down_combine_int8": moe_dispatch.moe_down_combine_int8,
         "int8_matmul": quant_matmul.int8_matmul,
         "ring_permute": ring.ring_permute_kernel,
+        "grouped_matmul_int8": moe_dispatch.grouped_matmul_int8,
     }
     paths = {"serving": ("paged_decode", "paged_prefill", "rmsnorm"),
              "training": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
@@ -5622,7 +6122,15 @@ def main() -> int:
              "ep_training": ("ring_permute", "moe_gateup", "moe_down_combine",
                              "grouped_matmul", "grouped_weight_grad",
                              "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                             "rmsnorm", "rmsnorm_backward")}
+                             "rmsnorm", "rmsnorm_backward"),
+             "megatron_serving": ("paged_decode", "paged_prefill",
+                                  "rmsnorm"),
+             "megatron_int8": ("grouped_matmul_int8", "int8_matmul",
+                               "paged_decode_int8", "paged_prefill_int8",
+                               "rmsnorm"),
+             "megatron_training": ("rmsnorm", "rmsnorm_backward",
+                                   "flash_fwd", "flash_bwd_dkdv",
+                                   "flash_bwd_dq")}
     by_path = {}
 
     def reset_counts():
@@ -5633,6 +6141,13 @@ def main() -> int:
         counts["int8_matmul_wide"] = quant_matmul.int8_matmul.wide_launches
         counts["int8_matmul_wide_prologue"] = \
             quant_matmul.int8_matmul.wide_prologue_launches
+        # A7b's launches by part, each counted where it launches: gate/up
+        # or down, narrow (decode) or wide (prefill) rows.
+        gmm8 = moe_dispatch.grouped_matmul_int8
+        for tag, size in (("", "narrow"), ("_prefill", "wide")):
+            for part in ("gateup", "down"):
+                counts[f"grouped_matmul_int8{tag}_{part}"] = getattr(
+                    gmm8, f"{size}_{part}_launches")
         return counts
 
     def drive(path, fn, *args):
@@ -5646,20 +6161,23 @@ def main() -> int:
 
     kept = {}      # each engine path's captured streams (phase 20 reads)
 
-    def serve_twice(path, label, params, cfg, quantize_cache=False):
+    def serve_twice(path, label, params, cfg, quantize_cache=False,
+                    mesh=None, whole=None):
         """The engine's run (the main path, steps captured), then the same
         traffic through a ``capture=False`` engine, outside the counted
-        run, held equal to it (``same_engines``). Logs both engines'
+        run, held equal to it (``same_engines``; on a ``mesh`` the near-tie
+        margins from ``whole``, the unplaced weights). Logs both engines'
         metrics on one line."""
         captured = drive(path, serve, torch, params, cfg, dev,
-                         quantize_cache)
+                         quantize_cache, True, None, None, mesh)
         gc.collect()                  # the captured engine's graphs
         torch.cuda.empty_cache()
         reset_counts()
         eager = serve(torch, params, cfg, dev, quantize_cache,
-                      capture=False)
+                      capture=False, mesh=mesh)
         flips = same_engines(torch, label, captured, eager, by_path[path],
-                             read_counts(), params, cfg, dev, quantize_cache)
+                             read_counts(), params if whole is None
+                             else whole, cfg, dev, quantize_cache)
         gc.collect()
         torch.cuda.empty_cache()
         kept[path] = dict(streams=captured["_streams"],
@@ -6167,6 +6685,93 @@ def main() -> int:
     phase_done(f"phase 33: 8x7b-L1 loss and gradients expert parallel on "
                f"{EP_SHARDS} shards match the single device with routing "
                f"replayed; trained for {steps} steps (launches {counts})")
+    # Phase 34: Megatron serving of phase 4's 8B on data 2 x tensor 4.
+    gc.collect()
+    torch.cuda.empty_cache()
+    megatron = megatron_serving(torch, dev, serve_twice, kept, engine)
+    counts = by_path["megatron_serving"]
+    groups = TP_SERVE_MESH["data"]
+    shards = groups * TP_SERVE_MESH["tensor"]
+    forwards = megatron["decode_steps"] + megatron["prefill_launches"]
+    layers = PRESETS["8b"].n_layers
+    # K2 / K3 once per (data, tensor) shard a layer; K1 at both norms of a
+    # layer and the final norm once per data group.
+    want = {"paged_decode": shards * layers * megatron["decode_steps"],
+            "paged_prefill": shards * layers * megatron["prefill_launches"],
+            "rmsnorm": groups * (2 * layers + 1) * forwards,
+            "int8_matmul": 0, "moe_gateup": 0, "grouped_matmul_int8": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"Megatron serving launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+    phase_done(f"phase 34: 8B served Megatron-style on data 2 x tensor 4, "
+               f"steps captured and eagerly with equal results, "
+               f"{megatron['streams_equal_phase4']} of 8 streams equal phase "
+               f"4's, the rest near-ties (launches {counts})")
+    # Phase 35: phase 15's int8 8x7b on tensor 4, A7b on every MoE layer.
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_rows, megatron_int8 = megatron_int8_moe(
+        torch, dev, qcfg, drive, kept, int8_engine)
+    kernels.update(int8_rows)
+    counts = by_path["megatron_int8"]
+    tp = TP_MOE_MESH["tensor"]
+    forwards = (megatron_int8["decode_steps"]
+                + megatron_int8["prefill_launches"])
+    layers = qcfg.n_layers
+    # A7b: a gate/up and a down launch per tensor shard a layer, narrow
+    # rows at decode, wide at prefill.
+    want = {f"grouped_matmul_int8{tag}_{part}": tp * layers * megatron_int8[n]
+            for tag, n in (("", "decode_steps"),
+                           ("_prefill", "prefill_launches"))
+            for part in ("gateup", "down")}
+    want.update({"grouped_matmul_int8": 2 * tp * layers * forwards,
+            "int8_matmul": tp * (2 * layers + 1) * forwards,
+            "paged_decode_int8": tp * layers * megatron_int8["decode_steps"],
+            "paged_prefill_int8":
+                tp * layers * megatron_int8["prefill_launches"],
+            "rmsnorm": (2 * layers + 1) * forwards,
+            "moe_gateup_int8": 0, "moe_down_combine_int8": 0,
+            "moe_gateup": 0, "grouped_matmul": 0, "paged_decode": 0})
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"Megatron int8 MoE launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+    phase_done(f"phase 35: int8 8x7b served on tensor 4 through "
+               f"grouped_matmul_int8, {megatron_int8['streams_equal_phase15']}"
+               f" of 8 streams equal phase 15's, the rest near-ties (of "
+               f"them {megatron_int8['routing_explained_flips']} routing "
+               f"near-ties); no int8 weight converted (launches {counts})")
+    # Phase 36: phase 6's 8b-L8 trained on data 2 x fsdp 2 x tensor 2.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg8 = PRESETS["8b-L8"]
+    tmesh = card_mesh(dev, **TP_TRAIN_MESH)
+    tp_grads = megatron_compare_train(torch, tcfg8, dev, tmesh)
+    tp_trained = drive("megatron_training", train, torch, dev, tcfg8,
+                       "8b-L8", TRAIN_BATCH, tmesh, TP_TRAIN_STEPS, False)
+    counts = by_path["megatron_training"]
+    tsteps = 1 + TP_TRAIN_STEPS
+    tgroups = TP_TRAIN_MESH["data"] * TP_TRAIN_MESH["fsdp"]
+    want = {k: n * tsteps for k, n in megatron_train_launches(
+        tcfg8.n_layers, tgroups, TP_TRAIN_MESH["tensor"]).items()}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"Megatron training launches {counts}, "
+                             f"expected {want}")
+    tp_trained["compare"] = tp_grads
+    tp_trained["mesh"] = str(tmesh)
+    tp_trained["phase6"] = {k: trained[k] for k in (
+        "step_ms_p50", "tokens_per_s", "mfu", "peak_mem_gb")}
+    log(f"megatron train: {tmesh}; step p50 "
+        f"{tp_trained['step_ms_p50']:.1f} ms (phase 6: "
+        f"{trained['step_ms_p50']:.1f}), {tp_trained['tokens_per_s']:.0f} "
+        f"tokens/s ({trained['tokens_per_s']:.0f}), MFU "
+        f"{tp_trained['mfu']:.3f} ({trained['mfu']:.3f}), peak memory "
+        f"{tp_trained['peak_mem_gb']:.2f} GB "
+        f"({trained['peak_mem_gb']:.2f}); loss rel "
+        f"{tp_grads['loss_rel_diff']:.2e}, largest leaf rel "
+        f"{max(tp_grads['grad_rel_diff'].values()):.2e}; {card_line()}")
+    phase_done(f"phase 36: 8b-L8 loss and gradients on data 2 x fsdp 2 x "
+               f"tensor 2 match the single device; trained for {tsteps} "
+               f"steps (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -6269,6 +6874,14 @@ def main() -> int:
     meta["ring_permute"] = ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
                             "ring_permute.cu",
                             "k8s_dra_driver_tpu/parallel/ring.py:393")
+    for name in ("grouped_matmul_int8_gateup", "grouped_matmul_int8_down",
+                 "grouped_matmul_int8_prefill_gateup",
+                 "grouped_matmul_int8_prefill_down"):
+        meta[name] = ("cuda", "k8s_dra_driver_tpu_torch/csrc/"
+                      "grouped_matmul_int8.cu",
+                      "k8s_dra_driver_tpu/ops/moe_dispatch.py:389 "
+                      "(lax.ragged_dot's int8 branch, XLA; no Pallas "
+                      "kernel)")
     for name in ("moe_gateup", "moe_down_combine"):
         meta[name + "_train"] = meta[name]
     for suffix in ("", "_int8"):
@@ -6335,7 +6948,10 @@ def main() -> int:
                     "checkpoint": ckpt, "device_layer": dra,
                     "plugin": plugin, "doctor": diag,
                     "expert_parallel": ep,
-                    "expert_parallel_training": ep_trained}))
+                    "expert_parallel_training": ep_trained,
+                    "megatron_serving": megatron,
+                    "megatron_int8_moe": megatron_int8,
+                    "megatron_training": tp_trained}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,15 +80,19 @@ int matrix_map(CUtensorMap* map, const void* base, int outer, int inner,
   return bf16_tensor_map(map, base, 2, dims, strides, box);
 }
 
-// A rank-3 map over [E, outer, inner] bf16 in boxes of 64 x `box_rows` x 1.
+// A rank-3 map over [E, outer, inner] bf16 in boxes of 64 x `box_rows` x 1;
+// `row_stride` / `e_stride` (elements, 0: packed) place the rows and the
+// experts of a strided view (a tensor shard's block of a whole stack).
 int experts_map(CUtensorMap* map, const void* base, int e, int outer,
-                int inner, int box_rows) {
+                int inner, int box_rows, long long row_stride = 0,
+                long long e_stride = 0) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(e)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(inner) * 2,
-      static_cast<cuuint64_t>(outer) * inner * 2};
+  const long long rs = row_stride ? row_stride : inner;
+  const long long es = e_stride ? e_stride : (long long)outer * rs;
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(rs) * 2,
+                                 static_cast<cuuint64_t>(es) * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   return bf16_tensor_map(map, base, 3, dims, strides, box);
 }

@@ -310,15 +310,17 @@ int prepare() {
 
 template <int BN, bool B_KMAJOR>
 int launch_gmm(const void* lhs, const void* rhs, const void* sizes, void* out,
-               int rows, int kdim, int ndim, int n_groups, cudaStream_t st) {
+               int rows, int kdim, int ndim, int n_groups, long long ld,
+               long long es, cudaStream_t st) {
   const long long n_items = (rows + kRowTile - 1) / kRowTile + n_groups;
   const long long blocks = n_items * (ndim / BN);
   if (blocks > 0x7fffffffLL) return -1;
   if (int rc = prepare<kGmm, BN, B_KMAJOR>()) return rc;
   CUtensorMap am, bm;
   if (int rc = matrix_map(&am, lhs, rows, kdim, kRowTile)) return rc;
-  if (int rc = B_KMAJOR ? experts_map(&bm, rhs, n_groups, ndim, kdim, BN)
-                        : experts_map(&bm, rhs, n_groups, kdim, ndim, 64))
+  if (int rc = B_KMAJOR
+                   ? experts_map(&bm, rhs, n_groups, ndim, kdim, BN, ld, es)
+                   : experts_map(&bm, rhs, n_groups, kdim, ndim, 64, ld, es))
     return rc;
   grouped_kernel<kGmm, BN, B_KMAJOR>
       <<<static_cast<unsigned>(blocks), kWgThreads, Ring<BN>::BYTES, st>>>(
@@ -348,33 +350,39 @@ int launch_tgmm(const void* lhs, const void* rhs, const void* sizes,
 }  // namespace
 
 // out [rows, n] = lhs [rows, k] times rhs [E, k, n] per group; rhs stored
-// [E, k, n], or [E, n, k] when rhs_transposed. k in steps of 32, n of 64.
+// [E, k, n], or [E, n, k] when rhs_transposed, its rows ld_rhs elements
+// apart and its experts e_stride_rhs apart (0: packed; a strided view such
+// as a tensor shard's half of a gate/up stack, read as it lies). k in steps
+// of 32, n of 64.
 extern "C" int grouped_matmul(const void* lhs, const void* rhs,
                               const void* group_sizes, void* out, int rows,
                               int k, int n, int n_groups, int rhs_transposed,
+                              long long ld_rhs, long long e_stride_rhs,
                               void* stream) {
-  if (rows < 0 || k <= 0 || k % 32 || n <= 0 || n % 64 || n_groups <= 0)
+  if (rows < 0 || k <= 0 || k % 32 || n <= 0 || n % 64 || n_groups <= 0 ||
+      ld_rhs < 0 || e_stride_rhs < 0)
     return -1;
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ld = ld_rhs, es = e_stride_rhs;
   if (rhs_transposed) {
     if (n % 256 == 0)
       return launch_gmm<256, true>(lhs, rhs, group_sizes, out, rows, k, n,
-                                   n_groups, st);
+                                   n_groups, ld, es, st);
     if (n % 128 == 0)
       return launch_gmm<128, true>(lhs, rhs, group_sizes, out, rows, k, n,
-                                   n_groups, st);
+                                   n_groups, ld, es, st);
     return launch_gmm<64, true>(lhs, rhs, group_sizes, out, rows, k, n,
-                                n_groups, st);
+                                n_groups, ld, es, st);
   }
   if (n % 256 == 0)
     return launch_gmm<256, false>(lhs, rhs, group_sizes, out, rows, k, n,
-                                  n_groups, st);
+                                  n_groups, ld, es, st);
   if (n % 128 == 0)
     return launch_gmm<128, false>(lhs, rhs, group_sizes, out, rows, k, n,
-                                  n_groups, st);
+                                  n_groups, ld, es, st);
   return launch_gmm<64, false>(lhs, rhs, group_sizes, out, rows, k, n,
-                               n_groups, st);
+                               n_groups, ld, es, st);
 }
 
 // out [E, k, n] f32 = lhs_e^T [k, rows_e] times rhs_e [rows_e, n] per group.

@@ -361,7 +361,7 @@ int8_matmul_swap_kernel(const __grid_constant__ CUtensorMap x_map,
 template <int NR, bool PROLOGUE>
 int launch_swap(const void* x, const void* q, const void* scale, void* y,
                 void* part, int e, int m, int n, int k, int split,
-                cudaStream_t st) {
+                long long ldq, long long sq, cudaStream_t st) {
   using W = Swap<NR>;
   auto kernel = split > 1 ? int8_matmul_swap_kernel<NR, PROLOGUE, true>
                           : int8_matmul_swap_kernel<NR, PROLOGUE, false>;
@@ -385,8 +385,8 @@ int launch_swap(const void* x, const void* q, const void* scale, void* y,
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n),
                                 static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(e)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n),
-                                   static_cast<cuuint64_t>(k) * n};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ldq),
+                                   static_cast<cuuint64_t>(sq)};
     const cuuint32_t box[3] = {kSwapCols, kBK, 1};
     if (int rc = tensor_map_of(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8,
                                CU_TENSOR_MAP_SWIZZLE_128B, q, 3, dims,
@@ -608,7 +608,7 @@ int8_matmul_wide_kernel(const __grid_constant__ CUtensorMap x_map,
 template <bool PROLOGUE>
 int launch_wide(const void* x, const void* q, const void* scale, void* y,
                 void* part, int e, int m, int n, int k, int split,
-                cudaStream_t st) {
+                long long ldq, long long sq, cudaStream_t st) {
   const long long blocks = (long long)((m + kWideRows - 1) / kWideRows) *
                            ((n + kWideCols - 1) / kWideCols);
   if (blocks > 0x7fffffffLL) return -1;
@@ -634,8 +634,8 @@ int launch_wide(const void* x, const void* q, const void* scale, void* y,
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n),
                                 static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(e)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n),
-                                   static_cast<cuuint64_t>(k) * n};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ldq),
+                                   static_cast<cuuint64_t>(sq)};
     const cuuint32_t box[3] = {kWideCols, kBK, 1};
     if (int rc = int8_tensor_map(&qm, q, 3, dims, strides, box)) return rc;
   }
@@ -649,18 +649,19 @@ int launch_wide(const void* x, const void* q, const void* scale, void* y,
 
 template <bool PROLOGUE>
 int dispatch(const void* x, const void* q, const void* scale, void* y,
-             void* part, int e, int m, int n, int k, int split,
-             cudaStream_t st) {
+             void* part, int e, int m, int n, int k, int split, long long ldq,
+             long long sq, cudaStream_t st) {
   if (m <= 8) return launch_swap<8, PROLOGUE>(x, q, scale, y, part, e, m, n,
-                                              k, split, st);
+                                              k, split, ldq, sq, st);
   if (m <= 16) return launch_swap<16, PROLOGUE>(x, q, scale, y, part, e, m,
-                                                n, k, split, st);
+                                                n, k, split, ldq, sq, st);
   if (m <= 32) return launch_swap<32, PROLOGUE>(x, q, scale, y, part, e, m,
-                                                n, k, split, st);
+                                                n, k, split, ldq, sq, st);
   if (m <= 64) return launch_swap<64, PROLOGUE>(x, q, scale, y, part, e, m,
-                                                n, k, split, st);
+                                                n, k, split, ldq, sq, st);
   if (split == 8) return -1;
-  return launch_wide<PROLOGUE>(x, q, scale, y, part, e, m, n, k, split, st);
+  return launch_wide<PROLOGUE>(x, q, scale, y, part, e, m, n, k, split, ldq,
+                               sq, st);
 }
 
 }  // namespace
@@ -668,17 +669,32 @@ int dispatch(const void* x, const void* q, const void* scale, void* y,
 // x bf16 [e, m, k], q int8 [e, k, n], scale f32 [e, n] -> y bf16 [e, m, n];
 // part: f32 scratch [split, e, m, n] when split > 1 (else unused).
 // prologue: 0 scales the f32 sum (SCALE_EPILOGUE), 1 stages bf16(q * scale)
-// (SCALE_PROLOGUE). Returns -1 for shapes the kernel does not take.
-extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
-                           void* y, void* part, int e, int m, int n, int k,
-                           int split, int prologue, void* stream) {
+// (SCALE_PROLOGUE). q's rows lie ldq bytes apart and its entries sq bytes
+// apart (a column block of a wider weight, such as a tensor shard's, read
+// as it lies; multiples of 16). Returns -1 for shapes the kernel does not
+// take.
+extern "C" int int8_matmul_strided(const void* x, const void* q,
+                                   const void* scale, void* y, void* part,
+                                   int e, int m, int n, int k, int split,
+                                   int prologue, long long ldq, long long sq,
+                                   void* stream) {
   if (e <= 0 || m <= 0 || n <= 0 || n % 16 || k <= 0 ||
       (split != 1 && split != 2 && split != 4 && split != 8) ||
       k % (kBK * split) ||
-      (split > 1 && part == nullptr) || e * split > 65535)
+      (split > 1 && part == nullptr) || e * split > 65535 || ldq < n ||
+      ldq % 16 || sq % 16 || (e > 1 && sq < (long long)k * ldq))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return prologue
-             ? dispatch<true>(x, q, scale, y, part, e, m, n, k, split, st)
-             : dispatch<false>(x, q, scale, y, part, e, m, n, k, split, st);
+  return prologue ? dispatch<true>(x, q, scale, y, part, e, m, n, k, split,
+                                   ldq, sq, st)
+                  : dispatch<false>(x, q, scale, y, part, e, m, n, k, split,
+                                    ldq, sq, st);
+}
+
+// The packed form of int8_matmul_strided: q [e, k, n] contiguous.
+extern "C" int int8_matmul(const void* x, const void* q, const void* scale,
+                           void* y, void* part, int e, int m, int n, int k,
+                           int split, int prologue, void* stream) {
+  return int8_matmul_strided(x, q, scale, y, part, e, m, n, k, split,
+                             prologue, n, (long long)k * n, stream);
 }

@@ -61,7 +61,8 @@ def _children(node: Any):
     if dataclasses.is_dataclass(node) and not isinstance(node, type) \
             and not isinstance(node, TensorSpec):
         return [(f.name, getattr(node, f.name))
-                for f in dataclasses.fields(node)]
+                for f in dataclasses.fields(node)
+                if f.metadata.get("checkpoint", True)]
     if isinstance(node, (torch.Tensor, TensorSpec, *_SCALARS)):
         return None
     raise TypeError(f"checkpoint: a {type(node).__name__} in the state; a "

@@ -12,9 +12,12 @@ version on the CPU. The per-layer FFN follows the config's family
 (:func:`_mlp_or_moe`): the dense SwiGLU MLP for a ``LlamaConfig``, the
 sparse MoE block (``models/moe.py``, the fused dispatch kernels K7 and K8
 on the card) for a ``MoeConfig``. Every entry point takes a ``mesh``
-(``parallel/mesh.py``, expert axis only) for expert-parallel serving:
-the MoE blocks then run over its shards (``moe._moe_block``) and the rest
-of the stack, the cache included, on its first device.
+(``parallel/mesh.py``): the stack then runs per batch group and tensor
+shard (``parallel/layout.py``, :func:`_mesh_forward_with_cache`), the
+pools cut on kv heads by ``paged.cache_specs`` (each tensor shard reads
+and writes its head range ``pool[l, h0:h1]`` of the whole pool in
+place), block tables and lengths replicated, the MoE blocks through
+``moe.moe_group`` (expert parallel on an expert axis).
 
 The int8 variants follow the reference's (``variant_label``): int8
 weights from ``quant.quantize_params`` run through the seams of
@@ -41,9 +44,23 @@ from ..ops.attention import (
 )
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import rope_frequencies
-from . import step_graph
-from .llama import LlamaConfig, _mlp_block, attn_out, layer_params, project_qkv
-from .moe import MoeConfig, _moe_block
+from ..parallel.collectives import concat_parts, sum_parts
+from ..parallel.layout import Layout, check_heads
+from ..parallel.sharding import shard_of
+from . import llama, moe, step_graph
+from .llama import (
+    LlamaConfig,
+    _mlp_block,
+    attn_out,
+    layer_params,
+    mesh_embed,
+    mesh_heads,
+    mesh_logits,
+    mesh_mlp,
+    place,
+    project_qkv,
+)
+from .moe import MoeConfig, _moe_block, moe_group
 from .paged import (
     BlockAllocator,
     OutOfBlocksError,
@@ -51,6 +68,7 @@ from .paged import (
     PagedQuantKVCache,
     PrefixCache,
     flat_write_positions,
+    place_cache,
 )
 from .quant import QuantTensor, q_lookup, q_matmul, quantize_tensor
 
@@ -113,16 +131,15 @@ def _rope_tables(config: LlamaConfig, span: int, device):
     return tables
 
 
-def _mlp_or_moe(x, layer, config, mesh=None, use_kernels: bool = True):
-    """The per-layer FFN for the config's family: sparse MoE routing for a
-    ``MoeConfig`` (aux loss dropped -- inference), dense otherwise. The
-    MoE impl follows ``resolve_moe_impl``: decode steps and prefill chunks
-    of up to 512 tokens run dropless, which on the card is the fused
-    dispatch pipeline (K7 then K8, once each per layer). On an expert
-    ``mesh``, ``auto`` keeps the einsum body (its experts split over the
-    shards), and an explicit dropless runs the ring or psum EP path."""
+def _mlp_or_moe(x, layer, config, use_kernels: bool = True):
+    """The per-layer FFN for the config's family on one device: sparse MoE
+    routing for a ``MoeConfig`` (aux loss dropped -- inference), dense
+    otherwise. The MoE impl follows ``resolve_moe_impl``: decode steps and
+    prefill chunks of up to 512 tokens run dropless, which on the card is
+    the fused dispatch pipeline (K7 then K8, once each per layer). On a
+    mesh :func:`_mesh_forward_with_cache` runs ``moe.moe_group``."""
     if isinstance(config, MoeConfig):
-        x, _aux = _moe_block(x, layer, config, mesh, use_kernels=use_kernels)
+        x, _aux = _moe_block(x, layer, config, use_kernels=use_kernels)
         return x
     return _mlp_block(x, layer, config, use_kernels=use_kernels)
 
@@ -175,14 +192,10 @@ def _forward_with_cache(
         positions = positions[None, :].expand(b, t)
     positions = positions.long()
     _note_first_use(variant_label(params, cache), b, t)
-
-    x = q_lookup(params["embed"], tokens, c.dtype)
-    cos, sin = _rope_tables(c, cache.max_len, tokens.device)
     # Padded columns may sit past the table; their writes go to the
     # scratch row and their outputs are discarded, but the gather must
     # stay in range.
     rope_pos = positions.clamp(0, cache.max_len - 1)
-
     valid = None
     if n_valid is not None:
         valid = (
@@ -193,50 +206,34 @@ def _forward_with_cache(
         valid = active[:, None] if valid is None else valid & active[:, None]
     flat = flat_write_positions(
         cache.block_tables, positions, bs, cache.scratch_row, valid=valid
-    ).reshape(-1)                                       # [B*T]
+    )                                                   # [B, T]
     # At query position p the row written this step is p itself, so the
     # decode kernel's visible prefix is p + 1.
     vlen = (rope_pos[:, -1] + 1).to(torch.int32)
     norm = rmsnorm if use_kernels else rmsnorm_reference
 
-    for i in range(c.n_layers):
-        layer = layer_params(params, i)
-        k_pool, v_pool = cache.k[i], cache.v[i]         # [H_kv, P+1, D]
-        scales = {}
-        xn = norm(x, layer["ln_attn"], c.norm_eps)
-        q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos,
-                              use_kernels=use_kernels)
-        hkv, d = k.shape[1], k.shape[3]
-        if quantized:
-            scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
-            (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
-            scales["k_scale"].index_copy_(
-                1, flat, ks.transpose(0, 1).reshape(hkv, b * t))
-            scales["v_scale"].index_copy_(
-                1, flat, vs.transpose(0, 1).reshape(hkv, b * t))
-        k_pool.index_copy_(
-            1, flat, k.transpose(0, 1).reshape(hkv, b * t, d).to(k_pool.dtype)
-        )
-        v_pool.index_copy_(
-            1, flat, v.transpose(0, 1).reshape(hkv, b * t, d).to(v_pool.dtype)
-        )
-        if not use_kernels:
-            o = paged_attention_reference(
-                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale,
-                **scales,
-            )
-        elif t == 1:
-            o = paged_decode_attention(
-                q[:, :, 0, :], k_pool, v_pool, cache.block_tables, vlen,
-                bs, scale, **scales,
-            )[:, :, None, :]
-        else:
-            o = paged_prefill_attention(
-                q, k_pool, v_pool, cache.block_tables, rope_pos, bs, scale,
-                **scales,
-            )
-        x = attn_out(x, o, layer, use_kernels)
-        x = _mlp_or_moe(x, layer, c, mesh, use_kernels=use_kernels)
+    if mesh is not None:
+        logits, cache = _mesh_forward_with_cache(
+            params, tokens, cache, c, rope_pos, flat, vlen, use_kernels,
+            mesh)
+    else:
+        x = q_lookup(params["embed"], tokens, c.dtype)
+        cos, sin = _rope_tables(c, cache.max_len, tokens.device)
+        flat = flat.reshape(-1)                         # [B*T]
+        for i in range(c.n_layers):
+            layer = layer_params(params, i)
+            xn = norm(x, layer["ln_attn"], c.norm_eps)
+            q, k, v = project_qkv(xn, layer, c, cos, sin, positions=rope_pos,
+                                  use_kernels=use_kernels)
+            scales = (dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
+                      if quantized else {})
+            o = _attend(q, k, v, cache.k[i], cache.v[i], scales,
+                        cache.block_tables, rope_pos, vlen, flat, bs, scale,
+                        use_kernels)
+            x = attn_out(x, o, layer, use_kernels)
+            x = _mlp_or_moe(x, layer, c, use_kernels=use_kernels)
+        x = norm(x, params["final_norm"], c.norm_eps)
+        logits = q_matmul(x, params["lm_head"], use_kernels).float()
 
     # Committed length: last real position + 1, frozen for padded columns
     # and inactive rows.
@@ -247,11 +244,111 @@ def _forward_with_cache(
     new_len = new_len.clamp(0, cache.max_len).to(torch.int32)
     if active is not None:
         new_len = torch.where(active, new_len, cache.lengths)
-    new_cache = dataclasses.replace(cache, lengths=new_len)
+    return logits, dataclasses.replace(cache, lengths=new_len)
 
-    x = norm(x, params["final_norm"], c.norm_eps)
-    logits = q_matmul(x, params["lm_head"], use_kernels).float()
-    return logits, new_cache
+
+def _attend(q, k, v, k_pool, v_pool, scales, tables, rope_pos, vlen, flat,
+            bs: int, scale: float, use_kernels: bool):
+    """Write this step's k and v rows into the pools (an int8 cache:
+    their int8 rows and scales) and attend over them: K2 for one token,
+    K3 for a window, the plain version with ``use_kernels=False``."""
+    b, hkv, t, d = k.shape
+    if scales:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales["k_scale"].index_copy_(
+            1, flat, ks.transpose(0, 1).reshape(hkv, b * t))
+        scales["v_scale"].index_copy_(
+            1, flat, vs.transpose(0, 1).reshape(hkv, b * t))
+    k_pool.index_copy_(
+        1, flat, k.transpose(0, 1).reshape(hkv, b * t, d).to(k_pool.dtype))
+    v_pool.index_copy_(
+        1, flat, v.transpose(0, 1).reshape(hkv, b * t, d).to(v_pool.dtype))
+    if not use_kernels:
+        return paged_attention_reference(q, k_pool, v_pool, tables, rope_pos,
+                                         bs, scale, **scales)
+    if t == 1:
+        return paged_decode_attention(q[:, :, 0, :], k_pool, v_pool, tables,
+                                      vlen, bs, scale, **scales)[:, :, None, :]
+    return paged_prefill_attention(q, k_pool, v_pool, tables, rope_pos, bs,
+                                   scale, **scales)
+
+
+def _mesh_forward_with_cache(params, tokens, cache, config, rope_pos, flat,
+                             vlen, use_kernels: bool, mesh):
+    """:func:`_forward_with_cache`'s layers on a mesh, from its write plan
+    (``flat`` [B, T] pool rows, ``vlen``, ``rope_pos``): ``(logits, the
+    cache placed on the mesh)``. The batch rows split into
+    the data x fsdp groups; in each layer every group's tensor shard
+    projects q/k/v for its kv-head groups, writes and reads its head
+    range of the pools (K2 / K3, or their int8 forms, on the contiguous
+    view ``pool[l, h0:h1]``) with the group's rows of the replicated
+    block tables, and projects through its row block of ``wo``; the psum
+    over ``tensor`` adds the partial projections. The FFN is
+    ``llama.mesh_mlp`` or ``moe.moe_group``; the logits are each group's
+    vocab blocks gathered, the groups concatenated on the mesh's first
+    device."""
+    c = config
+    b, t = tokens.shape
+    bs = cache.block_size
+    scale = c.head_dim ** -0.5
+    quantized = isinstance(cache, PagedQuantKVCache)
+    check_heads(c, mesh)
+    lay = Layout(mesh, "the cached forward")
+    n = lay.rows(b)
+    specs = (moe.param_specs if isinstance(c, MoeConfig)
+             else llama.param_specs)(c)
+    params = place(params, mesh, specs)
+    cache = place_cache(cache, mesh)
+    home = tokens.device
+    cos, sin = _rope_tables(c, cache.max_len, home)
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    rows = [slice(g * n, (g + 1) * n) for g in range(lay.dp)]
+    # Per (group, tensor shard): its device's copy of the group's row
+    # bookkeeping (views where the device is the controller's).
+    book = {}
+    for g, r in enumerate(rows):
+        for s in range(lay.tp):
+            dev = lay.device(g, s)
+            book[g, s] = (cos.to(dev), sin.to(dev), rope_pos[r].to(dev),
+                          cache.block_tables[r].to(dev), vlen[r].to(dev),
+                          flat[r].reshape(-1).to(dev))
+    xs = [mesh_embed(params["embed"], tokens[r], lay, g, c.dtype)
+          for g, r in enumerate(rows)]
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(c.n_layers):
+        layer = {name: ws[i] for name, ws in layers.items()}
+        for g in range(lay.dp):
+            x = xs[g]
+            xn = norm(x, layer["ln_attn"].to(x.device), c.norm_eps)
+            parts = []
+            for s in range(lay.tp):
+                j = lay.shard(g, s)
+                cs, sn, pos, tables, vl, fl = book[g, s]
+                q, k, v = project_qkv(
+                    xn.to(cs.device),
+                    {"wqkv": lay.weight(layer["wqkv"], g, s)}, c, cs, sn,
+                    positions=pos, use_kernels=use_kernels)
+                scales = {}
+                if quantized:
+                    scales = dict(k_scale=shard_of(cache.k_scale, mesh, j)[i],
+                                  v_scale=shard_of(cache.v_scale, mesh, j)[i])
+                o = _attend(q, k, v, shard_of(cache.k, mesh, j)[i],
+                            shard_of(cache.v, mesh, j)[i], scales, tables,
+                            pos, vl, fl, bs, scale, use_kernels)
+                flat_o = o.transpose(1, 2).reshape(n, t, -1).to(x.dtype)
+                parts.append(q_matmul(flat_o, lay.weight(layer["wo"], g, s),
+                                      use_kernels).float())
+            x = x + sum_parts(parts, x.device).to(x.dtype)
+            if isinstance(c, MoeConfig):
+                x = moe_group(x, layer, c, lay, g, use_kernels)[0]
+            else:
+                x = mesh_mlp(x, layer, c, use_kernels, lay, g)
+            xs[g] = x
+    logits = [mesh_logits(norm(x, params["final_norm"].to(x.device),
+                               c.norm_eps),
+                          mesh_heads(params["lm_head"], lay, g), use_kernels)
+              for g, x in enumerate(xs)]
+    return concat_parts(logits, 0, home), cache
 
 
 def _as_tokens(tokens, device) -> torch.Tensor:
@@ -282,6 +379,8 @@ def prefill(
     cache_cls = PagedQuantKVCache if quantize_cache else PagedKVCache
     cache = cache_cls.init(config, b, max_len, block_size=block_size,
                            device=dev)
+    if mesh is not None:
+        cache = place_cache(cache, mesh)
     positions = torch.arange(s, device=dev)
     logits, cache = _forward_with_cache(params, tokens, cache, config,
                                         positions, mesh=mesh)

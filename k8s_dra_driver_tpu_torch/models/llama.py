@@ -32,13 +32,24 @@ in each:
   the dense trunk): the QKV product and rope, the ``wo`` product, the
   MLP's gate/up product and SwiGLU.
 
+On a ``mesh`` (:func:`mesh_trunk`, ``parallel/layout.py``) the batch rows
+split over data x fsdp groups; in each group the tensor shards run the
+Megatron split explicitly (the reference leaves it to GSPMD):
+``wqkv`` column-parallel over whole kv-head groups (each shard slices its
+q/k/v, attention on its heads), ``wo`` row-parallel, then a psum over
+``tensor``; gate/up column-parallel over M (two products on the strided
+halves of the shard's [H, 2, M / T] block), ``w_down`` row-parallel,
+then a psum; the embedding a vocab-cut lookup plus a psum, the LM head
+vocab-cut columns with the logits gathered. A weight cut over fsdp is
+gathered per layer and shard before use. Whole leaves are cut into views
+inside the loss (:func:`place`), so the gradients reach them.
+
 XLA recomputes the same products under each policy but one: the port's
 ``attn_o`` is the output projection's result, where the reference's
 names the attention output (which ``flash_out`` already keeps), so
 "flash", "flash_qkv" and "flash_mlp" also skip the ``wo`` product that
 XLA recomputes to rebuild the residual. The MoE block's recompute is in
-``models/moe.py``. Ring attention (the ``use_ring`` branch) waits for
-the multi-GPU slice.
+``models/moe.py``. Ring attention (``use_ring``) raises (A12d).
 
 Parameters are a plain dict with the reference's structure and layouts,
 layers stacked on axis 0:
@@ -60,11 +71,16 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+import torch.nn.functional as F
+
 from .. import resolve_device
 from ..ops.attention import _repeat_kv, attention_reference, flash_attention
 from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import apply_rope, rope_frequencies
-from .quant import QuantTensor, q_einsum, q_lookup, q_matmul
+from ..parallel.collectives import concat_parts, sum_parts
+from ..parallel.layout import Layout, check_heads
+from ..parallel.sharding import P, Sharded, shard_pytree
+from .quant import QuantTensor, q_einsum, q_lookup, q_matmul, quantize_specs
 from .remat import (
     attn_proj_site,
     qkv_site,
@@ -174,6 +190,37 @@ def init_params(config: LlamaConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def param_specs(config: LlamaConfig) -> dict:
+    """Partition specs per parameter, the reference's: Megatron tensor
+    parallelism (column-parallel ``wqkv`` over whole kv-head groups and
+    gate/up over M, row-parallel ``wo`` and ``w_down``, the embedding and
+    the LM head cut over the vocabulary) and fsdp on the other dimension.
+    The leading None of a stack is the layer axis."""
+    return {
+        "embed": P("tensor", "fsdp"),
+        "layers": {
+            "wqkv": P(None, "fsdp", "tensor", None, None),
+            "wo": P(None, "tensor", "fsdp"),
+            "w_gateup": P(None, "fsdp", None, "tensor"),
+            "w_down": P(None, "tensor", "fsdp"),
+            "ln_attn": P(None, None),
+            "ln_mlp": P(None, None),
+        },
+        "final_norm": P(None),
+        "lm_head": P("fsdp", "tensor"),
+    }
+
+
+def place(params: dict, mesh, specs: dict) -> dict:
+    """``params`` placed on ``mesh`` by ``specs`` (``quantize_specs`` of
+    them for int8 weights): leaves already :class:`Sharded` stay, whole
+    ones are cut into views (``shard_pytree``), so a loss over the result
+    reaches the whole leaves -- the shard_map of an unsharded input."""
+    if isinstance(params["layers"]["wqkv"], QuantTensor):
+        specs = quantize_specs(specs)
+    return shard_pytree(params, mesh, specs)
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s weights as views into the stacked tensors."""
     return {name: w[i] for name, w in params["layers"].items()}
@@ -190,13 +237,15 @@ def project_qkv(
     """QKV projection + head split + rope. Returns q [B,Hq,T,D],
     k,v [B,Hkv,T,D]. ``use_kernels=False`` runs an int8 weight's plain
     product (models/quant.py)."""
-    c = config
     b, t, _ = xn.shape
-    g = c.n_heads // c.n_kv_heads
+    # The heads from the weight: a tensor shard's block holds whole kv
+    # groups (KV / tensor of them).
+    _, kv, g2, d = layer["wqkv"].shape
+    g = g2 - 2
     # [B, T, H] @ [H, KV, G+2, D]: one matmul; q_einsum is the int8 seam
     # (models/quant.py), the same product for float weights.
     qkv = q_einsum("bth,hkgd->btkgd", xn, layer["wqkv"], use_kernels)
-    q = qkv[..., :g, :].reshape(b, t, c.n_heads, c.head_dim)
+    q = qkv[..., :g, :].reshape(b, t, kv * g, d)
     k = qkv[..., g, :]                                  # [B, T, KV, D]
     v = qkv[..., g + 1, :]
     q = apply_rope(q.transpose(1, 2), cos, sin, positions=positions)
@@ -287,6 +336,156 @@ def _remat_transform(remat: bool, remat_policy: str):
         context_fn=save_only_these_names(*names))
 
 
+# ---------------------------------------------------------------------------
+# The trunk on a mesh (parallel/layout.py): batch groups over data x fsdp,
+# Megatron tensor parallelism inside a group, fsdp-cut weights gathered
+# per layer and shard.
+# ---------------------------------------------------------------------------
+
+
+def mesh_embed(embed, tokens: torch.Tensor, lay: Layout, g: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Group ``g``'s embedding rows: each tensor shard looks up the tokens
+    in its vocabulary block (zero rows elsewhere), and the psum over
+    ``tensor`` adds the blocks' rows -- exact, one shard holds each
+    token."""
+    home = lay.home(g)
+    parts = []
+    for t in range(lay.tp):
+        emb = lay.weight(embed, g, t)
+        if lay.tp == 1:
+            return q_lookup(emb, tokens.to(home), dtype)
+        v_loc = emb.shape[0]
+        tok = tokens.to(emb.device).long() - t * v_loc
+        ok = (tok >= 0) & (tok < v_loc)
+        rows = q_lookup(emb, tok.clamp(0, v_loc - 1), dtype)
+        parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+    return sum_parts(parts, home)
+
+
+def mesh_heads(lm_head, lay: Layout, g: int) -> list:
+    """Group ``g``'s LM head blocks, one per tensor shard (vocab-cut
+    columns)."""
+    return [lay.weight(lm_head, g, t) for t in range(lay.tp)]
+
+
+def mesh_logits(x: torch.Tensor, heads: list,
+                use_kernels: bool = True) -> torch.Tensor:
+    """f32 logits of ``x`` against the vocab-cut head blocks, gathered
+    over ``tensor`` (concatenated in shard order) on ``x``'s device."""
+    return concat_parts(
+        [q_matmul(x.to(h.device), h, use_kernels).float() for h in heads],
+        -1, x.device)
+
+
+def _half(w, i: int):
+    """The gate (0) or up (1) half of a [H, 2, M] block, a strided view
+    (no copy); an int8 block halves q and its scale alike."""
+    if isinstance(w, QuantTensor):
+        return QuantTensor(q=w.q[:, i, :], scale=w.scale[:, i, :])
+    return w[:, i, :]
+
+
+def mesh_attention(x, layer, config: LlamaConfig, cos, sin,
+                   use_kernels: bool, lay: Layout, g: int):
+    """Group ``g``'s attention block: the norm once, then each tensor
+    shard's QKV product on its kv-head groups, causal attention on its
+    heads and its row block of ``wo``; the psum over ``tensor`` (f32)
+    adds the partial projections before the residual."""
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    xn = norm(x, layer["ln_attn"].to(x.device), config.norm_eps)
+    parts = []
+    for t in range(lay.tp):
+        dev = lay.device(g, t)
+        xt, c_, s_ = xn.to(dev), cos.to(dev), sin.to(dev)
+        wqkv = lay.weight(layer["wqkv"], g, t)
+        int8 = isinstance(wqkv, QuantTensor)
+        if int8:
+            q, k, v = project_qkv(xt, {"wqkv": wqkv}, config, c_, s_,
+                                  use_kernels=use_kernels)
+        else:
+            q, k, v = qkv_site(xt, wqkv, c_, s_)
+        if use_kernels:
+            o = flash_attention(q, k, v, causal=True)
+        else:
+            rep = q.shape[1] // k.shape[1]
+            o = attention_reference(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                    causal=True)
+        wo = lay.weight(layer["wo"], g, t)
+        if int8:
+            b, _, s, _ = o.shape
+            flat = o.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
+            parts.append(q_matmul(flat, wo, use_kernels).float())
+        else:
+            parts.append(attn_proj_site(o.to(x.dtype), wo).float())
+    return x + sum_parts(parts, x.device).to(x.dtype)
+
+
+def mesh_mlp(x, layer, config: LlamaConfig, use_kernels: bool,
+             lay: Layout, g: int):
+    """Group ``g``'s SwiGLU MLP: each tensor shard's gate and up columns
+    (two products on the strided halves of its [H, 2, M / tensor] block,
+    no weight copy), SwiGLU, and its row block of ``w_down``; the psum
+    over ``tensor`` (f32) before the residual."""
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    xn = norm(x, layer["ln_mlp"].to(x.device), config.norm_eps)
+    parts = []
+    for t in range(lay.tp):
+        xt = xn.to(lay.device(g, t))
+        w_gu = lay.weight(layer["w_gateup"], g, t)
+        gate = q_matmul(xt, _half(w_gu, 0), use_kernels)
+        up = q_matmul(xt, _half(w_gu, 1), use_kernels)
+        prod = (F.silu(gate.float()) * up.float()).to(x.dtype)
+        parts.append(q_matmul(prod, lay.weight(layer["w_down"], g, t),
+                              use_kernels).float())
+    return x + sum_parts(parts, x.device).to(x.dtype)
+
+
+def _mesh_block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool,
+                lay: Layout, g: int):
+    x = mesh_attention(x, layer, config, cos, sin, use_kernels, lay, g)
+    return mesh_mlp(x, layer, config, use_kernels, lay, g), None
+
+
+def mesh_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
+               mesh, specs: dict, block, remat: bool, remat_policy: str,
+               use_kernels: bool):
+    """The layers on ``mesh``: ``(layout, placed params, per-group
+    normed final hidden states, per-layer lists of the blocks' second
+    outputs)``. ``block(x, layer, config, cos, sin, use_kernels, layout,
+    g)`` runs one layer of group ``g`` and returns ``(x, extra)``; remat
+    wraps each (layer, group)."""
+    c = config
+    check_heads(c, mesh)
+    lay = Layout(mesh)
+    params = place(params, mesh, specs)
+    toks = lay.split_rows(tokens)
+    s = tokens.shape[1]
+    cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
+                                device=lay.home(0))
+    block = _remat_transform(remat, remat_policy)(block)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    xs = [mesh_embed(params["embed"], toks[g], lay, g, c.dtype)
+          for g in range(lay.dp)]
+    extras = []
+    for i in range(c.n_layers):
+        layer = {name: ws[i] for name, ws in layers.items()}
+        out = [block(xs[g], layer, c, cos, sin, use_kernels, lay, g)
+               for g in range(lay.dp)]
+        xs = [o[0] for o in out]
+        extras.append([o[1] for o in out])
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    xs = [norm(x, params["final_norm"].to(x.device), c.norm_eps) for x in xs]
+    return lay, params, xs, extras
+
+
+def _require_no_ring(use_ring: bool, what: str) -> None:
+    if use_ring:
+        raise NotImplementedError(
+            f"{what}(use_ring=True): ring attention over K4-K6 per hop is "
+            f"not ported (A12d in ROADMAP.md)")
+
+
 def forward(
     params: dict,
     tokens: torch.Tensor,               # [B, S] int
@@ -295,6 +494,8 @@ def forward(
     return_hidden: bool = False,
     remat_policy: str = "full",
     use_kernels: bool = True,
+    mesh=None,
+    use_ring: bool = False,
 ) -> torch.Tensor:
     """Causal LM forward -> logits [B, S, V] (f32), or the final hidden
     states [B, S, H] when ``return_hidden`` (the loss projects to vocab
@@ -302,8 +503,20 @@ def forward(
 
     Each stacked weight is unbound once into per-layer views, so its
     gradient is stacked once in the backward instead of being scattered
-    into a zero tensor of the whole stack per layer."""
+    into a zero tensor of the whole stack per layer. On a ``mesh`` the
+    layers run per batch group and tensor shard (:func:`mesh_trunk`) with
+    ``params`` whole or placed by :func:`param_specs`; the result is
+    gathered on the mesh's first device."""
+    _require_no_ring(use_ring, "llama.forward")
     c = config
+    if mesh is not None:
+        lay, placed, xs, _ = mesh_trunk(
+            params, tokens, c, mesh, param_specs(c), _mesh_block, remat,
+            remat_policy, use_kernels)
+        if not return_hidden:
+            xs = [mesh_logits(x, mesh_heads(placed["lm_head"], lay, g),
+                              use_kernels) for g, x in enumerate(xs)]
+        return concat_parts(xs, 0, lay.home(0))
     s = tokens.shape[1]
     x = q_lookup(params["embed"], tokens, c.dtype)      # [B, S, H]
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
@@ -321,7 +534,10 @@ def forward(
 
 
 def _ce_chunk(x, lm_head, t):
-    logits = (x @ lm_head).float()                      # [B, chunk, V]
+    if isinstance(lm_head, (list, tuple)):
+        logits = mesh_logits(x, lm_head)            # [B, chunk, V] f32
+    else:
+        logits = (x @ lm_head).float()              # [B, chunk, V]
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, t[..., None])[..., 0]
     return (logz - gold).sum()
@@ -329,7 +545,7 @@ def _ce_chunk(x, lm_head, t):
 
 def chunked_cross_entropy(
     hidden: torch.Tensor,               # [B, S, H]
-    lm_head: torch.Tensor,              # [H, V]
+    lm_head,                            # [H, V], or its vocab blocks
     targets: torch.Tensor,              # [B, S]
     chunk: int | None = None,
 ) -> torch.Tensor:
@@ -337,7 +553,9 @@ def chunked_cross_entropy(
     each sequence chunk's projection is checkpointed, so one
     [B, chunk, V] slab lives in the forward and in the backward
     (recomputed). Default chunk: ``max(128, 8192 // B)`` on the card, 256
-    on the CPU; it shrinks to the largest divisor of S not above it."""
+    on the CPU; it shrinks to the largest divisor of S not above it.
+    ``lm_head`` may be a list of vocab-cut blocks (a tensor-parallel
+    head): each chunk's logits are their products gathered."""
     b, s, _ = hidden.shape
     if chunk is None:
         chunk = max(128, 8192 // max(b, 1)) if hidden.is_cuda else 256
@@ -351,6 +569,21 @@ def chunked_cross_entropy(
     return total / (b * s)
 
 
+def mesh_cross_entropy(lay: Layout, placed: dict, xs: list,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """The mean next-token CE over every group's tokens: each group's
+    chunked CE against its head blocks, weighted by its share of the
+    rows, summed on the mesh's first device."""
+    tg = lay.split_rows(targets)
+    home = lay.home(0)
+    total = None
+    for g, x in enumerate(xs):
+        ce = chunked_cross_entropy(x, mesh_heads(placed["lm_head"], lay, g),
+                                   tg[g]).to(home) / lay.dp
+        total = ce if total is None else total + ce
+    return total
+
+
 def loss_fn(
     params: dict,
     tokens: torch.Tensor,               # [B, S+1]: inputs + shifted targets
@@ -358,8 +591,18 @@ def loss_fn(
     remat: bool = True,
     remat_policy: str = "full",
     use_kernels: bool = True,
+    mesh=None,
+    use_ring: bool = False,
 ) -> torch.Tensor:
-    """Next-token cross-entropy (mean over tokens)."""
+    """Next-token cross-entropy (mean over tokens). On a ``mesh``
+    (:func:`forward`) the gradient reaches the leaves of ``params``
+    whether they are whole or placed."""
+    _require_no_ring(use_ring, "llama.loss_fn")
+    if mesh is not None:
+        lay, placed, xs, _ = mesh_trunk(
+            params, tokens[:, :-1], config, mesh, param_specs(config),
+            _mesh_block, remat, remat_policy, use_kernels)
+        return mesh_cross_entropy(lay, placed, xs, tokens[:, 1:])
     hidden = forward(params, tokens[:, :-1], config, remat=remat,
                      return_hidden=True, remat_policy=remat_policy,
                      use_kernels=use_kernels)

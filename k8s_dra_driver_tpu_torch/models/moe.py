@@ -31,38 +31,48 @@ binned gate/up product (``moe_gu``); the recompute still runs the
 router, and in the fused dropless pipeline K7 and K8 (``moe_act`` is in
 no policy), as the reference's does.
 
-**Expert parallelism** (``forward(..., mesh=...)``, a mesh of
-``parallel/mesh.py`` whose ``expert`` axis is larger than 1, its expert
-stacks placed by ``shard_pytree(params, mesh, param_specs(cfg))``). The
-reference's ``shard_map`` bodies run per shard; the port's run over all
-shards at once in one process, each shard's work on its shard's device,
-with the dense trunk and the replicated inputs on the mesh's first
-device:
+**On a mesh** (``forward(..., mesh=...)``, a mesh of ``parallel/mesh.py``,
+weights whole or placed by ``shard_pytree(params, mesh,
+param_specs(cfg))``) the layers run per batch group and tensor shard
+(``llama.mesh_trunk``, ``parallel/layout.py``), each shard's work on its
+shard's device, and each group's MoE block is :func:`moe_group`:
 
-- dropless **ring** (``_moe_block_dropless_ep_ring``): tokens chunk over
-  the expert ring; at each hop every shard routes its resident chunk and
-  runs its local experts on it (``_pairs_mlp`` with its expert window,
-  K7 and K8 on the card), and ``parallel/ring.py::ring_permute`` (K9's
-  twin) rotates the chunks and the f32 carriers that collect each chunk's
-  output. After ``n_ep`` carrier hops chunk i's output is home on shard
-  i; concatenating in shard order is the all-gather. ``n_ep**2`` K7/K8
-  pairs and ``n_ep`` K9 launches a layer (each hop's chunk rides with its
-  carrier: ``ring_permute_many``);
-- dropless **psum** (``_moe_block_dropless_ep_psum``): every shard runs
-  its local pairs of the whole batch, and their sum is the psum. The
-  fallback where the token count does not divide the ring
-  (``ep_overlap="auto"``), and the parity oracle;
-- **einsum** on an expert mesh (what ``auto`` picks there): each shard
-  runs its experts' rows of the dispatched ``[E, ...]`` tensor with its
-  weights; the results concatenate along E.
+- on an **expert axis**, the expert-parallel bodies over the group's
+  expert shards (the data axis composes with it: each data group runs
+  its own):
+
+  - dropless **ring** (:func:`_ep_ring_out`): tokens chunk over the
+    expert ring; at each hop every shard routes its resident chunk and
+    runs its local experts on it (``_pairs_mlp`` with its expert window,
+    K7 and K8 on the card), and ``parallel/ring.py::ring_permute`` (K9's
+    twin) rotates the chunks and the f32 carriers that collect each
+    chunk's output. After ``n_ep`` carrier hops chunk i's output is home
+    on shard i; concatenating in shard order is the all-gather.
+    ``n_ep**2`` K7/K8 pairs and ``n_ep`` K9 launches a layer (each hop's
+    chunk rides with its carrier: ``ring_permute_many``);
+  - dropless **psum** (:func:`_ep_psum_out`): every shard runs its local
+    pairs of the whole batch, and their sum is the psum. The fallback
+    where the token count does not divide the ring (``ep_overlap=
+    "auto"``), and the parity oracle;
+  - **einsum**: each shard runs its experts' rows of the dispatched
+    ``[E, ...]`` tensor with its weights; the results concatenate along
+    E. binned refuses, as in the reference;
+
+- **without one** (the reference's GSPMD case, ``moe.py:943-951``
+  there), dropless takes the primitive path per tensor shard
+  (:func:`_dropless_tp_out`: the routing once, then each shard's grouped
+  products on its M block of every expert -- K10a for bf16 experts, A7b
+  ``grouped_matmul_int8`` for int8 ones, the gate/up block a strided
+  view -- and a psum over ``tensor``); einsum and binned run per tensor
+  shard on its M block. The Switch aux combines the groups' statistics.
 
 :func:`loss_fn` takes the mesh too, and its gradient runs back through
-the same bodies: the grouped inverse rotation (K9) and each shard's
-``FusedMoeMlpFunction`` backward (K10a, K10b). Only the expert axis may
-be larger than 1 (``NotImplementedError`` otherwise, A12c in
-ROADMAP.md). Each body records the reference's collective sites and byte
-counts. Not ported yet: the pipelined forward and ring attention
-(``use_ring``), which raise ``NotImplementedError``.
+the same bodies (for EP: the grouped inverse rotation (K9) and each
+shard's ``FusedMoeMlpFunction`` backward (K10a, K10b)). An expert axis
+beside tensor or fsdp raises (``parallel/layout.py``). Each body records
+the reference's collective sites and byte counts. Not ported yet: the
+pipelined forward (A12e) and ring attention (``use_ring``, A12d), which
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,14 +90,22 @@ from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.quant_matmul import int8_matmul, int8_matmul_reference
 from ..ops.rotary import rope_frequencies
 from ..parallel import collectives
-from ..parallel.mesh import Mesh, require_expert_only
+from ..parallel.collectives import concat_parts, sum_parts
+from ..parallel.layout import Layout
+from ..parallel.mesh import Mesh
 from ..parallel.ring import ring_permute, ring_permute_many
 from ..parallel.sharding import P, Sharded
 from .llama import (
     LlamaConfig,
     _attention_block,
     _remat_transform,
+    _require_no_ring,
     chunked_cross_entropy,
+    mesh_attention,
+    mesh_cross_entropy,
+    mesh_heads,
+    mesh_logits,
+    mesh_trunk,
 )
 from .quant import QuantTensor, q_lookup, q_matmul
 from .remat import expert_gateup_site, slots_site
@@ -366,6 +384,7 @@ def _pairs_mlp(
     lo: int = 0,
     e_loc: int | None = None,
     use_kernels: bool = True,
+    under_mesh: bool = False,
 ) -> torch.Tensor:
     """Expert MLP over the (token, choice) pairs whose expert lies in
     [lo, lo + e_loc): per-token contributions [T, H] f32 (pairs outside
@@ -375,7 +394,9 @@ def _pairs_mlp(
     in their backward) and **primitive** (gathers around grouped matmuls,
     K10 both ways); ``use_kernels=False`` runs the plain versions on CUDA
     tensors. int8 ``QuantTensor`` stacks run forward only, through the
-    kernels' int8 branches (fused) or the plain int8 grouped product."""
+    kernels' int8 branches (fused) or the int8 grouped product
+    (primitive). ``under_mesh`` (dropless on a mesh without an expert
+    axis) takes the primitive path, as the reference does under GSPMD."""
     c = config
     t, k = gates.shape
     h = xf.shape[1]
@@ -391,7 +412,8 @@ def _pairs_mlp(
                       torch.full_like(flat_e, e_loc))
     gates_flat = gates.reshape(r)
     plan = moe_dispatch.build_plan(key.to(torch.int32), t, e_loc, k)
-    if moe_dispatch.use_fused(h=h, m=m, device=xf.device):
+    if moe_dispatch.use_fused(h=h, m=m, device=xf.device,
+                              under_mesh=under_mesh):
         y_pairs = moe_dispatch.fused_moe_mlp(
             xf, w_gu, w_down, gates_flat, plan, use_kernels=use_kernels,
         )
@@ -405,20 +427,68 @@ def _norm(use_kernels: bool):
     return rmsnorm if use_kernels else rmsnorm_reference
 
 
-def _moe_block_dropless(x, layer, config: MoeConfig,
-                        use_kernels: bool = True):
-    """Dropless sparse MLP: top-k route, then the shared pair pipeline
-    over all experts. Returns (x + out, aux)."""
+def _dropless_out(x, layer, config: MoeConfig, use_kernels: bool = True):
+    """Dropless sparse MLP on one device: top-k route, then the shared
+    pair pipeline over all experts. Returns (out [B, S, H] f32, aux,
+    probs)."""
     c = config
     b, s, h = x.shape
     xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps)
     xf = xn.reshape(b * s, h)
-    gates, experts, _probs, aux = _route_topk(xf, layer["wr"], c)
+    gates, experts, probs, aux = _route_topk(xf, layer["wr"], c)
     out = _pairs_mlp(
         xf, gates, experts, layer["w_gateup"], layer["w_down"], c,
         use_kernels=use_kernels,
     )
-    return x + out.reshape(b, s, h).to(x.dtype), aux
+    return out.reshape(b, s, h), aux, probs
+
+
+def _moe_block_dropless(x, layer, config: MoeConfig,
+                        use_kernels: bool = True):
+    """Dropless sparse MLP (:func:`_dropless_out`). Returns (x + out,
+    aux)."""
+    out, aux, _ = _dropless_out(x, layer, config, use_kernels)
+    return x + out.to(x.dtype), aux
+
+
+def _stats(probs: torch.Tensor, e: int) -> tuple:
+    """The Switch aux's per-token statistics of one group's routing: the
+    fraction of tokens whose first choice is each expert, and the mean
+    router probability (``_topk_masks``'s ``frac`` and ``mean_prob``)."""
+    p = probs.reshape(-1, e)
+    return _one_hot(p.argmax(dim=-1), e, p.dtype).mean(0), p.mean(0)
+
+
+def _aux_of(stats: list, e: int, device) -> torch.Tensor:
+    """The Switch aux of the whole batch from its equal-sized groups'
+    statistics: the groups' means averaged, then combined."""
+    frac = torch.stack([f.to(device) for f, _ in stats]).mean(0)
+    mean_prob = torch.stack([p.to(device) for _, p in stats]).mean(0)
+    return e * torch.sum(frac * mean_prob)
+
+
+def _dropless_tp_out(x, layer, config: MoeConfig, lay: Layout, g: int,
+                     use_kernels: bool = True):
+    """Dropless on a mesh without an expert axis (group ``g``): the norm
+    and the routing once, then each tensor shard's primitive pipeline on
+    its M block of every expert (``w_gateup`` [E, H, 2, M / tensor] a
+    strided view, ``w_down`` [E, M / tensor, H]; int8 stacks through
+    ``grouped_matmul_int8``), and the psum over ``tensor`` (f32). Returns
+    (out [B, S, H] f32, aux, probs)."""
+    c = config
+    b, s, h = x.shape
+    xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device), c.norm_eps)
+    xf = xn.reshape(b * s, h)
+    gates, experts, probs, aux = _route_topk(xf, layer["wr"].to(x.device), c)
+    outs = []
+    for t in range(lay.tp):
+        dev = lay.device(g, t)
+        outs.append(_pairs_mlp(
+            xf.to(dev), gates.to(dev), experts.to(dev),
+            lay.weight(layer["w_gateup"], g, t),
+            lay.weight(layer["w_down"], g, t), c,
+            use_kernels=use_kernels, under_mesh=True))
+    return sum_parts(outs, x.device).reshape(b, s, h), aux, probs
 
 
 def _to_transport(w):
@@ -435,16 +505,17 @@ def _from_transport(w):
     return w
 
 
-def _local_experts(w, mesh: Mesh, i: int, e_loc: int) -> torch.Tensor:
-    """Shard i's experts [e_loc, ...] of one layer's stack: its shard of a
-    :class:`Sharded` stack, or its slice of a whole one moved to its
-    device (as a ``shard_map`` reshards an unsharded input)."""
+def _local_experts(w, mesh: Mesh, i: int, e: int, e_loc: int):
+    """Expert shard ``e``'s experts [e_loc, ...] of one layer's stack, on
+    mesh shard ``i``: that shard's block of a :class:`Sharded` stack, or
+    its slice of a whole one moved to its device (as a ``shard_map``
+    reshards an unsharded input)."""
     if isinstance(w, Sharded):
-        if w.dim != 0 or w.mesh.size != mesh.size:
+        if w.mesh is not mesh or w.shards[i].shape[0] != e_loc:
             raise ValueError(f"expert stack {w} is not cut by this mesh's "
                              f"expert axis")
         return w.shards[i]
-    return w.narrow(0, i * e_loc, e_loc).to(mesh.devices[i])
+    return w.narrow(0, e * e_loc, e_loc).to(mesh.devices[i])
 
 
 def _parts(w) -> tuple:
@@ -453,20 +524,21 @@ def _parts(w) -> tuple:
     return t if isinstance(t, tuple) else (t,)
 
 
-def _expert_shards(w, mesh: Mesh, e_loc: int) -> list:
-    """Every shard's local expert weights, in shard order (float stacks,
-    or int8 stacks carried as (q, scale) and rebuilt per shard)."""
-    local = [tuple(_local_experts(p, mesh, i, e_loc) for p in _parts(w))
-             for i in range(mesh.size)]
+def _expert_shards(w, lay: Layout, g: int, e_loc: int) -> list:
+    """Group ``g``'s expert shards' local expert weights, in ring order
+    (float stacks, or int8 stacks carried as (q, scale) and rebuilt per
+    shard)."""
+    local = [tuple(_local_experts(p, lay.mesh, i, e, e_loc)
+                   for p in _parts(w))
+             for e, i in enumerate(lay.expert_shards(g))]
     if isinstance(w, QuantTensor):
         return [_from_transport(ps) for ps in local]
     return [ps[0] for ps in local]
 
 
-def _ep_geometry(config: MoeConfig, mesh: Mesh) -> tuple:
+def _ep_geometry(config: MoeConfig, lay: Layout) -> tuple:
     """(n_ep, e_loc): the expert axis's size and the experts per shard."""
-    require_expert_only(mesh, "expert parallelism")
-    n_ep = mesh.shape["expert"]
+    n_ep = lay.ep
     e = config.n_experts
     if e % n_ep:
         raise ValueError(
@@ -475,13 +547,13 @@ def _ep_geometry(config: MoeConfig, mesh: Mesh) -> tuple:
     return n_ep, e // n_ep
 
 
-def _moe_block_dropless_ep(x, layer, config: MoeConfig, mesh: Mesh,
-                           use_kernels: bool = True):
-    """Expert-parallel dropless MLP over the mesh's expert axis: the ring
-    where the geometry allows, the psum formulation as fallback and
+def _ep_dropless_out(x, layer, config: MoeConfig, lay: Layout, g: int,
+                     use_kernels: bool = True):
+    """Expert-parallel dropless MLP over group ``g``'s expert shards: the
+    ring where the geometry allows, the psum formulation as fallback and
     parity oracle (``config.ep_overlap``)."""
     c = config
-    n_ep, _ = _ep_geometry(c, mesh)
+    n_ep, _ = _ep_geometry(c, lay)
     t = x.shape[0] * x.shape[1]
     ring_ok = n_ep > 1 and t % n_ep == 0
     if c.ep_overlap == "ring" and not ring_ok:
@@ -495,32 +567,34 @@ def _moe_block_dropless_ep(x, layer, config: MoeConfig, mesh: Mesh,
             "psum"
         )
     if c.ep_overlap != "psum" and ring_ok:
-        return _moe_block_dropless_ep_ring(x, layer, c, mesh, use_kernels)
-    return _moe_block_dropless_ep_psum(x, layer, c, mesh, use_kernels)
+        return _ep_ring_out(x, layer, c, lay, g, use_kernels)
+    return _ep_psum_out(x, layer, c, lay, g, use_kernels)
 
 
-def _moe_block_dropless_ep_psum(x, layer, config: MoeConfig, mesh: Mesh,
-                                use_kernels: bool = True):
-    """Replicate-and-reduce expert parallelism: the routing of the whole
-    batch is computed once (the reference computes the same, replicated,
-    on every shard), each shard runs the pairs routed to its local
-    experts over the whole batch, and the sum of the shards'
+def _ep_psum_out(x, layer, config: MoeConfig, lay: Layout, g: int,
+                 use_kernels: bool = True):
+    """Replicate-and-reduce expert parallelism: the routing of the
+    group's batch is computed once (the reference computes the same,
+    replicated, on every shard), each expert shard runs the pairs routed
+    to its local experts over the whole batch, and the sum of the shards'
     contributions is the psum. Each (token, expert) pair runs on exactly
     one shard, so the sum equals the single-device dropless result up to
-    the order of the sum."""
+    the order of the sum. Returns (out [B, S, H] f32, aux, probs)."""
     c = config
-    n_ep, e_loc = _ep_geometry(c, mesh)
+    n_ep, e_loc = _ep_geometry(c, lay)
     b, s, h = x.shape
     t = b * s
-    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps).reshape(t, h)
-    gates, experts, _probs, aux = _route_topk(xn, layer["wr"], c)
-    w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
-    w_down = _expert_shards(layer["w_down"], mesh, e_loc)
+    xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device),
+                            c.norm_eps).reshape(t, h)
+    gates, experts, probs, aux = _route_topk(xn, layer["wr"].to(x.device), c)
+    w_gu = _expert_shards(layer["w_gateup"], lay, g, e_loc)
+    w_down = _expert_shards(layer["w_down"], lay, g, e_loc)
     out = None
-    for i, dev in enumerate(mesh.devices):
+    for e, i in enumerate(lay.expert_shards(g)):
+        dev = lay.mesh.devices[i]
         contrib = _pairs_mlp(
-            xn.to(dev), gates.to(dev), experts.to(dev), w_gu[i], w_down[i],
-            c, lo=i * e_loc, e_loc=e_loc, use_kernels=use_kernels,
+            xn.to(dev), gates.to(dev), experts.to(dev), w_gu[e], w_down[e],
+            c, lo=e * e_loc, e_loc=e_loc, use_kernels=use_kernels,
         ).to(x.device)
         out = contrib if out is None else out + contrib
     # The full [T, H] reduction: this path's traffic against the ring's.
@@ -530,17 +604,18 @@ def _moe_block_dropless_ep_psum(x, layer, config: MoeConfig, mesh: Mesh,
             collectives.payload_bytes(contrib.shape, contrib.dtype), n_ep,
         ),
     )
-    return x + out.reshape(b, s, h).to(x.dtype), aux
+    return out.reshape(b, s, h), aux, probs
 
 
-def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
-                                use_kernels: bool = True):
-    """Ring expert parallelism: the all-to-all in n_ep hops. Chunk i of
-    the tokens starts on shard i; at each hop every shard routes the chunk
-    it holds (chunk (i - hop) mod n_ep), runs its local experts on it and
-    adds the result to a carrier that rotates with the chunk, so after
-    n_ep carrier hops chunk i's output is back on shard i, and the
-    concatenation in shard order restores the token order.
+def _ep_ring_out(x, layer, config: MoeConfig, lay: Layout, g: int,
+                 use_kernels: bool = True):
+    """Ring expert parallelism over group ``g``'s expert shards: the
+    all-to-all in n_ep hops. Chunk i of the tokens starts on expert shard
+    i; at each hop every shard routes the chunk it holds (chunk (i - hop)
+    mod n_ep), runs its local experts on it and adds the result to a
+    carrier that rotates with the chunk, so after n_ep carrier hops chunk
+    i's output is back on shard i, and the concatenation in shard order
+    restores the token order.
 
     The reference issues the next chunk's hop before the hop's expert
     work, so the transfer overlaps it. Here a rotation's streams wait on
@@ -555,18 +630,20 @@ def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
     The row buffers are [T k / n_ep, H] per shard and hop, against the
     psum path's [T k, H]. The Switch aux statistics come from hop 0 (each
     shard's own chunk) and are averaged over the shards: equal to the
-    whole batch's up to the f32 order of the means."""
+    whole batch's up to the f32 order of the means. Returns (out [B, S,
+    H] f32, aux, (frac, mean_prob))."""
     c = config
-    n_ep, e_loc = _ep_geometry(c, mesh)
+    n_ep, e_loc = _ep_geometry(c, lay)
     b, s, h = x.shape
     e = c.n_experts
     t = b * s
     t_loc = t // n_ep
-    devs = mesh.devices
-    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps).reshape(t, h)
+    devs = [lay.mesh.devices[i] for i in lay.expert_shards(g)]
+    xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device),
+                            c.norm_eps).reshape(t, h)
     wr = [layer["wr"].to(d) for d in devs]
-    w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
-    w_down = _expert_shards(layer["w_down"], mesh, e_loc)
+    w_gu = _expert_shards(layer["w_gateup"], lay, g, e_loc)
+    w_down = _expert_shards(layer["w_down"], lay, g, e_loc)
     x_cur = [xn[i * t_loc:(i + 1) * t_loc].to(d) for i, d in enumerate(devs)]
     y = [torch.zeros(t_loc, h, dtype=torch.float32, device=d) for d in devs]
     frac, meanprob = [None] * n_ep, [None] * n_ep
@@ -601,7 +678,7 @@ def _moe_block_dropless_ep_ring(x, layer, config: MoeConfig, mesh: Mesh,
         invocations=2,
     )
     aux = e * torch.sum(frac * meanprob)
-    return x + out.reshape(b, s, h).to(x.dtype), aux
+    return out.reshape(b, s, h), aux, (frac, meanprob)
 
 
 def _note_first_use(impl: str, dispatch: str, tokens: int) -> None:
@@ -613,26 +690,58 @@ def _note_first_use(impl: str, dispatch: str, tokens: int) -> None:
         observer("moe_block", f"{impl}:{dispatch}", {"tokens": tokens})
 
 
-def _moe_block(x, layer, config: MoeConfig, mesh: Mesh | None = None,
-               use_kernels: bool = True):
-    """Sparse MLP: route -> dispatch -> experts -> combine -> residual.
-    Returns (x, aux). ``config.moe_impl`` picks the formulation ("auto"
-    resolved by :func:`resolve_moe_impl`); this body is the einsum one.
-    ``use_kernels=False`` runs the plain versions of RMSNorm, K7 and K8
-    (and of ``int8_matmul`` for int8 experts) even on CUDA tensors. On a
-    ``mesh`` with an expert axis larger than 1, dropless runs expert
-    parallel (ring or psum) and einsum splits its experts over the shards;
-    binned refuses, as in the reference."""
+def _einsum_out(x, layer, config: MoeConfig, use_kernels: bool = True,
+                ep: tuple | None = None):
+    """The GShard capacity formulation: route within groups of
+    ``router_group`` tokens, dispatch into [E, ..., C, H] by one-hot
+    einsums, the experts' MLPs, combine. ``ep`` = (devices, gate/up
+    shards, down shards) splits the experts over expert shards: shard i
+    runs experts [i e_loc, (i + 1) e_loc) of the expert-major dispatched
+    tensor with its weights, and the results concatenate along E.
+    Returns (out [B, S, H] f32, aux, probs)."""
     c = config
-    tokens = x.shape[0] * x.shape[1]
-    if mesh is not None:
-        require_expert_only(mesh, "the MoE block")
-    # An expert axis of size 1 shards nothing -- treat it as absent.
-    expert_mesh = mesh is not None and mesh.shape.get("expert", 1) > 1
-    if not expert_mesh and any(isinstance(p, Sharded)
-                               for p in _parts(layer["w_gateup"])):
-        raise ValueError("sharded expert stacks need the mesh they were "
-                         "sharded on (mesh=...)")
+    b, s, h = x.shape
+    xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device), c.norm_eps)
+    g = effective_router_group(c, s)
+    cap = _capacity(c, g)
+    if g != s:
+        # Route within groups of g tokens: fold the group count into the
+        # batch dim -- _route treats each batch row as a group.
+        xn = xn.reshape(b * (s // g), g, h)
+    logits = torch.einsum("bsh,he->bse", xn.float(),
+                          layer["wr"].to(x.device).float())
+    probs = torch.softmax(logits, dim=-1)
+    dispatch, combine, aux = _route(probs, c, cap)
+    xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
+    if ep is not None:
+        devs, w_gu, w_down = ep
+        e_loc = c.n_experts // len(devs)
+        ye = torch.cat([
+            _experts(xe[i * e_loc:(i + 1) * e_loc].to(dev), w_gu[i],
+                     w_down[i], x.dtype, use_kernels).to(x.device)
+            for i, dev in enumerate(devs)], dim=0)
+    else:
+        ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
+                      use_kernels)
+    out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
+    return out.reshape(b, s, h), aux, probs
+
+
+def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
+              use_kernels: bool = True):
+    """Batch group ``g``'s sparse MLP on a mesh (``parallel/layout.py``),
+    ``moe_impl`` resolved at the whole batch's token count as the
+    reference resolves it. On an expert axis: dropless expert parallel
+    over the group's expert shards (ring or psum), einsum with the
+    experts split over them, binned refused. Without one (the reference's
+    GSPMD case): dropless on the primitive path per tensor shard
+    (:func:`_dropless_tp_out`), einsum and binned per tensor shard on its
+    M block of every expert; the psum over ``tensor`` adds the shards'
+    outputs (SwiGLU is elementwise over M). Returns (x + out, aux, the
+    aux statistics of :func:`_stats`)."""
+    c = config
+    tokens = x.shape[0] * x.shape[1] * lay.dp
+    expert_mesh = lay.ep > 1
     impl = resolve_moe_impl(c, tokens, expert_mesh=expert_mesh)
     _note_first_use(
         impl,
@@ -648,44 +757,65 @@ def _moe_block(x, layer, config: MoeConfig, mesh: Mesh | None = None,
             "mesh; use 'einsum'/'auto' (same drop semantics) or "
             "'dropless' for expert-parallel runs"
         )
+    if impl not in ("binned", "grouped", "dropless", "einsum"):
+        raise ValueError(
+            f"unknown moe_impl {c.moe_impl!r}; valid: "
+            "auto, binned, dropless, einsum"
+        )
+    if expert_mesh:
+        if impl == "dropless":
+            out, aux, st = _ep_dropless_out(x, layer, c, lay, g, use_kernels)
+        else:
+            _, e_loc = _ep_geometry(c, lay)
+            devs = [lay.mesh.devices[i] for i in lay.expert_shards(g)]
+            ep = (devs, _expert_shards(layer["w_gateup"], lay, g, e_loc),
+                  _expert_shards(layer["w_down"], lay, g, e_loc))
+            out, aux, st = _einsum_out(x, layer, c, use_kernels, ep=ep)
+    elif impl == "dropless":
+        out, aux, st = _dropless_tp_out(x, layer, c, lay, g, use_kernels)
+    else:
+        body = _einsum_out if impl == "einsum" else _binned_out
+        outs = []
+        for t in range(lay.tp):
+            local = {k: lay.weight(layer[k], g, t)
+                     for k in ("ln_mlp", "wr", "w_gateup", "w_down")}
+            o, aux, st = body(x.to(lay.device(g, t)), local, c, use_kernels)
+            outs.append(o)
+        out = sum_parts(outs, x.device)
+    if not isinstance(st, tuple):
+        st = _stats(st, c.n_experts)
+    return x + out.to(x.dtype), aux, st
+
+
+def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
+    """Sparse MLP on one device: route -> dispatch -> experts -> combine ->
+    residual. Returns (x, aux). ``config.moe_impl`` picks the formulation
+    ("auto" resolved by :func:`resolve_moe_impl`). ``use_kernels=False``
+    runs the plain versions of RMSNorm, K7 and K8 (and of ``int8_matmul``
+    for int8 experts) even on CUDA tensors. On a mesh the layers call
+    :func:`moe_group` per batch group instead."""
+    c = config
+    tokens = x.shape[0] * x.shape[1]
+    if any(isinstance(p, Sharded) for p in _parts(layer["w_gateup"])):
+        raise ValueError("sharded expert stacks need the mesh they were "
+                         "sharded on (mesh=...)")
+    impl = resolve_moe_impl(c, tokens)
+    _note_first_use(
+        impl,
+        moe_dispatch.dispatch_impl_label(c.hidden, c.mlp_hidden,
+                                         device=x.device),
+        tokens,
+    )
     if impl in ("binned", "grouped"):   # "grouped": the megablocks term
         return _moe_block_binned(x, layer, c, use_kernels=use_kernels)
     if impl == "dropless":
-        if expert_mesh:
-            return _moe_block_dropless_ep(x, layer, c, mesh, use_kernels)
         return _moe_block_dropless(x, layer, c, use_kernels=use_kernels)
     if impl != "einsum":
         raise ValueError(
             f"unknown moe_impl {c.moe_impl!r}; valid: "
             "auto, binned, dropless, einsum"
         )
-    b, s, h = x.shape
-    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps)
-    g = effective_router_group(c, s)
-    cap = _capacity(c, g)
-    if g != s:
-        # Route within groups of g tokens: fold the group count into the
-        # batch dim -- _route treats each batch row as a group.
-        xn = xn.reshape(b * (s // g), g, h)
-    logits = torch.einsum("bsh,he->bse", xn.float(), layer["wr"].float())
-    probs = torch.softmax(logits, dim=-1)
-    dispatch, combine, aux = _route(probs, c, cap)
-    xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
-    if expert_mesh:
-        # [E, ...] is expert-major: shard i runs experts [lo, lo + e_loc)
-        # with its weights, and the results concatenate along E.
-        _, e_loc = _ep_geometry(c, mesh)
-        w_gu = _expert_shards(layer["w_gateup"], mesh, e_loc)
-        w_down = _expert_shards(layer["w_down"], mesh, e_loc)
-        ye = torch.cat([
-            _experts(xe[i * e_loc:(i + 1) * e_loc].to(dev), w_gu[i],
-                     w_down[i], x.dtype, use_kernels).to(x.device)
-            for i, dev in enumerate(mesh.devices)], dim=0)
-    else:
-        ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
-                      use_kernels)
-    out = torch.einsum("bsec,ebch->bsh", combine.float(), ye.float())
-    out = out.reshape(b, s, h)
+    out, aux, _ = _einsum_out(x, layer, c, use_kernels)
     return x + out.to(x.dtype), aux
 
 
@@ -748,6 +878,12 @@ class _GatherRows(torch.autograd.Function):
 
 def _moe_block_binned(x, layer, config: MoeConfig,
                       use_kernels: bool = True):
+    """:func:`_binned_out` plus the residual. Returns (x + out, aux)."""
+    out, aux, _ = _binned_out(x, layer, config, use_kernels)
+    return x + out.to(x.dtype), aux
+
+
+def _binned_out(x, layer, config: MoeConfig, use_kernels: bool = True):
     """Sorted capacity-binned sparse MLP (the reference's
     ``_moe_block_binned``): the einsum path's routing, drops, gates and
     tie-breaking, without its [.., E, C] one-hot products. The capacity
@@ -755,16 +891,18 @@ def _moe_block_binned(x, layer, config: MoeConfig,
     int scatter (the ``moe_routing`` site) inverts it; a row gather fills
     the expert-major bins [E, Bg * C, H]; the experts run as batched
     products (the gate/up one the ``moe_gu`` site); a second gather,
-    weighted by the gates, combines. Returns (x + out, aux)."""
+    weighted by the gates, combines. Returns (out [B, S, H] f32, aux,
+    probs)."""
     c = config
     b, s, h = x.shape
     e, k = c.n_experts, c.top_k
-    xn = _norm(use_kernels)(x, layer["ln_mlp"], c.norm_eps)
+    xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device), c.norm_eps)
     g = effective_router_group(c, s)
     cap = _capacity(c, g)
     bg = b * (s // g)
     xn = xn.reshape(bg, g, h)
-    logits = torch.einsum("bsh,he->bse", xn.float(), layer["wr"].float())
+    logits = torch.einsum("bsh,he->bse", xn.float(),
+                          layer["wr"].to(x.device).float())
     probs = torch.softmax(logits, dim=-1)
     masks, gates, aux = _topk_masks(probs, c)               # [Bg, G, E]
     denom = sum(gates) + 1e-9
@@ -801,14 +939,41 @@ def _moe_block_binned(x, layer, config: MoeConfig,
                                slot_pair[None])
     y_pair = y_pair.float() * gates_w.reshape(k * t)[:, None]
     out = y_pair.reshape(k, t, h).sum(dim=0)
-    return x + out.reshape(b, s, h).to(x.dtype), aux
+    return out.reshape(b, s, h), aux, probs
 
 
-def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool,
-           mesh: Mesh | None = None):
+def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):
     """One layer: attention, then the sparse MLP. Returns (x, aux)."""
     x = _attention_block(x, layer, config, cos, sin, use_kernels)
-    return _moe_block(x, layer, config, mesh, use_kernels=use_kernels)
+    return _moe_block(x, layer, config, use_kernels=use_kernels)
+
+
+def _mesh_block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool,
+                lay: Layout, g: int):
+    """One layer of batch group ``g`` on a mesh: the Megatron attention
+    block, then :func:`moe_group`. Returns (x, (aux, statistics))."""
+    x = mesh_attention(x, layer, config, cos, sin, use_kernels, lay, g)
+    x, aux, st = moe_group(x, layer, config, lay, g, use_kernels)
+    return x, (aux, st)
+
+
+def _mesh_forward(params, tokens, config: MoeConfig, mesh: Mesh,
+                  remat: bool, remat_policy: str, use_kernels: bool):
+    """(layout, placed params, per-group hidden states, aux averaged over
+    layers) of the mesh forward."""
+    c = config
+    lay, placed, xs, extras = mesh_trunk(
+        params, tokens, c, mesh, param_specs(c), _mesh_block, remat,
+        remat_policy, use_kernels)
+    home = lay.home(0)
+    aux = torch.zeros((), dtype=torch.float32, device=home)
+    for per_group in extras:
+        if lay.dp == 1:
+            aux = aux + per_group[0][0].to(home)
+        else:
+            aux = aux + _aux_of([st for _, st in per_group], c.n_experts,
+                                home)
+    return lay, placed, xs, aux / c.n_layers
 
 
 def forward(
@@ -823,14 +988,21 @@ def forward(
 ):
     """Causal LM forward. Returns (logits [B, S, V] f32, or the final
     hidden states with ``return_hidden``, and the aux loss averaged over
-    layers). Differentiable; ``remat`` takes the dense trunk's policies
-    ("full" checkpoints each layer, the named ones raise as in
-    ``llama.forward``). Weights are unbound per layer once, as
-    ``llama.forward`` does. On a ``mesh`` (expert axis only) the MoE
-    blocks run expert parallel (the module docstring); the trunk runs on
-    the mesh's first device, where ``tokens`` and the replicated weights
-    live. Ring attention is not ported."""
+    layers). Differentiable; ``remat`` takes the dense trunk's policies.
+    Weights are unbound per layer once, as ``llama.forward`` does. On a
+    ``mesh`` the layers run per batch group and tensor shard
+    (``llama.mesh_trunk``) with the MoE blocks of :func:`moe_group`; the
+    result is gathered on the mesh's first device, and the aux combines
+    the groups' statistics (the whole batch's, up to the f32 order of
+    the means). Ring attention is not ported."""
     c = config
+    if mesh is not None:
+        lay, placed, xs, aux = _mesh_forward(
+            params, tokens, c, mesh, remat, remat_policy, use_kernels)
+        if not return_hidden:
+            xs = [mesh_logits(x, mesh_heads(placed["lm_head"], lay, g),
+                              use_kernels) for g, x in enumerate(xs)]
+        return concat_parts(xs, 0, lay.home(0)), aux
     s = tokens.shape[1]
     x = q_lookup(params["embed"], tokens, c.dtype)
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
@@ -840,7 +1012,7 @@ def forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in layers.items()}
-        x, aux_l = block(x, layer, c, cos, sin, use_kernels, mesh)
+        x, aux_l = block(x, layer, c, cos, sin, use_kernels)
         aux = aux + aux_l
     aux = aux / c.n_layers
     x = _norm(use_kernels)(x, params["final_norm"], c.norm_eps)
@@ -851,7 +1023,7 @@ def forward(
 
 def forward_pipelined(*args, **kwargs):
     raise NotImplementedError(
-        "the pipelined MoE forward is not ported yet (parallel slice)"
+        "the pipelined MoE forward is not ported (A12e in ROADMAP.md)"
     )
 
 
@@ -866,16 +1038,19 @@ def loss_fn(
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """Next-token cross-entropy (mean over tokens) plus ``aux_coef`` times
-    the load-balancing aux loss. On a ``mesh`` the MoE blocks run expert
-    parallel (:func:`forward`); ``params`` may hold whole or sharded
-    expert stacks. ``use_ring`` (the reference's ring attention) is not
-    ported and raises."""
-    if use_ring:
-        raise NotImplementedError(
-            "moe.loss_fn(use_ring=True): ring attention over K4-K6 per hop "
-            "is not ported (A12d in ROADMAP.md)")
+    the load-balancing aux loss. On a ``mesh`` (:func:`forward`)
+    ``params`` may hold whole or placed leaves; the gradient reaches the
+    leaves either way. ``use_ring`` (the reference's ring attention) is
+    not ported and raises."""
+    _require_no_ring(use_ring, "moe.loss_fn")
+    if mesh is not None:
+        lay, placed, xs, aux = _mesh_forward(
+            params, tokens[:, :-1], config, mesh, remat, remat_policy,
+            use_kernels)
+        ce = mesh_cross_entropy(lay, placed, xs, tokens[:, 1:])
+        return ce + config.aux_coef * aux
     hidden, aux = forward(params, tokens[:, :-1], config, remat=remat,
                           return_hidden=True, remat_policy=remat_policy,
-                          use_kernels=use_kernels, mesh=mesh)
+                          use_kernels=use_kernels)
     ce = chunked_cross_entropy(hidden, params["lm_head"], tokens[:, 1:])
     return ce + config.aux_coef * aux

@@ -28,6 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.attention import gather_indices
+from ..parallel.sharding import P, shard_pytree
 
 DEFAULT_BLOCK_SIZE = 64
 _EVICTION_AGE_SAMPLES = 512
@@ -40,6 +41,9 @@ __all__ = [
     "PagedKVCache",
     "PagedQuantKVCache",
     "PrefixCache",
+    "cache_specs",
+    "place_cache",
+    "place_pools",
     "flat_write_positions",
     "gather_indices",
     "prefix_run_key",
@@ -522,3 +526,42 @@ def flat_write_positions(
     )
     flat = blk * block_size + positions % block_size
     return torch.where(ok, flat, torch.full_like(flat, scratch_row))
+
+
+#: The pools' placement on a mesh, the reference's serving layout
+#: (``tests/test_decode_sharded.py::cache_specs``): kv heads cut over
+#: ``tensor``, the rest of a pool whole; block tables and lengths
+#: replicated.
+POOL_SPEC = P(None, "tensor", None, None)
+SCALE_SPEC = P(None, "tensor", None)
+
+
+def cache_specs(quantized: bool = False, block_size: int = 0):
+    """The spec tree of a cache (``block_size`` carried as it is)."""
+    if quantized:
+        return PagedQuantKVCache(k=POOL_SPEC, k_scale=SCALE_SPEC,
+                                 v=POOL_SPEC, v_scale=SCALE_SPEC,
+                                 block_tables=P(), lengths=P(),
+                                 block_size=block_size)
+    return PagedKVCache(k=POOL_SPEC, v=POOL_SPEC, block_tables=P(),
+                        lengths=P(), block_size=block_size)
+
+
+def place_pools(pools: tuple, mesh) -> tuple:
+    """``(k, v)`` or ``(k, v, k_scale, v_scale)`` pools placed by
+    :func:`cache_specs` on ``mesh``: each tensor shard's kv heads are the
+    view ``pool[:, h0:h1]`` of the whole pool (one layer's ``pool[l,
+    h0:h1]`` is contiguous, as the paged kernels take it), so the forward
+    writes the whole pool in place."""
+    specs = (POOL_SPEC, POOL_SPEC, SCALE_SPEC, SCALE_SPEC)
+    return tuple(shard_pytree(p, mesh, spec) for p, spec in zip(pools, specs))
+
+
+def place_cache(cache, mesh):
+    """``cache`` with its pools placed by :func:`cache_specs`."""
+    if isinstance(cache, PagedQuantKVCache):
+        k, v, ks, vs = place_pools((cache.k, cache.v, cache.k_scale,
+                                    cache.v_scale), mesh)
+        return dataclasses.replace(cache, k=k, v=v, k_scale=ks, v_scale=vs)
+    k, v = place_pools((cache.k, cache.v), mesh)
+    return dataclasses.replace(cache, k=k, v=v)

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..parallel.mesh import require_expert_only
+from ..parallel.layout import Layout, check_heads
 from .decode import _forward_with_cache, _require_supported, sample
 from .moe import resolve_moe_impl
 from .paged import (
@@ -64,6 +64,7 @@ from .paged import (
     PagedQuantKVCache,
     PrefixCache,
     _init_pools,
+    place_pools,
 )
 from .step_graph import StepGraph
 
@@ -250,13 +251,17 @@ class DecodeEngine:
     captured as CUDA graphs and replayed (see the module docstring);
     ``capture=False`` runs them eagerly there too, to compare the two:
     the same kernels on the same inputs, so the same streams, counters
-    and launch counts. ``mesh`` (``parallel/mesh.py``, expert axis only)
-    serves expert parallel, the reference's ``mesh``: ``params`` placed by
-    ``shard_pytree(params, mesh, moe.param_specs(config))``, the MoE
-    blocks over the mesh's shards (on an expert mesh ``auto`` resolves to
-    einsum; ``moe_impl="dropless"`` runs the ring or psum path, K9's twin
-    inside the captured steps), everything else on the mesh's first
-    device, which is the engine's device unless ``device`` says otherwise.
+    and launch counts. ``mesh`` (``parallel/mesh.py``) serves on the
+    reference's ``mesh``: ``params`` whole or placed by ``shard_pytree(
+    params, mesh, param_specs(config))`` (``quantize_specs`` of them for
+    int8 weights), the pools cut on kv heads (``paged.cache_specs``),
+    every step's stack per batch group and tensor shard inside the
+    captured steps (``decode._mesh_forward_with_cache``; on an expert
+    mesh ``auto`` resolves to einsum, ``moe_impl="dropless"`` runs the
+    ring or psum path, K9's twin inside the captured steps), the host
+    bookkeeping on the mesh's first device, which is the engine's device
+    unless ``device`` says otherwise. ``batch_slots`` and
+    ``prefill_batch`` must split over data x fsdp.
     """
 
     def __init__(
@@ -285,7 +290,8 @@ class DecodeEngine:
         self.device = resolve_device(device)
         _require_supported(config)
         if mesh is not None:
-            require_expert_only(mesh, "DecodeEngine")
+            check_heads(config, mesh)
+            Layout(mesh, "DecodeEngine").rows(batch_slots)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs "
@@ -299,6 +305,9 @@ class DecodeEngine:
         if prefill_batch is None:
             prefill_batch = min(4, batch_slots)
         self.prefill_batch = max(1, min(prefill_batch, batch_slots))
+        if mesh is not None:
+            # The packed prefill's lanes split over the batch groups too.
+            Layout(mesh, "DecodeEngine").rows(self.prefill_batch)
         self.quantize_cache = quantize_cache
         self.eos_id = eos_id
         self.temperature = temperature
@@ -340,6 +349,8 @@ class DecodeEngine:
         self._pools = _init_pools(config, num_blocks, block_size,
                                   quantized=quantize_cache,
                                   device=self.device)
+        if mesh is not None:
+            self._pools = place_pools(self._pools, mesh)
         b = batch_slots
         self._tables = np.zeros((b, self.max_blocks_per_seq), np.int32)
         self._lengths = np.zeros((b,), np.int32)

@@ -18,14 +18,18 @@ norm (no epsilon added, unlike ``torch.nn.utils.clip_grad_norm_``).
 
 Both model families train: :func:`_model_fns` picks ``moe``'s parameters
 and loss for an ``MoeConfig`` (whose router stays f32, and so do its
-moments), ``llama``'s otherwise. On a ``mesh`` (an ``MoeConfig`` only,
-the ``expert`` axis only) the step is expert parallel: the state stays
-whole, and the MoE blocks take each shard's experts as a view of the
-whole stack (``moe._local_experts``), so the gradients reach the whole
-leaves that the update writes in place.
-Not ported yet: the other mesh axes, ``state_shardings`` and
-``reshard_train_state`` (A12c in ROADMAP.md) and ring attention
-(``use_ring``, A12d).
+moments), ``llama``'s otherwise. On a ``mesh`` (``parallel/mesh.py``:
+data, fsdp and tensor, or data with expert) the state's leaves stay
+whole on the mesh's first device, and its placement is a tree of
+``NamedSharding`` twins (``TrainState.shardings``, by the model's
+``param_specs``; the optimizer's moments replicated, as the reference's
+jitted optax init leaves them). The loss cuts each shard's blocks as
+views of the whole leaves (``llama.place``), so the gradients reach the
+leaves that the update writes in place: the data and fsdp groups'
+gradients add up in them, the reduce-scatter of a sharded step.
+:func:`reshard_train_state` re-anchors a state to another mesh, its
+``train.reshard`` ledger record the reference's. Not ported: ring
+attention (``use_ring``, A12d) and the pipeline (A12e).
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ import math
 import torch
 
 from .. import resolve_device
-from ..parallel.mesh import require_expert_only
+from ..parallel import collectives
+from ..parallel.layout import Layout, check_heads
+from ..parallel.sharding import NamedSharding, P
 from .llama import LlamaConfig
 
 __all__ = [
@@ -51,6 +57,8 @@ __all__ = [
     "make_train_step",
     "make_eval_step",
     "init_train_state",
+    "state_shardings",
+    "reshard_train_state",
     "train_state_from_params",
     "leaves",
 ]
@@ -73,12 +81,17 @@ ADAM_EPS = 1e-8
 _UPDATE_SLICE = 1 << 26
 
 
-def _model_fns(config: LlamaConfig):
-    """(init_params, loss_fn) for the config's model family -- MoeConfig
-    subclasses LlamaConfig, so the sparse check comes first."""
+def _model(config: LlamaConfig):
+    """The config's model module -- MoeConfig subclasses LlamaConfig, so
+    the sparse check comes first."""
     from . import llama, moe
 
-    mod = moe if isinstance(config, moe.MoeConfig) else llama
+    return moe if isinstance(config, moe.MoeConfig) else llama
+
+
+def _model_fns(config: LlamaConfig):
+    """(init_params, loss_fn) for the config's model family."""
+    mod = _model(config)
     return mod.init_params, mod.loss_fn
 
 
@@ -188,25 +201,115 @@ class TrainState:
     params: dict
     opt_state: AdamWState
     step: int
+    #: The params' placement on a mesh (a tree of ``NamedSharding`` like
+    #: ``params``), or None on one device. Not saved in a checkpoint: a
+    #: restore keeps its template's.
+    shardings: dict | None = dataclasses.field(
+        default=None, metadata={"checkpoint": False})
 
 
-def train_state_from_params(params: dict, optimizer: AdamW) -> TrainState:
+def _check_mesh(config: LlamaConfig, mesh, what: str) -> None:
+    Layout(mesh, what)
+    check_heads(config, mesh)
+
+
+def train_state_from_params(params: dict, optimizer: AdamW,
+                            mesh=None) -> TrainState:
     """A fresh train state over existing parameters, which it marks
     trainable -- e.g. ones converted from the reference with
     ``params_from_numpy`` (the optimizer state is not converted: both
-    packages start it fresh from the same parameters)."""
+    packages start it fresh from the same parameters). With ``mesh`` the
+    state is placed there by the model's ``param_specs``; the parameters
+    of a dense model (a dict without a router) take ``llama``'s."""
     for p in leaves(params):
         p.requires_grad_(True)
+    shardings = None
+    if mesh is not None:
+        from . import llama, moe
+
+        specs = (moe if "wr" in params["layers"] else llama).param_specs
+        shardings = _named(specs(None), mesh)
     return TrainState(params=params, opt_state=optimizer.init(params),
-                      step=0)
+                      step=0, shardings=shardings)
+
+
+def _named(specs: dict, mesh) -> dict:
+    return {k: _named(v, mesh) if isinstance(v, dict)
+            else NamedSharding(mesh, v) for k, v in specs.items()}
 
 
 def init_train_state(config: LlamaConfig, optimizer: AdamW, seed: int = 0,
-                     device=None) -> TrainState:
-    """Random parameters from ``seed`` on ``device`` (default CUDA) and a
-    fresh optimizer state."""
+                     device=None, mesh=None) -> TrainState:
+    """Random parameters from ``seed`` on ``device`` (default CUDA; the
+    mesh's first device with ``mesh``) and a fresh optimizer state, the
+    state placed on ``mesh`` by the model's ``param_specs`` (the tensor
+    degree must divide ``n_kv_heads``)."""
+    if mesh is not None:
+        _check_mesh(config, mesh, "init_train_state")
+        if device is None:
+            device = mesh.devices[0]
     params = _model_fns(config)[0](config, seed=seed, device=device)
-    return train_state_from_params(params, optimizer)
+    state = train_state_from_params(params, optimizer)
+    if mesh is not None:
+        state.shardings = _named(_model(config).param_specs(config), mesh)
+    return state
+
+
+def state_shardings(state: TrainState, mesh) -> TrainState:
+    """Per-leaf target ``NamedSharding`` twins for ``state`` on ``mesh``,
+    shaped like the state: each leaf keeps its spec (``state.shardings``)
+    re-anchored to ``mesh``; everything else -- the optimizer's moments,
+    its update count, the step -- replicated, as the reference's live
+    arrays are."""
+    rep = NamedSharding(mesh, P())
+
+    def anchor(tree, placed):
+        return {k: anchor(v, placed.get(k) if placed else None)
+                if isinstance(v, dict)
+                else NamedSharding(mesh, placed[k].spec if placed else P())
+                for k, v in tree.items()}
+
+    return TrainState(
+        params=anchor(state.params, state.shardings),
+        opt_state=AdamWState(count=rep,
+                             mu=anchor(state.opt_state.mu, None),
+                             nu=anchor(state.opt_state.nu, None)),
+        step=rep)
+
+
+#: Bytes of the reference's train state beyond its params and moments:
+#: adam's update count, the schedule's and the step, int32 scalars.
+_SCALAR_STATE_BYTES = 3 * 4
+
+
+def reshard_train_state(state: TrainState, mesh) -> TrainState:
+    """The live reshard of ``state`` onto ``mesh``: the leaves move to
+    the new mesh's first device (the same tensors where it is the old
+    one's: values bit for bit, no checkpoint round trip, no optimizer
+    re-initialization) and the placement re-anchors to ``mesh``
+    (:func:`state_shardings`). With a collective ledger installed it
+    records ``train.reshard`` (DCN) with the reference's worst-case
+    volume: every leaf moves in full."""
+    if collectives._LEDGERS:
+        nbytes = sum(int(x.nbytes) for x in (
+            leaves(state.params) + leaves(state.opt_state.mu)
+            + leaves(state.opt_state.nu)))
+        collectives.emit("train.reshard", collectives.MEDIUM_DCN,
+                         nbytes + _SCALAR_STATE_BYTES)
+    dev = mesh.devices[0]
+    target = state_shardings(state, mesh)
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict)
+                else v.detach().to(dev).requires_grad_(v.requires_grad)
+                if v.device != dev else v for k, v in tree.items()}
+
+    return TrainState(
+        params=move(state.params),
+        opt_state=AdamWState(count=state.opt_state.count,
+                             mu=move(state.opt_state.mu),
+                             nu=move(state.opt_state.nu)),
+        step=state.step, shardings=target.params)
 
 
 def _note_first_use(b: int, s: int) -> None:
@@ -225,23 +328,25 @@ def _check_device(params: dict, dev: torch.device) -> None:
 
 
 def make_train_step(config: LlamaConfig, optimizer: AdamW,
-                    remat: bool = True, device=None, mesh=None):
+                    remat: bool = True, device=None, mesh=None,
+                    use_ring: bool = False):
     """The train step ``(state, tokens [B, S+1]) -> (state, loss)`` on
-    ``device`` (default CUDA). It updates ``state`` in place and returns
-    it, with the loss as a 0-dim f32 tensor. With ``mesh`` (an expert-only
-    mesh, an ``MoeConfig``) the MoE blocks run expert parallel."""
+    ``device`` (default CUDA; the mesh's first device with ``mesh``). It
+    updates ``state`` in place and returns it, with the loss as a 0-dim
+    f32 tensor. With ``mesh`` the loss runs on the mesh (batch rows over
+    data x fsdp, Megatron tensor parallelism, expert parallel MoE blocks
+    on an expert axis) on views of the whole leaves."""
+    if use_ring:
+        raise NotImplementedError(
+            "make_train_step(use_ring=True): ring attention over K4-K6 per "
+            "hop is not ported (A12d in ROADMAP.md)")
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     dev = resolve_device(device)
-    if mesh is None:
-        loss_fn = _model_fns(config)[1]
-    else:
-        from . import moe
-
-        if not isinstance(config, moe.MoeConfig):
-            raise NotImplementedError(
-                "make_train_step(mesh=...) for a dense model: its tensor "
-                "and fsdp placements are not ported (A12c in ROADMAP.md)")
-        require_expert_only(mesh, "make_train_step")
-        loss_fn = functools.partial(moe.loss_fn, mesh=mesh)
+    loss_fn = _model_fns(config)[1]
+    if mesh is not None:
+        _check_mesh(config, mesh, "make_train_step")
+        loss_fn = functools.partial(loss_fn, mesh=mesh)
 
     def step(state: TrainState, tokens: torch.Tensor):
         _check_device(state.params, dev)
@@ -258,10 +363,16 @@ def make_train_step(config: LlamaConfig, optimizer: AdamW,
     return step
 
 
-def make_eval_step(config: LlamaConfig, device=None):
-    """``(params, tokens [B, S+1]) -> loss`` without gradients or remat."""
+def make_eval_step(config: LlamaConfig, device=None, mesh=None):
+    """``(params, tokens [B, S+1]) -> loss`` without gradients or remat
+    (on ``mesh`` as :func:`make_train_step`)."""
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     dev = resolve_device(device)
     loss_fn = _model_fns(config)[1]
+    if mesh is not None:
+        _check_mesh(config, mesh, "make_eval_step")
+        loss_fn = functools.partial(loss_fn, mesh=mesh)
 
     @torch.no_grad()
     def step(params: dict, tokens: torch.Tensor):

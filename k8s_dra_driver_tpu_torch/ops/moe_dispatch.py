@@ -40,9 +40,15 @@ backward, and their plain PyTorch versions. Counterpart of
   :func:`moe_down_combine_int8`, the wrappers of the kernels' int8
   branches (int8 weights into the products, per-column scales in the
   epilogues), counted apart from the bf16 launches. ``grouped_matmul``
-  with an int8 rhs has its plain version only (the reference's
-  ``ragged_dot`` int8 branch) and raises on CUDA tensors: no card path
-  reaches it.
+  with an int8 rhs (the primitive path's, the reference's ``ragged_dot``
+  int8 branch) runs :func:`grouped_matmul_int8`, the wrapper of
+  ``csrc/grouped_matmul_int8.cu``: the int8 weight read as it is stored,
+  f32 sums, each column's scale in the epilogue.
+- A tensor shard's gate/up block is the strided view ``[E, H, 2, M / T]``
+  of the whole ``[E, H, 2, M]`` stack (``models/moe.py``). The primitive
+  path takes it through its strides (:func:`gateup_product`): the int8
+  kernel in one launch over both halves, K10a in one launch per half
+  (its expert maps take a row and an expert stride). No weight copy.
 
 Each kernel has its plain version beside it (``*_reference``). A kernel
 wrapper takes it only for CPU tensors, or where the caller passes
@@ -96,10 +102,14 @@ _DOWN_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [_PTR]
 # the int8 K8 its split scratch after the output and its split last.
 _GATEUP_INT8_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [_PTR]
 _DOWN_INT8_ARGTYPES = [_PTR] * 8 + [_INT] * 9 + [_PTR]
-_GMM_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_PTR]
+_GMM_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [ctypes.c_longlong] * 2 + [_PTR]
 _TGMM_ARGTYPES = [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _LIB = None
 _GROUPED_LIB = None
+_INT8_GROUPED_SOURCE = "grouped_matmul_int8"
+_INT8_GMM_ARGTYPES = ([_PTR] * 5 + [_INT] * 5 + [ctypes.c_longlong] * 5
+                      + [_PTR])
+_INT8_GROUPED_LIB = None
 #: The grouped kernels' width steps: gmm takes K in steps of 32 and N of
 #: 64, tgmm K and N in steps of 64 (``csrc/grouped_matmul.cu``).
 GMM_K_STEP = 32
@@ -146,10 +156,12 @@ def fused_geometry_ok(h: int, m: int) -> bool:
 
 
 def use_fused(h: int | None = None, m: int | None = None,
-              device=None) -> bool:
-    """Whether the fused pipeline is selected for tensors on ``device``
-    (the port has no device mesh, so the reference's ``under_mesh`` case
-    does not arise)."""
+              device=None, under_mesh: bool = False) -> bool:
+    """Whether the fused pipeline is selected for tensors on ``device``.
+    ``under_mesh`` (dropless on a mesh without an expert axis, the
+    reference's GSPMD case) selects the primitive path, as there."""
+    if under_mesh:
+        return False
     return dispatch_impl_label(h, m, device) == "fused"
 
 
@@ -372,6 +384,16 @@ def _grouped_library():
     return _GROUPED_LIB
 
 
+def _int8_grouped_library():
+    global _INT8_GROUPED_LIB
+    if _INT8_GROUPED_LIB is None:
+        lib = _build.load(_INT8_GROUPED_SOURCE)
+        lib.grouped_matmul_int8.argtypes = _INT8_GMM_ARGTYPES
+        lib.grouped_matmul_int8.restype = _INT
+        _INT8_GROUPED_LIB = lib
+    return _INT8_GROUPED_LIB
+
+
 def _check_grouped(kernel: str, group_sizes: torch.Tensor,
                    **operands) -> None:
     """What the grouped kernels take: one CUDA device, bf16 operands,
@@ -433,21 +455,29 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     if not lhs.is_contiguous():
         raise ValueError("grouped_matmul: lhs must be contiguous")
     # rhs as stored [E, K, N], or the transposed view of a stored [E, N, K]
-    # (megablox's transpose_rhs): the kernel reads either, no copy.
-    if rhs.is_contiguous():
-        transposed = 0
-    elif rhs.transpose(1, 2).is_contiguous():
-        transposed = 1
+    # (megablox's transpose_rhs), each possibly a strided view whose rows
+    # lie further apart (a tensor shard's half of a gate/up stack): the
+    # kernel reads either through its row and expert strides, no copy.
+    se, sk, sn = rhs.stride()
+    if sn == 1 and sk >= n:
+        transposed, ld = 0, sk
+    elif sk == 1 and sn >= k:
+        transposed, ld = 1, sn
     else:
         raise ValueError(
-            "grouped_matmul: rhs must be contiguous [E, K, N] or the "
-            "transposed view of a contiguous [E, N, K]")
+            "grouped_matmul: rhs must be a row-major [E, K, N] or the "
+            "transposed view of a row-major [E, N, K] (rows may be strided)")
+    if (ld * 2) % 16 or (se * 2) % 16 or se < (k * ld if not transposed
+                                               else n * ld):
+        raise ValueError(
+            f"grouped_matmul: rhs strides {rhs.stride()}; the kernel takes "
+            f"16-byte multiples with experts apart")
     _check_gmm_widths(k, n)
     out = torch.empty(rows, n, dtype=lhs.dtype, device=lhs.device)
     with torch.cuda.device(lhs.device):
         rc = _grouped_library().grouped_matmul(
             lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-            out.data_ptr(), rows, k, n, e, transposed,
+            out.data_ptr(), rows, k, n, e, transposed, ld, se,
             torch.cuda.current_stream(lhs.device).cuda_stream,
         )
     _build.check(rc, "grouped_matmul")
@@ -546,23 +576,167 @@ def grouped_matmul(
     dtype; rows past the last group 0. Any group sizes, aligned or not.
     Differentiable (:class:`GroupedMatmulFunction`).
 
-    An int8 ``QuantTensor`` rhs (scale [E, 1, N]) takes the reference's
-    ``ragged_dot`` int8 branch: the f32 product with ``q``, times each
-    row's group scale, rounded to ``lhs``'s dtype; forward only. It has
-    no kernel yet, so CUDA tensors raise."""
+    An int8 ``QuantTensor`` rhs (scale [E, 1, N]; or a gate/up stack [E,
+    K, 2, M] with scale [E, 1, 2, M], whose halves give the output's
+    [:M] and [M:] columns) takes the reference's ``ragged_dot`` int8
+    branch: the f32 product with ``q``, times each row's group scale,
+    rounded to ``lhs``'s dtype; forward only, through
+    :func:`grouped_matmul_int8` (its plain version for CPU tensors or
+    with ``use_kernels=False``)."""
     q, scale = _quant_parts(rhs)
     if scale is None:
         return GroupedMatmulFunction.apply(lhs, rhs, group_sizes,
                                            use_kernels)
-    if use_kernels and not _is_cpu(lhs, q, group_sizes):
-        raise NotImplementedError(
-            "grouped_matmul: an int8 rhs has no kernel on the card yet (the "
-            "fused dispatch kernels take int8 experts)")
+    if not use_kernels or _is_cpu(lhs, q, group_sizes):
+        return grouped_matmul_int8_reference(lhs, q, scale, group_sizes)
+    return grouped_matmul_int8(lhs, q, scale, group_sizes)
+
+
+grouped_matmul.launches = 0
+
+
+def _int8_flat(q: torch.Tensor, scale: torch.Tensor):
+    """(q [E, K, N], scale [E, 1, N]) of a 3-D stack or of a gate/up stack
+    [E, K, 2, M] (the plain version's copy; the kernel reads the halves
+    through their strides)."""
+    if q.dim() == 4:
+        e, k, _, m = q.shape
+        return q.reshape(e, k, 2 * m), scale.reshape(e, 1, 2 * m)
+    return q, scale
+
+
+def grouped_matmul_int8_reference(lhs: torch.Tensor, q: torch.Tensor,
+                                  scale: torch.Tensor,
+                                  group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``grouped_matmul_int8``: the reference's
+    ``ragged_dot`` int8 branch, ``bf16((lhs . q_g) * scale_g)`` per row of
+    group g with f32 sums; rows past the last group 0."""
+    q, scale = _int8_flat(q, scale)
     y = grouped_matmul_reference(lhs.float(), q.float(), group_sizes)
     return (y * _row_scale(scale, group_sizes, lhs.shape[0])).to(lhs.dtype)
 
 
-grouped_matmul.launches = 0
+#: The int8 grouped kernel's tile (``csrc/grouped_matmul_int8.cu``): rows
+#: a block, columns a block, contracted depth a step.
+INT8_GMM_ROWS = 64
+INT8_GMM_COLS = 64
+INT8_GMM_K_STEP = 32
+
+
+def grouped_matmul_int8(lhs: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor,
+                        group_sizes: torch.Tensor) -> torch.Tensor:
+    """A7b: the int8 grouped product on the card, ``csrc/
+    grouped_matmul_int8.cu``. ``y[r] = bf16((sum_k lhs[r, k] q[g(r), k,
+    n]) * scale[g(r), n])``, f32 sums, rows at or past ``sum(group_sizes)``
+    0. lhs bf16 [rows, K] contiguous; q int8 [E, K, N] or a gate/up stack
+    [E, K, 2, M] (output columns [:M] the gate half), any view whose last
+    axis is contiguous and whose other strides are 16-byte multiples (a
+    tensor shard's block of the whole stack, no copy); scale f32 [E, 1,
+    N] or [E, 1, 2, M], last axis contiguous. K a multiple of 32, N (M
+    for a gate/up stack) of 64. Counted in ``.launches``, and by part in
+    ``.<narrow|wide>_<gateup|down>_launches``: gate/up for a stack of two
+    halves, down otherwise; narrow where the rows fit one 64-row tile an
+    expert (a decode step's few tokens), wide past that (a prefill
+    chunk's). Raises on anything else (no fallback)."""
+    if not (lhs.is_cuda and q.is_cuda and scale.is_cuda
+            and group_sizes.is_cuda):
+        raise ValueError("grouped_matmul_int8: every input must sit on one "
+                         "CUDA device")
+    dev = lhs.device
+    for name, x in (("q", q), ("scale", scale), ("group_sizes", group_sizes)):
+        if x.device != dev:
+            raise ValueError(f"grouped_matmul_int8: {name} on {x.device}, "
+                             f"lhs on {dev}")
+    if lhs.dtype != torch.bfloat16 or q.dtype != torch.int8 \
+            or scale.dtype != torch.float32 \
+            or group_sizes.dtype != torch.int32:
+        raise TypeError(
+            f"grouped_matmul_int8: lhs {lhs.dtype}, q {q.dtype}, scale "
+            f"{scale.dtype}, group_sizes {group_sizes.dtype}; the kernel "
+            f"takes bf16, int8, float32 and int32")
+    if lhs.dim() != 2 or not lhs.is_contiguous() or lhs.data_ptr() % 16:
+        raise ValueError("grouped_matmul_int8: lhs must be a contiguous, "
+                         "16-byte aligned [rows, K]")
+    rows, k = lhs.shape
+    halves = q.dim() == 4
+    if q.dim() not in (3, 4) or q.shape[1] != k \
+            or (halves and q.shape[2] != 2) \
+            or group_sizes.shape != (q.shape[0],) \
+            or not group_sizes.is_contiguous():
+        raise ValueError(
+            f"grouped_matmul_int8: lhs {tuple(lhs.shape)}, q "
+            f"{tuple(q.shape)}, group_sizes {tuple(group_sizes.shape)}; "
+            f"expected [rows, K], [E, K, N] or [E, K, 2, M], and [E]")
+    e = q.shape[0]
+    half_n = q.shape[-1]
+    n = 2 * half_n if halves else half_n
+    want_scale = (e, 1, 2, half_n) if halves else (e, 1, half_n)
+    if tuple(scale.shape) != want_scale:
+        raise ValueError(f"grouped_matmul_int8: scale {tuple(scale.shape)}, "
+                         f"expected {want_scale}")
+    q_se, q_sk = q.stride(0), q.stride(1)
+    q_sh = q.stride(2) if halves else 0
+    s_se = scale.stride(0)
+    s_sh = scale.stride(2) if halves else 0
+    if q.stride(-1) != 1 or scale.stride(-1) != 1 \
+            or any(v % 16 for v in (q_se, q_sk, q_sh)) \
+            or q.data_ptr() % 16:
+        raise ValueError(
+            f"grouped_matmul_int8: q strides {q.stride()}, scale strides "
+            f"{scale.stride()}; the kernel takes a contiguous last axis, "
+            f"16-byte aligned rows")
+    if k % INT8_GMM_K_STEP or half_n % INT8_GMM_COLS:
+        raise ValueError(
+            f"grouped_matmul_int8: K {k}, N {half_n}; the kernel takes K in "
+            f"multiples of {INT8_GMM_K_STEP} and N in multiples of "
+            f"{INT8_GMM_COLS}")
+    out = torch.empty(rows, n, dtype=torch.bfloat16, device=dev)
+    if rows == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _int8_grouped_library().grouped_matmul_int8(
+            lhs.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            group_sizes.data_ptr(), out.data_ptr(), rows, k, n, e, half_n,
+            q_se, q_sk, q_sh, s_se, s_sh,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "grouped_matmul_int8")
+    grouped_matmul_int8.launches += 1
+    part = (f"{'wide' if rows > e * INT8_GMM_ROWS else 'narrow'}_"
+            f"{'gateup' if halves else 'down'}_launches")
+    setattr(grouped_matmul_int8, part,
+            getattr(grouped_matmul_int8, part) + 1)
+    return out
+
+
+#: The launch counters of ``grouped_matmul_int8`` by part (see its
+#: docstring); their sum is ``.launches``.
+INT8_GMM_PARTS = tuple(f"{w}_{p}_launches" for w in ("narrow", "wide")
+                       for p in ("gateup", "down"))
+grouped_matmul_int8.launches = 0
+for _part in INT8_GMM_PARTS:
+    setattr(grouped_matmul_int8, _part, 0)
+
+
+def gateup_product(xs: torch.Tensor, w_gu, group_sizes: torch.Tensor,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """The primitive path's gate/up product, [rows, 2M] with the gate half
+    first, of a stack [E, H, 2, M]: as one [E, H, 2M] product where the
+    stack reshapes without a copy; a strided block (a tensor shard's)
+    through its strides -- one ``grouped_matmul_int8`` launch for int8
+    weights, one K10a launch per half for bf16."""
+    q, scale = _quant_parts(w_gu)
+    if scale is not None:
+        return grouped_matmul(xs, w_gu, group_sizes, use_kernels=use_kernels)
+    e, h, _, m = w_gu.shape
+    try:
+        flat = w_gu.view(e, h, 2 * m)
+    except RuntimeError:
+        return torch.cat([
+            grouped_matmul(xs, w_gu[:, :, i, :], group_sizes,
+                           use_kernels=use_kernels) for i in (0, 1)], dim=1)
+    return grouped_matmul(xs, flat, group_sizes, use_kernels=use_kernels)
 
 
 def _gu_2d(w_gu):
@@ -597,8 +771,7 @@ def _reference_parts(xf, w_gu, w_down, gates, plan: DispatchPlan,
     SwiGLU."""
     m = w_down.shape[1]
     xs = _take_rows(xf, plan.row_ids)
-    gu = grouped_matmul(xs, _gu_2d(w_gu), plan.sizes_aligned,
-                        use_kernels=use_kernels)
+    gu = gateup_product(xs, w_gu, plan.sizes_aligned, use_kernels)
     gate = torch.nn.functional.silu(gu[:, :m].float())
     up = gu[:, m:].float()
     act = (gate * up).to(xf.dtype)

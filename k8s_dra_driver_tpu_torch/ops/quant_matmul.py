@@ -19,7 +19,11 @@ launches the kernel (counted in ``int8_matmul.launches``; the launches of
 the wgmma body, M > 64, also in ``int8_matmul.wide_launches``, and those
 of them in the prologue mode in ``int8_matmul.wide_prologue_launches``)
 or raises: bf16 x, int8 q, f32 scales, K a multiple of 64 and N of 16,
-contiguous 16-byte aligned operands on one device. :func:`plan` picks the
+16-byte aligned operands on one device, x and the scale contiguous, q
+contiguous or a view whose rows (and entries) lie a multiple of 16 bytes
+apart -- a column block of a wider weight, such as a tensor shard's
+``wqkv``, ``lm_head`` or gate/up half, read where it lies
+(``int8_matmul_strided`` in the source). :func:`plan` picks the
 body and a K split from the shape and the card's SM count alone (host
 integers, no sync): at M <= 64 the swapped form (the weight's columns as
 wgmma's M, x's rows as its N), 128 columns a block, K split up to 8 ways
@@ -43,6 +47,7 @@ _SOURCE = "quant_matmul"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
+_STRIDED_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [ctypes.c_longlong] * 2 + [_PTR]
 _LIB = None
 
 #: The M <= 64 body's (the swapped form's) weight columns a block, and both
@@ -66,6 +71,8 @@ def _library():
         lib = _build.load(_SOURCE)
         lib.int8_matmul.argtypes = _ARGTYPES
         lib.int8_matmul.restype = _INT
+        lib.int8_matmul_strided.argtypes = _STRIDED_ARGTYPES
+        lib.int8_matmul_strided.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -157,7 +164,7 @@ def _check_args(x, q, scale) -> None:
             raise ValueError(f"int8_matmul: {name} on {t.device}; every input "
                              f"must sit on one CUDA device (or all on the "
                              f"CPU)")
-        if not t.is_contiguous():
+        if name != "q" and not t.is_contiguous():
             raise ValueError(f"int8_matmul: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"int8_matmul: {name} is not 16-byte aligned")
@@ -182,15 +189,22 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul: M {m}, K {k}, N {n}; the kernel "
                          f"takes M > 0, K a multiple of {KERNEL_K_STEP} and "
                          f"N a multiple of 16")
+    ldq = qb.stride(1)
+    sq = qb.stride(0) if e > 1 else k * ldq
+    if qb.stride(2) != 1 or ldq < n or ldq % 16 or sq % 16 \
+            or (e > 1 and sq < k * ldq):
+        raise ValueError(
+            f"int8_matmul: q strides {tuple(q.stride())}; the kernel takes "
+            f"rows with a contiguous last axis, 16-byte multiples apart")
     p = plan(e, m, n, k, sm_count(x.device))
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     part = (torch.empty((p.split, e, m, n), dtype=torch.float32,
                         device=x.device) if p.split > 1 else None)
     with torch.cuda.device(x.device):
-        rc = _library().int8_matmul(
+        rc = _library().int8_matmul_strided(
             xb.data_ptr(), qb.data_ptr(), sb.data_ptr(), y.data_ptr(),
             part.data_ptr() if part is not None else None, e, m, n, k,
-            p.split, int(prologue),
+            p.split, int(prologue), ldq, sq,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "int8_matmul")

@@ -1,9 +1,10 @@
 """Parallelism: the single-controller device mesh (:mod:`.mesh`), sharded
-values and their specs (:mod:`.sharding`), ring hops with K9's twin
-(:mod:`.ring`), the host-side collective accounting (:mod:`.collectives`)
-that the compute telemetry installs, and the workload's sharing shim
-(:mod:`.shim`). Only the expert axis of a mesh may be larger than 1; the
-other compositions, the pipeline and ``elastic`` are still to port."""
+values and their specs (:mod:`.sharding`), the explicit placement of a
+forward over the data, fsdp, tensor and expert axes (:mod:`.layout`),
+ring hops with K9's twin (:mod:`.ring`), the collectives and their
+host-side accounting (:mod:`.collectives`) that the compute telemetry
+installs, and the workload's sharing shim (:mod:`.shim`). The pipe and
+sequence axes (A12e, A12d) and ``elastic`` are still to port."""
 
 from . import collectives
 from .mesh import (
@@ -21,8 +22,10 @@ from .ring import (
     ring_permute_reference,
     ulysses_attention,
 )
+from .layout import Layout
 from .sharding import (
     DEFAULT_RULES,
+    NamedSharding,
     P,
     Sharded,
     batch_sharding,
@@ -45,6 +48,8 @@ __all__ = [
     "ring_permute_reference",
     "ulysses_attention",
     "DEFAULT_RULES",
+    "Layout",
+    "NamedSharding",
     "P",
     "Sharded",
     "spec_for",

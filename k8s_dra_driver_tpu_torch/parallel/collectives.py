@@ -1,6 +1,12 @@
 """Host-side collective accounting — the emission layer of the
 compute-plane telemetry (models/compute_telemetry.py). Counterpart of
-``k8s_dra_driver_tpu/parallel/collectives.py``, copied as it is.
+``k8s_dra_driver_tpu/parallel/collectives.py``, copied as it is, plus
+the collectives of the single-controller mesh (:func:`psum`,
+:func:`all_gather` and their per-group forms :func:`sum_parts`,
+:func:`concat_parts`), which the reference leaves to XLA: a psum is the
+sum of the shards' values in shard order, a tiled all-gather their
+concatenation in shard order. They record nothing here; a site that the
+reference records calls :func:`emit` itself.
 
 Each collective site calls :func:`emit` with an *analytic* byte volume
 derived from static shapes: the ring hops (``parallel/ring.py``) and
@@ -41,6 +47,8 @@ from __future__ import annotations
 import math
 import threading
 
+import torch
+
 MEDIUM_ICI = "ici"   # in-mesh collective fabric (NVLink between cards)
 MEDIUM_DCN = "dcn"   # host-mediated transfers between hosts
 
@@ -76,6 +84,57 @@ def all_to_all_bytes(local_buffer: int, n: int) -> int:
 def all_reduce_bytes(payload: int, n: int) -> int:
     """psum/pmean as reduce-scatter + all-gather."""
     return 2 * (n - 1) * payload
+
+
+def sum_parts(parts, device=None) -> torch.Tensor:
+    """The psum of one group: the shards' values summed in shard order on
+    ``device`` (default the first value's)."""
+    dev = parts[0].device if device is None else torch.device(device)
+    out = parts[0].to(dev)
+    for p in parts[1:]:
+        out = out + p.to(dev)
+    return out
+
+
+def concat_parts(parts, dim: int, device=None) -> torch.Tensor:
+    """The tiled all-gather of one group: the shards' values concatenated
+    along ``dim`` in shard order on ``device`` (default the first's)."""
+    dev = parts[0].device if device is None else torch.device(device)
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def _over_groups(values, mesh, axes, fn) -> list:
+    """``fn(parts, device)`` of each group of shards that share every
+    coordinate but ``axes``, for each member on its device (computed once
+    per group and device)."""
+    if len(values) != mesh.size:
+        raise ValueError(f"{len(values)} values for a mesh of {mesh.size} "
+                         f"shards")
+    out = [None] * mesh.size
+    for group in mesh.groups(axes):
+        parts = [values[j] for j in group]
+        done = {}
+        for i in group:
+            dev = mesh.devices[i]
+            if dev not in done:
+                done[dev] = fn(parts, dev)
+            out[i] = done[dev]
+    return out
+
+
+def psum(values, mesh, axes) -> list:
+    """``lax.psum`` over ``axes`` (a name or a tuple of names): ``values``
+    holds one tensor per shard of ``mesh``; each shard gets the sum over
+    the shards that share its other coordinates."""
+    return _over_groups(values, mesh, axes, sum_parts)
+
+
+def all_gather(values, mesh, axes, dim: int) -> list:
+    """The tiled ``lax.all_gather`` over ``axes``: each shard gets the
+    values of the shards that share its other coordinates, concatenated
+    along ``dim`` in shard order."""
+    return _over_groups(values, mesh, axes,
+                        lambda parts, dev: concat_parts(parts, dim, dev))
 
 
 def emit(site: str, medium: str, nbytes: int, invocations: int = 1) -> None:

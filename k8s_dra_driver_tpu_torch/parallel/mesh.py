@@ -14,16 +14,20 @@ program, as the reference's virtual-device meshes are.
 Axis convention (outer -> inner), the reference's:
 ``("data", "fsdp", "pipe", "expert", "sequence", "tensor")``.
 
-Only the ``expert`` axis may be larger than 1 where a mesh is used
-(:func:`require_expert_only`); the other compositions are still to port
-(A12 in ROADMAP.md). :func:`mesh_from_env` and :func:`host_mesh_shape`
-wait for the same work and raise.
+Every axis but ``pipe`` and ``sequence`` may be larger than 1
+(:func:`require_supported`: the pipeline is A12e in ROADMAP.md, sequence
+parallelism A12d). A shard is named by its coordinates
+(:meth:`Mesh.coords`, :meth:`Mesh.index`), and :meth:`Mesh.groups` lists
+the shards that share every coordinate but some axes: the shards a
+collective over those axes joins (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -148,20 +152,53 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def coords(self, i: int) -> dict:
+        """Shard ``i``'s coordinate on every axis."""
+        out = {}
+        for axis in reversed(AXES):
+            i, out[axis] = divmod(i, self.shape[axis])
+        return {a: out[a] for a in AXES}
+
+    def index(self, **coords) -> int:
+        """The shard at ``coords`` (axes left out are 0)."""
+        i = 0
+        for axis in AXES:
+            c = coords.get(axis, 0)
+            if not 0 <= c < self.shape[axis]:
+                raise IndexError(f"{axis}={c} on a mesh of {self.config}")
+            i = i * self.shape[axis] + c
+        return i
+
+    def groups(self, axes) -> list:
+        """The shards that share every coordinate but ``axes`` (a name or
+        a tuple of names), one list per group in shard order, each listed
+        in row-major order of ``axes``: the members of one collective over
+        ``axes``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        rest = [a for a in AXES if a not in axes]
+        out = []
+        for fixed in itertools.product(*(range(self.shape[a]) for a in rest)):
+            base = dict(zip(rest, fixed))
+            out.append([self.index(**base, **dict(zip(axes, c)))
+                        for c in itertools.product(
+                            *(range(self.shape[a]) for a in axes))])
+        return out
+
     def __repr__(self) -> str:
         return f"Mesh({self.config}, devices={list(map(str, self.devices))})"
 
 
-def require_expert_only(mesh: Mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` unless every axis of ``mesh`` but
-    ``expert`` has size 1: the only composition the port runs."""
-    other = {a: n for a, n in mesh.shape.items() if a != "expert" and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"{what}: a mesh with {other} beside the expert axis is not "
-            f"ported (A12c in ROADMAP.md); only the expert axis may be "
-            f"larger than 1"
-        )
+def require_supported(mesh: Mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` where ``mesh`` has a ``pipe`` or a
+    ``sequence`` axis larger than 1: the pipelined forward (A12e in
+    ROADMAP.md) and sequence parallelism (A12d) are not ported. The
+    data, fsdp, expert and tensor axes run."""
+    for axis, item in (("pipe", "A12e"), ("sequence", "A12d")):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"{what}: a mesh with {axis}={mesh.shape[axis]} is not "
+                f"ported ({item} in ROADMAP.md)"
+            )
 
 
 def _visible_devices() -> list:
@@ -196,14 +233,17 @@ def build_mesh(
 
 
 def mesh_from_env(config: Optional[MeshConfig] = None) -> Mesh:
-    raise NotImplementedError(
-        "mesh_from_env: building a mesh from the driver's injected env is "
-        "not ported (A12 in ROADMAP.md); use build_mesh"
-    )
+    """The mesh inside a DRA-prepared container: over the CUDA devices the
+    driver's injected ``CUDA_VISIBLE_DEVICES`` leaves visible, one shard
+    each (:func:`build_mesh`)."""
+    return build_mesh(config)
 
 
 def host_mesh_shape() -> tuple[int, ...]:
-    raise NotImplementedError(
-        "host_mesh_shape: the host's chip bounds are not ported (A12 in "
-        "ROADMAP.md)"
-    )
+    """Physical bounds of this host's chips from the driver-injected
+    ``TPU_CHIPS_PER_HOST_BOUNDS`` (``"2,2,1"``); without it, the count of
+    visible CUDA devices."""
+    bounds = os.environ.get("TPU_CHIPS_PER_HOST_BOUNDS", "")
+    if not bounds:
+        return (len(_visible_devices()),)
+    return tuple(int(x) for x in bounds.split(","))

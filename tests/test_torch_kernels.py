@@ -967,9 +967,64 @@ def test_int8_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
         md.moe_down_combine(md.moe_gateup(xf, w_gu.q, plan, w_gu.scale),
                             w_down.q, md._take_rows(gates, plan.pair_ids),
                             plan, w_down.scale.cpu())
-    # The int8 grouped product (the primitive path's) has no kernel yet.
-    with pytest.raises(NotImplementedError, match="int8"):
-        md.grouped_matmul(xf, md._gu_2d(w_gu), plan.sizes_aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,m,tp", [(8, 128, 1), (8, 256, 2),
+                                         (128, 256, 4), (500, 512, 2)])
+def test_grouped_matmul_int8_against_plain(dev, tokens, m, tp):
+    """A7b (``csrc/grouped_matmul_int8.cu``) against its plain version on
+    the primitive path's operands: a tensor shard's gate/up block (the
+    strided view [E, H, 2, M / tp], both halves in one launch) and its
+    down block, ragged and empty groups, rows past the last group exactly
+    0; two calls bitwise equal; ``grouped_matmul`` on an int8 rhs
+    launches it once a call."""
+    from k8s_dra_driver_tpu_torch.models.quant import QuantTensor
+
+    xf, w_gu, w_down, gates, plan = _int8_moe_problem(dev, tokens, 128, m)
+    m_loc = m // tp
+    gu_q, gu_s = w_gu.q[..., :m_loc], w_gu.scale[..., :m_loc]
+    if tp > 1:
+        assert not gu_q.is_contiguous()
+    xs = md._take_rows(xf, plan.row_ids)
+    sizes = plan.sizes_aligned
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    act = torch.randn((plan.r_pad, m_loc), generator=g, device=dev).to(
+        torch.bfloat16)
+    counters = ("launches",) + md.INT8_GMM_PARTS
+    before = [getattr(md.grouped_matmul_int8, c) for c in counters]
+    for lhs, q, scale in ((xs, gu_q, gu_s),
+                          (act, w_down.q[:, :m_loc], w_down.scale)):
+        out = md.grouped_matmul(lhs, QuantTensor(q=q, scale=scale), sizes)
+        again = md.grouped_matmul_int8(lhs, q, scale, sizes)
+        ref = md.grouped_matmul_int8_reference(lhs, q, scale, sizes)
+        torch.cuda.synchronize()
+        _rel_close("grouped_matmul_int8", out, ref)
+        assert torch.equal(out, again)
+        assert not out[int(sizes.sum()):].any()
+    # Each launch counted once in all and once by its part (gate/up or
+    # down; narrow or wide by its rows).
+    size = "wide" if plan.r_pad > w_gu.q.shape[0] * md.INT8_GMM_ROWS \
+        else "narrow"
+    want = {"launches": 4, f"{size}_gateup_launches": 2,
+            f"{size}_down_launches": 2}
+    assert {c: getattr(md.grouped_matmul_int8, c) - b
+            for c, b in zip(counters, before)} == {
+                c: want.get(c, 0) for c in counters}
+    ragged = torch.tensor([3, 0, 9, 1], dtype=torch.int32, device=dev)
+    lhs = xs[:20].contiguous()
+    q4, s4 = gu_q[:4], gu_s[:4]
+    out = md.grouped_matmul_int8(lhs, q4, s4, ragged)
+    torch.cuda.synchronize()
+    _rel_close("grouped_matmul_int8 ragged", out,
+               md.grouped_matmul_int8_reference(lhs, q4, s4, ragged))
+    assert not out[13:].any()
+    with pytest.raises(ValueError, match="multiples"):
+        md.grouped_matmul_int8(lhs[:, :100].contiguous(), q4[:, :100],
+                               s4, ragged)
+    with pytest.raises(TypeError, match="int8"):
+        md.grouped_matmul_int8(lhs, q4.float(), s4, ragged)
 
 
 def _int8_weight(dev, e, k, n, seed):
@@ -1040,6 +1095,26 @@ def test_int8_matmul_repeats_bitwise(dev, prologue):
         second = qm.int8_matmul(x, w.q, w.scale, prologue)
         torch.cuda.synchronize()
         assert torch.equal(first, second), (e, m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_int8_matmul_takes_a_column_block(dev, m):
+    """A tensor shard's column block of an int8 weight (``q[:, c0:c1]``, its
+    rows 2N apart) goes into the kernel where it lies, both bodies, equal
+    to the plain version on a contiguous copy."""
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    w = _int8_weight(dev, None, 512, 2 * 192, seed=3)
+    x = torch.randn(m, 512, device=dev).bfloat16()
+    for c in (0, 1):
+        q = w.q[:, 192 * c:192 * (c + 1)]
+        scale = w.scale[:, 192 * c:192 * (c + 1)]
+        assert not q.is_contiguous()
+        out = qm.int8_matmul(x, q, scale)
+        ref = qm.int8_matmul_reference(x, q.contiguous(), scale)
+        torch.cuda.synchronize()
+        _rel_close("int8_matmul column block", out, ref)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """Expert-parallel MoE serving on a single-controller mesh against the JAX
-package's: the twin of ``tests/test_moe.py::TestRingOverlapEP``.
+package's: the twin of ``tests/test_moe.py::TestRingOverlapEP``, and of
+``TestDroplessExpertParallel``'s data x expert composition.
 
 The reference shards ``tiny-moe`` (f32) over a 4-shard ``expert`` mesh of
 conftest's virtual CPU devices and runs its ``shard_map`` bodies; the port
@@ -34,6 +35,7 @@ import optax
 import pytest
 import torch
 
+from k8s_dra_driver_tpu.models import llama as jllama
 from k8s_dra_driver_tpu.models import moe as jmoe
 from k8s_dra_driver_tpu.models import quant as jquant
 from k8s_dra_driver_tpu.models import train as jtrain
@@ -196,14 +198,29 @@ def test_expert_parallel(setup, mode):
         with pytest.raises(ValueError, match="does not divide"):
             moe.forward(tp, torch.tensor(_tokens()), tcfg, mesh=mesh3)
     elif mode == "data_axis":
+        # data composed with expert: each data group runs its own EP body
+        # (the ring, 64 tokens a group), against the reference's forward
+        # on its data 2 x expert 2 mesh and the single device.
         mesh_dp = build_mesh(MeshConfig(data=2, expert=2), devices=[CPU] * 4)
-        _, tcfg = _cfgs(moe_impl="dropless")
-        with pytest.raises(NotImplementedError, match="A12"):
-            moe.forward(tp, torch.tensor(_tokens()), tcfg, mesh=mesh_dp)
-        with pytest.raises(NotImplementedError, match="A12"):
-            shard_pytree(tp, mesh_dp, moe.param_specs(tcfg))
-        with pytest.raises(NotImplementedError, match="A12"):
-            DecodeEngine(tp, tcfg, mesh=mesh_dp, device="cpu")
+        jmesh_dp = jbuild_mesh(JMeshConfig(data=2, expert=2),
+                               devices=jax.devices()[:4])
+        jcfg, tcfg = _cfgs(moe_impl="dropless")
+        t = _tokens()
+        sharded = shard_pytree(tp, mesh_dp, moe.param_specs(tcfg))
+        assert len(sharded["layers"]["w_gateup"].shards) == 4
+        jref, jaux = _jforward(jshard(jp, jmesh_dp, jmoe.param_specs(jcfg)),
+                               t, jcfg, jmesh_dp)
+        out, aux = _tforward(sharded, t, tcfg, mesh_dp)
+        single, single_aux = _tforward(tp, t, tcfg)
+        np.testing.assert_allclose(out, jref, **TOL)
+        np.testing.assert_allclose(out, single, **TOL)
+        assert abs(aux - jaux) < 1e-5 and abs(aux - single_aux) < 1e-5
+        eng = DecodeEngine(sharded, tcfg, mesh=mesh_dp, device="cpu",
+                           batch_slots=4, num_blocks=16, block_size=8,
+                           max_seq_len=32, prefill_chunk=8)
+        assert _engine_streams(eng) == _engine_streams(DecodeEngine(
+            tp, tcfg, device="cpu", batch_slots=4, num_blocks=16,
+            block_size=8, max_seq_len=32, prefill_chunk=8))
     elif mode == "binned_refused":
         _, tcfg = _cfgs(moe_impl="binned")
         with pytest.raises(ValueError, match="expert-sharded"):
@@ -331,23 +348,21 @@ def test_ring_rotates_chunk_and_carrier_together_on_one_device(setup,
                     + ["moe.ep_ring.y"]) * layers
 
 
-def test_make_train_step_on_a_mesh_matches_the_single_device_step(setup):
-    """Three AdamW steps of ``make_train_step(mesh=)`` (4 CPU shards, the
-    ring) against three of the reference's ``make_train_step`` on its
-    4-device expert mesh, and against three of the port's single-device
-    step, all from the same parameters and tokens; the state updates in
-    place."""
-    _, _, jmesh, mesh = setup
-    jcfg, tcfg = _cfgs(moe_impl="dropless", ep_overlap="ring")
-    toks = _tokens(b=4, s=33, seed=2)
+def _steps_against_reference(jcfg, tcfg, jmesh, mesh, toks, steps=3):
+    """``steps`` AdamW steps of the port's ``make_train_step(mesh=)``
+    against as many of the reference's ``make_train_step`` on its mesh and
+    of the port's single-device step, all from the same parameters and
+    tokens: losses, first moments and parameters at the train pins; the
+    state updates in place. Returns the meshed run's losses."""
     jopt = jtrain.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=100)
     jstate = jtrain.init_train_state(jcfg, jmesh, jopt, seed=0)
     np_params = jax.tree.map(np.asarray, jstate.params)
     jstep = jtrain.make_train_step(jcfg, jmesh, jopt)
     jlosses = []
-    for _ in range(3):
+    for _ in range(steps):
         jstate, loss = jstep(jstate, jnp.asarray(toks))
         jlosses.append(float(loss))
+    assert int(jstate.step) == steps
     ref = dict(
         losses=jlosses,
         mu=_leaves(jax.tree.map(
@@ -357,53 +372,74 @@ def test_make_train_step_on_a_mesh_matches_the_single_device_step(setup):
     for m in (mesh, None):
         opt = ttrain.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=100)
         state = ttrain.train_state_from_params(
-            params_from_numpy(np_params, CFG, device="cpu"), opt)
+            params_from_numpy(np_params, tcfg, device="cpu"), opt, mesh=m)
         step = ttrain.make_train_step(tcfg, opt, device="cpu", mesh=m)
         losses = []
-        for _ in range(3):
-            out, loss = step(state, torch.from_numpy(toks))
+        for _ in range(steps):
+            out, loss = step(state, torch.tensor(toks))
             assert out is state
             losses.append(loss.item())
-        assert state.step == 3
+        assert state.step == steps
         runs.append(dict(
             losses=losses,
             mu=_leaves(jax.tree.map(lambda t: t.detach().numpy(),
                                     state.opt_state.mu)),
             params=_leaves(jax.tree.map(lambda t: t.detach().numpy(),
                                         state.params))))
-    ep, single = runs
-    assert int(jstate.step) == 3 and ep["losses"][2] < ep["losses"][1]
+    meshed, single = runs
     for want in (ref, single):
-        np.testing.assert_allclose(ep["losses"], want["losses"], atol=1e-5,
-                                   rtol=1e-5)
+        np.testing.assert_allclose(meshed["losses"], want["losses"],
+                                   atol=1e-5, rtol=1e-5)
         for key, tol in (("mu", GRAD_TOL),
                          ("params", dict(atol=5e-4, rtol=1e-4))):
-            assert sorted(ep[key]) == sorted(want[key])
-            for name, got in ep[key].items():
+            assert sorted(meshed[key]) == sorted(want[key])
+            for name, got in meshed[key].items():
                 np.testing.assert_allclose(got, want[key][name], **tol,
                                            err_msg=f"{key} {name}")
+    return meshed["losses"]
+
+
+def test_make_train_step_on_a_mesh_matches_the_single_device_step(setup):
+    """Three AdamW steps of ``make_train_step(mesh=)`` (4 CPU shards, the
+    ring) against three of the reference's ``make_train_step`` on its
+    4-device expert mesh, and against three of the port's single-device
+    step, all from the same parameters and tokens."""
+    _, _, jmesh, mesh = setup
+    jcfg, tcfg = _cfgs(moe_impl="dropless", ep_overlap="ring")
+    losses = _steps_against_reference(jcfg, tcfg, jmesh, mesh,
+                                      _tokens(b=4, s=33, seed=2))
+    assert losses[2] < losses[1]
 
 
 @pytest.mark.parametrize("bad", ["use_ring", "data_axis_loss",
                                  "data_axis_step", "dense_step"])
 def test_ep_training_refuses(setup, bad):
-    """Ring attention (A12d), another mesh axis and a dense model on a
-    mesh (A12c) raise."""
-    _, tp, _, mesh = setup
-    _, tcfg = _cfgs(moe_impl="dropless")
+    """Ring attention (A12d) raises. The cases the data axis lifted hold
+    parity instead: the EP loss on data 2 x expert 2 against the
+    reference's on its mesh and the single device's; three train steps
+    there, and three of a dense model on an expert mesh (the axis shards
+    nothing of it), against the reference's ``make_train_step`` on its
+    mesh and the port's single-device step."""
+    jp, tp, jmesh, mesh = setup
+    jcfg, tcfg = _cfgs(moe_impl="dropless")
     toks = torch.tensor(_tokens(b=2, s=9))
     mesh_dp = build_mesh(MeshConfig(data=2, expert=2), devices=[CPU] * 4)
-    opt = ttrain.make_optimizer()
+    jmesh_dp = jbuild_mesh(JMeshConfig(data=2, expert=2),
+                           devices=jax.devices()[:4])
     if bad == "use_ring":
         with pytest.raises(NotImplementedError, match="A12d"):
             moe.loss_fn(tp, toks, tcfg, mesh=mesh, use_ring=True)
     elif bad == "data_axis_loss":
-        with pytest.raises(NotImplementedError, match="A12c"):
-            moe.loss_fn(tp, toks, tcfg, mesh=mesh_dp)
+        jloss = float(jax.jit(lambda p, t: jmoe.loss_fn(
+            p, t, jcfg, mesh=jmesh_dp))(
+                jshard(jp, jmesh_dp, jmoe.param_specs(jcfg)),
+                jnp.asarray(toks.numpy())))
+        loss = moe.loss_fn(tp, toks, tcfg, mesh=mesh_dp).item()
+        assert abs(loss - jloss) < 1e-5
+        assert abs(loss - moe.loss_fn(tp, toks, tcfg).item()) < 1e-5
     elif bad == "data_axis_step":
-        with pytest.raises(NotImplementedError, match="A12c"):
-            ttrain.make_train_step(tcfg, opt, device="cpu", mesh=mesh_dp)
+        _steps_against_reference(jcfg, tcfg, jmesh_dp, mesh_dp, toks.numpy())
     else:
-        with pytest.raises(NotImplementedError, match="A12c"):
-            ttrain.make_train_step(llama.PRESETS["tiny"], opt, device="cpu",
-                                   mesh=mesh)
+        _steps_against_reference(jllama.PRESETS["tiny"],
+                                 llama.PRESETS["tiny"], jmesh, mesh,
+                                 toks.numpy())
