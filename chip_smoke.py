@@ -323,7 +323,9 @@ fixed seed, and checks every hand-written kernel of those paths:
     (4 x 128) shapes on layer 0's shard-0 blocks, gate/up and down, and
     on ragged groups with rows past the last (exactly 0), timed by CUDA
     events and inside a CUDA graph beside its bound, the plain version
-    and ``torch._grouped_mm`` on a bf16 copy of the weight; then phase
+    and ``torch._grouped_mm`` on a bf16 copy of the weight, each row
+    naming its body (``int8_gmm_plan``: the swapped form at decode, the
+    wgmma image body at prefill); then phase
     15's traffic, the streams equal phase 15's but near-ties
     (FLIP_MARGIN_LIMIT_KVQ), launches held (the kernel 2 a tensor shard
     a layer a forward, ``int8_matmul`` 2L + 1 a shard a forward, K2-int8
@@ -1722,8 +1724,11 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes)
                  "_rmsnorm_row")),
     # K9, the ring hop (csrc/ring_permute.cu).
     ("ring_permute", ("ring_permute_kernel",)),
-    # A7b, the int8 grouped product (csrc/grouped_matmul_int8.cu).
-    ("grouped_matmul_int8", ("grouped_matmul_int8_kernel",)),
+    # A7b, the int8 grouped product (csrc/grouped_matmul_int8.cu): its
+    # narrow and wide bodies, and the wmma body before them.
+    ("grouped_matmul_int8", ("grouped_matmul_int8_narrow",
+                             "grouped_matmul_int8_wide",
+                             "grouped_matmul_int8_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
 
@@ -5755,7 +5760,9 @@ def check_grouped_int8(torch, qparams, cfg, dev, tp: int) -> dict:
     touched experts' int8 weights and scales, the live lhs rows and the
     output at 3.35 TB/s, or 2 x live x K x N at 989 TFLOP/s), its plain
     version and ``torch._grouped_mm`` on a bf16 copy of the weight (a
-    yardstick: no PyTorch call computes the int8 function)."""
+    yardstick: no PyTorch call computes the int8 function). Each row
+    names the launch ``int8_gmm_plan`` chose (its body: narrow at
+    decode, wide at prefill)."""
     from k8s_dra_driver_tpu_torch.ops import moe_dispatch as md
 
     qlayer = {k: w[0] for k, w in qparams["layers"].items()}
@@ -5803,6 +5810,8 @@ def check_grouped_int8(torch, qparams, cfg, dev, tp: int) -> dict:
                 shape=(f"T {t}, tile {plan.tile_rows}, r_pad {plan.r_pad}, "
                        f"live rows {live}, experts touched {touched}, K {k},"
                        f" N {n}, tensor shard 0 of {tp}"),
+                plan=md.int8_gmm_launch(lhs, w.q, w.scale,
+                                        sizes).plan._asdict(),
                 **bound_fields(name, nbytes, ops, BF16_FLOPS))
             if not tag:
                 row["graph_ms"] = graph_ms(torch, kernel)
@@ -5823,7 +5832,9 @@ def check_grouped_int8(torch, qparams, cfg, dev, tp: int) -> dict:
         raise AssertionError("grouped_matmul_int8: rows past ragged groups "
                              "not 0")
     rows["grouped_matmul_int8_gateup"]["ragged"] = dict(
-        rows=RAGGED_ROWS, sizes=list(RAGGED_SIZES))
+        rows=RAGGED_ROWS, sizes=list(RAGGED_SIZES),
+        plan=md.int8_gmm_launch(lhs, gu_blk.q, gu_blk.scale,
+                                rsizes).plan._asdict())
     log("grouped_matmul_int8:", json.dumps(rows))
     return rows
 

@@ -1,9 +1,10 @@
 // The warp-specialised grouped GEMM pieces shared by the grouped matrix
-// products (grouped_matmul.cu: K10a gmm, K10b tgmm) and the fused MoE
-// dispatch kernels' wide body (moe_dispatch.cu: K7, K8 at row tiles above
-// 16): the tile and stage geometry, the ring's depth, the raster that keeps
-// the operands the blocks in flight share in L2, one stage's wgmma products
-// and the host-side tensor maps over row operands and expert stacks.
+// products (grouped_matmul.cu: K10a gmm, K10b tgmm; grouped_matmul_int8.cu:
+// A7b) and the fused MoE dispatch kernels' wide body (moe_dispatch.cu: K7,
+// K8 at row tiles above 16): the tile and stage geometry, the ring's depth,
+// the raster that keeps the operands the blocks in flight share in L2, one
+// stage's wgmma products and the host-side tensor maps over row operands
+// and expert stacks.
 //
 // A block of 3 warpgroups (kWgThreads) owns a 128-row output tile: a
 // producer warpgroup fills a ring of 64-deep stages whose operands lie in

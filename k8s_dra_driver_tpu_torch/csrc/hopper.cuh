@@ -6,8 +6,8 @@
 // tensor-map encoder.
 //
 // Included by flash_attention.cu (K4, K5), grouped_matmul.cu (K10a, K10b),
-// moe_dispatch.cu (K7, K8), quant_matmul.cu (int8_matmul) and
-// paged_attention.cu (K2, K3), the attention ones through
+// moe_dispatch.cu (K7, K8), grouped_matmul_int8.cu (A7b), quant_matmul.cu
+// (int8_matmul) and paged_attention.cu (K2, K3), the attention ones through
 // attention_tile.cuh. ops/_build.py hashes a source together with
 // every header it includes, so an edit here rebuilds every library that
 // includes it.

@@ -1,6 +1,7 @@
 // int8 weight tiles into bf16 wgmma operands, shared by the int8 wgmma
-// bodies: int8_matmul's (quant_matmul.cu) and the int8 branches of the
-// fused MoE dispatch kernels (moe_dispatch.cu).
+// bodies: int8_matmul's (quant_matmul.cu), the int8 branches of the fused
+// MoE dispatch kernels (moe_dispatch.cu) and the int8 grouped product's
+// (grouped_matmul_int8.cu).
 //
 // Two forms:
 //   - Images (the wide bodies): an int8 tile lands by TMA as plain rows

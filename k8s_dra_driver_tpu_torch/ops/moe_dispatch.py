@@ -43,7 +43,9 @@ backward, and their plain PyTorch versions. Counterpart of
   with an int8 rhs (the primitive path's, the reference's ``ragged_dot``
   int8 branch) runs :func:`grouped_matmul_int8`, the wrapper of
   ``csrc/grouped_matmul_int8.cu``: the int8 weight read as it is stored,
-  f32 sums, each column's scale in the epilogue.
+  f32 sums, each column's scale in the epilogue; :func:`int8_gmm_plan`
+  picks its body (the swapped form at decode, the int8-image wgmma body
+  at prefill) from host integers.
 - A tensor shard's gate/up block is the strided view ``[E, H, 2, M / T]``
   of the whole ``[E, H, 2, M]`` stack (``models/moe.py``). The primitive
   path takes it through its strides (:func:`gateup_product`): the int8
@@ -107,8 +109,10 @@ _TGMM_ARGTYPES = [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _LIB = None
 _GROUPED_LIB = None
 _INT8_GROUPED_SOURCE = "grouped_matmul_int8"
+# Shapes and strides, then the plan: (body, rows a pass, columns a block,
+# the grid's x and y).
 _INT8_GMM_ARGTYPES = ([_PTR] * 5 + [_INT] * 5 + [ctypes.c_longlong] * 5
-                      + [_PTR])
+                      + [_INT] * 3 + [ctypes.c_longlong] * 2 + [_PTR])
 _INT8_GROUPED_LIB = None
 #: The grouped kernels' width steps: gmm takes K in steps of 32 and N of
 #: 64, tgmm K and N in steps of 64 (``csrc/grouped_matmul.cu``).
@@ -616,38 +620,86 @@ def grouped_matmul_int8_reference(lhs: torch.Tensor, q: torch.Tensor,
     return (y * _row_scale(scale, group_sizes, lhs.shape[0])).to(lhs.dtype)
 
 
-#: The int8 grouped kernel's tile (``csrc/grouped_matmul_int8.cu``): rows
-#: a block, columns a block, contracted depth a step.
+#: ``csrc/grouped_matmul_int8.cu``'s widths: K and N (M for a gate/up
+#: stack) in steps of 16 (TMA's zero fill covers the rest of a 64-deep
+#: stage and of a column block); the narrow body while the rows fit this
+#: many an expert.
+INT8_GMM_K_STEP = 16
+INT8_GMM_COLS = 16
 INT8_GMM_ROWS = 64
-INT8_GMM_COLS = 64
-INT8_GMM_K_STEP = 32
+#: The two bodies by the C entry point's ``body`` argument.
+INT8_GMM_BODIES = {"narrow": 0, "wide": 1}
 
 
-def grouped_matmul_int8(lhs: torch.Tensor, q: torch.Tensor,
-                        scale: torch.Tensor,
-                        group_sizes: torch.Tensor) -> torch.Tensor:
-    """A7b: the int8 grouped product on the card, ``csrc/
-    grouped_matmul_int8.cu``. ``y[r] = bf16((sum_k lhs[r, k] q[g(r), k,
-    n]) * scale[g(r), n])``, f32 sums, rows at or past ``sum(group_sizes)``
-    0. lhs bf16 [rows, K] contiguous; q int8 [E, K, N] or a gate/up stack
-    [E, K, 2, M] (output columns [:M] the gate half), any view whose last
-    axis is contiguous and whose other strides are 16-byte multiples (a
-    tensor shard's block of the whole stack, no copy); scale f32 [E, 1,
-    N] or [E, 1, 2, M], last axis contiguous. K a multiple of 32, N (M
-    for a gate/up stack) of 64. Counted in ``.launches``, and by part in
-    ``.<narrow|wide>_<gateup|down>_launches``: gate/up for a stack of two
-    halves, down otherwise; narrow where the rows fit one 64-row tile an
-    expert (a decode step's few tokens), wide past that (a prefill
-    chunk's). Raises on anything else (no fallback)."""
-    if not (lhs.is_cuda and q.is_cuda and scale.is_cuda
-            and group_sizes.is_cuda):
-        raise ValueError("grouped_matmul_int8: every input must sit on one "
-                         "CUDA device")
-    dev = lhs.device
-    for name, x in (("q", q), ("scale", scale), ("group_sizes", group_sizes)):
-        if x.device != dev:
-            raise ValueError(f"grouped_matmul_int8: {name} on {x.device}, "
-                             f"lhs on {dev}")
+class Int8GmmPlan(NamedTuple):
+    """One launch of ``grouped_matmul_int8``."""
+    body: str     # a key of INT8_GMM_BODIES
+    rows: int     # narrow: wgmma's N, a group's rows a pass; wide: 128
+    cols: int     # output columns of a block, within one half
+    grid: tuple   # (x, y) blocks
+
+
+def int8_gmm_plan(rows: int, n_groups: int, k: int, half_n: int,
+                  halves: int = 1) -> Int8GmmPlan:
+    """The launch of ``grouped_matmul_int8`` for ``rows`` lhs rows over
+    ``n_groups`` groups, contracted depth ``k`` and ``halves`` (1, or 2
+    for a gate/up stack) of ``half_n`` columns, from host integers alone:
+    never the group sizes, never a sync, so the launch is captured in
+    CUDA graphs.
+
+    Rows up to :data:`INT8_GMM_ROWS` an expert (a decode step's few
+    tokens) take the narrow body: the swapped form, 128 columns a block,
+    a block a (column block, group) plus a row of blocks for the rows past
+    the last group, the group's rows in passes of N = 16, 32 or 64 (the
+    least that holds ``rows / n_groups``: a larger group takes more
+    passes). More rows (a prefill chunk's) take the wide body: a block a
+    (row tile of 128, group) intersection and 256 columns, at most
+    ``ceil(rows / 128) + n_groups`` items (K10a's walk). No choice reads
+    the SM count: the narrow body's four blocks an SM fit Mixtral's
+    decode in one wave, and 256 columns were faster than 128 at every
+    8x7b and 8x160m shape on the H100 (PERF.md)."""
+    if not all(type(v) is int for v in (rows, n_groups, k, half_n, halves)):
+        raise TypeError("int8_gmm_plan takes host integers, not tensors")
+    if rows < 0 or n_groups <= 0 or halves not in (1, 2) \
+            or k <= 0 or k % INT8_GMM_K_STEP \
+            or half_n <= 0 or half_n % INT8_GMM_COLS:
+        raise ValueError(
+            f"int8_gmm_plan: rows {rows}, groups {n_groups}, K {k}, N "
+            f"{half_n}, halves {halves}; the kernel takes K in multiples of "
+            f"{INT8_GMM_K_STEP} and N in multiples of {INT8_GMM_COLS}")
+    if rows <= n_groups * INT8_GMM_ROWS:
+        per_group = -(-rows // n_groups)
+        nr = next(v for v in (16, 32, 64) if v >= per_group)
+        return Int8GmmPlan("narrow", nr, 128,
+                           (halves * -(-half_n // 128), n_groups + 1))
+    return Int8GmmPlan("wide", 128, 256,
+                       ((-(-rows // 128) + n_groups) * halves
+                        * -(-half_n // 256), 1))
+
+
+class Int8GmmLaunch(NamedTuple):
+    """The C entry point's shape, stride and plan arguments of one
+    ``grouped_matmul_int8`` call."""
+    rows: int
+    k: int
+    n: int
+    n_groups: int
+    half_n: int
+    strides: tuple  # q's (expert, row, half) in bytes, scale's (expert,
+                    # half) in elements
+    plan: Int8GmmPlan
+
+
+def int8_gmm_launch(lhs: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor,
+                    group_sizes: torch.Tensor) -> Int8GmmLaunch:
+    """What ``grouped_matmul_int8`` hands the kernel, from the operands'
+    dtypes, shapes, strides and alignment (on any device; no data is
+    read), or its refusal: lhs bf16 [rows, K] contiguous, q int8 [E, K,
+    N] or a gate/up stack [E, K, 2, M] with a contiguous last axis and
+    16-byte multiples for its other strides, scale f32 [E, 1, N] or [E, 1,
+    2, M] with a contiguous last axis, group sizes int32 [E]; K and N (M)
+    multiples of :data:`INT8_GMM_K_STEP` / :data:`INT8_GMM_COLS`."""
     if lhs.dtype != torch.bfloat16 or q.dtype != torch.int8 \
             or scale.dtype != torch.float32 \
             or group_sizes.dtype != torch.int32:
@@ -670,15 +722,12 @@ def grouped_matmul_int8(lhs: torch.Tensor, q: torch.Tensor,
             f"expected [rows, K], [E, K, N] or [E, K, 2, M], and [E]")
     e = q.shape[0]
     half_n = q.shape[-1]
-    n = 2 * half_n if halves else half_n
     want_scale = (e, 1, 2, half_n) if halves else (e, 1, half_n)
     if tuple(scale.shape) != want_scale:
         raise ValueError(f"grouped_matmul_int8: scale {tuple(scale.shape)}, "
                          f"expected {want_scale}")
     q_se, q_sk = q.stride(0), q.stride(1)
     q_sh = q.stride(2) if halves else 0
-    s_se = scale.stride(0)
-    s_sh = scale.stride(2) if halves else 0
     if q.stride(-1) != 1 or scale.stride(-1) != 1 \
             or any(v % 16 for v in (q_se, q_sk, q_sh)) \
             or q.data_ptr() % 16:
@@ -691,20 +740,52 @@ def grouped_matmul_int8(lhs: torch.Tensor, q: torch.Tensor,
             f"grouped_matmul_int8: K {k}, N {half_n}; the kernel takes K in "
             f"multiples of {INT8_GMM_K_STEP} and N in multiples of "
             f"{INT8_GMM_COLS}")
-    out = torch.empty(rows, n, dtype=torch.bfloat16, device=dev)
-    if rows == 0:
+    return Int8GmmLaunch(
+        rows, k, 2 * half_n if halves else half_n, e, half_n,
+        (q_se, q_sk, q_sh, scale.stride(0), scale.stride(2) if halves else 0),
+        int8_gmm_plan(rows, e, k, half_n, 2 if halves else 1))
+
+
+def grouped_matmul_int8(lhs: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor,
+                        group_sizes: torch.Tensor) -> torch.Tensor:
+    """A7b: the int8 grouped product on the card, ``csrc/
+    grouped_matmul_int8.cu``. ``y[r] = bf16((sum_k lhs[r, k] q[g(r), k,
+    n]) * scale[g(r), n])``, f32 sums, rows at or past ``sum(group_sizes)``
+    0. The operands as :func:`int8_gmm_launch` takes them (a tensor
+    shard's strided block of the whole stack read as it lies, no copy; a
+    gate/up stack's output columns [:M] the gate half), the launch from
+    :func:`int8_gmm_plan`. Counted in ``.launches``, and by part in
+    ``.<narrow|wide>_<gateup|down>_launches``: gate/up for a stack of two
+    halves, down otherwise; narrow where the rows fit
+    :data:`INT8_GMM_ROWS` an expert (a decode step's few tokens), wide
+    past that (a prefill chunk's). Raises on anything else (no
+    fallback)."""
+    if not (lhs.is_cuda and q.is_cuda and scale.is_cuda
+            and group_sizes.is_cuda):
+        raise ValueError("grouped_matmul_int8: every input must sit on one "
+                         "CUDA device")
+    dev = lhs.device
+    for name, x in (("q", q), ("scale", scale), ("group_sizes", group_sizes)):
+        if x.device != dev:
+            raise ValueError(f"grouped_matmul_int8: {name} on {x.device}, "
+                             f"lhs on {dev}")
+    a = int8_gmm_launch(lhs, q, scale, group_sizes)
+    out = torch.empty(a.rows, a.n, dtype=torch.bfloat16, device=dev)
+    if a.rows == 0:
         return out
+    p = a.plan
     with torch.cuda.device(dev):
         rc = _int8_grouped_library().grouped_matmul_int8(
             lhs.data_ptr(), q.data_ptr(), scale.data_ptr(),
-            group_sizes.data_ptr(), out.data_ptr(), rows, k, n, e, half_n,
-            q_se, q_sk, q_sh, s_se, s_sh,
+            group_sizes.data_ptr(), out.data_ptr(), a.rows, a.k, a.n,
+            a.n_groups, a.half_n, *a.strides, INT8_GMM_BODIES[p.body],
+            p.rows, p.cols, *p.grid,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "grouped_matmul_int8")
     grouped_matmul_int8.launches += 1
-    part = (f"{'wide' if rows > e * INT8_GMM_ROWS else 'narrow'}_"
-            f"{'gateup' if halves else 'down'}_launches")
+    part = f"{p.body}_{'gateup' if a.n != a.half_n else 'down'}_launches"
     setattr(grouped_matmul_int8, part,
             getattr(grouped_matmul_int8, part) + 1)
     return out

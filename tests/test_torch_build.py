@@ -65,27 +65,27 @@ def test_editing_hopper_header_changes_both_dependent_libraries(
         tmp_path, monkeypatch):
     """``hopper.cuh`` feeds the flash attention, grouped matmul and int8
     matmul libraries, the paged attention library through
-    ``attention_tile.cuh`` and the MoE dispatch library through
-    ``grouped_gemm.cuh``; every library."""
+    ``attention_tile.cuh`` and the MoE dispatch and int8 grouped matmul
+    libraries through ``grouped_gemm.cuh``; every library."""
     assert _edited(tmp_path, monkeypatch, "hopper.cuh") == {
-        "flash_attention", "grouped_matmul", "moe_dispatch",
-        "paged_attention", "quant_matmul"}
+        "flash_attention", "grouped_matmul", "grouped_matmul_int8",
+        "moe_dispatch", "paged_attention", "quant_matmul"}
 
 
 def test_editing_grouped_gemm_header_changes_the_grouped_libraries(
         tmp_path, monkeypatch):
     """``grouped_gemm.cuh`` (the warp-specialised grouped GEMM pieces)
-    feeds K10's library and K7/K8's wide body, and no other."""
+    feeds K10's library, K7/K8's wide body and A7b's, and no other."""
     assert _edited(tmp_path, monkeypatch, "grouped_gemm.cuh") == {
-        "grouped_matmul", "moe_dispatch"}
+        "grouped_matmul", "grouped_matmul_int8", "moe_dispatch"}
 
 
 def test_editing_int8_image_header_changes_the_int8_wgmma_libraries(
         tmp_path, monkeypatch):
     """``int8_image.cuh`` (int8 tiles into bf16 wgmma images) feeds
-    ``int8_matmul``'s library and K7/K8's, and no other."""
+    ``int8_matmul``'s library, K7/K8's and A7b's, and no other."""
     assert _edited(tmp_path, monkeypatch, "int8_image.cuh") == {
-        "moe_dispatch", "quant_matmul"}
+        "grouped_matmul_int8", "moe_dispatch", "quant_matmul"}
 
 
 def test_editing_attention_tile_header_changes_the_attention_libraries(

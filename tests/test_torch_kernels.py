@@ -1027,6 +1027,83 @@ def test_grouped_matmul_int8_against_plain(dev, tokens, m, tp):
         md.grouped_matmul_int8(lhs, q4.float(), s4, ragged)
 
 
+# A7b's cases: (rows, group sizes, K, whole M, tensor shards, the body the
+# plan picks). Gate/up on the strided block [E, K, 2, M / tp] of a whole
+# stack, down on [E, M / tp, K]... of the same sizes; rows past the last
+# group in every case but "full".
+_GMM8_CASES = {
+    "decode_1_row_groups": (11, [1] * 8, 512, 512, 4, "narrow"),
+    "decode_16_row_groups": (80, [16, 0, 16, 16, 0, 16, 8, 0], 4096, 14336,
+                             4, "narrow"),
+    "decode_17_to_64_rows": (300, [17, 33, 64, 40, 0, 25, 18, 63], 256,
+                             1024, 2, "narrow"),
+    "decode_one_group_every_row": (80, [0, 0, 80, 0, 0, 0, 0, 0], 4096,
+                                   14336, 4, "narrow"),
+    "decode_full": (64, [8] * 8, 1024, 2048, 1, "narrow"),
+    "decode_k_48_n_144": (40, [5, 0, 12, 9], 48, 288, 2, "narrow"),
+    "prefill_tp1": (1100, [130, 0, 7, 257, 1, 200, 50, 400], 512, 512, 1,
+                    "wide"),
+    "prefill_tp2": (700, [130, 0, 7, 257, 1, 200, 50, 0], 512, 512, 2,
+                    "wide"),
+    "prefill_tp4": (700, [128, 128, 0, 256, 128, 0, 0, 0], 512, 512, 4,
+                    "wide"),
+    "prefill_wide_256": (2048, [256] * 7 + [200], 256, 3072, 2, "wide"),
+    "prefill_k_80_n_208": (600, [300, 0, 77, 150], 80, 416, 2, "wide"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_GMM8_CASES))
+def test_grouped_matmul_int8_bodies(dev, case):
+    """A7b's two bodies (``int8_gmm_plan``) against the plain version:
+    decode groups of 1, 16 and 17-64 rows, one group holding every row
+    (the narrow body's passes), empty groups, rows past the last group
+    exactly 0, the strided gate/up halves at tensor 1, 2 and 4 and a down
+    block, K and N off the 64-deep stage and the column block; two calls
+    bitwise equal, and a CUDA-graph replay equal to the eager call."""
+    rows, sizes, k, m, tp, body = _GMM8_CASES[case]
+    e = len(sizes)
+    g = torch.Generator(device=dev)
+    g.manual_seed(sum(sizes) + k)
+    m_loc = m // tp
+    lhs_gu = torch.randn(rows, k, generator=g, device=dev).bfloat16()
+    lhs_dn = torch.randn(rows, m_loc, generator=g, device=dev).bfloat16()
+    gu_q = torch.randint(-127, 128, (e, k, 2, m), generator=g, device=dev,
+                         dtype=torch.int8)[..., :m_loc]
+    gu_s = torch.rand(e, 1, 2, m, generator=g, device=dev)[..., :m_loc] / 64
+    dn_q = torch.randint(-127, 128, (e, m, k), generator=g, device=dev,
+                         dtype=torch.int8)[:, :m_loc]
+    dn_s = torch.rand(e, 1, k, generator=g, device=dev) / 64
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    total = min(sum(sizes), rows)
+    for part, lhs, q, scale in (("gateup", lhs_gu, gu_q, gu_s),
+                                ("down", lhs_dn, dn_q, dn_s)):
+        assert (tp > 1) == (not q.is_contiguous())
+        plan = md.int8_gmm_launch(lhs, q, scale, group_sizes).plan
+        assert plan.body == body, plan
+        counter = f"{body}_{part}_launches"
+        before = getattr(md.grouped_matmul_int8, counter)
+        out = md.grouped_matmul_int8(lhs, q, scale, group_sizes)
+        again = md.grouped_matmul_int8(lhs, q, scale, group_sizes)
+        ref = md.grouped_matmul_int8_reference(lhs, q, scale, group_sizes)
+        torch.cuda.synchronize()
+        assert getattr(md.grouped_matmul_int8, counter) == before + 2
+        _rel_close(f"{case} {part}", out, ref)
+        assert torch.equal(out, again), (case, part)
+        assert not out[total:].any(), (case, part)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            md.grouped_matmul_int8(lhs, q, scale, group_sizes)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = md.grouped_matmul_int8(lhs, q, scale, group_sizes)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, out), (case, part)
+
+
 def _int8_weight(dev, e, k, n, seed):
     """Per-column int8 weights (``quantize_tensor`` over K) of a random
     float weight, [K, N] or [E, K, N], with their f32 scales."""
