@@ -340,10 +340,33 @@ fixed seed, and checks every hand-written kernel of those paths:
     L per (group, tensor shard) a step; K1 (4L + 1) and its gradient
     (2L + 1) per group), step p50, tokens/s, MFU and peak memory beside
     phase 6's (``megatron train:`` line).
+37. the sequence axis: K4, K5 and K6 not causal at a ring hop's shape
+    (q [2, 16, 2048, 128], k/v [2, 4, 2048, 128]) against their plain
+    versions (rows ``flash_*_hop``, SDPA beside them) and K9 at the ring's
+    backward hop (32 pairs in one launch, ``ring_permute_ring_hop``);
+    ``ring_attention`` and ``ulysses_attention`` at q [2, 32, 8192, 128]
+    on ``MeshConfig(sequence=4, tensor=2)`` against one
+    ``flash_attention`` (bf16 gates; dq/dk/dv 5e-2); 8b-L8 at 2 x 8192
+    with ``use_ring``: one loss and every gradient leaf against the single
+    device's, then 3 timed ``make_train_step(mesh=, use_ring=True)``
+    steps beside the single device's at the same batch, launches held to
+    ``sequence_train_launches`` (``sequence train:`` line).
+38. the pipe axis: K9 at a stage hop (``ring_permute_pipe_hop``); 8b-L8
+    at 8 x 2048 through ``forward_pipelined`` on ``MeshConfig(pipe=2,
+    data=2, tensor=2)``, 4 microbatches, each stage's layers under remat
+    "full": one loss and every gradient leaf against the single device's,
+    then 3 timed forward + backward steps beside the single device's,
+    launches held to ``pipe_train_launches``, the bubble share printed
+    (``pipeline train:`` line); Mixtral-8x7B widths cut to 2 layers
+    (einsum) on ``MeshConfig(data=2, expert=2, pipe=2)`` at 4 x 512, 2
+    microbatches: one forward and backward (every gradient finite,
+    ``w_gateup``'s nonzero), the logits against the single device's
+    forward replaying the pipeline's routing, the aux against the single
+    device's forwards of the same row blocks (``pipeline moe:`` line).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35 and 36,
-and in each worker of phases 26-30) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37
+and 38, and in each worker of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -793,15 +816,18 @@ def flash_bounds(b, hq, hkv, s, d, causal):
     return fwd, dkdv, dq
 
 
-def check_flash_kernels(torch, cfg, dev) -> dict:
+def check_flash_kernels(torch, cfg, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
+                        heads=None, causal=True, suffix="") -> dict:
     """Phase 2, training half: K4-K6 against their plain versions at the
     train step's attention shape (q [8, 32, 2048, 128], k/v [8, 8, 2048,
-    128], bf16, causal)."""
+    128], bf16, causal). Phase 37 calls it at a ring hop's shape (``b``,
+    ``s``, ``heads`` = (q heads, kv heads), ``causal`` False), its rows
+    named with ``suffix``."""
     from k8s_dra_driver_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    d = cfg.head_dim
     scale = d ** -0.5
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
@@ -812,10 +838,11 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
 
     q, k, v, do = rand(b, hq, s, d), rand(b, hkv, s, d), rand(b, hkv, s, d), \
         rand(b, hq, s, d)
-    shape = f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{s},{d}] causal"
+    shape = (f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{s},{d}] "
+             + ("causal" if causal else "not causal"))
 
-    out, lse = att.flash_fwd(q, k, v, True, scale)
-    ref_out, ref_lse = att.flash_fwd_reference(q, k, v, True, scale)
+    out, lse = att.flash_fwd(q, k, v, causal, scale)
+    ref_out, ref_lse = att.flash_fwd_reference(q, k, v, causal, scale)
     torch.cuda.synchronize()
     out_err, out_rel = rel("flash_fwd out", out, ref_out)
     lse_err = (lse - ref_lse).abs().max().item()
@@ -824,15 +851,15 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
         raise AssertionError(f"flash_fwd lse error {lse_err} (limit 1e-3)")
     del out, lse
     delta = (do.float() * ref_out.float()).sum(-1)
-    dk, dv = att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, True, scale)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, causal, scale)
     ref_dk, ref_dv = att.flash_bwd_dkdv_reference(q, k, v, do, ref_lse,
-                                                  delta, True, scale)
+                                                  delta, causal, scale)
     torch.cuda.synchronize()
     dk_err, dk_rel = rel("flash_bwd_dkdv dk", dk, ref_dk)
     dv_err, dv_rel = rel("flash_bwd_dkdv dv", dv, ref_dv)
     del dk, dv, ref_dk, ref_dv
-    dq = att.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, scale)
-    ref_dq = att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, True,
+    dq = att.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale)
+    ref_dq = att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, causal,
                                         scale)
     torch.cuda.synchronize()
     dq_err, dq_rel = rel("flash_bwd_dq dq", dq, ref_dq)
@@ -842,7 +869,7 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
     # The library's yardstick: one SDPA call forward, and its autograd
     # backward (dq, dk and dv together) for the two backward kernels.
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa: E731
-        q_, k_, v_, is_causal=True, scale=scale, enable_gqa=True)
+        q_, k_, v_, is_causal=causal, scale=scale, enable_gqa=True)
     lib_fwd = time_ms(lambda: sdpa(q, k, v), iters=10)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     lib_out = sdpa(*leaves)
@@ -850,26 +877,28 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
         lib_out, leaves, do, retain_graph=True), iters=10)
     del lib_out, leaves
 
-    fb, kb, qb = flash_bounds(b, hq, hkv, s, d, True)
+    fb, kb, qb = flash_bounds(b, hq, hkv, s, d, causal)
     results = {}
     for name, (nbytes, ops), kernel_fn, plain_fn, err, extra, lib in (
         ("flash_fwd", fb,
-         lambda: att.flash_fwd(q, k, v, True, scale),
-         lambda: att.flash_fwd_reference(q, k, v, True, scale),
+         lambda: att.flash_fwd(q, k, v, causal, scale),
+         lambda: att.flash_fwd_reference(q, k, v, causal, scale),
          out_err, dict(rel_err=out_rel, lse_max_abs_err=lse_err), lib_fwd),
         ("flash_bwd_dkdv", kb,
-         lambda: att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, True, scale),
+         lambda: att.flash_bwd_dkdv(q, k, v, do, ref_lse, delta, causal,
+                                    scale),
          lambda: att.flash_bwd_dkdv_reference(q, k, v, do, ref_lse, delta,
-                                              True, scale),
+                                              causal, scale),
          max(dk_err, dv_err), dict(dk_max_abs_err=dk_err, dk_rel_err=dk_rel,
                                    dv_max_abs_err=dv_err, dv_rel_err=dv_rel),
          lib_bwd),
         ("flash_bwd_dq", qb,
-         lambda: att.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, scale),
+         lambda: att.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale),
          lambda: att.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta,
-                                            True, scale),
+                                            causal, scale),
          dq_err, dict(rel_err=dq_rel), lib_bwd),
     ):
+        name += suffix
         t_b, by = bound(nbytes, ops, BF16_FLOPS)
         log(f"{name} bound: {nbytes / 1e9:.3f} GB, {ops:.3e} operations "
             f"-> {t_b:.4f} ms ({by})")
@@ -880,7 +909,7 @@ def check_flash_kernels(torch, cfg, dev) -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_b,
             bound_by=by, library_ms=lib, shape=shape, **extra,
         )
-        if name != "flash_fwd":
+        if not name.startswith("flash_fwd"):
             results[name]["library_covers"] = "sdpa backward: dq, dk, dv"
     return results
 
@@ -1326,12 +1355,14 @@ def hold_loss_grads(what: str, loss_rel: float, grad_rel: dict) -> None:
 
 
 def train(torch, dev, cfg, preset: str, batch: int, mesh=None,
-          steps: int = TRAIN_STEPS, profile: bool = True) -> dict:
+          steps: int = TRAIN_STEPS, profile: bool = True,
+          seq: int = TRAIN_SEQ, use_ring: bool = False) -> dict:
     """Phase 6 (and phase 12 on the MoE config, phase 33 on it with an
-    expert ``mesh``, phase 36 on 8b-L8 with a data x fsdp x tensor one):
-    the training path (a main path) on ``cfg`` at batch ``batch`` x 2048,
-    remat "full", AdamW (lr 1e-3, warm-up 1, 100 total steps) on one
-    fixed batch: one warm-up step, ``steps`` timed steps and, with
+    expert ``mesh``, phase 36 on 8b-L8 with a data x fsdp x tensor one,
+    phase 37 at ``seq`` 8192 with ring attention on a sequence x tensor
+    one): the training path (a main path) on ``cfg`` at batch ``batch`` x
+    ``seq``, remat "full", AdamW (lr 1e-3, warm-up 1, 100 total steps) on
+    one fixed batch: one warm-up step, ``steps`` timed steps and, with
     ``profile``, one profiled step."""
     from k8s_dra_driver_tpu_torch.models import (
         init_train_state,
@@ -1348,10 +1379,11 @@ def train(torch, dev, cfg, preset: str, batch: int, mesh=None,
     torch.cuda.reset_peak_memory_stats()
     opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100)
     state = init_train_state(cfg, opt, seed=SEED, device=dev, mesh=mesh)
-    step = make_train_step(cfg, opt, remat=True, device=dev, mesh=mesh)
+    step = make_train_step(cfg, opt, remat=True, device=dev, mesh=mesh,
+                           use_ring=use_ring)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                            generator=gen, device=dev)
     moe.MOE_TRACE_COUNTS.clear()
     losses, times = [], []
@@ -1370,14 +1402,14 @@ def train(torch, dev, cfg, preset: str, batch: int, mesh=None,
         raise AssertionError(f"step counter {state.step}")
     step_s = statistics.median(times[1:])
     profile = profile_step(torch, step, state, tokens) if profile else None
-    tokens_per_step = batch * TRAIN_SEQ
+    tokens_per_step = batch * seq
     metrics = dict(
-        preset=preset, batch=batch, seq=TRAIN_SEQ, remat="full",
+        preset=preset, batch=batch, seq=seq, remat="full",
         params=n, losses=losses, warmup_step_ms=times[0] * 1e3,
         step_ms=[t * 1e3 for t in times[1:]], step_ms_p50=step_s * 1e3,
         tokens_per_s=tokens_per_step / step_s,
-        model_flops_per_step=cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step,
-        mfu=cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step / step_s
+        model_flops_per_step=cfg.flops_per_token(seq) * tokens_per_step,
+        mfu=cfg.flops_per_token(seq) * tokens_per_step / step_s
         / BF16_FLOPS,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         profile=profile,
@@ -5956,10 +5988,12 @@ def megatron_int8_moe(torch, dev, qcfg, drive, kept, phase15) -> tuple:
     return rows, served
 
 
-def megatron_compare_train(torch, cfg, dev, mesh) -> dict:
+def megatron_compare_train(torch, cfg, dev, mesh, batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ, use_ring=False) -> dict:
     """Phase 36's hold: one loss and every gradient leaf of 8b-L8 at 8 x
     2048 (remat "full") on ``mesh`` against the single device's, the same
-    seeded state and tokens as ``train``'s."""
+    seeded state and tokens as ``train``'s (phase 37's: ``batch`` x
+    ``seq`` with ``use_ring``)."""
     from k8s_dra_driver_tpu_torch.models import llama
     from k8s_dra_driver_tpu_torch.models.train import leaves
 
@@ -5970,11 +6004,12 @@ def megatron_compare_train(torch, cfg, dev, mesh) -> dict:
         p.requires_grad_(True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                            generator=gen, device=dev)
     runs = []
     for m in (None, mesh):
-        loss = llama.loss_fn(params, tokens, cfg, remat=True, mesh=m)
+        loss = llama.loss_fn(params, tokens, cfg, remat=True, mesh=m,
+                             use_ring=use_ring and m is not None)
         grads = torch.autograd.grad(loss, flat)
         runs.append((loss.item(), [g.cpu() for g in grads]))
         del loss, grads
@@ -6000,6 +6035,392 @@ def megatron_train_launches(layers: int, groups: int, tp: int) -> dict:
             "flash_bwd_dq": layers * shards,
             "rmsnorm": (4 * layers + 1) * groups,
             "rmsnorm_backward": (2 * layers + 1) * groups}
+
+
+# ---------------------------------------------------------------------------
+# Phase 37: the sequence axis at full width -- ring attention over K4-K6 per
+# hop and Ulysses (parallel/ring.py), 8b-L8 trained on sequence 4 x tensor 2
+# of the one card.
+# ---------------------------------------------------------------------------
+
+SEQ_MESH = dict(sequence=4, tensor=2)
+SEQ_BATCH = 2
+SEQ_LEN = 8192
+SEQ_STEPS = 3               # timed, after the warm-up step
+SEQ_GRAD_REL = 5e-2         # dq/dk/dv through autograd against one device
+
+
+def hop_rings(torch, gen, dev, specs, n):
+    """Rings of ``n`` shard buffers, one per (shape, dtype) of ``specs``."""
+    return [ring_inputs(torch, gen, dev, n, shape, dtype)
+            for shape, dtype in specs]
+
+
+def time_hop(torch, name, rings) -> dict:
+    """One grouped K9 launch of ``rings`` (``ring_permute_group``) timed
+    beside its plain version and ``torch._foreach_copy_`` of the same
+    bytes, with the bytes bound (every byte read and written once)."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
+    n = len(rings[0])
+    moved = 2 * sum(x.numel() * x.element_size() for r in rings for x in r)
+    dst = [torch.empty_like(x) for r in rings for x in r]
+    rotated = [r[(j - 1) % n] for r in rings for j in range(n)]
+    out = ring.ring_permute_group(rings, 1)
+    ref = ring.ring_permute_many_reference(rings, 1)
+    if not all(same_bytes(torch, o, r) for o, r in zip(out, ref)):
+        raise AssertionError(f"{name}: K9 differs from its plain version")
+    row = dict(
+        ms=time_ms(lambda: ring.ring_permute_group(rings, 1)),
+        plain_ms=time_ms(lambda: ring.ring_permute_many_reference(rings, 1)),
+        library_ms=time_ms(lambda: torch._foreach_copy_(dst, rotated)),
+        max_abs_err=0.0, pairs=sum(len(r) for r in rings),
+        shape=" + ".join(f"{n} shards of {list(r[0].shape)} {r[0].dtype}"
+                         for r in rings) + " on one card, one launch",
+        **bound_fields(name, moved, 0.0, BF16_FLOPS))
+    row["gb_per_s"] = moved / row["ms"] / 1e6
+    log(f"{name}: {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f}, foreach_copy {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f}")
+    return row
+
+
+def grad_rel(torch, got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def check_sequence_attention(torch, cfg, dev, mesh) -> dict:
+    """Phase 37 (b): ``ring_attention`` and ``ulysses_attention`` on
+    ``mesh`` at q [2, 32, 8192, 128], k/v [2, 8, 8192, 128] (bf16, causal)
+    against one ``flash_attention`` call over the whole sequence: the
+    output within phase 2's bf16 gates, dq/dk/dv through autograd within
+    SEQ_GRAD_REL (relative norm). Each timed forward and backward beside
+    the single call's."""
+    from k8s_dra_driver_tpu_torch.ops.attention import flash_attention
+    from k8s_dra_driver_tpu_torch.parallel import (
+        ring_attention,
+        ulysses_attention,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 37)
+    b, s, d = SEQ_BATCH, SEQ_LEN, cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    base = (rand(b, cfg.n_heads, s, d), rand(b, cfg.n_kv_heads, s, d),
+            rand(b, cfg.n_kv_heads, s, d))
+    do = rand(b, cfg.n_heads, s, d)
+    fns = {"single": flash_attention,
+           "ring": lambda q, k, v: ring_attention(q, k, v, mesh),
+           "ulysses": lambda q, k, v: ulysses_attention(q, k, v, mesh)}
+    runs, out = {}, {}
+    for name, fn in fns.items():
+        leaves = [x.clone().requires_grad_() for x in base]
+        o = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, do)
+        runs[name] = (o.detach(), grads)
+
+        def step(fn=fn):
+            ls = [x.detach().requires_grad_() for x in base]
+            torch.autograd.grad(fn(*ls), ls, do)
+        out[name] = dict(fwd_bwd_ms=time_ms(step, warmup=1, iters=3))
+    ref_o, ref_g = runs.pop("single")
+    for name, (o, grads) in runs.items():
+        err, r = rel(f"{name} attention out", o, ref_o)
+        out[name].update(max_abs_err=err, rel_err=r)
+        for g_name, g, want in zip(("dq", "dk", "dv"), grads, ref_g):
+            out[name][f"{g_name}_rel_diff"] = grad_rel(torch, g, want)
+        bad = {k: v for k, v in out[name].items()
+               if k.endswith("_rel_diff") and not v <= SEQ_GRAD_REL}
+        if bad:
+            raise AssertionError(f"{name} attention gradients against one "
+                                 f"device over {SEQ_GRAD_REL}: {bad}")
+    log("sequence attention:", json.dumps(out))
+    return out
+
+
+def sequence_train_launches(layers: int, n: int, groups: int,
+                            tp: int) -> dict:
+    """A ring train step's launches under remat "full" on sequence ``n``
+    x tensor ``tp`` (all on one card): per layer and ring (group, tensor
+    shard) K4 on the n(n+1)/2 hops the causal mask leaves visible, twice
+    (forward and recompute), K5 and K6 once on the same hops; K9 per
+    layer and group n - 1 grouped launches forward, again in the
+    recompute, and n backward (k, v and both carriers, then the carriers'
+    last hop home); K1 at both norms of each token block twice and the
+    final norm once a block, its gradient at each once."""
+    pairs = n * (n + 1) // 2
+    rings = groups * tp
+    blocks = groups * n
+    return {"flash_fwd": 2 * layers * rings * pairs,
+            "flash_bwd_dkdv": layers * rings * pairs,
+            "flash_bwd_dq": layers * rings * pairs,
+            "ring_permute": layers * groups * (3 * n - 2),
+            "rmsnorm": (4 * layers + 1) * blocks,
+            "rmsnorm_backward": (2 * layers + 1) * blocks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 38: the pipe axis at full width (parallel/pipeline.py): 8b-L8 on
+# pipe 2 x data 2 x tensor 2, then 8x7b cut to 2 layers on data 2 x expert 2
+# x pipe 2, the stage-to-stage hops through K9.
+# ---------------------------------------------------------------------------
+
+PIPE_MESH = dict(pipe=2, data=2, tensor=2)
+PIPE_MICRO = 4
+PIPE_STEPS = 3              # timed forward + backward, after a warm-up
+PIPE_MOE_MESH = dict(data=2, expert=2, pipe=2)
+PIPE_MOE_LAYERS = 2
+PIPE_MOE_BATCH = 4
+PIPE_MOE_SEQ = 512
+PIPE_MOE_MICRO = 2
+PIPE_LOGITS_REL = 5e-2
+PIPE_AUX_REL = 1e-2         # against the microbatches' aux on one device
+
+
+def pipe_train_launches(layers: int, stages: int, micro: int, groups: int,
+                        tp: int, remat: bool = True) -> dict:
+    """A pipelined forward + backward's launches (all on one card): each
+    layer runs once per (group, microbatch) on its stage, K4 per tensor
+    shard (twice under remat "full"), K5 and K6 once; K1 at both norms
+    of a layer per (group, microbatch) (twice under remat) and the final
+    norm once, outside the pipeline; K9 once a hop, M + P - 2 hops
+    forward and their inverses backward."""
+    slots = groups * micro
+    runs = 2 if remat else 1
+    return {"flash_fwd": runs * layers * slots * tp,
+            "flash_bwd_dkdv": layers * slots * tp,
+            "flash_bwd_dq": layers * slots * tp,
+            "rmsnorm": 2 * runs * layers * slots + 1,
+            "rmsnorm_backward": 2 * layers * slots + 1,
+            "ring_permute": 2 * (micro + stages - 2)}
+
+
+def pipe_tokens(torch, cfg, dev, batch: int, seq: int):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=dev)
+
+
+def pipe_loss(torch, params, tokens, cfg, mesh):
+    """The dense loss: the single device's ``loss_fn`` (remat "full"), or
+    ``forward_pipelined(..., return_hidden=True)`` over ``mesh`` (each
+    stage's layers under remat "full") then the chunked CE."""
+    from k8s_dra_driver_tpu_torch.models import llama
+
+    if mesh is None:
+        return llama.loss_fn(params, tokens, cfg, remat=True)
+    hidden = llama.forward_pipelined(params, tokens[:, :-1], cfg, mesh,
+                                     PIPE_MICRO, return_hidden=True,
+                                     remat=True)
+    return llama.chunked_cross_entropy(hidden, params["lm_head"],
+                                       tokens[:, 1:])
+
+
+def pipe_compare(torch, cfg, dev, mesh) -> dict:
+    """Phase 38's dense hold: one loss and every gradient leaf of the
+    pipelined 8b-L8 against the single device's, the same seeded weights
+    and tokens (phase 36's limits)."""
+    from k8s_dra_driver_tpu_torch.models import llama
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    params = llama.init_params(cfg, seed=SEED, device=dev)
+    names = param_names(params)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    tokens = pipe_tokens(torch, cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    runs = []
+    for m in (None, mesh):
+        loss = pipe_loss(torch, params, tokens, cfg, m)
+        grads = torch.autograd.grad(loss, flat)
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+        del loss, grads
+        torch.cuda.empty_cache()
+    (l_single, g_single), (l_pipe, g_pipe) = runs
+    loss_rel, grad_rel_ = loss_grad_rel(names, (l_pipe, g_pipe),
+                                        (l_single, g_single))
+    hold_loss_grads("pipeline vs single device", loss_rel, grad_rel_)
+    del params, flat
+    torch.cuda.empty_cache()
+    return dict(loss_single=l_single, loss_pipe=l_pipe,
+                loss_rel_diff=loss_rel, grad_rel_diff=grad_rel_)
+
+
+def pipe_steps(torch, cfg, dev, mesh) -> dict:
+    """Phase 38's timing: a warm-up and PIPE_STEPS timed forward +
+    backward steps of the dense loss (``pipe_loss``) at TRAIN_BATCH x
+    TRAIN_SEQ on ``mesh`` or the single device (None): step p50,
+    tokens/s, MFU and the steps' peak memory."""
+    from k8s_dra_driver_tpu_torch.models import llama
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = llama.init_params(cfg, seed=SEED, device=dev)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    tokens = pipe_tokens(torch, cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(1 + PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pipe_loss(torch, params, tokens, cfg, mesh)
+        grads = torch.autograd.grad(loss, flat)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del loss, grads
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    step_s = statistics.median(times[1:])
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat="full", losses=losses,
+        warmup_step_ms=times[0] * 1e3, step_ms=[t * 1e3 for t in times[1:]],
+        step_ms_p50=step_s * 1e3, tokens_per_s=tokens_per_step / step_s,
+        mfu=cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step / step_s
+        / BF16_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class PipelineReplay(RoutingReplay):
+    """Replays a pipelined forward's recorded routing in single-device
+    forwards: ``order`` names each recorded call's (layer, row block) in
+    the pipeline's call order, ``calls`` each replaying call's (layer, row
+    blocks) in the replaying runs' order; a call takes its blocks'
+    recorded choices concatenated."""
+
+    def __init__(self, moe, recorded, order, calls):
+        super().__init__(moe)
+        import torch
+
+        by = dict(zip(order, recorded))
+        self.recorded = [torch.cat([by[layer, b] for b in blocks])
+                         for layer, blocks in calls]
+
+
+def pipeline_call_order(layers: int, stages: int, micro: int,
+                        groups: int) -> list:
+    """(layer, row block) of each MoE block call of the pipelined forward,
+    in call order: step t, group g, stage p (microbatch t - p), the
+    stage's layers; row block g * micro + j."""
+    per = layers // stages
+    order = []
+    for t in range(micro + stages - 1):
+        for g in range(groups):
+            for p in range(stages):
+                j = t - p
+                if 0 <= j < micro:
+                    order += [(p * per + i, g * micro + j)
+                              for i in range(per)]
+    return order
+
+
+def pipe_moe_run(torch, dev, mesh) -> dict:
+    """Phase 38's MoE half, the counted run: Mixtral-8x7B widths cut to
+    PIPE_MOE_LAYERS layers (einsum) pipelined on ``mesh`` at
+    PIPE_MOE_BATCH x PIPE_MOE_SEQ in PIPE_MOE_MICRO microbatches, its
+    routing recorded, then one backward: every gradient finite and
+    ``w_gateup``'s nonzero. Returns what ``pipe_moe_check`` holds."""
+    from k8s_dra_driver_tpu_torch.models import MOE_PRESETS, llama, moe
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    cfg = dataclasses.replace(MOE_PRESETS["8x7b"], n_layers=PIPE_MOE_LAYERS,
+                              moe_impl="einsum")
+    params = moe.init_params(cfg, seed=SEED, device=dev)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    tokens = pipe_tokens(torch, cfg, dev, PIPE_MOE_BATCH, PIPE_MOE_SEQ)
+    with RoutingReplay(moe) as record:
+        record.mode = "record"
+        hidden, aux = moe.forward_pipelined(
+            params, tokens[:, :-1], cfg, mesh, PIPE_MOE_MICRO,
+            return_hidden=True)
+    loss = (llama.chunked_cross_entropy(hidden, params["lm_head"],
+                                        tokens[:, 1:]) + cfg.aux_coef * aux)
+    grads = torch.autograd.grad(loss, flat)
+    names = param_names(params)
+    bad = [n for n, g in zip(names, grads) if not torch.isfinite(g).all()]
+    if bad:
+        raise AssertionError(f"pipelined MoE gradients not finite: {bad}")
+    gu = grads[names.index("layers/w_gateup")].float().abs().sum().item()
+    if not gu > 0:
+        raise AssertionError("pipelined MoE: w_gateup's gradient is zero")
+    for p in flat:
+        p.requires_grad_(False)
+    return dict(cfg=cfg, params=params, tokens=tokens,
+                hidden=hidden.detach(), aux=aux.item(),
+                recorded=record.recorded, w_gateup_grad_abs_sum=gu)
+
+
+def pipe_moe_check(torch, run: dict, mesh) -> dict:
+    """Phase 38's MoE holds, outside the counted run: the pipelined logits
+    against the single device's einsum forward replaying the pipeline's
+    routing (within PIPE_LOGITS_REL of the largest magnitude; the single
+    device's own choices may differ only at near-ties). The aux is the
+    reference's pipelined one, a mean of per-(batch group, microbatch)
+    statistics: it is held within PIPE_AUX_REL of the single device's
+    forwards of the same row blocks, routing replayed, and its distance
+    from the whole batch's aux is reported."""
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    cfg, params, tokens = run["cfg"], run["params"], run["tokens"]
+    blocks = PIPE_MOE_MESH["data"] * PIPE_MOE_MICRO
+    rows = PIPE_MOE_BATCH // blocks
+    layers = range(cfg.n_layers)
+    calls = [(l, tuple(range(blocks))) for l in layers] + [
+        (l, (b,)) for b in range(blocks) for l in layers]
+    with torch.no_grad():
+        logits = (run["hidden"] @ params["lm_head"]).float()
+        single, aux_single = moe.forward(params, tokens[:, :-1], cfg)
+        order = pipeline_call_order(cfg.n_layers, PIPE_MOE_MESH["pipe"],
+                                    PIPE_MOE_MICRO, PIPE_MOE_MESH["data"])
+        with PipelineReplay(moe, run["recorded"], order, calls) as replay:
+            replay.mode = "replay"
+            replayed, _ = moe.forward(params, tokens[:, :-1], cfg)
+            aux_blocks = [moe.forward(params, tokens[b * rows:(b + 1) * rows,
+                                                     :-1], cfg)[1].item()
+                          for b in range(blocks)]
+    aux_micro = sum(aux_blocks) / blocks
+    logits_rel = ((logits - replayed).abs().max().item()
+                  / replayed.abs().max().item())
+    free_rel = ((logits - single).abs().max().item()
+                / single.abs().max().item())
+    aux_rel = abs(run["aux"] - aux_micro) / aux_micro
+    out = dict(preset="8x7b", layers=cfg.n_layers, batch=PIPE_MOE_BATCH,
+               seq=PIPE_MOE_SEQ, microbatches=PIPE_MOE_MICRO,
+               mesh=str(mesh), logits_rel_replayed=logits_rel,
+               logits_rel_free=free_rel, aux=run["aux"],
+               aux_microbatches_single=aux_micro, aux_rel=aux_rel,
+               aux_whole_batch_single=aux_single.item(),
+               aux_rel_whole_batch=abs(run["aux"] - aux_single.item())
+               / aux_single.item(),
+               w_gateup_grad_abs_sum=run["w_gateup_grad_abs_sum"],
+               **replay.summary())
+    del out["flip_margins"]
+    log("pipeline moe:", json.dumps(out))
+    if not logits_rel <= PIPE_LOGITS_REL:
+        raise AssertionError(f"pipelined MoE logits {logits_rel} of the "
+                             f"largest (limit {PIPE_LOGITS_REL})")
+    if not aux_rel <= PIPE_AUX_REL:
+        raise AssertionError(f"pipelined MoE aux {run['aux']} against the "
+                             f"microbatches' {aux_micro} on one device "
+                             f"(limit {PIPE_AUX_REL})")
+    replay.check("pipelined MoE")
+    return out
 
 
 def nbytes(tree) -> int:
@@ -6141,7 +6562,15 @@ def main() -> int:
                                "rmsnorm"),
              "megatron_training": ("rmsnorm", "rmsnorm_backward",
                                    "flash_fwd", "flash_bwd_dkdv",
-                                   "flash_bwd_dq")}
+                                   "flash_bwd_dq"),
+             "sequence_training": ("rmsnorm", "rmsnorm_backward",
+                                   "flash_fwd", "flash_bwd_dkdv",
+                                   "flash_bwd_dq", "ring_permute"),
+             "pipe_training": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                               "flash_bwd_dkdv", "flash_bwd_dq",
+                               "ring_permute"),
+             "pipe_moe": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                          "flash_bwd_dkdv", "flash_bwd_dq", "ring_permute")}
     by_path = {}
 
     def reset_counts():
@@ -6783,6 +7212,114 @@ def main() -> int:
     phase_done(f"phase 36: 8b-L8 loss and gradients on data 2 x fsdp 2 x "
                f"tensor 2 match the single device; trained for {tsteps} "
                f"steps (launches {counts})")
+    # Phase 37: the sequence axis, 8b-L8 on sequence 4 x tensor 2 at 2 x
+    # 8192 with ring attention; phase 36's state is freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    smesh = card_mesh(dev, **SEQ_MESH)
+    n_seq, seq_tp = SEQ_MESH["sequence"], SEQ_MESH["tensor"]
+    kernels.update(check_flash_kernels(
+        torch, tcfg8, dev, b=SEQ_BATCH, s=SEQ_LEN // n_seq,
+        heads=(tcfg8.n_heads // seq_tp, tcfg8.n_kv_heads // seq_tp),
+        causal=False, suffix="_hop"))
+    hop = SEQ_LEN // n_seq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 38)
+    kv_shape = (SEQ_BATCH, tcfg8.n_kv_heads // seq_tp, hop, tcfg8.head_dim)
+    kernels["ring_permute_ring_hop"] = time_hop(
+        torch, "ring_permute_ring_hop", hop_rings(
+            torch, gen, dev, [(kv_shape, torch.bfloat16)] * 2 * seq_tp
+            + [(kv_shape, torch.float32)] * 2 * seq_tp, n_seq))
+    seq_attn = check_sequence_attention(torch, tcfg8, dev, smesh)
+    seq_grads = megatron_compare_train(torch, tcfg8, dev, smesh,
+                                       batch=SEQ_BATCH, seq=SEQ_LEN,
+                                       use_ring=True)
+    seq_single = train(torch, dev, tcfg8, "8b-L8", SEQ_BATCH, None,
+                       SEQ_STEPS, False, SEQ_LEN)
+    seq_trained = drive("sequence_training", train, torch, dev, tcfg8,
+                        "8b-L8", SEQ_BATCH, smesh, SEQ_STEPS, False, SEQ_LEN,
+                        True)
+    counts = by_path["sequence_training"]
+    want = {k: n * (1 + SEQ_STEPS) for k, n in sequence_train_launches(
+        tcfg8.n_layers, n_seq, 1, seq_tp).items()}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"sequence training launches {counts}, "
+                             f"expected {want}")
+    seq_trained.update(compare=seq_grads, attention=seq_attn,
+                       mesh=str(smesh), single={k: seq_single[k] for k in (
+                           "step_ms_p50", "tokens_per_s", "mfu",
+                           "peak_mem_gb")},
+                       launches_per_step={k: n // (1 + SEQ_STEPS)
+                                          for k, n in want.items()})
+    log(f"sequence train: {smesh}, {SEQ_BATCH} x {SEQ_LEN}, ring; step p50 "
+        f"{seq_trained['step_ms_p50']:.1f} ms (one device: "
+        f"{seq_single['step_ms_p50']:.1f}), "
+        f"{seq_trained['tokens_per_s']:.0f} tokens/s "
+        f"({seq_single['tokens_per_s']:.0f}), MFU {seq_trained['mfu']:.3f} "
+        f"({seq_single['mfu']:.3f}), peak memory "
+        f"{seq_trained['peak_mem_gb']:.2f} GB "
+        f"({seq_single['peak_mem_gb']:.2f}); loss rel "
+        f"{seq_grads['loss_rel_diff']:.2e}, largest leaf rel "
+        f"{max(seq_grads['grad_rel_diff'].values()):.2e}; {card_line()}")
+    phase_done(f"phase 37: K4-K6 not causal at the hop shape agree with "
+               f"their plain versions; ring and Ulysses attention match one "
+               f"device; 8b-L8 loss and gradients on sequence {n_seq} x "
+               f"tensor {seq_tp} (ring) match the single device; trained for "
+               f"{1 + SEQ_STEPS} steps (launches {counts})")
+    # Phase 38: the pipe axis, 8b-L8 on pipe 2 x data 2 x tensor 2, then
+    # 8x7b-L2 on data 2 x expert 2 x pipe 2.
+    gc.collect()
+    torch.cuda.empty_cache()
+    pmesh = card_mesh(dev, **PIPE_MESH)
+    stages, pgroups = PIPE_MESH["pipe"], PIPE_MESH["data"]
+    act = (TRAIN_BATCH // (pgroups * PIPE_MICRO), TRAIN_SEQ, tcfg8.hidden)
+    kernels["ring_permute_pipe_hop"] = time_hop(
+        torch, "ring_permute_pipe_hop", hop_rings(
+            torch, gen, dev, [(act, torch.bfloat16)] * pgroups, stages))
+    pipe_grads = pipe_compare(torch, tcfg8, dev, pmesh)
+    pipe_single = pipe_steps(torch, tcfg8, dev, None)
+    piped = drive("pipe_training", pipe_steps, torch, tcfg8, dev, pmesh)
+    counts = by_path["pipe_training"]
+    want = {k: n * (1 + PIPE_STEPS) for k, n in pipe_train_launches(
+        tcfg8.n_layers, stages, PIPE_MICRO, pgroups,
+        PIPE_MESH["tensor"]).items()}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"pipelined training launches {counts}, "
+                             f"expected {want}")
+    bubble = (stages - 1) / (PIPE_MICRO + stages - 1)
+    piped.update(compare=pipe_grads, mesh=str(pmesh), microbatches=PIPE_MICRO,
+                 bubble_share=bubble, single=pipe_single,
+                 launches_per_step={k: n // (1 + PIPE_STEPS)
+                                    for k, n in want.items()})
+    log(f"pipeline train: {pmesh}, {PIPE_MICRO} microbatches, bubble share "
+        f"(P-1)/(M+P-1) = {bubble:.3f}; forward + backward step p50 "
+        f"{piped['step_ms_p50']:.1f} ms (one device: "
+        f"{pipe_single['step_ms_p50']:.1f}), {piped['tokens_per_s']:.0f} "
+        f"tokens/s ({pipe_single['tokens_per_s']:.0f}), MFU "
+        f"{piped['mfu']:.3f} ({pipe_single['mfu']:.3f}), peak memory "
+        f"{piped['peak_mem_gb']:.2f} GB ({pipe_single['peak_mem_gb']:.2f}); "
+        f"loss rel {pipe_grads['loss_rel_diff']:.2e}, largest leaf rel "
+        f"{max(pipe_grads['grad_rel_diff'].values()):.2e}; {card_line()}")
+    mmesh = card_mesh(dev, **PIPE_MOE_MESH)
+    moe_run = drive("pipe_moe", pipe_moe_run, torch, dev, mmesh)
+    counts = by_path["pipe_moe"]
+    want = pipe_train_launches(PIPE_MOE_LAYERS, PIPE_MOE_MESH["pipe"],
+                               PIPE_MOE_MICRO, PIPE_MOE_MESH["data"], 1,
+                               remat=False)
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"pipelined MoE launches {counts}, expected "
+                             f"{want}")
+    piped["moe"] = pipe_moe_check(torch, moe_run, mmesh)
+    piped["moe"]["launches"] = want
+    del moe_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(f"phase 38: pipelined 8b-L8 loss and gradients on pipe 2 x "
+               f"data 2 x tensor 2 match the single device, "
+               f"{1 + PIPE_STEPS} steps timed (bubble share {bubble:.3f}); "
+               f"pipelined 8x7b-L{PIPE_MOE_LAYERS} on data 2 x expert 2 x "
+               f"pipe 2 matches the single device's replayed forward and its "
+               f"microbatches' aux (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -6921,10 +7458,18 @@ def main() -> int:
     # launch: the same kernel and launch count as its row at the bf16 hop
     # chunk.
     for name in ("ring_permute_carrier", "ring_permute_256mb",
-                 "ring_permute_hop", "ring_permute_hop_decode"):
+                 "ring_permute_hop", "ring_permute_hop_decode",
+                 "ring_permute_ring_hop", "ring_permute_pipe_hop"):
         meta[name] = meta["ring_permute"]
         launches[name] = launches["ring_permute"]
         by_path = {p: {**c, name: c["ring_permute"]}
+                   for p, c in by_path.items()}
+    # K4-K6 at phase 37's non-causal ring hop: the same kernels and launch
+    # counts as their rows.
+    for base in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        meta[base + "_hop"] = meta[base]
+        launches[base + "_hop"] = launches[base]
+        by_path = {p: {**c, base + "_hop": c[base]}
                    for p, c in by_path.items()}
     rows = []
     for name, (route, source, replaces) in meta.items():
@@ -6962,7 +7507,9 @@ def main() -> int:
                     "expert_parallel_training": ep_trained,
                     "megatron_serving": megatron,
                     "megatron_int8_moe": megatron_int8,
-                    "megatron_training": tp_trained}))
+                    "megatron_training": tp_trained,
+                    "sequence_training": seq_trained,
+                    "pipe_training": piped}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

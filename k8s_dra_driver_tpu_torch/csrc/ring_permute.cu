@@ -1,8 +1,11 @@
 // Rotations of rings of per-shard buffers, several rings in one launch, for
 // Hopper (sm_90a): the transport of the ring-overlapped expert all-to-all
 // (models/moe.py _moe_block_dropless_ep_ring, where one launch a hop moves
-// the f32 carrier and the next bf16 chunk) and of any other ring hop of
-// the port.
+// the f32 carrier and the next bf16 chunk), of ring attention's hops
+// (parallel/ring.py: k and v, and in the backward their f32 dk/dv carriers,
+// of every tensor shard's ring in one launch), of the pipeline's stage-to-
+// stage activations (parallel/pipeline.py) and of any other ring hop of the
+// port.
 //
 // Replaces K9, k8s_dra_driver_tpu/parallel/ring.py::
 // _ring_permute_pallas_call: shard i's whole buffer goes into shard
@@ -51,7 +54,10 @@
 
 namespace {
 
-constexpr int kMaxPairs = 16;  // 2 rings x 8 shards
+// 32 pairs: a ring-attention backward hop of 2 tensor shards over 4
+// sequence shards on one card (k, v, dk, dv: 8 rings of 4) in one launch.
+// The table is then 1.2 KB of the 4 KB a launch's parameters may take.
+constexpr int kMaxPairs = 32;
 constexpr int kThreads = 256;
 constexpr long long kUnit = 16;
 

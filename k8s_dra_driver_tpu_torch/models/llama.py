@@ -49,7 +49,20 @@ XLA recomputes the same products under each policy but one: the port's
 names the attention output (which ``flash_out`` already keeps), so
 "flash", "flash_qkv" and "flash_mlp" also skip the ``wo`` product that
 XLA recomputes to rebuild the residual. The MoE block's recompute is in
-``models/moe.py``. Ring attention (``use_ring``) raises (A12d).
+``models/moe.py``.
+
+On a ``sequence`` axis each batch group's rows cut into token blocks
+(``Layout.blocks``): the embedding, rope (at the block's positions), the
+norms, the MLP and the CE run block by block; attention joins a group's
+blocks -- with ``use_ring`` through ring attention
+(``parallel/ring.py::ring_attention_shards``, every tensor shard's ring in
+one K9 launch a hop), else by gathering each tensor shard's q/k/v over
+``sequence`` for one whole-sequence ``flash_attention`` (the reference's
+GSPMD result). The ring tags no remat name: under any policy the
+recompute reruns the ring's forward, as the reference's does.
+:func:`forward_pipelined` runs the layers as a GPipe pipeline over
+``pipe`` (``parallel/pipeline.py``), each stage's layers through the
+mesh block on its own sub-mesh.
 
 Parameters are a plain dict with the reference's structure and layouts,
 layers stacked on axis 0:
@@ -79,6 +92,7 @@ from ..ops.norms import rmsnorm, rmsnorm_reference
 from ..ops.rotary import apply_rope, rope_frequencies
 from ..parallel.collectives import concat_parts, sum_parts
 from ..parallel.layout import Layout, check_heads
+from ..parallel.ring import _emit_ring_attention_kv, ring_attention_shards
 from ..parallel.sharding import P, Sharded, shard_pytree
 from .quant import QuantTensor, q_einsum, q_lookup, q_matmul, quantize_specs
 from .remat import (
@@ -344,15 +358,15 @@ def _remat_transform(remat: bool, remat_policy: str):
 
 
 def mesh_embed(embed, tokens: torch.Tensor, lay: Layout, g: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    """Group ``g``'s embedding rows: each tensor shard looks up the tokens
-    in its vocabulary block (zero rows elsewhere), and the psum over
-    ``tensor`` adds the blocks' rows -- exact, one shard holds each
+               dtype: torch.dtype, j: int = 0) -> torch.Tensor:
+    """Token block ``(g, j)``'s embedding rows: each tensor shard looks up
+    the tokens in its vocabulary block (zero rows elsewhere), and the psum
+    over ``tensor`` adds the blocks' rows -- exact, one shard holds each
     token."""
-    home = lay.home(g)
+    home = lay.home(g, j)
     parts = []
     for t in range(lay.tp):
-        emb = lay.weight(embed, g, t)
+        emb = lay.weight(embed, g, t, j)
         if lay.tp == 1:
             return q_lookup(emb, tokens.to(home), dtype)
         v_loc = emb.shape[0]
@@ -363,10 +377,10 @@ def mesh_embed(embed, tokens: torch.Tensor, lay: Layout, g: int,
     return sum_parts(parts, home)
 
 
-def mesh_heads(lm_head, lay: Layout, g: int) -> list:
-    """Group ``g``'s LM head blocks, one per tensor shard (vocab-cut
-    columns)."""
-    return [lay.weight(lm_head, g, t) for t in range(lay.tp)]
+def mesh_heads(lm_head, lay: Layout, g: int, j: int = 0) -> list:
+    """Token block ``(g, j)``'s LM head blocks, one per tensor shard
+    (vocab-cut columns)."""
+    return [lay.weight(lm_head, g, t, j) for t in range(lay.tp)]
 
 
 def mesh_logits(x: torch.Tensor, heads: list,
@@ -386,87 +400,131 @@ def _half(w, i: int):
     return w[:, i, :]
 
 
-def mesh_attention(x, layer, config: LlamaConfig, cos, sin,
-                   use_kernels: bool, lay: Layout, g: int):
-    """Group ``g``'s attention block: the norm once, then each tensor
-    shard's QKV product on its kv-head groups, causal attention on its
-    heads and its row block of ``wo``; the psum over ``tensor`` (f32)
-    adds the partial projections before the residual."""
-    norm = rmsnorm if use_kernels else rmsnorm_reference
-    xn = norm(x, layer["ln_attn"].to(x.device), config.norm_eps)
-    parts = []
-    for t in range(lay.tp):
-        dev = lay.device(g, t)
-        xt, c_, s_ = xn.to(dev), cos.to(dev), sin.to(dev)
-        wqkv = lay.weight(layer["wqkv"], g, t)
-        int8 = isinstance(wqkv, QuantTensor)
-        if int8:
-            q, k, v = project_qkv(xt, {"wqkv": wqkv}, config, c_, s_,
-                                  use_kernels=use_kernels)
-        else:
-            q, k, v = qkv_site(xt, wqkv, c_, s_)
+def _mesh_attend(q, k, v, use_kernels: bool, lay: Layout, g: int,
+                 use_ring: bool) -> list:
+    """Causal attention of group ``g``'s q/k/v (per tensor shard the list
+    of its sequence blocks): with ``use_ring`` every tensor shard's ring
+    through ``ring_attention_shards`` (one K9 launch a hop for all of
+    them); else each tensor shard's blocks gathered over ``sequence`` on
+    its first block's device, attention on the whole sequence, and the
+    output cut back into blocks."""
+    n = len(q[0])
+    if use_ring and use_kernels:
+        if g == 0:
+            b, h, s, d = k[0][0].shape
+            shape = (b * lay.dp, h * lay.tp, s * n, d)
+            _emit_ring_attention_kv(shape, shape, k[0][0].dtype, n)
+        return ring_attention_shards(q, k, v, causal=True)
+    outs = []
+    for qt, kt, vt in zip(q, k, v):
+        devs = [x.device for x in qt]
+        qw, kw, vw = (concat_parts(x, 2) for x in (qt, kt, vt))
         if use_kernels:
-            o = flash_attention(q, k, v, causal=True)
+            o = flash_attention(qw, kw, vw, causal=True)
         else:
-            rep = q.shape[1] // k.shape[1]
-            o = attention_reference(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                                    causal=True)
-        wo = lay.weight(layer["wo"], g, t)
-        if int8:
-            b, _, s, _ = o.shape
-            flat = o.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
-            parts.append(q_matmul(flat, wo, use_kernels).float())
-        else:
-            parts.append(attn_proj_site(o.to(x.dtype), wo).float())
-    return x + sum_parts(parts, x.device).to(x.dtype)
+            rep = qw.shape[1] // kw.shape[1]
+            o = attention_reference(qw, _repeat_kv(kw, rep),
+                                    _repeat_kv(vw, rep), causal=True)
+        outs.append([c.to(dev) for c, dev in zip(o.chunk(n, dim=2), devs)])
+    return outs
+
+
+def mesh_attention(xs, layer, config: LlamaConfig, cos, sin,
+                   use_kernels: bool, lay: Layout, g: int,
+                   use_ring: bool = False) -> list:
+    """Group ``g``'s attention block over its token blocks ``xs`` (block
+    j on its home device, positions ``[j S / n, (j + 1) S / n)``): the norm
+    per block, then each tensor shard's QKV product on its kv-head groups
+    with rope at the block's positions, causal attention on its heads over
+    the group's whole sequence (:func:`_mesh_attend`), and its row block of
+    ``wo``; the psum over ``tensor`` (f32) adds the partial projections
+    before each block's residual."""
+    norm = rmsnorm if use_kernels else rmsnorm_reference
+    span = xs[0].shape[1]
+    xns = [norm(x, layer["ln_attn"].to(x.device), config.norm_eps)
+           for x in xs]
+    q, k, v = ([[None] * len(xs) for _ in range(lay.tp)] for _ in range(3))
+    for t in range(lay.tp):
+        for j, xn in enumerate(xns):
+            dev = lay.device(g, t, j=j)
+            xt = xn.to(dev)
+            c_ = cos[j * span:(j + 1) * span].to(dev)
+            s_ = sin[j * span:(j + 1) * span].to(dev)
+            wqkv = lay.weight(layer["wqkv"], g, t, j)
+            int8 = isinstance(wqkv, QuantTensor)
+            if int8:
+                q[t][j], k[t][j], v[t][j] = project_qkv(
+                    xt, {"wqkv": wqkv}, config, c_, s_,
+                    use_kernels=use_kernels)
+            else:
+                q[t][j], k[t][j], v[t][j] = qkv_site(xt, wqkv, c_, s_)
+    o = _mesh_attend(q, k, v, use_kernels, lay, g, use_ring)
+    out = []
+    for j, x in enumerate(xs):
+        parts = []
+        for t in range(lay.tp):
+            wo = lay.weight(layer["wo"], g, t, j)
+            if int8:
+                b, _, s, _ = o[t][j].shape
+                flat = o[t][j].transpose(1, 2).reshape(b, s, -1).to(x.dtype)
+                parts.append(q_matmul(flat, wo, use_kernels).float())
+            else:
+                parts.append(attn_proj_site(o[t][j].to(x.dtype), wo).float())
+        out.append(x + sum_parts(parts, x.device).to(x.dtype))
+    return out
 
 
 def mesh_mlp(x, layer, config: LlamaConfig, use_kernels: bool,
-             lay: Layout, g: int):
-    """Group ``g``'s SwiGLU MLP: each tensor shard's gate and up columns
-    (two products on the strided halves of its [H, 2, M / tensor] block,
-    no weight copy), SwiGLU, and its row block of ``w_down``; the psum
-    over ``tensor`` (f32) before the residual."""
+             lay: Layout, g: int, j: int = 0):
+    """Token block ``(g, j)``'s SwiGLU MLP: each tensor shard's gate and up
+    columns (two products on the strided halves of its [H, 2, M / tensor]
+    block, no weight copy), SwiGLU, and its row block of ``w_down``; the
+    psum over ``tensor`` (f32) before the residual."""
     norm = rmsnorm if use_kernels else rmsnorm_reference
     xn = norm(x, layer["ln_mlp"].to(x.device), config.norm_eps)
     parts = []
     for t in range(lay.tp):
-        xt = xn.to(lay.device(g, t))
-        w_gu = lay.weight(layer["w_gateup"], g, t)
+        xt = xn.to(lay.device(g, t, j=j))
+        w_gu = lay.weight(layer["w_gateup"], g, t, j)
         gate = q_matmul(xt, _half(w_gu, 0), use_kernels)
         up = q_matmul(xt, _half(w_gu, 1), use_kernels)
         prod = (F.silu(gate.float()) * up.float()).to(x.dtype)
-        parts.append(q_matmul(prod, lay.weight(layer["w_down"], g, t),
+        parts.append(q_matmul(prod, lay.weight(layer["w_down"], g, t, j),
                               use_kernels).float())
     return x + sum_parts(parts, x.device).to(x.dtype)
 
 
-def _mesh_block(x, layer, config: LlamaConfig, cos, sin, use_kernels: bool,
-                lay: Layout, g: int):
-    x = mesh_attention(x, layer, config, cos, sin, use_kernels, lay, g)
-    return mesh_mlp(x, layer, config, use_kernels, lay, g), None
+def _mesh_block(xs, layer, config: LlamaConfig, cos, sin, use_kernels: bool,
+                lay: Layout, g: int, use_ring: bool = False):
+    """One layer of group ``g`` over its token blocks ``xs``."""
+    xs = mesh_attention(xs, layer, config, cos, sin, use_kernels, lay, g,
+                        use_ring)
+    return [mesh_mlp(x, layer, config, use_kernels, lay, g, j)
+            for j, x in enumerate(xs)], None
 
 
 def mesh_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
                mesh, specs: dict, block, remat: bool, remat_policy: str,
-               use_kernels: bool):
-    """The layers on ``mesh``: ``(layout, placed params, per-group
-    normed final hidden states, per-layer lists of the blocks' second
-    outputs)``. ``block(x, layer, config, cos, sin, use_kernels, layout,
-    g)`` runs one layer of group ``g`` and returns ``(x, extra)``; remat
-    wraps each (layer, group)."""
+               use_kernels: bool, use_ring: bool = False):
+    """The layers on ``mesh``: ``(layout, placed params, per group the
+    normed final hidden states of its token blocks, per-layer lists of the
+    groups' second outputs)``. ``block(xs, layer, config, cos, sin,
+    use_kernels, layout, g, use_ring=)`` runs one layer of group ``g``
+    over the list of its token blocks and returns ``(blocks, extra)``;
+    remat wraps each (layer, group)."""
     c = config
     check_heads(c, mesh)
     lay = Layout(mesh)
     params = place(params, mesh, specs)
-    toks = lay.split_rows(tokens)
+    toks = lay.blocks(tokens)
     s = tokens.shape[1]
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
                                 device=lay.home(0))
-    block = _remat_transform(remat, remat_policy)(block)
+    block = _remat_transform(remat, remat_policy)(
+        functools.partial(block, use_ring=use_ring))
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    xs = [mesh_embed(params["embed"], toks[g], lay, g, c.dtype)
-          for g in range(lay.dp)]
+    xs = [[mesh_embed(params["embed"], tok, lay, g, c.dtype, j)
+           for j, tok in enumerate(toks[g])] for g in range(lay.dp)]
     extras = []
     for i in range(c.n_layers):
         layer = {name: ws[i] for name, ws in layers.items()}
@@ -475,15 +533,17 @@ def mesh_trunk(params: dict, tokens: torch.Tensor, config: LlamaConfig,
         xs = [o[0] for o in out]
         extras.append([o[1] for o in out])
     norm = rmsnorm if use_kernels else rmsnorm_reference
-    xs = [norm(x, params["final_norm"].to(x.device), c.norm_eps) for x in xs]
+    xs = [[norm(x, params["final_norm"].to(x.device), c.norm_eps)
+           for x in blocks] for blocks in xs]
     return lay, params, xs, extras
 
 
-def _require_no_ring(use_ring: bool, what: str) -> None:
-    if use_ring:
-        raise NotImplementedError(
-            f"{what}(use_ring=True): ring attention over K4-K6 per hop is "
-            f"not ported (A12d in ROADMAP.md)")
+def mesh_gather(lay: Layout, xs: list) -> torch.Tensor:
+    """Every group's token blocks as one ``[B, S, ...]`` tensor on the
+    mesh's first device: blocks along the sequence, groups along the
+    rows."""
+    return concat_parts([concat_parts(blocks, 1, lay.home(g))
+                         for g, blocks in enumerate(xs)], 0, lay.home(0))
 
 
 def forward(
@@ -499,7 +559,9 @@ def forward(
 ) -> torch.Tensor:
     """Causal LM forward -> logits [B, S, V] (f32), or the final hidden
     states [B, S, H] when ``return_hidden`` (the loss projects to vocab
-    chunkwise instead).
+    chunkwise instead). ``use_ring`` runs ring attention over the mesh's
+    sequence axis (without a mesh it changes nothing, as in the
+    reference).
 
     Each stacked weight is unbound once into per-layer views, so its
     gradient is stacked once in the backward instead of being scattered
@@ -507,16 +569,16 @@ def forward(
     layers run per batch group and tensor shard (:func:`mesh_trunk`) with
     ``params`` whole or placed by :func:`param_specs`; the result is
     gathered on the mesh's first device."""
-    _require_no_ring(use_ring, "llama.forward")
     c = config
     if mesh is not None:
         lay, placed, xs, _ = mesh_trunk(
             params, tokens, c, mesh, param_specs(c), _mesh_block, remat,
-            remat_policy, use_kernels)
+            remat_policy, use_kernels, use_ring)
         if not return_hidden:
-            xs = [mesh_logits(x, mesh_heads(placed["lm_head"], lay, g),
-                              use_kernels) for g, x in enumerate(xs)]
-        return concat_parts(xs, 0, lay.home(0))
+            xs = [[mesh_logits(x, mesh_heads(placed["lm_head"], lay, g, j),
+                               use_kernels) for j, x in enumerate(blocks)]
+                  for g, blocks in enumerate(xs)]
+        return mesh_gather(lay, xs)
     s = tokens.shape[1]
     x = q_lookup(params["embed"], tokens, c.dtype)      # [B, S, H]
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
@@ -571,16 +633,19 @@ def chunked_cross_entropy(
 
 def mesh_cross_entropy(lay: Layout, placed: dict, xs: list,
                        targets: torch.Tensor) -> torch.Tensor:
-    """The mean next-token CE over every group's tokens: each group's
+    """The mean next-token CE over every token block: each block's
     chunked CE against its head blocks, weighted by its share of the
-    rows, summed on the mesh's first device."""
-    tg = lay.split_rows(targets)
+    tokens (``1 / (dp * sequence)``), summed on the mesh's first
+    device."""
+    tg = lay.blocks(targets)
     home = lay.home(0)
     total = None
-    for g, x in enumerate(xs):
-        ce = chunked_cross_entropy(x, mesh_heads(placed["lm_head"], lay, g),
-                                   tg[g]).to(home) / lay.dp
-        total = ce if total is None else total + ce
+    for g, blocks in enumerate(xs):
+        for j, x in enumerate(blocks):
+            ce = chunked_cross_entropy(
+                x, mesh_heads(placed["lm_head"], lay, g, j),
+                tg[g][j]).to(home) / (lay.dp * lay.sp)
+            total = ce if total is None else total + ce
     return total
 
 
@@ -595,15 +660,94 @@ def loss_fn(
     use_ring: bool = False,
 ) -> torch.Tensor:
     """Next-token cross-entropy (mean over tokens). On a ``mesh``
-    (:func:`forward`) the gradient reaches the leaves of ``params``
-    whether they are whole or placed."""
-    _require_no_ring(use_ring, "llama.loss_fn")
+    (:func:`forward`, ``use_ring`` too) the gradient reaches the leaves of
+    ``params`` whether they are whole or placed."""
     if mesh is not None:
         lay, placed, xs, _ = mesh_trunk(
             params, tokens[:, :-1], config, mesh, param_specs(config),
-            _mesh_block, remat, remat_policy, use_kernels)
+            _mesh_block, remat, remat_policy, use_kernels, use_ring)
         return mesh_cross_entropy(lay, placed, xs, tokens[:, 1:])
     hidden = forward(params, tokens[:, :-1], config, remat=remat,
                      return_hidden=True, remat_policy=remat_policy,
                      use_kernels=use_kernels)
     return chunked_cross_entropy(hidden, params["lm_head"], tokens[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# The pipelined forward (parallel/pipeline.py): the layers split into
+# contiguous stages over the mesh's pipe axis, each stage's layers run
+# through the mesh block on its own sub-mesh.
+# ---------------------------------------------------------------------------
+
+
+def stage_mesh(mesh, p: int):
+    """Stage ``p``'s shards: the sub-mesh at pipe ``p`` (and sequence 0:
+    a stage runs its microbatch whole, the sequence replicas computing the
+    same thing, as the reference's pipeline shard_map leaves them)."""
+    sub = mesh.sub("pipe", p)
+    return sub.sub("sequence", 0) if sub.shape["sequence"] > 1 else sub
+
+
+def pipeline_stages(config: LlamaConfig, mesh, block, layer_specs: dict,
+                    remat: bool, cos, sin):
+    """``(stage_fn, layouts)`` for ``parallel.pipeline.pipeline(...,
+    with_coords=True)``: ``stage_fn(stage_layers, x_mb, p, g)`` places
+    stage p's layer stack views on its sub-mesh (``shard_pytree``, views
+    on one card: the gradients reach the whole stack) and runs them
+    through ``block`` for batch group g, each layer under remat "full"
+    with ``remat``. ``block(xs, layer, config, cos, sin, use_kernels,
+    layout, g)`` returns ``(blocks, extra)``; the stage function returns
+    ``(x, extras)``."""
+    subs = [stage_mesh(mesh, p) for p in range(mesh.shape["pipe"])]
+    lays = [Layout(sub, "a pipeline stage") for sub in subs]
+    block = _remat_transform(remat, "full")(block)
+
+    def stage_fn(stage_layers, x_mb, p, g):
+        placed = shard_pytree(stage_layers, subs[p], layer_specs)
+        per = {name: w.unbind(0) for name, w in placed.items()}
+        c_, s_ = cos.to(x_mb.device), sin.to(x_mb.device)
+        xs, extras = [x_mb], []
+        for i in range(len(per["wqkv"])):
+            layer = {name: ws[i] for name, ws in per.items()}
+            xs, extra = block(xs, layer, config, c_, s_, True, lays[p], g)
+            extras.append(extra)
+        return xs[0], extras
+
+    return stage_fn, lays
+
+
+def forward_pipelined(
+    params: dict,
+    tokens: torch.Tensor,               # [B, S] int
+    config: LlamaConfig,
+    mesh,
+    n_microbatches: int,
+    return_hidden: bool = False,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Causal LM forward with the layers run as a GPipe pipeline over the
+    mesh's ``pipe`` axis (``parallel/pipeline.py``): contiguous stages of
+    L / P layers, microbatches handed stage to stage by K9. The embedding
+    and the LM head stay outside the pipeline, on the mesh's first
+    device; inside, each stage runs its layers through the mesh block on
+    its sub-mesh, so data, fsdp and tensor compose with pipe. ``remat``
+    (not in the reference) recomputes each layer of a stage ("full").
+    Returns logits [B, S, V] f32, or the final hidden states with
+    ``return_hidden``."""
+    from ..parallel.pipeline import pipeline, stage_params
+
+    c = config
+    check_heads(c, mesh)
+    home = mesh.devices[0]
+    s = tokens.shape[1]
+    x = q_lookup(params["embed"], tokens.to(home), c.dtype)
+    cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta, device=home)
+    staged = stage_params(params["layers"], mesh.shape["pipe"])
+    stage_fn, _ = pipeline_stages(c, mesh, _mesh_block,
+                                  param_specs(c)["layers"], remat, cos, sin)
+    x = pipeline(lambda *a: stage_fn(*a)[0], staged, x, mesh=mesh,
+                 n_microbatches=n_microbatches, with_coords=True)
+    x = rmsnorm(x, params["final_norm"].to(home), c.norm_eps)
+    if return_hidden:
+        return x
+    return q_matmul(x, params["lm_head"].to(home)).float()

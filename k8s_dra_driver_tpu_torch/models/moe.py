@@ -70,15 +70,21 @@ shard's device, and each group's MoE block is :func:`moe_group`:
 the same bodies (for EP: the grouped inverse rotation (K9) and each
 shard's ``FusedMoeMlpFunction`` backward (K10a, K10b)). An expert axis
 beside tensor or fsdp raises (``parallel/layout.py``). Each body records
-the reference's collective sites and byte counts. Not ported yet: the
-pipelined forward (A12e) and ring attention (``use_ring``, A12d), which
-raise ``NotImplementedError``.
+the reference's collective sites and byte counts.
+
+On a **sequence** axis (``use_ring`` for ring attention) each group's MoE
+block runs on its whole sequence, gathered from the group's token blocks
+and cut back after: the capacity groups and the aux's means are the
+reference's global ones. :func:`forward_pipelined` runs the layers as a
+GPipe pipeline over ``pipe`` (``parallel/pipeline.py``), the aux riding
+as a per-row channel.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 
 import torch
@@ -99,13 +105,15 @@ from .llama import (
     LlamaConfig,
     _attention_block,
     _remat_transform,
-    _require_no_ring,
     chunked_cross_entropy,
+    check_heads,
     mesh_attention,
     mesh_cross_entropy,
+    mesh_gather,
     mesh_heads,
     mesh_logits,
     mesh_trunk,
+    pipeline_stages,
 )
 from .quant import QuantTensor, q_lookup, q_matmul
 from .remat import expert_gateup_site, slots_site
@@ -728,10 +736,12 @@ def _einsum_out(x, layer, config: MoeConfig, use_kernels: bool = True,
 
 
 def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
-              use_kernels: bool = True):
+              use_kernels: bool = True, in_pipeline: bool = False):
     """Batch group ``g``'s sparse MLP on a mesh (``parallel/layout.py``),
     ``moe_impl`` resolved at the whole batch's token count as the
-    reference resolves it. On an expert axis: dropless expert parallel
+    reference resolves it (a microbatch's inside a pipeline, where
+    ``auto`` is einsum and dropless on an expert axis is refused, as the
+    reference refuses it). On an expert axis: dropless expert parallel
     over the group's expert shards (ring or psum), einsum with the
     experts split over them, binned refused. Without one (the reference's
     GSPMD case): dropless on the primitive path per tensor shard
@@ -740,9 +750,10 @@ def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
     outputs (SwiGLU is elementwise over M). Returns (x + out, aux, the
     aux statistics of :func:`_stats`)."""
     c = config
-    tokens = x.shape[0] * x.shape[1] * lay.dp
+    tokens = x.shape[0] * x.shape[1] * (1 if in_pipeline else lay.dp)
     expert_mesh = lay.ep > 1
-    impl = resolve_moe_impl(c, tokens, expert_mesh=expert_mesh)
+    impl = resolve_moe_impl(c, tokens, expert_mesh=expert_mesh,
+                            in_pipeline=in_pipeline)
     _note_first_use(
         impl,
         moe_dispatch.dispatch_impl_label(c.hidden, c.mlp_hidden,
@@ -762,6 +773,10 @@ def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
             f"unknown moe_impl {c.moe_impl!r}; valid: "
             "auto, binned, dropless, einsum"
         )
+    if expert_mesh and impl == "dropless" and in_pipeline:
+        raise ValueError(
+            "moe_impl='dropless' is not supported inside the pipelined "
+            "forward; use 'einsum' for pipe meshes")
     if expert_mesh:
         if impl == "dropless":
             out, aux, st = _ep_dropless_out(x, layer, c, lay, g, use_kernels)
@@ -948,23 +963,36 @@ def _block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool):
     return _moe_block(x, layer, config, use_kernels=use_kernels)
 
 
-def _mesh_block(x, layer, config: MoeConfig, cos, sin, use_kernels: bool,
-                lay: Layout, g: int):
-    """One layer of batch group ``g`` on a mesh: the Megatron attention
-    block, then :func:`moe_group`. Returns (x, (aux, statistics))."""
-    x = mesh_attention(x, layer, config, cos, sin, use_kernels, lay, g)
-    x, aux, st = moe_group(x, layer, config, lay, g, use_kernels)
-    return x, (aux, st)
+def _mesh_block(xs, layer, config: MoeConfig, cos, sin, use_kernels: bool,
+                lay: Layout, g: int, use_ring: bool = False,
+                in_pipeline: bool = False):
+    """One layer of batch group ``g`` on a mesh over its token blocks
+    ``xs``: the Megatron attention block, then :func:`moe_group` on the
+    group's whole sequence -- on a sequence axis the blocks are gathered
+    for it and cut back after, so the capacity groups (``router_group``
+    0: a row's whole sequence) and the aux's means are the reference's
+    global ones. Returns (blocks, (aux, statistics))."""
+    xs = mesh_attention(xs, layer, config, cos, sin, use_kernels, lay, g,
+                        use_ring)
+    x = xs[0] if len(xs) == 1 else concat_parts(xs, 1, lay.home(g))
+    x, aux, st = moe_group(x, layer, config, lay, g, use_kernels,
+                           in_pipeline)
+    if len(xs) == 1:
+        return [x], (aux, st)
+    span = xs[0].shape[1]
+    return [x[:, j * span:(j + 1) * span].to(lay.home(g, j))
+            for j in range(len(xs))], (aux, st)
 
 
 def _mesh_forward(params, tokens, config: MoeConfig, mesh: Mesh,
-                  remat: bool, remat_policy: str, use_kernels: bool):
-    """(layout, placed params, per-group hidden states, aux averaged over
-    layers) of the mesh forward."""
+                  remat: bool, remat_policy: str, use_kernels: bool,
+                  use_ring: bool = False):
+    """(layout, placed params, per-group token blocks' hidden states, aux
+    averaged over layers) of the mesh forward."""
     c = config
     lay, placed, xs, extras = mesh_trunk(
         params, tokens, c, mesh, param_specs(c), _mesh_block, remat,
-        remat_policy, use_kernels)
+        remat_policy, use_kernels, use_ring)
     home = lay.home(0)
     aux = torch.zeros((), dtype=torch.float32, device=home)
     for per_group in extras:
@@ -985,6 +1013,7 @@ def forward(
     remat_policy: str = "full",
     use_kernels: bool = True,
     mesh: Mesh | None = None,
+    use_ring: bool = False,
 ):
     """Causal LM forward. Returns (logits [B, S, V] f32, or the final
     hidden states with ``return_hidden``, and the aux loss averaged over
@@ -994,15 +1023,18 @@ def forward(
     (``llama.mesh_trunk``) with the MoE blocks of :func:`moe_group`; the
     result is gathered on the mesh's first device, and the aux combines
     the groups' statistics (the whole batch's, up to the f32 order of
-    the means). Ring attention is not ported."""
+    the means). ``use_ring`` runs ring attention over the mesh's
+    sequence axis."""
     c = config
     if mesh is not None:
         lay, placed, xs, aux = _mesh_forward(
-            params, tokens, c, mesh, remat, remat_policy, use_kernels)
+            params, tokens, c, mesh, remat, remat_policy, use_kernels,
+            use_ring)
         if not return_hidden:
-            xs = [mesh_logits(x, mesh_heads(placed["lm_head"], lay, g),
-                              use_kernels) for g, x in enumerate(xs)]
-        return concat_parts(xs, 0, lay.home(0)), aux
+            xs = [[mesh_logits(x, mesh_heads(placed["lm_head"], lay, g, j),
+                               use_kernels) for j, x in enumerate(blocks)]
+                  for g, blocks in enumerate(xs)]
+        return mesh_gather(lay, xs), aux
     s = tokens.shape[1]
     x = q_lookup(params["embed"], tokens, c.dtype)
     cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta,
@@ -1021,10 +1053,60 @@ def forward(
     return q_matmul(x, params["lm_head"], use_kernels).float(), aux
 
 
-def forward_pipelined(*args, **kwargs):
-    raise NotImplementedError(
-        "the pipelined MoE forward is not ported (A12e in ROADMAP.md)"
-    )
+def forward_pipelined(
+    params: dict,
+    tokens: torch.Tensor,               # [B, S] int
+    config: MoeConfig,
+    mesh: Mesh,
+    n_microbatches: int = 2,
+    return_hidden: bool = False,
+    remat: bool = False,
+):
+    """Causal MoE LM forward as a GPipe pipeline over the mesh's ``pipe``
+    axis (``parallel/pipeline.py``), composed with the other axes: each
+    stage runs its layers through the mesh block on its sub-mesh, the MoE
+    block resolved as inside a pipeline (``auto`` is einsum; dropless on
+    an expert axis raises, as in the reference). The Switch aux rides the
+    pipeline as a per-row channel: each stage adds its layers' aux of the
+    microbatch, spread over its rows; the total is divided by ``n_layers
+    * n_microbatches * (data * fsdp)``, the reference's mean of per
+    (batch group, microbatch) statistics. Returns (logits f32, or the
+    final hidden states with ``return_hidden``, aux)."""
+    from ..parallel.pipeline import pipeline, stage_params
+
+    c = config
+    n_stages = mesh.shape["pipe"]
+    if c.n_layers % n_stages:
+        raise ValueError(
+            f"{c.n_layers} layers do not split over {n_stages} stages"
+        )
+    check_heads(c, mesh)
+    home = mesh.devices[0]
+    s = tokens.shape[1]
+    x = q_lookup(params["embed"], tokens.to(home), c.dtype)
+    cos, sin = rope_frequencies(c.head_dim, s, c.rope_theta, device=home)
+    staged = stage_params(params["layers"], n_stages)
+    block = functools.partial(_mesh_block, in_pipeline=True)
+    stage_fn, lays = pipeline_stages(c, mesh, block,
+                                     param_specs(c)["layers"], remat, cos,
+                                     sin)
+
+    def stage(stage_layers, act, p, g):
+        h, extras = stage_fn(stage_layers, act["x"], p, g)
+        aux = sum(a.to(h.device) for a, _ in extras)
+        return {"x": h, "aux": act["aux"] + aux / act["aux"].shape[0]}
+
+    out = pipeline(
+        stage, staged,
+        {"x": x, "aux": torch.zeros((tokens.shape[0],), dtype=torch.float32,
+                                    device=home)},
+        mesh=mesh, n_microbatches=n_microbatches, manual_only=False,
+        with_coords=True)
+    aux = out["aux"].sum() / (c.n_layers * n_microbatches * lays[0].dp)
+    h = rmsnorm(out["x"], params["final_norm"].to(home), c.norm_eps)
+    if return_hidden:
+        return h, aux
+    return q_matmul(h, params["lm_head"].to(home)).float(), aux
 
 
 def loss_fn(
@@ -1040,13 +1122,12 @@ def loss_fn(
     """Next-token cross-entropy (mean over tokens) plus ``aux_coef`` times
     the load-balancing aux loss. On a ``mesh`` (:func:`forward`)
     ``params`` may hold whole or placed leaves; the gradient reaches the
-    leaves either way. ``use_ring`` (the reference's ring attention) is
-    not ported and raises."""
-    _require_no_ring(use_ring, "moe.loss_fn")
+    leaves either way. ``use_ring`` runs ring attention over the mesh's
+    sequence axis."""
     if mesh is not None:
         lay, placed, xs, aux = _mesh_forward(
             params, tokens[:, :-1], config, mesh, remat, remat_policy,
-            use_kernels)
+            use_kernels, use_ring)
         ce = mesh_cross_entropy(lay, placed, xs, tokens[:, 1:])
         return ce + config.aux_coef * aux
     hidden, aux = forward(params, tokens[:, :-1], config, remat=remat,

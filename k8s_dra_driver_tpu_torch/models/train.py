@@ -26,10 +26,11 @@ whole on the mesh's first device, and its placement is a tree of
 jitted optax init leaves them). The loss cuts each shard's blocks as
 views of the whole leaves (``llama.place``), so the gradients reach the
 leaves that the update writes in place: the data and fsdp groups'
-gradients add up in them, the reduce-scatter of a sharded step.
+gradients add up in them, the reduce-scatter of a sharded step. On a
+``sequence`` axis the step takes ``use_ring`` (ring attention over the
+sequence shards, the reference's ``make_train_step(use_ring=True)``).
 :func:`reshard_train_state` re-anchors a state to another mesh, its
-``train.reshard`` ledger record the reference's. Not ported: ring
-attention (``use_ring``, A12d) and the pipeline (A12e).
+``train.reshard`` ledger record the reference's.
 """
 
 from __future__ import annotations
@@ -334,19 +335,16 @@ def make_train_step(config: LlamaConfig, optimizer: AdamW,
     ``device`` (default CUDA; the mesh's first device with ``mesh``). It
     updates ``state`` in place and returns it, with the loss as a 0-dim
     f32 tensor. With ``mesh`` the loss runs on the mesh (batch rows over
-    data x fsdp, Megatron tensor parallelism, expert parallel MoE blocks
-    on an expert axis) on views of the whole leaves."""
-    if use_ring:
-        raise NotImplementedError(
-            "make_train_step(use_ring=True): ring attention over K4-K6 per "
-            "hop is not ported (A12d in ROADMAP.md)")
+    data x fsdp, token blocks over sequence, Megatron tensor parallelism,
+    expert parallel MoE blocks on an expert axis; ``use_ring`` for ring
+    attention over sequence) on views of the whole leaves."""
     if device is None and mesh is not None:
         device = mesh.devices[0]
     dev = resolve_device(device)
     loss_fn = _model_fns(config)[1]
     if mesh is not None:
         _check_mesh(config, mesh, "make_train_step")
-        loss_fn = functools.partial(loss_fn, mesh=mesh)
+        loss_fn = functools.partial(loss_fn, mesh=mesh, use_ring=use_ring)
 
     def step(state: TrainState, tokens: torch.Tensor):
         _check_device(state.params, dev)
@@ -363,7 +361,8 @@ def make_train_step(config: LlamaConfig, optimizer: AdamW,
     return step
 
 
-def make_eval_step(config: LlamaConfig, device=None, mesh=None):
+def make_eval_step(config: LlamaConfig, device=None, mesh=None,
+                   use_ring: bool = False):
     """``(params, tokens [B, S+1]) -> loss`` without gradients or remat
     (on ``mesh`` as :func:`make_train_step`)."""
     if device is None and mesh is not None:
@@ -372,7 +371,7 @@ def make_eval_step(config: LlamaConfig, device=None, mesh=None):
     loss_fn = _model_fns(config)[1]
     if mesh is not None:
         _check_mesh(config, mesh, "make_eval_step")
-        loss_fn = functools.partial(loss_fn, mesh=mesh)
+        loss_fn = functools.partial(loss_fn, mesh=mesh, use_ring=use_ring)
 
     @torch.no_grad()
     def step(params: dict, tokens: torch.Tensor):

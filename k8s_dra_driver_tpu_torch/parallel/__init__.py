@@ -1,10 +1,12 @@
 """Parallelism: the single-controller device mesh (:mod:`.mesh`), sharded
 values and their specs (:mod:`.sharding`), the explicit placement of a
-forward over the data, fsdp, tensor and expert axes (:mod:`.layout`),
-ring hops with K9's twin (:mod:`.ring`), the collectives and their
-host-side accounting (:mod:`.collectives`) that the compute telemetry
-installs, and the workload's sharing shim (:mod:`.shim`). The pipe and
-sequence axes (A12e, A12d) and ``elastic`` are still to port."""
+forward over the data, fsdp, sequence, tensor and expert axes
+(:mod:`.layout`), ring hops with K9's twin and sequence parallelism --
+ring attention over K4-K6 per hop and Ulysses -- (:mod:`.ring`), the
+GPipe pipeline over the pipe axis (:mod:`.pipeline`), the collectives and
+their host-side accounting (:mod:`.collectives`) that the compute
+telemetry installs, and the workload's sharing shim (:mod:`.shim`).
+``elastic`` and ``distributed`` are still to port."""
 
 from . import collectives
 from .mesh import (
@@ -18,6 +20,7 @@ from .mesh import (
 )
 from .ring import (
     ring_attention,
+    ring_attention_shards,
     ring_permute,
     ring_permute_reference,
     ulysses_attention,
@@ -44,6 +47,7 @@ __all__ = [
     "mesh_from_env",
     "host_mesh_shape",
     "ring_attention",
+    "ring_attention_shards",
     "ring_permute",
     "ring_permute_reference",
     "ulysses_attention",

@@ -3,9 +3,10 @@ compute-plane telemetry (models/compute_telemetry.py). Counterpart of
 ``k8s_dra_driver_tpu/parallel/collectives.py``, copied as it is, plus
 the collectives of the single-controller mesh (:func:`psum`,
 :func:`all_gather` and their per-group forms :func:`sum_parts`,
-:func:`concat_parts`), which the reference leaves to XLA: a psum is the
-sum of the shards' values in shard order, a tiled all-gather their
-concatenation in shard order. They record nothing here; a site that the
+:func:`concat_parts`, and :func:`all_to_all`), which the reference
+leaves to XLA: a psum is the sum of the shards' values in shard order, a
+tiled all-gather their concatenation in shard order, a tiled all-to-all
+the exchange of the shards' chunks. They record nothing here; a site that the
 reference records calls :func:`emit` itself.
 
 Each collective site calls :func:`emit` with an *analytic* byte volume
@@ -135,6 +136,36 @@ def all_gather(values, mesh, axes, dim: int) -> list:
     along ``dim`` in shard order."""
     return _over_groups(values, mesh, axes,
                         lambda parts, dev: concat_parts(parts, dim, dev))
+
+
+def all_to_all(values, mesh, axes, split_dim: int, concat_dim: int) -> list:
+    """The tiled ``lax.all_to_all`` over ``axes``: in each group of ``n``
+    shards that share the other coordinates, member ``i`` gets the ``i``-th
+    of the ``n`` chunks of every member's value along ``split_dim``,
+    concatenated along ``concat_dim`` in member order, on its own device.
+    A shard whose value is None takes no part (its group must be all
+    None) and gets None back."""
+    if len(values) != mesh.size:
+        raise ValueError(f"{len(values)} values for a mesh of {mesh.size} "
+                         f"shards")
+    out = [None] * mesh.size
+    for group in mesh.groups(axes):
+        parts = [values[j] for j in group]
+        if all(p is None for p in parts):
+            continue
+        if any(p is None for p in parts):
+            raise ValueError("all_to_all: a group with and without values")
+        n = len(group)
+        if parts[0].shape[split_dim] % n:
+            raise ValueError(
+                f"all_to_all: dimension {split_dim} of "
+                f"{tuple(parts[0].shape)} does not split over {n} shards")
+        chunks = [p.chunk(n, dim=split_dim) for p in parts]
+        for i, idx in enumerate(group):
+            dev = mesh.devices[idx]
+            out[idx] = torch.cat([c[i].to(dev) for c in chunks],
+                                 dim=concat_dim)
+    return out
 
 
 def emit(site: str, medium: str, nbytes: int, invocations: int = 1) -> None:

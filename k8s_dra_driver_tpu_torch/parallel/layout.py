@@ -17,9 +17,19 @@ these placements from GSPMD; the port computes them here.
 - **Experts.** On a mesh with an ``expert`` axis each group runs the
   expert-parallel bodies of ``models/moe.py`` over its expert shards
   (:meth:`Layout.expert_shards`).
+- **Sequence shards.** On a ``sequence`` axis of ``n`` a group's rows cut
+  into ``n`` token blocks: block ``(g, j)`` holds positions ``[j S / n,
+  (j + 1) S / n)`` of the group's rows (:meth:`Layout.blocks`), and its
+  replicated work runs on its first tensor shard's device
+  (:meth:`Layout.home` with ``j``). Attention joins a group's blocks
+  (ring attention, ``parallel/ring.py``, or a gather over ``sequence``);
+  the rest of a layer runs block by block.
+- **Pipe.** A forward that is not pipelined runs on the shards at pipe
+  coordinate 0 (the replicas along ``pipe`` would compute the same
+  thing); ``parallel/pipeline.py`` gives each stage a Layout of its own
+  sub-mesh (``Mesh.sub``).
 
-The ``pipe`` and ``sequence`` axes raise (``mesh.require_supported``);
-so does an ``expert`` axis beside ``tensor`` or ``fsdp`` (A12c's
+An ``expert`` axis beside ``tensor`` or ``fsdp`` raises (A12c's
 remainder in ROADMAP.md).
 """
 
@@ -27,15 +37,15 @@ from __future__ import annotations
 
 import torch
 
-from .mesh import Mesh, require_supported
+from .mesh import Mesh
 from .sharding import gathered_of, shard_of
 
 
 class Layout:
-    """The batch groups, tensor shards and expert shards of ``mesh``."""
+    """The batch groups, sequence shards, tensor shards and expert shards
+    of ``mesh``."""
 
     def __init__(self, mesh: Mesh, what: str = "a mesh forward"):
-        require_supported(mesh, what)
         s = mesh.shape
         if s["expert"] > 1 and (s["tensor"] > 1 or s["fsdp"] > 1):
             raise NotImplementedError(
@@ -47,33 +57,36 @@ class Layout:
         self.dp = s["data"] * s["fsdp"]
         self.tp = s["tensor"]
         self.ep = s["expert"]
+        self.sp = s["sequence"]
         self._index = {
-            (g, t, e): mesh.index(data=g // self.fsdp, fsdp=g % self.fsdp,
-                                  expert=e, tensor=t)
+            (g, t, e, j): mesh.index(data=g // self.fsdp, fsdp=g % self.fsdp,
+                                     expert=e, sequence=j, tensor=t)
             for g in range(self.dp) for t in range(self.tp)
-            for e in range(self.ep)}
+            for e in range(self.ep) for j in range(self.sp)}
 
-    def shard(self, g: int, t: int = 0, e: int = 0) -> int:
+    def shard(self, g: int, t: int = 0, e: int = 0, j: int = 0) -> int:
         """The mesh index of group ``g``'s tensor shard ``t`` (expert
-        shard ``e``)."""
-        return self._index[g, t, e]
+        shard ``e``, sequence shard ``j``)."""
+        return self._index[g, t, e, j]
 
-    def device(self, g: int, t: int = 0, e: int = 0) -> torch.device:
-        return self.mesh.devices[self.shard(g, t, e)]
+    def device(self, g: int, t: int = 0, e: int = 0,
+               j: int = 0) -> torch.device:
+        return self.mesh.devices[self.shard(g, t, e, j)]
 
-    def home(self, g: int) -> torch.device:
-        """Where group ``g``'s replicated work runs."""
-        return self.device(g)
+    def home(self, g: int, j: int = 0) -> torch.device:
+        """Where token block ``(g, j)``'s replicated work runs."""
+        return self.device(g, j=j)
 
     def expert_shards(self, g: int) -> list:
         """Group ``g``'s expert shards, their mesh indices in ring order."""
         return [self.shard(g, e=e) for e in range(self.ep)]
 
-    def weight(self, w, g: int, t: int = 0):
-        """The block of ``w`` that group ``g``'s tensor shard ``t``
-        computes with: its shard, gathered over fsdp where ``w`` is cut
-        there; a replicated tensor moved to the shard's device."""
-        i = self.shard(g, t)
+    def weight(self, w, g: int, t: int = 0, j: int = 0):
+        """The block of ``w`` that group ``g``'s tensor shard ``t`` (of
+        sequence shard ``j``) computes with: its shard, gathered over fsdp
+        where ``w`` is cut there; a replicated tensor moved to the shard's
+        device."""
+        i = self.shard(g, t, j=j)
         if self.fsdp > 1:
             return gathered_of(w, self.mesh, i, "fsdp")
         return shard_of(w, self.mesh, i)
@@ -86,11 +99,17 @@ class Layout:
                 f"{self.dp} groups ({self.mesh.config})")
         return b // self.dp
 
-    def split_rows(self, x: torch.Tensor) -> list:
-        """``x``'s rows cut into the groups, each on its home device."""
+    def blocks(self, x: torch.Tensor) -> list:
+        """``x`` [B, S, ...] cut into token blocks: per group the list of
+        its ``sp`` sequence blocks, each on its home device."""
         n = self.rows(x.shape[0])
-        return [x[g * n:(g + 1) * n].to(self.home(g))
-                for g in range(self.dp)]
+        if x.shape[1] % self.sp:
+            raise ValueError(
+                f"a sequence of {x.shape[1]} positions does not split over "
+                f"sequence = {self.sp} shards ({self.mesh.config})")
+        m = x.shape[1] // self.sp
+        return [[x[g * n:(g + 1) * n, j * m:(j + 1) * m].to(self.home(g, j))
+                 for j in range(self.sp)] for g in range(self.dp)]
 
 
 def check_heads(config, mesh: Mesh) -> None:

@@ -14,12 +14,12 @@ program, as the reference's virtual-device meshes are.
 Axis convention (outer -> inner), the reference's:
 ``("data", "fsdp", "pipe", "expert", "sequence", "tensor")``.
 
-Every axis but ``pipe`` and ``sequence`` may be larger than 1
-(:func:`require_supported`: the pipeline is A12e in ROADMAP.md, sequence
-parallelism A12d). A shard is named by its coordinates
-(:meth:`Mesh.coords`, :meth:`Mesh.index`), and :meth:`Mesh.groups` lists
+Every axis may be larger than 1. A shard is named by its coordinates
+(:meth:`Mesh.coords`, :meth:`Mesh.index`), :meth:`Mesh.groups` lists
 the shards that share every coordinate but some axes: the shards a
-collective over those axes joins (``parallel/collectives.py``).
+collective over those axes joins (``parallel/collectives.py``), and
+:meth:`Mesh.sub` is the mesh of the shards at one coordinate of an axis
+(a pipeline stage's shards, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -184,21 +184,17 @@ class Mesh:
                             *(range(self.shape[a]) for a in axes))])
         return out
 
+    def sub(self, axis: str, index: int) -> "Mesh":
+        """The mesh of the shards whose ``axis`` coordinate is ``index``,
+        that axis of size 1 in it, the others as they are."""
+        if not 0 <= index < self.shape[axis]:
+            raise IndexError(f"{axis}={index} on a mesh of {self.config}")
+        config = dataclasses.replace(self.config, **{axis: 1})
+        return Mesh([d for i, d in enumerate(self.devices)
+                     if self.coords(i)[axis] == index], config)
+
     def __repr__(self) -> str:
         return f"Mesh({self.config}, devices={list(map(str, self.devices))})"
-
-
-def require_supported(mesh: Mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` where ``mesh`` has a ``pipe`` or a
-    ``sequence`` axis larger than 1: the pipelined forward (A12e in
-    ROADMAP.md) and sequence parallelism (A12d) are not ported. The
-    data, fsdp, expert and tensor axes run."""
-    for axis, item in (("pipe", "A12e"), ("sequence", "A12d")):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"{what}: a mesh with {axis}={mesh.shape[axis]} is not "
-                f"ported ({item} in ROADMAP.md)"
-            )
 
 
 def _visible_devices() -> list:

@@ -29,7 +29,7 @@ from typing import Any, Optional
 
 import torch
 
-from .mesh import Mesh, require_supported
+from .mesh import Mesh
 
 # Logical axis -> mesh axis (None = replicated), the reference's table.
 DEFAULT_RULES: dict[str, Optional[str | tuple[str, ...]]] = {
@@ -294,7 +294,6 @@ def shard_pytree(tree: Any, mesh: Mesh, spec_tree: Any) -> Any:
     specs, as ``quant.quantize_specs`` builds them). Sharded leaves made
     from tensors that require grad are views under autograd: a loss over
     them reaches the whole leaves."""
-    require_supported(mesh, "shard_pytree")
     return _shard(tree, mesh, spec_tree)
 
 

@@ -78,6 +78,9 @@ def test_static_scan_finds_no_jax_or_reference_import():
     ("k8s_dra_driver_tpu_torch.models.speculative",),
     ("k8s_dra_driver_tpu_torch.models.compute_telemetry",),
     ("k8s_dra_driver_tpu_torch.parallel.collectives",),
+    ("k8s_dra_driver_tpu_torch.parallel.pipeline",
+     "k8s_dra_driver_tpu_torch.parallel.ring",
+     "k8s_dra_driver_tpu_torch.parallel.layout"),
     ("k8s_dra_driver_tpu_torch.models.remat",
      "k8s_dra_driver_tpu_torch.models.checkpoint"),
     ("k8s_dra_driver_tpu_torch.tpulib",
@@ -103,7 +106,7 @@ def test_static_scan_finds_no_jax_or_reference_import():
      "k8s_dra_driver_tpu_torch.fleetsim",
      "k8s_dra_driver_tpu_torch.doctor"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
-        "collectives", "remat-checkpoint", "device-layer", "control-plane",
+        "collectives", "pipeline-ring", "remat-checkpoint", "device-layer", "control-plane",
         "kubelet-plugin", "controller-fleetsim-doctor"])
 def test_importing_the_port_loads_no_jax(modules):
     code = (

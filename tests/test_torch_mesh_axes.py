@@ -160,22 +160,35 @@ def test_mesh_pieces(case, monkeypatch):
         with pytest.raises(ValueError, match="needs 8 devices"):
             mesh_from_env(MeshConfig(tensor=8))
     elif case == "refusals":
-        p = llama.init_params(TINY, seed=0, device="cpu")
-        toks = torch.zeros((2, 4), dtype=torch.long)
-        for axes, item in ((dict(pipe=2), "A12e"),
-                           (dict(sequence=2), "A12d")):
-            bad = _cpu_mesh(**axes)
-            with pytest.raises(NotImplementedError, match=item):
-                shard_pytree(p, bad, llama.param_specs(TINY))
-            with pytest.raises(NotImplementedError, match=item):
-                llama.forward(p, toks, TINY, mesh=bad)
-            with pytest.raises(NotImplementedError, match=item):
-                DecodeEngine(p, TINY, mesh=bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="A12d"):
-            llama.loss_fn(p, toks, TINY, mesh=mesh, use_ring=True)
+        # The pipe and sequence axes run (they refused before): weights
+        # placed on them, the forward and, on a mesh without a sequence
+        # axis, use_ring (a ring of one hop) equal the reference's.
+        jp = jllama.init_params(JTINY, jax.random.PRNGKey(0))
+        p = params_from_numpy(_numpy(jp), TINY, device="cpu")
+        toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (4, 9),
+                                             0, TINY.vocab_size))
+        for axes in (dict(pipe=2), dict(sequence=2)):
+            bad, jbad = _cpu_mesh(**axes), _jmesh(**axes)
+            placed = shard_pytree(p, bad, llama.param_specs(TINY))
+            assert placed["layers"]["wqkv"] is p["layers"]["wqkv"]
+            want = jllama.forward(
+                jsharding.shard_pytree(jp, jbad, jllama.param_specs(JTINY)),
+                jnp.asarray(toks[:, :-1]), JTINY, jbad)
+            got = llama.forward(p, torch.tensor(toks[:, :-1]), TINY,
+                                mesh=bad)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=2e-5, atol=2e-5)
+        jm = _jmesh(data=2, fsdp=2, tensor=2)
+        want = jllama.loss_fn(
+            jsharding.shard_pytree(jp, jm, jllama.param_specs(JTINY)),
+            jnp.asarray(toks), JTINY, jm, use_ring=True)
+        got = llama.loss_fn(p, torch.tensor(toks), TINY, mesh=mesh,
+                            use_ring=True)
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
         with pytest.raises(NotImplementedError, match="A12"):
-            moe.forward(moe.init_params(TMOE, seed=0, device="cpu"), toks,
-                        TMOE, mesh=_cpu_mesh(expert=2, tensor=2))
+            moe.forward(moe.init_params(TMOE, seed=0, device="cpu"),
+                        torch.tensor(toks), TMOE,
+                        mesh=_cpu_mesh(expert=2, tensor=2))
         with pytest.raises(ValueError, match="does not split"):
             llama.forward(p, torch.zeros((3, 4), dtype=torch.long), TINY,
                           mesh=mesh)
@@ -298,6 +311,38 @@ def test_sharded_engine_streams_equal_the_unsharded_engine():
     assert eng.compile_counts == {"decode_step": 1, "prefill_chunk": 1}
     with pytest.raises(ValueError, match="does not split"):
         DecodeEngine(tp, TINY, mesh=mesh, device="cpu", batch_slots=3)
+
+
+def test_engine_serves_on_pipe_and_sequence_meshes():
+    """``DecodeEngine(mesh=)`` on pipe 2 x sequence 2 x tensor 2 serves on
+    the shards at pipe 0 and sequence 0 (the replicas along both axes
+    would compute the same step): greedy streams token for token those
+    of the reference's engine on its mesh of the same shape."""
+    from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
+
+    axes = dict(pipe=2, sequence=2, tensor=2)
+    mesh, jmesh = _cpu_mesh(**axes), _jmesh(**axes)
+    jp = jllama.init_params(JTINY, jax.random.PRNGKey(0))
+    tp = params_from_numpy(_numpy(jp), TINY, device="cpu")
+    kw = dict(batch_slots=4, num_blocks=16, block_size=8, max_seq_len=32,
+              prefill_chunk=8)
+
+    def streams(eng):
+        rng = np.random.RandomState(8)
+        prompts = [rng.randint(0, TINY.vocab_size, size=n).tolist()
+                   for n in (5, 9, 13, 7)]
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        eng.run()
+        eng.assert_no_leaks()
+        return [r.tokens for r in reqs]
+
+    ref = streams(JEngine(
+        jsharding.shard_pytree(jp, jmesh, jllama.param_specs(JTINY)), JTINY,
+        mesh=jmesh, **kw))
+    eng = DecodeEngine(shard_pytree(tp, mesh, llama.param_specs(TINY)),
+                       TINY, mesh=mesh, device="cpu", **kw)
+    assert streams(eng) == ref
+    assert eng.compile_counts == {"decode_step": 1, "prefill_chunk": 1}
 
 
 # ---------------------------------------------------------------------------

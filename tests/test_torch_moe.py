@@ -272,12 +272,19 @@ def test_first_use_counter_and_unported_paths(params):
     # tests/test_torch_moe_train.py).
     loss = moe.loss_fn(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
     assert loss.dim() == 0 and torch.isfinite(loss)
-    # param_specs is ported (expert parallelism, tests/test_torch_moe_ep.py);
-    # the pipelined forward is not.
+    # param_specs is ported (expert parallelism, tests/test_torch_moe_ep.py)
+    # and so is the pipelined forward (parity in
+    # tests/test_torch_pipeline.py): on pipe 2 it runs, einsum inside.
     assert moe.param_specs(CFG)["layers"]["w_down"] == (
         None, "expert", "tensor", "fsdp")
-    with pytest.raises(NotImplementedError):
-        moe.forward_pipelined(tp, torch.zeros(1, 4, dtype=torch.int32), CFG)
+    from k8s_dra_driver_tpu_torch.parallel import MeshConfig, build_mesh
+
+    pipe = build_mesh(MeshConfig(pipe=2), devices=[torch.device("cpu")] * 2)
+    toks = torch.randint(0, CFG.vocab_size, (2, 4))
+    logits, aux = moe.forward_pipelined(tp, toks, CFG, pipe,
+                                        n_microbatches=2)
+    assert logits.shape == (2, 4, CFG.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(aux)
 
 
 class TestBinned:

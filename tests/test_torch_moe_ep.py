@@ -414,8 +414,9 @@ def test_make_train_step_on_a_mesh_matches_the_single_device_step(setup):
 @pytest.mark.parametrize("bad", ["use_ring", "data_axis_loss",
                                  "data_axis_step", "dense_step"])
 def test_ep_training_refuses(setup, bad):
-    """Ring attention (A12d) raises. The cases the data axis lifted hold
-    parity instead: the EP loss on data 2 x expert 2 against the
+    """The cases ported since hold parity instead of raising: the EP
+    loss with ``use_ring=True`` on the expert mesh (a ring of one hop)
+    against the reference's on its mesh; the EP loss on data 2 x expert 2 against the
     reference's on its mesh and the single device's; three train steps
     there, and three of a dense model on an expert mesh (the axis shards
     nothing of it), against the reference's ``make_train_step`` on its
@@ -427,8 +428,14 @@ def test_ep_training_refuses(setup, bad):
     jmesh_dp = jbuild_mesh(JMeshConfig(data=2, expert=2),
                            devices=jax.devices()[:4])
     if bad == "use_ring":
-        with pytest.raises(NotImplementedError, match="A12d"):
-            moe.loss_fn(tp, toks, tcfg, mesh=mesh, use_ring=True)
+        jloss = float(jax.jit(lambda p, t: jmoe.loss_fn(
+            p, t, jcfg, mesh=jmesh, use_ring=True))(
+                jshard(jp, jmesh, jmoe.param_specs(jcfg)),
+                jnp.asarray(toks.numpy())))
+        loss = moe.loss_fn(tp, toks, tcfg, mesh=mesh, use_ring=True).item()
+        assert abs(loss - jloss) < 1e-5
+        assert abs(loss - moe.loss_fn(tp, toks, tcfg, mesh=mesh).item()) \
+            < 1e-5
     elif bad == "data_axis_loss":
         jloss = float(jax.jit(lambda p, t: jmoe.loss_fn(
             p, t, jcfg, mesh=jmesh_dp))(
