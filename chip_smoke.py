@@ -363,10 +363,37 @@ fixed seed, and checks every hand-written kernel of those paths:
     ``w_gateup``'s nonzero), the logits against the single device's
     forward replaying the pipeline's routing, the aux against the single
     device's forwards of the same row blocks (``pipeline moe:`` line).
+39. elastic training (``parallel/elastic.py``). First an uninterrupted
+    ``ElasticTrainer`` run of 8b-L8 at 8 x 2048 on ``MeshConfig(tensor=2)``
+    over two members of the card, 7 steps (one batch from the seed each),
+    outside the counted run, then freed. Then the port's ``Driver`` over a
+    ``FakeChipLib`` v5p 4x1x1 node (one card cannot make a 4-chip gang),
+    elastic resizes armed: the ``ReferenceAllocator`` places a 4-device
+    gang claim, prepared through the transport, and an ``ElasticTrainer``
+    from the same init (held bitwise) runs on ``MeshConfig(data=2,
+    tensor=2)`` over the gang's members ``tpu-0`` .. ``tpu-3``, every one
+    on the card. A seeded ``train.step`` fault unplugs one chip at the top
+    of step 4; the driver shrinks the claim (republished, re-solved once
+    the slice shows it) and the trainer resizes onto the message's
+    members: live, 2 used, 1 idled, tensor 2 kept; steps 4-6, every loss
+    within 1e-2 of the uninterrupted run's. The chip returns, the claim
+    grows, the trainer resizes live onto 4 members with every leaf in
+    place and bitwise unchanged, and steps twice. The auditor reads clean
+    after each resize, a ``GangResized`` Event lands, the driver counts
+    one shrink and one grow; every step's K1, K1-gradient and K4-K6
+    launches equal ``megatron_train_launches`` for its mesh. Then the cold
+    path at phase 24's depth: 8b-L8 cut to 2 layers on ``MeshConfig(
+    fsdp=4)``, 2 steps, a save, a step past it, a resize onto 2 members
+    (no replica covers the state): cold, back at step 2 on fsdp 2, and
+    the lost step's batch within 1e-2 of its loss. Last,
+    ``initialize_distributed()`` under a time-shared envelope applies it
+    and forms no process group. Prints each resize's seconds, the step
+    p50 before and after the shrink, the ``train.reshard`` ledger bytes,
+    the peak memory and the members' devices (``elastic:`` line).
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
-6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37
-and 38, and in each worker of phases 26-30) and read just after.
+6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37,
+38 and 39, and in each worker of phases 26-30) and read just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -6423,6 +6450,424 @@ def pipe_moe_check(torch, run: dict, mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: elastic training. The port's Driver over a fake 4-chip node
+# resizes a gang claim; ElasticTrainer reshards 8b-L8 live across the shrink
+# and the grow on members that all share the card; a 2-layer cut of it takes
+# the cold path through a checkpoint.
+# ---------------------------------------------------------------------------
+
+ELASTIC_MESH = dict(data=2, tensor=2)
+ELASTIC_SURVIVOR_MESH = dict(tensor=2)   # what a 3-member gang keeps
+ELASTIC_COLD_MESH = dict(fsdp=4)
+ELASTIC_STEPS = 7              # the uninterrupted run; the elastic run's too
+ELASTIC_UNPLUG_AT = 4          # the train.step call at whose top a chip goes
+ELASTIC_GROW_STEPS = 2         # finite steps after the grow
+ELASTIC_COLD_STEPS = 2         # steps before the cold path's save
+ELASTIC_LOSS_REL = 1e-2        # phase 36's loss limit (bf16 on the card)
+ELASTIC_CHAOS_SEED = 1234      # the chaos harness's default seed: an end
+ELASTIC_NODE = "node-a"        # chip of the gang goes, 3 stay contiguous
+ELASTIC_CLAIM = "train"
+
+
+def elastic_tokens(torch, cfg, dev, n: int) -> list:
+    """``n`` batches of TRAIN_BATCH x (TRAIN_SEQ + 1) tokens from the
+    seed, one a step."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 39)
+    return [torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                          generator=gen, device=dev) for _ in range(n)]
+
+
+def leaf_sums(torch, state) -> list:
+    """Per tensor of a train state (params, both moments): its storage
+    address and the sum of its bits as int64 -- equal sums at one address
+    before and after a resize mean no byte of it moved or changed."""
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    out = []
+    for t in (leaves(state.params) + leaves(state.opt_state.mu)
+              + leaves(state.opt_state.nu)):
+        bits = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        out.append((t.data_ptr(), t.detach().view(bits).sum(
+            dtype=torch.int64).item()))
+    return out
+
+
+def train_state_gb(state) -> float:
+    """GB of a train state's tensors: params and both moments."""
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    return sum(t.numel() * t.element_size() for t in (
+        leaves(state.params) + leaves(state.opt_state.mu)
+        + leaves(state.opt_state.nu))) / 1e9
+
+
+def elastic_trainer(cfg, dev, members, axes, **kw):
+    """``ElasticTrainer`` on ``cfg`` over ``members``, every member of the
+    node (``tpu-0`` .. ``tpu-3``) on the card; AdamW as phase 6's, the
+    init from the seed."""
+    from k8s_dra_driver_tpu_torch.models import make_optimizer
+    from k8s_dra_driver_tpu_torch.parallel import MeshConfig
+    from k8s_dra_driver_tpu_torch.parallel.elastic import ElasticTrainer
+
+    return ElasticTrainer(
+        cfg, make_optimizer(lr=1e-3, warmup_steps=1, total_steps=100),
+        list(members), mesh_config=MeshConfig(**axes),
+        global_batch=TRAIN_BATCH, seed=SEED,
+        device_of={f"tpu-{i}": dev for i in range(4)}, **kw)
+
+
+def elastic_reference(torch, cfg, dev) -> dict:
+    """Phase 39's uninterrupted run, outside the counted run: ELASTIC_STEPS
+    steps on the surviving topology (tensor 2 over two members of the
+    card) from the elastic run's init and tokens; its losses, step times
+    and initial bits. The state is freed before the elastic trainer is
+    built: an 8b-L8 state takes about 20 GB."""
+    trainer = elastic_trainer(cfg, dev, ("tpu-0", "tpu-1"),
+                              ELASTIC_SURVIVOR_MESH)
+    init = [s for _, s in leaf_sums(torch, trainer.state)]
+    losses, times = [], []
+    for tokens in elastic_tokens(torch, cfg, dev, ELASTIC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(tokens))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                step_ms_p50=statistics.median(times[1:]) * 1e3,
+                init_bit_sums=init)
+
+
+def elastic_node(root: Path) -> tuple:
+    """The plugin half: the port's Driver over a ``FakeChipLib`` v5p
+    4x1x1 node (one card cannot make a 4-chip gang) with elastic resizes
+    armed, a ``FakeKubeClient`` holding the node, state under ``root``;
+    started, its slice published. (driver, client, lib, allocator)."""
+    from k8s_dra_driver_tpu_torch.kube import (
+        NODES,
+        RESOURCE_SLICES,
+        FakeKubeClient,
+    )
+    from k8s_dra_driver_tpu_torch.kube.allocator import ReferenceAllocator
+    from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig
+    from k8s_dra_driver_tpu_torch.tpulib import FakeChipLib
+    from k8s_dra_driver_tpu_torch.utils.metrics import Registry
+
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "driver").mkdir(parents=True)
+    client = FakeKubeClient()
+    client.create(NODES, {"metadata": {"name": ELASTIC_NODE,
+                                       "uid": "node-uid"}})
+    lib = FakeChipLib(generation="v5p", topology="4x1x1")
+    driver = Driver(DriverConfig(
+        node_name=ELASTIC_NODE, chiplib=lib, kube_client=client,
+        cdi_root=str(root / "cdi"), plugin_root=str(root / "plugin"),
+        registrar_root=str(root / "registry"),
+        state_root=str(root / "state"), node_uid="node-uid",
+        driver_root=str(root / "driver"),
+        driver_root_ctr_path=str(root / "driver"),
+        cleanup_interval_seconds=0, device_watch_interval_seconds=0,
+        audit_interval_seconds=0))
+    allocator = ReferenceAllocator(client, registry=Registry())
+    driver.enable_elastic(allocator)
+    driver.start()
+    deadline = time.monotonic() + 30
+    while not client.list(RESOURCE_SLICES) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if not client.list(RESOURCE_SLICES):
+        raise AssertionError("elastic: the Driver published no slice")
+    return driver, client, lib, allocator
+
+
+def elastic_gang(driver, client, allocator) -> list:
+    """A 4-device gang claim, allocated by the allocator and prepared
+    through the transport as a kubelet would; its device names in
+    allocation order."""
+    from k8s_dra_driver_tpu_torch.kube import RESOURCE_CLAIMS
+    from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
+
+    claim = {
+        "apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+        "metadata": {"name": ELASTIC_CLAIM, "namespace": "default",
+                     "uid": "uid-gang"},
+        "spec": {"devices": {"requests": [{
+            "name": "workers", "deviceClassName": DRA_DRIVER,
+            "allocationMode": "ExactCount", "count": 4}]}},
+    }
+    allocator.allocate(claim, node_name=ELASTIC_NODE)
+    client.create(RESOURCE_CLAIMS, claim, namespace="default")
+    names = [r["device"] for r in
+             claim["status"]["allocation"]["devices"]["results"]]
+    reply, _ = kubelet_call(
+        driver.config.transport, "/v1beta1.DRAPlugin/NodePrepareResources",
+        drapb.NodePrepareResourcesRequest(claims=[drapb.Claim(
+            namespace="default", uid="uid-gang", name=ELASTIC_CLAIM)]),
+        drapb.NodePrepareResourcesResponse)
+    got = reply.claims["uid-gang"]
+    if got.error or sorted(d.device_name for d in got.devices) != \
+            sorted(names):
+        raise AssertionError(f"elastic: prepare of the gang: {got}")
+    return names
+
+
+def elastic_settle(driver, client, device: str, present: bool) -> None:
+    """One health transition through the plugin: refresh, republish, and
+    once the slice shows ``device`` as ``present``, a watch tick (its
+    elastic re-solve reads the settled slice)."""
+    from k8s_dra_driver_tpu_torch.kube import RESOURCE_SLICES
+
+    driver.state.refresh_allocatable()
+    driver.publish_resources()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        names = {d["name"] for sl in client.list(RESOURCE_SLICES)
+                 for d in sl["spec"].get("devices") or []}
+        if (device in names) == present:
+            break
+        time.sleep(0.02)
+    else:
+        raise AssertionError(f"elastic: {device} never "
+                             f"{'returned to' if present else 'left'} the "
+                             f"published slice")
+    driver.tick_once()
+
+
+def elastic_audit(driver) -> None:
+    deadline = time.monotonic() + 30
+    findings = driver.auditor.run_once()
+    while findings and time.monotonic() < deadline:
+        time.sleep(0.05)
+        findings = driver.auditor.run_once()
+    if findings:
+        raise AssertionError(f"elastic: the auditor found {findings}")
+
+
+def elastic_steps(torch, trainer, batches, read_counts, layers: int) -> tuple:
+    """Steps ``trainer`` over ``batches``: (losses, host ms a step), each
+    step's launches held to ``megatron_train_launches`` for the mesh it
+    ran on."""
+    losses, times = [], []
+    for tokens in batches:
+        mc = trainer.mesh_config
+        want = megatron_train_launches(layers, mc.data * mc.fsdp, mc.tensor)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(tokens))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        got = {k: after[k] - before[k] for k in want}
+        if got != want:
+            raise AssertionError(f"elastic step {trainer.step_count} on "
+                                 f"{mc}: launches {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"elastic: non-finite losses {losses}")
+    return losses, times
+
+
+def hold_elastic_event(event, **want) -> None:
+    got = {k: getattr(event, k) for k in want}
+    if got != want:
+        raise AssertionError(f"elastic resize {event}: expected {want}")
+
+
+def elastic_cold(torch, dev, cfg, members, read_counts) -> dict:
+    """The cold path at phase 24's depth: ``cfg`` (8b-L8 cut to
+    CKPT_LAYERS) on fsdp 4 over ``members``: ELASTIC_COLD_STEPS steps, a
+    save, one step past it; then a resize onto two members, which no
+    replica covers: the restore rewinds to the saved step, and the lost
+    step's batch gives its loss again (ELASTIC_LOSS_REL)."""
+    directory = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    trainer = elastic_trainer(cfg, dev, members, ELASTIC_COLD_MESH,
+                              checkpoint_dir=str(directory))
+    batches = elastic_tokens(torch, cfg, dev, ELASTIC_COLD_STEPS + 1)
+    losses, _ = elastic_steps(torch, trainer, batches[:-1], read_counts,
+                              cfg.n_layers)
+    t0 = time.perf_counter()
+    trainer.save()
+    save_s = time.perf_counter() - t0
+    (lost,), _ = elastic_steps(torch, trainer, batches[-1:], read_counts,
+                               cfg.n_layers)
+    event = trainer.resize(list(members[:2]), reason="two chips gone")
+    hold_elastic_event(event, direction="shrink", path="cold", n_used=2,
+                       n_idled=0, step=ELASTIC_COLD_STEPS,
+                       old_mesh="fsdp=4", new_mesh="fsdp=2")
+    if trainer.step_count != ELASTIC_COLD_STEPS or trainer.mesh.size != 2:
+        raise AssertionError(f"elastic cold: step {trainer.step_count} on "
+                             f"{trainer.mesh}")
+    (again,), _ = elastic_steps(torch, trainer, batches[-1:], read_counts,
+                                cfg.n_layers)
+    rel_diff = abs(again - lost) / abs(lost)
+    state_gb = train_state_gb(trainer.state)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(directory)
+    out = dict(layers=cfg.n_layers, mesh_before="fsdp=4",
+               mesh_after="fsdp=2", losses=losses, lost_step_loss=lost,
+               replayed_loss=again, loss_rel_diff=rel_diff,
+               save_s=save_s, state_gb=state_gb, event=event.to_dict())
+    if not rel_diff <= ELASTIC_LOSS_REL:
+        raise AssertionError(f"elastic cold: the replayed step's loss "
+                             f"{again} against the lost one's {lost} "
+                             f"(limit {ELASTIC_LOSS_REL})")
+    return out
+
+
+def elastic_run(torch, dev, cfg, ckpt_cfg, reference: dict,
+                read_counts) -> dict:
+    """Phase 39's counted run (module docstring): the gang on the fake
+    node, the live shrink and grow of ``cfg`` on its members, then the
+    cold path of ``ckpt_cfg``."""
+    import random
+
+    from k8s_dra_driver_tpu_torch.kube import EVENTS
+    from k8s_dra_driver_tpu_torch.parallel import collectives
+    from k8s_dra_driver_tpu_torch.utils import faults
+
+    torch.cuda.reset_peak_memory_stats()
+    driver, client, lib, allocator = elastic_node(
+        ROOT / "build" / "dra" / "elastic")
+    resizes = []
+    driver.add_resize_listener(resizes.append)
+    ledger = collectives.CollectiveLedger()
+    try:
+        names = elastic_gang(driver, client, allocator)
+        trainer = elastic_trainer(cfg, dev, names, ELASTIC_MESH)
+        init = [s for _, s in leaf_sums(torch, trainer.state)]
+        if init != reference["init_bit_sums"]:
+            raise AssertionError("elastic: the trainer's init differs from "
+                                 "the uninterrupted run's")
+        members = {m: str(d) for m, d in zip(trainer.members,
+                                             trainer.devices)}
+        batches = elastic_tokens(torch, cfg, dev, ELASTIC_STEPS)
+        victim = names[random.Random(ELASTIC_CHAOS_SEED).randrange(
+            len(names))]
+        plan = faults.FaultPlan()
+        plan.call("train.step",
+                  lambda: lib.unplug_chip(int(victim.split("-")[1]),
+                                          reason="chaos unplug"),
+                  on_calls={ELASTIC_UNPLUG_AT})
+        ledger.install()
+        with faults.armed(plan):
+            losses, before_ms = elastic_steps(
+                torch, trainer, batches[:ELASTIC_UNPLUG_AT], read_counts,
+                cfg.n_layers)
+        elastic_settle(driver, client, victim, False)
+        if len(resizes) != 1 or resizes[0].direction != "shrink" \
+                or victim not in resizes[0].removed:
+            raise AssertionError(f"elastic: resize messages {resizes}")
+        msg = resizes[0]
+        shrink = trainer.resize(list(msg.devices), reason=msg.reason)
+        hold_elastic_event(shrink, direction="shrink", path="live",
+                           n_used=2, n_idled=1, step=ELASTIC_UNPLUG_AT,
+                           old_mesh="data=2xtensor=2", new_mesh="tensor=2")
+        elastic_audit(driver)
+        more, after_ms = elastic_steps(
+            torch, trainer, batches[ELASTIC_UNPLUG_AT:], read_counts,
+            cfg.n_layers)
+        losses += more
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                   reference["losses"])]
+        if not max(rel) <= ELASTIC_LOSS_REL:
+            raise AssertionError(f"elastic: losses {losses} against the "
+                                 f"uninterrupted {reference['losses']} "
+                                 f"(limit {ELASTIC_LOSS_REL})")
+        lib.restore_chip(int(victim.split("-")[1]))
+        elastic_settle(driver, client, victim, True)
+        if len(resizes) != 2 or resizes[1].direction != "grow" \
+                or sorted(resizes[1].devices) != sorted(names):
+            raise AssertionError(f"elastic: resize messages {resizes}")
+        bits = leaf_sums(torch, trainer.state)
+        grow = trainer.resize(list(resizes[1].devices),
+                              reason=resizes[1].reason)
+        hold_elastic_event(grow, direction="grow", path="live", n_used=4,
+                           n_idled=0, step=ELASTIC_STEPS,
+                           old_mesh="tensor=2", new_mesh="data=2xtensor=2")
+        if leaf_sums(torch, trainer.state) != bits:
+            raise AssertionError("elastic: a leaf moved or changed across "
+                                 "the grow")
+        elastic_audit(driver)
+        grown, _ = elastic_steps(torch, trainer,
+                                 batches[:ELASTIC_GROW_STEPS], read_counts,
+                                 cfg.n_layers)
+        ledger.uninstall()
+        driver.events.flush()
+        events = [e["reason"] for e in client.list(EVENTS)
+                  if e["involvedObject"]["name"] == ELASTIC_CLAIM]
+        counted = {d: driver._m_elastic_resizes.value(direction=d,
+                                                      outcome="ok")
+                   for d in ("shrink", "grow")}
+        if "GangResized" not in events or counted != {"shrink": 1,
+                                                      "grow": 1}:
+            raise AssertionError(f"elastic: events {events}, resizes "
+                                 f"{counted}")
+        reshard = [r for r in ledger.snapshot()
+                   if r["site"] == "train.reshard"]
+        state_gb = train_state_gb(trainer.state)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        cold = elastic_cold(torch, dev, ckpt_cfg, names, read_counts)
+    finally:
+        ledger.uninstall()
+        driver.shutdown()
+    return dict(
+        preset="8b-L8", batch=TRAIN_BATCH, seq=TRAIN_SEQ, members=members,
+        victim=victim, messages=[m.to_dict() for m in resizes],
+        losses=losses, uninterrupted_losses=reference["losses"],
+        loss_rel_diff=rel, grow_losses=grown,
+        shrink=shrink.to_dict(), grow=grow.to_dict(),
+        live_shrink_s=shrink.duration_seconds,
+        live_grow_s=grow.duration_seconds,
+        cold_s=cold["event"]["duration_seconds"],
+        step_ms_before=before_ms, step_ms_after=after_ms,
+        step_ms_p50_before=statistics.median(before_ms[1:]),
+        step_ms_p50_after=statistics.median(after_ms),
+        uninterrupted_step_ms_p50=reference["step_ms_p50"],
+        reshard_ledger=reshard, state_gb=state_gb,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        events=sorted(set(events)), resizes_ok=counted, cold=cold)
+
+
+def elastic_bootstrap() -> dict:
+    """``initialize_distributed()`` in this one process under a
+    time-shared claim's envelope and no worker hostnames: the shim applies
+    the envelope, no process group forms, and it returns False."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_tpu_torch.parallel import initialize_distributed
+    from k8s_dra_driver_tpu_torch.parallel import shim
+
+    keys = ("TPU_DRA_SHARING", "TPU_DRA_SHIM_APPLIED", "TPU_DRA_COORDINATOR",
+            "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID")
+    saved = {k: os.environ.pop(k) for k in keys if k in os.environ}
+    active = shim._active
+    os.environ["TPU_DRA_SHARING"] = "time-shared"
+    try:
+        formed = initialize_distributed()
+        out = dict(returned=formed,
+                   applied=os.environ.get("TPU_DRA_SHIM_APPLIED"),
+                   mode=getattr(shim._active, "mode", None),
+                   process_group=dist.is_available() and dist.is_initialized())
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        shim._active = active
+    if out != dict(returned=False, applied="1", mode="time-shared",
+                   process_group=False):
+        raise AssertionError(f"elastic: initialize_distributed {out}")
+    return out
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -6570,7 +7015,10 @@ def main() -> int:
                                "flash_bwd_dkdv", "flash_bwd_dq",
                                "ring_permute"),
              "pipe_moe": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
-                          "flash_bwd_dkdv", "flash_bwd_dq", "ring_permute")}
+                          "flash_bwd_dkdv", "flash_bwd_dq", "ring_permute"),
+             "elastic_training": ("rmsnorm", "rmsnorm_backward",
+                                  "flash_fwd", "flash_bwd_dkdv",
+                                  "flash_bwd_dq")}
     by_path = {}
 
     def reset_counts():
@@ -7320,6 +7768,34 @@ def main() -> int:
                f"pipelined 8x7b-L{PIPE_MOE_LAYERS} on data 2 x expert 2 x "
                f"pipe 2 matches the single device's replayed forward and its "
                f"microbatches' aux (launches {counts})")
+    # Phase 39: elastic training on members of the card; phase 38's state
+    # is freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_cfg = dataclasses.replace(tcfg8, n_layers=CKPT_LAYERS)
+    elastic_ref = elastic_reference(torch, tcfg8, dev)
+    elastic = drive("elastic_training", elastic_run, torch, dev, tcfg8,
+                    ckpt_cfg, elastic_ref, read_counts)
+    elastic["bootstrap"] = elastic_bootstrap()
+    counts = by_path["elastic_training"]
+    log(f"elastic: {elastic['members']} (victim {elastic['victim']}); live "
+        f"shrink {elastic['live_shrink_s']:.4f} s, live grow "
+        f"{elastic['live_grow_s']:.4f} s, cold "
+        f"{elastic['cold_s']:.3f} s ({CKPT_LAYERS} layers, "
+        f"{elastic['cold']['state_gb']:.2f} GB state); step p50 "
+        f"{elastic['step_ms_p50_before']:.1f} ms on "
+        f"{elastic['shrink']['old_mesh']}, "
+        f"{elastic['step_ms_p50_after']:.1f} ms on "
+        f"{elastic['shrink']['new_mesh']} (uninterrupted "
+        f"{elastic['uninterrupted_step_ms_p50']:.1f}); largest loss rel "
+        f"{max(elastic['loss_rel_diff']):.2e}; train.reshard "
+        f"{elastic['reshard_ledger']}; peak memory "
+        f"{elastic['peak_mem_gb']:.2f} GB; {card_line()}")
+    phase_done(f"phase 39: 8b-L8 resized live data 2 x tensor 2 -> tensor 2 "
+               f"-> data 2 x tensor 2 on the gang's members with the losses "
+               f"of an uninterrupted run; the {CKPT_LAYERS}-layer cut "
+               f"restored cold onto fsdp 2; the auditor clean "
+               f"(launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -7509,7 +7985,7 @@ def main() -> int:
                     "megatron_int8_moe": megatron_int8,
                     "megatron_training": tp_trained,
                     "sequence_training": seq_trained,
-                    "pipe_training": piped}))
+                    "pipe_training": piped, "elastic_training": elastic}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,14 @@ A state is any nesting of dicts and dataclasses over tensors and Python
 scalars: a params dict, or ``TrainState`` with its ``AdamWState``.
 ``weights_only`` loads no dataclass, so :func:`restore_checkpoint`
 rebuilds the template's structure around the loaded leaves.
+
+A template for a mesh (:func:`restore_template` with ``mesh``, the
+elastic resume onto another allocation's layout) places every leaf as
+the port's train state on a mesh is placed: whole on the mesh's first
+device, with a ``NamedSharding`` twin per leaf -- the params' specs
+(``TrainState.shardings``) re-anchored to the mesh, everything else
+replicated. :func:`restore_checkpoint` refuses such a template, before it
+reads the file, where a spec cannot tile its leaf on that mesh.
 """
 
 from __future__ import annotations
@@ -30,27 +38,31 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.sharding import NamedSharding, P, Sharded
+
 STATE_FILE = "state.pt"
 _SCALARS = (bool, int, float, str, type(None))
 
 
 class MeshShapeMismatchError(ValueError):
-    """The restore template's mesh cannot hold the saved state (the
-    reference's error, raised there before a restore touches disk). The
-    port builds no mesh template yet: :func:`restore_template` refuses a
-    mesh (ROADMAP A12)."""
+    """The restore template's mesh cannot hold the saved state: some
+    leaf's dimension is cut more ways than it divides into. Raised
+    before the restore reads the file, naming the leaf, its shape, the
+    mesh's shape and the spec."""
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorSpec:
     """A template leaf without storage (the reference's
     ``jax.ShapeDtypeStruct``): where the restored tensor goes, its shape
-    and dtype, and whether it is trainable."""
+    and dtype, whether it is trainable, and on a mesh its placement (a
+    ``NamedSharding``)."""
 
     shape: tuple
     dtype: torch.dtype
     device: torch.device
     requires_grad: bool = False
+    sharding: Optional[NamedSharding] = None
 
 
 def _children(node: Any):
@@ -151,23 +163,90 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _specs_by_path(skeleton: Any) -> dict:
+    """{key path: spec} of the params a state's ``shardings`` places (a
+    ``TrainState`` on a mesh); empty for any other skeleton."""
+    def walk(node, prefix):
+        if isinstance(node, NamedSharding):
+            return {prefix: node.spec}
+        out = {}
+        for key, child in (node.items() if isinstance(node, dict) else ()):
+            out.update(walk(child, _path(prefix, key)))
+        return out
+
+    return walk(getattr(skeleton, "shardings", None), "params")
+
+
+def _reanchor(node: Any, mesh: Any) -> Any:
+    """``node`` with every ``NamedSharding`` in it re-anchored to
+    ``mesh``, through dicts and every field of a dataclass (also those
+    a checkpoint does not save, as ``TrainState.shardings``)."""
+    if isinstance(node, NamedSharding):
+        return NamedSharding(mesh, node.spec)
+    if isinstance(node, dict):
+        return {k: _reanchor(v, mesh) for k, v in node.items()}
+    if dataclasses.is_dataclass(node) and not isinstance(node, type) \
+            and not isinstance(node, TensorSpec):
+        return dataclasses.replace(node, **{
+            f.name: _reanchor(getattr(node, f.name), mesh)
+            for f in dataclasses.fields(node)})
+    return node
+
+
 def restore_template(skeleton: Any, mesh: Any) -> Any:
     """The restore template of a state skeleton (a fresh state, or the old
-    state itself): every tensor becomes a :class:`TensorSpec` on the
-    skeleton's device, scalars stay as they are. A mesh (the reference's
-    elastic resume onto another allocation's layout) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restore_template: a mesh needs the multi-GPU slice (ROADMAP "
-            "A12); pass mesh=None to restore onto the skeleton's devices")
+    state itself): every tensor becomes a :class:`TensorSpec`, scalars
+    stay as they are. Without a mesh each spec stays on the skeleton
+    tensor's device. With ``mesh`` every spec goes to ``mesh.devices[0]``
+    with its placement on ``mesh``: a param keeps its spec from the
+    skeleton's ``shardings``, re-anchored to ``mesh`` (a skeleton from a
+    dead allocation must not pin the restore to its devices), every other
+    leaf -- the optimizer's moments -- is replicated; the skeleton's own
+    ``shardings`` re-anchor to ``mesh`` as well. The template is built
+    even where ``mesh`` cannot lay a leaf out: :func:`restore_checkpoint`
+    refuses it."""
+    specs = _specs_by_path(skeleton) if mesh is not None else {}
 
-    def spec(x, _path):
-        if isinstance(x, torch.Tensor):
+    def spec(x, path):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if mesh is None:
             return TensorSpec(tuple(x.shape), x.dtype, x.device,
                               x.requires_grad)
-        return x
+        return TensorSpec(tuple(x.shape), x.dtype, mesh.devices[0],
+                          x.requires_grad,
+                          NamedSharding(mesh, specs.get(path, P())))
 
-    return _rebuild(skeleton, spec)
+    template = _rebuild(skeleton, spec)
+    return template if mesh is None else _reanchor(template, mesh)
+
+
+def _validate_template_meshable(template: Any) -> None:
+    """Raise :class:`MeshShapeMismatchError` for the first template leaf
+    whose spec cannot tile it on its mesh: an entry naming mesh axes
+    whose product does not divide the dimension, or more entries than
+    the leaf has dimensions."""
+    for path, leaf in _flatten(template).items():
+        if not isinstance(leaf, TensorSpec) or leaf.sharding is None:
+            continue
+        mesh, spec = leaf.sharding.mesh, leaf.sharding.spec
+        why = None
+        if len(spec) > len(leaf.shape):
+            why = (f"the spec has {len(spec)} entries for "
+                   f"{len(leaf.shape)} dimensions")
+        else:
+            for dim, _, ways in Sharded((), spec, mesh).splits:
+                if leaf.shape[dim] % ways:
+                    why = (f"dimension {dim} of size {leaf.shape[dim]} "
+                           f"does not divide over {ways} shards")
+                    break
+        if why is not None:
+            raise MeshShapeMismatchError(
+                f"saved state {path} of shape {tuple(leaf.shape)} cannot "
+                f"be restored onto mesh {dict(mesh.shape)} with spec "
+                f"{spec} ({why}); lower the offending mesh axis degree or "
+                f"restore onto a mesh whose preserved degrees divide the "
+                f"saved shapes")
 
 
 def restore_checkpoint(
@@ -179,8 +258,10 @@ def restore_checkpoint(
     of ``template`` (a state, or :func:`restore_template`'s specs), each
     tensor on its template leaf's device and trainable where the template
     leaf is. Raises ``FileNotFoundError`` before touching disk when
-    nothing was saved there, and ``ValueError`` naming the leaf whose
-    shape, dtype or kind differs."""
+    nothing was saved there, :class:`MeshShapeMismatchError` before
+    reading the file when a mesh template's spec cannot tile its leaf,
+    and ``ValueError`` naming the leaf whose shape, dtype or kind
+    differs."""
     directory = os.path.abspath(directory)
     steps = _steps(directory)
     if not steps:
@@ -191,6 +272,7 @@ def restore_checkpoint(
     if step not in steps:
         raise FileNotFoundError(f"no checkpoint for step {step} under "
                                 f"{directory} (steps {steps})")
+    _validate_template_meshable(template)
     leaves = _flatten(template)
     devices = [x.device for x in leaves.values()
                if isinstance(x, (torch.Tensor, TensorSpec))]

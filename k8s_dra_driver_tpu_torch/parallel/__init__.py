@@ -5,10 +5,12 @@ forward over the data, fsdp, sequence, tensor and expert axes
 ring attention over K4-K6 per hop and Ulysses -- (:mod:`.ring`), the
 GPipe pipeline over the pipe axis (:mod:`.pipeline`), the collectives and
 their host-side accounting (:mod:`.collectives`) that the compute
-telemetry installs, and the workload's sharing shim (:mod:`.shim`).
-``elastic`` and ``distributed`` are still to port."""
+telemetry installs, elastic training over a gang's members
+(:mod:`.elastic`), and the bootstrap from the driver's env: the workload's
+sharing shim (:mod:`.shim`) and the process group (:mod:`.distributed`)."""
 
 from . import collectives
+from .distributed import coordinator_from_env, initialize_distributed
 from .mesh import (
     AXES,
     Mesh,
@@ -26,6 +28,7 @@ from .ring import (
     ulysses_attention,
 )
 from .layout import Layout
+from .shim import SharingRuntime, apply_sharing_env, timeshare_lease
 from .sharding import (
     DEFAULT_RULES,
     NamedSharding,
@@ -39,6 +42,11 @@ from .sharding import (
 
 __all__ = [
     "collectives",
+    "coordinator_from_env",
+    "initialize_distributed",
+    "SharingRuntime",
+    "apply_sharing_env",
+    "timeshare_lease",
     "AXES",
     "Mesh",
     "MeshConfig",

@@ -61,9 +61,9 @@ class GangResize:
 
     Emitted once per COMPLETED gang resize: the claim's checkpoint, CDI
     spec, and sharing holds already reflect ``devices`` when a listener
-    sees this. The workload side (the reference's
-    parallel/elastic.ElasticTrainer, not yet ported) maps ``devices`` to
-    its devices and reshards; ``generation`` is the
+    sees this. The workload side (parallel/elastic.ElasticTrainer) takes
+    ``devices`` as its gang's members, maps them to its devices and
+    reshards; ``generation`` is the
     claim's monotonically increasing resize counter so late/duplicate
     deliveries are detectable."""
 

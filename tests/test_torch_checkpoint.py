@@ -166,11 +166,37 @@ def test_a_leaf_that_does_not_fit_the_template_raises_naming_it(tmp_path):
         tckpt.restore_checkpoint(str(tmp_path), dict(template, extra=0))
 
 
-def test_restore_template_with_a_mesh_raises():
+def test_restore_template_with_a_mesh_raises(tmp_path):
+    """A mesh template places each tensor on the mesh's first device with
+    a ``NamedSharding`` (replicated where the skeleton names no spec), and
+    builds even for a mesh that cannot lay a leaf out; the restore then
+    raises ``MeshShapeMismatchError`` naming the leaf, its shape, the
+    mesh's shape and the spec, before it reads the file."""
+    from k8s_dra_driver_tpu_torch.parallel import MeshConfig, build_mesh
+    from k8s_dra_driver_tpu_torch.parallel.sharding import NamedSharding, P
+
     params = {"w": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="A12"):
-        tckpt.restore_template(params, mesh=object())
-    assert issubclass(tckpt.MeshShapeMismatchError, ValueError)
     spec = tckpt.restore_template(params, None)["w"]
     assert spec == tckpt.TensorSpec((2,), torch.float32, torch.device("cpu"),
                                     False)
+    assert issubclass(tckpt.MeshShapeMismatchError, ValueError)
+    mesh = build_mesh(MeshConfig(tensor=4), devices=["cpu"] * 4)
+    opt = ttrain.make_optimizer(warmup_steps=1, total_steps=10)
+    state = ttrain.init_train_state(
+        TINY, opt, mesh=build_mesh(MeshConfig(tensor=2),
+                                   devices=["cpu"] * 2))
+    tckpt.save_checkpoint(str(tmp_path), state, 0)
+    template = tckpt.restore_template(state, mesh)
+    wqkv = template.params["layers"]["wqkv"]
+    assert wqkv.device == mesh.devices[0] and wqkv.requires_grad
+    assert wqkv.sharding == NamedSharding(
+        mesh, state.shardings["layers"]["wqkv"].spec)
+    assert template.opt_state.mu["embed"].sharding == NamedSharding(mesh, P())
+    assert template.shardings["embed"].mesh is mesh
+    # tensor=4 cannot cut the tiny config's 2 kv heads.
+    with pytest.raises(tckpt.MeshShapeMismatchError) as exc:
+        tckpt.restore_checkpoint(str(tmp_path), template)
+    msg = str(exc.value)
+    for part in ("params/layers/wqkv", "shape (2, 64, 2, 4, 16)",
+                 "cannot be restored onto mesh", "'tensor': 4", "P("):
+        assert part in msg, (part, msg)

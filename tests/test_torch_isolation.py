@@ -30,6 +30,7 @@ from k8s_dra_driver_tpu_torch.models import (
 )
 from k8s_dra_driver_tpu_torch.models.llama import PRESETS
 from k8s_dra_driver_tpu_torch.models.speculative import speculative_generate
+from k8s_dra_driver_tpu_torch.parallel.elastic import ElasticTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "grpc")
@@ -82,7 +83,9 @@ def test_static_scan_finds_no_jax_or_reference_import():
      "k8s_dra_driver_tpu_torch.parallel.ring",
      "k8s_dra_driver_tpu_torch.parallel.layout"),
     ("k8s_dra_driver_tpu_torch.models.remat",
-     "k8s_dra_driver_tpu_torch.models.checkpoint"),
+     "k8s_dra_driver_tpu_torch.models.checkpoint",
+     "k8s_dra_driver_tpu_torch.parallel.elastic",
+     "k8s_dra_driver_tpu_torch.parallel.distributed"),
     ("k8s_dra_driver_tpu_torch.tpulib",
      "k8s_dra_driver_tpu_torch.tpulib._nvml",
      "k8s_dra_driver_tpu_torch.tpulib.driverroot",
@@ -199,6 +202,8 @@ def test_entry_points_default_to_the_card():
         make_train_step(cfg, opt)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticTrainer(cfg, opt, ["tpu-0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

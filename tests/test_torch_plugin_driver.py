@@ -19,12 +19,16 @@ port codec's ``FromString`` / ``SerializeToString`` as the
 (de)serializers. The reference's ``NodeStub`` and ``RegistrationStub``
 then drive both packages byte for byte, as a kubelet would.
 
-Not twinned: the slow elastic resume
-(``TestElasticGangResize::test_chip_unplug_mid_step_resize_resume_and_grow``
-and the shrink/grow soak) and the defrag training gang need the
-reference's ``ElasticTrainer`` (ROADMAP A12); the snapshot-descent case
-fails on the reference itself (ROADMAP C); the seeded acceptance schedule
-and the node-watch controller are not the Driver's.
+The elastic trainer's cases (the resize-resume-grow of
+``TestElasticGangResize::test_chip_unplug_mid_step_resize_resume_and_grow``,
+the shrink/grow soak and the defrag training gang) run on the port alone
+with the reference tests' assertions: the port's ``ElasticTrainer`` rides
+the port's Driver, and its decisions are held against the reference's in
+``test_torch_elastic.py``.
+
+Not twinned: the snapshot-descent case fails on the reference itself
+(ROADMAP C); the seeded acceptance schedule and the node-watch controller
+are not the Driver's.
 """
 
 from __future__ import annotations
@@ -1020,6 +1024,199 @@ def test_elastic(tmp_path, scenario):
     both(scenario, tmp_path)
 
 
+# -- test_chaos.py: the elastic trainer riding the gang resizes ---------------
+#
+# The workload half on the port alone: the reference's trainer compiles a
+# program per mesh (it marks two of these slow), its resize decisions are
+# held against the port's in test_torch_elastic.py, and the plugin half's
+# messages against the reference's in shrink_and_grow above. Each health
+# transition is driven as shrink_and_grow drives it: republished, and
+# re-solved once the slice shows it. The reference's two slow cases leave
+# that to the watch thread, whose grow re-solve reads the slice before the
+# republish lands, and fail on the reference itself (ROADMAP C).
+
+CHAOS_SEED = int(os.environ.get("TPU_DRA_CHAOS_SEED", "1234"))
+GANG = ["tpu-0", "tpu-1", "tpu-2", "tpu-3"]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The tiny trainer's ops are too small to share among threads: one
+    intra-op thread keeps them quick where the suite's workers share the
+    cores (test_torch_elastic.one_torch_thread)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_trainer(members, axes, total_steps=10):
+    """The port's ElasticTrainer on the tiny preset over CPU members."""
+    el = PORT("parallel.elastic")
+    return el.ElasticTrainer(
+        PORT("models.llama").PRESETS["tiny"],
+        PORT("models.train").make_optimizer(warmup_steps=1,
+                                            total_steps=total_steps),
+        members, mesh_config=PORT("parallel.mesh").MeshConfig(**axes),
+        global_batch=8, device_of=dict.fromkeys(GANG, "cpu"))
+
+
+def share_init(trainer, reference):
+    """``reference`` restarted from a copy of ``trainer``'s parameters (the
+    port's step updates its state in place, so the runs share nothing)."""
+    tr = PORT("models.train")
+    params = {k: {kk: vv.detach().clone() for kk, vv in v.items()}
+              if isinstance(v, dict) else v.detach().clone()
+              for k, v in trainer.state.params.items()}
+    reference.state = tr.train_state_from_params(params, reference.optimizer,
+                                                 mesh=reference.mesh)
+
+
+def settle(driver, client, device, present):
+    """One health transition through the plugin: refresh, republish, and
+    once the slice shows ``device`` as ``present``, the elastic re-solve
+    (its messages reach the resize listeners)."""
+    driver.state.refresh_allocatable()
+    driver.publish_resources()
+    assert wait_for(lambda: (device in slice_names(PORT, client))
+                    == present)
+    driver._maybe_elastic_resize(driver.state.drain_health_transitions())
+
+
+def tiny_tokens(seed, n):
+    import torch
+
+    vocab = PORT("models.llama").PRESETS["tiny"].vocab_size
+    return [torch.randint(0, vocab, (8, 65),
+                          generator=torch.Generator().manual_seed(seed + i))
+            for i in range(n)]
+
+
+def test_chip_unplug_mid_step_resize_resume_and_grow(tmp_path, one_torch_thread):
+    """``TestElasticGangResize::test_chip_unplug_mid_step_resize_resume_and_grow``:
+    a seeded unplug at the top of train step 4 shrinks the gang claim,
+    the trainer reshards live onto the message's members (2 used, 1
+    idled) and its losses follow an uninterrupted run on the surviving
+    topology from the same init; then the symmetric grow."""
+    import random
+
+    import numpy as np
+
+    faults = PORT("utils.faults")
+    driver, client, lib, allocator = elastic_driver(PORT, tmp_path)
+    resizes = []
+    driver.add_resize_listener(resizes.append)
+    try:
+        claim, names = gang_claim(PORT, client, allocator, "uid-gang",
+                                  "train", 4)
+        assert prepare_via_rpc(PORT, driver, claim)["error"] == ""
+        trainer = tiny_trainer(GANG, dict(data=2, tensor=2))
+        reference = tiny_trainer(GANG[:2], dict(tensor=2))
+        share_init(trainer, reference)
+        toks = tiny_tokens(100, 7)
+        ref_losses = [reference.step(t) for t in toks]
+
+        victim = random.Random(CHAOS_SEED).randrange(4)
+        plan = faults.FaultPlan()
+        plan.call("train.step",
+                  lambda: lib.unplug_chip(victim, reason="chaos unplug"),
+                  on_calls={4})
+        with faults.armed(plan):
+            losses = [trainer.step(t) for t in toks[:4]]
+        settle(driver, client, f"tpu-{victim}", False)
+        assert len(resizes) == 1
+        msg = resizes[0]
+        assert msg.direction == "shrink" and msg.claim_uid == "uid-gang"
+        assert f"tpu-{victim}" in msg.removed
+        assert f"tpu-{victim}" not in msg.devices
+        assert msg.desired == 4 and msg.generation == 1
+        view = driver.state.gang_view("uid-gang")
+        assert tuple(n for n, _ in view["devices"]) == msg.devices
+        for d in driver.state.cached_devices("uid-gang"):
+            assert d.request_names == ["workers"]
+
+        event = trainer.resize(list(msg.devices), reason=msg.reason)
+        assert event.path == "live", "the hot path must not touch the " \
+            "checkpoint"
+        assert event.n_used == 2
+        assert event.n_used + event.n_idled == len(msg.devices)
+        losses += [trainer.step(t) for t in toks[4:]]
+        np.testing.assert_allclose(losses, ref_losses, rtol=2e-4, atol=2e-4)
+        assert wait_for(lambda: driver.auditor.run_once() == [])
+        assert driver._m_elastic_resizes.value(direction="shrink",
+                                               outcome="ok") == 1
+
+        lib.restore_chip(victim)
+        settle(driver, client, f"tpu-{victim}", True)
+        assert len(resizes) == 2
+        grow = resizes[1]
+        assert grow.direction == "grow" and grow.generation == 2
+        assert set(grow.devices) == set(GANG)
+        event = trainer.resize(list(grow.devices), reason=grow.reason)
+        assert event.path == "live" and event.n_used == 4
+        assert all(np.isfinite(trainer.step(t)) for t in toks)
+        assert wait_for(lambda: driver.auditor.run_once() == [])
+        assert driver._m_elastic_resizes.value(direction="grow",
+                                               outcome="ok") == 1
+        driver.events.flush()
+        assert any(ev["reason"] == "GangResized"
+                   and ev["involvedObject"]["name"] == "train"
+                   for ev in client.list(PORT("kube").EVENTS))
+        assert [r["direction"] for r in driver.resize_trace()] == [
+            "shrink", "grow"]
+        assert_invariants(driver.state)
+    finally:
+        driver.shutdown()
+
+
+def test_shrink_grow_soak(tmp_path, one_torch_thread):
+    """``TestElasticGangResize::test_shrink_grow_soak``: 4 seeded
+    unplug/restore rounds with the trainer riding every resize; the
+    auditor reads clean and the loss stays finite after each round."""
+    import random
+
+    import numpy as np
+
+    rng = random.Random(CHAOS_SEED)
+    driver, client, lib, allocator = elastic_driver(PORT, tmp_path)
+    resizes = []
+    driver.add_resize_listener(resizes.append)
+    try:
+        claim, _ = gang_claim(PORT, client, allocator, "uid-soak", "soak", 4)
+        assert prepare_via_rpc(PORT, driver, claim)["error"] == ""
+        trainer = tiny_trainer(GANG, dict(data=2, tensor=2), total_steps=100)
+        toks = iter(tiny_tokens(0, 8))
+        paths = []
+        for round_no in range(4):
+            victim = rng.randrange(4)
+            seen = len(resizes)
+            lib.unplug_chip(victim, reason=f"soak round {round_no}")
+            settle(driver, client, f"tpu-{victim}", False)
+            assert len(resizes) == seen + 1
+            paths.append(trainer.resize(list(resizes[-1].devices),
+                                        reason=resizes[-1].reason).path)
+            for _ in range(2):
+                loss = trainer.step(next(toks))
+            assert np.isfinite(loss)
+            seen = len(resizes)
+            lib.restore_chip(victim)
+            settle(driver, client, f"tpu-{victim}", True)
+            assert len(resizes) == seen + 1
+            event = trainer.resize(list(resizes[-1].devices),
+                                   reason=resizes[-1].reason)
+            paths.append(event.path)
+            assert event.n_used == 4 and trainer.step_count == 2 * (
+                round_no + 1)
+            assert wait_for(lambda: driver.auditor.run_once() == [],
+                            timeout=15)
+        assert paths == ["live"] * 8
+        assert_invariants(driver.state)
+    finally:
+        driver.shutdown()
+
+
 def resize_results(names):
     return [{"request": "gang", "driver": DRIVER, "pool": "node-a",
              "device": n} for n in names]
@@ -1365,6 +1562,46 @@ def defrag_on_node(side, root, crash):
     assert held_by(alloc, mig["claimUid"]) == set(mig["to"])
     assert_converged(side, alloc, restarted, execu2)
     return checkpoint_doc(restarted), masked(rec)
+
+
+def test_training_gang_keeps_loss_continuity(tmp_path, one_torch_thread):
+    """``TestDefragCrashConsistency::test_training_gang_keeps_loss_continuity``
+    on the port: the mover is a live training gang, the executor's
+    migration listener relocates it through ``ElasticTrainer.relocate``
+    onto the planned members, and its losses follow an uninterrupted
+    run's -- no checkpoint restore, no lost step."""
+    import numpy as np
+
+    alloc, planner, state, lib = frag_node(PORT, tmp_path)
+    plan, _ = stuck_gang(PORT, alloc, planner)
+    mig = plan["migrations"][0]
+    mover_uid = mig["claimUid"]
+    trainer = tiny_trainer(list(mig["devices"]), {})
+    reference = tiny_trainer(list(mig["devices"]), {})
+    share_init(trainer, reference)
+    toks = tiny_tokens(200, 4)
+    ref_losses = [reference.step(t) for t in toks]
+
+    relocations = []
+    execu = node_executor(PORT, tmp_path, alloc, planner, state)
+
+    def on_migrate(uid, devices):
+        if uid == mover_uid:
+            relocations.append(trainer.relocate(
+                list(devices), reason="defrag migration"))
+
+    execu.add_migration_listener(on_migrate)
+    losses = [trainer.step(t) for t in toks[:2]]
+    record = execu.execute(plan)
+    losses += [trainer.step(t) for t in toks[2:]]
+
+    assert record["state"] == "completed"
+    assert len(relocations) == 1
+    assert relocations[0].path == "live", (
+        "a defrag relocation must not touch the checkpoint")
+    assert trainer.members == list(mig["to"]) != list(mig["devices"])
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-4, atol=2e-4)
+    assert_converged(PORT, alloc, state, execu)
 
 
 @pytest.mark.parametrize("crash", [None] + [
