@@ -390,10 +390,45 @@ fixed seed, and checks every hand-written kernel of those paths:
     and forms no process group. Prints each resize's seconds, the step
     p50 before and after the shrink, the ``train.reshard`` ledger bytes,
     the peak memory and the members' devices (``elastic:`` line).
+40. the expert axis beside tensor, serving: phase 15's int8 8x7b at 32
+    layers on ``MeshConfig(expert=2, tensor=2)``, placed by
+    ``quantize_specs(param_specs)`` (views, no new memory). One prefill of
+    8 x 96 tokens and 4 decode steps with ``moe_impl="einsum"`` (what
+    ``auto`` resolves to there: each expert shard's experts per tensor
+    shard, ``int8_matmul``'s experts mode on the strided halves) and
+    again with ``"dropless"`` (the EP ring, A7b per (expert shard, tensor
+    shard)), each against the single device's with routing replayed:
+    logits within TP_LOGITS_REL, flips near-ties under
+    TP_FLIP_SHARE_LIMIT. Then phase 15's traffic through the captured
+    ``DecodeEngine(mesh=)`` (einsum), its launches held to
+    ``ep_tp_serving_launches``, and its captured decode step profiled
+    (the embedding's rows the only int8 -> float copies); decode p50,
+    TTFT, device ms and peak memory beside phases 15 and 35. Last,
+    ``int8_matmul``'s experts mode on the strided blocks the einsum body
+    hands it (each gate/up half and the down block of one expert x tensor
+    shard, at the prefill's 240 rows and a decode step's 8) against its
+    plain version on contiguous copies at phase 16's limits, timed (row
+    ``int8_matmul_experts_blocks``).
+41. the expert axis beside tensor, training: 8x7b-L1 dropless at 4 x
+    2048 on data 2 x expert 2 x tensor 2 -- one loss and every gradient
+    leaf against the single device's (routing replayed, phase 36's
+    limits) with its launches held to ``ep_tp_train_launches``, then
+    phase 12's steps through ``train(..., mesh)``, their launches held
+    too (step p50 beside phases 12 and 33); then the reference test's
+    composition at full width, einsum on expert 2 x sequence 2 x tensor 2
+    with ring attention and remat "full" at 2 x 4096: the loss within
+    5e-3 of the single device's, every leaf within 5e-2, routing
+    replayed, launches held to ``ep_sp_train_launches``.
+42. int8 weights through the pipeline: the 8B in int8
+    (``quantize_params``) pipelined on pipe 2 x tensor 2 in 4
+    microbatches at 8 x 512 tokens, its logits within PIPE_LOGITS_REL of
+    the single device's unpipelined int8 forward, its launches (K9 once a
+    hop, M + P - 2 hops) held to ``pipe_int8_launches``.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37,
-38 and 39, and in each worker of phases 26-30) and read just after.
+38, 39, 40, 41 and 42, and in each worker of phases 26-30) and read just
+after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -408,6 +443,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -5348,20 +5384,31 @@ def check_ring_permute(torch, cfg, dev) -> dict:
 class EpRoutingReplay(RoutingReplay):
     """``RoutingReplay`` for the ring path: the single-device forward
     records one [T, k] choice a layer, the ring routes chunk by chunk --
-    n_ep * n_ep calls a layer, hop-major, shard i at hop h holding chunk
-    (i - h) mod n_ep -- and each call replays its chunk's rows of its
-    layer's record."""
+    per batch group (``groups`` of them, each holding its contiguous share
+    of the tokens) n_ep * n_ep calls a layer, hop-major, shard i at hop h
+    holding chunk (i - h) mod n_ep -- and each call replays its chunk's
+    rows of its layer's record. Beside tensor a chunk is routed once per
+    expert shard, so the calls are the same. The forward runs the groups
+    in order; with ``layers`` (a loss under remat "full" of that many
+    layers) the calls after the forward's are the backward's recompute,
+    which runs the (layer, group) blocks in reverse, as the single
+    device's recompute records its layers."""
 
-    def __init__(self, moe, n_ep: int):
+    def __init__(self, moe, n_ep: int, groups: int = 1, layers=None):
         super().__init__(moe)
         self.n_ep = n_ep
+        self.groups = groups
+        self.layers = layers
         self.calls = 0
 
     def _next(self, experts):
-        layer, j = divmod(self.calls, self.n_ep ** 2)
+        block, j = divmod(self.calls, self.n_ep ** 2)
         self.calls += 1
+        layer, g = divmod(block, self.groups)
+        if self.layers is not None and layer >= self.layers:
+            g = self.groups - 1 - g
         hop, i = divmod(j, self.n_ep)
-        chunk = (i - hop) % self.n_ep
+        chunk = g * self.n_ep + (i - hop) % self.n_ep
         t_loc = experts.shape[0]
         return self.recorded[layer][chunk * t_loc:(chunk + 1) * t_loc]
 
@@ -5546,7 +5593,8 @@ def ep_mesh(dev):
     return card_mesh(dev, expert=EP_SHARDS)
 
 
-def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
+def ep_compare_train(torch, cfg, dev, read_counts, mesh=None,
+                     want=None) -> dict:
     """Phase 33's first step: one ``loss_fn`` value and every gradient
     leaf of ``cfg`` (phase 12's 8x7b-L1 dropless, its seeded weights and
     its batch of MOE_TRAIN_BATCH x 2048 tokens, remat "full") expert
@@ -5555,13 +5603,15 @@ def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
     and tokens, the EP run replaying the single run's expert choices
     (``EpRoutingReplay``, the recompute's too). Holds §2's limits (loss
     1e-2, leaves 5e-2), the flips to near-ties, and the EP run's launches
-    to ``ep_train_launches``."""
+    to ``ep_train_launches`` (phase 41 (a): on ``mesh``, its launches to
+    ``want``)."""
     from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.models.train import leaves
     from k8s_dra_driver_tpu_torch.parallel import shard_pytree
 
-    mesh = ep_mesh(dev)
+    mesh = ep_mesh(dev) if mesh is None else mesh
     n_ep = mesh.shape["expert"]
+    groups = mesh.shape["data"] * mesh.shape["fsdp"]
     params = moe.init_params(cfg, seed=SEED, device=dev)
     names, flat = param_names(params), leaves(params)
     for p in flat:
@@ -5575,9 +5625,10 @@ def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
         single.mode = "record"
         loss_s = moe.loss_fn(params, tokens, cfg, remat=True)
         grads_s = torch.autograd.grad(loss_s, flat)
-    replay = EpRoutingReplay(moe, n_ep)
+    replay = EpRoutingReplay(moe, n_ep, groups, cfg.n_layers)
     replay.recorded = list(single.recorded)
-    want = ep_train_launches(n_ep, cfg.n_layers)
+    if want is None:
+        want = ep_train_launches(n_ep, cfg.n_layers)
     torch.cuda.synchronize()
     before = read_counts()
     with replay:
@@ -5597,7 +5648,7 @@ def ep_compare_train(torch, cfg, dev, read_counts) -> dict:
     result = dict(loss_ep=loss_e.item(), loss_single=loss_s.item(),
                   loss_rel_diff=loss_rel, grad_rel_diff=grad_rel,
                   batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ, layers=cfg.n_layers,
-                  shards=n_ep, launches=launched,
+                  shards=n_ep, mesh=str(mesh), launches=launched,
                   **{k: v for k, v in replay.summary().items()
                      if k != "flip_margins"})
     log("EP loss/grad vs single-device:", json.dumps(result))
@@ -5661,14 +5712,16 @@ def primitive_dispatch():
 
 
 def mesh_logits_rel(torch, params, sharded, cfg, dev, mesh,
-                    quantize_cache=False) -> dict:
+                    quantize_cache=False, replay_cls=None) -> dict:
     """A prefill of 8 seeded TP_LOGITS_PROMPT-token prompts, then
     TP_LOGITS_DECODE decode steps, on the single device and on ``mesh``:
     each step's logits within TP_LOGITS_REL of the single device's
     largest magnitude. On an MoE config the single device runs the
     primitive path (``primitive_dispatch``) and the mesh run replays its
     expert choices (``RoutingReplay``, as phase 14 holds a forward): every
-    routing flip a near-tie, at most TP_FLIP_SHARE_LIMIT of them."""
+    routing flip a near-tie, at most TP_FLIP_SHARE_LIMIT of them
+    (``replay_cls``: ``RoutingReplay`` by default, the EP ring's
+    ``EpRoutingReplay`` where the mesh routes chunk by chunk)."""
     from k8s_dra_driver_tpu_torch.models import moe
     from k8s_dra_driver_tpu_torch.models.decode import decode_step, prefill
 
@@ -5678,7 +5731,7 @@ def mesh_logits_rel(torch, params, sharded, cfg, dev, mesh,
     toks = torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, n), generator=gen,
                          device=dev, dtype=torch.int32)
     runs = []
-    with RoutingReplay(moe) as replay:
+    with (replay_cls or RoutingReplay)(moe) as replay:
         for p, m, how in ((params, None, "record"),
                           (sharded, mesh, "replay")):
             replay.mode = how
@@ -6868,6 +6921,374 @@ def elastic_bootstrap() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-42: the expert axis beside tensor at full width (int8 Mixtral
+# serving on expert 2 x tensor 2; 8x7b-L1 training on data 2 x expert 2 x
+# tensor 2 and on expert 2 x sequence 2 x tensor 2 with ring attention),
+# then the 8B in int8 through the pipeline on pipe 2 x tensor 2.
+# ---------------------------------------------------------------------------
+
+EPTP_SERVE_MESH = dict(expert=2, tensor=2)
+EPTP_TRAIN_MESH = dict(data=2, expert=2, tensor=2)
+EPSP_TRAIN_MESH = dict(expert=2, sequence=2, tensor=2)
+EPSP_BATCH = 2
+EPSP_SEQ = 4096
+EPSP_LOSS_ABS = 5e-3        # the reference test's gate on the loss
+EPSP_GRAD_REL = 5e-2
+PIPE_INT8_MESH = dict(pipe=2, tensor=2)
+PIPE_INT8_MICRO = 4
+PIPE_INT8_BATCH = 8
+PIPE_INT8_SEQ = 512
+
+
+def check_int8_expert_blocks(torch, sharded, cfg, mesh) -> dict:
+    """Phase 40: ``int8_matmul``'s prologue mode on the strided blocks that
+    the einsum body hands it on ``mesh``: the last (expert shard, tensor
+    shard) block of layer 0's placed stacks (``moe._expert_blocks``), each
+    half of the gate/up block (its rows 2 M apart) and the down block (its
+    experts M H apart), at the rows of the phase's prefill and of a decode
+    step, against the plain version on contiguous copies at phase 16's
+    limits. Timed beside the bound, the kernel on the contiguous copy, the
+    plain version on the same inputs and a batched bf16 ``torch.matmul``
+    on weights converted beforehand.
+    Returns the kernels line's row: the prefill's three products summed,
+    every call beside."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+    from k8s_dra_driver_tpu_torch.ops._device import sm_count
+    from k8s_dra_driver_tpu_torch.parallel.layout import Layout
+
+    layer = {k: sharded["layers"][k][0] for k in ("w_gateup", "w_down")}
+    gu, down = moe._expert_blocks(layer, cfg, Layout(mesh), 0)[-1][-1]
+    dev = gu.q.device
+    products = [(f"gate/up half {i}", gu.q[:, :, i], gu.scale[:, :, i])
+                for i in (0, 1)] + [("down", down.q, down.scale)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 71)
+    calls = {}
+    for step, s in (("prefill", TP_LOGITS_PROMPT), ("decode", 1)):
+        g = moe.effective_router_group(cfg, s)
+        m = BATCH_SLOTS * (s // g) * moe._capacity(cfg, g)
+        for what, q, scale in products:
+            e, k, n = q.shape
+            if q.is_contiguous():
+                raise AssertionError(f"{what} block {tuple(q.stride())} is "
+                                     f"contiguous; the mesh hands the "
+                                     f"kernel a strided view")
+            scale = scale.reshape(e, -1).contiguous()  # as _int8_experts
+            qc = q.contiguous()
+            x = torch.randn((e, m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            name = (f"{step} {what} [{e},{m},{k}] x [{e},{k},{n}] strides "
+                    f"{tuple(q.stride())}")
+            out = qm.int8_matmul(x, q, scale, True)
+            ref = qm.int8_matmul_reference(x, qc, scale, True)
+            torch.cuda.synchronize()
+            err, r = rel(f"int8_matmul {name}", out, ref)
+            del out, ref
+            wb = (qc.float() * scale[:, None, :]).to(torch.bfloat16)
+            calls[name] = dict(
+                max_abs_err=err, rel_err=r,
+                ms=time_ms(lambda: qm.int8_matmul(x, q, scale, True)),
+                contiguous_ms=time_ms(
+                    lambda: qm.int8_matmul(x, qc, scale, True)),
+                plain_ms=time_ms(lambda: qm.int8_matmul_reference(
+                    x, q, scale, True), warmup=1, iters=5),
+                library_ms=time_ms(lambda: torch.matmul(x, wb)),
+                plan=qm.plan(e, m, n, k, sm_count(dev))._asdict(),
+                **bound_fields(f"int8_matmul {name}",
+                               e * (k * n + 4 * n + 2 * m * k + 2 * m * n),
+                               2 * e * m * k * n, BF16_FLOPS))
+            del wb, qc
+            torch.cuda.empty_cache()
+    pre = [c for name, c in calls.items() if name.startswith("prefill")]
+    row = dict(
+        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
+        **{key: sum(c[key] for c in pre)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in pre)
+        else "operations",
+        shape=(f"expert x tensor blocks of {mesh}: the prefill's gate and "
+               f"up halves and down, strided views, prologue mode, summed "
+               f"(max_abs_err over the decode step's too); library: "
+               f"batched bf16 torch.matmul on weights converted "
+               f"beforehand; launches: the int8_matmul_experts row's"),
+        calls=calls)
+    log("int8_matmul_experts_blocks:", json.dumps(row))
+    return row
+
+
+def ep_tp_serving(torch, dev, qcfg, drive, kept, phase15, phase35) -> dict:
+    """Phase 40 (see the module docstring). Returns the phase's record."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_specs
+
+    t0 = time.perf_counter()
+    qparams = int8_moe_params(torch, qcfg, dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    mesh = card_mesh(dev, **EPTP_SERVE_MESH)
+    n_ep, tp = mesh.shape["expert"], mesh.shape["tensor"]
+    sharded = shard_in_place(torch, qparams, mesh,
+                             quantize_specs(moe.param_specs(qcfg)))
+    log(f"phase 40: {mesh}, int8 weights {weights / 1e9:.2f} GB placed in "
+        f"place ({time.perf_counter() - t0:.1f}s)")
+    logits = {}
+    for impl, replay in (("einsum", None),
+                         ("dropless", functools.partial(EpRoutingReplay,
+                                                        n_ep=n_ep))):
+        logits[impl] = mesh_logits_rel(
+            torch, qparams, sharded, dataclasses.replace(qcfg, moe_impl=impl),
+            dev, mesh, True, replay)
+    log(f"expert x tensor int8 moe: logits against the single device, "
+        f"routing replayed {json.dumps(logits)}")
+    served = drive("ep_tp_serving", serve, torch, sharded, qcfg, dev, True,
+                   True, None, None, mesh)
+    if served["moe_impl"] != {"decode_step": "einsum",
+                              "prefill_chunk": "einsum"}:
+        raise AssertionError(f"expert x tensor int8 MoE impl "
+                             f"{served['moe_impl']}")
+    streams = served.pop("_streams")
+    for key in [k for k in served if k.startswith("_")]:
+        del served[key]
+    single = kept["moe_serving_int8"]["streams"]
+    profile = profile_decode(torch, sharded, qcfg, dev, quantize_cache=True,
+                             mesh=mesh, eager=False)
+    # As in phase 35: no int8 weight is converted; the only int8 -> float
+    # copies are the embedding's rows, one per tensor shard's vocabulary
+    # block.
+    copies = profile["int8_to_float_copies"]
+    weight_copies = [c for c in copies if c > BATCH_SLOTS * qcfg.hidden]
+    if weight_copies or len(copies) > tp:
+        raise AssertionError(f"expert x tensor decode step int8 -> float "
+                             f"copies {copies}; expected the embedding rows "
+                             f"only")
+    served.update(
+        mesh=str(mesh), weights_gb=weights / 1e9, logits=logits,
+        peak_above_weights_gb=served["peak_mem_gb"] - weights / 1e9,
+        streams_equal_phase15=sum(a == b for a, b in zip(streams, single)),
+        int8_to_float_copies=copies, decode_profile=profile,
+        phase15={k: phase15[k] for k in ("decode_step_p50_ms",
+                                         "ttft_p50_ms", "tokens_per_s",
+                                         "peak_mem_gb")},
+        phase15_captured_device_ms=phase15["decode_profile"][
+            "captured_device_ms"],
+        phase35={k: phase35[k] for k in ("decode_step_p50_ms",
+                                         "ttft_p50_ms", "tokens_per_s",
+                                         "peak_mem_gb")},
+        phase35_captured_device_ms=phase35["decode_profile"][
+            "captured_device_ms"])
+    log(f"expert x tensor int8 moe: {mesh}; decode p50 "
+        f"{served['decode_step_p50_ms']:.3f} ms (phase 15: "
+        f"{phase15['decode_step_p50_ms']:.3f}, phase 35: "
+        f"{phase35['decode_step_p50_ms']:.3f}), TTFT p50 "
+        f"{served['ttft_p50_ms']:.2f} ms ({phase15['ttft_p50_ms']:.2f}, "
+        f"{phase35['ttft_p50_ms']:.2f}), captured decode step "
+        f"{profile['captured_device_ms']:.3f} device ms "
+        f"({served['phase15_captured_device_ms']:.3f}, "
+        f"{served['phase35_captured_device_ms']:.3f}), peak "
+        f"{served['peak_mem_gb']:.2f} GB ({phase15['peak_mem_gb']:.2f}, "
+        f"{phase35['peak_mem_gb']:.2f}); {served['streams_equal_phase15']} "
+        f"of 8 streams equal phase 15's (reported: einsum drops past "
+        f"capacity, dropless does not); {card_line()}")
+    served["kernels"] = {"int8_matmul_experts_blocks":
+                         check_int8_expert_blocks(torch, sharded, qcfg, mesh)}
+    del sharded, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
+
+
+def ep_tp_serving_launches(layers: int, n_ep: int, tp: int, decode: int,
+                           prefill: int) -> dict:
+    """Phase 40's engine launches (einsum on expert x tensor): K2 / K3 in
+    int8 per tensor shard a layer (attention on expert shard 0's tensor
+    shards); ``int8_matmul`` at the seams (wqkv and wo per tensor shard a
+    layer, the LM head per tensor shard) and three expert products per
+    (expert shard, tensor shard) a layer (the gate and up halves of the
+    strided gate/up block, then down); K1 at both norms of a layer and the
+    final norm; no fused dispatch, grouped product or ring hop."""
+    forwards = decode + prefill
+    return {"paged_decode_int8": tp * layers * decode,
+            "paged_prefill_int8": tp * layers * prefill,
+            "int8_matmul": (tp * (2 * layers + 1) + 3 * n_ep * tp * layers)
+            * forwards,
+            "rmsnorm": (2 * layers + 1) * forwards,
+            "moe_gateup_int8": 0, "moe_down_combine_int8": 0,
+            "grouped_matmul_int8": 0, "ring_permute": 0,
+            "paged_decode": 0, "paged_prefill": 0}
+
+
+def ep_tp_train_launches(layers: int, groups: int, n_ep: int,
+                         tp: int) -> dict:
+    """A train step's launches (remat "full") of dropless on data x
+    expert x tensor: the trunk as ``megatron_train_launches``; the ring's
+    n_ep K9 launches a layer and group forward, again in the recompute,
+    and their inverses backward; every (group, hop, expert shard, tensor
+    shard) runs its pairs through the grouped products -- the gate and up
+    halves of its strided block and down, three K10a launches in the
+    forward and three in the recompute, three K10a and three K10b in the
+    backward -- and never K7/K8."""
+    calls = layers * groups * n_ep * n_ep * tp
+    return {**megatron_train_launches(layers, groups, tp),
+            "ring_permute": 3 * n_ep * layers * groups,
+            "grouped_matmul": 9 * calls, "grouped_weight_grad": 3 * calls,
+            "moe_gateup": 0, "moe_down_combine": 0}
+
+
+def ep_sp_train_launches(layers: int, n: int, tp: int) -> dict:
+    """A loss and gradient's launches (remat "full") of einsum on expert x
+    sequence ``n`` x tensor ``tp`` with ring attention: the attention as
+    ``sequence_train_launches`` (one group); K1 at each token block's
+    attention norm and at the group's MoE norm (the MoE block runs on the
+    whole sequence), twice, and at each block's final norm once; its
+    gradient once at each."""
+    return {**sequence_train_launches(layers, n, 1, tp),
+            "rmsnorm": 2 * (n + 1) * layers + n,
+            "rmsnorm_backward": (n + 1) * layers + n,
+            "grouped_matmul": 0, "moe_gateup": 0}
+
+
+def ep_sp_compare(torch, cfg, dev, mesh, drive) -> dict:
+    """Phase 41 (b): the reference test's composition at full width
+    (``cfg`` einsum, EPSP_BATCH x EPSP_SEQ, remat "full") -- one
+    ``loss_fn`` value and every gradient leaf with ring attention on
+    expert x sequence x tensor (the counted run, ``drive``'s path
+    "ep_sp_training") against the single device's on the same seeded
+    weights and tokens, the mesh replaying the single run's expert choices
+    (its flips held to near-ties): the loss within EPSP_LOSS_ABS (the
+    reference test's gate), every leaf within EPSP_GRAD_REL."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+
+    params = moe.init_params(cfg, seed=SEED, device=dev)
+    names, flat = param_names(params), leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (EPSP_BATCH, EPSP_SEQ + 1),
+                           generator=gen, device=dev)
+
+    def loss_grads(m):
+        loss = moe.loss_fn(params, tokens, cfg, mesh=m,
+                           use_ring=m is not None, remat=True)
+        grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        out = (loss.item(), [g.cpu() for g in grads])
+        del loss, grads
+        torch.cuda.empty_cache()
+        return out
+
+    with RoutingReplay(moe) as replay:
+        replay.mode = "record"
+        l_single, g_single = loss_grads(None)
+        replay.mode = "replay"
+        l_mesh, g_mesh = drive("ep_sp_training", loss_grads, mesh)
+    loss_rel, grad_rel_ = loss_grad_rel(names, (l_mesh, g_mesh),
+                                        (l_single, g_single))
+    result = dict(loss_single=l_single, loss_mesh=l_mesh,
+                  loss_abs_diff=abs(l_mesh - l_single),
+                  loss_rel_diff=loss_rel, grad_rel_diff=grad_rel_,
+                  batch=EPSP_BATCH, seq=EPSP_SEQ, mesh=str(mesh),
+                  **{k: v for k, v in replay.summary().items()
+                     if k != "flip_margins"})
+    log("expert x sequence x tensor loss/grad vs single device:",
+        json.dumps(result))
+    if not abs(l_mesh - l_single) < EPSP_LOSS_ABS:
+        raise AssertionError(f"expert x sequence x tensor loss {l_mesh} "
+                             f"against {l_single} (limit {EPSP_LOSS_ABS})")
+    bad = {k: v for k, v in grad_rel_.items() if not v <= EPSP_GRAD_REL}
+    if bad:
+        raise AssertionError(f"expert x sequence x tensor gradients {bad} "
+                             f"(limit {EPSP_GRAD_REL})")
+    replay.check("expert x sequence x tensor loss/grad")
+    del params, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def pipe_int8_launches(layers: int, stages: int, micro: int,
+                       tp: int) -> dict:
+    """The int8 pipelined forward's launches (pipe x tensor, one group):
+    each layer once per microbatch on its stage, K4 per tensor shard; K1
+    at both norms of a layer per microbatch and the final norm once;
+    ``int8_matmul`` at the five products of a layer (wqkv, wo, the gate
+    and up halves, down) per (microbatch, tensor shard), and the LM head
+    once, outside the pipeline; K9 once a hop, M + P - 2 hops."""
+    return {"flash_fwd": layers * micro * tp,
+            "rmsnorm": 2 * layers * micro + 1,
+            "int8_matmul": 5 * layers * micro * tp + 1,
+            "ring_permute": micro + stages - 2}
+
+
+def pipe_int8_run(torch, dev, mesh) -> dict:
+    """Phase 42, the counted run: the 8B preset in int8
+    (``quantize_params``) through ``llama.forward_pipelined`` on ``mesh``
+    at PIPE_INT8_BATCH x PIPE_INT8_SEQ in PIPE_INT8_MICRO microbatches.
+    Returns what ``pipe_int8_check`` holds."""
+    from k8s_dra_driver_tpu_torch.models import PRESETS, init_params, llama
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+
+    cfg = PRESETS["8b"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    qparams = quantize_params(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    tokens = pipe_tokens(torch, cfg, dev, PIPE_INT8_BATCH,
+                         PIPE_INT8_SEQ)[:, :-1]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = llama.forward_pipelined(qparams, tokens, cfg, mesh,
+                                         PIPE_INT8_MICRO)
+    torch.cuda.synchronize()
+    return dict(cfg=cfg, qparams=qparams, tokens=tokens, logits=logits,
+                built_s=built_s, forward_s=time.perf_counter() - t0,
+                weights_gb=nbytes(qparams) / 1e9,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pipe_int8_check(torch, run: dict, mesh) -> dict:
+    """Phase 42's hold, outside the counted run: the pipelined int8 logits
+    against the single device's unpipelined int8 forward on the same
+    tokens, within PIPE_LOGITS_REL of its largest magnitude, finite, of
+    the same shape."""
+    from k8s_dra_driver_tpu_torch.models import llama
+
+    logits = run["logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        single = llama.forward(run["qparams"], run["tokens"], run["cfg"])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    if logits.shape != single.shape or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"pipelined int8 logits {tuple(logits.shape)} "
+                             f"(want {tuple(single.shape)}), finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    rel_ = ((logits - single).abs().max() / single.abs().max()).item()
+    out = dict(preset="8b", int8=True, batch=PIPE_INT8_BATCH,
+               seq=PIPE_INT8_SEQ, microbatches=PIPE_INT8_MICRO,
+               mesh=str(mesh), logits_rel=rel_,
+               top1_agreement=float((logits.argmax(-1) == single.argmax(-1))
+                                    .float().mean()),
+               weights_gb=run["weights_gb"], built_s=run["built_s"],
+               forward_s=run["forward_s"], single_forward_s=single_s,
+               peak_mem_gb=run["peak_mem_gb"])
+    log("pipeline int8:", json.dumps(out))
+    if not rel_ <= PIPE_LOGITS_REL:
+        raise AssertionError(f"pipelined int8 logits {rel_} of the largest "
+                             f"(limit {PIPE_LOGITS_REL})")
+    return out
+
+
 def nbytes(tree) -> int:
     """Bytes of every tensor in a parameter dict (QuantTensors: q and
     scale)."""
@@ -7018,7 +7439,18 @@ def main() -> int:
                           "flash_bwd_dkdv", "flash_bwd_dq", "ring_permute"),
              "elastic_training": ("rmsnorm", "rmsnorm_backward",
                                   "flash_fwd", "flash_bwd_dkdv",
-                                  "flash_bwd_dq")}
+                                  "flash_bwd_dq"),
+             "ep_tp_serving": ("int8_matmul", "paged_decode_int8",
+                               "paged_prefill_int8", "rmsnorm"),
+             "ep_tp_training": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                                "flash_bwd_dkdv", "flash_bwd_dq",
+                                "grouped_matmul", "grouped_weight_grad",
+                                "ring_permute"),
+             "ep_sp_training": ("rmsnorm", "rmsnorm_backward", "flash_fwd",
+                                "flash_bwd_dkdv", "flash_bwd_dq",
+                                "ring_permute"),
+             "pipe_int8": ("rmsnorm", "flash_fwd", "int8_matmul",
+                           "ring_permute")}
     by_path = {}
 
     def reset_counts():
@@ -7796,6 +8228,95 @@ def main() -> int:
                f"of an uninterrupted run; the {CKPT_LAYERS}-layer cut "
                f"restored cold onto fsdp 2; the auditor clean "
                f"(launches {counts})")
+    # Phase 40: phase 15's int8 8x7b served on expert 2 x tensor 2;
+    # phase 39's state is freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_tp = ep_tp_serving(torch, dev, qcfg, drive, kept, int8_engine,
+                          megatron_int8)
+    kernels.update(ep_tp.pop("kernels"))
+    counts = by_path["ep_tp_serving"]
+    want = ep_tp_serving_launches(
+        qcfg.n_layers, EPTP_SERVE_MESH["expert"], EPTP_SERVE_MESH["tensor"],
+        ep_tp["decode_steps"], ep_tp["prefill_launches"])
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"expert x tensor int8 MoE launches {counts}, "
+                             f"expected {want}")
+    phase_done(f"phase 40: int8 8x7b served on expert 2 x tensor 2 "
+               f"(einsum), its einsum and dropless forwards held to the "
+               f"single device with routing replayed (launches {counts})")
+    # Phase 41: 8x7b-L1 trained dropless on data 2 x expert 2 x tensor 2,
+    # then the reference test's expert 2 x sequence 2 x tensor 2 einsum
+    # composition with ring attention at 2 x 4096.
+    gc.collect()
+    torch.cuda.empty_cache()
+    emesh = card_mesh(dev, **EPTP_TRAIN_MESH)
+    egroups = EPTP_TRAIN_MESH["data"]
+    per_step = ep_tp_train_launches(tcfg.n_layers, egroups,
+                                    EPTP_TRAIN_MESH["expert"],
+                                    EPTP_TRAIN_MESH["tensor"])
+    ep_tp_grads = ep_compare_train(torch, tcfg, dev, read_counts, emesh,
+                                   per_step)
+    ep_tp_trained = drive("ep_tp_training", train, torch, dev, tcfg,
+                          "8x7b-L1", MOE_TRAIN_BATCH, emesh)
+    counts = by_path["ep_tp_training"]
+    want = {k: n * steps for k, n in per_step.items()}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"data x expert x tensor training launches "
+                             f"{counts}, expected {want}")
+    ep_tp_trained.update(
+        compare=ep_tp_grads, mesh=str(emesh), launches_per_step=per_step,
+        phase12={k: moe_trained[k] for k in ("step_ms_p50", "tokens_per_s",
+                                             "peak_mem_gb")},
+        phase33={k: ep_trained[k] for k in ("step_ms_p50", "tokens_per_s",
+                                            "peak_mem_gb")})
+    log(f"data x expert x tensor train: {emesh}; step p50 "
+        f"{ep_tp_trained['step_ms_p50']:.1f} ms (phase 12: "
+        f"{moe_trained['step_ms_p50']:.1f}, phase 33: "
+        f"{ep_trained['step_ms_p50']:.1f}), "
+        f"{ep_tp_trained['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{ep_tp_trained['peak_mem_gb']:.2f} GB "
+        f"({moe_trained['peak_mem_gb']:.2f}, "
+        f"{ep_trained['peak_mem_gb']:.2f}); loss rel "
+        f"{ep_tp_grads['loss_rel_diff']:.2e}, largest leaf rel "
+        f"{max(ep_tp_grads['grad_rel_diff'].values()):.2e}; {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smesh = card_mesh(dev, **EPSP_TRAIN_MESH)
+    ep_sp = ep_sp_compare(torch, dataclasses.replace(tcfg, moe_impl="einsum"),
+                          dev, smesh, drive)
+    counts = by_path["ep_sp_training"]
+    want = ep_sp_train_launches(tcfg.n_layers, EPSP_TRAIN_MESH["sequence"],
+                                EPSP_TRAIN_MESH["tensor"])
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"expert x sequence x tensor launches {counts}, "
+                             f"expected {want}")
+    ep_sp["launches"] = want
+    ep_tp_trained["expert_sequence_tensor"] = ep_sp
+    phase_done(f"phase 41: 8x7b-L1 loss and gradients on data 2 x expert 2 "
+               f"x tensor 2 (dropless) and on expert 2 x sequence 2 x "
+               f"tensor 2 (einsum, ring attention) match the single device; "
+               f"trained for {steps} steps on the first (launches "
+               f"{by_path['ep_tp_training']}, {counts})")
+    # Phase 42: the 8B in int8 pipelined on pipe 2 x tensor 2.
+    gc.collect()
+    torch.cuda.empty_cache()
+    qmesh = card_mesh(dev, **PIPE_INT8_MESH)
+    qrun = drive("pipe_int8", pipe_int8_run, torch, dev, qmesh)
+    counts = by_path["pipe_int8"]
+    want = pipe_int8_launches(qrun["cfg"].n_layers, PIPE_INT8_MESH["pipe"],
+                              PIPE_INT8_MICRO, PIPE_INT8_MESH["tensor"])
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"pipelined int8 launches {counts}, expected "
+                             f"{want}")
+    pipe_int8 = pipe_int8_check(torch, qrun, qmesh)
+    pipe_int8["launches"] = want
+    del qrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(f"phase 42: 8B int8 pipelined on pipe 2 x tensor 2 in "
+               f"{PIPE_INT8_MICRO} microbatches matches the unpipelined int8 "
+               f"forward (launches {counts})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -7919,13 +8440,16 @@ def main() -> int:
         by_path = {p: {**c, name + "_long": c[name]}
                    for p, c in by_path.items()}
     # K1 at the paths' other shapes, its gradient at the 8192-row shape,
-    # and the int8 seams at M 1, 5, 16 and 64: the same kernels and launch
-    # counts as their rows.
+    # the int8 seams at M 1, 5, 16 and 64, and the experts mode on phase
+    # 40's strided blocks: the same kernels and launch counts as their
+    # rows.
     for base, names in (("rmsnorm", [n for n, _, _ in RMSNORM_SHAPES[1:]]),
                         ("rmsnorm_backward", ["rmsnorm_backward_8k"]),
                         ("int8_matmul", [f"int8_matmul_m{m}"
                                          for m in INT8_SEAM_MS
-                                         if m != BATCH_SLOTS])):
+                                         if m != BATCH_SLOTS]),
+                        ("int8_matmul_experts",
+                         ["int8_matmul_experts_blocks"])):
         for name in names:
             meta[name] = meta[base]
             launches[name] = launches[base]
@@ -7985,7 +8509,10 @@ def main() -> int:
                     "megatron_int8_moe": megatron_int8,
                     "megatron_training": tp_trained,
                     "sequence_training": seq_trained,
-                    "pipe_training": piped, "elastic_training": elastic}))
+                    "pipe_training": piped, "elastic_training": elastic,
+                    "expert_tensor_serving": ep_tp,
+                    "expert_tensor_training": ep_tp_trained,
+                    "pipe_int8": pipe_int8}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -701,9 +701,13 @@ def pipeline_stages(config: LlamaConfig, mesh, block, layer_specs: dict,
     subs = [stage_mesh(mesh, p) for p in range(mesh.shape["pipe"])]
     lays = [Layout(sub, "a pipeline stage") for sub in subs]
     block = _remat_transform(remat, "full")(block)
+    int8_specs = quantize_specs(
+        {"embed": P(), "lm_head": P(), "layers": layer_specs})["layers"]
 
     def stage_fn(stage_layers, x_mb, p, g):
-        placed = shard_pytree(stage_layers, subs[p], layer_specs)
+        int8 = isinstance(stage_layers["wqkv"], QuantTensor)
+        placed = shard_pytree(stage_layers, subs[p],
+                              int8_specs if int8 else layer_specs)
         per = {name: w.unbind(0) for name, w in placed.items()}
         c_, s_ = cos.to(x_mb.device), sin.to(x_mb.device)
         xs, extras = [x_mb], []

@@ -57,6 +57,15 @@ shard's device, and each group's MoE block is :func:`moe_group`:
   - **einsum**: each shard runs its experts' rows of the dispatched
     ``[E, ...]`` tensor with its weights; the results concatenate along
     E. binned refuses, as in the reference;
+  - beside **tensor** (and fsdp) each expert shard's work runs per tensor
+    shard on its M block of the shard's experts (gathered over fsdp where
+    cut there), the partial outputs summed in f32 on the expert shard's
+    first tensor shard (:func:`_expert_pairs`; einsum's ``_experts`` per
+    block). The routing runs once per expert shard (on the ring: once
+    per group, hop and expert shard), shared by its tensor shards, so the
+    ring stays one ring of expert shards, ``n_ep`` K9 launches a layer.
+    Dropless takes the primitive path there (K10a/b, A7b for int8
+    stacks), as the reference does under GSPMD;
 
 - **without one** (the reference's GSPMD case, ``moe.py:943-951``
   there), dropless takes the primitive path per tensor shard
@@ -68,9 +77,8 @@ shard's device, and each group's MoE block is :func:`moe_group`:
 
 :func:`loss_fn` takes the mesh too, and its gradient runs back through
 the same bodies (for EP: the grouped inverse rotation (K9) and each
-shard's ``FusedMoeMlpFunction`` backward (K10a, K10b)). An expert axis
-beside tensor or fsdp raises (``parallel/layout.py``). Each body records
-the reference's collective sites and byte counts.
+shard's ``FusedMoeMlpFunction`` backward (K10a, K10b)). Each body
+records the reference's collective sites and byte counts.
 
 On a **sequence** axis (``use_ring`` for ring attention) each group's MoE
 block runs on its whole sequence, gathered from the group's token blocks
@@ -404,7 +412,8 @@ def _pairs_mlp(
     tensors. int8 ``QuantTensor`` stacks run forward only, through the
     kernels' int8 branches (fused) or the int8 grouped product
     (primitive). ``under_mesh`` (dropless on a mesh without an expert
-    axis) takes the primitive path, as the reference does under GSPMD."""
+    axis, or beside tensor or fsdp) takes the primitive path, as the
+    reference does under GSPMD."""
     c = config
     t, k = gates.shape
     h = xf.shape[1]
@@ -475,6 +484,46 @@ def _aux_of(stats: list, e: int, device) -> torch.Tensor:
     return e * torch.sum(frac * mean_prob)
 
 
+def _expert_blocks(layer, config: MoeConfig, lay: Layout, g: int) -> list:
+    """Group ``g``'s expert weights per expert shard ``e`` and tensor shard
+    ``t``: ``blocks[e][t]`` = (gate/up [E_loc, H, 2, M / tensor], a strided
+    view; down [E_loc, M / tensor, H]), gathered over fsdp where the stacks
+    are cut there (:meth:`Layout.experts`; int8 stacks as ``QuantTensor``
+    blocks). Without an expert axis, each tensor shard's M block of every
+    expert (:meth:`Layout.weight`)."""
+    if lay.ep > 1:
+        _ep_geometry(config, lay)
+        return [[tuple(lay.experts(layer[k], g, e, t)
+                       for k in ("w_gateup", "w_down"))
+                 for t in range(lay.tp)] for e in range(lay.ep)]
+    return [[tuple(lay.weight(layer[k], g, t) for k in ("w_gateup", "w_down"))
+             for t in range(lay.tp)]]
+
+
+def _expert_pairs(xf, gates, experts, blocks: list, config: MoeConfig,
+                  lay: Layout, g: int, e: int, use_kernels: bool = True):
+    """Expert shard ``e``'s pairs of the routed tokens ``xf`` [T, H]
+    (``gates`` and ``experts`` beside them): each tensor shard's
+    ``_pairs_mlp`` on its block of the shard's experts (``blocks[t]``),
+    and the partial outputs summed in f32 on ``xf``'s device -- the psum
+    over ``tensor``, exact up to the f32 order since SwiGLU is elementwise
+    over M. The fused pipeline runs only where expert (and data) are the
+    mesh's only axes; beside tensor or fsdp, and on a mesh without an
+    expert axis, the primitive path (the grouped products per shard), as
+    in the reference. Returns [T, H] f32."""
+    c = config
+    e_loc = c.n_experts // lay.ep
+    fused_ok = lay.ep > 1 and lay.tp == 1 and lay.fsdp == 1
+    parts = []
+    for t, (w_gu, w_down) in enumerate(blocks):
+        dev = lay.device(g, t, e)
+        parts.append(_pairs_mlp(
+            xf.to(dev), gates.to(dev), experts.to(dev), w_gu, w_down, c,
+            lo=e * e_loc, e_loc=e_loc, use_kernels=use_kernels,
+            under_mesh=not fused_ok))
+    return sum_parts(parts, xf.device)
+
+
 def _dropless_tp_out(x, layer, config: MoeConfig, lay: Layout, g: int,
                      use_kernels: bool = True):
     """Dropless on a mesh without an expert axis (group ``g``): the norm
@@ -488,60 +537,10 @@ def _dropless_tp_out(x, layer, config: MoeConfig, lay: Layout, g: int,
     xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device), c.norm_eps)
     xf = xn.reshape(b * s, h)
     gates, experts, probs, aux = _route_topk(xf, layer["wr"].to(x.device), c)
-    outs = []
-    for t in range(lay.tp):
-        dev = lay.device(g, t)
-        outs.append(_pairs_mlp(
-            xf.to(dev), gates.to(dev), experts.to(dev),
-            lay.weight(layer["w_gateup"], g, t),
-            lay.weight(layer["w_down"], g, t), c,
-            use_kernels=use_kernels, under_mesh=True))
-    return sum_parts(outs, x.device).reshape(b, s, h), aux, probs
-
-
-def _to_transport(w):
-    """An int8 ``QuantTensor`` as its (q, scale) pair, cut into shards
-    alike (:func:`_expert_shards`); float weights pass through."""
-    if isinstance(w, QuantTensor):
-        return (w.q, w.scale)
-    return w
-
-
-def _from_transport(w):
-    if isinstance(w, tuple):
-        return QuantTensor(q=w[0], scale=w[1])
-    return w
-
-
-def _local_experts(w, mesh: Mesh, i: int, e: int, e_loc: int):
-    """Expert shard ``e``'s experts [e_loc, ...] of one layer's stack, on
-    mesh shard ``i``: that shard's block of a :class:`Sharded` stack, or
-    its slice of a whole one moved to its device (as a ``shard_map``
-    reshards an unsharded input)."""
-    if isinstance(w, Sharded):
-        if w.mesh is not mesh or w.shards[i].shape[0] != e_loc:
-            raise ValueError(f"expert stack {w} is not cut by this mesh's "
-                             f"expert axis")
-        return w.shards[i]
-    return w.narrow(0, e * e_loc, e_loc).to(mesh.devices[i])
-
-
-def _parts(w) -> tuple:
-    """The tensors an expert stack travels as: (q, scale) or (w,)."""
-    t = _to_transport(w)
-    return t if isinstance(t, tuple) else (t,)
-
-
-def _expert_shards(w, lay: Layout, g: int, e_loc: int) -> list:
-    """Group ``g``'s expert shards' local expert weights, in ring order
-    (float stacks, or int8 stacks carried as (q, scale) and rebuilt per
-    shard)."""
-    local = [tuple(_local_experts(p, lay.mesh, i, e, e_loc)
-                   for p in _parts(w))
-             for e, i in enumerate(lay.expert_shards(g))]
-    if isinstance(w, QuantTensor):
-        return [_from_transport(ps) for ps in local]
-    return [ps[0] for ps in local]
+    blocks = _expert_blocks(layer, c, lay, g)
+    out = _expert_pairs(xf, gates, experts, blocks[0], c, lay, g, 0,
+                        use_kernels)
+    return out.reshape(b, s, h), aux, probs
 
 
 def _ep_geometry(config: MoeConfig, lay: Layout) -> tuple:
@@ -589,21 +588,18 @@ def _ep_psum_out(x, layer, config: MoeConfig, lay: Layout, g: int,
     one shard, so the sum equals the single-device dropless result up to
     the order of the sum. Returns (out [B, S, H] f32, aux, probs)."""
     c = config
-    n_ep, e_loc = _ep_geometry(c, lay)
+    n_ep, _ = _ep_geometry(c, lay)
     b, s, h = x.shape
     t = b * s
     xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device),
                             c.norm_eps).reshape(t, h)
     gates, experts, probs, aux = _route_topk(xn, layer["wr"].to(x.device), c)
-    w_gu = _expert_shards(layer["w_gateup"], lay, g, e_loc)
-    w_down = _expert_shards(layer["w_down"], lay, g, e_loc)
+    blocks = _expert_blocks(layer, c, lay, g)
     out = None
-    for e, i in enumerate(lay.expert_shards(g)):
-        dev = lay.mesh.devices[i]
-        contrib = _pairs_mlp(
-            xn.to(dev), gates.to(dev), experts.to(dev), w_gu[e], w_down[e],
-            c, lo=e * e_loc, e_loc=e_loc, use_kernels=use_kernels,
-        ).to(x.device)
+    for e in range(n_ep):
+        contrib = _expert_pairs(
+            xn.to(lay.device(g, e=e)), gates, experts, blocks[e], c, lay, g,
+            e, use_kernels).to(x.device)
         out = contrib if out is None else out + contrib
     # The full [T, H] reduction: this path's traffic against the ring's.
     collectives.emit(
@@ -638,10 +634,12 @@ def _ep_ring_out(x, layer, config: MoeConfig, lay: Layout, g: int,
     The row buffers are [T k / n_ep, H] per shard and hop, against the
     psum path's [T k, H]. The Switch aux statistics come from hop 0 (each
     shard's own chunk) and are averaged over the shards: equal to the
-    whole batch's up to the f32 order of the means. Returns (out [B, S,
-    H] f32, aux, (frac, mean_prob))."""
+    whole batch's up to the f32 order of the means. Beside tensor each
+    hop's chunk is routed once on its expert shard and run per tensor
+    shard (:func:`_expert_pairs`): the tensor axis adds no hop. Returns
+    (out [B, S, H] f32, aux, (frac, mean_prob))."""
     c = config
-    n_ep, e_loc = _ep_geometry(c, lay)
+    n_ep, _ = _ep_geometry(c, lay)
     b, s, h = x.shape
     e = c.n_experts
     t = b * s
@@ -650,8 +648,7 @@ def _ep_ring_out(x, layer, config: MoeConfig, lay: Layout, g: int,
     xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device),
                             c.norm_eps).reshape(t, h)
     wr = [layer["wr"].to(d) for d in devs]
-    w_gu = _expert_shards(layer["w_gateup"], lay, g, e_loc)
-    w_down = _expert_shards(layer["w_down"], lay, g, e_loc)
+    blocks = _expert_blocks(layer, c, lay, g)
     x_cur = [xn[i * t_loc:(i + 1) * t_loc].to(d) for i, d in enumerate(devs)]
     y = [torch.zeros(t_loc, h, dtype=torch.float32, device=d) for d in devs]
     frac, meanprob = [None] * n_ep, [None] * n_ep
@@ -661,10 +658,8 @@ def _ep_ring_out(x, layer, config: MoeConfig, lay: Layout, g: int,
             if hop == 0:
                 frac[i] = _one_hot(experts[:, 0], e, probs.dtype).mean(0)
                 meanprob[i] = probs.mean(0)
-            y[i] = y[i] + _pairs_mlp(
-                x_cur[i], gates, experts, w_gu[i], w_down[i], c,
-                lo=i * e_loc, e_loc=e_loc, use_kernels=use_kernels,
-            )
+            y[i] = y[i] + _expert_pairs(x_cur[i], gates, experts,
+                                        blocks[i], c, lay, g, i, use_kernels)
         if hop < n_ep - 1:
             x_cur, y = ring_permute_many(
                 [x_cur, y], "expert", n_ep,
@@ -702,11 +697,14 @@ def _einsum_out(x, layer, config: MoeConfig, use_kernels: bool = True,
                 ep: tuple | None = None):
     """The GShard capacity formulation: route within groups of
     ``router_group`` tokens, dispatch into [E, ..., C, H] by one-hot
-    einsums, the experts' MLPs, combine. ``ep`` = (devices, gate/up
-    shards, down shards) splits the experts over expert shards: shard i
-    runs experts [i e_loc, (i + 1) e_loc) of the expert-major dispatched
-    tensor with its weights, and the results concatenate along E.
-    Returns (out [B, S, H] f32, aux, probs)."""
+    einsums, the experts' MLPs, combine. ``ep`` = (layout, group) runs
+    the experts on the layout's mesh (:func:`_expert_blocks`): expert
+    shard i's experts [i e_loc, (i + 1) e_loc) of the expert-major
+    dispatched tensor run per tensor shard on their M block, the tensor
+    shards' outputs summed in f32 on the expert shard's first tensor
+    shard, and the expert shards' results concatenate along E (without
+    an expert axis, one shard of every expert). The norm and the routing
+    run once. Returns (out [B, S, H] f32, aux, probs)."""
     c = config
     b, s, h = x.shape
     xn = _norm(use_kernels)(x, layer["ln_mlp"].to(x.device), c.norm_eps)
@@ -722,12 +720,17 @@ def _einsum_out(x, layer, config: MoeConfig, use_kernels: bool = True,
     dispatch, combine, aux = _route(probs, c, cap)
     xe = torch.einsum("bsec,bsh->ebch", dispatch.to(xn.dtype), xn)
     if ep is not None:
-        devs, w_gu, w_down = ep
-        e_loc = c.n_experts // len(devs)
-        ye = torch.cat([
-            _experts(xe[i * e_loc:(i + 1) * e_loc].to(dev), w_gu[i],
-                     w_down[i], x.dtype, use_kernels).to(x.device)
-            for i, dev in enumerate(devs)], dim=0)
+        lay, grp = ep
+        e_loc = c.n_experts // lay.ep
+        blocks = _expert_blocks(layer, c, lay, grp)
+        ye = []
+        for i in range(lay.ep):
+            xi = xe[i * e_loc:(i + 1) * e_loc]
+            parts = [_experts(xi.to(lay.device(grp, t, i)), w_gu, w_down,
+                              x.dtype, use_kernels).float()
+                     for t, (w_gu, w_down) in enumerate(blocks[i])]
+            ye.append(sum_parts(parts, lay.device(grp, e=i)).to(x.device))
+        ye = torch.cat(ye, dim=0)
     else:
         ye = _experts(xe, layer["w_gateup"], layer["w_down"], x.dtype,
                       use_kernels)
@@ -743,12 +746,15 @@ def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
     ``auto`` is einsum and dropless on an expert axis is refused, as the
     reference refuses it). On an expert axis: dropless expert parallel
     over the group's expert shards (ring or psum), einsum with the
-    experts split over them, binned refused. Without one (the reference's
-    GSPMD case): dropless on the primitive path per tensor shard
-    (:func:`_dropless_tp_out`), einsum and binned per tensor shard on its
-    M block of every expert; the psum over ``tensor`` adds the shards'
-    outputs (SwiGLU is elementwise over M). Returns (x + out, aux, the
-    aux statistics of :func:`_stats`)."""
+    experts split over them, binned refused; beside tensor (and fsdp)
+    each expert shard's experts run per tensor shard on their M block and
+    the shards' outputs add up in f32 (:func:`_expert_pairs`). Without
+    one (the reference's GSPMD case): dropless on the primitive path
+    (:func:`_dropless_tp_out`) and einsum route once and run each tensor
+    shard's M block of every expert; binned runs whole per tensor shard;
+    the psum over ``tensor`` adds the shards' outputs (SwiGLU is
+    elementwise over M). Returns (x + out, aux, the aux statistics of
+    :func:`_stats`)."""
     c = config
     tokens = x.shape[0] * x.shape[1] * (1 if in_pipeline else lay.dp)
     expert_mesh = lay.ep > 1
@@ -777,24 +783,18 @@ def moe_group(x, layer, config: MoeConfig, lay: Layout, g: int,
         raise ValueError(
             "moe_impl='dropless' is not supported inside the pipelined "
             "forward; use 'einsum' for pipe meshes")
-    if expert_mesh:
-        if impl == "dropless":
-            out, aux, st = _ep_dropless_out(x, layer, c, lay, g, use_kernels)
-        else:
-            _, e_loc = _ep_geometry(c, lay)
-            devs = [lay.mesh.devices[i] for i in lay.expert_shards(g)]
-            ep = (devs, _expert_shards(layer["w_gateup"], lay, g, e_loc),
-                  _expert_shards(layer["w_down"], lay, g, e_loc))
-            out, aux, st = _einsum_out(x, layer, c, use_kernels, ep=ep)
-    elif impl == "dropless":
-        out, aux, st = _dropless_tp_out(x, layer, c, lay, g, use_kernels)
+    if impl == "dropless":
+        body = _ep_dropless_out if expert_mesh else _dropless_tp_out
+        out, aux, st = body(x, layer, c, lay, g, use_kernels)
+    elif impl == "einsum":
+        out, aux, st = _einsum_out(x, layer, c, use_kernels, ep=(lay, g))
     else:
-        body = _einsum_out if impl == "einsum" else _binned_out
         outs = []
         for t in range(lay.tp):
             local = {k: lay.weight(layer[k], g, t)
                      for k in ("ln_mlp", "wr", "w_gateup", "w_down")}
-            o, aux, st = body(x.to(lay.device(g, t)), local, c, use_kernels)
+            o, aux, st = _binned_out(x.to(lay.device(g, t)), local, c,
+                                     use_kernels)
             outs.append(o)
         out = sum_parts(outs, x.device)
     if not isinstance(st, tuple):
@@ -811,7 +811,8 @@ def _moe_block(x, layer, config: MoeConfig, use_kernels: bool = True):
     :func:`moe_group` per batch group instead."""
     c = config
     tokens = x.shape[0] * x.shape[1]
-    if any(isinstance(p, Sharded) for p in _parts(layer["w_gateup"])):
+    if isinstance(getattr(layer["w_gateup"], "q", layer["w_gateup"]),
+                  Sharded):
         raise ValueError("sharded expert stacks need the mesh they were "
                          "sharded on (mesh=...)")
     impl = resolve_moe_impl(c, tokens)
@@ -862,7 +863,15 @@ def _experts(xe: torch.Tensor, w_gu, w_down, dtype: torch.dtype,
 def _int8_experts(rows: torch.Tensor, w: QuantTensor,
                   use_kernels: bool) -> torch.Tensor:
     """rows [E, R, K] against the int8 stack w [E, K, ...] -> [E, R, ...]
-    in rows' dtype, through ``int8_matmul``'s prologue mode."""
+    in rows' dtype, through ``int8_matmul``'s prologue mode. A tensor
+    shard's gate/up block [E, K, 2, M / tensor] (a strided view) runs a
+    launch per half, each half a strided view too: no copy of the
+    weights."""
+    q = w.q
+    if q.dim() == 4 and q.stride(2) != q.shape[3] * q.stride(3):
+        return torch.stack([_int8_experts(rows, QuantTensor(
+            q=q[:, :, i], scale=w.scale[:, :, i].contiguous()), use_kernels)
+            for i in (0, 1)], dim=2)
     e, r, k = rows.shape
     fn = int8_matmul if use_kernels else int8_matmul_reference
     y = fn(rows.contiguous(), w.q.reshape(e, k, -1), w.scale.reshape(e, -1),
@@ -980,7 +989,9 @@ def _mesh_block(xs, layer, config: MoeConfig, cos, sin, use_kernels: bool,
     if len(xs) == 1:
         return [x], (aux, st)
     span = xs[0].shape[1]
-    return [x[:, j * span:(j + 1) * span].to(lay.home(g, j))
+    # Each block contiguous, as the kernels downstream take it (a cut of
+    # the sequence axis of [B, S, H] with B > 1 is strided).
+    return [x[:, j * span:(j + 1) * span].to(lay.home(g, j)).contiguous()
             for j in range(len(xs))], (aux, st)
 
 

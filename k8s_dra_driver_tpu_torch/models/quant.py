@@ -65,6 +65,10 @@ class QuantTensor:
             raise ValueError("a QuantTensor unbinds only its leading axis")
         return [self[i] for i in range(self.q.shape[0])]
 
+    def to(self, device) -> "QuantTensor":
+        """Both fields moved to ``device``."""
+        return QuantTensor(q=self.q.to(device), scale=self.scale.to(device))
+
 
 def quantize_tensor(w: torch.Tensor, axis: int) -> QuantTensor:
     """Symmetric per-channel int8 over the contraction ``axis``."""

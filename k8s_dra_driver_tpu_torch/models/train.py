@@ -1,6 +1,6 @@
 """Training: the optimizer, the train state and the train step. Counterpart
-of ``k8s_dra_driver_tpu/models/train.py`` on one device, or for an MoE
-model on an expert-only single-controller mesh.
+of ``k8s_dra_driver_tpu/models/train.py`` on one device or on a
+single-controller mesh.
 
 The reference jits one program per (batch, seq) with the state donated;
 here the step runs eagerly and updates the state IN PLACE -- parameters
@@ -19,9 +19,9 @@ norm (no epsilon added, unlike ``torch.nn.utils.clip_grad_norm_``).
 Both model families train: :func:`_model_fns` picks ``moe``'s parameters
 and loss for an ``MoeConfig`` (whose router stays f32, and so do its
 moments), ``llama``'s otherwise. On a ``mesh`` (``parallel/mesh.py``:
-data, fsdp and tensor, or data with expert) the state's leaves stay
-whole on the mesh's first device, and its placement is a tree of
-``NamedSharding`` twins (``TrainState.shardings``, by the model's
+data, fsdp, tensor, sequence and, for an MoE model, expert) the state's
+leaves stay whole on the mesh's first device, and its placement is a
+tree of ``NamedSharding`` twins (``TrainState.shardings``, by the model's
 ``param_specs``; the optimizer's moments replicated, as the reference's
 jitted optax init leaves them). The loss cuts each shard's blocks as
 views of the whole leaves (``llama.place``), so the gradients reach the

@@ -162,8 +162,9 @@ def fused_geometry_ok(h: int, m: int) -> bool:
 def use_fused(h: int | None = None, m: int | None = None,
               device=None, under_mesh: bool = False) -> bool:
     """Whether the fused pipeline is selected for tensors on ``device``.
-    ``under_mesh`` (dropless on a mesh without an expert axis, the
-    reference's GSPMD case) selects the primitive path, as there."""
+    ``under_mesh`` (dropless on a mesh without an expert axis, or on an
+    expert axis beside tensor or fsdp: the reference's GSPMD cases)
+    selects the primitive path, as there."""
     if under_mesh:
         return False
     return dispatch_impl_label(h, m, device) == "fused"

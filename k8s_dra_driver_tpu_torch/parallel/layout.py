@@ -16,7 +16,12 @@ these placements from GSPMD; the port computes them here.
   only in their fsdp coordinate, concatenated in shard order.
 - **Experts.** On a mesh with an ``expert`` axis each group runs the
   expert-parallel bodies of ``models/moe.py`` over its expert shards
-  (:meth:`Layout.expert_shards`).
+  (:meth:`Layout.expert_shards`). Beside ``tensor`` each expert shard's
+  experts run per tensor shard on their M block (:meth:`Layout.experts`,
+  gathered over fsdp where the stack is cut there), the partial outputs
+  summed on the expert shard's first tensor shard; attention and the
+  other replicated work run on expert shard 0's tensor shards (their
+  weights are replicated over ``expert``).
 - **Sequence shards.** On a ``sequence`` axis of ``n`` a group's rows cut
   into ``n`` token blocks: block ``(g, j)`` holds positions ``[j S / n,
   (j + 1) S / n)`` of the group's rows (:meth:`Layout.blocks`), and its
@@ -28,9 +33,6 @@ these placements from GSPMD; the port computes them here.
   coordinate 0 (the replicas along ``pipe`` would compute the same
   thing); ``parallel/pipeline.py`` gives each stage a Layout of its own
   sub-mesh (``Mesh.sub``).
-
-An ``expert`` axis beside ``tensor`` or ``fsdp`` raises (A12c's
-remainder in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from .mesh import Mesh
-from .sharding import gathered_of, shard_of
+from .sharding import Sharded, gathered_of, shard_of
 
 
 class Layout:
@@ -47,11 +49,7 @@ class Layout:
 
     def __init__(self, mesh: Mesh, what: str = "a mesh forward"):
         s = mesh.shape
-        if s["expert"] > 1 and (s["tensor"] > 1 or s["fsdp"] > 1):
-            raise NotImplementedError(
-                f"{what}: an expert axis beside tensor or fsdp "
-                f"({mesh.config}) is not ported (A12c in ROADMAP.md); the "
-                f"expert axis composes with data")
+        self.what = what
         self.mesh = mesh
         self.fsdp = s["fsdp"]
         self.dp = s["data"] * s["fsdp"]
@@ -77,16 +75,31 @@ class Layout:
         """Where token block ``(g, j)``'s replicated work runs."""
         return self.device(g, j=j)
 
-    def expert_shards(self, g: int) -> list:
-        """Group ``g``'s expert shards, their mesh indices in ring order."""
-        return [self.shard(g, e=e) for e in range(self.ep)]
+    def expert_shards(self, g: int, t: int = 0, j: int = 0) -> list:
+        """Group ``g``'s expert shards at tensor shard ``t`` (sequence
+        shard ``j``), their mesh indices in ring order."""
+        return [self.shard(g, t, e, j) for e in range(self.ep)]
 
-    def weight(self, w, g: int, t: int = 0, j: int = 0):
+    def experts(self, w, g: int, e: int, t: int = 0):
+        """Expert shard ``e``'s block of one layer's expert stack ``w``
+        [E, ...] for group ``g``'s tensor shard ``t``: its shard of a
+        :class:`Sharded` stack (a ``QuantTensor``'s fields alike),
+        gathered over fsdp where the stack is cut there, on the shard's
+        device. The stack must be placed on this mesh (``shard_pytree`` by
+        ``moe.param_specs``; the model forwards place whole leaves)."""
+        s = getattr(w, "q", w)
+        if not isinstance(s, Sharded) or s.mesh is not self.mesh \
+                or not s.splits or s.splits[0][:2] != (0, ("expert",)):
+            raise ValueError(f"{self.what}: expert stack {s!r:.80} is not "
+                             f"cut by this mesh's expert axis")
+        return self.weight(w, g, t, e=e)
+
+    def weight(self, w, g: int, t: int = 0, j: int = 0, e: int = 0):
         """The block of ``w`` that group ``g``'s tensor shard ``t`` (of
-        sequence shard ``j``) computes with: its shard, gathered over fsdp
-        where ``w`` is cut there; a replicated tensor moved to the shard's
-        device."""
-        i = self.shard(g, t, j=j)
+        sequence shard ``j``, expert shard ``e``) computes with: its
+        shard, gathered over fsdp where ``w`` is cut there; a replicated
+        tensor moved to the shard's device."""
+        i = self.shard(g, t, e, j)
         if self.fsdp > 1:
             return gathered_of(w, self.mesh, i, "fsdp")
         return shard_of(w, self.mesh, i)

@@ -22,6 +22,7 @@ is no custom backward, as the reference has none.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Optional
 
@@ -31,19 +32,24 @@ from .ring import _rotate
 
 
 def _tree_map(fn, tree):
+    """``fn`` on every tensor of ``tree``: dicts, lists and tuples, and
+    dataclass leaves such as ``QuantTensor`` field by field (the
+    reference's ``jax.tree_util`` descends into its registered pytrees)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
     return fn(tree)
 
 
 def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    out = []
+    _tree_map(out.append, tree)
+    return out
 
 
 def _unflatten(tree, leaves: list):

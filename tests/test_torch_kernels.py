@@ -1195,6 +1195,48 @@ def test_int8_matmul_takes_a_column_block(dev, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_int8_matmul_experts_take_a_block(dev, m):
+    """An (expert shard, tensor shard) block of int8 expert stacks, as an
+    expert x tensor mesh hands it to the einsum body: each half of the
+    gate/up block [E_loc, K, 2, N] (its rows 4N apart) and the down block
+    [E_loc, N, K] (its experts 2NK apart) go into the prologue mode where
+    they lie, one launch each, equal to the plain version on contiguous
+    copies."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.quant import QuantTensor
+    from k8s_dra_driver_tpu_torch.ops import quant_matmul as qm
+
+    e, k, n = 4, 512, 192
+    gu = _int8_weight(dev, e, k, 2 * 2 * n, seed=4)
+    gu = QuantTensor(q=gu.q.reshape(e, k, 2, 2 * n),
+                     scale=gu.scale.reshape(e, 1, 2, 2 * n))
+    down = _int8_weight(dev, e, 2 * n, k, seed=5)
+    gu_b = QuantTensor(q=gu.q[2:, :, :, n:], scale=gu.scale[2:, :, :, n:])
+    down_b = QuantTensor(q=down.q[2:, n:], scale=down.scale[2:])
+    x = torch.randn(2, m, k, device=dev).bfloat16()
+    act = torch.randn(2, m, n, device=dev).bfloat16()
+    for i in (0, 1):
+        q, scale = gu_b.q[:, :, i], gu_b.scale[:, :, i].contiguous()
+        assert not q.is_contiguous()
+        _rel_close(f"gate/up half {i}", qm.int8_matmul(x, q, scale, True),
+                   qm.int8_matmul_reference(x, q.contiguous(), scale, True))
+    assert not down_b.q.is_contiguous()
+    _rel_close("down block", qm.int8_matmul(act, down_b.q, down_b.scale,
+                                            True),
+               qm.int8_matmul_reference(act, down_b.q.contiguous(),
+                                        down_b.scale, True))
+    before = qm.int8_matmul.launches
+    y = moe._int8_experts(x, gu_b, True)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 2
+    contiguous = QuantTensor(q=gu_b.q.contiguous(),
+                             scale=gu_b.scale.contiguous())
+    _rel_close("_int8_experts gate/up block", y,
+               moe._int8_experts(x, contiguous, False))
+
+
+@pytest.mark.cuda
 def test_int8_seams_run_the_kernel(dev):
     """On CUDA tensors the seams launch ``int8_matmul`` once each and
     agree with their plain versions (``use_kernels=False``)."""

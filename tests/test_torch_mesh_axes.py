@@ -185,10 +185,19 @@ def test_mesh_pieces(case, monkeypatch):
         got = llama.loss_fn(p, torch.tensor(toks), TINY, mesh=mesh,
                             use_ring=True)
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
-        with pytest.raises(NotImplementedError, match="A12"):
-            moe.forward(moe.init_params(TMOE, seed=0, device="cpu"),
-                        torch.tensor(toks), TMOE,
-                        mesh=_cpu_mesh(expert=2, tensor=2))
+        # The expert axis beside tensor (it refused before): the MoE
+        # forward on expert 2 x tensor 2 equals the reference's there.
+        jmp = jmoe.init_params(JMOE, jax.random.PRNGKey(0))
+        jem = _jmesh(expert=2, tensor=2)
+        want, want_aux = jax.jit(lambda q: jmoe.forward(
+            q, jnp.asarray(toks), JMOE, mesh=jem))(
+                jsharding.shard_pytree(jmp, jem, jmoe.param_specs(JMOE)))
+        got, aux = moe.forward(params_from_numpy(_numpy(jmp), TMOE,
+                                                 device="cpu"),
+                               torch.tensor(toks), TMOE,
+                               mesh=_cpu_mesh(expert=2, tensor=2))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert abs(float(aux) - float(want_aux)) < 1e-5
         with pytest.raises(ValueError, match="does not split"):
             llama.forward(p, torch.zeros((3, 4), dtype=torch.long), TINY,
                           mesh=mesh)
@@ -345,6 +354,43 @@ def test_engine_serves_on_pipe_and_sequence_meshes():
     assert eng.compile_counts == {"decode_step": 1, "prefill_chunk": 1}
 
 
+def test_int8_moe_engine_on_expert_and_tensor():
+    """``DecodeEngine(mesh=)`` on expert 2 x tensor 2 with int8 weights
+    and the int8 KV cache (the card's int8 Mixtral serving composition):
+    ``auto`` resolves to einsum there, each expert shard's experts run per
+    tensor shard; greedy streams token for token the reference engine's
+    on its mesh, each step built once."""
+    from k8s_dra_driver_tpu.models.serving import DecodeEngine as JEngine
+
+    axes = dict(expert=2, tensor=2)
+    mesh, jmesh = _cpu_mesh(**axes), _jmesh(**axes)
+    jcfg = dataclasses.replace(JMOE, capacity_factor=8.0)
+    tcfg = dataclasses.replace(TMOE, capacity_factor=8.0)
+    jp = jquant.quantize_params(jmoe.init_params(jcfg, jax.random.PRNGKey(0)))
+    tp = params_from_numpy(_numpy(jp), tcfg, device="cpu")
+    kw = dict(batch_slots=4, num_blocks=16, block_size=8, max_seq_len=32,
+              prefill_chunk=8, quantize_cache=True)
+
+    def streams(eng):
+        rng = np.random.RandomState(8)
+        prompts = [rng.randint(0, TMOE.vocab_size, size=n).tolist()
+                   for n in (5, 9, 13)]
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        eng.run()
+        eng.assert_no_leaks()
+        return [r.tokens for r in reqs]
+
+    ref = streams(JEngine(
+        jsharding.shard_pytree(jp, jmesh, jquant.quantize_specs(
+            jmoe.param_specs(jcfg))), jcfg, mesh=jmesh, **kw))
+    eng = DecodeEngine(shard_pytree(tp, mesh, quant.quantize_specs(
+        moe.param_specs(tcfg))), tcfg, mesh=mesh, device="cpu", **kw)
+    assert eng.moe_impl == {"decode_step": "einsum",
+                            "prefill_chunk": "einsum"}
+    assert streams(eng) == ref
+    assert eng.compile_counts == {"decode_step": 1, "prefill_chunk": 1}
+
+
 # ---------------------------------------------------------------------------
 # MoE on expertless meshes and data composed with expert.
 # ---------------------------------------------------------------------------
@@ -356,23 +402,40 @@ def moe_params():
     return jp, params_from_numpy(_numpy(jp), TMOE, device="cpu")
 
 
+MOE_MESHES = {"tensor2": dict(tensor=2), "data2_expert4": dict(data=2,
+                                                                expert=4),
+              "data2_fsdp2_tensor2": dict(data=2, fsdp=2, tensor=2),
+              "expert2_tensor2": dict(expert=2, tensor=2),
+              "expert2_fsdp2": dict(expert=2, fsdp=2),
+              "data2_expert2_tensor2": dict(data=2, expert=2, tensor=2)}
+
+
 @pytest.mark.parametrize("case", [
     "tensor2_dropless", "tensor2_dropless_int8", "tensor2_einsum",
     "tensor2_binned", "data2_expert4_dropless", "data2_expert4_int8",
-    "data2_fsdp2_tensor2_dropless"])
+    "data2_fsdp2_tensor2_dropless", "expert2_tensor2_dropless_ring",
+    "expert2_tensor2_dropless_psum", "expert2_tensor2_einsum",
+    "expert2_tensor2_int8", "expert2_fsdp2_dropless",
+    "data2_expert2_tensor2_dropless"])
 def test_moe_on_mesh_axes(moe_params, case):
     """``tiny-moe`` on the reference's mesh and the port's: dropless on an
     expertless mesh takes the primitive path per tensor shard (the
     reference's GSPMD case), einsum and binned run there too, and each
-    data group runs its own expert-parallel body on data x expert."""
+    data group runs its own expert-parallel body on data x expert. Beside
+    tensor (and fsdp) each expert shard's experts run per tensor shard on
+    their M block, gathered over fsdp: the EP ring and psum, einsum, and
+    int8 stacks (the ring, the int8 grouped product per shard)."""
     jp, tp = moe_params
-    axes = (dict(data=2, fsdp=2, tensor=2) if case.startswith("data2_fsdp2")
-            else dict(data=2, expert=4) if case.startswith("data2")
-            else dict(tensor=2))
+    mesh_name = max((k for k in MOE_MESHES if case.startswith(k + "_")),
+                    key=len)
+    axes = MOE_MESHES[mesh_name]
     impl = "einsum" if "einsum" in case else (
         "binned" if "binned" in case else "dropless")
-    jcfg = dataclasses.replace(JMOE, moe_impl=impl, capacity_factor=8.0)
-    tcfg = dataclasses.replace(TMOE, moe_impl=impl, capacity_factor=8.0)
+    overlap = case.rsplit("_", 1)[1] if case.endswith(("_ring", "_psum")) \
+        else "auto"
+    kw = dict(moe_impl=impl, capacity_factor=8.0, ep_overlap=overlap)
+    jcfg = dataclasses.replace(JMOE, **kw)
+    tcfg = dataclasses.replace(TMOE, **kw)
     jspecs, tspecs = jmoe.param_specs(jcfg), moe.param_specs(tcfg)
     if case.endswith("int8"):
         jp = jquant.quantize_params(jp)
@@ -424,6 +487,95 @@ def test_dropless_on_a_tensor_mesh_is_the_primitive_path(moe_params,
     assert len(halves) == 2 * 2 * 2 and len(seen) == 2 * 2 * 3
     assert all(w.shape == (TMOE.n_experts, TMOE.hidden, m_loc)
                and not w.is_contiguous() for w in halves)
+
+
+@pytest.mark.parametrize("weights", ["float", "int8"])
+def test_dropless_beside_tensor_runs_grouped_products_per_shard(
+        moe_params, weights, monkeypatch):
+    """Dropless on expert 2 x tensor 2 (the ring): every (hop, expert
+    shard) runs its pairs per tensor shard through the grouped products
+    on that shard's M block of its local experts (K10a, or the int8
+    grouped product: one gate/up launch for both halves), never the
+    fused pipeline (K7/K8), and the ring keeps n_ep K9 launches a layer:
+    the tensor axis adds no hop."""
+    from k8s_dra_driver_tpu_torch.parallel import ring
+
+    _, tp = moe_params
+    mesh = _cpu_mesh(expert=2, tensor=2)
+    cfg = dataclasses.replace(TMOE, moe_impl="dropless", ep_overlap="ring")
+    specs = moe.param_specs(cfg)
+    if weights == "int8":
+        tp, specs = quant.quantize_params(tp), quant.quantize_specs(specs)
+    seen, hops = [], []
+    gm, group = md.grouped_matmul, ring.ring_permute_group
+
+    def spy(lhs, rhs, sizes, **kw):
+        seen.append(tuple(rhs.shape))
+        return gm(lhs, rhs, sizes, **kw)
+
+    def counted(rings, shift=1):
+        if any(x.numel() for r in rings for x in r):
+            hops.append(len(rings))
+        return group(rings, shift)
+
+    monkeypatch.setattr(md, "grouped_matmul", spy)
+    monkeypatch.setattr(ring, "ring_permute_group", counted)
+    monkeypatch.setattr(md, "fused_moe_mlp", lambda *a, **k: 1 / 0)
+    with torch.no_grad():
+        moe.forward(shard_pytree(tp, mesh, specs),
+                    torch.zeros((2, 8), dtype=torch.long), cfg, mesh=mesh)
+    layers, n_ep, t = TMOE.n_layers, 2, 2
+    e_loc, h, m_loc = TMOE.n_experts // n_ep, TMOE.hidden, \
+        TMOE.mlp_hidden // t
+    shard_calls = layers * n_ep * n_ep * t
+    if weights == "int8":
+        want = [(e_loc, h, 2, m_loc), (e_loc, m_loc, h)] * shard_calls
+    else:
+        want = [(e_loc, h, m_loc)] * 2 + [(e_loc, m_loc, h)]
+        want = want * shard_calls
+    assert seen == want
+    # Each hop but the last rotates chunk and carrier together.
+    assert hops == [2, 1] * layers
+
+
+def test_layout_places_expert_shards_beside_tensor():
+    """``Layout.expert_shards(g, t, j)`` is the mesh index of each expert
+    shard at (group, tensor shard, sequence shard); ``Layout.experts``
+    gives an expert shard's block for a tensor shard, gathered over
+    fsdp, its int8 fields alike, and refuses a stack not cut by the
+    mesh's expert axis (whole, cut otherwise, or on another mesh)."""
+    from k8s_dra_driver_tpu_torch.parallel.layout import Layout
+
+    mesh = _cpu_mesh(data=2, fsdp=2, expert=2, sequence=2, tensor=2)
+    lay = Layout(mesh)
+    for g in range(4):
+        for t in range(2):
+            for j in range(2):
+                assert lay.expert_shards(g, t, j) == [
+                    mesh.index(data=g // 2, fsdp=g % 2, expert=e,
+                               sequence=j, tensor=t) for e in range(2)]
+    assert lay.expert_shards(1) == lay.expert_shards(1, 0, 0)
+    w = torch.randn(4, 8, 2, 6)
+    q = quant.quantize_tensor(w, axis=1)
+    spec = P("expert", "fsdp", None, "tensor")
+    placed = shard_pytree(w, mesh, spec)
+    qplaced = shard_pytree(q, mesh, quant.QuantTensor(
+        q=spec, scale=P("expert", None, None, "tensor")))
+    for e in range(2):
+        for t in range(2):
+            block = lay.experts(placed, 3, e, t)
+            assert torch.equal(block, w[2 * e:2 * e + 2, :, :,
+                                        3 * t:3 * t + 3])
+            qb = lay.experts(qplaced, 3, e, t)
+            assert torch.equal(qb.q, q.q[2 * e:2 * e + 2, :, :,
+                                         3 * t:3 * t + 3])
+            assert torch.equal(qb.scale, q.scale[2 * e:2 * e + 2, :, :,
+                                                 3 * t:3 * t + 3])
+    for bad in (w, shard_pytree(w, mesh, P(None, "fsdp")),
+                shard_pytree(w, _cpu_mesh(expert=2), P("expert"))):
+        with pytest.raises(ValueError, match="not cut by this mesh's "
+                           "expert axis"):
+            lay.experts(bad, 0, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -278,3 +278,131 @@ def test_moe_loss_and_grads_on_a_tensor_mesh(impl):
         for name, g in mgrads.items():
             np.testing.assert_allclose(g, want[name], **GRAD_TOL,
                                        err_msg=name)
+
+
+def _moe_mesh_grads(jcfg, cfg, axes, toks, **kw):
+    """The reference's jitted ``value_and_grad`` of ``moe.loss_fn`` on its
+    mesh of ``axes`` (its weights placed by ``param_specs``) and the
+    port's loss and gradient leaves on CPU shards of the same shape, from
+    the same ``PRNGKey(0)`` weights."""
+    from k8s_dra_driver_tpu.models import moe as jmoe
+    from k8s_dra_driver_tpu.parallel.sharding import shard_pytree as jshard
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    jmesh = _jmesh(**axes)
+    jp = jmoe.init_params(jcfg, jax.random.PRNGKey(0))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmoe.loss_fn(p, jnp.asarray(toks), jcfg, mesh=jmesh, **kw)
+    ))(jshard(jp, jmesh, jmoe.param_specs(jcfg)))
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
+    flat = _leaves(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    loss = moe.loss_fn(params, torch.tensor(toks), cfg, mesh=_cpu_mesh(**axes),
+                       **kw)
+    grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+    return (float(jloss), _leaves(jax.tree.map(np.asarray, jgrads)),
+            loss.item(), grads, jp)
+
+
+@pytest.mark.parametrize("impl", ["auto", "dropless"])
+def test_moe_grad_step_on_data_expert_tensor(impl):
+    """The twin of ``tests/test_moe.py::test_sharded_grad_step`` (data 2 x
+    expert 2 x tensor 2, ``tiny-moe``, 2 x 65 tokens): the loss and every
+    gradient leaf against the reference's on its mesh (it checks only
+    finiteness), with ``auto`` (einsum on an expert mesh) and dropless
+    (the EP ring, each expert shard's grouped products per tensor
+    shard)."""
+    import dataclasses
+
+    from k8s_dra_driver_tpu.models import moe as jmoe
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    jcfg = dataclasses.replace(jmoe.MOE_PRESETS["tiny-moe"], moe_impl=impl)
+    cfg = dataclasses.replace(moe.MOE_PRESETS["tiny-moe"], moe_impl=impl)
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(3), (2, 65), 0,
+                                         cfg.vocab_size))
+    jloss, jgrads, loss, grads, _ = _moe_mesh_grads(
+        jcfg, cfg, dict(data=2, expert=2, tensor=2), toks)
+    assert abs(loss - jloss) < 1e-5
+    assert sorted(grads) == sorted(jgrads)
+    for name, g in grads.items():
+        assert g.shape == jgrads[name].shape
+        np.testing.assert_allclose(g.numpy(), jgrads[name], **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_moe_combined_expert_sequence_tensor_mesh(monkeypatch):
+    """The twin of ``test_combined_expert_sequence_tensor_mesh``: expert 2
+    x sequence 2 x tensor 2 in one mesh, einsum, ring attention, remat:
+    the loss within 5e-3 of the single device (the reference's gate) and
+    within 1e-5 of the reference's on its mesh, and every gradient leaf
+    against the reference's (it checks only finiteness). The reference's
+    ring runs its flash form (its einsum form's dq and dk on the CPU are
+    not plain attention's, ``tests/test_torch_ring_attention.py``)."""
+    import dataclasses
+    import functools
+
+    from k8s_dra_driver_tpu.models import moe as jmoe
+    from k8s_dra_driver_tpu.parallel import ring as jring
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    monkeypatch.setattr(jllama, "ring_attention", functools.partial(
+        jring.ring_attention, impl="flash"))
+    jcfg = dataclasses.replace(jmoe.MOE_PRESETS["tiny-moe"],
+                               moe_impl="einsum")
+    cfg = dataclasses.replace(moe.MOE_PRESETS["tiny-moe"], moe_impl="einsum")
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(3), (2, 65), 0,
+                                         cfg.vocab_size))
+    jloss, jgrads, loss, grads, jp = _moe_mesh_grads(
+        jcfg, cfg, dict(expert=2, sequence=2, tensor=2), toks,
+        use_ring=True, remat=True)
+    single = float(jmoe.loss_fn(jp, jnp.asarray(toks), jcfg))
+    assert abs(loss - single) < 5e-3
+    assert abs(loss - jloss) < 1e-5
+    assert sorted(grads) == sorted(jgrads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), jgrads[name], **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_moe_train_steps_on_data_expert_tensor():
+    """Three AdamW steps of ``make_train_step(mesh=)`` for ``tiny-moe``
+    (dropless) on data 2 x expert 2 x tensor 2 against three of the
+    single-device step from the same parameters: the losses, the first
+    moments and the parameters at this file's pins; the state's placement
+    is ``moe.param_specs`` on the mesh."""
+    import dataclasses
+
+    from k8s_dra_driver_tpu_torch.models import moe
+
+    mesh = _cpu_mesh(data=2, expert=2, tensor=2)
+    cfg = dataclasses.replace(moe.MOE_PRESETS["tiny-moe"],
+                              moe_impl="dropless")
+    init = moe.init_params(cfg, seed=0, device="cpu")
+    toks = torch.tensor(np.asarray(jax.random.randint(
+        jax.random.PRNGKey(2), (4, 33), 0, cfg.vocab_size)))
+    runs = []
+    for m in (mesh, None):
+        opt = ttrain.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=100)
+        state = ttrain.train_state_from_params(
+            jax.tree.map(lambda t: t.detach().clone(), init), opt, mesh=m)
+        step = ttrain.make_train_step(cfg, opt, device="cpu", mesh=m)
+        losses = [step(state, toks)[1].item() for _ in range(3)]
+        runs.append((losses, _leaves(state.opt_state.mu),
+                     _leaves(state.params), state.shardings))
+    (losses, mu, params, shardings), (s_losses, s_mu, s_params, _) = runs
+    assert losses[2] < losses[0]
+    np.testing.assert_allclose(losses, s_losses, atol=1e-5, rtol=1e-5)
+    for name in params:
+        np.testing.assert_allclose(mu[name].numpy(), s_mu[name].numpy(),
+                                   **GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(params[name].detach().numpy(),
+                                   s_params[name].detach().numpy(),
+                                   atol=5e-4, rtol=1e-4, err_msg=name)
+    assert _specs(shardings) == {
+        k: tuple(v) if not isinstance(v, dict)
+        else {kk: tuple(vv) for kk, vv in v.items()}
+        for k, v in moe.param_specs(cfg).items()}
+    assert all(s.mesh is mesh for s in _leaves(shardings).values())

@@ -272,3 +272,62 @@ def test_refuses_pipeline_composition():
         moe.forward_pipelined(params, toks, cfg, mesh, n_microbatches=2)
     assert moe.resolve_moe_impl(moe.MOE_PRESETS["tiny-moe"], 64,
                                 in_pipeline=True) == "einsum"
+
+
+# ---------------------------------------------------------------------------
+# int8 weights through the pipeline: the stages view each QuantTensor's
+# q and scale as [P, L / P, ...] alike.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("axes", [dict(pipe=2), dict(pipe=2, tensor=2)])
+def test_int8_pipelined_llama_matches_the_reference(tiny, axes):
+    """``quantize_params`` of ``tiny`` through ``forward_pipelined`` (two
+    microbatches) against the reference's pipelined forward of the same
+    int8 tree on its mesh, logits [4, 16, 256] at the int8 pin (1e-4)."""
+    from k8s_dra_driver_tpu.models import quant as jquant
+    from k8s_dra_driver_tpu_torch.models import quant
+
+    jp = jquant.quantize_params(tiny[0])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), TINY, device="cpu")
+    assert isinstance(tp["layers"]["wqkv"], quant.QuantTensor)
+    staged = stage_params(tp["layers"], 2)["wqkv"]
+    assert staged.q.shape[:2] == staged.scale.shape[:2] == (2, 1)
+    tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (4, 16), 0,
+                                           JTINY.vocab_size))
+    want = np.asarray(jllama.forward_pipelined(
+        jp, jnp.asarray(tokens), JTINY, _jmesh(**axes), n_microbatches=2))
+    got = llama.forward_pipelined(tp, torch.tensor(tokens), TINY,
+                                  _cpu_mesh(**axes), n_microbatches=2)
+    assert got.shape == want.shape == (4, 16, 256)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_int8_pipelined_moe_matches_the_reference():
+    """``moe.forward_pipelined`` on int8 ``tiny-moe`` (einsum) over pipe 2
+    x expert 2 x tensor 2 against the reference's jitted pipelined forward
+    of its int8 tree placed by ``quantize_specs`` on its mesh (its eager
+    call refuses in ``shard_map``, its jitted one runs): logits at the
+    int8 pin (1e-4) and the aux within 1e-5."""
+    from k8s_dra_driver_tpu.models import quant as jquant
+    from k8s_dra_driver_tpu_torch.models import quant
+
+    jcfg = dataclasses.replace(jmoe.MOE_PRESETS["tiny-moe"],
+                               moe_impl="einsum")
+    tcfg = dataclasses.replace(moe.MOE_PRESETS["tiny-moe"],
+                               moe_impl="einsum")
+    jp = jquant.quantize_params(jmoe.init_params(jcfg, jax.random.PRNGKey(0)))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    t = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (4, 16), 0,
+                                      jcfg.vocab_size))
+    axes = dict(pipe=2, expert=2, tensor=2)
+    jmesh = _jmesh(**axes)
+    jl, ja = jax.jit(lambda p: jmoe.forward_pipelined(
+        p, jnp.asarray(t), jcfg, jmesh, n_microbatches=2))(
+            jshard(jp, jmesh, jquant.quantize_specs(jmoe.param_specs(jcfg))))
+    logits, aux = moe.forward_pipelined(tp, torch.tensor(t), tcfg,
+                                        _cpu_mesh(**axes), n_microbatches=2)
+    assert isinstance(tp["lm_head"], quant.QuantTensor)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    assert abs(aux.item() - float(ja)) < 1e-5
