@@ -424,6 +424,23 @@ fixed seed, and checks every hand-written kernel of those paths:
     microbatches at 8 x 512 tokens, its logits within PIPE_LOGITS_REL of
     the single device's unpipelined int8 forward, its launches (K9 once a
     hop, M + P - 2 hops) held to ``pipe_int8_launches``.
+43. MIG, the card's partitions (``mig_phase``): a C program compiled by
+    ``nvcc`` against the toolkit's ``nvml.h`` prints ``sizeof`` and every
+    field's ``offsetof`` of each struct the port's NVML binding declares
+    (``_nvml.STRUCTS``) and the MIG constants, each held to the binding's;
+    the live ``/proc/driver/nvidia-caps/mig-minors`` is parsed where it
+    exists; the binding reads the current and pending MIG mode, the most
+    MIG devices the card takes and each H100 profile's info (each answer
+    or NVML's named error is printed; an answer must match
+    ``deviceinfo.MIG_PROFILES``). A line of its own names the branch.
+    With MIG disabled: ``RealChipLib`` publishes the GPU whole and no
+    ``tensorcore`` device, and the ``Driver`` allocates, prepares
+    (CUDA_VISIBLE_DEVICES the GPU's uuid, no core variable) and
+    unprepares it as phase 30 does. With MIG enabled by an admin: the MIG
+    devices are published and the GPU is not, the ``Driver`` prepares one
+    (its ``MIG-`` uuid, its access nodes), and a child process under the
+    prepared env launches K1 on it, held to ``rmsnorm_reference``. The
+    phase never sets the MIG mode.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37,
@@ -4055,6 +4072,28 @@ def dra_worker(mode: str) -> int:
         _, served = worker_serve(torch, lease)
         emit("served", intervals=intervals, **served)
         return 0
+    if mode == "mig":
+        # Phase 43: K1 on the MIG device the claim's env names.
+        from k8s_dra_driver_tpu_torch.ops import norms
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn((512, 4096), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (1 + 0.1 * torch.randn((4096,), generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+        before = norms.rmsnorm.launches
+        out = norms.rmsnorm(x, w, 1e-5)
+        launches = norms.rmsnorm.launches - before
+        ref = norms.rmsnorm_reference(x, w, 1e-5)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        emit("rmsnorm", launches=launches,
+             max_abs_err=diff.max().item(),
+             rel_err=(diff.max() / ref.float().abs().max()).item(),
+             finite=bool(torch.isfinite(out.float()).all()),
+             total_memory=props.total_memory,
+             sms=props.multi_processor_count, **seen)
+        return 0
     raise ValueError(f"unknown worker mode {mode!r}")
 
 
@@ -7299,6 +7338,282 @@ def nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+# Phase 43: where the driver lists the MIG access nodes' minors, the
+# DeviceClasses of deployments/manifests/deviceclasses.yaml, and the
+# constants of nvml.h the binding copies (C name -> the binding's value).
+MIG_MINORS = Path("/proc/driver/nvidia-caps/mig-minors")
+MIG_CLASSES = {
+    name: [f"device.driver == '{DRA_DRIVER}' && "
+           f"device.attributes['{DRA_DRIVER}'].type == '{kind}'"]
+    for name, kind in ((DRA_DRIVER, "chip"),
+                       (f"tensorcore.{DRA_DRIVER}", "tensorcore"))}
+
+
+def nvml_constants() -> dict:
+    from k8s_dra_driver_tpu_torch.tpulib import _nvml
+
+    return {
+        "nvmlGpuInstanceProfileInfo_v2": _nvml.GPU_INSTANCE_PROFILE_INFO_V2,
+        "NVML_GPU_INSTANCE_PROFILE_1_SLICE":
+            _nvml.GPU_INSTANCE_PROFILE_1_SLICE,
+        "NVML_GPU_INSTANCE_PROFILE_2_SLICE":
+            _nvml.GPU_INSTANCE_PROFILE_2_SLICE,
+        "NVML_GPU_INSTANCE_PROFILE_3_SLICE":
+            _nvml.GPU_INSTANCE_PROFILE_3_SLICE,
+        "NVML_GPU_INSTANCE_PROFILE_4_SLICE":
+            _nvml.GPU_INSTANCE_PROFILE_4_SLICE,
+        "NVML_GPU_INSTANCE_PROFILE_7_SLICE":
+            _nvml.GPU_INSTANCE_PROFILE_7_SLICE,
+        "NVML_GPU_INSTANCE_PROFILE_1_SLICE_REV2":
+            _nvml.GPU_INSTANCE_PROFILE_1_SLICE_REV2,
+        "NVML_DEVICE_MIG_ENABLE": _nvml.MIG_ENABLED,
+        "NVML_DEVICE_UUID_V2_BUFFER_SIZE": _nvml.UUID_BUFFER,
+        "NVML_DEVICE_NAME_V2_BUFFER_SIZE": _nvml.NAME_BUFFER,
+        "NVML_ERROR_NO_PERMISSION": 4,
+        "NVML_ERROR_NOT_FOUND": 6,
+    }
+
+
+def nvml_layouts() -> dict:
+    """The binding's structs and constants against the toolkit's
+    ``nvml.h``: a C program compiled by ``nvcc`` into the build
+    directory prints ``sizeof`` and each field's ``offsetof`` of every
+    struct in ``_nvml.STRUCTS``, and each of ``nvml_constants``; every
+    figure must equal the binding's."""
+    import ctypes
+
+    from k8s_dra_driver_tpu_torch.ops._build import nvcc_path
+    from k8s_dra_driver_tpu_torch.tpulib import _nvml
+
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    headers = [h for h in (home / "include" / "nvml.h",
+                           home / "targets" / "x86_64-linux" / "include" /
+                           "nvml.h", Path("/usr/include/nvml.h"))
+               if h.exists()]
+    if not headers:
+        raise AssertionError(f"no nvml.h under {home} or /usr/include")
+    want, lines = {}, ["#include <stddef.h>", "#include <stdio.h>",
+                       "#include <nvml.h>", "int main(void) {"]
+    for cname, struct in _nvml.STRUCTS.items():
+        want[f"{cname} sizeof"] = ctypes.sizeof(struct)
+        lines.append(f'  printf("{cname} sizeof %zu\\n", '
+                     f'sizeof({cname}));')
+        for field, _ in struct._fields_:
+            want[f"{cname} {field}"] = getattr(struct, field).offset
+            lines.append(f'  printf("{cname} {field} %zu\\n", '
+                         f'offsetof({cname}, {field}));')
+    for name, value in nvml_constants().items():
+        want[name] = value
+        lines.append(f'  printf("{name} %u\\n", (unsigned int)({name}));')
+    lines += ["  return 0;", "}"]
+    out = ROOT / "build" / "mig"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "nvml_layout.c").write_text("\n".join(lines) + "\n")
+    proc = subprocess.run(
+        [nvcc_path(), "-x", "c", f"-I{headers[0].parent}", "-o",
+         str(out / "nvml_layout"), str(out / "nvml_layout.c")],
+        capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvml_layout.c (nvcc rc {proc.returncode}):"
+                             f"\n{proc.stdout}{proc.stderr}")
+    printed = subprocess.run([str(out / "nvml_layout")], capture_output=True,
+                             text=True, timeout=30, check=True).stdout
+    got = {line.rsplit(" ", 1)[0]: int(line.rsplit(" ", 1)[1])
+           for line in printed.splitlines() if line.strip()}
+    wrong = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+    if wrong:
+        raise AssertionError(f"the NVML binding differs from {headers[0]} "
+                             f"(binding, nvml.h): {wrong}")
+    return dict(header=str(headers[0]), checked=len(want),
+                sizes={k.split()[0]: v for k, v in got.items()
+                       if k.endswith(" sizeof")})
+
+
+def nvml_answer(fn, *args):
+    """``fn(*args)``, or the name of the NVML error it raised."""
+    from k8s_dra_driver_tpu_torch.tpulib import _nvml
+
+    try:
+        return fn(*args)
+    except _nvml.NvmlError as e:
+        return f"NVML_ERROR_{_nvml.RETURN_CODES.get(e.code, e.code)}"
+
+
+def mig_driver(torch, enabled: bool, devices: dict) -> dict:
+    """Phase 43's ``Driver`` on the card: publish, allocate a claim of the
+    chip class (MIG disabled) or the tensorcore class (MIG enabled),
+    prepare it through the transport, read its container's edits, run
+    the MIG device's K1 worker where there is one, unprepare."""
+    from k8s_dra_driver_tpu_torch.kube import FakeKubeClient
+    from k8s_dra_driver_tpu_torch.kube.allocator import ReferenceAllocator
+    from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
+    from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig
+    from k8s_dra_driver_tpu_torch.tpulib import ChipLibConfig, RealChipLib
+
+    root = ROOT / "build" / "dra" / "mig"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    node = os.uname().nodename
+    client = FakeKubeClient()
+    config = DriverConfig(
+        node_name=node,
+        chiplib=RealChipLib(ChipLibConfig(state_dir=str(root / "modes"))),
+        kube_client=client, cdi_root=str(root / "cdi"),
+        plugin_root=str(root / "plugin"),
+        registrar_root=str(root / "registry"),
+        state_root=str(root / "state"),
+        device_classes=frozenset({"chip", "tensorcore"}),
+        cleanup_interval_seconds=0, device_watch_interval_seconds=0,
+        audit_interval_seconds=0)
+    driver = Driver(config)
+    worker = None
+    uid = "dra-mig" if enabled else "dra-whole"
+    claims = [drapb.Claim(namespace=DRA_NS, uid=uid, name=uid)]
+    try:
+        driver.start()
+        deadline = time.monotonic() + 30
+        while not client.list(driver.resource_api.slices) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        published = sorted(d["name"] for s in client.list(
+            driver.resource_api.slices) for d in s["spec"]["devices"])
+        if published != sorted(devices):
+            raise AssertionError(f"the Driver published {published}, "
+                                 f"RealChipLib {sorted(devices)}")
+        alloc = ReferenceAllocator(client, device_classes=MIG_CLASSES)
+        cls = f"tensorcore.{DRA_DRIVER}" if enabled else DRA_DRIVER
+        claim = alloc.allocate({
+            "apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+            "metadata": {"name": uid, "namespace": DRA_NS, "uid": uid},
+            "spec": {"devices": {"requests": [
+                {"name": "dev", "deviceClassName": cls}]}}},
+            node_name=node)
+        (result,) = claim["status"]["allocation"]["devices"]["results"]
+        device = devices[result["device"]]
+        client.create(driver.resource_api.claims, claim, namespace=DRA_NS)
+        reply, prepare_ms = kubelet_call(
+            driver.config.transport,
+            "/v1beta1.DRAPlugin/NodePrepareResources",
+            drapb.NodePrepareResourcesRequest(claims=claims),
+            drapb.NodePrepareResourcesResponse)
+        got = reply.claims[uid]
+        if got.error or [d.device_name for d in got.devices] != \
+                [result["device"]]:
+            raise AssertionError(f"prepare of {uid}: {got}")
+        ctr = cdi_container(config.cdi_root, got.devices)
+        env = ctr["env"]
+        impl = device.impl
+        want_nodes = (impl.device_paths() if enabled
+                      else impl.device_paths)
+        if env.get("CUDA_VISIBLE_DEVICES") != impl.uuid or \
+                any(k in env for k in ("TPU_VISIBLE_CORES",
+                                       "TPU_PROCESS_BOUNDS", "TPU_MEGACORE",
+                                       "TPU_VISIBLE_CHIPS")) or \
+                not set(want_nodes) <= set(ctr["device_nodes"]):
+            raise AssertionError(f"{uid}'s container: env {env}, nodes "
+                                 f"{ctr['device_nodes']}, want "
+                                 f"{impl.uuid} and {want_nodes}")
+        out = dict(device=result["device"], uuid=impl.uuid,
+                   device_nodes=ctr["device_nodes"], prepare_ms=prepare_ms)
+        if enabled:
+            worker = Worker("mig", {**os.environ, **env}, root / "mig.log")
+            ran = worker.expect("rmsnorm")
+            worker.finish()
+            worker = None
+            if (ran["count"], ran["launches"], ran["finite"]) != \
+                    (1, 1, True) or ran["rel_err"] > 1e-2 or \
+                    ran["total_memory"] > impl.parent.hbm_bytes:
+                raise AssertionError(f"K1 on {impl.uuid}: {ran}")
+            out["k1"] = ran
+        reply, unprepare_ms = kubelet_call(
+            driver.config.transport,
+            "/v1beta1.DRAPlugin/NodeUnprepareResources",
+            drapb.NodeUnprepareResourcesRequest(claims=claims),
+            drapb.NodeUnprepareResourcesResponse)
+        state = driver.state
+        if reply.claims[uid].error or uid in state.cdi.list_claim_spec_uids() \
+                or state.checkpoint.read():
+            raise AssertionError(f"unprepare of {uid}: {reply}")
+        out["unprepare_ms"] = unprepare_ms
+        return out
+    finally:
+        if worker is not None:
+            worker.stop()
+        driver.shutdown()
+
+
+def mig_phase(torch) -> dict:
+    """Phase 43 (module docstring). Never sets the MIG mode."""
+    from k8s_dra_driver_tpu_torch.tpulib import (
+        ChipLibConfig,
+        RealChipLib,
+        _nvml,
+        chiplib,
+        deviceinfo,
+    )
+
+    t0 = time.perf_counter()
+    out = dict(layouts=nvml_layouts())
+    out["mig_minors"] = "absent"
+    if MIG_MINORS.exists():
+        minors = chiplib.parse_mig_minors(MIG_MINORS.read_text())
+        if not any(k.endswith("/access") for k in minors):
+            raise AssertionError(f"{MIG_MINORS} lists no access node: "
+                                 f"{sorted(minors)[:8]}")
+        out["mig_minors"] = dict(entries=len(minors),
+                                 sample=sorted(minors.items())[:4])
+    nv = _nvml.load()
+    nv.init()
+    try:
+        handle = nv.handle_by_index(0)
+        modes = nvml_answer(nv.mig_modes, handle)
+        out["mig_mode"] = modes
+        out["max_mig_devices"] = nvml_answer(nv.max_mig_device_count, handle)
+        profiles = {}
+        for p in deviceinfo.MIG_PROFILES["h100"]:
+            info = nvml_answer(nv.gpu_instance_profile, handle,
+                               p.nvml_profile)
+            if isinstance(info, _nvml.GpuInstanceProfile):
+                if (info.id, info.slice_count, info.name) != \
+                        (p.profile_id, p.cores, f"MIG {p.name}"):
+                    raise AssertionError(f"NVML's profile {p.nvml_profile}"
+                                         f" is {info}, the table's {p}")
+                info = dataclasses.asdict(info)
+            profiles[p.name] = info
+        out["profiles"] = profiles
+    finally:
+        nv.shutdown()
+    enabled = isinstance(modes, tuple) and modes[0] == _nvml.MIG_ENABLED
+    out["branch"] = "mig-enabled" if enabled else "mig-disabled"
+    minors = out["mig_minors"]
+    log(f"phase 43 branch: {out['branch']} (MIG mode current, pending: "
+        f"{modes}; max MIG devices {out['max_mig_devices']}; mig-minors "
+        f"{minors if isinstance(minors, str) else minors['entries']})")
+    log("phase 43 profiles: " + json.dumps(profiles))
+    if enabled and not all(isinstance(v, dict) for v in profiles.values()):
+        raise AssertionError(f"MIG is enabled but NVML refused a profile "
+                             f"query: {profiles}")
+    lib = RealChipLib(ChipLibConfig(
+        state_dir=str(ROOT / "build" / "dra" / "mig-modes")))
+    lib.init()
+    try:
+        devices = lib.enumerate_all_possible_devices({"chip", "tensorcore"})
+    finally:
+        lib.shutdown()
+    kinds = sorted({d.type() for d in devices.values()})
+    if enabled:
+        if "tensorcore" not in kinds or any(
+                d.chip is not None and d.chip.index == 0
+                for d in devices.values()):
+            raise AssertionError(f"MIG enabled: published {sorted(devices)}")
+    elif kinds != ["chip"] or len(devices) != torch.cuda.device_count():
+        raise AssertionError(f"MIG disabled: published {sorted(devices)}")
+    out["published"] = sorted(devices)
+    out["driver"] = mig_driver(torch, enabled, devices)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8317,6 +8632,13 @@ def main() -> int:
     phase_done(f"phase 42: 8B int8 pipelined on pipe 2 x tensor 2 in "
                f"{PIPE_INT8_MICRO} microbatches matches the unpipelined int8 "
                f"forward (launches {counts})")
+    # Phase 43: MIG, read and driven as far as the card's mode allows.
+    mig = mig_phase(torch)
+    phase_done(f"phase 43: NVML's MIG structs match nvml.h "
+               f"({mig['layouts']['checked']} figures); MIG mode "
+               f"{mig['mig_mode']}, branch {mig['branch']}; the Driver "
+               f"published {mig['published']} and prepared "
+               f"{mig['driver']['device']} ({mig['driver']['uuid']})")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -8512,7 +8834,7 @@ def main() -> int:
                     "pipe_training": piped, "elastic_training": elastic,
                     "expert_tensor_serving": ep_tp,
                     "expert_tensor_training": ep_tp_trained,
-                    "pipe_int8": pipe_int8}))
+                    "pipe_int8": pipe_int8, "mig": mig}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

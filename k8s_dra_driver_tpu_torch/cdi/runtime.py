@@ -23,7 +23,10 @@ reference, libtpu                                  port, cuda
                                                    which an operator may pin)
 ``TPU_DRA_ACTIVE_CORE_PERCENTAGE``                 kept, plus ``CUDA_MPS_ACTIVE_THREAD_PERCENTAGE``
                                                    (read only by an MPS server's clients)
-``TPU_VISIBLE_CORES`` .. ``TPU_MEGACORE``          none: a GPU has no partition profile here
+``TPU_VISIBLE_CORES`` .. ``TPU_MEGACORE``          none: a GPU's partition is a MIG device, named by
+                                                   its ``MIG-`` uuid in ``CUDA_VISIBLE_DEVICES``; its
+                                                   container gets the GPU's node and the GPU and
+                                                   compute instances' ``/dev/nvidia-caps`` nodes
 =================================================  ==============================================
 
 A shared claim's envelope also names a "cuda" runtime to the workload
@@ -143,14 +146,20 @@ def driver_library_edits(runtime: Runtime, droot) -> tuple[dict, list]:
     return {}, mounts
 
 
-def cuda_visibility_env(chips: list) -> dict[str, str]:
-    """``CUDA_VISIBLE_DEVICES`` over the chips' uuids in index order:
-    a uuid names its GPU whatever renumbering the container's device set
-    causes."""
-    if not chips:
+def cuda_visibility_env(chips: list, mig_devices=()) -> dict[str, str]:
+    """``CUDA_VISIBLE_DEVICES`` over the chips' uuids in index order,
+    then the MIG devices' (``MIG-...``) in GPU and placement order: a
+    uuid names its device whatever renumbering the container's device
+    set causes. CUDA enumerates one MIG device a process (the first
+    listed): a claim of two MIG devices lists both, and a process meant
+    for the second narrows the variable to that uuid."""
+    uuids = [c.uuid for c in sorted(chips, key=lambda c: c.index)]
+    uuids += [m.uuid for m in sorted(
+        mig_devices, key=lambda m: (m.parent.index, m.core_index,
+                                    m.ci_id))]
+    if not uuids:
         return {}
-    return {"CUDA_VISIBLE_DEVICES": ",".join(
-        c.uuid for c in sorted(chips, key=lambda c: c.index))}
+    return {"CUDA_VISIBLE_DEVICES": ",".join(uuids)}
 
 
 def hbm_cap_env(runtime: Runtime, floor: int,

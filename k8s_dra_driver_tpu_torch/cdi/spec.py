@@ -156,8 +156,10 @@ class CDIHandler:
             return self._chip_edits(device.chip)
         if device.tensorcore is not None:
             # A core partition still needs its parent chip's device node;
-            # core selection happens via env in the claim spec.
-            return self._chip_edits(device.tensorcore.parent)
+            # core selection happens via env in the claim spec. A MIG
+            # device adds its GPU and compute instances' access nodes.
+            return ContainerEdits(
+                device_nodes=device.tensorcore.device_paths())
         if device.ici_channel is not None:
             return ContainerEdits(
                 device_nodes=[
@@ -320,11 +322,16 @@ def claim_visibility_env(
     Computed once per claim (not per config group) so a claim whose
     allocation spans several config groups still presents the full chip set
     to libtpu. Core partitions contribute their parent chips to the chip
-    set plus a TPU_VISIBLE_CORES selection.
+    set plus a TPU_VISIBLE_CORES selection. On a GPU the partitions are
+    MIG devices, named by their uuids in ``CUDA_VISIBLE_DEVICES``
+    (runtime.py) and carved by no core variable.
     """
     by_uuid = {c.uuid: c for c in chips}
     for core in cores:
         by_uuid.setdefault(core.parent.uuid, core.parent)
+    if cores and _runtime.runtime_of_chips(
+            by_uuid.values()).name == _runtime.CUDA:
+        return _runtime.cuda_visibility_env(chips, cores)
     env = chip_visibility_env(list(by_uuid.values()))
     if cores:
         # A multi-core partition profile exposes EVERY core it spans.

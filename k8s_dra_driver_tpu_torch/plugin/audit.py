@@ -312,7 +312,9 @@ class StateAuditor:
                     continue
                 for dev in group.get("devices", []):
                     for u in dev.get("uuids", []):
-                        base = chip_uuid_of_device_uuid(u)
+                        base = self.state.parent_uuid_of_mig(
+                            dev.get("name", "")) or \
+                            chip_uuid_of_device_uuid(u)
                         st = health.get(base)
                         if st is None or st.is_healthy():
                             continue

@@ -46,6 +46,7 @@ from ..tpulib.deviceinfo import (
     AllocatableDevices,
     ChipDeviceType,
     IciChannelDeviceType,
+    MigDeviceInfo,
     TensorCoreDeviceType,
 )
 from .checkpoint import CheckpointManager
@@ -1477,20 +1478,33 @@ class DeviceState:
                 return None
             return PreparedClaim.from_dict(rec).get_devices()
 
+    def parent_uuid_of_mig(self, name: str) -> Optional[str]:
+        """The GPU uuid of the MIG device ``name`` in the base spec, or
+        None for any other device: a MIG uuid names no parent, so the
+        parent is found by device name."""
+        dev = self._base_spec_devices.get(name)
+        if dev is not None and isinstance(dev.tensorcore, MigDeviceInfo):
+            return dev.tensorcore.parent.uuid
+        return None
+
     def prepared_claims_on_chip(self, chip_uuid: str) -> list[PreparedClaim]:
         """Checkpointed claims holding this chip (directly or via one of
-        its core partitions, whose uuids are prefixed by the chip's) — the
-        Event targets when a carrying chip degrades."""
+        its core partitions, whose uuids are prefixed by the chip's, or
+        one of its MIG devices, named by the base spec) — the Event
+        targets when a carrying chip degrades."""
         with self._lock:
             recs = self.checkpoint.read()
+            partitions = {name for name in self._base_spec_devices
+                          if self.parent_uuid_of_mig(name) == chip_uuid}
         out = []
         for rec in recs.values():
             pc = PreparedClaim.from_dict(rec)
             uuids = [
                 u for g in pc.groups for d in g.devices for u in d.uuids
             ]
+            names = {d.name for g in pc.groups for d in g.devices}
             if any(u == chip_uuid or u.startswith(f"{chip_uuid}-")
-                   for u in uuids):
+                   for u in uuids) or names & partitions:
                 out.append(pc)
         return out
 

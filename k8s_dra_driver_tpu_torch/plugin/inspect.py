@@ -13,7 +13,8 @@ inventory, and prints one coherent summary. Read-only by construction.
 bundles / bug reports).
 
 The port's copy of the reference module; ``--probe-chips`` reads the
-host's GPUs through NVML (``tpulib.chiplib.RealChipLib``).
+host's GPUs through NVML (``tpulib.chiplib.RealChipLib``), and a GPU in
+MIG mode lists its MIG devices with their profiles and placements.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any, Optional
 from ..plugin.checkpoint import CheckpointManager
 from ..plugin.prepared import PreparedClaim
 from ..plugin.sharing import CorruptShareStateError, SharingStateStore
+from ..tpulib.deviceinfo import MigDeviceInfo
 
 
 def collect_live(http_url: str, timeout: float = 3.0) -> dict[str, Any]:
@@ -512,6 +514,25 @@ def collect(
             }
             for c in chips
         ]
+        # A GPU in MIG mode is published as its MIG devices, each with
+        # its profile and placement (start:size in memory slices).
+        migs = [
+            tc for c in chips for tc in chiplib.enumerate_core_partitions(c)
+            if isinstance(tc, MigDeviceInfo)
+        ]
+        if migs:
+            out["migDevices"] = [
+                {
+                    "name": m.canonical_name(),
+                    "uuid": m.uuid,
+                    "parent": m.parent.canonical_name(),
+                    "profile": m.profile.name,
+                    "placement": f"{m.core_index}:{m.profile.memory_slices}",
+                    "gpuInstance": m.gi_id,
+                    "computeInstance": m.ci_id,
+                }
+                for m in migs
+            ]
         # Gone chips are absent from the enumeration but their health
         # record is the evidence an operator is looking for.
         out["unhealthyChips"] = [
@@ -585,6 +606,16 @@ def render(state: dict[str, Any]) -> str:
                 f"  {c['name']} {c['uuid']} {c['generation']} "
                 f"coord={c['coord']} slice={c['sliceId']}{suffix}"
             )
+        migs = state.get("migDevices") or []
+        if migs:
+            lines.append("")
+            lines.append(f"MIG devices: {len(migs)}")
+            for m in migs:
+                lines.append(
+                    f"  {m['name']} {m['uuid']} on {m['parent']} "
+                    f"profile={m['profile']} placement={m['placement']} "
+                    f"gi={m['gpuInstance']} ci={m['computeInstance']}"
+                )
         unhealthy = state.get("unhealthyChips") or []
         if unhealthy:
             lines.append("")

@@ -24,6 +24,7 @@ from .deviceinfo import (  # noqa: F401
     ChipInfo,
     IciChannelDeviceType,
     IciChannelInfo,
+    MigDeviceInfo,
     TensorCoreDeviceType,
     TensorCoreInfo,
     counter_sets,

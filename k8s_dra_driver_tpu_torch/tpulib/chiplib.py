@@ -2,7 +2,8 @@
 
 The port's copy of the reference module (``tpulib/chiplib.py``): the
 interface, ``HealthStatus`` and ``FakeChipLib`` are copied (the fake also
-builds a node of NVIDIA GPUs, ``generation="h100"``); ``RealChipLib`` is
+builds a node of NVIDIA GPUs, ``generation="h100"``, some in MIG mode
+where ``mig`` says so); ``RealChipLib`` is
 rewritten over NVML (``_nvml.py``), the library the reference driver this
 project was modelled on wraps through cgo (lengrongfu/k8s-dra-driver,
 cmd/nvidia-dra-plugin/nvlib.go:40-46, :111-200), in place of the
@@ -26,10 +27,14 @@ import time
 from typing import Optional
 
 from .deviceinfo import (
+    MIG_PROFILES,
+    MIG_SLICES,
     AllocatableDevice,
     AllocatableDevices,
     ChipInfo,
     IciChannelInfo,
+    MigDeviceInfo,
+    PartitionProfile,
     TensorCoreInfo,
 )
 from .topology import GENERATIONS, Coord, MeshShape
@@ -159,7 +164,7 @@ class ChipLib(abc.ABC):
             chips = self.enumerate_chips()
         if "chip" in device_classes or "tensorcore" in device_classes:
             for chip in chips:
-                if "chip" in device_classes:
+                if "chip" in device_classes and self.publishes_whole(chip):
                     d = AllocatableDevice(chip=chip)
                     devices[d.canonical_name()] = d
                 if "tensorcore" in device_classes:
@@ -173,11 +178,20 @@ class ChipLib(abc.ABC):
                 devices[d.canonical_name()] = d
         return devices
 
+    def publishes_whole(self, chip: ChipInfo) -> bool:
+        """Whether the chip is published as a whole device: every chip
+        but a GPU in MIG mode, on which no CUDA context spans the
+        slices."""
+        return True
+
     def enumerate_core_partitions(self, chip: ChipInfo) -> list[TensorCoreInfo]:
         """Sub-chip partitions for a chip: every placement of every
         profile the generation supports (role of MIG profile/placement
         enumeration, nvlib.go:244-295). Counter consumption keeps
         overlapping placements and whole-chip claims mutually exclusive.
+        A GPU (one core) has none here: its partitions are the MIG
+        devices that exist on it, which a backend walks (RealChipLib) or
+        is given (FakeChipLib's ``mig``).
         """
         from .deviceinfo import partition_profiles
 
@@ -288,7 +302,12 @@ class FakeChipLib(ChipLib):
         slice_id: str = "",
         chips_per_host: Optional[int] = None,
         hostnames: Optional[list[str]] = None,
+        mig: Optional[dict[int, list[tuple[str, int]]]] = None,
     ):
+        """``mig`` puts GPUs of a ``cuda`` generation in MIG mode: host-
+        local index -> the MIG devices on it, each (profile name, start
+        memory slice) of the generation's ``MIG_PROFILES``. Such a GPU
+        is published as those devices only (``publishes_whole``)."""
         self.generation = generation
         self.topology = MeshShape.parse(topology)
         self.host_id = host_id
@@ -300,6 +319,9 @@ class FakeChipLib(ChipLib):
             if chips_per_host is not None
             else self.topology.num_chips // hosts_per_slice
         )
+        self.mig = {i: list(layout) for i, layout in (mig or {}).items()}
+        for layout in self.mig.values():
+            _check_mig_layout(generation, layout)
         self.initialized = False
         # Side-effect journals for test assertions.
         self.sharing_modes: dict[str, str] = {}
@@ -470,6 +492,40 @@ class FakeChipLib(ChipLib):
         health = self.chip_health()
         return self.enumerate_chips(), health
 
+    def publishes_whole(self, chip: ChipInfo) -> bool:
+        return chip.index not in self.mig
+
+    def enumerate_core_partitions(self, chip: ChipInfo) -> list[TensorCoreInfo]:
+        """A MIG-mode GPU's devices as ``mig`` lays them out: GPU
+        instance ids 1, 2, .. in layout order, one compute instance (0)
+        each, NVML-shaped ``MIG-`` uuids, each instance's share of the
+        GPU's memory, and the caps nodes the driver's standard
+        ``mig-minors`` numbering gives (``mig_cap_minor``)."""
+        layout = self.mig.get(chip.index)
+        if layout is None:
+            return super().enumerate_core_partitions(chip)
+        profiles = {p.name: p for p in MIG_PROFILES[chip.generation]}
+        _, slices = MIG_SLICES[chip.generation]
+        out = []
+        for gi, (name, start) in enumerate(layout, start=1):
+            prof = profiles[name]
+            digest = hashlib.sha256(
+                f"{chip.uuid}/gi{gi}".encode()).hexdigest()
+            out.append(MigDeviceInfo(
+                parent=chip, core_index=start, profile=prof,
+                mig_uuid=(f"MIG-{digest[:8]}-{digest[8:12]}-"
+                          f"{digest[12:16]}-{digest[16:20]}-"
+                          f"{digest[20:32]}"),
+                memory_bytes=chip.hbm_bytes * prof.memory_slices // slices,
+                gi_id=gi, ci_id=0,
+                caps_paths=[
+                    f"/dev/nvidia-caps/nvidia-cap"
+                    f"{mig_cap_minor(chip.index, gi)}",
+                    f"/dev/nvidia-caps/nvidia-cap"
+                    f"{mig_cap_minor(chip.index, gi, 0)}",
+                ]))
+        return out
+
     def set_sharing_mode(self, chip_uuids: list[str], mode: str) -> None:
         for u in chip_uuids:
             self.sharing_modes[u] = mode
@@ -491,14 +547,54 @@ class FakeChipLib(ChipLib):
         return False
 
 
+def _check_mig_layout(generation: str, layout) -> None:
+    """Refuse a MIG layout no GPU could hold: an unknown profile, a
+    start outside its placements, or two instances sharing a memory
+    slice."""
+    profiles = {p.name: p for p in MIG_PROFILES.get(generation, [])}
+    used: set[int] = set()
+    for name, start in layout:
+        prof = profiles.get(name)
+        if prof is None or start not in prof.slice_placements:
+            raise ValueError(f"no {generation} MIG placement {name}@{start}")
+        span = set(range(start, start + prof.memory_slices))
+        if span & used:
+            raise ValueError(f"MIG placement {name}@{start} overlaps "
+                             f"another instance")
+        used |= span
+
+
 # ---------------------------------------------------------------------------
 # Real backend: NVIDIA GPUs through NVML
 # ---------------------------------------------------------------------------
 
 
-class MigEnabledError(RuntimeError):
-    """A GPU is in MIG mode. Its partitions are not modelled, and
-    publishing the whole GPU would misstate what CUDA can see on it."""
+# Where the NVIDIA driver lists the minors of the MIG access nodes
+# (relative to the dev root), and where those nodes are.
+MIG_MINORS_FILE = "proc/driver/nvidia-caps/mig-minors"
+MIG_CAPS_DIR = "dev/nvidia-caps"
+
+
+def mig_cap_minor(gpu: int, gi: int, ci: Optional[int] = None) -> int:
+    """The driver's standard numbering of ``mig-minors``: ``config`` 1,
+    ``monitor`` 2, then for each GPU minor 15 GPU instances of 9 minors
+    each (the GI's ``access``, then CIs 0-7). ``gpu0/gi3/access`` is 30,
+    ``gpu0/gi3/ci0/access`` 31. A real host's file is read, not this."""
+    return 3 + gpu * 135 + gi * 9 + (0 if ci is None else 1 + ci)
+
+
+def parse_mig_minors(text: str) -> dict[str, int]:
+    """``mig-minors`` lines ("gpu0/gi3/ci0/access 31") as name -> minor."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 2 and parts[1].isdigit():
+            out[parts[0]] = int(parts[1])
+    return out
+
+
+class MigCapsError(RuntimeError):
+    """A MIG device's access node has no minor in ``mig-minors``."""
 
 
 class UnsupportedGpuError(RuntimeError):
@@ -515,6 +611,13 @@ class RealChipLib(ChipLib):
     there is no GPU to publish. ``nvml`` is an object with the methods of
     ``_nvml.Nvml`` (tests pass a fake); None loads the host's library at
     :meth:`init`.
+
+    A GPU in MIG mode is not published whole: its existing MIG devices
+    are, each a ``MigDeviceInfo`` from NVML's GI/CI walk with the GI's
+    and CI's access nodes from ``mig-minors`` under the dev root. The
+    walk creates and destroys nothing (the source leaves dynamic MIG
+    disabled too), and an enumeration call that answers NoPermission
+    raises: the plugin runs privileged.
 
     Health reads three signals: the device handle (gone when NVML no
     longer finds the uuid) and the device node (gone when it vanished),
@@ -545,6 +648,10 @@ class RealChipLib(ChipLib):
         self._event_uuids: dict[int, str] = {}   # device handle -> uuid
         self._xids: dict[str, int] = {}
         self._xid_lock = threading.Lock()
+        # The last enumeration's MIG devices, by GPU uuid (MIG-mode GPUs
+        # only), and each GPU's NVML profile table, read once.
+        self._mig_devices: dict[str, list[MigDeviceInfo]] = {}
+        self._mig_profiles: dict[str, dict] = {}
         # Set to end a wait_device_event early (FakeChipLib's seam).
         self.device_event = threading.Event()
 
@@ -619,19 +726,17 @@ class RealChipLib(ChipLib):
         driver = self._signal(nv.driver_version) or "0.0.0"
         topology = MeshShape(max(count, 1), 1, 1)
         chips = []
+        mig_devices: dict[str, list[MigDeviceInfo]] = {}
+        minors = None
         for index in range(count):
             handle = nv.handle_by_index(index)
             name = nv.name(handle)
             uuid = nv.uuid(handle)
-            if self._signal(nv.mig_mode, handle) == MIG_ENABLED:
-                raise MigEnabledError(
-                    f"GPU {index} ({uuid}, {name}) is in MIG mode; MIG "
-                    "partitions are not supported yet"
-                )
             generation = self._generation(name)
             spec = GENERATIONS[generation]
             numa = self._signal(nv.numa_node, handle)
             pci = self._signal(nv.pci_info, handle)
+            minor = nv.minor_number(handle)
             slice_id = self.config.slice_id or (
                 f"{generation}-{topology}-{os.uname().nodename}"
             )
@@ -641,8 +746,7 @@ class RealChipLib(ChipLib):
                     uuid=uuid,
                     generation=generation,
                     device_paths=[_hostpath(
-                        self.config.dev_root,
-                        f"dev/nvidia{nv.minor_number(handle)}",
+                        self.config.dev_root, f"dev/nvidia{minor}",
                     )],
                     hbm_bytes=nv.memory_total(handle),
                     cores=spec.cores_per_chip,
@@ -660,7 +764,103 @@ class RealChipLib(ChipLib):
                     coords_reliable=False,
                 )
             )
+            if self._signal(nv.mig_mode, handle) == MIG_ENABLED:
+                if minors is None:
+                    minors = self._read_mig_minors()
+                mig_devices[uuid] = self._walk_mig(
+                    chips[-1], handle, minor, minors)
+        self._mig_devices = mig_devices
         return chips
+
+    def publishes_whole(self, chip: ChipInfo) -> bool:
+        return chip.uuid not in self._mig_devices
+
+    def enumerate_core_partitions(self, chip: ChipInfo) -> list[TensorCoreInfo]:
+        """The MIG devices the last enumeration found on ``chip`` (none
+        on a GPU outside MIG mode)."""
+        if chip.uuid in self._mig_devices:
+            return list(self._mig_devices[chip.uuid])
+        return super().enumerate_core_partitions(chip)
+
+    def _read_mig_minors(self) -> dict[str, int]:
+        path = _hostpath(self.config.dev_root, MIG_MINORS_FILE)
+        try:
+            with open(path) as f:
+                return parse_mig_minors(f.read())
+        except OSError as e:
+            raise MigCapsError(f"a GPU is in MIG mode but {path} is "
+                               f"unreadable: {e}") from None
+
+    def _cap_path(self, minors: dict[str, int], key: str) -> str:
+        if key not in minors:
+            raise MigCapsError(f"mig-minors lists no {key}")
+        return _hostpath(self.config.dev_root,
+                         f"{MIG_CAPS_DIR}/nvidia-cap{minors[key]}")
+
+    def _profile_table(self, chip: ChipInfo, handle: int) -> dict:
+        """NVML's GPU instance profiles of ``chip`` by profile id, each
+        (profile index, info); profile indices the GPU does not offer
+        are skipped."""
+        from ._nvml import (
+            GPU_INSTANCE_PROFILE_COUNT,
+            NO_SIGNAL_ERRORS,
+            NvmlInvalidArgument,
+            NvmlNotFound,
+        )
+
+        table = self._mig_profiles.get(chip.uuid)
+        if table is None:
+            table = {}
+            for index in range(GPU_INSTANCE_PROFILE_COUNT):
+                try:
+                    info = self._nvml.gpu_instance_profile(handle, index)
+                except NO_SIGNAL_ERRORS + (NvmlInvalidArgument,
+                                           NvmlNotFound):
+                    continue
+                table[info.id] = (index, info)
+            self._mig_profiles[chip.uuid] = table
+        return table
+
+    def _walk_mig(self, chip: ChipInfo, handle: int, minor: int,
+                  minors: dict[str, int]) -> list[MigDeviceInfo]:
+        """The MIG devices that exist on a MIG-mode GPU (the source's
+        GI/CI walk, nvlib.go:315-414): each MIG device handle's GPU and
+        compute instance, the GPU instance's profile and placement."""
+        from ._nvml import NvmlNotFound
+
+        nv = self._nvml
+        _, slices = MIG_SLICES[chip.generation]
+        out = []
+        for i in range(nv.max_mig_device_count(handle)):
+            try:
+                mig = nv.mig_device_handle_by_index(handle, i)
+            except NvmlNotFound:
+                continue
+            gi_id = nv.gpu_instance_id(mig)
+            ci_id = nv.compute_instance_id(mig)
+            gi = nv.gpu_instance(handle, gi_id)
+            entry = self._profile_table(chip, handle).get(gi.profile_id)
+            if entry is None:
+                raise RuntimeError(
+                    f"GPU {chip.index} ({chip.uuid}): GPU instance {gi_id} "
+                    f"has profile {gi.profile_id}, which NVML does not list")
+            index, info = entry
+            profile = PartitionProfile(
+                name=info.name.removeprefix("MIG "),
+                cores=info.slice_count,
+                hbm_fraction=(gi.size, slices),
+                profile_id=gi.profile_id, nvml_profile=index,
+                memory_slices=gi.size)
+            out.append(MigDeviceInfo(
+                parent=chip, core_index=gi.start, profile=profile,
+                mig_uuid=nv.uuid(mig), memory_bytes=nv.memory_total(mig),
+                gi_id=gi_id, ci_id=ci_id,
+                caps_paths=[
+                    self._cap_path(minors, f"gpu{minor}/gi{gi_id}/access"),
+                    self._cap_path(
+                        minors, f"gpu{minor}/gi{gi_id}/ci{ci_id}/access"),
+                ]))
+        return sorted(out, key=lambda d: (d.core_index, d.ci_id))
 
     # -- side effects ------------------------------------------------------
 

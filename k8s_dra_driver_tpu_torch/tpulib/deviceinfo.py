@@ -1,10 +1,13 @@
 """Allocatable-device model and ResourceSlice attribute rendering.
 
 The port's copy of the reference module. A GPU renders as a ``ChipInfo``
-too (``generation`` "h100", ``uuid`` NVML's ``GPU-...``); it has no
-partition profile and, NVLink being no mesh, ``coords_reliable`` False,
-so no ``submesh*Id`` tile attributes. Its NVML version strings publish in
-semver form (``_version_attr``).
+too (``generation`` "h100", ``uuid`` NVML's ``GPU-...``); NVLink being no
+mesh, ``coords_reliable`` is False, so no ``submesh*Id`` tile attributes.
+Its NVML version strings publish in semver form (``_version_attr``). A
+GPU in MIG mode is published as its existing MIG devices, each a
+``MigDeviceInfo``: a ``tensorcore`` device with the attribute and
+capacity keys of a TPU partition, consuming one ``memorySlice<i>``
+counter per memory slice of its placement on the GPU's counter set.
 
 TPU-native analog of the reference's deviceinfo.go + allocatable.go
 (lengrongfu/k8s-dra-driver, cmd/nvidia-dra-plugin/deviceinfo.go:30-217,
@@ -213,6 +216,14 @@ class PartitionProfile:
     # HBM consumed as a fraction (num, den) of the parent chip's HBM;
     # None = proportional to cores/total_cores.
     hbm_fraction: Optional[tuple[int, int]] = None
+    # MIG profiles only (None / empty on the TPU rows): NVML's profile
+    # ``id`` (what a GPU instance reports), the index
+    # nvmlDeviceGetGpuInstanceProfileInfoV takes, the memory slices an
+    # instance occupies, and its valid start slices.
+    profile_id: Optional[int] = None
+    nvml_profile: Optional[int] = None
+    memory_slices: int = 0
+    slice_placements: tuple[int, ...] = ()
 
     def placements(self, total_cores: int) -> list[int]:
         """Valid start cores for this profile on a chip with
@@ -234,14 +245,39 @@ class PartitionProfile:
 ONE_CORE_PROFILE = PartitionProfile(name="1c", cores=1)
 
 
+def _mig(name, compute, memory, profile_id, nvml_profile, starts):
+    return PartitionProfile(
+        name=name, cores=compute, hbm_fraction=(memory, 8),
+        profile_id=profile_id, nvml_profile=nvml_profile,
+        memory_slices=memory, slice_placements=starts)
+
+
+# The H100 80GB's MIG profiles (NVIDIA's MIG user guide, "H100 MIG
+# profiles"; ``nvidia-smi mig -lgip`` / ``-lgipp``): 7 compute slices
+# and 8 memory slices; each placement is a start and a size in memory
+# slices.
+MIG_PROFILES: dict[str, list[PartitionProfile]] = {
+    "h100": [
+        _mig("1g.10gb", 1, 1, 19, 0x0, (0, 1, 2, 3, 4, 5, 6)),
+        _mig("1g.20gb", 1, 2, 15, 0x9, (0, 2, 4, 6)),
+        _mig("2g.20gb", 2, 2, 14, 0x1, (0, 2, 4)),
+        _mig("3g.40gb", 3, 4, 9, 0x2, (0, 4)),
+        _mig("4g.40gb", 4, 4, 5, 0x3, (0,)),
+        _mig("7g.80gb", 7, 8, 0, 0x4, (0,)),
+    ],
+}
+# (compute slices, memory slices) of a MIG-capable generation's GPU.
+MIG_SLICES: dict[str, tuple[int, int]] = {"h100": (7, 8)}
+
+
 def partition_profiles(generation: str) -> list[PartitionProfile]:
     """Profiles a generation supports (reference: the per-arch MIG
-    profile enumeration, nvlib.go:244-295). One table entry today;
-    the seam future profiles plug into."""
+    profile enumeration, nvlib.go:244-295): the single-core profile on
+    a partitionable TPU generation, the MIG table on a GPU."""
     spec = GENERATIONS.get(generation)
     if spec is None or not spec.partitionable:
         return []
-    return [ONE_CORE_PROFILE]
+    return list(MIG_PROFILES.get(generation, [ONE_CORE_PROFILE]))
 
 
 @dataclasses.dataclass
@@ -295,6 +331,12 @@ class TensorCoreInfo:
     def uuids(self) -> list[str]:
         return [self.uuid]
 
+    def device_paths(self) -> list[str]:
+        """The device nodes a container of this partition needs: its
+        parent chip's (core selection happens via env in the claim
+        spec)."""
+        return list(self.parent.device_paths)
+
     def get_device(self) -> dict[str, Any]:
         total = max(self.parent.cores, 1)
         hbm_share = self.profile.hbm_share(self.parent.hbm_bytes, total)
@@ -342,6 +384,59 @@ class TensorCoreInfo:
                 },
             }
         ]
+        return dev
+
+
+@dataclasses.dataclass(kw_only=True)
+class MigDeviceInfo(TensorCoreInfo):
+    """An existing MIG device of a GPU in MIG mode: one compute instance
+    (``ci_id``) of one GPU instance (``gi_id``), as NVML's GI/CI walk
+    finds it (reference MigDeviceInfo, deviceinfo.go:45-56; the walk,
+    nvlib.go:315-414). ``core_index`` is its placement's first memory
+    slice and ``profile.memory_slices`` the placement's size;
+    ``caps_paths`` are the GI's and CI's ``/dev/nvidia-caps`` access
+    nodes. A TensorCoreInfo in every attribute and capacity key, so the
+    ``tensorcore`` DeviceClass selects it unchanged."""
+
+    mig_uuid: str                   # NVML's "MIG-..."
+    memory_bytes: int               # the instance's memory, from NVML
+    gi_id: int
+    ci_id: int = 0
+    caps_paths: list[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def uuid(self) -> str:
+        return self.mig_uuid
+
+    def memory_slice_indices(self) -> list[int]:
+        """The memory slices this placement occupies."""
+        return list(range(self.core_index,
+                          self.core_index + self.profile.memory_slices))
+
+    def canonical_name(self) -> str:
+        # The source's "gpu-%d-mig-%d-%d-%d" (profile id, placement start
+        # and size), a DNS-1123 label where a profile name's dot is not;
+        # a second compute instance of one GPU instance adds its id.
+        name = (f"tpu-{self.parent.index}-mig-{self.profile.profile_id}-"
+                f"{self.core_index}-{self.profile.memory_slices}")
+        return name + (f"-ci{self.ci_id}" if self.ci_id else "")
+
+    def device_paths(self) -> list[str]:
+        return list(self.parent.device_paths) + list(self.caps_paths)
+
+    def get_device(self) -> dict[str, Any]:
+        dev = super().get_device()
+        compute, _ = MIG_SLICES[self.parent.generation]
+        peak = int(GENERATIONS[self.parent.generation].peak_bf16_flops)
+        capacity = dev["basic"]["capacity"]
+        capacity["hbm"] = {"value": str(self.memory_bytes)}
+        capacity["peakBf16Flops"] = {
+            "value": str(peak * self.profile.cores // compute)}
+        dev["basic"]["consumesCounters"] = [{
+            "counterSet": f"chip-{self.parent.index}-counters",
+            "counters": {f"memorySlice{i}": {"value": "1"}
+                         for i in self.memory_slice_indices()},
+        }]
         return dev
 
 
@@ -428,9 +523,10 @@ def chip_uuid_of_device_uuid(device_uuid: str) -> str:
     ``-core-<i>`` (1c profile) or ``-<profile>-<i>`` (TensorCoreInfo.uuid
     above) — so the chip is always the first two hyphen tokens. The one
     parser for that format; callers must not re-implement the split.
-    A GPU's uuid (NVML's ``GPU-<8-4-4-4-12 hex>``) is whole: GPUs have no
-    partition devices here."""
-    if device_uuid.startswith("GPU-"):
+    A GPU's uuid (NVML's ``GPU-<8-4-4-4-12 hex>``) is whole: a GPU's
+    partitions are MIG devices with uuids of their own. A MIG device's uuid (``MIG-...``) names no
+    parent: it is returned whole, the instance being its own unit."""
+    if device_uuid.startswith(("GPU-", "MIG-")):
         return device_uuid
     return "-".join(device_uuid.split("-")[:2])
 
@@ -442,7 +538,9 @@ def chip_uuids(devices: AllocatableDevices) -> list[str]:
 
 
 def counter_sets(devices: AllocatableDevices) -> list[dict[str, Any]]:
-    """SharedCounter sets for partitionable chips (one per multi-core chip)."""
+    """SharedCounter sets for partitionable chips (one per multi-core chip),
+    then one per GPU whose MIG devices are published: a counter of 1 per
+    memory slice (the GPU itself is not published in MIG mode)."""
     out = []
     for d in devices.values():
         if d.chip is None or d.chip.cores < 2:
@@ -456,4 +554,16 @@ def counter_sets(devices: AllocatableDevices) -> list[dict[str, Any]]:
                 },
             }
         )
+    mig_parents = {}
+    for d in devices.values():
+        if isinstance(d.tensorcore, MigDeviceInfo):
+            mig_parents.setdefault(d.tensorcore.parent.index,
+                                   d.tensorcore.parent)
+    for index, parent in sorted(mig_parents.items()):
+        _, slices = MIG_SLICES[parent.generation]
+        out.append({
+            "name": f"chip-{index}-counters",
+            "counters": {f"memorySlice{i}": {"value": "1"}
+                         for i in range(slices)},
+        })
     return out

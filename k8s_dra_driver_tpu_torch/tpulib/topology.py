@@ -54,10 +54,13 @@ GENERATIONS: dict[str, GenerationSpec] = {
     "v5e": GenerationSpec("v5e", 1, 16 << 30, 197e12, 2, False),
     "v5p": GenerationSpec("v5p", 2, 95 << 30, 459e12, 3, True),
     "v6e": GenerationSpec("v6e", 1, 32 << 30, 918e12, 2, False),
-    # NVIDIA H100 SXM: one device per card (MIG, its partitions, is not
-    # modelled), 80 GB nominal HBM (a real card reports its own through
-    # NVML), 989 TFLOP/s dense bf16 (NVIDIA data sheet).
-    "h100": GenerationSpec("h100", 1, 80 << 30, 989e12, 0, False, "cuda"),
+    # NVIDIA H100 SXM: one device per card, 80 GB nominal HBM (a real card
+    # reports its own through NVML), 989 TFLOP/s dense bf16 (NVIDIA data
+    # sheet). Partitionable through MIG: its partitions are the GPU
+    # instances an admin created, which the chip library walks
+    # (deviceinfo.MIG_PROFILES holds their profiles); no placement is
+    # enumerated, so ``cores_per_chip`` stays 1.
+    "h100": GenerationSpec("h100", 1, 80 << 30, 989e12, 0, True, "cuda"),
 }
 
 

@@ -64,8 +64,10 @@ class TestTopologyParity:
             assert mine == dataclasses.asdict(spec)
             assert topology.runtime_of(name) == "libtpu"
         h100 = topology.GENERATIONS["h100"]
+        # Partitionable through MIG, whose instances are walked: one
+        # core, so no placement is ever enumerated.
         assert (h100.cores_per_chip, h100.peak_bf16_flops,
-                h100.partitionable, h100.runtime) == (1, 989e12, False,
+                h100.partitionable, h100.runtime) == (1, 989e12, True,
                                                       "cuda")
         assert set(topology.GENERATIONS) == (set(ref_topology.GENERATIONS)
                                              | {"h100"})
@@ -200,12 +202,66 @@ class TestGpuFakeNode:
         assert attrs["generation"] == {"string": "h100"}
         assert not any(k.startswith("submesh") for k in attrs)
         assert "consumesCounters" not in devs["tpu-0"].get_device()["basic"]
-        assert deviceinfo.partition_profiles("h100") == []
+        # The H100 80GB's MIG table: 7 compute and 8 memory slices, each
+        # profile's placements in memory slices, all within the GPU.
+        table = {p.name: (p.cores, p.memory_slices, p.profile_id,
+                          p.slice_placements)
+                 for p in deviceinfo.partition_profiles("h100")}
+        assert table == {
+            "1g.10gb": (1, 1, 19, (0, 1, 2, 3, 4, 5, 6)),
+            "1g.20gb": (1, 2, 15, (0, 2, 4, 6)),
+            "2g.20gb": (2, 2, 14, (0, 2, 4)),
+            "3g.40gb": (3, 4, 9, (0, 4)),
+            "4g.40gb": (4, 4, 5, (0,)),
+            "7g.80gb": (7, 8, 0, (0,)),
+        }
+        assert deviceinfo.MIG_SLICES["h100"] == (7, 8)
+        for p in deviceinfo.partition_profiles("h100"):
+            assert all(start % p.memory_slices == 0
+                       and start + p.memory_slices <= 8
+                       for start in p.slice_placements)
+            assert p.hbm_fraction == (p.memory_slices, 8)
+
+
+def write_mig_minors(root, gpus=8):
+    """``proc/driver/nvidia-caps/mig-minors`` under ``root`` in the
+    driver's standard numbering, and the access nodes it names."""
+    lines = ["config 1", "monitor 2"]
+    for gpu in range(gpus):
+        for gi in range(15):
+            lines.append(f"gpu{gpu}/gi{gi}/access "
+                         f"{chiplib.mig_cap_minor(gpu, gi)}")
+            lines += [f"gpu{gpu}/gi{gi}/ci{ci}/access "
+                      f"{chiplib.mig_cap_minor(gpu, gi, ci)}"
+                      for ci in range(8)]
+    path = root / "proc" / "driver" / "nvidia-caps"
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "mig-minors").write_text("\n".join(lines) + "\n")
+    caps = root / "dev" / "nvidia-caps"
+    caps.mkdir(parents=True, exist_ok=True)
+    for line in lines:
+        (caps / f"nvidia-cap{line.split()[1]}").write_text("")
+
+
+# NVML's answers for the H100 80GB's profile indices: (id, slices,
+# instances, SMs, memory MB, name).
+H100_PROFILE_INFO = {
+    0x0: (19, 1, 7, 16, 9856, "MIG 1g.10gb"),
+    0x1: (14, 2, 3, 32, 19968, "MIG 2g.20gb"),
+    0x2: (9, 3, 2, 60, 40192, "MIG 3g.40gb"),
+    0x3: (5, 4, 1, 64, 40192, "MIG 4g.40gb"),
+    0x4: (0, 7, 1, 132, 80768, "MIG 7g.80gb"),
+    0x7: (20, 1, 1, 16, 9856, "MIG 1g.10gb+me"),
+    0x9: (15, 1, 4, 26, 19968, "MIG 1g.20gb"),
+}
 
 
 class FakeNvml:
     """What RealChipLib reads, scripted: devices are dicts keyed by the
-    handle (index + 100)."""
+    handle (index + 100). ``set_mig`` puts one in MIG mode with GPU
+    instances (ids 1, 2, ..), one compute instance each; a MIG device's
+    handle is its GPU's handle * 100 + its index. ``denied`` names
+    methods that answer NoPermission."""
 
     def __init__(self, n=2, name="NVIDIA H100 80GB HBM3", events=True):
         self.devices = {
@@ -220,13 +276,34 @@ class FakeNvml:
         self.events = events
         self.queue = []
         self.missing = set()     # method names raising FunctionNotFound
+        self.denied = set()      # method names raising NoPermission
         self.lost = set()        # handles whose uuid NVML no longer finds
         self.calls = []
+        self.migs = {}           # MIG device handle -> its dict
+
+    def set_mig(self, h, layout):
+        """Put GPU ``h`` in MIG mode with ``layout``'s instances, each
+        (profile name, start memory slice)."""
+        by_name = {p.name: p for p in deviceinfo.partition_profiles("h100")}
+        d = self.devices[h]
+        d["mig"] = _nvml.MIG_ENABLED
+        d["gis"] = {}
+        for k, (name, start) in enumerate(layout):
+            prof = by_name[name]
+            gi = k + 1
+            d["gis"][gi] = _nvml.GpuInstance(gi, prof.profile_id, start,
+                                             prof.memory_slices)
+            self.migs[h * 100 + k] = dict(
+                parent=h, gi=gi, ci=0,
+                uuid=f"MIG-{h:08x}-{gi:04x}-4000-8000-{start:012x}",
+                total=d["total"] * prof.memory_slices // 8)
 
     def _maybe_missing(self, name):
         self.calls.append(name)
         if name in self.missing:
             raise _nvml.NvmlFunctionNotFound(name)
+        if name in self.denied:
+            raise _nvml.ERRORS[4](name)
 
     def init(self):
         self._maybe_missing("init")
@@ -247,13 +324,13 @@ class FakeNvml:
         raise _nvml.NvmlNotFound("nvmlDeviceGetHandleByUUID")
 
     def uuid(self, h):
-        return self.devices[h]["uuid"]
+        return (self.migs.get(h) or self.devices[h])["uuid"]
 
     def name(self, h):
         return self.devices[h]["name"]
 
     def memory_total(self, h):
-        return self.devices[h]["total"]
+        return (self.migs.get(h) or self.devices[h])["total"]
 
     def pci_info(self, h):
         d = self.devices[h]
@@ -269,6 +346,41 @@ class FakeNvml:
     def mig_mode(self, h):
         self._maybe_missing("mig_mode")
         return self.devices[h]["mig"]
+
+    def mig_modes(self, h):
+        return self.mig_mode(h), self.devices[h]["mig"]
+
+    def max_mig_device_count(self, h):
+        self._maybe_missing("max_mig_device_count")
+        return 7
+
+    def mig_device_handle_by_index(self, h, i):
+        self._maybe_missing("mig_device_handle_by_index")
+        if h * 100 + i not in self.migs:
+            raise _nvml.NvmlNotFound("nvmlDeviceGetMigDeviceHandleByIndex")
+        return h * 100 + i
+
+    def device_handle_from_mig_handle(self, mh):
+        return self.migs[mh]["parent"]
+
+    def gpu_instance_id(self, mh):
+        self._maybe_missing("gpu_instance_id")
+        return self.migs[mh]["gi"]
+
+    def compute_instance_id(self, mh):
+        self._maybe_missing("compute_instance_id")
+        return self.migs[mh]["ci"]
+
+    def gpu_instance(self, h, gi):
+        self._maybe_missing("gpu_instance")
+        return self.devices[h]["gis"][gi]
+
+    def gpu_instance_profile(self, h, index):
+        self._maybe_missing("gpu_instance_profile")
+        if index not in H100_PROFILE_INFO:
+            raise _nvml.NvmlNotSupported(
+                "nvmlDeviceGetGpuInstanceProfileInfoV")
+        return _nvml.GpuInstanceProfile(*H100_PROFILE_INFO[index])
 
     def driver_version(self):
         return "570.124.06"
@@ -387,11 +499,31 @@ class TestRealChipLibOverFakeNvml:
             {chiplib.HEALTH_HEALTHY}
 
     def test_mig_mode_on_raises(self, gpu_host):
+        """A GPU in MIG mode publishes its MIG devices in its place; the
+        other GPU stays whole. A GI walk the driver refuses raises,
+        naming the call, and is never read as "no partitions"."""
         nv = FakeNvml()
-        nv.devices[101]["mig"] = _nvml.MIG_ENABLED
+        nv.set_mig(101, [("4g.40gb", 0), ("1g.20gb", 4), ("1g.10gb", 6)])
+        write_mig_minors(gpu_host, gpus=5)
         lib = real_lib(gpu_host, nv)
-        with pytest.raises(chiplib.MigEnabledError, match="MIG"):
+        devs = lib.enumerate_all_possible_devices({"chip", "tensorcore"})
+        assert sorted(devs) == ["tpu-0", "tpu-1-mig-15-4-2",
+                                "tpu-1-mig-19-6-1", "tpu-1-mig-5-0-4"]
+        mig = devs["tpu-1-mig-15-4-2"].tensorcore
+        assert (mig.uuid, mig.gi_id, mig.ci_id, mig.profile.name,
+                mig.profile.cores, mig.memory_slice_indices()) == (
+            nv.migs[10101]["uuid"], 2, 0, "1g.20gb", 1, [4, 5])
+        # The parent's minor is 4: gpu4/gi2's minors, under the dev root.
+        assert mig.device_paths() == [
+            str(gpu_host / "dev" / "nvidia4"),
+            str(gpu_host / "dev" / "nvidia-caps" /
+                f"nvidia-cap{chiplib.mig_cap_minor(4, 2)}"),
+            str(gpu_host / "dev" / "nvidia-caps" /
+                f"nvidia-cap{chiplib.mig_cap_minor(4, 2, 0)}")]
+        nv.denied = {"gpu_instance"}
+        with pytest.raises(_nvml.NvmlError, match="NoPermission") as e:
             lib.enumerate_chips()
+        assert e.value.function == "gpu_instance"
 
     def test_unknown_gpu_raises(self, gpu_host):
         lib = real_lib(gpu_host, FakeNvml(name="NVIDIA A100-SXM4-80GB"))
@@ -519,6 +651,18 @@ class TestNvmlBinding:
         assert ctypes.sizeof(_nvml.PciInfo) == 68
         assert ctypes.sizeof(_nvml.Memory) == 24
         assert ctypes.sizeof(_nvml.EventData) == 32
+        # The MIG structs as nvml.h lays them out (the card check
+        # compiles the header and compares every one of STRUCTS).
+        assert ctypes.sizeof(_nvml.GpuInstancePlacement) == 8
+        assert ctypes.sizeof(_nvml.GpuInstanceInfo) == 24
+        assert _nvml.GpuInstanceInfo.placement.offset == 16
+        assert ctypes.sizeof(_nvml.GpuInstanceProfileInfoV2) == 152
+        assert _nvml.GpuInstanceProfileInfoV2.memorySizeMB.offset == 48
+        assert _nvml.GPU_INSTANCE_PROFILE_INFO_V2 == 152 | 2 << 24
+        assert set(_nvml.STRUCTS.values()) >= {
+            _nvml.PciInfo, _nvml.Memory, _nvml.EventData,
+            _nvml.GpuInstancePlacement, _nvml.GpuInstanceInfo,
+            _nvml.GpuInstanceProfileInfoV2}
 
     def test_missing_library_raises(self, tmp_path):
         with pytest.raises(_nvml.NvmlLibraryNotFound):
