@@ -217,15 +217,19 @@ fixed seed, and checks every hand-written kernel of those paths:
     Times 20 allocate/deallocate pairs and prints a ``scheduler:`` line;
 30. runs the port's kubelet-facing node plugin on the card
     (``plugin/driver.py`` over ``RealChipLib``, a ``FakeKubeClient``, state
-    under ``build/dra/plugin``): ``Driver.start`` publishes the card's
-    ResourceSlice, which must equal phase 29's, and ``GetInfo`` through
-    the in-process transport (``kubeletplugin.LocalTransport``) names the
-    driver and its socket. The allocator places a process-shared claim
-    with a ``realtime`` SLO on the card, and a ``batch`` co-tenant claim
-    on the same device is written in wire form; a kubelet stand-in sends
-    one ``NodePrepareResourcesRequest`` for both, encoded by the port's
-    codec (``kube/protos/``), through the transport, and each claim's CDI
-    ids must name spec files on disk. One worker per claim serves phase
+    under ``build/dra/plugin``): ``Driver.start`` serves the kubelet's two
+    unix sockets there (``plugin/grpc_uds.py``, gRPC over HTTP/2 written
+    by hand) and publishes the card's ResourceSlice, which must equal
+    phase 29's. A kubelet stand-in reaches the Driver only through the
+    port's client over those sockets: ``GetInfo`` (naming the driver and
+    its socket) and ``NotifyRegistrationStatus`` on the registrar
+    socket. The allocator places a process-shared claim with a
+    ``realtime`` SLO on the card, and a ``batch`` co-tenant claim on the
+    same device is written in wire form; the stand-in sends one
+    ``NodePrepareResourcesRequest`` for both on the plugin socket as
+    ``v1beta1.DRAPlugin``, encoded by the port's codec
+    (``kube/protos/``), and each claim's CDI ids must name spec files on
+    disk. One worker per claim serves phase
     4's traffic with phase 4's streams and K1-K3 launches; the realtime
     worker reports itself busy (``shim.report_usage``), the batch worker
     idle, and ``Driver.tick_once`` must apply a rebalancer move from the
@@ -234,12 +238,18 @@ fixed seed, and checks every hand-written kernel of those paths:
     auditor reads no drift; ``/readyz``, ``/metrics`` and
     ``plugin.inspect`` on a ``MetricsServer`` wired as ``plugin.main``
     wires it show the prepares, the card's occupancy and the move.
-    Unprepare of the realtime claim goes through the transport; the
-    batch claim is deleted from the API and the orphan cleaner
-    unprepares it. 20 prepare/unprepare pairs of a third claim time the
-    transport's round trip. Last, ``plugin.main`` runs as a process on
-    ``RealChipLib``, answers ``/readyz`` and ``/metrics`` (one device)
-    and exits 0 on SIGTERM. Prints a ``driver:`` line.
+    Unprepare of the realtime claim goes over the plugin socket as
+    ``v1alpha3.Node``; the batch claim is deleted from the API and the
+    orphan cleaner unprepares it. 20 prepare/unprepare pairs of a third
+    claim time the socket's round trip, each beside the same pair through
+    an in-process ``kubeletplugin.LocalTransport`` on the same plugin,
+    the side that goes first alternating pair by pair.
+    Last, ``plugin.main`` runs as a process on ``RealChipLib``, answers
+    ``/readyz`` and ``/metrics`` (one device) and serves both sockets:
+    this process, in the kubelet's place, calls its ``GetInfo``,
+    ``NotifyRegistrationStatus`` and one ``NodePrepareResources`` (the
+    in-band "no kube client" error under ``--no-kube``); it exits 0 on
+    SIGTERM with both socket files gone. Prints a ``driver:`` line.
 31. runs the port's fleet doctor against the card's live node: a
     ``Driver`` over ``RealChipLib`` (state under ``build/dra/doctor``)
     publishing into a ``FakeKubeClient`` that holds the card's Node (no
@@ -4432,10 +4442,18 @@ def tenant_claim(uid: str, slo: dict, device=None) -> dict:
     return claim
 
 
+def socket_root(path: Path) -> str:
+    """``path`` relative to the working directory, as a Driver's socket
+    root: a unix socket's path must stay under the AF_UNIX limit of 107
+    bytes wherever the checkout lies."""
+    return os.path.relpath(path)
+
+
 def kubelet_call(transport, method: str, message, reply_cls) -> tuple:
     """The kubelet stand-in's call: ``message`` encoded by the port's
-    codec, sent through the plugin's transport, the reply decoded;
-    (reply, round trip in host ms)."""
+    codec, sent through ``transport`` (a plugin's transport, or a
+    ``grpc_uds.Channel`` on its socket), the reply decoded; (reply, round
+    trip in host ms)."""
     t = time.perf_counter()
     reply = reply_cls.FromString(
         transport.call(method, message.SerializeToString()))
@@ -4473,16 +4491,34 @@ def free_port() -> int:
 
 def plugin_cli(root: Path) -> dict:
     """``python3 -m k8s_dra_driver_tpu_torch.plugin.main`` on the card:
-    ``/readyz`` 200 and one chip in ``/metrics``, exit 0 on SIGTERM."""
+    ``/readyz`` 200 and one chip in ``/metrics``; from this process, in
+    the kubelet's place, ``GetInfo``, ``NotifyRegistrationStatus`` and a
+    prepare over its two sockets; exit 0 on SIGTERM with both socket
+    files gone."""
     import signal
+
+    from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
+    from k8s_dra_driver_tpu_torch.kube.protos import (
+        pluginregistration_v1 as regpb,
+    )
+    from k8s_dra_driver_tpu_torch.plugin.grpc_services import (
+        NodeStub,
+        RegistrationStub,
+    )
+    from k8s_dra_driver_tpu_torch.plugin.grpc_uds import Channel
 
     t0 = time.perf_counter()
     port = free_port()
     log_path = root / "plugin-main.log"
+    # The child runs in ROOT: its socket roots are relative to it.
+    plugin_root = os.path.relpath(root / "cli" / "plugin", ROOT)
+    registrar_root = os.path.relpath(root / "cli" / "registry", ROOT)
+    sockets = (os.path.relpath(ROOT / plugin_root / "dra.sock"),
+               os.path.relpath(ROOT / registrar_root /
+                               f"{DRA_DRIVER}-dra.sock"))
     argv = [sys.executable, "-m", "k8s_dra_driver_tpu_torch.plugin.main",
             "--no-kube", "--node-name", "chip-smoke", "--http-port", str(port),
-            "--plugin-root", str(root / "cli" / "plugin"),
-            "--registrar-root", str(root / "cli" / "registry"),
+            "--plugin-root", plugin_root, "--registrar-root", registrar_root,
             "--state-root", str(root / "cli" / "state"),
             "--cdi-root", str(root / "cli" / "cdi")]
     with open(log_path, "w") as logf:
@@ -4513,6 +4549,26 @@ def plugin_cli(root: Path) -> dict:
             if status != 200 or [ln.split()[-1] for ln in chips] != ["1"]:
                 raise AssertionError(f"plugin.main /metrics: {status} "
                                      f"{chips}")
+            if not all(os.path.exists(p) for p in sockets) or \
+                    "gRPC over unix sockets" not in ready[1]:
+                raise AssertionError(f"plugin.main serves no socket: "
+                                     f"{ready[1]}")
+            t = time.perf_counter()
+            with Channel(sockets[1]) as ch:
+                info = RegistrationStub(ch).GetInfo(regpb.InfoRequest())
+                RegistrationStub(ch).NotifyRegistrationStatus(
+                    regpb.RegistrationStatus(plugin_registered=True))
+            with Channel(sockets[0]) as ch:
+                reply = NodeStub(ch).NodePrepareResources(
+                    drapb.NodePrepareResourcesRequest(claims=[drapb.Claim(
+                        namespace=DRA_NS, uid="cli-claim", name="cli-claim")]))
+            calls_ms = (time.perf_counter() - t) * 1e3
+            if (info.type, info.name, info.endpoint) != (
+                    "DRAPlugin", DRA_DRIVER, plugin_root + "/dra.sock"):
+                raise AssertionError(f"plugin.main GetInfo: {info}")
+            error = reply.claims["cli-claim"].error
+            if "no kube client" not in error:
+                raise AssertionError(f"plugin.main prepare: {reply}")
             t = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=60)
@@ -4525,11 +4581,13 @@ def plugin_cli(root: Path) -> dict:
     if rc != 0 or stop_s > DRA_STOP_S:
         raise AssertionError(f"plugin.main exited {rc} {stop_s:.1f} s after "
                              f"SIGTERM:\n{logged[-4000:]}")
-    if "no kubelet socket is served" not in logged:
-        raise AssertionError("plugin.main did not warn that no kubelet "
-                             "socket is served")
+    if any(os.path.exists(p) for p in sockets):
+        raise AssertionError(f"plugin.main left its sockets: {sockets}")
+    if "kubelet registration status: registered=True" not in logged:
+        raise AssertionError("plugin.main logged no registration status")
     return dict(ready_s=ready_s, readyz=ready[1].strip().splitlines(),
-                capacity=chips, rc=rc, stop_s=stop_s,
+                capacity=chips, get_info=info.endpoint, prepare_error=error,
+                calls_ms=calls_ms, rc=rc, stop_s=stop_s,
                 s=time.perf_counter() - t0)
 
 
@@ -4549,6 +4607,15 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
     )
     from k8s_dra_driver_tpu_torch.plugin import inspect
     from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig
+    from k8s_dra_driver_tpu_torch.plugin.grpc_services import (
+        NodeStub,
+        RegistrationStub,
+    )
+    from k8s_dra_driver_tpu_torch.plugin.grpc_uds import (
+        Channel,
+        SocketTransport,
+    )
+    from k8s_dra_driver_tpu_torch.plugin.kubeletplugin import LocalTransport
     from k8s_dra_driver_tpu_torch.tpulib import ChipLibConfig, RealChipLib
     from k8s_dra_driver_tpu_torch.utils.metrics import MetricsServer, Registry
 
@@ -4563,15 +4630,15 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         node_name=node,
         chiplib=RealChipLib(ChipLibConfig(state_dir=str(root / "modes"))),
         kube_client=client, cdi_root=str(root / "cdi"),
-        plugin_root=str(root / "plugin"),
-        registrar_root=str(root / "registry"),
+        plugin_root=socket_root(root / "plugin"),
+        registrar_root=socket_root(root / "registry"),
         state_root=str(root / "state"), device_classes=frozenset({"chip"}),
         cleanup_interval_seconds=0, device_watch_interval_seconds=0,
         audit_interval_seconds=0)
     driver = Driver(config)
-    transport = config.transport
     state = driver.state
     workers, server, out = [], None, {}
+    kubelet = registrar = local = None
     prepare = "/v1beta1.DRAPlugin/NodePrepareResources"
     unprepare = "/v1beta1.DRAPlugin/NodeUnprepareResources"
 
@@ -4579,8 +4646,15 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         return [drapb.Claim(namespace=DRA_NS, uid=u, name=u) for u in uids]
 
     try:
-        # 1. Start: the Driver publishes the card and answers GetInfo.
+        # 1. Start: the Driver serves both sockets, publishes the card,
+        # and registers with the kubelet stand-in over the registrar's.
         driver.start()
+        if not isinstance(config.transport, SocketTransport) or \
+                not driver.plugin.serving or not all(
+                    os.path.exists(p) for p in (config.plugin_socket,
+                                                config.registrar_socket)):
+            raise AssertionError(f"the Driver serves no socket: "
+                                 f"{config.transport.detail}")
         slices_gvr = driver.resource_api.slices
         deadline = time.monotonic() + 30
         while not client.list(slices_gvr) and time.monotonic() < deadline:
@@ -4589,15 +4663,22 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         if [s["spec"] for s in mine] != [s["spec"] for s in published]:
             raise AssertionError(f"the Driver published {mine}, phase 29 "
                                  f"{published}")
-        info, _ = kubelet_call(
-            transport, "/pluginregistration.Registration/GetInfo",
-            regpb.InfoRequest(), regpb.PluginInfo)
+        registrar = Channel(config.registrar_socket)
+        info = RegistrationStub(registrar).GetInfo(regpb.InfoRequest())
         if (info.type, info.name, info.endpoint) != (
                 "DRAPlugin", DRA_DRIVER, config.plugin_socket):
             raise AssertionError(f"GetInfo answered {info}")
+        RegistrationStub(registrar).NotifyRegistrationStatus(
+            regpb.RegistrationStatus(plugin_registered=True))
+        if driver.plugin.registration_status() != {
+                "pluginRegistered": True, "error": ""}:
+            raise AssertionError("registration status "
+                                 f"{driver.plugin.registration_status()}")
+        registrar.close()
+        kubelet = Channel(config.plugin_socket)
         start_s = time.perf_counter() - t0
 
-        # 2. Allocate, and prepare both tenants through the transport.
+        # 2. Allocate, and prepare both tenants over the plugin socket.
         alloc = ReferenceAllocator(client, registry=Registry(),
                                    device_classes={DRA_DRIVER:
                                                    [DRA_CLASS_CEL]})
@@ -4611,7 +4692,7 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
             client.create(driver.resource_api.claims, claim,
                           namespace=DRA_NS)
         reply, prepare_pair_ms = kubelet_call(
-            transport, prepare,
+            kubelet, prepare,
             drapb.NodePrepareResourcesRequest(claims=claims_of(*DRA_TENANTS)),
             drapb.NodePrepareResourcesResponse)
         ctr = {}
@@ -4726,10 +4807,9 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         for w in tenants.values():
             w.send("exit")
             w.finish()
-        reply, _ = kubelet_call(
-            transport, unprepare,
-            drapb.NodeUnprepareResourcesRequest(claims=claims_of(rt)),
-            drapb.NodeUnprepareResourcesResponse)
+        reply = NodeStub(kubelet, service_name="v1alpha3.Node") \
+            .NodeUnprepareResources(
+                drapb.NodeUnprepareResourcesRequest(claims=claims_of(rt)))
         if reply.claims[rt].error or rt in state.cdi.list_claim_spec_uids() \
                 or rt in state.checkpoint.read():
             raise AssertionError(f"unprepare of {rt}: {reply}")
@@ -4742,13 +4822,17 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         if drift:
             raise AssertionError(f"audit after release: {drift}")
 
-        # The transport's round trip: prepare/unprepare pairs of a third
-        # claim, with no worker.
+        # The round trip: prepare/unprepare pairs of a third claim, with
+        # no worker, over the plugin socket and, pair by pair beside
+        # them, through an in-process LocalTransport on the same plugin.
         alloc.deallocate(rt)
         timed = alloc.allocate(hbm_claim("dra-timed", "h100", 64 << 30),
                                node_name=node)
         client.create(driver.resource_api.claims, timed, namespace=DRA_NS)
-        def prepare_pair():
+        local = LocalTransport()
+        local.start(driver.plugin)
+
+        def prepare_pair(via):
             times = []
             for method, request, reply_cls in (
                     (prepare, drapb.NodePrepareResourcesRequest,
@@ -4756,22 +4840,40 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
                     (unprepare, drapb.NodeUnprepareResourcesRequest,
                      drapb.NodeUnprepareResourcesResponse)):
                 reply, ms = kubelet_call(
-                    transport, method,
+                    via, method,
                     request(claims=claims_of("dra-timed")), reply_cls)
                 if reply.claims["dra-timed"].error:
                     raise AssertionError(f"timed {method}: {reply}")
                 times.append(ms)
             return times
 
-        prepare_ms, unprepare_ms = zip(*(prepare_pair()
-                                         for _ in range(DRA_PREPARE_PAIRS)))
-        # Where a pair's host time goes: more pairs under cProfile (its
-        # overhead stays out of the times above).
+        # The side that goes first alternates pair by pair: the second
+        # finds the Driver's files just written and in the page cache.
+        pairs = []
+        for i in range(DRA_PREPARE_PAIRS):
+            if i % 2 == 0:
+                pairs.append((prepare_pair(kubelet), prepare_pair(local)))
+            else:
+                local_times = prepare_pair(local)
+                pairs.append((prepare_pair(kubelet), local_times))
+        prepare_ms, unprepare_ms = zip(*(p for p, _ in pairs))
+        local_prepare_ms, local_unprepare_ms = zip(*(q for _, q in pairs))
+        # The socket's cost pair by pair, by which side went first: a
+        # transport cost shows in both orders, an order effect flips.
+        socket_minus_local_ms_p50 = {
+            first: [statistics.median(s[k] - q[k] for s, q in
+                                      pairs[start::2]) for k in (0, 1)]
+            for first, start in (("socket_first", 0), ("local_first", 1))}
+        # Where a pair's host time goes: more pairs in process under
+        # cProfile (its overhead stays out of the times above; over the
+        # socket the handler runs in the server's worker threads).
         profiler = cProfile.Profile()
         profiler.enable()
         for _ in range(DRA_PROFILED_PAIRS):
-            prepare_pair()
+            prepare_pair(local)
         profiler.disable()
+        local.stop()
+        kubelet.close()
         text_io = io.StringIO()
         pstats.Stats(profiler, stream=text_io).sort_stats(
             "tottime").print_stats(DRA_PROFILE_LINES)
@@ -4808,10 +4910,21 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
             prepare_ms=list(prepare_ms), unprepare_ms=list(unprepare_ms),
             prepare_ms_p50=statistics.median(prepare_ms),
             unprepare_ms_p50=statistics.median(unprepare_ms),
+            local_prepare_ms=list(local_prepare_ms),
+            local_unprepare_ms=list(local_unprepare_ms),
+            local_prepare_ms_p50=statistics.median(local_prepare_ms),
+            local_unprepare_ms_p50=statistics.median(local_unprepare_ms),
+            socket_minus_local_ms_p50=socket_minus_local_ms_p50,
+            sockets=[config.plugin_socket, config.registrar_socket],
             shutdown_s=shutdown_s, cli=cli, s=time.perf_counter() - t0)
     finally:
         for w in workers:
             w.stop()
+        for channel in (kubelet, registrar):
+            if channel is not None:
+                channel.close()
+        if local is not None:
+            local.stop()
         if server is not None:
             server.stop()
         if driver is not None:
@@ -4819,6 +4932,9 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
     log("driver: " + json.dumps({
         "prepare_ms_p50": out["prepare_ms_p50"],
         "unprepare_ms_p50": out["unprepare_ms_p50"],
+        "local_prepare_ms_p50": out["local_prepare_ms_p50"],
+        "local_unprepare_ms_p50": out["local_unprepare_ms_p50"],
+        "socket_minus_local_ms_p50": out["socket_minus_local_ms_p50"],
         "moves": [f"{d['resource']} {d['donor']['claim']} "
                   f"{d['donor']['from']}->{d['donor']['to']}% to "
                   f"{d['gainer']['claim']} {d['gainer']['from']}->"
@@ -4830,13 +4946,14 @@ def plugin_phase(torch, streams: list, launches: dict, published: list,
         "decode_step_p50_ms": {u: s["decode_step_p50_ms"]
                                for u, s in out["served"].items()},
         "cli_ready_s": out["cli"]["ready_s"],
+        "cli_calls_ms": out["cli"]["calls_ms"],
         "cli_stop_s": out["cli"]["stop_s"], "s": out["s"]}))
     phase_done(f"phase 30: the Driver published {device} as phase 29 did, "
-               f"prepared both tenants through the transport, moved "
+               f"prepared both tenants over its plugin socket, moved "
                f"{len(out['moves'])} shares from the batch tenant to the "
                f"realtime one (caps {out['caps_before']} -> "
                f"{out['caps_after']}), released both (one as an orphan); "
-               f"plugin.main answered and exited 0")
+               f"plugin.main served both sockets, answered and exited 0")
     return out
 
 
@@ -4947,8 +5064,8 @@ def doctor_phase(torch, params, cfg, dev, phase4) -> dict:
         node_name=node,
         chiplib=RealChipLib(ChipLibConfig(state_dir=str(root / "modes"))),
         kube_client=client, cdi_root=str(root / "cdi"),
-        plugin_root=str(root / "plugin"),
-        registrar_root=str(root / "registry"),
+        plugin_root=socket_root(root / "plugin"),
+        registrar_root=socket_root(root / "registry"),
         state_root=str(root / "state"), node_uid=f"uid-{node}",
         device_classes=frozenset({"chip"}), cleanup_interval_seconds=0,
         device_watch_interval_seconds=0, audit_interval_seconds=0)
@@ -6657,8 +6774,8 @@ def elastic_node(root: Path) -> tuple:
     lib = FakeChipLib(generation="v5p", topology="4x1x1")
     driver = Driver(DriverConfig(
         node_name=ELASTIC_NODE, chiplib=lib, kube_client=client,
-        cdi_root=str(root / "cdi"), plugin_root=str(root / "plugin"),
-        registrar_root=str(root / "registry"),
+        cdi_root=str(root / "cdi"), plugin_root=socket_root(root / "plugin"),
+        registrar_root=socket_root(root / "registry"),
         state_root=str(root / "state"), node_uid="node-uid",
         driver_root=str(root / "driver"),
         driver_root_ctr_path=str(root / "driver"),
@@ -7459,8 +7576,8 @@ def mig_driver(torch, enabled: bool, devices: dict) -> dict:
         node_name=node,
         chiplib=RealChipLib(ChipLibConfig(state_dir=str(root / "modes"))),
         kube_client=client, cdi_root=str(root / "cdi"),
-        plugin_root=str(root / "plugin"),
-        registrar_root=str(root / "registry"),
+        plugin_root=socket_root(root / "plugin"),
+        registrar_root=socket_root(root / "registry"),
         state_root=str(root / "state"),
         device_classes=frozenset({"chip", "tensorcore"}),
         cleanup_interval_seconds=0, device_watch_interval_seconds=0,

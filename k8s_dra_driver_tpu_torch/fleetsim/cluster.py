@@ -33,6 +33,7 @@ from ..kube.defrag import DefragPlanner
 from ..kube.defrag_executor import DefragExecutor
 from ..kube.resourceslice import ResourceSliceController
 from ..plugin.driver import Driver, DriverConfig
+from ..plugin.kubeletplugin import LocalTransport
 from ..serving_gateway import (
     AdmissionPolicy,
     Autoscaler,
@@ -189,6 +190,8 @@ class FleetCluster:
             audit_interval_seconds=0,
             rebalance_interval_seconds=spec.rebalance_interval_s,
             defrag_execute=True,
+            # The soak drives the Driver in process: no socket to bind.
+            transport=LocalTransport(),
         ), registry=self.registry)
 
         # Synchronous slice publication (no reconciler thread), then the

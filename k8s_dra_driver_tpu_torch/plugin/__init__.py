@@ -2,8 +2,9 @@
 managers, and the kubelet-facing Driver (``driver.py``) with its
 accounting, audit, cleanup and rebalancer loops, the CLI (``main.py``)
 and ``inspect.py`` -- the port's twin of ``k8s_dra_driver_tpu.plugin``.
-The DRA services answer through an in-process transport
-(``kubeletplugin.LocalTransport``); a kubelet socket is ROADMAP A15f."""
+The DRA services answer on the kubelet's two unix sockets, as gRPC over
+HTTP/2 written by hand (``grpc_uds.py``, ``hpack.py``), or in process
+(``kubeletplugin.LocalTransport``)."""
 
 from .checkpoint import CheckpointManager, CorruptCheckpointError
 from .device_state import DeviceState, PrepareError

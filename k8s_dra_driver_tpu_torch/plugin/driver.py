@@ -10,9 +10,10 @@ API server before preparing.
 The port's copy of the reference module. Its messages are the hand-written
 codec's (``kube/protos/``: a map field is a dict, so
 ``response.claims[uid] = x`` where the reference calls ``CopyFrom``), and
-the kubelet reaches it through ``DriverConfig.transport``
-(``kubeletplugin.LocalTransport`` unless given another; no kubelet
-socket is served until ROADMAP item A15f).
+the kubelet reaches it through ``DriverConfig.transport``: by default
+``grpc_uds.SocketTransport``, the gRPC services on the plugin's two unix
+sockets as the reference serves them; ``kubeletplugin.LocalTransport``
+for callers that keep many Drivers in one process.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from ..utils.tracing import Tracer
 from .checkpoint import CheckpointManager
 from .device_state import DeviceState
 from .grpc_services import NodeServicer
-from .kubeletplugin import KubeletPlugin, LocalTransport
+from .grpc_uds import SocketTransport
+from .kubeletplugin import KubeletPlugin
 
 logger = logging.getLogger(__name__)
 
@@ -143,9 +145,10 @@ class DriverConfig:
     # plan through kube/defrag_executor.py.
     defrag_execute: bool = False
     # How the kubelet reaches the plugin's services: an object with
-    # start(plugin), stop(), serving and detail. The port has one,
-    # the in-process LocalTransport; a kubelet socket is ROADMAP A15f.
-    transport: object = dataclasses.field(default_factory=LocalTransport)
+    # start(plugin), stop(), serving, detail and call(method, bytes).
+    # The default serves the two unix sockets; kubeletplugin's
+    # LocalTransport answers in process.
+    transport: object = dataclasses.field(default_factory=SocketTransport)
 
     @property
     def plugin_socket(self) -> str:

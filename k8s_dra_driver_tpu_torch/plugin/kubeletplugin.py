@@ -14,13 +14,21 @@ kubeletplugin/draplugin.go:263-420, registrationserver.go). It serves
 plus lazy ResourceSlice publication via ``publish_resources``
 (draplugin.go:376-420 analog).
 
-Where the reference starts two gRPC servers on unix sockets, the port
-hands both services to a transport: the machine with the card has no
-``grpcio``. The one transport here is :class:`LocalTransport`, an
-in-process dispatcher that takes a gRPC full method name and the
-request's bytes (``kube/protos/wire.py``) and returns the reply's bytes.
-No kubelet socket is served until a hand-written gRPC transport exists
-(ROADMAP item A15f).
+Where the reference starts two ``grpc.server``s on unix sockets, the
+port hands both services (:func:`method_table`) to a transport, since the
+machine with the card has no ``grpcio``:
+
+- ``grpc_uds.SocketTransport``, the default, serves them as gRPC over
+  HTTP/2 on the two unix sockets, written by hand: the DRA node methods
+  on ``plugin_socket``, the registration methods on
+  ``registrar_socket``, as the reference splits them;
+- :class:`LocalTransport` dispatches them in process: a gRPC full method
+  name and the request's bytes (``kube/protos/wire.py``) in, the reply's
+  bytes out. Callers that run many plugins in one process (the fleet
+  soak, the doctor's simulated fleet) take it.
+
+Both answer ``call(method_path, request_bytes)``; the socket transport
+goes through its own client over the real socket.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from .grpc_services import (
     RegistrationServicer,
     _traced,
 )
+from .grpc_uds import SocketTransport
 
 logger = logging.getLogger(__name__)
 
@@ -103,7 +112,7 @@ class LocalTransport:
     server does for a kubelet's call. Answers only between ``start`` and
     ``stop``."""
 
-    detail = "in-process transport: no kubelet socket (ROADMAP A15f)"
+    detail = "in-process transport (no socket)"
 
     def __init__(self):
         self._methods: Optional[dict] = None
@@ -159,8 +168,9 @@ class _RegistrationService(RegistrationServicer):
 
 
 class KubeletPlugin:
-    """DRAPlugin analog (draplugin.go:39-67): owns the transport and the
-    slice controller; exposes Stop / PublishResources / RegistrationStatus."""
+    """DRAPlugin analog (draplugin.go:39-67): owns the transport (by
+    default both unix sockets) and the slice controller; exposes Stop /
+    PublishResources / RegistrationStatus."""
 
     def __init__(
         self,
@@ -191,7 +201,7 @@ class KubeletPlugin:
         )
         self.tracer = tracer  # root spans for every DRA RPC when set
         self.transport = transport if transport is not None \
-            else LocalTransport()
+            else SocketTransport()
         self._serving = False
         self._slice_controller: Optional[ResourceSliceController] = None
         self._registration_status: Optional[dict] = None
@@ -202,12 +212,7 @@ class KubeletPlugin:
     def start(self) -> None:
         self.transport.start(self)
         self._serving = True
-        logger.info(
-            "kubelet plugin serving over %s: dra=%s registrar=%s",
-            self.transport.detail,
-            self.plugin_socket,
-            self.registrar_socket,
-        )
+        logger.info("kubelet plugin serving: %s", self.transport.detail)
 
     def stop(self, delete_slices: bool = False) -> None:
         if self._slice_controller is not None:

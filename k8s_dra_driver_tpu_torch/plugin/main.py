@@ -14,9 +14,9 @@ Run hermetically (no hardware, no cluster) for development:
 The port's copy of the reference module: the same flags and the same
 ``main``. Without a ``--fake-*`` flag the chips come from NVML
 (``RealChipLib``), and an NVML failure stops the plugin: it never falls
-back to the fake. The kubelet reaches the services through the in-process
-transport only (``kubeletplugin.LocalTransport``): no kubelet socket is
-served until ROADMAP item A15f, and ``main`` says so once at start.
+back to the fake. The kubelet reaches the services on the two unix
+sockets (``--plugin-root``'s ``dra.sock`` and ``--registrar-root``'s
+``<driver>-dra.sock``), served by ``grpc_uds`` without ``grpcio``.
 """
 
 from __future__ import annotations
@@ -322,10 +322,6 @@ def main(argv=None) -> int:
     )
     driver = Driver(config, registry=registry)
     driver.start()
-    logger.warning(
-        "no kubelet socket is served: the DRA services answer through the "
-        "%s", driver.plugin.transport.detail,
-    )
     metrics = None
     if args.http_port:
         from ..utils.metrics import MetricsServer

@@ -10,10 +10,12 @@ be equal once the cluster's directory is masked.
 
 A kubelet reaches the reference's Drivers through its ``NodeStub`` over
 their gRPC unix sockets, and the port's through
-``kubeletplugin.LocalTransport`` in the port's wire codec: the port
-serves no socket. The reference's sockets live under a directory made
-with ``tempfile.mkdtemp`` (a short path): a socket path of 106 bytes or
-more fails to bind.
+``kubeletplugin.LocalTransport`` in the port's wire codec (a fleet of
+Drivers in one process; the port's sockets have their own tests in
+``test_torch_plugin_driver.py`` and ``test_torch_kubelet_socket.py``).
+The reference's sockets live under a directory made with
+``tempfile.mkdtemp`` (a short path): a socket path of 106 bytes or more
+fails to bind.
 """
 
 from __future__ import annotations
@@ -58,6 +60,13 @@ def empty_root(root):
     return path
 
 
+def in_process(side) -> dict:
+    """The port's Drivers answer through ``LocalTransport``."""
+    if side is REF:
+        return {}
+    return {"transport": side("plugin.kubeletplugin").LocalTransport()}
+
+
 @contextlib.contextmanager
 def cluster(side):
     """API server + controller + two node plugins on one v5p 4x2 slice.
@@ -86,6 +95,7 @@ def cluster(side):
                 cleanup_interval_seconds=0,
                 driver_root=empty_root(root),
                 driver_root_ctr_path=empty_root(root),
+                **in_process(side),
             ))
             d.start()
             drivers[name] = d
@@ -436,7 +446,7 @@ def test_synthetic_profile_allocates_with_counter_exclusivity(monkeypatch):
             plugin_root=f"{root}/plugin", registrar_root=f"{root}/reg",
             state_root=f"{root}/state", node_uid="u-a",
             cleanup_interval_seconds=0, driver_root=empty_root(root),
-            driver_root_ctr_path=empty_root(root)))
+            driver_root_ctr_path=empty_root(root), **in_process(side)))
         d.start()
         try:
             def devices():

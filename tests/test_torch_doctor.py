@@ -6,10 +6,11 @@ Twins of ``test_doctor.py`` and of the doctor cases of
 with real debug HTTP servers, the ICI slice controller, one FakeKubeClient)
 is built by each package's own gate: ``tools/run_doctor_sim.py`` for the
 reference, ``tools/run_doctor_sim_torch.py`` for the port, whose Drivers
-answer through ``kubeletplugin.LocalTransport``. Each scenario runs once
-per package, makes the reference test's assertions, and returns what it
-observed: statuses, findings, rendered reports, scraped holds and bundle
-members. The two must be equal once the report's clock, hold ages,
+answer through ``kubeletplugin.LocalTransport`` (a fleet in one
+process). Each scenario runs once per package, makes the reference
+test's assertions, and returns what it observed: statuses, findings,
+rendered reports, scraped holds and bundle members. The two must be
+equal once the report's clock, hold ages,
 ports and directories are masked. One difference is by design: the
 port's ``recompile-storm`` finding says a recompile re-pays a CUDA-graph
 capture, where the reference's says trace and XLA time

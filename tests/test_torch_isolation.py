@@ -41,7 +41,8 @@ FORBIDDEN_PACKAGES = ("google.protobuf",)
 def _port_files():
     files = sorted((ROOT / "k8s_dra_driver_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "tools" / "run_doctor_sim_torch.py"]
+                    ROOT / "tools" / "run_doctor_sim_torch.py",
+                    ROOT / "tools" / "run_alloc_bench_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -132,7 +133,9 @@ def test_importing_the_port_loads_no_jax(modules):
 def test_the_kubelet_plugin_runs_where_grpc_and_protobuf_are_missing():
     """The card's machine has neither package: with an import finder
     refusing both, the kubelet-facing modules import, the CLI parses its
-    flags and the in-process transport answers a prepare in wire form."""
+    flags, and a Driver serves its two unix sockets: the port's own
+    client and stubs register with it and send a prepare in wire form
+    over the plugin socket."""
     code = """
 import sys, tempfile
 
@@ -150,8 +153,11 @@ except ImportError:
     pass
 else:
     raise AssertionError('the finder let grpc through')
+import os
 from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb
-from k8s_dra_driver_tpu_torch.plugin import driver, inspect, main
+from k8s_dra_driver_tpu_torch.kube.protos import pluginregistration_v1 as regpb
+from k8s_dra_driver_tpu_torch.plugin import driver, grpc_uds, inspect, main
+from k8s_dra_driver_tpu_torch.plugin.grpc_services import NodeStub, RegistrationStub
 from k8s_dra_driver_tpu_torch.tpulib import FakeChipLib
 args = main.build_parser().parse_args(['--no-kube', '--node-name', 'x'])
 assert args.no_kube and args.node_name == 'x'
@@ -163,11 +169,21 @@ d = driver.Driver(driver.DriverConfig(
     cleanup_interval_seconds=0, device_watch_interval_seconds=0,
     audit_interval_seconds=0))
 d.start()
+assert isinstance(d.config.transport, grpc_uds.SocketTransport)
+assert d.plugin.serving
+with grpc_uds.Channel(d.config.registrar_socket) as ch:
+    info = RegistrationStub(ch).GetInfo(regpb.InfoRequest(), timeout=10)
+    assert info.endpoint == d.config.plugin_socket, info
+    RegistrationStub(ch).NotifyRegistrationStatus(
+        regpb.RegistrationStatus(plugin_registered=True), timeout=10)
+assert d.plugin.registration_status()['pluginRegistered']
 req = drapb.NodePrepareResourcesRequest(claims=[drapb.Claim(uid='u')])
-out = drapb.NodePrepareResourcesResponse.FromString(d.config.transport.call(
-    '/v1alpha3.Node/NodePrepareResources', req.SerializeToString()))
+with grpc_uds.Channel(d.config.plugin_socket) as ch:
+    out = NodeStub(ch).NodePrepareResources(req, timeout=10)
 assert 'no kube client' in out.claims['u'].error, out
 d.shutdown()
+assert not os.path.exists(d.config.plugin_socket)
+assert not os.path.exists(d.config.registrar_socket)
 bad = sorted(m for m in sys.modules if m.split('.')[0] == 'grpc'
              or m.startswith('google.protobuf'))
 assert not bad, bad

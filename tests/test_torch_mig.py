@@ -315,6 +315,9 @@ class TestCounterExclusivity:
         memory-slice counters keep overlapping placements apart while
         the second GPU stays free."""
         from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig
+        from k8s_dra_driver_tpu_torch.plugin.kubeletplugin import (
+            LocalTransport,
+        )
 
         client = FakeKubeClient()
         client.create(NODES, {"metadata": {"name": "node-a",
@@ -327,7 +330,9 @@ class TestCounterExclusivity:
             plugin_root=str(tmp_path / "plugin"),
             registrar_root=str(tmp_path / "reg"),
             state_root=str(tmp_path / "state"), node_uid="u-a",
-            cleanup_interval_seconds=0)
+            cleanup_interval_seconds=0,
+            # tmp_path may pass the AF_UNIX path limit: no socket here.
+            transport=LocalTransport())
         d = Driver(cfg)
         d.start()
         try:

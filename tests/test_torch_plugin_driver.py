@@ -12,12 +12,11 @@ its own, makes the reference test's assertions, and returns what it
 observed; the two packages' observations must be equal, with timestamps
 and durations masked and the directory written as ``<dir>``.
 
-The port serves no kubelet socket (its transport is in process), so a
-test transport here (:class:`GrpcTransport`) serves the port's services
-on real ``grpc`` servers over the reference's two unix sockets, with the
-port codec's ``FromString`` / ``SerializeToString`` as the
-(de)serializers. The reference's ``NodeStub`` and ``RegistrationStub``
-then drive both packages byte for byte, as a kubelet would.
+Each package serves its kubelet sockets its own way: the reference on
+two ``grpc.server``s, the port on its hand-written gRPC over HTTP/2
+(``plugin/grpc_uds.py``, the Driver's default transport). The
+reference's ``NodeStub`` and ``RegistrationStub`` on real ``grpcio``
+channels drive both packages byte for byte, as a kubelet would.
 
 The elastic trainer's cases (the resize-resume-grow of
 ``TestElasticGangResize::test_chip_unplug_mid_step_resize_resume_and_grow``,
@@ -34,7 +33,6 @@ are not the Driver's.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import logging
 import os
@@ -42,7 +40,6 @@ import re
 import time
 import urllib.error
 import urllib.request
-from concurrent import futures
 
 import grpc
 import pytest
@@ -53,11 +50,9 @@ from k8s_dra_driver_tpu.kube.protos import pluginregistration_v1_pb2 as regpb
 from k8s_dra_driver_tpu.plugin.grpc_services import (
     DRA_SERVICE_NAME,
     DRA_SERVICE_NAME_V1BETA1,
-    REGISTRATION_SERVICE_NAME,
     NodeStub,
     RegistrationStub,
 )
-from k8s_dra_driver_tpu_torch.plugin import kubeletplugin as port_kubeletplugin
 from test_torch_allocator import chip_claim
 from test_torch_defrag import (
     executor,
@@ -91,52 +86,6 @@ def _always_disarm():
     yield
     for side in SIDES:
         side("utils.faults").disarm()
-
-
-class GrpcTransport:
-    """The port's services on two real gRPC servers over unix sockets:
-    the DRA node services on the plugin socket, registration on the
-    registrar socket, as the reference's ``KubeletPlugin`` serves them."""
-
-    detail = "gRPC over unix sockets (test transport)"
-
-    def __init__(self):
-        self._servers = []
-
-    def start(self, plugin):
-        table = port_kubeletplugin.method_table(plugin)
-        for path, registration in ((plugin.plugin_socket, False),
-                                   (plugin.registrar_socket, True)):
-            services: dict = {}
-            for full, (req, handler, resp) in table.items():
-                _, service, method = full.split("/")
-                if (service == REGISTRATION_SERVICE_NAME) != registration:
-                    continue
-                services.setdefault(service, {})[method] = (
-                    grpc.unary_unary_rpc_method_handler(
-                        handler, request_deserializer=req.FromString,
-                        response_serializer=resp.SerializeToString))
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            if os.path.exists(path):
-                os.unlink(path)
-            server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
-            server.add_generic_rpc_handlers(tuple(
-                grpc.method_handlers_generic_handler(name, handlers)
-                for name, handlers in services.items()))
-            server.add_insecure_port(f"unix://{path}")
-            server.start()
-            self._servers.append((server, path))
-
-    def stop(self):
-        for server, path in self._servers:
-            server.stop(grace=2).wait()
-            with contextlib.suppress(OSError):
-                os.unlink(path)
-        self._servers = []
-
-    @property
-    def serving(self):
-        return bool(self._servers)
 
 
 def both(scenario, tmp_path, *args, **kwargs):
@@ -205,8 +154,6 @@ def make_driver(side, root, lib=None, client=None, node_uid="nu-1",
         driver_root=str(root / "driver"),
         driver_root_ctr_path=str(root / "driver"))
     kwargs.update(overrides)
-    if side is PORT:
-        kwargs["transport"] = GrpcTransport()
     d = side("plugin.driver")
     return d.Driver(d.DriverConfig(**kwargs)), client, lib
 

@@ -5,7 +5,8 @@ Twin of ``tools/run_doctor_sim.py`` (the ``make doctor`` gate) on
 ``k8s_dra_driver_tpu_torch``. It builds the same hermetic cluster --
 FakeKubeClient, two node plugins with real debug HTTP servers, the ICI
 slice controller -- prepares claims through the plugin's transport
-(``kubeletplugin.LocalTransport``: the port serves no kubelet socket), then
+(``kubeletplugin.LocalTransport``: many Drivers in one process, so no
+unix socket each), then
 drives ``k8s_dra_driver_tpu_torch.doctor`` three times:
 
 1. **clean phase**: the fleet is consistent; the doctor must report zero
@@ -48,6 +49,7 @@ from k8s_dra_driver_tpu_torch.kube.allocator import (  # noqa: E402
 )
 from k8s_dra_driver_tpu_torch.kube.protos import dra_v1alpha4 as drapb  # noqa: E402
 from k8s_dra_driver_tpu_torch.plugin.driver import Driver, DriverConfig  # noqa: E402
+from k8s_dra_driver_tpu_torch.plugin.kubeletplugin import LocalTransport  # noqa: E402
 from k8s_dra_driver_tpu_torch.tpulib import FakeChipLib  # noqa: E402
 from k8s_dra_driver_tpu_torch.utils.metrics import MetricsServer  # noqa: E402
 
@@ -81,6 +83,7 @@ def start_node(client, tmp, name, host_id):
         cleanup_interval_seconds=0,
         device_watch_interval_seconds=0,
         audit_interval_seconds=0,  # passes are driven explicitly below
+        transport=LocalTransport(),
     )
     d = Driver(cfg)
     d.start()
