@@ -183,3 +183,61 @@ e2e-kind:
 
 clean:
 	$(MAKE) -C k8s_dra_driver_tpu/native clean
+
+# The PyTorch port's gate (k8s_dra_driver_tpu_torch): the twins of the
+# tools above, beside them with a _torch suffix, with the same gates,
+# seeds and TPU_DRA_* variables. It needs neither JAX nor grpcio, so it
+# runs on a GPU node. DEVICE is where the model tools run: cuda (the
+# default; without a card they raise, never fall back) or cpu.
+.PHONY: verify-torch verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch
+DEVICE ?= cuda
+
+verify-torch: verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch
+
+verify-metrics-torch:
+	@if [ -n "$(VERIFY_METRICS_URL)" ]; then \
+		python tools/verify_metrics_torch.py --url "$(VERIFY_METRICS_URL)"; \
+	else \
+		python tools/verify_metrics_torch.py; \
+	fi
+
+doctor-torch:
+	python tools/run_doctor_sim_torch.py
+
+decodebench-torch:
+	python tools/run_decode_smoke_torch.py --device $(DEVICE)
+
+moebench-torch:
+	python tools/run_moe_smoke_torch.py --device $(DEVICE)
+
+elastic-torch:
+	TPU_DRA_CHAOS_SEED=$(TPU_DRA_CHAOS_SEED) \
+		python tools/run_elastic_smoke_torch.py --device $(DEVICE)
+
+allocbench-smoke-torch:
+	ALLOC_BENCH_SEED=$(ALLOC_BENCH_SEED) \
+		python tools/run_alloc_bench_torch.py --profile smoke
+
+tracesmoke-torch:
+	python tools/run_trace_smoke_torch.py --device $(DEVICE)
+
+kvsmoke-torch:
+	python tools/run_kv_smoke_torch.py --device $(DEVICE)
+
+computesmoke-torch:
+	python tools/run_compute_smoke_torch.py --device $(DEVICE)
+
+defragsmoke-torch:
+	TPU_DRA_CHAOS_SEED=$(TPU_DRA_CHAOS_SEED) \
+		python tools/run_defrag_smoke_torch.py
+
+# Prints the report's gates; writes the report only to an explicit
+# --out (FLEET_r01.json is the reference's record).
+fleetsmoke-torch:
+	TPU_DRA_CHAOS_SEED=$(TPU_DRA_CHAOS_SEED) \
+		python tools/run_fleet_smoke_torch.py
+
+# The hermetic quickstart over the port's own gRPC sockets; its output
+# equals the fenced block of docs/demo-transcript.md.
+demo-torch:
+	python demo/run_demo_sim_torch.py

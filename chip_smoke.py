@@ -451,11 +451,31 @@ fixed seed, and checks every hand-written kernel of those paths:
     (its ``MIG-`` uuid, its access nodes), and a child process under the
     prepared env launches K1 on it, held to ``rmsnorm_reference``. The
     phase never sets the MIG mode.
+44. The port's verify gate (``verify_demo``, ``verify_engines``,
+    ``verify_moe``): the quickstart demo twin
+    (``demo/run_demo_sim_torch.py``) over the port's own gRPC sockets,
+    its output held to ``docs/demo-transcript.md``'s block byte for byte;
+    the decode, kv, trace and compute smoke twins (``tools/*_torch.py``)
+    with their own traffic and pools on the tools' card model
+    (``tools/_gate_torch.py``: the 8b preset cut to 2 layers; bf16, int8
+    weights, the int8 KV cache), every deterministic gate held (one
+    capture of each step, streams and ticks with telemetry on and off,
+    the ledgers' invariants) and the launches of K1-K3, their int8
+    branches and ``int8_matmul`` held to ``engine_launches`` over every
+    engine they built; K2 and K3, bf16 and int8, held to their plain
+    version at those engines' shapes (``GATE_PAGED``: block 8, chunk 8);
+    then the MoE smoke twin's gates at the tools' MoE preset
+    (``8x7b-L1``) with K7, K8, K10a and K10b counted, its train step's
+    loss and gradients (dropless, fused and primitive) held to einsum's
+    at drop-free capacity (``hold_gate_moe``), and its parity limit held
+    to read a dropped expert as a fault. The wall-clock tripwires are
+    printed beside their limits, not held. Prints a ``gates:`` line; the
+    summary's ``verify_gate`` entry.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37,
-38, 39, 40, 41 and 42, and in each worker of phases 26-30) and read just
-after.
+38, 39, 40, 41, 42 and 44, and in each worker of phases 26-30) and read
+just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
 ``{"kernels": [...]}`` line, the engine's and the trainer's metrics, and
@@ -658,24 +678,26 @@ def rel(name, out, ref, rel_max=2e-2, rel_mean=1e-2):
 K8_REL_MAX, K8_REL_MEAN = 1e-3, 1e-4
 
 
-def paged_inputs(torch, gen, dev, lens_needed, nbps, hkv, d):
-    """Random pools for one layer of the engine's pool and block tables
-    whose first ceil(n / bs) entries are distinct random blocks."""
-    p = NUM_BLOCKS * BLOCK_SIZE
+def paged_inputs(torch, gen, dev, lens_needed, nbps, hkv, d,
+                 bs=BLOCK_SIZE, num_blocks=NUM_BLOCKS):
+    """Random pools for one layer of an engine's pool (``num_blocks``
+    blocks of ``bs`` rows and the scratch row) and block tables whose
+    first ceil(n / bs) entries are distinct random blocks."""
+    p = num_blocks * bs
     k = torch.randn((hkv, p + 1, d), generator=gen, device=dev).to(
         torch.bfloat16)
     v = torch.randn((hkv, p + 1, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    perm = torch.randperm(NUM_BLOCKS, generator=gen, device=dev).to(
+    perm = torch.randperm(num_blocks, generator=gen, device=dev).to(
         torch.int32)
     tables = torch.zeros((len(lens_needed), nbps), dtype=torch.int32,
                          device=dev)
     used = 0
     for i, n in enumerate(lens_needed):
-        nb = -(-n // BLOCK_SIZE)
+        nb = -(-n // bs)
         tables[i, :nb] = perm[used:used + nb]
         used += nb
-    if used > NUM_BLOCKS:
+    if used > num_blocks:
         raise RuntimeError("test windows exceed the pool")
     return k, v, tables
 
@@ -708,18 +730,40 @@ def bound_fields(name, nbytes, ops, peak) -> dict:
                 ops_bound_ms=t_ops)
 
 
-def check_paged(torch, cfg, dev, quantized: bool) -> dict:
-    """K2 and K3 against their plain versions at the engine's shapes: the
+# K2's cases at the engine's shapes: one decode step of the engine run
+# (batch 8, the prompts plus their generated tokens), then one sequence at
+# the model's longest window (max_seq_len - 1 cached positions: the most
+# kv splits). K3's: one packed prefill launch (4 lanes x 128 tokens),
+# windows from position 0, after a 256-token prefix hit, mid-prompt, and
+# the straddling last chunk of a 700-token prompt.
+PAGED_DECODE_CASES = (("", [96 + 32, 180 + 32, 300 + 32, 700 + 32, 320 + 32,
+                            406 + 32, 700 + 1, 256 + 16]),
+                      ("_long", None))
+PAGED_PREFILL_CASES = (("", [0, 256, 384, 572]),)
+
+
+def check_paged(torch, cfg, dev, quantized: bool, bs=BLOCK_SIZE,
+                chunk=PREFILL_CHUNK, max_len=None, num_blocks=NUM_BLOCKS,
+                decode=PAGED_DECODE_CASES, prefill=PAGED_PREFILL_CASES,
+                tag="", timed=True) -> dict:
+    """K2 and K3 against their plain versions at an engine's shapes
+    (block ``bs``, prefill chunk ``chunk``, ``max_len`` positions a
+    sequence, default the model's; a pool of ``num_blocks`` blocks): the
     bf16 branch (phase 2), or the int8 branch (phase 13) on pools and
     scales quantized from the same random bf16 K/V by the cache's own
-    recipe (``decode._quantize_kv``)."""
+    recipe (``decode._quantize_kv``). ``decode`` holds (suffix, valid
+    lengths) cases, a batch each (None: one sequence at the longest
+    window), ``prefill`` (suffix, window starts) cases, a packed launch of
+    one lane a start. With ``timed`` each row is timed beside its bound;
+    without, only its error is kept."""
     from k8s_dra_driver_tpu_torch.models.decode import _quantize_kv
     from k8s_dra_driver_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + (50 if quantized else 0))
+    gen.manual_seed(SEED + (50 if quantized else 0) + (7 if tag else 0))
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    nbps = cfg.max_seq_len // BLOCK_SIZE
+    max_len = max_len or cfg.max_seq_len
+    nbps = max_len // bs
     scale = d ** -0.5
     suffix = "_int8" if quantized else ""
     # Bytes of one position and kv head: K and V, plus their f32 scales.
@@ -727,76 +771,75 @@ def check_paged(torch, cfg, dev, quantized: bool) -> dict:
     results = {}
 
     def pools(lens):
-        k, v, tables = paged_inputs(torch, gen, dev, lens, nbps, hkv, d)
+        k, v, tables = paged_inputs(torch, gen, dev, lens, nbps, hkv, d, bs,
+                                    num_blocks)
         if not quantized:
             return (k, v, tables), {}
         (k8, ks), (v8, vs) = _quantize_kv(k[None]), _quantize_kv(v[None])
         return (k8[0], v8[0], tables), dict(k_scale=ks[0], v_scale=vs[0])
 
-    def decode_case(name, vlen_list):
+    for case, vlen_list in decode:
+        name = "paged_decode" + suffix + tag + case
+        vlen_list = vlen_list or [max_len - 1]
         (k, v, tables), sc = pools(vlen_list)
         q = torch.randn((len(vlen_list), hq, d), generator=gen,
                         device=dev).to(torch.bfloat16)
         vlen = torch.tensor(vlen_list, dtype=torch.int32, device=dev)
         pos = (vlen.long() - 1)[:, None]
-        out = att.paged_decode_attention(q, k, v, tables, vlen, BLOCK_SIZE,
-                                         scale, **sc)
+        out = att.paged_decode_attention(q, k, v, tables, vlen, bs, scale,
+                                         **sc)
         ref = att.paged_attention_reference(q[:, :, None], k, v, tables, pos,
-                                            BLOCK_SIZE, scale, **sc)[:, :, 0]
+                                            bs, scale, **sc)[:, :, 0]
         torch.cuda.synchronize()
-        err = attn_errors(torch, out, ref, name)
         s = sum(vlen_list)
         results[name] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: att.paged_decode_attention(
-                q, k, v, tables, vlen, BLOCK_SIZE, scale, **sc)),
-            plain_ms=time_ms(lambda: att.paged_attention_reference(
-                q[:, :, None], k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
-            library_ms=None,
-            shape=f"q[{len(vlen_list)},{hq},{d}] valid_len sum {s}",
-            **bound_fields(name, s * hkv * kv_bytes + 2 * q.numel() * 2
-                           + sum(-(-n // BLOCK_SIZE) for n in vlen_list) * 4,
-                           s * hq * d * 4, BF16_FLOPS),
-        )
+            max_abs_err=attn_errors(torch, out, ref, name),
+            shape=f"q[{len(vlen_list)},{hq},{d}] valid_len {vlen_list} "
+                  f"block {bs}")
+        if timed:
+            results[name].update(
+                ms=time_ms(lambda: att.paged_decode_attention(
+                    q, k, v, tables, vlen, bs, scale, **sc)),
+                plain_ms=time_ms(lambda: att.paged_attention_reference(
+                    q[:, :, None], k, v, tables, pos, bs, scale, **sc)),
+                library_ms=None,
+                shape=f"q[{len(vlen_list)},{hq},{d}] valid_len sum {s}",
+                **bound_fields(name, s * hkv * kv_bytes + 2 * q.numel() * 2
+                               + sum(-(-n // bs) for n in vlen_list) * 4,
+                               s * hq * d * 4, BF16_FLOPS),
+            )
 
-    # K2: one decode step of the engine run (batch 8, the prompts plus
-    # their generated tokens), then one sequence at the model's longest
-    # window (max_seq_len - 1 cached positions: the most kv splits).
-    decode_case("paged_decode" + suffix,
-                [96 + 32, 180 + 32, 300 + 32, 700 + 32, 320 + 32, 406 + 32,
-                 700 + 1, 256 + 16])
-    decode_case("paged_decode" + suffix + "_long", [cfg.max_seq_len - 1])
-
-    # K3: one packed prefill launch (4 lanes x 128 tokens), windows from
-    # position 0, after a 256-token prefix hit, mid-prompt, and the
-    # straddling last chunk of a 700-token prompt.
-    t = PREFILL_CHUNK
-    starts_list = [0, 256, 384, 572]
-    (k, v, tables), sc = pools([s0 + t for s0 in starts_list])
-    q = torch.randn((PREFILL_BATCH, hq, t, d), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    pos = (torch.tensor(starts_list, device=dev)[:, None]
-           + torch.arange(t, device=dev)[None, :])
-    out = att.paged_prefill_attention(q, k, v, tables, pos, BLOCK_SIZE, scale,
-                                      **sc)
-    ref = att.paged_attention_reference(q, k, v, tables, pos, BLOCK_SIZE,
-                                        scale, **sc)
-    torch.cuda.synchronize()
-    name = "paged_prefill" + suffix
-    err = attn_errors(torch, out, ref, name)
-    visible = sum(s0 + i + 1 for s0 in starts_list for i in range(t))
-    results[name] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: att.paged_prefill_attention(
-            q, k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
-        plain_ms=time_ms(lambda: att.paged_attention_reference(
-            q, k, v, tables, pos, BLOCK_SIZE, scale, **sc)),
-        library_ms=None,
-        shape=f"q[{PREFILL_BATCH},{hq},{t},{d}] starts {starts_list}",
-        **bound_fields(name, sum(s0 + t for s0 in starts_list) * hkv
-                       * kv_bytes + 2 * q.numel() * 2,
-                       visible * hq * d * 4, BF16_FLOPS),
-    )
+    t = chunk
+    for case, starts_list in prefill:
+        name = "paged_prefill" + suffix + tag + case
+        (k, v, tables), sc = pools([s0 + t for s0 in starts_list])
+        q = torch.randn((len(starts_list), hq, t, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        pos = (torch.tensor(starts_list, device=dev)[:, None]
+               + torch.arange(t, device=dev)[None, :])
+        out = att.paged_prefill_attention(q, k, v, tables, pos, bs, scale,
+                                          **sc)
+        ref = att.paged_attention_reference(q, k, v, tables, pos, bs, scale,
+                                            **sc)
+        torch.cuda.synchronize()
+        results[name] = dict(
+            max_abs_err=attn_errors(torch, out, ref, name),
+            shape=f"q[{len(starts_list)},{hq},{t},{d}] starts {starts_list} "
+                  f"block {bs}")
+        if timed:
+            visible = sum(s0 + i + 1 for s0 in starts_list for i in range(t))
+            results[name].update(
+                ms=time_ms(lambda: att.paged_prefill_attention(
+                    q, k, v, tables, pos, bs, scale, **sc)),
+                plain_ms=time_ms(lambda: att.paged_attention_reference(
+                    q, k, v, tables, pos, bs, scale, **sc)),
+                library_ms=None,
+                shape=f"q[{len(starts_list)},{hq},{t},{d}] starts "
+                      f"{starts_list}",
+                **bound_fields(name, sum(s0 + t for s0 in starts_list) * hkv
+                               * kv_bytes + 2 * q.numel() * 2,
+                               visible * hq * d * 4, BF16_FLOPS),
+            )
     return results
 
 
@@ -7731,6 +7774,341 @@ def mig_phase(torch) -> dict:
     return out
 
 
+# -- Phase 44: the port's verify gate --------------------------------------
+
+# (tool, the gate's short name): the engine smokes. The model each runs on
+# the card is the tools' own (``tools/_gate_torch.py``).
+VERIFY_ENGINE_TOOLS = (("run_decode_smoke_torch", "decode"),
+                       ("run_kv_smoke_torch", "kv"),
+                       ("run_trace_smoke_torch", "trace"),
+                       ("run_compute_smoke_torch", "compute"))
+# K2's and K3's cases at the shapes of the gate's engines (every twin's
+# DecodeEngine: block 8, prefill chunk 8, 48 positions, pools of up to 26
+# blocks; 2 or 4 slots, packed prefill of 1, 2 or 4 lanes): a decode
+# step of 2 slots mid-run, one of 4 with an idle slot (its position 0), a
+# block edge and the full table; a packed launch of 4 lanes from
+# position 0, mid-block, mid-prompt and the last window, one of 2 lanes
+# (from 0 and after the churn's 16-token shared prefix), and one lane
+# after a one-block prefix hit.
+GATE_PAGED = dict(bs=8, chunk=8, max_len=48, num_blocks=26,
+                  decode=(("_b2", [12, 41]), ("_b4", [1, 8, 25, 48])),
+                  prefill=(("_pb4", [0, 3, 16, 40]), ("_pb2", [0, 16]),
+                           ("_pb1", [8])),
+                  tag="_gate", timed=False)
+
+
+def gate_tool(name: str):
+    """A twin of the gate's tools (``tools/`` or ``demo/``) as a module."""
+    import importlib.util
+
+    path = next(p for p in (ROOT / "tools" / f"{name}.py",
+                            ROOT / "demo" / f"{name}.py") if p.exists())
+    spec = importlib.util.spec_from_file_location(f"gate_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gate_results(name: str, gates, lines: list, seconds: float) -> dict:
+    """One tool's gates: the deterministic ones held; the wall-clock
+    tripwires held to nothing here, their values and limits printed in
+    the tool's own lines (every line but its passed gates') and each one
+    that trips marked."""
+    held = [(ok, what) for ok, what, kind in gates.results if kind == "gate"]
+    trips = [(ok, what) for ok, what, kind in gates.results if kind == "wall"]
+    lines = [ln for ln in lines if not ln.startswith("[ok ]")]
+    for line in lines:
+        log(f"  {name}: {line.strip()}")
+    for ok, what in trips:
+        if not ok:
+            log(f"  {name}: tripwire TRIPPED (not gated here): {what}")
+    return dict(gates=len(held), failed=[w for ok, w in held if not ok],
+                tripwires=[dict(ok=ok, what=w) for ok, w in trips],
+                lines=lines, seconds=seconds)
+
+
+def verify_demo() -> dict:
+    """Phase 44a: the quickstart demo over the port's own gRPC sockets,
+    its output held to the recorded transcript byte for byte."""
+    import io
+
+    text = (ROOT / "docs" / "demo-transcript.md").read_text()
+    start = text.index("```\n") + 4
+    recorded = text[start:text.index("\n```", start)].strip("\n")
+    demo = gate_tool("run_demo_sim_torch")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main()
+    seconds = time.perf_counter() - t0
+    live = out.getvalue().strip("\n")
+    if rc != 0 or live != recorded:
+        diff = [(i + 1, a, b) for i, (a, b) in enumerate(
+            zip(recorded.splitlines(), live.splitlines())) if a != b][:3]
+        raise AssertionError(f"demo: exit {rc}, transcript differs "
+                             f"({len(live.splitlines())} lines live, "
+                             f"{len(recorded.splitlines())} recorded; first "
+                             f"differences {diff})")
+    return dict(rc=rc, lines=len(live.splitlines()), equal=True,
+                seconds=seconds)
+
+
+def engine_launches(engines, layers: int) -> dict:
+    """The launches the gate's engines must have made, as phases 4 and 15
+    count them: K2 (or its int8 branch) once a layer and decode step, K3
+    once a layer and packed prefill launch, K1 at both norms of a layer
+    and the final norm, and with int8 weights ``int8_matmul`` at a dense
+    layer's four seams (wqkv, wo, gate/up, down) and the LM head."""
+    from k8s_dra_driver_tpu_torch.models.decode import QuantTensor
+
+    want = dict.fromkeys(("paged_decode", "paged_prefill",
+                          "paged_decode_int8", "paged_prefill_int8",
+                          "rmsnorm", "int8_matmul"), 0)
+    for eng in engines:
+        st = eng.stats
+        decode = st.decode_steps
+        prefill = st.prefill_lanes_launched // eng.prefill_batch
+        tag = "_int8" if eng.quantize_cache else ""
+        want["paged_decode" + tag] += layers * decode
+        want["paged_prefill" + tag] += layers * prefill
+        want["rmsnorm"] += (2 * layers + 1) * (decode + prefill)
+        if isinstance(eng.params["layers"]["wqkv"], QuantTensor):
+            want["int8_matmul"] += (4 * layers + 1) * (decode + prefill)
+    return want
+
+
+def verify_engines(torch, params, cfg, dev) -> dict:
+    """Phase 44b: the decode, kv, trace and compute smokes on ``params``,
+    with their own traffic and pools, bf16, int8 weights and the int8 KV
+    cache; every engine they build (each tool's ``engines``) is kept to
+    count its launches and to name the shapes it ran."""
+    engines, tools = [], {}
+    for name, short in VERIFY_ENGINE_TOOLS:
+        tool = gate_tool(name)
+        lines = []
+        t0 = time.perf_counter()
+        out = tool.run(params, cfg, dev, emit=lines.append)
+        torch.cuda.synchronize()
+        tools[short] = gate_results(short, out["gates"], lines,
+                                    time.perf_counter() - t0)
+        engines += out["engines"]
+        del out
+    failed = {k: v["failed"] for k, v in tools.items() if v["failed"]}
+    if failed:
+        raise AssertionError(f"verify gate: deterministic gates failed: "
+                             f"{failed}")
+    counts = {}
+    for eng in engines:
+        for program, n in eng.compile_counts.items():
+            counts.setdefault(program, set()).add(n)
+    want = engine_launches(engines, cfg.n_layers)
+    shapes = sorted({(e.block_size, e.prefill_chunk, e.max_seq_len,
+                      e.batch_slots, e.prefill_batch) for e in engines})
+    n_engines = len(engines)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tools=tools, engines=n_engines,
+                compile_counts={k: sorted(v) for k, v in counts.items()},
+                want_launches=want, engine_shapes=shapes)
+
+
+def check_gate_paged(torch, cfg, dev, shapes) -> dict:
+    """Phase 44b: K2 and K3, bf16 and int8, against
+    ``paged_attention_reference`` at ``GATE_PAGED``'s cases, with phase
+    2's limits (``attn_errors``); first every engine's (block, chunk,
+    positions, slots, prefill lanes) in ``shapes`` must be among them."""
+    g = GATE_PAGED
+    slots = {len(lens) for _, lens in g["decode"]}
+    lanes = {len(starts) for _, starts in g["prefill"]}
+    outside = [sh for sh in shapes
+               if sh[:3] != (g["bs"], g["chunk"], g["max_len"])
+               or sh[3] not in slots or sh[4] not in lanes]
+    if outside:
+        raise AssertionError(f"verify gate: engines ran shapes {outside} "
+                             f"that GATE_PAGED does not check")
+    held = {}
+    for quantized in (False, True):
+        held.update(check_paged(torch, cfg, dev, quantized, **g))
+    return {k: v["max_abs_err"] for k, v in held.items()}
+
+
+def verify_moe(torch, params, cfg, dev) -> dict:
+    """Phase 44c: the MoE smoke's gates (compile-once, impl parity, fused
+    against primitive, the auto policy, the spread tripwire) on ``params``
+    of ``cfg``, the tools' MoE preset. Keeps einsum's logits at drop-free
+    capacity (``einsum_logits``) for ``hold_gate_moe``."""
+    tool = gate_tool("run_moe_smoke_torch")
+    lines = []
+    t0 = time.perf_counter()
+    out = tool.run(params, cfg, dev, emit=lines.append,
+                   name=tool.moe_preset(dev))
+    torch.cuda.synchronize()
+    lines.append(f"spread limit {tool.SPREAD_LIMIT:.0%} of a chain's mean; "
+                 f"parity limit {tool.BF16_PARITY_REL} of the largest "
+                 f"logit (bf16) or {tool.F32_PARITY_ABS} (f32)")
+    res = gate_results("moe", out["gates"], lines, time.perf_counter() - t0)
+    res.update(parity=out["parity"], parity_held=out["parity_held"],
+               fused_vs_primitive=out["fused_vs_primitive"],
+               fused_vs_primitive_held=out["fused_vs_primitive_held"],
+               losses=out["losses"], auto=out["auto"],
+               einsum_logits=out["outputs"]["einsum"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if res["failed"]:
+        raise AssertionError(f"verify gate (moe): deterministic gates "
+                             f"failed: {res['failed']}")
+    return res
+
+
+def hold_gate_moe(torch, params, cfg, dev, einsum_logits) -> dict:
+    """Phase 44c, outside the counted run: the MoE smoke's train step
+    (``loss_fn``, remat, its tokens: T = 128) at drop-free capacity,
+    dropless through the fused dispatch (K7, K8, K10a, K10b) and the
+    primitive one (K10a, K10b), its loss and every gradient leaf held to
+    einsum's by §2's limits (``hold_loss_grads``). Then a planted fault,
+    expert 0's down projection zeroed in every layer (its contribution
+    dropped), run dropless: the parity gate's held number for it must
+    pass the tool's limit, or the limit could not see such a fault."""
+    from k8s_dra_driver_tpu_torch.models import moe
+    from k8s_dra_driver_tpu_torch.models.train import leaves
+    from k8s_dra_driver_tpu_torch.ops import moe_dispatch
+
+    tool = gate_tool("run_moe_smoke_torch")
+    free = tool.ample(cfg)
+    tokens = torch.as_tensor(tool.seeded_tokens(cfg.vocab_size), device=dev)
+    flat = leaves(params)
+    names = param_names(params)
+
+    def loss_grads(impl, dispatch):
+        moe_dispatch.set_dispatch_impl(dispatch)
+        try:
+            loss = moe.loss_fn(params, tokens,
+                               dataclasses.replace(free, moe_impl=impl),
+                               remat=True)
+            grads = torch.autograd.grad(loss, flat)
+        finally:
+            moe_dispatch.set_dispatch_impl("auto")
+        return loss.item(), grads
+
+    for w in flat:
+        w.requires_grad_(True)
+    try:
+        want = loss_grads("einsum", "auto")
+        held = {}
+        for dispatch in ("fused", "primitive"):
+            loss_rel, grad_rel = loss_grad_rel(
+                names, loss_grads("dropless", dispatch), want)
+            hold_loss_grads(f"verify gate (moe) dropless {dispatch} "
+                            f"against einsum", loss_rel, grad_rel)
+            held[dispatch] = dict(loss_rel_diff=loss_rel,
+                                  grad_rel_diff_max=max(grad_rel.values()),
+                                  grad_rel_diff=grad_rel)
+        del want
+    finally:
+        for w in flat:
+            w.requires_grad_(False)
+    planted = dict(params, layers=dict(params["layers"]))
+    w_down = params["layers"]["w_down"].clone()
+    w_down[:, 0] = 0
+    planted["layers"]["w_down"] = w_down
+    with torch.no_grad():
+        logits, _ = moe.forward(planted, tokens[:, :-1],
+                                dataclasses.replace(free,
+                                                    moe_impl="dropless"))
+    fault = ((logits.float() - einsum_logits).abs().max()
+             / einsum_logits.abs().max()).item()
+    del planted, w_down, logits
+    torch.cuda.synchronize()
+    if not fault > tool.BF16_PARITY_REL:
+        raise AssertionError(f"verify gate (moe): a dropped expert reads "
+                             f"{fault} of the largest logit, within the "
+                             f"parity limit {tool.BF16_PARITY_REL}")
+    return dict(grads=held, planted_fault_held=fault,
+                largest_logit=einsum_logits.abs().max().item(),
+                tokens=int(tokens[:, :-1].numel()))
+
+
+def verify_gate(torch, dev, drive, by_path: dict, card: str) -> dict:
+    """Phase 44: the quickstart demo over the port's own sockets; the
+    decode, kv, trace and compute smokes on the tools' card model (the
+    counted path ``verify_gate``), their launches held to
+    ``engine_launches`` and K2/K3 held at their engines' shapes; the MoE
+    smoke on the tools' MoE preset (the counted path ``verify_gate_moe``)
+    and ``hold_gate_moe``. Each tool's wall-clock tripwires are printed,
+    not held. Logs the ``gates:`` line; returns the summary's
+    ``verify_gate`` entry."""
+    from k8s_dra_driver_tpu_torch.models import init_params, moe
+
+    gates = gate_tool("_gate_torch")
+    t44 = time.perf_counter()
+    verify = {"demo": verify_demo()}
+    vcfg = gates.model_config(dev)
+    verify["model"] = f"{gates.CARD_PRESET}-L{vcfg.n_layers}"
+    vparams = init_params(vcfg, seed=SEED, device=dev)
+    verify.update(drive("verify_gate", verify_engines, torch, vparams, vcfg,
+                        dev))
+    del vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = by_path["verify_gate"]
+    want = dict(verify["want_launches"], moe_gateup=0, moe_down_combine=0,
+                grouped_matmul=0)
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"verify gate launches {counts}, expected "
+                             f"{want}")
+    verify["launches"] = {k: counts[k] for k in want}
+    verify["paged_at_gate"] = check_gate_paged(
+        torch, vcfg, dev, verify["engine_shapes"])
+    verify["moe_preset"] = gates.moe_preset(dev)
+    mcfg = moe.MOE_PRESETS[verify["moe_preset"]]
+    mparams = moe.init_params(mcfg, seed=SEED, device=dev)
+    verify["moe"] = drive("verify_gate_moe", verify_moe, torch, mparams,
+                          mcfg, dev)
+    counts_moe = by_path["verify_gate_moe"]
+    verify["moe"]["launches"] = {k: counts_moe[k] for k in (
+        "moe_gateup", "moe_down_combine", "grouped_matmul",
+        "grouped_weight_grad")}
+    verify["moe"].update(hold_gate_moe(torch, mparams, mcfg, dev,
+                                       verify["moe"].pop("einsum_logits")))
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    verify["seconds"] = time.perf_counter() - t44
+    held = {k: v["gates"] for k, v in verify["tools"].items()}
+    held["moe"] = verify["moe"]["gates"]
+    trips = [f"{k} {t['what']}" for k, v in list(verify["tools"].items())
+             + [("moe", verify["moe"])] for t in v["tripwires"]
+             if not t["ok"]]
+    m = verify["moe"]
+    log(f"gates: demo transcript equal to docs/demo-transcript.md "
+        f"({verify['demo']['lines']} lines, {verify['demo']['seconds']:.2f}"
+        f" s); deterministic gates held "
+        f"{', '.join(f'{k} {n}/{n}' for k, n in held.items())} on "
+        f"{verify['engines']} engines ({verify['model']}, shapes (block, "
+        f"chunk, positions, slots, lanes) {verify['engine_shapes']}, compile"
+        f" counts {verify['compile_counts']}) and {verify['moe_preset']}; "
+        f"K2/K3 at the gate's shapes, max abs err "
+        f"{max(verify['paged_at_gate'].values()):.3e} over "
+        f"{len(verify['paged_at_gate'])} cases (limit 2e-2); moe parity "
+        f"held (of the largest logit {m['largest_logit']:.4f}, limit "
+        f"{gate_tool('run_moe_smoke_torch').BF16_PARITY_REL}): "
+        f"binned {m['parity_held']['binned']:.3e}, dropless "
+        f"{m['parity_held']['dropless']:.3e}, fused vs primitive "
+        f"{m['fused_vs_primitive_held']:.3e}; planted fault (expert 0 "
+        f"dropped) {m['planted_fault_held']:.3e}; train step T "
+        f"{m['tokens']} dropless against einsum: fused loss "
+        f"{m['grads']['fused']['loss_rel_diff']:.3e} grads max "
+        f"{m['grads']['fused']['grad_rel_diff_max']:.3e}, primitive loss "
+        f"{m['grads']['primitive']['loss_rel_diff']:.3e} grads max "
+        f"{m['grads']['primitive']['grad_rel_diff_max']:.3e} (limits 1e-2,"
+        f" 5e-2); {len(trips)} tripwire(s) tripped (not gated): {trips}; "
+        f"launches {verify['launches']}, moe {m['launches']}; "
+        f"{verify['seconds']:.1f} s; {card}")
+    return verify
+
+
 def main() -> int:
     import torch
 
@@ -7882,7 +8260,12 @@ def main() -> int:
                                 "flash_bwd_dkdv", "flash_bwd_dq",
                                 "ring_permute"),
              "pipe_int8": ("rmsnorm", "flash_fwd", "int8_matmul",
-                           "ring_permute")}
+                           "ring_permute"),
+             "verify_gate": ("paged_decode", "paged_prefill",
+                             "paged_decode_int8", "paged_prefill_int8",
+                             "rmsnorm", "int8_matmul"),
+             "verify_gate_moe": ("moe_gateup", "moe_down_combine",
+                                 "grouped_matmul")}
     by_path = {}
 
     def reset_counts():
@@ -8756,6 +9139,17 @@ def main() -> int:
                f"{mig['mig_mode']}, branch {mig['branch']}; the Driver "
                f"published {mig['published']} and prepared "
                f"{mig['driver']['device']} ({mig['driver']['uuid']})")
+    # Phase 44: the port's verify gate on the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    verify = verify_gate(torch, dev, drive, by_path, card)
+    phase_done(f"phase 44: the verify gate: the quickstart demo's transcript "
+               f"over the port's sockets, the engine smokes on "
+               f"{verify['model']} (bf16, int8, kvq) and the MoE smoke on "
+               f"{verify['moe_preset']} with every deterministic gate held "
+               f"(launches {verify['launches']}, {verify['moe']['launches']})"
+               f"; K2/K3 held at the gate's shapes; the MoE train step's "
+               f"gradients held to einsum's")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -8770,7 +9164,8 @@ def main() -> int:
                    "int8_matmul_experts": c["int8_matmul_wide_prologue"],
                    **{k + suffix: (c[k] if (p in ("moe_training",
                                                   "remat_moe",
-                                                  "ep_training"))
+                                                  "ep_training",
+                                                  "verify_gate_moe"))
                                    == (suffix == "_train") else 0)
                       for k in ("moe_gateup", "moe_down_combine")
                       for suffix in ("", "_train")}}
@@ -8951,7 +9346,8 @@ def main() -> int:
                     "pipe_training": piped, "elastic_training": elastic,
                     "expert_tensor_serving": ep_tp,
                     "expert_tensor_training": ep_tp_trained,
-                    "pipe_int8": pipe_int8, "mig": mig}))
+                    "pipe_int8": pipe_int8, "mig": mig,
+                    "verify_gate": verify}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

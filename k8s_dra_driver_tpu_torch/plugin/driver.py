@@ -448,6 +448,9 @@ class Driver(NodeServicer):
                     logger.info("device inventory changed; republishing")
                     if self.config.kube_client is not None:
                         self.publish_resources()
+                        if (transitions
+                                and self._elastic_allocator is not None):
+                            self._sync_slices_for_resolve()
             # Elastic gang resize runs AFTER the republish: the
             # re-solve reads published slices, which must already
             # reflect the transition (a shrink re-solving against
@@ -599,6 +602,20 @@ class Driver(NodeServicer):
         """Newest-last gang-resize records (the operator's trace; each
         entry is a GangResize dict)."""
         return [m.to_dict() for m in self._resize_trace]
+
+    def _sync_slices_for_resolve(self) -> None:
+        """Land the republish before the elastic re-solve reads it. The
+        slice controller syncs on its own thread, so a re-solve right
+        after ``publish_resources`` could read the slice as it was: a grow
+        then finds only the devices that were already there ("only 3 of
+        4"). A failed sync (the apiserver down) is logged and the re-solve
+        reads what is published, as it did before."""
+        try:
+            self.plugin.sync_slices()
+        except Exception:
+            logger.warning("slice sync before the elastic re-solve failed; "
+                           "re-solving against the published slices",
+                           exc_info=True)
 
     def _maybe_elastic_resize(self, transitions) -> None:
         if self._elastic_allocator is None or not transitions:

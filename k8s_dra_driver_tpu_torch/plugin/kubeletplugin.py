@@ -204,6 +204,7 @@ class KubeletPlugin:
             else SocketTransport()
         self._serving = False
         self._slice_controller: Optional[ResourceSliceController] = None
+        self._slice_controller_attached = False
         self._registration_status: Optional[dict] = None
         self._lock = threading.Lock()
 
@@ -235,6 +236,7 @@ class KubeletPlugin:
             if self._slice_controller is not None:
                 raise RuntimeError("slice controller already attached")
             self._slice_controller = controller
+            self._slice_controller_attached = True
 
     def publish_resources(self, resources: DriverResources) -> None:
         if self.kube_client is None:
@@ -258,6 +260,16 @@ class KubeletPlugin:
                 )
                 self._slice_controller.start()
             self._slice_controller.update(resources)
+
+    def sync_slices(self) -> None:
+        """Reconcile the published slices now, on the caller's thread,
+        for a caller about to read what it just published: the lazily
+        started controller otherwise syncs later, on its own thread. An
+        attached controller owns its cadence and is left alone. Raises
+        what the reconcile raises."""
+        ctrl = self._slice_controller
+        if ctrl is not None and not self._slice_controller_attached:
+            ctrl.sync_once()
 
     @property
     def serving(self) -> bool:

@@ -38,11 +38,24 @@ FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "grpc")
 FORBIDDEN_PACKAGES = ("google.protobuf",)
 
 
+# The port's gate: the twins of the reference's gate tools and of its
+# quickstart demo.
+GATE_TWINS = ("tools/run_doctor_sim_torch.py", "tools/run_alloc_bench_torch.py",
+              "tools/verify_metrics_torch.py",
+              "tools/sim_check_allocation_torch.py",
+              "tools/run_defrag_smoke_torch.py",
+              "tools/run_fleet_smoke_torch.py",
+              "tools/run_elastic_smoke_torch.py",
+              "tools/run_decode_smoke_torch.py", "tools/run_kv_smoke_torch.py",
+              "tools/run_trace_smoke_torch.py",
+              "tools/run_compute_smoke_torch.py",
+              "tools/run_moe_smoke_torch.py", "tools/_gate_torch.py",
+              "demo/run_demo_sim_torch.py")
+
+
 def _port_files():
     files = sorted((ROOT / "k8s_dra_driver_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "tools" / "run_doctor_sim_torch.py",
-                    ROOT / "tools" / "run_alloc_bench_torch.py"]
+    return files + [ROOT / "chip_smoke.py"] + [ROOT / f for f in GATE_TWINS]
 
 
 def _imported_modules(path: Path):
@@ -71,6 +84,36 @@ def test_static_scan_finds_no_jax_or_reference_import():
     assert _forbidden("k8s_dra_driver_tpu.models")
     assert _forbidden("grpc.aio") and _forbidden("google.protobuf.message")
     assert not _forbidden("google")
+
+
+def test_gate_twins_import_no_reference_tool():
+    """A twin keeps its own copy of what it needs from its reference (the
+    exposition parser, ``spread_flags``): it imports no module of
+    ``tools/`` or ``demo/`` that is not itself a twin."""
+    reference_tools = {p.stem for d in ("tools", "demo")
+                       for p in (ROOT / d).glob("*.py")
+                       if not p.stem.endswith("_torch")}
+    assert {"verify_metrics", "run_moe_smoke", "run_demo_sim"} <= \
+        reference_tools
+    bad = [(f, m) for f in GATE_TWINS for m in _imported_modules(ROOT / f)
+           if m.split(".")[0] in reference_tools]
+    assert not bad, bad
+    assert all((ROOT / f).exists() for f in GATE_TWINS)
+
+
+def test_importing_the_gate_twins_loads_no_jax():
+    code = (
+        "import sys\n"
+        "sys.path[:0] = ['tools', 'demo']\n"
+        + "".join(f"import {Path(f).stem}\n" for f in GATE_TWINS)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'k8s_dra_driver_tpu', 'grpc') or "
+        "m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("modules", [

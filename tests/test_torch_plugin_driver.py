@@ -971,6 +971,50 @@ def test_elastic(tmp_path, scenario):
     both(scenario, tmp_path)
 
 
+@pytest.mark.parametrize("victim", [0, 3])
+def test_watch_tick_resolves_against_the_republished_slice(tmp_path,
+                                                           monkeypatch,
+                                                           victim):
+    """The port's watch tick lands its republish before the elastic
+    re-solve reads the slice. The slice controller's thread never runs
+    here, as on a host where it has not been scheduled yet: the unplug
+    still shrinks the gang to the three live chips, and the restore grows
+    it back to four (re-solving against the slice as it was, the grow
+    found "only 3 of 4")."""
+    monkeypatch.setattr(PORT("kube.resourceslice").ResourceSliceController,
+                        "start", lambda self: None)
+    lib = PORT("tpulib").FakeChipLib(generation="v5p", topology="4x1x1")
+    driver, client, lib = make_driver(PORT, tmp_path, lib=lib,
+                                      cleanup_interval_seconds=0,
+                                      device_watch_interval_seconds=0)
+    allocator = PORT("kube.allocator").ReferenceAllocator(
+        client, registry=PORT("utils.metrics").Registry())
+    driver.enable_elastic(allocator)
+    driver.publish_resources()
+    driver.plugin.sync_slices()
+    resizes = []
+    driver.add_resize_listener(resizes.append)
+    try:
+        claim, names = gang_claim(PORT, client, allocator, "uid-gang",
+                                  "train", 4)
+        assert prepare_via_rpc(PORT, driver, claim)["error"] == ""
+        lib.unplug_chip(victim, reason="unplug")
+        driver.tick_once()
+        assert f"tpu-{victim}" not in slice_names(PORT, client)
+        assert [m.direction for m in resizes] == ["shrink"]
+        assert resizes[0].removed == (f"tpu-{victim}",)
+        assert len(resizes[0].devices) == 3
+        lib.restore_chip(victim)
+        driver.tick_once()
+        assert f"tpu-{victim}" in slice_names(PORT, client)
+        assert [m.direction for m in resizes] == ["shrink", "grow"]
+        assert sorted(resizes[1].devices) == sorted(names)
+        assert driver._m_elastic_resizes.value(direction="grow",
+                                               outcome="ok") == 1
+    finally:
+        driver.shutdown()
+
+
 # -- test_chaos.py: the elastic trainer riding the gang resizes ---------------
 #
 # The workload half on the port alone: the reference's trainer compiles a
