@@ -189,10 +189,16 @@ clean:
 # seeds and TPU_DRA_* variables. It needs neither JAX nor grpcio, so it
 # runs on a GPU node. DEVICE is where the model tools run: cuda (the
 # default; without a card they raise, never fall back) or cpu.
-.PHONY: verify-torch verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch
+.PHONY: verify-torch lint-torch verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch gatewaybench-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch image-torch e2e-kind-torch
 DEVICE ?= cuda
 
-verify-torch: verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch
+verify-torch: lint-torch verify-metrics-torch doctor-torch decodebench-torch moebench-torch elastic-torch allocbench-smoke-torch gatewaybench-torch tracesmoke-torch kvsmoke-torch computesmoke-torch defragsmoke-torch fleetsmoke-torch demo-torch
+
+# tools/lint.py's checks, in the port's own copy, over the port's files
+# (the package, chip_smoke.py, the *_torch.py twins); the metric rules
+# read the port's kube/allocator.py enums.
+lint-torch:
+	python tools/lint_torch.py
 
 verify-metrics-torch:
 	@if [ -n "$(VERIFY_METRICS_URL)" ]; then \
@@ -218,6 +224,12 @@ allocbench-smoke-torch:
 	ALLOC_BENCH_SEED=$(ALLOC_BENCH_SEED) \
 		python tools/run_alloc_bench_torch.py --profile smoke
 
+# Two DecodeEngine replicas behind the port's gateway: affinity >= 1.3x
+# round-robin (tick-normalized) at equal-or-lower p99, compile-once per
+# replica, plus the scripted-engine drain.
+gatewaybench-torch:
+	python tools/run_gateway_smoke_torch.py --device $(DEVICE)
+
 tracesmoke-torch:
 	python tools/run_trace_smoke_torch.py --device $(DEVICE)
 
@@ -241,3 +253,15 @@ fleetsmoke-torch:
 # equals the fenced block of docs/demo-transcript.md.
 demo-torch:
 	python demo/run_demo_sim_torch.py
+
+# The port's driver image: the control plane without torch, grpcio or
+# protobuf (deployments/container/Dockerfile.torch). Install it on H100
+# nodes with the unchanged chart and values-h100.yaml.
+image-torch:
+	docker build -t $(IMAGE)-torch:$(TAG) -f deployments/container/Dockerfile.torch .
+
+# The kind e2e gate on the port's image: fake H100 chips, the real
+# scheduler allocating tpu-test1, cross-checked against the port's sim
+# allocator. Exits 3 (skip) without docker/kind/kubectl/helm.
+e2e-kind-torch:
+	demo/clusters/kind/e2e-torch.sh

@@ -471,10 +471,35 @@ fixed seed, and checks every hand-written kernel of those paths:
     to read a dropped expert as a fault. The wall-clock tripwires are
     printed beside their limits, not held. Prints a ``gates:`` line; the
     summary's ``verify_gate`` entry.
+45. The last gate of ``make verify`` and the chart's command line
+    (``gateway_gate``, ``chart_plugin``): (a) the gateway smoke twin
+    (``tools/run_gateway_smoke_torch.py``) on the tools' card model, its
+    traffic the CPU smoke's: two captured ``DecodeEngine`` replicas
+    (block 16, serial prefill) behind the port's ``ServingGateway``,
+    affinity against round-robin, every deterministic gate held (the
+    tick-normalized speedup, p99 ticks, no shed, one capture of each step,
+    equal ticks across repeats, the scripted drain), the tick counts held
+    to the CPU's (``GATEWAY_CPU_TICKS``), K1-K3 launches held to
+    ``engine_launches`` over every replica (its warm-up included), and K2
+    and K3 held to their plain version at the replicas' shapes
+    (``GATEWAY_PAGED``); both policies' wall-clock req/s and p99 token ms
+    printed, and, outside the counted run, the same seed's traffic drawn
+    from the model's own vocabulary, whose ticks are printed. (b) The
+    chart's plugin container as ``values-h100.yaml`` renders it
+    (``tools/chart_torch.py``): its command mapped to the port's module
+    through the image's links and ``pyproject.toml``, its args and env,
+    its volumes' container paths mapped into ``build/dra/chart/`` (the
+    read-only driver root and ``/dev`` to their host paths), and
+    ``--no-kube`` added; run on ``RealChipLib``: the startupProbe's and
+    readinessProbe's paths answer 200 on the chart's port within the
+    startupProbe's budget, ``/metrics`` counts one chip and
+    ``/debug/usage`` names it by the card's uuid, and the child exits 0 on
+    SIGTERM with its sockets gone.
+    Prints a ``gateway gate:`` and a ``chart plugin:`` line.
 
 Every kernel's launch count is set to 0 just before each path (phases 4,
 6, 9, 12, 15, 17, 18, 19, 20, 21, 22, 23, 24, 31, 32, 33, 34, 35, 36, 37,
-38, 39, 40, 41, 42 and 44, and in each worker of phases 26-30) and read
+38, 39, 40, 41, 42, 44 and 45, and in each worker of phases 26-30) and read
 just after.
 Each phase prints its seconds. Prints the card's name and power limit,
 one
@@ -8109,6 +8134,297 @@ def verify_gate(torch, dev, drive, by_path: dict, card: str) -> dict:
     return verify
 
 
+# -- Phase 45: the gateway gate and the chart's plugin command line --------
+
+# The CPU smoke's ticks (affinity, round-robin) on its traffic: with no EOS
+# they depend on the traffic alone, so the card's model takes the same.
+GATEWAY_CPU_TICKS = (131, 199)
+# K2 and K3 at the gateway replicas' shapes (block 16, chunk 16, 80
+# positions: 64 + 8 + 4 rounded up to whole blocks; pools of 52 blocks; 4
+# slots, serial prefill): a decode step of 4 slots (a short prompt's
+# first steps, a block edge, the last positions), a window from position
+# 0 and one after a 64-token prefix hit.
+GATEWAY_PAGED = dict(bs=16, chunk=16, max_len=80, num_blocks=52,
+                     decode=(("_b4", [9, 17, 73, 76]),),
+                     prefill=(("_pb1", [0]), ("_pb1_hit", [64])),
+                     tag="_gateway", timed=False)
+
+
+def gateway_gate(torch, dev) -> dict:
+    """Phase 45a, the counted path ``gateway_gate``: the gateway smoke
+    twin's gates on the tools' card model with its traffic. Returns its
+    gates (``gate_results``), the bench's detail, the replicas' shapes and
+    ``want_launches`` (``engine_launches`` over every replica engine,
+    its warm-up included)."""
+    import types
+
+    from k8s_dra_driver_tpu_torch.models import init_params
+
+    tool = gate_tool("run_gateway_smoke_torch")
+    gates = gate_tool("_gate_torch")
+    cfg = gates.model_config(dev)
+    params = init_params(cfg, seed=SEED, device=dev)
+    lines, engines = [], []
+    t0 = time.perf_counter()
+    out = tool.run(params, cfg, dev, emit=lines.append, engines=engines)
+    torch.cuda.synchronize()
+    res = gate_results("gateway", out["gates"], lines,
+                       time.perf_counter() - t0)
+    if res["failed"]:
+        raise AssertionError(f"gateway gate: deterministic gates failed: "
+                             f"{res['failed']}")
+    # Each replica's run: its warm-up's stats and its timed traffic's.
+    ran = [types.SimpleNamespace(
+        stats=types.SimpleNamespace(
+            decode_steps=warm.decode_steps + eng.stats.decode_steps,
+            prefill_lanes_launched=warm.prefill_lanes_launched
+            + eng.stats.prefill_lanes_launched),
+        prefill_batch=eng.prefill_batch,
+        quantize_cache=eng.quantize_cache, params=eng.params)
+        for eng, warm in engines]
+    res.update(detail=out["bench"]["detail"], metric=out["bench"]["metric"],
+               rps=out["bench"]["value"], drain=out["drain"],
+               model=f"{gates.CARD_PRESET}-L{cfg.n_layers}",
+               replicas=len(engines),
+               shapes=sorted({(e.block_size, e.prefill_chunk, e.max_seq_len,
+                               e.batch_slots, e.prefill_batch)
+                              for e, _ in engines}),
+               want_launches=engine_launches(ran, cfg.n_layers))
+    del out, engines, ran, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def gateway_own_vocab(torch, dev) -> dict:
+    """Phase 45a, outside the counted run: the smoke's seed with its
+    traffic drawn from the card model's own vocabulary (128256 tokens),
+    one affinity run beside round-robin; its ticks and hit rates, not
+    gated."""
+    from k8s_dra_driver_tpu_torch.models import init_params
+
+    from _decodebench_torch import run_gateway_bench
+
+    tool = gate_tool("run_gateway_smoke_torch")
+    cfg = gate_tool("_gate_torch").model_config(dev)
+    params = init_params(cfg, seed=SEED, device=dev)
+
+    r = run_gateway_bench(preset="8b", params=params, config=cfg,
+                          device=dev, **dict(tool.BENCH_ARGS, repeats=1))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = r["detail"]
+    return {k: d[k] for k in ("ticks", "ticks_round_robin",
+                              "speedup_rps_ticks", "prefix_hit_rate",
+                              "prefix_hit_rate_round_robin",
+                              "affinity_hit_rate", "evictions",
+                              "evictions_round_robin")}
+
+
+def chart_plugin(torch, root: Path) -> dict:
+    """Phase 45b: the chart's plugin container, rendered with
+    ``values-h100.yaml``, run on the card's host as the image would run
+    it: its command through the image's links to the port's module,
+    its args and env as rendered (the node's name for the fieldRef), every
+    volume's container path mapped (the read-only driver root and ``/dev``
+    to their host paths, the kubelet's and the driver's directories into
+    ``root``), and ``--no-kube`` added. The startupProbe's path must answer
+    200 within its budget (failureThreshold x periodSeconds), then the
+    readinessProbe's; ``/metrics`` must count one chip and
+    ``/debug/usage`` name it by the card's uuid, healthy; SIGTERM must end
+    it with exit 0 and both sockets gone."""
+    import signal
+
+    from k8s_dra_driver_tpu_torch.plugin.main import build_parser
+
+    chart = gate_tool("chart_torch")
+    t0 = time.perf_counter()
+    objs = chart.render()
+    ctr = chart.container(objs, "DaemonSet")
+    (ds,) = [o for o in objs if o["kind"] == "DaemonSet"]
+    pod = ds["spec"]["template"]["spec"]
+    (command,) = ctr["command"]
+    module = chart.image_commands()[command].split(":")[0]
+    host = {v["name"]: v["hostPath"]["path"] for v in pod["volumes"]}
+    mounts = {}
+    for m in ctr["volumeMounts"]:
+        path = m["mountPath"]
+        if m.get("readOnly") or path == "/dev":
+            mounts[path] = host[m["name"]]
+        else:
+            mounts[path] = os.path.relpath(root / path.lstrip("/"), ROOT)
+
+    def mapped(path: str) -> str:
+        under = [p for p in mounts if path == p or path.startswith(p + "/")]
+        if not under:
+            return path
+        p = max(under, key=len)
+        return mounts[p] + path[len(p):]
+
+    args = []
+    for arg in ctr["args"]:
+        flag, _, value = arg.partition("=")
+        args.append(f"{flag}={mapped(value)}" if value.startswith("/")
+                    else arg)
+    args.append("--no-kube")
+    env = {}
+    for e in ctr["env"]:
+        env[e["name"]] = str(e["value"]) if "value" in e else "chip-smoke"
+    # The flags the chart leaves at their defaults name container paths
+    # under its volumes: the same mapping, through the env the flags read.
+    parser = build_parser()
+    for dest, name in (("plugin_root", "PLUGIN_ROOT"),
+                       ("registrar_root", "REGISTRAR_ROOT"),
+                       ("cdi_root", "CDI_ROOT"),
+                       ("state_root", "STATE_ROOT")):
+        env[name] = mapped(parser.get_default(dest))
+    sockets = (os.path.join(env["PLUGIN_ROOT"], "dra.sock"),
+               os.path.join(env["REGISTRAR_ROOT"], f"{DRA_DRIVER}-dra.sock"))
+    (port,) = [p["containerPort"] for p in ctr["ports"]
+               if p["name"] == ctr["startupProbe"]["httpGet"]["port"]]
+    startup = ctr["startupProbe"]
+    budget_s = startup["failureThreshold"] * startup["periodSeconds"]
+    ready_path = ctr["readinessProbe"]["httpGet"]["path"]
+    uuid = cuda_uuid(torch.cuda.get_device_properties(0))
+    argv = [sys.executable, "-m", module, *args]
+    log_path = root / "chart-plugin.log"
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=dict(os.environ, **env),
+                                stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            start = time.monotonic()
+            probes = {}
+            for path in (startup["httpGet"]["path"], ready_path):
+                got = None
+                while time.monotonic() - start < budget_s:
+                    if proc.poll() is not None:
+                        raise AssertionError(
+                            f"chart plugin exited {proc.returncode}:\n"
+                            f"{log_path.read_text()[-4000:]}")
+                    try:
+                        got = http_get(url + path, timeout=2)
+                    except OSError:
+                        got = None
+                    if got and got[0] == 200:
+                        break
+                    time.sleep(0.1)
+                if not got or got[0] != 200:
+                    raise AssertionError(
+                        f"chart plugin {path}: {got} after {budget_s} s\n"
+                        f"{log_path.read_text()[-4000:]}")
+                probes[path] = time.monotonic() - start
+            status, text = http_get(url + "/metrics")
+            chips = metric_lines(text, "tpu_dra_usage_capacity_devices",
+                                 type="chip")
+            if status != 200 or [ln.split()[-1] for ln in chips] != ["1"]:
+                raise AssertionError(f"chart plugin /metrics: {status} "
+                                     f"{chips}")
+            # The one chip is this card: /debug/usage keys chips by uuid.
+            status, text = http_get(url + "/debug/usage")
+            card = {u: c["state"] for u, c in
+                    json.loads(text)["chips"].items()} if status == 200 \
+                else text
+            if card != {uuid: "healthy"}:
+                raise AssertionError(f"chart plugin /debug/usage: {status} "
+                                     f"{card} (card {uuid})")
+            if not all(os.path.exists(p) for p in sockets):
+                raise AssertionError(f"chart plugin serves no socket at "
+                                     f"{sockets}")
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            stop_s = time.perf_counter() - t
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0 or stop_s > DRA_STOP_S:
+        raise AssertionError(f"chart plugin exited {rc} {stop_s:.1f} s after "
+                             f"SIGTERM:\n{log_path.read_text()[-4000:]}")
+    if any(os.path.exists(p) for p in sockets):
+        raise AssertionError(f"chart plugin left its sockets: {sockets}")
+    return dict(command=command, module=module, args=args,
+                env=env, port=port,
+                budget_s=budget_s, probes_s=probes, capacity=chips,
+                card=card, rc=rc, stop_s=stop_s,
+                s=time.perf_counter() - t0)
+
+
+def gateway_phase(torch, dev, drive, by_path: dict, card: str) -> tuple:
+    """Phase 45: ``gateway_gate`` driven as the counted path
+    ``gateway_gate``, its launches held to ``engine_launches`` and its
+    ticks to the CPU's, K2/K3 held at the replicas' shapes, the own
+    vocabulary's ticks read; then ``chart_plugin`` in
+    ``build/dra/chart/``. Logs the ``gateway gate:`` and ``chart plugin:``
+    lines; returns both results."""
+    gateway45 = drive("gateway_gate", gateway_gate, torch, dev)
+    counts = by_path["gateway_gate"]
+    want = dict(gateway45.pop("want_launches"), moe_gateup=0,
+                moe_down_combine=0, grouped_matmul=0)
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"gateway gate launches {counts}, expected "
+                             f"{want}")
+    gateway45["launches"] = {k: counts[k] for k in want}
+    d45 = gateway45["detail"]
+    ticks45 = (d45["ticks"], d45["ticks_round_robin"])
+    if ticks45 != GATEWAY_CPU_TICKS:
+        raise AssertionError(f"gateway gate: ticks {ticks45} on the card, "
+                             f"{GATEWAY_CPU_TICKS} on the CPU for the same "
+                             f"traffic")
+    g = GATEWAY_PAGED
+    outside = [sh for sh in gateway45["shapes"]
+               if sh != (g["bs"], g["chunk"], g["max_len"],
+                         len(g["decode"][0][1]), 1)]
+    if outside:
+        raise AssertionError(f"gateway gate: replicas ran shapes {outside} "
+                             f"that GATEWAY_PAGED does not check")
+    gateway45["paged_at_gateway"] = {
+        k: v["max_abs_err"] for k, v in check_paged(
+            torch, gate_tool("_gate_torch").model_config(dev), dev, False,
+            **GATEWAY_PAGED).items()}
+    gateway45["own_vocab"] = gateway_own_vocab(torch, dev)
+    ov = gateway45["own_vocab"]
+    log(f"gateway gate: {gateway45['model']}, {gateway45['replicas']} "
+        f"replica engines (shapes {gateway45['shapes']}); deterministic "
+        f"gates held {gateway45['gates']}/{gateway45['gates']}; ticks "
+        f"{d45['ticks']:.0f} affinity vs {d45['ticks_round_robin']:.0f} "
+        f"round-robin (CPU {GATEWAY_CPU_TICKS[0]} / {GATEWAY_CPU_TICKS[1]}), "
+        f"{d45['speedup_rps_ticks']}x; p99 token {d45['p99_token_ticks']} "
+        f"vs {d45['p99_token_ticks_round_robin']} ticks; wall clock "
+        f"{gateway45['rps']} vs {d45['rps_round_robin']} req/s "
+        f"({d45['speedup_rps']}x), p99 token {d45['p99_token_ms']} vs "
+        f"{d45['p99_token_ms_round_robin']} ms; hit rate "
+        f"{d45['prefix_hit_rate']} vs {d45['prefix_hit_rate_round_robin']}, "
+        f"affinity hits {d45['affinity_hit_rate']}, evictions "
+        f"{d45['evictions']} vs {d45['evictions_round_robin']}; compile "
+        f"counts {d45['compile_counts']}; drain lost "
+        f"{gateway45['drain']['lost']} (re-routed "
+        f"{gateway45['drain']['rerouted']}); K2/K3 at the replicas' shapes "
+        f"max abs err {max(gateway45['paged_at_gateway'].values()):.3e} "
+        f"(limit 2e-2); launches {gateway45['launches']}; traffic from the "
+        f"model's own vocabulary (not gated): ticks {ov['ticks']:.0f} vs "
+        f"{ov['ticks_round_robin']:.0f} ({ov['speedup_rps_ticks']}x), hit "
+        f"rate {ov['prefix_hit_rate']} vs "
+        f"{ov['prefix_hit_rate_round_robin']}, affinity hits "
+        f"{ov['affinity_hit_rate']}; {gateway45['seconds']:.1f} s; {card}")
+    chart_root = ROOT / "build" / "dra" / "chart"
+    shutil.rmtree(chart_root, ignore_errors=True)
+    chart_root.mkdir(parents=True)
+    chart45 = chart_plugin(torch, chart_root)
+    log(f"chart plugin: {chart45['command']} -> python -m "
+        f"{chart45['module']} {' '.join(chart45['args'])}; probes on port "
+        f"{chart45['port']} answered 200 at "
+        f"{', '.join(f'{p} {t:.2f} s' for p, t in chart45['probes_s'].items())}"
+        f" (startupProbe budget {chart45['budget_s']} s); /metrics "
+        f"{chart45['capacity']}, /debug/usage {chart45['card']}; exit "
+        f"{chart45['rc']} "
+        f"{chart45['stop_s']:.2f} s after SIGTERM, sockets gone; "
+        f"{chart45['s']:.1f} s")
+    return gateway45, chart45
+
+
 def main() -> int:
     import torch
 
@@ -8265,7 +8581,8 @@ def main() -> int:
                              "paged_decode_int8", "paged_prefill_int8",
                              "rmsnorm", "int8_matmul"),
              "verify_gate_moe": ("moe_gateup", "moe_down_combine",
-                                 "grouped_matmul")}
+                                 "grouped_matmul"),
+             "gateway_gate": ("paged_decode", "paged_prefill", "rmsnorm")}
     by_path = {}
 
     def reset_counts():
@@ -9150,6 +9467,16 @@ def main() -> int:
                f"(launches {verify['launches']}, {verify['moe']['launches']})"
                f"; K2/K3 held at the gate's shapes; the MoE train step's "
                f"gradients held to einsum's")
+    # Phase 45: the gateway gate on the card, then the chart's plugin
+    # command line.
+    gc.collect()
+    torch.cuda.empty_cache()
+    gateway45, chart45 = gateway_phase(torch, dev, drive, by_path, card)
+    phase_done(f"phase 45: the gateway gate on {gateway45['model']} (ticks "
+               f"{gateway45['detail']['ticks']:.0f} / "
+               f"{gateway45['detail']['ticks_round_robin']:.0f}, launches "
+               f"{gateway45['launches']}) and the chart's plugin command line "
+               f"({chart45['module']}) answering its probes")
     # int8_matmul's launches, each in one row: the M <= 64 body's
     # (int8_matmul), the wgmma body's in the epilogue mode (the seams at
     # M > 64: int8_matmul_prefill) and in the prologue mode (the expert
@@ -9172,12 +9499,12 @@ def main() -> int:
                for p, c in by_path.items()}
     # The speculative loop's shapes, each in a row of its own: K2 at B 1
     # (every draft feed) and K3 at T = k+1 (every verify window).
-    verify = {"speculative": (spec["draft"]["rounds"], cfg.n_layers, ""),
-              "speculative_int8": (spec_int8["draft"]["rounds"],
-                                   qcfg.n_layers, "_int8")}
+    spec_rows = {"speculative": (spec["draft"]["rounds"], cfg.n_layers, ""),
+                 "speculative_int8": (spec_int8["draft"]["rounds"],
+                                      qcfg.n_layers, "_int8")}
     for p, c in by_path.items():
         for suffix in ("", "_int8"):
-            rounds, layers, mine = verify.get(p, (0, 0, None))
+            rounds, layers, mine = spec_rows.get(p, (0, 0, None))
             on = mine == suffix
             c[f"paged_decode{suffix}_b1"] = (
                 c[f"paged_decode{suffix}"] if on else 0)
@@ -9347,7 +9674,8 @@ def main() -> int:
                     "expert_tensor_serving": ep_tp,
                     "expert_tensor_training": ep_tp_trained,
                     "pipe_int8": pipe_int8, "mig": mig,
-                    "verify_gate": verify}))
+                    "verify_gate": verify, "gateway_gate": gateway45,
+                    "chart_plugin": chart45}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

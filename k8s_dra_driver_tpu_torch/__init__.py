@@ -9,11 +9,19 @@ reference the port is tested against.
 Entry points (``init_params``, ``DecodeEngine``, ``generate``) run on the
 CUDA device unless the caller passes ``device="cpu"`` explicitly; with
 ``device=None`` and no CUDA device they raise instead of falling back.
+
+Importing the package loads no ``torch`` (nor ``numpy``): the control
+plane (``plugin``, ``controller``, ``kube``, ``serving_gateway``,
+``fleetsim``, ``doctor``) runs in a driver image that carries neither.
+``resolve_device`` imports ``torch`` when it is called.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -21,6 +29,8 @@ def resolve_device(device=None) -> torch.device:
     None. Raises when a CUDA device is asked for (explicitly or by
     default) and none is present -- the port never drops to the CPU on
     its own."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

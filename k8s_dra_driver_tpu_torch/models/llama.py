@@ -93,7 +93,7 @@ from ..ops.rotary import apply_rope, rope_frequencies
 from ..parallel.collectives import concat_parts, sum_parts
 from ..parallel.layout import Layout, check_heads
 from ..parallel.ring import _emit_ring_attention_kv, ring_attention_shards
-from ..parallel.sharding import P, Sharded, shard_pytree
+from ..parallel.sharding import P, shard_pytree
 from .quant import QuantTensor, q_einsum, q_lookup, q_matmul, quantize_specs
 from .remat import (
     attn_proj_site,

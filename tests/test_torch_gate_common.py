@@ -82,7 +82,8 @@ def one_torch_thread():
 
 MODEL_TOOLS = ("run_decode_smoke_torch", "run_kv_smoke_torch",
                "run_trace_smoke_torch", "run_compute_smoke_torch",
-               "run_moe_smoke_torch", "run_elastic_smoke_torch")
+               "run_moe_smoke_torch", "run_elastic_smoke_torch",
+               "run_gateway_smoke_torch")
 
 
 @pytest.mark.parametrize("name", MODEL_TOOLS)

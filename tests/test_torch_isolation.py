@@ -50,7 +50,8 @@ GATE_TWINS = ("tools/run_doctor_sim_torch.py", "tools/run_alloc_bench_torch.py",
               "tools/run_trace_smoke_torch.py",
               "tools/run_compute_smoke_torch.py",
               "tools/run_moe_smoke_torch.py", "tools/_gate_torch.py",
-              "demo/run_demo_sim_torch.py")
+              "tools/run_gateway_smoke_torch.py", "tools/lint_torch.py",
+              "_decodebench_torch.py", "demo/run_demo_sim_torch.py")
 
 
 def _port_files():
@@ -88,13 +89,15 @@ def test_static_scan_finds_no_jax_or_reference_import():
 
 def test_gate_twins_import_no_reference_tool():
     """A twin keeps its own copy of what it needs from its reference (the
-    exposition parser, ``spread_flags``): it imports no module of
-    ``tools/`` or ``demo/`` that is not itself a twin."""
-    reference_tools = {p.stem for d in ("tools", "demo")
+    exposition parser, ``spread_flags``, the lint checks): it imports no
+    module of ``tools/``, ``demo/`` or the repo root (``_decodebench``)
+    that is not itself a twin."""
+    reference_tools = {p.stem for d in ("tools", "demo", ".")
                        for p in (ROOT / d).glob("*.py")
-                       if not p.stem.endswith("_torch")}
-    assert {"verify_metrics", "run_moe_smoke", "run_demo_sim"} <= \
-        reference_tools
+                       if not p.stem.endswith("_torch")
+                       and p.stem != "chip_smoke"}
+    assert {"verify_metrics", "run_moe_smoke", "run_demo_sim", "lint",
+            "_decodebench"} <= reference_tools
     bad = [(f, m) for f in GATE_TWINS for m in _imported_modules(ROOT / f)
            if m.split(".")[0] in reference_tools]
     assert not bad, bad
@@ -116,6 +119,43 @@ def test_importing_the_gate_twins_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# The driver's control plane, by the sets of modules that each of its
+# processes imports, as paths below either package. The port's sets load
+# neither torch nor numpy, as the reference's load neither jax nor numpy:
+# each package's driver image carries no array library.
+CONTROL_PLANE = {
+    "gateway": ("serving_gateway", "utils.metrics"),
+    "device-layer": ("tpulib", "tpulib._nvml", "tpulib.driverroot", "cdi",
+                     "plugin", "parallel.shim", "api.v1alpha1", "utils.fs"),
+    "control-plane": ("kube", "kube.allocator", "kube.defrag_executor",
+                      "utils.cli"),
+    "kubelet-plugin": ("kube.protos", "kube.protos.dra_v1alpha4",
+                       "kube.protos.pluginregistration_v1", "plugin.driver",
+                       "plugin.main", "plugin.inspect"),
+    "controller-fleetsim-doctor": ("controller", "controller.main",
+                                   "fleetsim", "doctor"),
+}
+# The reference's twins of those sets: its NVML-free discovery shim and
+# its generated protobuf modules stand at the port's NVML binding and
+# hand-written messages. Its ``parallel`` package loads the mesh surface
+# (and so jax) wherever jax is installed, and skips it where it is not, as
+# in its driver image: ``parallel.shim`` is left out of its set here.
+REFERENCE_CONTROL_PLANE = {
+    "gateway": CONTROL_PLANE["gateway"],
+    "device-layer": ("tpulib", "tpulib._native", "tpulib.driverroot", "cdi",
+                     "plugin", "api.v1alpha1", "utils.fs"),
+    "control-plane": CONTROL_PLANE["control-plane"],
+    "kubelet-plugin": ("kube.protos", "kube.protos.dra_v1alpha4_pb2",
+                       "kube.protos.pluginregistration_v1_pb2",
+                       "plugin.driver", "plugin.main", "plugin.inspect"),
+    "controller-fleetsim-doctor": CONTROL_PLANE["controller-fleetsim-doctor"],
+}
+
+
+def _port(name):
+    return tuple(f"k8s_dra_driver_tpu_torch.{m}" for m in CONTROL_PLANE[name])
+
+
 @pytest.mark.parametrize("modules", [
     ("k8s_dra_driver_tpu_torch.models.serving",),
     ("k8s_dra_driver_tpu_torch.serving_gateway",
@@ -130,28 +170,10 @@ def test_importing_the_gate_twins_loads_no_jax():
      "k8s_dra_driver_tpu_torch.models.checkpoint",
      "k8s_dra_driver_tpu_torch.parallel.elastic",
      "k8s_dra_driver_tpu_torch.parallel.distributed"),
-    ("k8s_dra_driver_tpu_torch.tpulib",
-     "k8s_dra_driver_tpu_torch.tpulib._nvml",
-     "k8s_dra_driver_tpu_torch.tpulib.driverroot",
-     "k8s_dra_driver_tpu_torch.cdi",
-     "k8s_dra_driver_tpu_torch.plugin",
-     "k8s_dra_driver_tpu_torch.parallel.shim",
-     "k8s_dra_driver_tpu_torch.api.v1alpha1",
-     "k8s_dra_driver_tpu_torch.utils.fs"),
-    ("k8s_dra_driver_tpu_torch.kube",
-     "k8s_dra_driver_tpu_torch.kube.allocator",
-     "k8s_dra_driver_tpu_torch.kube.defrag_executor",
-     "k8s_dra_driver_tpu_torch.utils.cli"),
-    ("k8s_dra_driver_tpu_torch.kube.protos",
-     "k8s_dra_driver_tpu_torch.kube.protos.dra_v1alpha4",
-     "k8s_dra_driver_tpu_torch.kube.protos.pluginregistration_v1",
-     "k8s_dra_driver_tpu_torch.plugin.driver",
-     "k8s_dra_driver_tpu_torch.plugin.main",
-     "k8s_dra_driver_tpu_torch.plugin.inspect"),
-    ("k8s_dra_driver_tpu_torch.controller",
-     "k8s_dra_driver_tpu_torch.controller.main",
-     "k8s_dra_driver_tpu_torch.fleetsim",
-     "k8s_dra_driver_tpu_torch.doctor"),
+    _port("device-layer"),
+    _port("control-plane"),
+    _port("kubelet-plugin"),
+    _port("controller-fleetsim-doctor"),
 ], ids=["engine", "gateway", "speculative", "compute-telemetry",
         "collectives", "pipeline-ring", "remat-checkpoint", "device-layer", "control-plane",
         "kubelet-plugin", "controller-fleetsim-doctor"])
@@ -167,6 +189,32 @@ def test_importing_the_port_loads_no_jax(modules):
         # one is read: the card's machine need not have it.
         + ("assert 'yaml' not in sys.modules, 'yaml'\n"
            if "k8s_dra_driver_tpu_torch.kube" in modules else "")
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("package,name", [
+    (package, name) for package in ("port", "reference")
+    for name in CONTROL_PLANE])
+def test_the_control_plane_loads_no_array_library(package, name):
+    """A driver process imports no array library: the port's control
+    plane loads neither torch nor numpy (its package imports torch only
+    where a device is resolved), and the reference's neither jax nor
+    numpy."""
+    if package == "port":
+        modules, banned = _port(name), ("torch", "numpy", "jax")
+    else:
+        modules = tuple(f"k8s_dra_driver_tpu.{m}"
+                        for m in REFERENCE_CONTROL_PLANE[name])
+        banned = ("jax", "jaxlib", "numpy")
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{banned!r})\n"
+        "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
